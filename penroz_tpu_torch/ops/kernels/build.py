@@ -1,0 +1,80 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
+compiled with nvcc for ``sm_90a`` into a shared library under the package's
+``_build/`` directory (listed in .gitignore) and loaded with ctypes.  The
+library name carries a hash of the source and flags, so an edited source
+never loads a stale build.  Nothing here runs at import time: the CPU tests
+import every module on a host without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each build, by name
+BUILD_LOGS: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (CUDA toolkit on PATH or "
+                       "under /usr/local/cuda)")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` if needed; return the library path."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    BUILD_LOGS[name] = proc.stderr
+    os.replace(tmp, lib)
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built at first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(build(name))
+            lib.penroz_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.penroz_cuda_error_string.restype = ctypes.c_char_p
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str):
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        msg = lib.penroz_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

@@ -1,0 +1,410 @@
+"""Layer modules for the JSON layer DSL (counterpart of
+penroz_tpu/ops/modules.py).
+
+Each module is a ``torch.nn.Module`` whose children register under their
+position (``"0"``, ``"1"``, …) and whose parameters under the JAX
+package's names, so ``state_dict()`` of the model's root module
+(``layers.{i}.{child}…weight``) has the keys of the JAX package's
+``Module.key``/``bind`` flat dict, key for key.  ``forward(x, ctx)`` takes a
+:class:`Ctx` carrying the KV cache and the position offset; the caches
+update in place (ops/kv_cache.py).
+
+Ported: the modules the GPT-2 DSL builds.  ``CausalSelfAttention`` has the
+no-cache and contiguous-cache branches; paged, ragged and sequence-parallel
+attention are still to be ported and have no state that could reach them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from penroz_tpu_torch.ops import attention as attn_ops
+
+
+class Ctx:
+    """Per-call context threaded through module application: the KV cache,
+    whose length is the position offset of the tokens fed.  The port
+    serves only (no training slice yet), so there is no training flag or
+    dropout generator."""
+
+    def __init__(self, *, kv=None):
+        self.kv = kv  # ops.kv_cache.KVState or None
+
+    def offset(self) -> int:
+        """Current sequence position offset (0 when no cache attached)."""
+        return self.kv.length if self.kv is not None else 0
+
+
+class Module(nn.Module):
+    """Base class for DSL layer modules."""
+
+    def reset_parameters(self, generator: torch.Generator):
+        """Torch-default initialization of own (non-child) parameters."""
+
+    def forward(self, x, ctx: Ctx):
+        raise NotImplementedError
+
+
+def _uniform_(t, bound, generator):
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Leaf layers
+# ---------------------------------------------------------------------------
+
+class Embedding(Module):
+    def __init__(self, num_embeddings: int, embedding_dim: int):
+        super().__init__()
+        self.num_embeddings = int(num_embeddings)
+        self.embedding_dim = int(embedding_dim)
+        self.weight = nn.Parameter(torch.empty(self.num_embeddings,
+                                               self.embedding_dim))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.weight.normal_(generator=generator)
+
+    def forward(self, x, ctx):
+        # F.embedding replaces the JAX package's _gather_rows, a TPU
+        # scatter workaround with nothing to port.
+        return F.embedding(x, self.weight)
+
+
+class PositionEmbedding(Embedding):
+    """Learned position embedding indexed from the context offset."""
+
+    def forward(self, x, ctx):
+        num_positions = x.shape[-1]
+        offset = int(ctx.offset())
+        if offset + num_positions > self.num_embeddings:
+            raise ValueError(f"positions up to {offset + num_positions - 1} "
+                             f"exceed the model's {self.num_embeddings} "
+                             f"position embeddings; use a smaller block_size")
+        positions = offset + torch.arange(num_positions,
+                                          device=self.weight.device)
+        return F.embedding(positions, self.weight)
+
+
+class Linear(Module):
+    """Dense layer storing weight as (out, in) for state-dict parity."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.in_features = int(in_features)
+        self.out_features = int(out_features)
+        self.use_bias = bool(bias)
+        self.weight = nn.Parameter(torch.empty(self.out_features,
+                                               self.in_features))
+        self.bias = (nn.Parameter(torch.empty(self.out_features))
+                     if self.use_bias else None)
+
+    def reset_parameters(self, generator):
+        bound = 1.0 / math.sqrt(self.in_features)
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x, ctx):
+        return F.linear(x, self.weight, self.bias)
+
+
+class LayerNorm(Module):
+    def __init__(self, normalized_shape, eps: float = 1e-5, bias: bool = True,
+                 elementwise_affine: bool = True):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(int(d) for d in normalized_shape)
+        self.eps = float(eps)
+        self.affine = bool(elementwise_affine)
+        self.use_bias = bool(bias) and self.affine
+        self.weight = (nn.Parameter(torch.empty(self.normalized_shape))
+                       if self.affine else None)
+        self.bias = (nn.Parameter(torch.empty(self.normalized_shape))
+                     if self.use_bias else None)
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x, ctx):
+        # Normalize in fp32 and cast back before the affine part, as the
+        # JAX package does (bf16 statistics would drift).
+        out = F.layer_norm(x.to(torch.float32), self.normalized_shape,
+                           eps=self.eps).to(x.dtype)
+        if self.weight is not None:
+            out = out * self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+class GELU(Module):
+    def __init__(self, approximate: str = "none"):
+        super().__init__()
+        self.approximate = "tanh" if approximate == "tanh" else "none"
+
+    def forward(self, x, ctx):
+        return F.gelu(x, approximate=self.approximate)
+
+
+class Softmax(Module):
+    def __init__(self, dim: Optional[int] = None):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x, ctx):
+        return torch.softmax(x, dim=self.dim if self.dim is not None else -1)
+
+
+class SoftmaxOnLast(Softmax):
+    """Softmax over the vocabulary of only the final sequence position."""
+
+    def forward(self, x, ctx):
+        return torch.softmax(x[:, -1, :],
+                             dim=self.dim if self.dim is not None else -1)
+
+
+class Dropout(Module):
+    """Identity at inference, the only mode the port runs yet (training
+    mode comes with the training slice)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x, ctx):
+        return x
+
+
+# ---------------------------------------------------------------------------
+# Containers
+# ---------------------------------------------------------------------------
+
+class Sequential(Module):
+    def __init__(self, *layers: Module):
+        super().__init__()
+        for i, layer in enumerate(layers):
+            self.add_module(str(i), layer)
+
+    @property
+    def layers(self) -> list[Module]:
+        return list(self._modules.values())
+
+    def forward(self, x, ctx):
+        for layer in self.layers:
+            x = layer(x, ctx)
+        return x
+
+
+class Summation(Sequential):
+    """Sum of each child applied to the same input (token+position embed)."""
+
+    def forward(self, x, ctx):
+        layers = self.layers
+        out = layers[0](x, ctx)
+        for layer in layers[1:]:
+            out = out + layer(x, ctx)
+        return out
+
+
+class ResidualConnection(Sequential):
+    """x = x + child(x), applied for each child in order."""
+
+    def forward(self, x, ctx):
+        for layer in self.layers:
+            x = x + layer(x, ctx)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+class CausalSelfAttention(Module):
+    """Causal self-attention over a fused QKV input with GQA + optional
+    RoPE, ALiBi, sliding window, softcap and qk-norm (JAX package
+    ``CausalSelfAttention``, ops/modules.py:994).
+
+    Consumes a ``(B, T, q_dim + 2*kv_dim)`` projection; the head dim
+    follows from the input width.  With a KV cache in the Ctx, new K/V
+    are written at the cache length (only ``num_kv_heads`` heads are
+    stored) and attention goes through ``cached_attention``; without one,
+    through the causal reference."""
+
+    def __init__(self, num_heads: int, dropout: float = 0.0,
+                 num_kv_heads: Optional[int] = None,
+                 rope_theta: Optional[float] = None,
+                 head_dim: Optional[int] = None,
+                 rope_scaling: Optional[dict] = None,
+                 sliding_window: Optional[int] = None,
+                 rope_pct: Optional[float] = None,
+                 qk_norm: bool = False, qk_norm_eps: float = 1e-6,
+                 qk_norm_scope: str = "head", rope_dim=None,
+                 qk_norm_fp32_weight: bool = False, alibi: bool = False,
+                 logit_softcap=None, attn_scale=None):
+        super().__init__()
+        if sliding_window is not None and int(sliding_window) < 1:
+            raise ValueError(f"sliding_window must be >= 1, "
+                             f"got {sliding_window}")
+        if qk_norm_scope not in ("head", "flat"):
+            raise ValueError(f"qk_norm_scope must be 'head' or 'flat', "
+                             f"got {qk_norm_scope!r}")
+        if qk_norm and head_dim is None:
+            raise ValueError("qk_norm=True requires an explicit head_dim")
+        if alibi and rope_theta is not None:
+            raise ValueError("alibi and rope_theta are mutually exclusive "
+                             "position encodings")
+        if logit_softcap is not None and float(logit_softcap) <= 0.0:
+            raise ValueError(f"logit_softcap must be > 0, "
+                             f"got {logit_softcap}")
+        if rope_pct is not None and not 0.0 < float(rope_pct) <= 1.0:
+            raise ValueError(f"rope_pct must be in (0, 1], got {rope_pct}")
+        if rope_dim is not None and (int(rope_dim) < 2 or int(rope_dim) % 2):
+            raise ValueError(f"rope_dim must be even and >= 2, "
+                             f"got {rope_dim}")
+        self.qk_norm = bool(qk_norm)
+        self.qk_norm_eps = float(qk_norm_eps)
+        self.qk_norm_scope = qk_norm_scope
+        self.qk_norm_fp32_weight = bool(qk_norm_fp32_weight)
+        self.sliding_window = (int(sliding_window)
+                               if sliding_window is not None else None)
+        self.num_heads = int(num_heads)
+        self.num_kv_heads = (int(num_kv_heads) if num_kv_heads is not None
+                             else int(num_heads))
+        self.dropout = float(dropout)
+        self.alibi = bool(alibi)
+        self.logit_softcap = (float(logit_softcap)
+                              if logit_softcap is not None else None)
+        self.attn_scale = float(attn_scale) if attn_scale is not None else None
+        self.rope_theta = float(rope_theta) if rope_theta is not None else None
+        self.head_dim = int(head_dim) if head_dim is not None else None
+        self.rope_pct = float(rope_pct) if rope_pct is not None else None
+        self.rope_dim = int(rope_dim) if rope_dim is not None else None
+        self.rope_scaling = _validated_rope_scaling(rope_scaling)
+        self.layer_idx = 0  # assigned by the model builder
+        if self.qk_norm:
+            q_w, k_w = ((self.num_heads * self.head_dim,
+                         self.num_kv_heads * self.head_dim)
+                        if qk_norm_scope == "flat"
+                        else (self.head_dim, self.head_dim))
+            self.q_norm = _NormWeight(q_w)  # keys q_norm.weight, k_norm.weight
+            self.k_norm = _NormWeight(k_w)
+
+    def _head_rmsnorm(self, x, w):
+        """fp32 RMS over the last dim, learned multiplicative weight."""
+        xf = x.to(torch.float32)
+        norm = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                           + self.qk_norm_eps)
+        if self.qk_norm_fp32_weight:
+            return ((xf * norm) * w.to(torch.float32)).to(x.dtype)
+        return ((xf * norm).to(x.dtype) * w).to(x.dtype)
+
+    def forward(self, qkv, ctx):
+        B, T, total_dim = qkv.shape
+        head_dim = total_dim // (self.num_heads + 2 * self.num_kv_heads)
+        q_dim = self.num_heads * head_dim
+        kv_dim = self.num_kv_heads * head_dim
+
+        q_flat = qkv[..., :q_dim]
+        k_flat = qkv[..., q_dim:q_dim + kv_dim]
+        if self.qk_norm and self.qk_norm_scope == "flat":
+            q_flat = self._head_rmsnorm(q_flat, self.q_norm.weight)
+            k_flat = self._head_rmsnorm(k_flat, self.k_norm.weight)
+        q = q_flat.reshape(B, T, self.num_heads, head_dim)
+        k = k_flat.reshape(B, T, self.num_kv_heads, head_dim)
+        v = qkv[..., q_dim + kv_dim:].reshape(B, T, self.num_kv_heads,
+                                               head_dim)
+        # to (B, H, T, D), contiguous for the cache write and the kernel
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if self.qk_norm and self.qk_norm_scope == "head":
+            q = self._head_rmsnorm(q, self.q_norm.weight)
+            k = self._head_rmsnorm(k, self.k_norm.weight)
+
+        offset = ctx.offset()
+        if self.rope_theta is not None:
+            rotary_dim = None
+            if self.rope_dim is not None:
+                rotary_dim = None if self.rope_dim >= head_dim \
+                    else self.rope_dim
+            elif self.rope_pct is not None and self.rope_pct < 1.0:
+                rotary_dim = int(head_dim * self.rope_pct) // 2 * 2
+            q, k = attn_ops.apply_rope(q, k, self.rope_theta, offset,
+                                       scaling=self.rope_scaling,
+                                       rotary_dim=rotary_dim)
+            q = q.contiguous()
+
+        alibi = attn_ops.alibi_slopes(self.num_heads) if self.alibi else None
+        if ctx.kv is not None:
+            if ctx.kv.quantized:
+                # int8 cache: store + attend on the raw buffers; the
+                # kernel dequantizes per tile.
+                store_k, store_v, length = ctx.kv.append_raw(
+                    self.layer_idx, k, v)
+                scales = {"k_scale": ctx.kv.k_scale[self.layer_idx],
+                          "v_scale": ctx.kv.v_scale[self.layer_idx]}
+            else:
+                store_k, store_v, length = ctx.kv.append(self.layer_idx,
+                                                         k, v)
+                scales = {}
+            out = attn_ops.cached_attention(
+                q, store_k, store_v, offset, length,
+                window=self.sliding_window, alibi=alibi,
+                scale=self.attn_scale, softcap=self.logit_softcap, **scales)
+        else:
+            out = attn_ops.causal_attention_reference(
+                q, k, v, window=self.sliding_window, alibi=alibi,
+                scale=self.attn_scale, softcap=self.logit_softcap)
+        return out.transpose(1, 2).reshape(B, T, q_dim)
+
+
+class _NormWeight(nn.Module):
+    """Holder that gives qk-norm weights their ``q_norm.weight`` keys."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+
+
+def _validated_rope_scaling(rope_scaling: Optional[dict]):
+    """Normalized ``rope_scaling`` dict, validated at build time (→ HTTP 400
+    on POST /model/) as the JAX module does: 'linear' or 'llama3' only."""
+    if not rope_scaling:
+        return None
+    rope_type = (rope_scaling.get("rope_type") or rope_scaling.get("type")
+                 or "default")
+    if rope_type == "linear":
+        if float(rope_scaling.get("factor", 0.0)) < 1.0:
+            raise ValueError("linear rope_scaling needs factor >= 1")
+        return {"rope_type": "linear",
+                "factor": float(rope_scaling["factor"])}
+    if rope_type != "llama3":
+        raise ValueError(f"rope_scaling type {rope_type!r} is not "
+                         "supported (only 'llama3' and 'linear')")
+    missing = [k for k in ("factor", "original_max_position_embeddings")
+               if k not in rope_scaling]
+    if missing:
+        raise ValueError(f"rope_scaling missing keys: {missing}")
+    low = float(rope_scaling.get("low_freq_factor", 1.0))
+    high = float(rope_scaling.get("high_freq_factor", 4.0))
+    if high <= low:
+        raise ValueError(f"rope_scaling needs high_freq_factor > "
+                         f"low_freq_factor, got {low} >= {high}")
+    if float(rope_scaling["factor"]) < 1.0:
+        raise ValueError("rope_scaling factor must be >= 1")
+    return {"rope_type": "llama3",
+            "factor": float(rope_scaling["factor"]),
+            "low_freq_factor": low, "high_freq_factor": high,
+            "original_max_position_embeddings":
+                float(rope_scaling["original_max_position_embeddings"])}

@@ -1,0 +1,139 @@
+"""Request validation for the REST API in plain Python (counterpart of the
+pydantic models of penroz_tpu/serve/schemas.py, which the machine with the
+card does not have).
+
+A missing required field or a value of the wrong type raises
+:class:`ValidationError` (→ HTTP 422, as pydantic's does); unknown fields
+are ignored, as pydantic's default is.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+_REQUIRED = object()
+
+
+class ValidationError(Exception):
+    """Invalid request body; ``errors`` lists one dict per field."""
+
+    def __init__(self, errors: list[dict]):
+        super().__init__("; ".join(f"{e['loc'][0]}: {e['msg']}"
+                                   for e in errors))
+        self.errors = errors
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _check(kind, v) -> tuple[bool, Any]:
+    """(ok, coerced value) of ``v`` against a field kind."""
+    if kind is str:
+        return isinstance(v, str), v
+    if kind is int:
+        if _is_int(v):
+            return True, v
+        if isinstance(v, float) and v.is_integer():
+            return True, int(v)
+        return False, v
+    if kind is float:
+        ok = _is_int(v) or isinstance(v, float)
+        return ok, float(v) if ok else v
+    if kind is bool:
+        return isinstance(v, bool), v
+    if kind is list:
+        return isinstance(v, list), v
+    if kind is dict:
+        return isinstance(v, dict), v
+    if kind == "int_list":
+        ok = isinstance(v, list) and all(_check(int, x)[0] for x in v)
+        return ok, [_check(int, x)[1] for x in v] if ok else v
+    raise TypeError(kind)
+
+
+class _Request:
+    """Base: ``FIELDS`` is a tuple of (name, kind, default, nullable)."""
+
+    FIELDS: tuple = ()
+
+    @classmethod
+    def model_validate(cls, payload):
+        if not isinstance(payload, dict):
+            raise ValidationError([{"loc": ["body"], "msg":
+                                    "Input should be a JSON object"}])
+        values, errors = {}, []
+        for name, kind, default, nullable in cls.FIELDS:
+            if name not in payload:
+                if default is _REQUIRED:
+                    errors.append({"loc": [name], "msg": "Field required",
+                                   "type": "missing"})
+                else:
+                    values[name] = default
+                continue
+            v = payload[name]
+            if v is None and nullable:
+                values[name] = None
+                continue
+            ok, coerced = _check(kind, v)
+            if not ok:
+                errors.append({"loc": [name], "type": "type_error",
+                               "msg": f"Input should be of type "
+                                      f"{getattr(kind, '__name__', kind)}"})
+            values[name] = coerced
+        if errors:
+            raise ValidationError(errors)
+        return cls(**values)
+
+
+@dataclass
+class CreateModelRequest(_Request):
+    model_id: str
+    layers: list
+    optimizer: dict
+
+    FIELDS = (("model_id", str, _REQUIRED, False),
+              ("layers", list, _REQUIRED, False),
+              ("optimizer", dict, _REQUIRED, False))
+
+
+@dataclass
+class GenerateRequest(_Request):
+    model_id: str
+    input: list
+    block_size: int
+    max_new_tokens: int
+    temperature: float = 1.0
+    top_k: Optional[int] = None
+    stop_token: Optional[int] = None
+    stream: bool = False
+    adapter_id: Optional[str] = None
+
+    FIELDS = (("model_id", str, _REQUIRED, False),
+              ("input", list, _REQUIRED, False),
+              ("block_size", int, _REQUIRED, False),
+              ("max_new_tokens", int, _REQUIRED, False),
+              ("temperature", float, 1.0, False),
+              ("top_k", int, None, True),
+              ("stop_token", int, None, True),
+              ("stream", bool, False, False),
+              ("adapter_id", str, None, True))
+
+
+@dataclass
+class TokenizeTextRequest(_Request):
+    encoding: str
+    text: str
+
+    FIELDS = (("encoding", str, _REQUIRED, False),
+              ("text", str, _REQUIRED, False))
+
+
+@dataclass
+class DecodeTokensRequest(_Request):
+    encoding: str
+    tokens: list
+
+    FIELDS = (("encoding", str, _REQUIRED, False),
+              ("tokens", "int_list", _REQUIRED, False))

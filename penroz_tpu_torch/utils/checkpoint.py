@@ -1,0 +1,313 @@
+"""Model checkpoint I/O: the port's own copy of the ``PENROZC1`` container
+(penroz_tpu/utils/checkpoint.py) with its shm write-through cache.
+
+Container layout (``MAGIC`` = ``b"PENROZC1"``)::
+
+    MAGIC | uint64-LE header_len | header JSON (utf-8) | array payload
+
+The header's ``tree`` is the checkpoint's JSON structure with every array
+leaf replaced by ``{"__array__": i}`` and every dict encoded as
+``{"__dict__": [[key, value], ...]}`` (preserving int keys); ``arrays[i]``
+records dtype/shape/offset/nbytes/crc32 into the 64-byte-aligned payload.
+Loading is pure JSON + buffer views, never pickle.
+
+Arrays are written from torch tensors or numpy arrays and read back as CPU
+torch tensors.  ``bfloat16`` needs no ``ml_dtypes``: its 16-bit payload is
+viewed as ``uint16`` and reinterpreted as ``torch.bfloat16``.  Files are
+byte-compatible with the JAX package's in both directions.
+
+Write path: atomically into the shared-memory dir (``PENROZ_SHM_PATH``, else
+/dev/shm, else the temp dir), then a background flush to the durable
+``models/`` dir relative to the working directory.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import mmap
+import os
+import platform
+import shutil
+import struct
+import tempfile
+import threading
+import uuid
+import zlib
+
+import numpy as np
+import torch
+
+log = logging.getLogger(__name__)
+
+MODELS_FOLDER = "models"
+MAGIC = b"PENROZC1"
+_ALIGN = 64
+_BF16 = "bfloat16"
+_TORCH_NAMES = {torch.bfloat16: _BF16, torch.float32: "float32",
+                torch.float64: "float64", torch.float16: "float16",
+                torch.int64: "int64", torch.int32: "int32",
+                torch.int16: "int16", torch.int8: "int8",
+                torch.uint8: "uint8", torch.bool: "bool"}
+
+
+def _array_bytes(a) -> tuple[str, list, bytes]:
+    """(dtype name, shape, raw bytes) of a tensor or numpy array."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu").contiguous()
+        name = _TORCH_NAMES.get(t.dtype)
+        if name is None:
+            raise TypeError(f"cannot checkpoint dtype {t.dtype}")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return name, list(a.shape), t.numpy().tobytes()
+    arr = np.ascontiguousarray(a)
+    return str(arr.dtype), list(arr.shape), arr.tobytes()
+
+
+def _tensor_from(raw, dtype: str, shape) -> torch.Tensor:
+    """A CPU tensor copied out of a payload slice."""
+    if dtype == _BF16:
+        arr = np.frombuffer(raw, dtype=np.int16).reshape(shape).copy()
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    try:
+        np_dtype = np.dtype(dtype)
+    except TypeError:
+        raise TypeError(f"unknown checkpoint dtype {dtype!r}")
+    return torch.from_numpy(np.frombuffer(raw, dtype=np_dtype)
+                            .reshape(shape).copy())
+
+
+def _encode_parts(data):
+    """Split a JSON-able tree with array leaves into (header bytes, raw
+    array bytes)."""
+    blobs: list[bytes] = []
+    meta: list[dict] = []
+
+    def enc(x):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            dtype, shape, raw = _array_bytes(x)
+            blobs.append(raw)
+            meta.append({"dtype": dtype, "shape": shape})
+            return {"__array__": len(blobs) - 1}
+        if isinstance(x, np.generic):
+            return x.item()
+        if isinstance(x, dict):
+            return {"__dict__": [[k, enc(v)] for k, v in x.items()]}
+        if isinstance(x, (list, tuple)):
+            return [enc(v) for v in x]
+        return x
+
+    tree = enc(data)
+    offset = 0
+    for m, raw in zip(meta, blobs):
+        offset = -(-offset // _ALIGN) * _ALIGN
+        m.update(offset=offset, nbytes=len(raw),
+                 crc32=zlib.crc32(raw) & 0xFFFFFFFF)
+        offset += len(raw)
+    header = json.dumps({"tree": tree, "arrays": meta},
+                        separators=(",", ":")).encode("utf-8")
+    return header, blobs, meta
+
+
+def _write_stream(f, data):
+    header, blobs, meta = _encode_parts(data)
+    f.write(MAGIC)
+    f.write(struct.pack("<Q", len(header)))
+    f.write(header)
+    written = 0
+    for raw, m in zip(blobs, meta):
+        f.write(b"\0" * (m["offset"] - written))
+        f.write(raw)
+        written = m["offset"] + m["nbytes"]
+
+
+def _encode(data) -> bytes:
+    """Container bytes in memory (tests / small blobs)."""
+    import io
+    buf = io.BytesIO()
+    _write_stream(buf, data)
+    return buf.getvalue()
+
+
+def _decode_tree(tree, array_leaf):
+    def dec(x):
+        if isinstance(x, dict):
+            if "__array__" in x and len(x) == 1:
+                return array_leaf(x["__array__"])
+            return {k: dec(v) for k, v in x["__dict__"]}
+        if isinstance(x, list):
+            return [dec(v) for v in x]
+        return x
+    return dec(tree)
+
+
+def _decode(buf, source: str = "<bytes>"):
+    """Decode container bytes back into the tree; truncation and CRC
+    mismatches raise ValueError naming the file and the stream."""
+    if buf[:8] != MAGIC:
+        raise ValueError("not a penroz checkpoint (bad magic)")
+    (header_len,) = struct.unpack("<Q", buf[8:16])
+    if len(buf) < 16 + header_len:
+        raise ValueError(f"checkpoint corrupt (truncated header) in "
+                         f"{source}")
+    header = json.loads(bytes(buf[16:16 + header_len]).decode("utf-8"))
+    payload = memoryview(buf)[16 + header_len:]
+    arrays = []
+    try:
+        for i, m in enumerate(header["arrays"]):
+            end = m["offset"] + m["nbytes"]
+            if end > len(payload):
+                raise ValueError(
+                    f"checkpoint corrupt (truncated payload) in {source}: "
+                    f"array stream {i} needs bytes [{m['offset']}, {end}) "
+                    f"of {len(payload)}")
+            raw = payload[m["offset"]:end]
+            expect = m.get("crc32")
+            if expect is not None and (zlib.crc32(raw) & 0xFFFFFFFF) != expect:
+                raise ValueError(
+                    f"checkpoint corrupt (CRC32 mismatch) in {source}: "
+                    f"array stream {i} (dtype {m['dtype']}, shape "
+                    f"{tuple(m['shape'])})")
+            arrays.append(_tensor_from(raw, m["dtype"], m["shape"]))
+            raw.release()
+    finally:
+        payload.release()
+    return _decode_tree(header["tree"], arrays.__getitem__)
+
+
+def _read(path: str):
+    with open(path, "rb") as f:
+        try:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except ValueError:  # zero-length file
+            raise ValueError("not a penroz checkpoint (bad magic)")
+        try:
+            return _decode(mm, source=path)
+        finally:
+            mm.close()
+
+
+def detect_shm_path() -> str:
+    """Shared-memory directory (``PENROZ_SHM_PATH`` overrides)."""
+    override = os.environ.get("PENROZ_SHM_PATH")
+    if override:
+        return override
+    if (platform.system() == "Linux" and os.path.isdir("/dev/shm")
+            and os.access("/dev/shm", os.W_OK)):
+        return "/dev/shm"
+    return tempfile.gettempdir()
+
+
+SHM_PATH = detect_shm_path()
+
+
+def model_path(model_id: str) -> str:
+    return os.path.join(MODELS_FOLDER, f"model_{model_id}.ckpt")
+
+
+def shm_model_path(model_id: str) -> str:
+    return os.path.join(SHM_PATH, model_path(model_id))
+
+
+def _mkstemp_for(path: str):
+    """Unique temp sibling of ``path`` (umask-respecting permissions)."""
+    directory = os.path.dirname(path) or "."
+    base = os.path.basename(path)
+    while True:
+        tmp_path = os.path.join(directory, f"{base}.{uuid.uuid4().hex[:12]}")
+        try:
+            fd = os.open(tmp_path, os.O_CREAT | os.O_EXCL | os.O_WRONLY
+                         | os.O_CLOEXEC, 0o666)
+            return fd, tmp_path
+        except FileExistsError:
+            continue
+
+
+def _atomic_write(path: str, data: dict):
+    fd, tmp_path = _mkstemp_for(path)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            _write_stream(f, data)
+        os.replace(tmp_path, path)
+    except BaseException:
+        if os.path.exists(tmp_path):
+            os.remove(tmp_path)
+        raise
+
+
+_FLUSH_THREADS: list = []
+
+
+def _spawn_flush(shm_path: str, durable_path: str):
+    _FLUSH_THREADS[:] = [t for t in _FLUSH_THREADS if t.is_alive()]
+    t = threading.Thread(target=_flush, args=(shm_path, durable_path),
+                         daemon=True)
+    _FLUSH_THREADS.append(t)
+    t.start()
+
+
+def join_flushes(timeout: float = 10.0):
+    """Wait for in-flight background flushes (per-thread timeout)."""
+    for t in list(_FLUSH_THREADS):
+        t.join(timeout)
+    _FLUSH_THREADS[:] = [t for t in _FLUSH_THREADS if t.is_alive()]
+
+
+def _flush(shm_path: str, durable_path: str):
+    tmp_path = None
+    try:
+        fd, tmp_path = _mkstemp_for(durable_path)
+        os.close(fd)
+        shutil.copyfile(shm_path, tmp_path)
+        os.replace(tmp_path, durable_path)
+        if not os.path.exists(shm_path):
+            # delete() ran mid-flush: don't resurrect the durable copy
+            os.remove(durable_path)
+    except FileNotFoundError:
+        log.warning("Flush skipped, source vanished: %s", shm_path)
+    finally:
+        if tmp_path is not None and os.path.exists(tmp_path):
+            os.remove(tmp_path)
+
+
+def save(model_id: str, data: dict, sync_flush: bool = False):
+    """Write the checkpoint to shm and flush it to ``models/`` (in the
+    background unless ``sync_flush``)."""
+    os.makedirs(MODELS_FOLDER, exist_ok=True)
+    os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
+    shm_path = shm_model_path(model_id)
+    _atomic_write(shm_path, data)
+    if sync_flush:
+        _flush(shm_path, model_path(model_id))
+    else:
+        _spawn_flush(shm_path, model_path(model_id))
+
+
+def load(model_id: str) -> dict:
+    """Read a checkpoint, repopulating the shm cache on a miss.
+
+    :raises KeyError: if the model was never created (→ HTTP 404).
+    """
+    shm_path = shm_model_path(model_id)
+    try:
+        if not os.path.exists(shm_path):
+            os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
+            shutil.copyfile(model_path(model_id), shm_path)
+        return _read(shm_path)
+    except FileNotFoundError:
+        raise KeyError(f"Model {model_id} not created yet.")
+
+
+def _remove_quietly(path: str) -> bool:
+    try:
+        os.remove(path)
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def delete(model_id: str):
+    """Remove the shm copy and the durable checkpoint, each independently."""
+    _remove_quietly(shm_model_path(model_id))
+    _remove_quietly(model_path(model_id))

@@ -1,0 +1,37 @@
+"""The PyTorch port imports no JAX: an ``ast`` walk over every module of
+``penroz_tpu_torch`` and over ``chip_smoke.py`` finds no import of
+``jax``, ``jaxlib``, ``optax`` or ``penroz_tpu``."""
+
+import ast
+import pathlib
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "optax", "penroz_tpu"}
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "penroz_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10 and files[-1].exists()
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for line, mod in _imported_roots(f)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_modules_import():
+    import importlib
+    for f in sorted((ROOT / "penroz_tpu_torch").rglob("*.py")):
+        rel = f.relative_to(ROOT).with_suffix("")
+        parts = [p for p in rel.parts if p != "__init__"]
+        importlib.import_module(".".join(parts))

@@ -1,0 +1,72 @@
+"""Rank-strided shard loading for training (counterpart of
+penroz_tpu/data/loaders.py ``Loader``, its numpy path).
+
+``Loader.next_batch`` walks the sorted ``data/{dataset_id}_*.npy`` shards
+with the JAX package's ``(shard, idx)`` state: a window of
+``buffer_size + target_offset`` tokens starting at ``idx`` (concatenated
+across the following shards, wrapping to the first), then ``idx`` advances
+by ``idx_offset``.  The JAX package's native mmap stream reads the same
+windows faster; it is not ported.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+
+import numpy as np
+
+DATA_FOLDER = "data"
+
+
+class Loader:
+    def __init__(self, dataset_id: str, begin_shard: int = 0,
+                 begin_idx: int = 0, buffer_size: int = 1024,
+                 idx_offset: int | None = None):
+        self.dataset_id = dataset_id
+        self.shard = begin_shard
+        self.idx = begin_idx
+        self.buffer_size = int(buffer_size)
+        self.idx_offset = int(idx_offset if idx_offset is not None
+                              else buffer_size)
+        self._cache: dict[int, np.ndarray] = {}
+
+    def _files(self) -> list[str]:
+        pattern = os.path.join(DATA_FOLDER, f"{self.dataset_id}_*.npy")
+        return sorted(os.path.basename(p) for p in glob.glob(pattern))
+
+    def _shard_data(self, files: list[str], shard_idx: int) -> np.ndarray:
+        shard_idx %= len(files)
+        data = self._cache.get(shard_idx)
+        if data is None:
+            # keep at most two shards resident (current + wraparound peek)
+            if len(self._cache) > 1:
+                self._cache.clear()
+            data = np.load(os.path.join(DATA_FOLDER, files[shard_idx]))
+            self._cache[shard_idx] = data
+        return data
+
+    def next_batch(self, target_offset: int = 1):
+        """(input, target) flat int32 arrays of ``buffer_size`` tokens;
+        target is input shifted by ``target_offset`` (None when 0)."""
+        files = self._files()
+        if not files:
+            raise ValueError(f"Dataset {self.dataset_id} has no shards")
+        need = self.buffer_size + target_offset
+        self.shard %= len(files)
+        data = self._shard_data(files, self.shard)
+        while self.idx >= len(data):
+            self.idx -= len(data)
+            self.shard = (self.shard + 1) % len(files)
+            data = self._shard_data(files, self.shard)
+        buf = data[self.idx:self.idx + need]
+        peek = self.shard
+        while len(buf) < need:
+            peek = (peek + 1) % len(files)
+            extra = self._shard_data(files, peek)
+            buf = np.concatenate([buf, extra[:need - len(buf)]])
+        x = buf[:self.buffer_size].astype(np.int32)
+        y = (buf[target_offset:target_offset + self.buffer_size]
+             .astype(np.int32) if target_offset else None)
+        self.idx += self.idx_offset
+        return x, y

@@ -1,10 +1,13 @@
-"""Carry a JAX-package model into the port.
+"""Carry a JAX-package model into the port, and map optimizer state
+between ``torch.optim`` and the JAX package's optax checkpoint leaves.
 
 The JAX package's ``NeuralNetworkModel.state_dict()`` (and its checkpoints)
 hold numpy arrays under the same flat keys as the port's module tree, so
 conversion is a key- and shape-checked copy.  bf16 arrays arrive as
 ``ml_dtypes`` arrays; they are reinterpreted through 16-bit integers
-without importing ``ml_dtypes``.
+without importing ``ml_dtypes``.  Optimizer state travels as the flat
+``opt_state_leaves`` list of the optax state (:func:`opt_state_leaves`),
+so either package continues the other's Adam moments or momentum.
 """
 
 from __future__ import annotations
@@ -22,6 +25,88 @@ def as_tensor(a) -> torch.Tensor:
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(arr.copy())
+
+
+def _optimizer_kind(config: dict) -> str:
+    """'adam' (adamw and adam: count, mu, nu), 'trace' (sgd with momentum)
+    or 'none' (plain sgd: optax keeps no state)."""
+    (name, args), = config.items()
+    if name in ("adamw", "adam"):
+        return "adam"
+    return "trace" if float(args.get("momentum", 0.0)) else "none"
+
+
+def opt_state_leaves(config: dict, optimizer, params: dict) -> dict:
+    """The optimizer state as the JAX package's checkpoint holds it:
+    ``{i: array}`` indexed like ``jax.tree.leaves`` of the optax state
+    over the flat parameter dict, whose keys sort.
+
+    - adamw / adam (with or without weight decay): leaf 0 is ``count``
+      (int32 scalar), then ``mu`` for each sorted key, then ``nu``;
+    - sgd with momentum (or nesterov): one ``trace`` leaf per sorted key;
+    - plain sgd: no leaves.
+
+    ``optimizer`` None (never stepped or built) gives the state optax's
+    ``init`` would: count 0 and zeros in each parameter's dtype.  Leaves
+    are CPU tensors."""
+    keys = sorted(params)
+    state = optimizer.state if optimizer is not None else {}
+
+    def moment(key, name):
+        value = state.get(params[key], {}).get(name)
+        if value is None:
+            return torch.zeros(params[key].shape, dtype=params[key].dtype)
+        return value.detach().to("cpu")
+
+    kind = _optimizer_kind(config)
+    if kind == "none":
+        leaves = []
+    elif kind == "trace":
+        leaves = [moment(k, "momentum_buffer") for k in keys]
+    else:
+        steps = [state[p]["step"] for p in params.values() if p in state]
+        count = int(steps[0]) if steps else 0
+        leaves = ([torch.tensor(count, dtype=torch.int32)]
+                  + [moment(k, "exp_avg") for k in keys]
+                  + [moment(k, "exp_avg_sq") for k in keys])
+    return dict(enumerate(leaves))
+
+
+def load_opt_state_leaves(config: dict, optimizer, params: dict, leaves):
+    """Install checkpoint leaves (layout of :func:`opt_state_leaves`, a
+    dict by index or a list) into a ``torch.optim`` optimizer built over
+    ``params``.  An empty set is a fresh state; a count that does not fit
+    the layout raises ValueError."""
+    if isinstance(leaves, dict):
+        leaves = [leaves[i] for i in range(len(leaves))]
+    if not leaves:
+        return
+    keys = sorted(params)
+    kind = _optimizer_kind(config)
+    expected = {"none": 0, "trace": len(keys), "adam": 1 + 2 * len(keys)}[kind]
+    if len(leaves) != expected:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves; "
+                         f"{config} over {len(keys)} parameters needs "
+                         f"{expected}")
+
+    def on(i, key):
+        p = params[key]
+        t = as_tensor(leaves[i])
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"optimizer leaf {i} ({key}): shape "
+                             f"{tuple(t.shape)} != {tuple(p.shape)}")
+        return t.to(device=p.device, dtype=p.dtype)
+
+    for j, key in enumerate(keys):
+        p = params[key]
+        if kind == "trace":
+            optimizer.state[p] = {"momentum_buffer": on(j, key)}
+        elif kind == "adam":
+            optimizer.state[p] = {
+                "step": torch.tensor(float(as_tensor(leaves[0])),
+                                     dtype=torch.float32),
+                "exp_avg": on(1 + j, key),
+                "exp_avg_sq": on(1 + len(keys) + j, key)}
 
 
 def from_jax_state_dict(arrays: dict, layers: list[dict], optimizer: dict,

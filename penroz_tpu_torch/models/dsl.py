@@ -127,8 +127,7 @@ def init_module_params(mods: list[M.Module], seed: int = 0):
 
 def validate_optimizer(config: dict) -> str:
     """Name of a one-key optimizer DSL entry; raises like the JAX
-    ``build_optimizer`` on anything else.  Building the optimizer waits
-    for the training slice."""
+    ``build_optimizer`` on anything else."""
     if not isinstance(config, dict) or len(config) != 1:
         raise ValueError(f"Optimizer config must have exactly one key, got "
                          f"{sorted(config) if isinstance(config, dict) else config!r}")
@@ -138,6 +137,40 @@ def validate_optimizer(config: dict) -> str:
     if not isinstance(args, dict):
         raise ValueError(f"Optimizer {name} arguments must be an object")
     return name
+
+
+def build_optimizer(config: dict, params) -> torch.optim.Optimizer:
+    """Optimizer DSL → ``torch.optim`` over ``params`` (one group), with
+    the JAX package's optax semantics (penroz_tpu/models/dsl.py
+    ``build_optimizer``):
+
+    - ``adamw``: decoupled weight decay, default 0.01 (``optax.adamw``);
+    - ``adam``: ``weight_decay`` (default 0) added to the gradient as L2
+      before the moments (``add_decayed_weights`` chained before adam);
+    - ``sgd``: ``momentum``/``nesterov`` as optax's ``trace`` (no
+      dampening; the first step's trace is the gradient), ``weight_decay``
+      as L2 into the gradient.
+
+    ``betas`` is coerced to a pair; ``eps`` is added outside the square
+    root, as both libraries do.  Unknown keys are ignored, as there."""
+    name = validate_optimizer(config)
+    args = dict(config[name])
+    lr = float(args.pop("lr", 1e-3))
+    if name in ("adamw", "adam"):
+        betas = args.pop("betas", (0.9, 0.999))
+        b1, b2 = float(betas[0]), float(betas[1])
+        eps = float(args.pop("eps", 1e-8))
+        cls = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
+        weight_decay = float(args.pop("weight_decay",
+                                      0.01 if name == "adamw" else 0.0))
+        return cls(params, lr=lr, betas=(b1, b2), eps=eps,
+                   weight_decay=weight_decay)
+    momentum = float(args.pop("momentum", 0.0))
+    nesterov = bool(args.pop("nesterov", False))
+    weight_decay = float(args.pop("weight_decay", 0.0))
+    return torch.optim.SGD(params, lr=lr, momentum=momentum,
+                           nesterov=nesterov and momentum > 0.0,
+                           weight_decay=weight_decay)
 
 
 class Mapper:

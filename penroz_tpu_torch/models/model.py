@@ -1,13 +1,23 @@
 """Model runtime: the compiled architecture and the NeuralNetworkModel
-facade (counterpart of penroz_tpu/models/model.py, serving slice).
+facade (counterpart of penroz_tpu/models/model.py: serving and training).
 
 - :class:`CompiledArch` — a layer DSL built into an ``nn.Module`` tree whose
   ``state_dict`` keys equal the JAX package's flat parameter keys, with the
-  forward, the one-step decode (``_decode_step``) and sampling
-  (``_sample``).
+  forward and its cost, one training epoch (``train_epoch``), the one-step
+  decode (``_decode_step``) and sampling (``_sample``).
 - :class:`NeuralNetworkModel` — create, ``state_dict``, serialize /
-  deserialize / delete over the ``PENROZC1`` container, and generation
+  deserialize / delete over the ``PENROZC1`` container (optimizer state in
+  the JAX package's optax leaf layout), training (``train_model``,
+  ``train_model_on_device``) and generation
   (``generate_tokens``/``generate_tokens_stream`` over ``_generate_iter``).
+
+Training runs on one device.  Out of this slice, and refused with a
+ValueError (HTTP 400) rather than ignored: LoRA adapters, the training
+worker process (``PENROZ_TRAIN_WORKER``), rematerialization
+(``PENROZ_REMAT``), meshes (``PENROZ_MESH_*``, ``PENROZ_FSDP``,
+``PENROZ_WUS``, ``PENROZ_SP_MODE``, ``PENROZ_PIPE_REMAT``), decode-priority
+micro-stepping (``PENROZ_DECODE_PRIORITY_MS``) and the ``/stats/``
+refresh (``PENROZ_STATS_INTERVAL``): see :func:`unported_training_options`.
 
 The JAX package fuses up to 128 decode steps per dispatch with
 ``lax.scan`` over power-of-two chunks; eager PyTorch runs one step per
@@ -19,20 +29,71 @@ the same token.
 from __future__ import annotations
 
 import logging
+import os
+import random
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from penroz_tpu_torch.device import resolve_device
-from penroz_tpu_torch.models import dsl
+from penroz_tpu_torch.models import convert, dsl
 from penroz_tpu_torch.models.convert import as_tensor, from_jax_state_dict
 from penroz_tpu_torch.models.dsl import Mapper
 from penroz_tpu_torch.ops import kv_cache as KV
+from penroz_tpu_torch.ops import losses
 from penroz_tpu_torch.ops import modules as M
 from penroz_tpu_torch.utils import checkpoint
 
 log = logging.getLogger(__name__)
+
+# NeuralNetworkModel._opt_leaves of a model deserialized without them.
+_NOT_LOADED = object()
+
+# Environment switches of JAX-package training features this port does not
+# have: (variable, value that leaves the feature off, what it selects).
+_UNPORTED_TRAINING_ENV = (
+    ("PENROZ_TRAIN_WORKER", "0", "the training worker process"),
+    ("PENROZ_REMAT", "0", "rematerialization"),
+    ("PENROZ_FSDP", "0", "FSDP parameter sharding"),
+    ("PENROZ_WUS", "0", "weight-update sharding"),
+    ("PENROZ_MESH_MODEL", "1", "a tensor-parallel mesh"),
+    ("PENROZ_MESH_SEQUENCE", "1", "sequence parallelism"),
+    ("PENROZ_MESH_EXPERT", "1", "an expert-parallel mesh"),
+    ("PENROZ_MESH_PIPE", "1", "pipeline parallelism"),
+    ("PENROZ_SP_MODE", None, "a sequence-parallel attention mode"),
+    ("PENROZ_PIPE_REMAT", None, "a pipeline remat schedule"),
+    ("PENROZ_DECODE_PRIORITY_MS", None, "decode-priority micro-stepping"),
+    ("PENROZ_STATS_INTERVAL", None, "the /stats/ refresh"),
+)
+
+
+def unported_training_options() -> None:
+    """Raise ValueError naming any JAX-package training feature selected by
+    the environment that the port does not have (see the module note)."""
+    for name, off, what in _UNPORTED_TRAINING_ENV:
+        value = os.environ.get(name)
+        if value is not None and value != off:
+            raise ValueError(f"{name}={value!r} selects {what}, which "
+                             f"penroz_tpu_torch does not support yet")
+
+
+def train_compute_dtype(device: torch.device) -> Optional[torch.dtype]:
+    """Compute dtype of a training run: bf16 on the card, none (the params'
+    own) on the CPU, as the JAX package runs bf16 on its accelerator;
+    ``PENROZ_TRAIN_DTYPE=float32|bfloat16|float16`` overrides."""
+    name = os.environ.get("PENROZ_TRAIN_DTYPE", "")
+    if not name:
+        return torch.bfloat16 if device.type == "cuda" else None
+    if name == "float32":
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"PENROZ_TRAIN_DTYPE={name!r} is not a floating "
+                         f"dtype")
+    return dtype
 
 
 class CompiledArch(nn.Module):
@@ -42,8 +103,15 @@ class CompiledArch(nn.Module):
         super().__init__()
         self.layers_dsl = layers
         self.layers = nn.ModuleList(dsl.build_modules(layers))
+        self.classification = any(isinstance(m, M.Softmax)
+                                  for m in self.layers)
         self.attn_layers: list[M.CausalSelfAttention] = []
         self._index_attention()
+
+    @property
+    def param_order(self) -> list[str]:
+        """Parameter keys in module walk order (the JAX ``param_order``)."""
+        return [k for k, _ in self.named_parameters()]
 
     def _index_attention(self):
         """Assign KV-cache slots and infer head dims from the preceding
@@ -82,25 +150,93 @@ class CompiledArch(nn.Module):
             specs.append((mod.num_kv_heads, mod.head_dim))
         return specs
 
-    def forward(self, tokens, *, kv=None, skip_softmax=False):
+    def forward(self, tokens, targets=None, *, kv=None, skip_softmax=False,
+                training=False, generator=None):
         """Full forward collecting every top-level activation; returns
-        ``(activations, new_kv)`` with the cache advanced by the tokens
-        fed (in place)."""
-        ctx = M.Ctx(kv=kv)
+        ``(activations, cost, new_kv)``: ``cost`` is None without
+        ``targets``, and the cache is advanced by the tokens fed (in
+        place).  ``training`` turns dropout on, drawing from
+        ``generator``.  The cost reads the logits, the input of the first
+        top-level softmax (or the last activation)."""
+        ctx = M.Ctx(kv=kv, training=training, generator=generator)
         acts = []
         h = tokens
+        logits = None
         for mod in self.layers:
-            if skip_softmax and isinstance(mod, M.Softmax):
-                continue
+            if isinstance(mod, M.Softmax):
+                if logits is None:
+                    logits = h
+                if skip_softmax:
+                    continue
             h = mod(h, ctx)
             acts.append(h)
+        cost = (self._cost_from_logits(h if logits is None else logits,
+                                       targets)
+                if targets is not None else None)
         new_kv = kv.advanced(tokens.shape[-1]) if kv is not None else None
-        return acts, new_kv
+        return acts, cost, new_kv
+
+    def _cost_from_logits(self, logits, targets):
+        """CE for classification stacks (the fused cross-entropy kernels),
+        MSE otherwise."""
+        if self.classification:
+            return losses.fused_cross_entropy_mean(logits, targets)
+        return torch.mean((logits.float() - targets.float()) ** 2)
+
+    def train_epoch(self, optimizer, xs, ys, *, compute_dtype=None,
+                    generator=None, with_ratios=True):
+        """One epoch (JAX ``train_epoch_fn``): ``num_steps = len(xs)``
+        micro-steps of (B, T) token batches, gradients accumulated in fp32,
+        then one optimizer step.
+
+        The parameters are cast to ``compute_dtype`` once per epoch; each
+        micro-step's gradient (in that dtype) is added to an fp32 sum,
+        which is averaged and cast to each parameter's dtype before
+        ``optimizer.step()``.  Returns ``(cost, ratios)``: the mean cost
+        (fp32 device scalar) and, when ``with_ratios``, the update ratios
+        ``std(Δw) / std(w)`` of every parameter in :attr:`param_order`
+        (fp32 device vector), else None."""
+        named = dict(self.named_parameters())
+        params_c = {}
+        for key, p in named.items():
+            dtype = (compute_dtype if compute_dtype is not None
+                     and p.is_floating_point() else p.dtype)
+            params_c[key] = p.detach().to(dtype).requires_grad_(True)
+        grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for k, p in named.items()}
+        cost_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
+        for x, y in zip(xs, ys):
+            _, cost, _ = torch.func.functional_call(
+                self, params_c, (x, y),
+                {"skip_softmax": True, "training": True,
+                 "generator": generator})
+            cost.backward()
+            for key, leaf in params_c.items():
+                if leaf.grad is not None:
+                    grads[key] += leaf.grad
+                    leaf.grad = None
+            cost_sum += cost.detach().float()
+        num_steps = len(xs)
+        inv = 1.0 / num_steps
+        with torch.no_grad():
+            old = ({k: p.detach().clone() for k, p in named.items()}
+                   if with_ratios else None)
+            for key, p in named.items():
+                p.grad = (grads[key] * inv).to(p.dtype)
+            del grads, params_c
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            ratios = None
+            if with_ratios:
+                ratios = torch.stack([_update_ratio(named[k] - old[k], old[k])
+                                      for k in self.param_order]) \
+                    if named else torch.zeros(0)
+        return cost_sum * inv, ratios
 
     def _decode_step(self, tokens, kv, generator, temp, *, greedy, top_k):
         """Feed tokens through the stack with the KV cache and sample the
         next token on the device."""
-        acts, new_kv = self.forward(tokens, kv=kv, skip_softmax=True)
+        acts, _, new_kv = self.forward(tokens, kv=kv, skip_softmax=True)
         logits = acts[-1]
         if logits.ndim == 3:
             logits = logits[:, -1, :]
@@ -125,8 +261,16 @@ class CompiledArch(nn.Module):
                                  generator=generator)[..., 0]
 
 
+def _update_ratio(dw, w):
+    """``std(Δw) / std(w)`` (population std in fp32; 0 where std(w) is
+    0), the JAX package's per-weight update ratio."""
+    denom = w.float().std(unbiased=False)
+    ratio = dw.float().std(unbiased=False) / (denom + 1e-12)
+    return torch.where(denom > 0, ratio, torch.zeros_like(ratio))
+
+
 class NeuralNetworkModel:
-    """Model lifecycle facade: create, persist, generate."""
+    """Model lifecycle facade: create, persist, train, generate."""
 
     def __init__(self, model_id: str, mapper: Mapper, device=None,
                  seed: int = 0, params: Optional[dict] = None):
@@ -149,6 +293,11 @@ class NeuralNetworkModel:
         self.stats: Optional[dict] = None
         self.status = {"code": "Created", "message": "Model created"}
         self._generator = self._new_generator()
+        # torch.optim optimizer, built at first use; until then the
+        # checkpoint's optimizer leaves wait here (None: a fresh state;
+        # _NOT_LOADED: deserialized without them).
+        self._opt: Optional[torch.optim.Optimizer] = None
+        self._opt_leaves = None
 
     def _new_generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(0)
@@ -185,6 +334,139 @@ class NeuralNetworkModel:
             tensors[key] = t.to(self.device)
         self.arch.load_state_dict(tensors, strict=True, assign=True)
         return self
+
+    # -- training -----------------------------------------------------------
+
+    @property
+    def optimizer(self) -> torch.optim.Optimizer:
+        """The ``torch.optim`` optimizer over the current parameters, built
+        from the optimizer DSL at first use and loaded with the
+        checkpoint's optax-layout leaves."""
+        if self._opt is None:
+            if self._opt_leaves is _NOT_LOADED:
+                raise RuntimeError(f"model {self.model_id} was loaded "
+                                   f"without its optimizer state")
+            params = dict(self.arch.named_parameters())
+            opt = dsl.build_optimizer(self.optimizer_config,
+                                      list(params.values()))
+            convert.load_opt_state_leaves(self.optimizer_config, opt, params,
+                                          self._opt_leaves or [])
+            self._opt, self._opt_leaves = opt, None
+        return self._opt
+
+    def _opt_state_leaves(self) -> dict:
+        if self._opt is None and self._opt_leaves is _NOT_LOADED:
+            raise RuntimeError(f"model {self.model_id} was loaded without "
+                               f"its optimizer state; refusing to "
+                               f"overwrite its checkpoint")
+        if self._opt is None and self._opt_leaves:
+            return self._opt_leaves
+        return convert.opt_state_leaves(self.optimizer_config, self._opt,
+                                        dict(self.arch.named_parameters()))
+
+    def train_model(self, dataset_id, shard=0, epochs=1, batch_size=1,
+                    block_size=1024, step_size=1):
+        """Grad-accumulated training with progress bookkeeping and periodic
+        checkpoints (JAX ``train_model``, single device).
+
+        Every micro-step consumes a full ``(batch_size, block_size)``
+        buffer from the loader; ``num_steps = batch_size // step_size``
+        micro-steps accumulate into one optimizer step per epoch.
+        ``speedPerSec`` counts ``buffer_size`` tokens per epoch, as the
+        JAX package does, although an epoch consumes ``num_steps``
+        buffers.  The compute dtype is :func:`train_compute_dtype`;
+        update ratios are sampled every ``max(1, epochs // 100)`` epochs;
+        a checkpoint is written when 10 s have passed since the last."""
+        from penroz_tpu_torch.data.loaders import Loader
+        try:
+            unported_training_options()
+            buffer_size = batch_size * block_size
+            self.progress = []
+            self.stats = None
+            num_steps = max(1, buffer_size // (step_size * block_size))
+            loader = Loader(dataset_id, begin_shard=shard, begin_idx=0,
+                            buffer_size=buffer_size, idx_offset=buffer_size)
+            self.status = {"code": "Training",
+                           "message": f"Training on {dataset_id}"}
+            self.serialize()
+            compute_dtype = train_compute_dtype(self.device)
+            optimizer = self.optimizer
+            sample_every = max(1, epochs // 100)
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            last_save = time.monotonic()
+            for epoch in range(epochs):
+                t0 = time.monotonic()
+                long_training = t0 - last_save >= 10
+                xs, ys = [], []
+                for _ in range(num_steps):
+                    x, y = loader.next_batch()
+                    xs.append(x.reshape(batch_size, block_size))
+                    ys.append(y.reshape(batch_size, block_size))
+                xs = torch.from_numpy(np.stack(xs)).to(self.device,
+                                                       torch.int64)
+                ys = torch.from_numpy(np.stack(ys)).to(self.device,
+                                                       torch.int64)
+                sampled = epoch % sample_every == 0
+                cost, ratios = self.arch.train_epoch(
+                    optimizer, xs, ys, compute_dtype=compute_dtype,
+                    generator=generator, with_ratios=sampled)
+                cost = float(cost)
+                duration = time.monotonic() - t0
+                if sampled:
+                    self.progress.append({
+                        "epoch": epoch + 1,
+                        "cost": cost,
+                        "durationInSecs": duration,
+                        "speedPerSec": buffer_size / max(duration, 1e-9),
+                        "weight_upd_ratio":
+                            ratios.to("cpu", torch.float64).tolist(),
+                    })
+                log.info("Epoch %d: cost=%.4f %.0f tokens/sec", epoch + 1,
+                         cost, buffer_size / max(duration, 1e-9))
+                if long_training:
+                    self._record_overall_progress()
+                    self.serialize()
+                    last_save = time.monotonic()
+            self.status = {"code": "Trained",
+                           "message": f"Trained {epochs} epoch(s)"}
+            self._record_overall_progress()
+            self.serialize()
+        except Exception as e:  # noqa: BLE001 — recorded, then re-raised
+            self.status = {"code": "Error", "message": str(e)}
+            try:
+                self.serialize(sync_flush=True)
+            except Exception:  # noqa: BLE001
+                log.exception("Failed to persist error status")
+            raise
+
+    def _record_overall_progress(self):
+        """Fold the run's progress into the overall average-cost history
+        (JAX ``_record_overall_progress``; ``stats`` stays as it is: the
+        ``/stats/`` refresh is not ported)."""
+        if self.progress:
+            avg_progress_cost = (sum(p["cost"] for p in self.progress)
+                                 / len(self.progress))
+            self.avg_cost = ((self.avg_cost or avg_progress_cost)
+                             + avg_progress_cost) / 2.0
+            self.avg_cost_history.append(self.avg_cost)
+            if len(self.avg_cost_history) > 100:
+                self.avg_cost_history.pop(random.randint(1, 98))
+
+    @classmethod
+    def train_model_on_device(cls, model_id, device, dataset_id, shard,
+                              epochs, batch_size, block_size, step_size,
+                              adapter=None):
+        """Load the checkpoint onto ``device`` (``cuda`` unless ``"cpu"``)
+        and train it (JAX ``train_model_on_device``, single process)."""
+        if adapter is not None:
+            raise ValueError("LoRA adapter training is not ported to "
+                             "penroz_tpu_torch yet")
+        unported_training_options()
+        model = cls.deserialize(model_id, device=device)
+        model.train_model(dataset_id, shard=shard, epochs=epochs,
+                          batch_size=batch_size, block_size=block_size,
+                          step_size=step_size)
+        return model
 
     # -- generation ---------------------------------------------------------
 
@@ -259,14 +541,15 @@ class NeuralNetworkModel:
     # -- persistence --------------------------------------------------------
 
     def serialize(self, sync_flush: bool = False):
-        """Checkpoint to shm + the durable dir.  Optimizer state is not
-        ported yet, so ``opt_state_leaves`` is empty (ROADMAP.md)."""
+        """Checkpoint to shm + the durable dir, with the optimizer state as
+        the JAX package's optax leaves (models/convert.py), so either
+        package loads and continues it."""
         checkpoint.save(self.model_id, {
             "layers": self.layers_dsl,
             "optimizer": self.optimizer_config,
             "params": self.state_dict(),
             "buffers": {},
-            "opt_state_leaves": {},
+            "opt_state_leaves": self._opt_state_leaves(),
             "sharded": {},
             "shard_tag": None,
             "progress": self.progress,
@@ -277,11 +560,15 @@ class NeuralNetworkModel:
         }, sync_flush=sync_flush)
 
     @classmethod
-    def deserialize(cls, model_id: str, device=None) -> "NeuralNetworkModel":
+    def deserialize(cls, model_id: str, device=None,
+                    optimizer: bool = True) -> "NeuralNetworkModel":
         """Load a checkpoint written by either package, keeping its dtypes.
-        The JAX package's optax leaves are skipped until training is
-        ported.  :raises KeyError: unknown model."""
-        data = checkpoint.load(model_id)
+        The optimizer leaves stay on the host until training builds the
+        optimizer; ``optimizer=False`` skips reading them (serving), and
+        such a model refuses to serialize.  :raises KeyError: unknown
+        model."""
+        sections = None if optimizer else ("params", "buffers")
+        data = checkpoint.load(model_id, arrays=sections)
         if data.get("sharded"):
             raise ValueError(f"model {model_id} has a cross-host sharded "
                              f"checkpoint, which the port cannot load yet")
@@ -295,6 +582,8 @@ class NeuralNetworkModel:
         model.stats = data.get("stats")
         model.status = data.get("status", {"code": "Created",
                                            "message": None})
+        model._opt_leaves = (data.get("opt_state_leaves") if optimizer
+                             else _NOT_LOADED)
         return model
 
     @classmethod

@@ -1,26 +1,99 @@
 """Attention math: RoPE, ALiBi, the causal (no-cache) reference and cached
-attention (counterpart of penroz_tpu/ops/attention.py).
+attention (counterpart of penroz_tpu/ops/attention.py), and the hash
+dropout mask of the flash kernels (penroz_tpu/ops/pallas/flash_attention.py
+``_keep_mask``).
 
 GQA is computed by viewing the query heads as ``(kv_heads, group)`` in
 kv-major order and contracting against un-expanded K/V.  Layouts follow the
 JAX package at every public function: q (B, Hq, T, D), k/v (B, Hkv, S, D).
 
-:func:`cached_attention` — the serving path — goes through the hand-written
-CUDA kernel for CUDA tensors and its plain PyTorch version for CPU tensors
-(ops/kernels/decode_attention.py).  The no-cache causal forward has no
-kernel in this package yet (the flash kernels come with training) and runs
-:func:`causal_attention_reference`.
+Both attention paths go through hand-written CUDA kernels for CUDA tensors
+and their plain PyTorch versions for CPU tensors: :func:`cached_attention`
+(serving) through ops/kernels/decode_attention.py, :func:`causal_attention`
+(training, and the no-cache forward) through ops/kernels/flash_attention.py.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+log = logging.getLogger(__name__)
+
 _NEG_INF = -1e30
+_MASK32 = 0xFFFFFFFF
+_HEAD_SEED_PRIME = 0x632BE5A7
+
+# One-shot fallback signals, as in the JAX package (warned once per process).
+_WARNED_ONCE: set = set()
+
+
+def _warn_once(key: str, msg: str, *args):
+    if key in _WARNED_ONCE:
+        return
+    _WARNED_ONCE.add(key)
+    log.warning(msg, *args)
+
+
+# ---------------------------------------------------------------------------
+# Hash dropout: the flash kernels' keep mask, bit for bit
+# ---------------------------------------------------------------------------
+
+def _mul32(x, c: int):
+    """``x * c mod 2^32`` for int64 ``x`` in [0, 2^32): split in 16-bit
+    halves so no intermediate leaves int64 (torch has no wrapping uint32
+    multiply on every device)."""
+    hi = ((x >> 16) * c) & _MASK32
+    return ((hi << 16) + (x & 0xFFFF) * c) & _MASK32
+
+
+def keep_threshold(rate: float) -> int:
+    """A pair is kept iff its uint32 hash is below this (the JAX package's
+    ``min(int((1 - rate) * 2^32), 2^32 - 1)``)."""
+    return min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def _keep_mask(q_pos, k_pos, seed, rate: float):
+    """Boolean keep-mask (True = keep) from the lowbias32-style position
+    hash; ``q_pos``/``k_pos``/``seed`` are broadcastable int64 tensors in
+    [0, 2^32), ``seed`` already mixed with the (batch, head) index."""
+    x = (_mul32(q_pos, 0x9E3779B1) ^ _mul32(k_pos, 0x85EBCA77)
+         ^ _mul32(seed, 0xC2B2AE3D))
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x < keep_threshold(rate)
+
+
+def head_seed(seed, index):
+    """``seed + index * 0x632BE5A7`` with int32 wrap-around, as uint32 in
+    int64 (``seed``: int32 scalar tensor or int; ``index``: int tensor of
+    ``b * Hq + h``)."""
+    s = torch.as_tensor(seed, dtype=torch.int64) & _MASK32
+    return (s.to(index.device) + index.to(torch.int64) * _HEAD_SEED_PRIME) \
+        & _MASK32
+
+
+def dropout_keep_mask_reference(seed, b: int, h: int, num_heads: int, T: int,
+                                S: int, rate: float):
+    """(T, S) keep-mask the kernels generate for batch ``b``, head ``h``."""
+    q_pos = torch.arange(T, dtype=torch.int64)[:, None]
+    k_pos = torch.arange(S, dtype=torch.int64)[None, :]
+    seed_bh = head_seed(seed, torch.tensor(b * num_heads + h))
+    return _keep_mask(q_pos, k_pos, seed_bh, rate)
+
+
+def dropout_keep_mask(seed, B: int, Hq: int, T: int, rate: float, device):
+    """(B, Hq, T, T) keep-mask of every (batch, head) at once."""
+    pos = torch.arange(T, dtype=torch.int64, device=device)
+    index = torch.arange(B * Hq, device=device).reshape(B, Hq, 1, 1)
+    return _keep_mask(pos[:, None], pos[None, :], head_seed(seed, index), rate)
 
 
 def _llama3_scale_inv_freq(inv_freq, scaling: dict):
@@ -138,15 +211,18 @@ def _group_query_heads(q, num_kv_heads: int):
     return q.reshape(B, num_kv_heads, Hq // num_kv_heads, T, D)
 
 
-def _attend(q, k, v, mask, bias=None, scale=None, softcap=None):
+def _attend(q, k, v, mask, bias=None, scale=None, softcap=None,
+            dropout_rate=0.0, generator=None):
     """Masked softmax attention with grouped query heads.
 
     q: (B, Hkv, G, T, D); k, v: (B, Hkv, S, D); ``mask`` broadcastable to
     (B, Hkv, G, T, S) with True = attend.  Scores are fp32 (the JAX
     package pins HIGHEST precision for fp32 inputs; the card's fp32
     matmuls must run without TF32 to match).  Softcap ``c·tanh(s/c)``
-    comes after the scale and before the bias and mask.  (No dropout: the
-    port runs inference only until the training slice.)"""
+    comes after the scale and before the bias and mask.  Dropout (rate > 0
+    with a ``generator``) keeps each probability with probability
+    ``1 - rate`` and rescales it, as the JAX reference's Bernoulli draw
+    does (same distribution, different numbers)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.einsum("bhgtd,bhsd->bhgts", q.to(torch.float32),
@@ -156,11 +232,16 @@ def _attend(q, k, v, mask, bias=None, scale=None, softcap=None):
     if bias is not None:
         logits = logits + bias
     logits = torch.where(mask, logits, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhgts,bhsd->bhgtd", probs, v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+    return torch.einsum("bhgts,bhsd->bhgtd", probs.to(v.dtype), v)
 
 
-def causal_attention_reference(q, k, v, window: Optional[int] = None,
+def causal_attention_reference(q, k, v, dropout_rate=0.0, generator=None,
+                               window: Optional[int] = None,
                                alibi: Optional[np.ndarray] = None,
                                scale: Optional[float] = None,
                                softcap: Optional[float] = None):
@@ -178,8 +259,37 @@ def causal_attention_reference(q, k, v, window: Optional[int] = None,
         mask &= k_pos > q_pos - int(window)
     bias = (None if alibi is None
             else _alibi_bias(alibi, q_pos, k_pos, num_kv_heads))
-    out = _attend(qg, k, v, mask, bias=bias, scale=scale, softcap=softcap)
+    out = _attend(qg, k, v, mask, bias=bias, scale=scale, softcap=softcap,
+                  dropout_rate=dropout_rate, generator=generator)
     return out.reshape(B, Hq, T, D)
+
+
+def causal_attention(q, k, v, dropout_rate=0.0, seed=None, generator=None,
+                     window: Optional[int] = None,
+                     alibi: Optional[np.ndarray] = None,
+                     scale: Optional[float] = None,
+                     softcap: Optional[float] = None):
+    """Causal self-attention (training and the no-cache forward), with a
+    gradient.  q: (B, Hq, T, D); k, v: (B, Hkv, T, D).
+
+    Goes to the flash kernels (ops/kernels/flash_attention.py: CUDA
+    tensors launch them or raise, CPU tensors run their plain version),
+    with hash dropout from the int32 ``seed`` when ``dropout_rate`` > 0.
+    A logit ``softcap`` goes to :func:`causal_attention_reference` with a
+    one-time warning, the JAX package's rule: the flash backward has no
+    capped variant; its dropout draws from ``generator``."""
+    if softcap is not None:
+        _warn_once("softcap_reference",
+                   "logit softcap: flash kernel unavailable for the "
+                   "training/prefill path (no capped-gradient backward); "
+                   "using the O(T^2) reference")
+        return causal_attention_reference(q, k, v, dropout_rate, generator,
+                                          window=window, alibi=alibi,
+                                          scale=scale, softcap=softcap)
+    from penroz_tpu_torch.ops.kernels import flash_attention as fa
+    return fa.flash_attention(q, k, v, window=window, alibi=alibi,
+                              scale=scale, dropout_rate=dropout_rate,
+                              seed=seed)
 
 
 def cached_attention(q, k_full, v_full, offset, length,

@@ -17,12 +17,17 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes of the kernels' C interfaces
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -78,3 +83,33 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         msg = lib.penroz_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def function(lib: ctypes.CDLL, name: str, argtypes: list):
+    """``lib.<name>`` with its argument types declared (pointers and the
+    stream as ``c_void_p``) and an int (cudaError_t) result."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def stream(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operand(kernel: str, name: str, t, device, dtype, shape):
+    """Raise ValueError unless ``t`` is a contiguous, 16-byte aligned
+    ``dtype`` tensor of ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)} != "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name} must be 16-byte aligned")

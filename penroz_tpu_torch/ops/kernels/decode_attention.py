@@ -26,7 +26,6 @@ import torch
 from penroz_tpu_torch.ops import attention as A
 from penroz_tpu_torch.ops.kernels import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _COUNT_LOCK = threading.Lock()
 _SLOPES: dict = {}  # (slopes bytes, device) -> device tensor
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -91,30 +90,13 @@ def decode_attention_reference(q, k_full, v_full, offset, length,
     return out.reshape(B, Hq, T, D)
 
 
-def _slopes_on(alibi, device) -> torch.Tensor:
+def slopes_on(alibi, device) -> torch.Tensor:
     arr = np.ascontiguousarray(alibi, np.float32)
     key = (arr.tobytes(), str(device))
     t = _SLOPES.get(key)
     if t is None:
         t = _SLOPES[key] = torch.as_tensor(arr, device=device)
     return t
-
-
-def _check_operand(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"decode_attention: {name} is on {t.device}, "
-                         f"q on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"decode_attention: {name} must be {dtype}, "
-                         f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"decode_attention: {name} shape "
-                         f"{tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"decode_attention: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"decode_attention: {name} must be 16-byte "
-                         f"aligned")
 
 
 def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
@@ -141,9 +123,9 @@ def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
         raise ValueError("decode_attention: q and k/v must be 4-D")
     B, Hq, T, D = q.shape
     Hkv, S = k_full.shape[1], k_full.shape[2]
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"decode_attention: q dtype {q.dtype} not in "
-                         f"{sorted(map(str, _DTYPE_CODES))}")
+                         f"{sorted(map(str, build.DTYPE_CODES))}")
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"decode_attention: head dim {D} must be a "
                          f"multiple of 8 in [8, 256]")
@@ -157,12 +139,14 @@ def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
     kv_dtype = torch.int8 if quantized else q.dtype
-    _check_operand("q", q, q.device, q.dtype, (B, Hq, T, D))
-    _check_operand("k", k_full, q.device, kv_dtype, kv_shape)
-    _check_operand("v", v_full, q.device, kv_dtype, kv_shape)
+    check = build.check_operand
+    check("decode_attention", "q", q, q.device, q.dtype, (B, Hq, T, D))
+    check("decode_attention", "k", k_full, q.device, kv_dtype, kv_shape)
+    check("decode_attention", "v", v_full, q.device, kv_dtype, kv_shape)
     if quantized:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            _check_operand(name, t, q.device, torch.float32, (B, Hkv, S, 1))
+            check("decode_attention", name, t, q.device, torch.float32,
+                  (B, Hkv, S, 1))
     lengths_ptr, length_int = None, 0
     if isinstance(length, torch.Tensor):
         lengths = normalize_lengths(length, B, device=q.device).contiguous()
@@ -180,27 +164,26 @@ def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
                          f"got {softcap}")
     slopes = None
     if alibi is not None:
-        slopes = _slopes_on(alibi, q.device)
+        slopes = slopes_on(alibi, q.device)
         if slopes.numel() != Hq:
             raise ValueError(f"decode_attention: {slopes.numel()} ALiBi "
                              f"slopes for {Hq} query heads")
     sm_scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
 
     lib = build.load("decode_attention")
-    fn = lib.penroz_decode_attention
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.function(lib, "penroz_decode_attention", _ARGTYPES)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
                  k_scale.data_ptr() if quantized else None,
                  v_scale.data_ptr() if quantized else None,
                  lengths_ptr, length_int,
                  slopes.data_ptr() if slopes is not None else None,
-                 out.data_ptr(), B, Hq, Hkv, T, S, D, _DTYPE_CODES[q.dtype],
+                 out.data_ptr(), B, Hq, Hkv, T, S, D,
+                 build.DTYPE_CODES[q.dtype],
                  int(window) if window is not None else 0, sm_scale,
-                 float(softcap) if softcap is not None else 0.0, stream)
+                 float(softcap) if softcap is not None else 0.0,
+                 build.stream(q))
     build.check(lib, err, "decode_attention")
     with _COUNT_LOCK:
         decode_attention.launches += 1

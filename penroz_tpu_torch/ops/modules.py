@@ -9,8 +9,9 @@ package's names, so ``state_dict()`` of the model's root module
 :class:`Ctx` carrying the KV cache and the position offset; the caches
 update in place (ops/kv_cache.py).
 
-Ported: the modules the GPT-2 DSL builds.  ``CausalSelfAttention`` has the
-no-cache and contiguous-cache branches; paged, ragged and sequence-parallel
+Ported: the modules the GPT-2 DSL builds, for inference and training.
+``CausalSelfAttention`` has the no-cache (flash) and contiguous-cache
+branches; paged, ragged and sequence-parallel
 attention are still to be ported and have no state that could reach them.
 """
 
@@ -28,16 +29,32 @@ from penroz_tpu_torch.ops import attention as attn_ops
 
 class Ctx:
     """Per-call context threaded through module application: the KV cache,
-    whose length is the position offset of the tokens fed.  The port
-    serves only (no training slice yet), so there is no training flag or
-    dropout generator."""
+    whose length is the position offset of the tokens fed, the training
+    flag, and the ``torch.Generator`` (on the model's device) that dropout
+    draws from in training mode."""
 
-    def __init__(self, *, kv=None):
+    def __init__(self, *, kv=None, training: bool = False,
+                 generator: Optional[torch.Generator] = None):
         self.kv = kv  # ops.kv_cache.KVState or None
+        self.training = training
+        self.generator = generator
 
     def offset(self) -> int:
         """Current sequence position offset (0 when no cache attached)."""
         return self.kv.length if self.kv is not None else 0
+
+    def require_generator(self) -> torch.Generator:
+        if self.generator is None:
+            raise ValueError("a torch.Generator is required (dropout in "
+                             "training mode)")
+        return self.generator
+
+    def dropout_seed(self) -> torch.Tensor:
+        """A fresh int32 seed in [0, 2^31 - 1) for the flash kernels' hash
+        dropout, drawn on the generator's device (no host read)."""
+        g = self.require_generator()
+        return torch.randint(0, 2 ** 31 - 1, (), generator=g,
+                             device=g.device, dtype=torch.int32)
 
 
 class Module(nn.Module):
@@ -177,15 +194,22 @@ class SoftmaxOnLast(Softmax):
 
 
 class Dropout(Module):
-    """Identity at inference, the only mode the port runs yet (training
-    mode comes with the training slice)."""
+    """Identity at inference; in training mode each element is kept with
+    probability ``1 - p`` (a Bernoulli draw from ``ctx.generator``) and
+    rescaled.  Only the distribution matches the JAX package's draw."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = float(p)
 
     def forward(self, x, ctx):
-        return x
+        if not ctx.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        g = ctx.require_generator()
+        mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+        return torch.where(mask, x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +387,13 @@ class CausalSelfAttention(Module):
                 window=self.sliding_window, alibi=alibi,
                 scale=self.attn_scale, softcap=self.logit_softcap, **scales)
         else:
-            out = attn_ops.causal_attention_reference(
-                q, k, v, window=self.sliding_window, alibi=alibi,
-                scale=self.attn_scale, softcap=self.logit_softcap)
+            rate = self.dropout if ctx.training else 0.0
+            out = attn_ops.causal_attention(
+                q, k, v, dropout_rate=rate,
+                seed=ctx.dropout_seed() if rate > 0.0 else None,
+                generator=ctx.generator, window=self.sliding_window,
+                alibi=alibi, scale=self.attn_scale,
+                softcap=self.logit_softcap)
         return out.transpose(1, 2).reshape(B, T, q_dim)
 
 

@@ -1,15 +1,20 @@
 """REST API service on the standard library's ``http.server`` (counterpart
-of penroz_tpu/serve/app.py, serving slice; the machine with the card has no
-aiohttp).
+of penroz_tpu/serve/app.py, serving and training; the machine with the card
+has no aiohttp).
 
 Routes: ``POST /model/``, ``POST /generate/`` (JSON, or ``stream: true``
 with one token per line), ``POST /decode/``, ``POST /tokenize/``,
+``PUT /train/``, ``GET /progress/?model_id=…``,
 ``DELETE /model/?model_id=…`` and ``GET /healthz``.  Errors map as in the
 JAX service: unknown model 404, missing or mistyped field 422, bad value
-400, anything else 500 with ``{"detail": "Please refer to server logs"}``.
+400, a model already training 409, anything else 500 with
+``{"detail": "Please refer to server logs"}``.
 
 Each request runs in its own thread; a generate request loads the model's
 checkpoint onto the server's device, as the JAX service does per request.
+``PUT /train/`` answers 202 and trains on a background thread, holding one
+lock per model; ``/progress/`` reads the checkpoint's metadata, which
+training rewrites at its start, every 10 s and at its end.
 
 Run: ``python -m penroz_tpu_torch.serve.app [--device cpu] [--port 8000]``.
 """
@@ -19,14 +24,17 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 from penroz_tpu_torch.data.tokenizers import Tokenizer
 from penroz_tpu_torch.device import resolve_device
 from penroz_tpu_torch.models.dsl import Mapper
-from penroz_tpu_torch.models.model import NeuralNetworkModel
+from penroz_tpu_torch.models.model import (NeuralNetworkModel,
+                                           unported_training_options)
 from penroz_tpu_torch.serve import schemas
+from penroz_tpu_torch.utils import checkpoint
 
 log = logging.getLogger(__name__)
 
@@ -45,7 +53,45 @@ class PenrozServer(ThreadingHTTPServer):
 
     def __init__(self, address, device=None):
         self.device = resolve_device(device)
+        self._train_guard = threading.Lock()
+        self._train_locks: dict[str, threading.Lock] = {}
+        self._train_threads: list[threading.Thread] = []
         super().__init__(address, _Handler)
+
+    def start_training(self, model_id: str, args: tuple) -> bool:
+        """Train ``model_id`` on a background thread unless it is already
+        training (then False)."""
+        with self._train_guard:
+            lock = self._train_locks.setdefault(model_id, threading.Lock())
+            if not lock.acquire(blocking=False):
+                return False
+            self._train_threads = [t for t in self._train_threads
+                                   if t.is_alive()]
+            thread = threading.Thread(target=_train_job,
+                                      args=(lock, model_id, args),
+                                      name=f"train-{model_id}", daemon=True)
+            self._train_threads.append(thread)
+        thread.start()
+        return True
+
+    def join_training(self, timeout: float = None) -> bool:
+        """Wait for the training threads; True when none is left."""
+        with self._train_guard:
+            threads = list(self._train_threads)
+        for t in threads:
+            t.join(timeout)
+        return not any(t.is_alive() for t in threads)
+
+
+def _train_job(lock: threading.Lock, model_id: str, args: tuple):
+    try:
+        NeuralNetworkModel.train_model_on_device(model_id, *args)
+    except Exception:  # noqa: BLE001 — recorded in the checkpoint status
+        log.exception("Training failed for model %s", model_id)
+    else:
+        log.info("Training completed for model %s", model_id)
+    finally:
+        lock.release()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -98,8 +144,17 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         self._dispatch(_POST)
 
+    def do_PUT(self):
+        self._dispatch(_PUT)
+
     def do_DELETE(self):
         self._dispatch(_DELETE)
+
+    def _model_id(self, query) -> str:
+        model_id = query.get("model_id", [None])[0]
+        if model_id is None:
+            raise _HTTPError(422, "Missing query parameter model_id")
+        return model_id
 
     # -- handlers -----------------------------------------------------------
 
@@ -120,7 +175,8 @@ class _Handler(BaseHTTPRequestHandler):
                              "penroz_tpu_torch yet")
         log.info("Generating tokens using model %s", body.model_id)
         model = NeuralNetworkModel.deserialize(body.model_id,
-                                               device=self.server.device)
+                                               device=self.server.device,
+                                               optimizer=False)
         args = (body.input, body.block_size, body.max_new_tokens,
                 body.temperature, body.top_k, body.stop_token)
         if not body.stream:
@@ -149,10 +205,42 @@ class _Handler(BaseHTTPRequestHandler):
         tokens = Tokenizer(body.encoding).tokenize(body.text)
         self._send_json(200, {"encoding": body.encoding, "tokens": tokens})
 
+    def train(self, query):
+        body = self._body(schemas.TrainingRequest)
+        log.info("Requesting training for model %s on device %s",
+                 body.model_id, body.device or self.server.device)
+        if body.adapter is not None:
+            raise ValueError("LoRA adapter training is not ported to "
+                             "penroz_tpu_torch yet")
+        device = self.server.device
+        if body.device is not None:
+            try:
+                device = resolve_device(body.device)
+            except RuntimeError as e:  # asked for a card this host lacks
+                raise ValueError(str(e))
+        unported_training_options()
+        checkpoint.load(body.model_id, arrays=())  # unknown model: 404
+        if not self.server.start_training(body.model_id, (
+                device, body.dataset_id, body.shard, body.epochs,
+                body.batch_size, body.block_size, body.step_size)):
+            raise _HTTPError(409, f"Training already in progress for model "
+                                  f"{body.model_id}.")
+        self._send_json(202, {"message": f"Training for model "
+                                         f"{body.model_id} started "
+                                         f"asynchronously."})
+
+    def progress(self, query):
+        model_id = self._model_id(query)
+        data = checkpoint.load(model_id, arrays=())
+        self._send_json(200, {
+            "progress": data.get("progress", []),
+            "average_cost": data.get("avg_cost"),
+            "average_cost_history": data.get("avg_cost_history", []),
+            "status": data.get("status"),
+        })
+
     def delete_model(self, query):
-        model_id = query.get("model_id", [None])[0]
-        if model_id is None:
-            raise _HTTPError(422, "Missing query parameter model_id")
+        model_id = self._model_id(query)
         log.info("Requesting deletion of model %s", model_id)
         NeuralNetworkModel.delete(model_id)
         self.send_response(204)
@@ -162,9 +250,10 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, {"status": "ok"})
 
 
-_GET = {"/healthz": _Handler.healthz}
+_GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize}
+_PUT = {"/train/": _Handler.train}
 _DELETE = {"/model/": _Handler.delete_model}
 
 
@@ -191,6 +280,7 @@ def main(argv=None):  # pragma: no cover
         server.serve_forever()
     finally:
         server.server_close()
+        server.join_training()
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -137,3 +137,30 @@ class DecodeTokensRequest(_Request):
 
     FIELDS = (("encoding", str, _REQUIRED, False),
               ("tokens", "int_list", _REQUIRED, False))
+
+
+@dataclass
+class TrainingRequest(_Request):
+    """``PUT /train/``.  ``device`` absent means the server's device (the
+    port runs on the card unless told ``"cpu"``; the JAX package's default
+    is ``"cpu"``).  ``adapter`` (LoRA) is accepted as a field so that it
+    can be refused with a 400: it is not ported."""
+    model_id: str
+    dataset_id: str
+    shard: int
+    epochs: int
+    batch_size: int
+    block_size: int
+    step_size: int
+    device: Optional[str] = None
+    adapter: Optional[dict] = None
+
+    FIELDS = (("model_id", str, _REQUIRED, False),
+              ("dataset_id", str, _REQUIRED, False),
+              ("shard", int, _REQUIRED, False),
+              ("epochs", int, _REQUIRED, False),
+              ("batch_size", int, _REQUIRED, False),
+              ("block_size", int, _REQUIRED, False),
+              ("step_size", int, _REQUIRED, False),
+              ("device", str, None, True),
+              ("adapter", dict, None, True))

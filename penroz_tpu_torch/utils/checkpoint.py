@@ -142,9 +142,32 @@ def _decode_tree(tree, array_leaf):
     return dec(tree)
 
 
-def _decode(buf, source: str = "<bytes>"):
+def _wanted_arrays(tree, sections) -> set[int]:
+    """Indices of the arrays under the top-level keys ``sections``."""
+    found: set[int] = set()
+
+    def walk(x):
+        if isinstance(x, dict):
+            if "__array__" in x and len(x) == 1:
+                found.add(x["__array__"])
+                return
+            for _, v in x["__dict__"]:
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    for key, value in tree["__dict__"]:
+        if key in sections:
+            walk(value)
+    return found
+
+
+def _decode(buf, source: str = "<bytes>", sections=None):
     """Decode container bytes back into the tree; truncation and CRC
-    mismatches raise ValueError naming the file and the stream."""
+    mismatches raise ValueError naming the file and the stream.  With
+    ``sections`` (top-level keys), only the arrays under those keys are
+    read and checked; every other array leaf decodes to None."""
     if buf[:8] != MAGIC:
         raise ValueError("not a penroz checkpoint (bad magic)")
     (header_len,) = struct.unpack("<Q", buf[8:16])
@@ -152,10 +175,15 @@ def _decode(buf, source: str = "<bytes>"):
         raise ValueError(f"checkpoint corrupt (truncated header) in "
                          f"{source}")
     header = json.loads(bytes(buf[16:16 + header_len]).decode("utf-8"))
+    wanted = (None if sections is None
+              else _wanted_arrays(header["tree"], sections))
     payload = memoryview(buf)[16 + header_len:]
     arrays = []
     try:
         for i, m in enumerate(header["arrays"]):
+            if wanted is not None and i not in wanted:
+                arrays.append(None)
+                continue
             end = m["offset"] + m["nbytes"]
             if end > len(payload):
                 raise ValueError(
@@ -176,14 +204,14 @@ def _decode(buf, source: str = "<bytes>"):
     return _decode_tree(header["tree"], arrays.__getitem__)
 
 
-def _read(path: str):
+def _read(path: str, sections=None):
     with open(path, "rb") as f:
         try:
             mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         except ValueError:  # zero-length file
             raise ValueError("not a penroz checkpoint (bad magic)")
         try:
-            return _decode(mm, source=path)
+            return _decode(mm, source=path, sections=sections)
         finally:
             mm.close()
 
@@ -284,8 +312,12 @@ def save(model_id: str, data: dict, sync_flush: bool = False):
         _spawn_flush(shm_path, model_path(model_id))
 
 
-def load(model_id: str) -> dict:
+def load(model_id: str, arrays=None) -> dict:
     """Read a checkpoint, repopulating the shm cache on a miss.
+
+    ``arrays``: top-level keys (e.g. ``("params", "buffers")``) whose arrays
+    are read; the others come back as None leaves without being read.  An
+    empty tuple reads the metadata alone (``/progress/``).  None reads all.
 
     :raises KeyError: if the model was never created (→ HTTP 404).
     """
@@ -294,7 +326,7 @@ def load(model_id: str) -> dict:
         if not os.path.exists(shm_path):
             os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
             shutil.copyfile(model_path(model_id), shm_path)
-        return _read(shm_path)
+        return _read(shm_path, sections=arrays)
     except FileNotFoundError:
         raise KeyError(f"Model {model_id} not created yet.")
 

@@ -1,6 +1,7 @@
 """The port's HTTP service on the CPU: /model/ → /generate/ (greedy tokens
 equal to the JAX package's on the same weights), streaming, /decode/,
-/tokenize/, error statuses and DELETE."""
+/tokenize/, error statuses and DELETE; PUT /train/ (202, 409, 404, 400,
+422) and GET /progress/ until Trained or Error."""
 
 import json
 import threading
@@ -29,6 +30,7 @@ def server(workdir, monkeypatch):
     srv.server_close()
     thread.join(timeout=10)
     assert not thread.is_alive()
+    assert srv.join_training(timeout=60)
 
 
 def _call(base, method, path, body=None):
@@ -128,3 +130,90 @@ def test_generate_request_validation(payload, error):
     with pytest.raises(schemas.ValidationError) as info:
         schemas.GenerateRequest.model_validate(payload)
     assert info.value.errors[0]["loc"] == [error]
+
+
+def _train_body(model_id, **kw):
+    body = {"model_id": model_id, "dataset_id": "toy", "shard": 0,
+            "epochs": 3, "batch_size": 2, "block_size": 16, "step_size": 1,
+            "device": "cpu"}
+    body.update(kw)
+    return body
+
+
+def _poll_progress(base, model_id, until, timeout=60.0):
+    import time
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        status, text = _call(base, "GET", f"/progress/?model_id={model_id}")
+        assert status == 200, text
+        body = json.loads(text)
+        if body["status"]["code"] in until:
+            return body
+        time.sleep(0.05)
+    raise AssertionError(f"{model_id} never reached {until}: {body}")
+
+
+def test_train_202_409_progress(server, toy_gpt_layers, toy_optimizer,
+                                toy_shards, monkeypatch):
+    """PUT /train/ answers 202 and trains in the background; a second PUT
+    while it runs is a 409; /progress/ reaches Trained with one entry per
+    epoch.  The run is held at its start by an event so the 409 is not a
+    race; the training itself is the real one."""
+    from penroz_tpu_torch.models import model as tmodel
+    release = threading.Event()
+    real = tmodel.NeuralNetworkModel.train_model
+
+    def held(self, *args, **kwargs):
+        assert release.wait(30)
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(tmodel.NeuralNetworkModel, "train_model", held)
+    assert _call(server, "POST", "/model/",
+                 {"model_id": "tr", "layers": toy_gpt_layers,
+                  "optimizer": toy_optimizer})[0] == 200
+    status, text = _call(server, "PUT", "/train/", _train_body("tr"))
+    assert status == 202, text
+    status, text = _call(server, "PUT", "/train/", _train_body("tr"))
+    assert status == 409 and "already in progress" in text
+    release.set()
+    body = _poll_progress(server, "tr", {"Trained", "Error"})
+    assert body["status"]["code"] == "Trained", body
+    assert [p["epoch"] for p in body["progress"]] == [1, 2, 3]
+    assert body["average_cost"] is not None
+    assert len(body["average_cost_history"]) == 1
+    # the model trains again once the first run is over
+    status, _ = _call(server, "PUT", "/train/", _train_body("tr", epochs=1))
+    assert status == 202
+    assert _poll_progress(server, "tr", {"Trained", "Error"}, )[
+        "status"]["code"] == "Trained"
+
+
+def test_train_errors(server, toy_gpt_layers, toy_optimizer, monkeypatch):
+    assert _call(server, "POST", "/model/",
+                 {"model_id": "e", "layers": toy_gpt_layers,
+                  "optimizer": toy_optimizer})[0] == 200
+    assert _call(server, "PUT", "/train/", _train_body("nope"))[0] == 404
+    status, text = _call(server, "PUT", "/train/", _train_body(
+        "e", adapter={"adapter_id": "a", "rank": 4}))
+    assert status == 400 and "LoRA" in text
+    assert _call(server, "PUT", "/train/",
+                 _train_body("e", device="tpuu"))[0] == 400
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _call(server, "PUT", "/train/",
+                 _train_body("e", device="cuda"))[0] == 400
+    body = _train_body("e")
+    del body["epochs"]
+    status, text = _call(server, "PUT", "/train/", body)
+    assert status == 422 and "epochs" in text
+    monkeypatch.setenv("PENROZ_TRAIN_WORKER", "1")
+    assert _call(server, "PUT", "/train/", _train_body("e"))[0] == 400
+    monkeypatch.delenv("PENROZ_TRAIN_WORKER")
+    assert _call(server, "GET", "/progress/?model_id=nope")[0] == 404
+    assert _call(server, "GET", "/progress/")[0] == 422
+    # a missing dataset fails in the background: status Error
+    status, _ = _call(server, "PUT", "/train/",
+                      _train_body("e", dataset_id="missing"))
+    assert status == 202
+    body = _poll_progress(server, "e", {"Error"})
+    assert "no shards" in body["status"]["message"]

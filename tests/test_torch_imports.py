@@ -35,3 +35,21 @@ def test_port_modules_import():
         rel = f.relative_to(ROOT).with_suffix("")
         parts = [p for p in rel.parts if p != "__init__"]
         importlib.import_module(".".join(parts))
+
+
+def test_training_slice_modules_import_without_a_card():
+    """The training slice's modules import on a host without nvcc or a
+    card: their kernels are built and loaded only when launched."""
+    import importlib
+    for name in ("penroz_tpu_torch.ops.kernels.flash_attention",
+                 "penroz_tpu_torch.ops.kernels.cross_entropy",
+                 "penroz_tpu_torch.ops.losses",
+                 "penroz_tpu_torch.data.loaders"):
+        module = importlib.import_module(name)
+        assert (ROOT / (name.replace(".", "/") + ".py")).exists()
+        assert module.__doc__
+    from penroz_tpu_torch.ops.kernels import build
+    assert "flash_attention" not in build._LIBS
+    assert "cross_entropy" not in build._LIBS
+    for src in ("flash_attention.cu", "cross_entropy.cu"):
+        assert (ROOT / "penroz_tpu_torch" / "csrc" / src).exists()

@@ -43,11 +43,11 @@ def test_forward_logits_match_jax(pair):
                                     jnp.asarray(x, jnp.int32),
                                     skip_softmax=True)
     with torch.no_grad():
-        tacts, _ = tm.arch(torch.as_tensor(x), skip_softmax=True)
+        tacts, _, _ = tm.arch(torch.as_tensor(x), skip_softmax=True)
     np.testing.assert_allclose(tacts[-1].numpy(), np.asarray(acts[-1]),
                                atol=1e-4)
     with torch.no_grad():
-        probs, _ = tm.arch(torch.as_tensor(x))
+        probs, _, _ = tm.arch(torch.as_tensor(x))
     assert probs[-1].shape == (2, 64)
 
 

@@ -15,8 +15,11 @@ prints no result:
                launch) and the least time the card could take (bound):
                decode attention (serving), flash attention forward and
                backward and cross-entropy forward and backward (training),
-               in fp32 and bf16.  Then the bounds of the TPU kernels not
-               ported yet, reckoned from their Pallas cost estimates.
+               paged decode (decode steps and phase 4's prefills of 128,
+               1004 and 1024 tokens) and ragged paged attention (paged pool
+               and continuous batching), in fp32 and bf16.  Then the bound of
+               the TPU kernel not ported yet, reckoned from its Pallas cost
+               estimate.
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
                50304, block 1024; random weights from seed 0): POST /model/,
@@ -24,9 +27,23 @@ prints no result:
                T=1024 re-prefill), under TURBO_QUANT_KV_CACHE=1, /decode/,
                DELETE /model/.  Kernel launch counts are reset just before
                and read just after; each generated token must have launched
-               the decode kernel once per attention layer.  Then the cached
-               (kernel) forward is held against the plain no-cache forward
-               (the plain versions patched in) on the card.
+               the decode kernel once per attention layer.  The same
+               requests again under PAGED_KV_CACHE=1 (fp32, past the block,
+               int8): the same tokens, the paged kernel 12 times a
+               generated token and the contiguous one not at all.  Then the
+               cached (kernel) forward is held against the plain no-cache
+               forward (the plain versions patched in) on the card.
+4b. continuous — a server under PAGED_KV_CACHE=1
+               PENROZ_CONTINUOUS_BATCHING=1 PENROZ_SCHED_MAX_ROWS=8: 8
+               concurrent greedy /generate/ (prompts of 16-700 tokens, 64
+               new, one streamed) and a /generate_batch/ of 4, each held
+               to the request served alone and, as the gate, to the argmax
+               of the plain no-cache forward over its prefix; the ragged
+               kernel launches 12 times per mixed step /serving_stats/
+               reports.  One request at temperature 0.8, twice: the same
+               tokens both times.  Aggregate tokens/s, p50 and max latency,
+               the same requests one after another, and a torch.profiler
+               pass.
 5. training  — the same server trains GPT-2 124M (AdamW, bf16 compute, the
                default on the card) through PUT /train/ on a synthetic uint16
                shard: batch 8 x block 1024, step 4 (two micro-steps an
@@ -80,6 +97,7 @@ SOURCES = [
     ("decode_attention", "penroz_tpu_torch/csrc/decode_attention.cu"),
     ("flash_attention", "penroz_tpu_torch/csrc/flash_attention.cu"),
     ("cross_entropy", "penroz_tpu_torch/csrc/cross_entropy.cu"),
+    ("paged_attention", "penroz_tpu_torch/csrc/paged_attention.cu"),
 ]
 # Launch sites of the main paths: (name, source, TPU kernel it replaces,
 # phase-3 case that stands for it).
@@ -98,6 +116,12 @@ KERNELS = [
     ("ce_backward", "penroz_tpu_torch/csrc/cross_entropy.cu",
      "penroz_tpu/ops/pallas/cross_entropy.py:147",
      "ce_gpt2_N8192_V50304_bf16_bwd"),
+    ("paged_decode_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
+     "penroz_tpu/ops/pallas/paged_attention.py:152",
+     "paged_gpt2_decode_L1024"),
+    ("ragged_paged_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
+     "penroz_tpu/ops/pallas/ragged_paged_attention.py:161",
+     "ragged_gpt2_mixed"),
 ]
 
 # Tolerances against the plain version (same inputs, same dtype).  fp32 and
@@ -533,6 +557,298 @@ def run_ce_case(torch, case, flush):
              2 * n * v * item + 8 * n + 4, ops, peak)]
 
 
+def _random_pools(torch, lengths, Hkv, D, P, pages_per_seq, dtype, int8,
+                  seed, extra_pages=4):
+    """Paged pools on the card with each sequence's live pages on shuffled
+    physical pages and -1 past them; int8 pools quantized by the cache's
+    own quantizer.  Returns (k, v, table, scale kwargs)."""
+    from penroz_tpu_torch.ops import kv_cache as KV
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    num_pages = len(lengths) * pages_per_seq + extra_pages
+    k = torch.randn(1, Hkv, num_pages * P, D, device="cuda", generator=g)
+    v = torch.randn(1, Hkv, num_pages * P, D, device="cuda", generator=g)
+    perm = torch.randperm(num_pages, device="cuda", generator=g).cpu()
+    table = torch.full((len(lengths), pages_per_seq), -1, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(lengths):
+        live = -(-n // P)
+        table[r, :live] = perm[used:used + live]
+        used += live
+    table = table.cuda()
+    if not int8:
+        return k[0].to(dtype), v[0].to(dtype), table, {}
+    qk, sk = KV._quantize_int8(k)
+    qv, sv = KV._quantize_int8(v)
+    return qk[0], qv[0], table, {"k_scale": sk[0], "v_scale": sv[0]}
+
+
+def _tolerance(torch, out, ref, ref_abs_fn, dtype_name):
+    """(max abs err, err / tol, tol text) of a kernel output against its
+    plain version: fp32 and int8 pools atol 1e-4; bf16 2^-7 · (Σ w|v| +
+    |ref|), Σ w|v| being the plain version run on |v| (ref_abs_fn)."""
+    diff = (out.float() - ref.float()).abs()
+    if dtype_name == "bfloat16":
+        tol = BF16_STEP * (ref_abs_fn().float() + ref.float().abs())
+        text = "2^-7 * (sum w|v| + |ref|)"
+    else:
+        tol = torch.full_like(diff, FP32_ATOL)
+        text = f"atol {FP32_ATOL}"
+    # a padding slot has err = tol = 0
+    ratio = float((diff / tol.clamp_min(1e-30)).max())
+    return float(diff.max()), ratio, text
+
+
+def _live_rows(P, spans_or_lengths, window=None):
+    """Key rows a kernel must read per kv head: each sequence's live pages
+    (from the window's first page), once."""
+    total = 0
+    for first_pos, end in spans_or_lengths:
+        lo = max(0, first_pos - window + 1) // P * P if window else 0
+        total += -(-end // P) * P - lo
+    return total
+
+
+def run_paged_case(torch, case, flush):
+    """The paged decode kernel against its plain version; one row."""
+    from penroz_tpu_torch.ops import attention as A
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    F = torch.nn.functional
+    Hq, Hkv, T, D, P = (case[k] for k in ("Hq", "Hkv", "T", "D", "P"))
+    lengths = case["lengths"]
+    B = len(lengths)
+    dtype = getattr(torch, case["dtype"])
+    pages = -(-max(lengths) // P) + case.get("spare_pages", 0)
+    k, v, table, scales = _random_pools(torch, lengths, Hkv, D, P, pages,
+                                        dtype, case.get("int8"), case["seed"])
+    g = torch.Generator(device="cuda").manual_seed(case["seed"] + 1)
+    q = torch.randn(B, Hq, T, D, device="cuda", generator=g).to(dtype)
+    kw = {"window": case.get("window"), "softcap": case.get("softcap")}
+    if case.get("alibi"):
+        kw["alibi"] = A.alibi_slopes(Hq)
+    if B == 1:  # the single-sequence path passes an int length
+        length, offset = lengths[0], lengths[0] - T
+    else:
+        length, offset = torch.tensor(lengths, dtype=torch.int32,
+                                      device="cuda"), 0
+    kernel = lambda: PA.paged_decode_attention(  # noqa: E731
+        q, k, v, table, P, offset, length, **scales, **kw)
+    plain = lambda: PA.paged_decode_attention_reference(  # noqa: E731
+        q, k, v, table, P, offset, length, **scales, **kw)
+    before = PA.paged_decode_attention.launches
+    out = kernel()
+    torch.cuda.synchronize()
+    check(PA.paged_decode_attention.launches == before + 1,
+          f"{case['name']}: launch not counted")
+    check(bool(torch.isfinite(out).all()), f"{case['name']}: non-finite")
+    ref = plain()
+    err, ratio, text = _tolerance(
+        torch, out, ref, lambda: PA.paged_decode_attention_reference(
+            q, k, v.abs(), table, P, offset, length, **scales, **kw),
+        case["dtype"])
+    check(ratio <= 1.0, f"{case['name']}: max abs err {err:.3e}, "
+          f"{ratio:.2f} x the tolerance {text}")
+    iters = case.get("iters", 20)
+    ms = _time_ms(torch, kernel, iters, flush)
+    plain_ms = _time_ms(torch, plain, max(3, iters // 4), flush)
+
+    library_ms = None
+    if not case.get("softcap"):
+        # one PyTorch call on the already-gathered (dequantized) dense view:
+        # a yardstick only, which leaves the gather out
+        kd, vd = PA.dequantized_views(q, k, v, table, P,
+                                      scales.get("k_scale"),
+                                      scales.get("v_scale"))
+        L = max(lengths)
+        kd, vd = kd[:, :, :L].contiguous(), vd[:, :, :L].contiguous()
+        lens = torch.tensor(lengths, device="cuda")
+        pos = lens[:, None] - T + torch.arange(T, device="cuda")[None, :]
+        key = torch.arange(L, device="cuda")
+        mask = key[None, None, :] <= pos[:, :, None]          # (B, T, L)
+        if kw["window"]:
+            mask &= key[None, None, :] > pos[:, :, None] - kw["window"]
+        if case.get("alibi"):
+            slopes = torch.as_tensor(kw["alibi"], device="cuda")
+            bias = slopes[None, :, None, None] * (
+                key[None, None, None, :] - pos[:, None, :, None]).float()
+            attn_mask = bias.masked_fill(~mask[:, None], float("-inf")
+                                         ).to(dtype)
+        else:
+            attn_mask = mask[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, kd, vd, attn_mask=attn_mask, enable_gqa=Hq != Hkv)
+        library_ms = _time_ms(torch, sdpa, iters, flush)
+        del kd, vd
+
+    item = torch.empty((), dtype=dtype).element_size()
+    kv_item = 1 if case.get("int8") else item
+    scale_bytes = 4 if case.get("int8") else 0
+    rows = _live_rows(P, [(n - T, n) for n in lengths], kw["window"])
+    pairs = sum(_attended_pairs(T, n, kw["window"])[0] for n in lengths)
+    nbytes = (2 * q.numel() * item + 2 * Hkv * rows * (D * kv_item
+                                                       + scale_bytes)
+              + table.numel() * 4)
+    return _row(case["name"], err, ratio, text, ms, plain_ms, library_ms,
+                nbytes, 4 * D * pairs * Hq, PEAK_OPS_PER_S[case["dtype"]])
+
+
+def run_ragged_case(torch, case, flush):
+    """The ragged kernel against its plain version; one row.  ``spans``:
+    (q_start, q_len) per row (row i is span i)."""
+    from penroz_tpu_torch.ops import attention as A
+    from penroz_tpu_torch.ops import kv_cache as KV
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.utils import bucketing
+    F = torch.nn.functional
+    Hq, Hkv, D, P, BQ = (case[k] for k in ("Hq", "Hkv", "D", "P", "BQ"))
+    spans = [(i, q0, n) for i, (q0, n) in enumerate(case["spans"])]
+    dtype = getattr(torch, case["dtype"])
+    ends = [q0 + n for _, q0, n in spans]
+    pages = -(-max(ends) // P)
+    k, v, table, scales = _random_pools(torch, ends, Hkv, D, P, pages,
+                                        dtype, case.get("int8"), case["seed"])
+    need = sum(-(-n // BQ) for _, _, n in spans)
+    NB = bucketing.bucket_count(need + case.get("padding", 0))
+    descs_np, offsets = KV.build_descriptors(spans, BQ, NB)
+    descs = torch.as_tensor(descs_np, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(case["seed"] + 1)
+    q = torch.randn(1, Hq, NB * BQ, D, device="cuda", generator=g).to(dtype)
+    kw = {"window": case.get("window"), "softcap": case.get("softcap")}
+    if case.get("alibi"):
+        kw["alibi"] = A.alibi_slopes(Hq)
+    kernel = lambda: RPA.ragged_paged_attention(  # noqa: E731
+        q, k, v, table, P, descs, **scales, **kw)
+    plain = lambda: RPA.ragged_paged_attention_reference(  # noqa: E731
+        q, k, v, table, P, descs, **scales, **kw)
+    before = RPA.ragged_paged_attention.launches
+    out = kernel()
+    torch.cuda.synchronize()
+    check(RPA.ragged_paged_attention.launches == before + 1,
+          f"{case['name']}: launch not counted")
+    check(bool(torch.isfinite(out).all()), f"{case['name']}: non-finite")
+    real = torch.zeros(NB * BQ, dtype=torch.bool)
+    for (_, _, n), off in zip(spans, offsets):
+        real[torch.as_tensor(KV.packed_slots(off, n, BQ))] = True
+    check(bool((out[0][:, ~real.cuda()] == 0).all()),
+          f"{case['name']}: padding slots are not zero")
+    ref = plain()
+    err, ratio, text = _tolerance(
+        torch, out, ref, lambda: RPA.ragged_paged_attention_reference(
+            q, k, v.abs(), table, P, descs, **scales, **kw), case["dtype"])
+    check(ratio <= 1.0, f"{case['name']}: max abs err {err:.3e}, "
+          f"{ratio:.2f} x the tolerance {text}")
+    iters = case.get("iters", 20)
+    ms = _time_ms(torch, kernel, iters, flush)
+    plain_ms = _time_ms(torch, plain, max(3, iters // 4), flush)
+
+    library_ms = None
+    if not case.get("softcap"):
+        # SDPA over each descriptor block against its row's already-gathered
+        # dense view (the gather left out), masks as the kernel's
+        row = torch.clamp(descs[:, 0], min=0).long()
+        kd, vd = (x[:, :, :max(ends)].contiguous() for x in
+                  PA.dequantized_views(q, k, v, table[row], P,
+                                       scales.get("k_scale"),
+                                       scales.get("v_scale")))
+        qd = q[0].reshape(Hq, NB, BQ, D).transpose(0, 1).contiguous()
+        t = torch.arange(BQ, device="cuda")
+        q_abs = descs[:, 1:2] + t[None, :]
+        valid = (t[None, :] < descs[:, 2:3]) & (descs[:, 0:1] >= 0)
+        key = torch.arange(max(ends), device="cuda")
+        mask = (key[None, None, :] <= q_abs[:, :, None]) | ~valid[:, :, None]
+        if kw["window"]:
+            mask &= (key[None, None, :] > q_abs[:, :, None] - kw["window"]
+                     ) | ~valid[:, :, None]
+        if case.get("alibi"):
+            slopes = torch.as_tensor(kw["alibi"], device="cuda")
+            bias = slopes[None, :, None, None] * (
+                key[None, None, None, :] - q_abs[:, None, :, None]).float()
+            attn_mask = bias.masked_fill(~mask[:, None], float("-inf")
+                                         ).to(dtype)
+        else:
+            attn_mask = mask[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd, kd, vd, attn_mask=attn_mask, enable_gqa=Hq != Hkv)
+        library_ms = _time_ms(torch, sdpa, max(3, iters // 2), flush)
+        del kd, vd, qd
+
+    item = torch.empty((), dtype=dtype).element_size()
+    kv_item = 1 if case.get("int8") else item
+    scale_bytes = 4 if case.get("int8") else 0
+    rows = _live_rows(P, [(q0, q0 + n) for _, q0, n in spans], kw["window"])
+    pairs = 0
+    for _, q0, n in spans:
+        for t_ in range(n):
+            pos = q0 + t_
+            lo = max(0, pos - kw["window"] + 1) if kw["window"] else 0
+            pairs += pos - lo + 1
+    nbytes = (2 * q.numel() * item + 2 * Hkv * rows * (D * kv_item
+                                                       + scale_bytes)
+              + descs.numel() * 4 + table.numel() * 4)
+    return _row(case["name"], err, ratio, text, ms, plain_ms, library_ms,
+                nbytes, 4 * D * pairs * Hq, PEAK_OPS_PER_S[case["dtype"]])
+
+
+def paged_cases():
+    gpt2 = dict(Hq=12, Hkv=12, T=1, D=64, P=128)
+    spread = [1024, 700, 129, 1, 513, 900, 257, 64]
+    cases = [
+        dict(gpt2, name="paged_gpt2_decode_L1024", lengths=[1024],
+             dtype="float32"),
+        dict(gpt2, name="paged_gpt2_B8_L1024_bf16", lengths=[1024] * 8,
+             dtype="bfloat16"),
+        dict(gpt2, name="paged_gpt2_decode_L1024_int8", lengths=[1024],
+             dtype="float32", int8=True),
+        dict(name="paged_gqa32x8_D128_L1024", Hq=32, Hkv=8, T=1, D=128,
+             P=128, lengths=[1024], dtype="float32"),
+        dict(gpt2, name="paged_gpt2_window128_alibi", lengths=[1024],
+             dtype="float32", window=128, alibi=True),
+        dict(gpt2, name="paged_gpt2_softcap30", lengths=[1024],
+             dtype="float32", softcap=30.0),
+        dict(gpt2, name="paged_gpt2_B8_ragged_unassigned", lengths=spread,
+             dtype="float32", spare_pages=2),
+        # the prefills of phase 4's paged requests: the 128-token prompt,
+        # the overflow prompt and the re-prefill of the crop past the block
+        dict(gpt2, name="paged_gpt2_prefill_T128", T=128, lengths=[128],
+             dtype="float32", spare_pages=7, iters=10),
+        dict(gpt2, name="paged_gpt2_prefill_T1004", T=1004, lengths=[1004],
+             dtype="float32", iters=5),
+        dict(gpt2, name="paged_gpt2_prefill_T1024", T=1024, lengths=[1024],
+             dtype="float32", iters=5),
+    ]
+    for i, c in enumerate(cases):
+        c["seed"] = 200 + i
+    return cases
+
+
+def ragged_cases():
+    gpt2 = dict(Hq=12, Hkv=12, D=64, P=128, BQ=8)
+    # one 256-token chunk from position 0 and 7 decode rows at lengths
+    # spread over 100-1000: a GPT-2 mixed step of the scheduler
+    mixed = [(0, 256)] + [(n - 1, 1) for n in
+                          (100, 250, 400, 550, 700, 850, 1000)]
+    cases = [
+        dict(gpt2, name="ragged_gpt2_mixed", spans=mixed, dtype="float32"),
+        dict(gpt2, name="ragged_gpt2_mixed_bf16", spans=mixed,
+             dtype="bfloat16"),
+        dict(gpt2, name="ragged_8x128_bf16", spans=[(896, 128)] * 8,
+             dtype="bfloat16", BQ=128, iters=10),
+        dict(gpt2, name="ragged_gpt2_mixed_int8", spans=mixed,
+             dtype="float32", int8=True),
+        dict(name="ragged_gqa32x8_D128", Hq=32, Hkv=8, D=128, P=128, BQ=8,
+             spans=[(0, 64), (300, 1), (600, 1), (900, 1)],
+             dtype="float32"),
+        dict(gpt2, name="ragged_gpt2_window_alibi_softcap", spans=mixed,
+             dtype="float32", window=128, alibi=True, softcap=30.0),
+        dict(gpt2, name="ragged_gpt2_padding", spans=[(99, 1), (499, 1),
+                                                      (9, 3)],
+             dtype="float32", padding=10),
+    ]
+    for i, c in enumerate(cases):
+        c["seed"] = 300 + i
+    return cases
+
+
 def training_cases():
     gpt2 = dict(B=8, Hq=12, Hkv=12, T=1024, D=64)
     cases = [dict(gpt2, name="flash_gpt2_B8_T1024_bf16", dtype="bfloat16"),
@@ -591,6 +907,12 @@ def phase_kernels(torch):
         for row in run_ce_case(torch, case, flush):
             rows[row["name"]] = row
         torch.cuda.empty_cache()
+    for case in paged_cases():
+        rows[case["name"]] = run_paged_case(torch, case, flush)
+        torch.cuda.empty_cache()
+    for case in ragged_cases():
+        rows[case["name"]] = run_ragged_case(torch, case, flush)
+        torch.cuda.empty_cache()
     del flush
     say("kernels", f"ok: {len(rows)} cases within tolerance")
     return rows
@@ -601,15 +923,8 @@ def unported_bounds():
     each Pallas kernel's own ``pl.CostEstimate`` (flops, bytes_accessed) at
     GPT-2 width (12 heads, D 64, 1024 positions) against the peaks above."""
     H, D, T, B = 12, 64, 1024, 8
-    nb, bq, bt = 8, 128, 128
+    bt = 128
     cases = [  # (kernel, shape, flops, bytes, dtype of its arithmetic)
-        ("paged_decode_attention (paged_attention.py:258)",
-         "decode of 8 sequences x 1024 cached tokens, bf16",
-         4 * B * H * T * D, (B * H * D + 2 * B * T * H * D) * 2, "bfloat16"),
-        ("ragged_paged_attention (ragged_paged_attention.py:278)",
-         "8 descriptors x 128 packed rows over a 1024-key span, bf16",
-         4 * H * nb * bq * T * D,
-         2 * H * nb * bq * D * 2 + nb * 2 * H * T * D * 2, "bfloat16"),
         ("gla_chunked (ssm_scan.py:120)",
          "B 8, T 1024, dk = dv = 64, block 128, fp32",
          4 * B * H * T * bt * 2 * D, 4 * B * H * T * D * 4, "float32")]
@@ -761,6 +1076,11 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
             f"tokens/s (checkpoint load {stats['checkpoint_load_s']:.2f} s "
             f"apart) on {card}")
 
+        paged_stats, paged_launches = _paged_single_sequence(
+            torch, base, model, greedy, over, first, tokens, int8, n_attn,
+            card)
+        stats.update(paged_stats)
+
         status, text, _ = _post(base, "/decode/", {"encoding": "byte",
                                                   "tokens": first})
         check(status == 200 and "text" in json.loads(text), "/decode/ failed")
@@ -769,7 +1089,8 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
         check(status == 204, f"DELETE /model/ -> {status}")
         status, _, _ = _post(base, "/generate/", greedy)
         check(status == 404, f"/generate/ after DELETE -> {status}")
-        launches = {"decode_attention": DA.decode_attention.launches}
+        launches = {"decode_attention": DA.decode_attention.launches,
+                    "paged_decode_attention": paged_launches}
         stats["generated_tokens"] = generated
         say("main_path", f"/decode/ 200, DELETE 204, then 404; kernel "
             f"launches {launches} for {generated} generated tokens x "
@@ -801,6 +1122,381 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
         checkpoint.join_flushes()
     check(not thread.is_alive(), "server thread did not stop")
     return stats, launches
+
+
+def _paged_single_sequence(torch, base, model, greedy, over, first,
+                           over_tokens, int8_tokens, n_attn, card):
+    """Phase 4's requests again under PAGED_KV_CACHE=1 (fp32, past the
+    block, int8 with TURBO_QUANT_KV_CACHE=1): the same greedy tokens as
+    the contiguous cache's, through the paged kernel, 12 launches a
+    generated token and no launch of the contiguous decode kernel.  The
+    paged count is reset just before and read just after."""
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    stats = {}
+    da_before = DA.decode_attention.launches
+    PA.paged_decode_attention.launches = 0
+    generated = 0
+    os.environ["PAGED_KV_CACHE"] = "1"
+    try:
+        status, text, secs = _post(base, "/generate/", greedy)
+        check(status == 200 and json.loads(text)["tokens"] == first,
+              f"paged /generate/ -> {status}: tokens differ from the "
+              f"contiguous cache's")
+        generated += NEW_TOKENS
+        stats["paged_request_s"] = secs
+        status, text, secs = _post(base, "/generate/", over)
+        check(status == 200 and json.loads(text)["tokens"] == over_tokens,
+              f"paged overflow /generate/ -> {status}: tokens differ from "
+              f"the contiguous cache's")
+        generated += OVERFLOW_NEW
+        stats["paged_overflow_request_s"] = secs
+        os.environ["TURBO_QUANT_KV_CACHE"] = "1"
+        try:
+            status, text, secs = _post(base, "/generate/", greedy)
+        finally:
+            del os.environ["TURBO_QUANT_KV_CACHE"]
+        check(status == 200 and json.loads(text)["tokens"] == int8_tokens,
+              f"int8 paged /generate/ -> {status}: tokens differ from the "
+              f"contiguous int8 cache's")
+        generated += NEW_TOKENS
+        stats["paged_int8_request_s"] = secs
+        t0 = time.monotonic()
+        direct = model.generate_tokens(greedy["input"], greedy["block_size"],
+                                       NEW_TOKENS, temperature=0)
+        torch.cuda.synchronize()
+        stats["paged_generate_s"] = time.monotonic() - t0
+        check(direct == first, "paged generate_tokens != contiguous")
+        generated += NEW_TOKENS
+    finally:
+        del os.environ["PAGED_KV_CACHE"]
+    launches = PA.paged_decode_attention.launches
+    stats["paged_tokens_per_s"] = NEW_TOKENS / stats["paged_generate_s"]
+    say("main_path", f"PAGED_KV_CACHE=1: greedy, overflow past the block and "
+        f"int8 tokens equal the contiguous cache's; generate_tokens "
+        f"{stats['paged_generate_s']:.3f} s = "
+        f"{stats['paged_tokens_per_s']:.1f} tokens/s on {card}; paged "
+        f"kernel launches {launches} for {generated} tokens x {n_attn} "
+        f"layers")
+    check(launches == n_attn * generated,
+          f"paged_decode_attention launched {launches} times, expected "
+          f"{n_attn * generated}")
+    check(DA.decode_attention.launches == da_before,
+          "decode_attention launched on the paged path")
+    return stats, launches
+
+
+# ---------------------------------------------------------------------------
+# 4b: continuous batching over HTTP
+# ---------------------------------------------------------------------------
+
+CB_PROMPT_LENS = (16, 64, 128, 200, 256, 300, 500, 700)
+CB_NEW_TOKENS = 64
+CB_BATCH_ROWS = 4
+CB_ENV = {"PAGED_KV_CACHE": "1", "PENROZ_CONTINUOUS_BATCHING": "1",
+          "PENROZ_SCHED_MAX_ROWS": "8"}
+# A generated token passes the argmax check when its logit is within this
+# of the top logit of the plain no-cache forward over its prefix (fp32).
+ARGMAX_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def _env(values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_continuous_batching(torch, layers, optimizer, block, vocab, card,
+                              device="cuda"):
+    """GPT-2 124M under PAGED_KV_CACHE=1 PENROZ_CONTINUOUS_BATCHING=1
+    PENROZ_SCHED_MAX_ROWS=8 (superstep 8, chunk 256, the defaults): 8
+    concurrent greedy /generate/ requests (prompts of CB_PROMPT_LENS
+    tokens, numpy seed 0 ids, 64 new tokens; one streamed), then one
+    /generate_batch/ of 4 rows.  Each result is held against the same
+    request served alone (single sequence, paged; exact matches counted)
+    and, as the gate, each generated token must be the argmax of the plain
+    no-cache forward over its prefix within ARGMAX_ATOL.  The ragged
+    kernel must launch once per attention layer per mixed step that
+    /serving_stats/ reports, and some tick must mix prefill and decode
+    rows.  Counts are reset just before the traffic and read just after."""
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import CompiledArch
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve.app import create_app
+    from penroz_tpu_torch.utils import checkpoint
+
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in CB_PROMPT_LENS]
+    bodies = [{"model_id": "smoke_cb", "input": [p], "block_size": block,
+               "max_new_tokens": CB_NEW_TOKENS, "temperature": 0}
+              for p in prompts]
+    server = create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    stats = {}
+    try:
+        status, text, _ = _post(base, "/model/", {
+            "model_id": "smoke_cb", "layers": layers,
+            "optimizer": optimizer})
+        check(status == 200, f"POST /model/ -> {status}: {text[:300]}")
+        # the same requests alone, one after another (single sequence)
+        alone = []
+        with _env({"PAGED_KV_CACHE": "1"}):
+            t0 = time.monotonic()
+            for body in bodies:
+                status, text, _ = _post(base, "/generate/", body)
+                check(status == 200, f"/generate/ alone -> {status}: "
+                      f"{text[:300]}")
+                alone.append(json.loads(text)["tokens"])
+            stats["sequential_s"] = time.monotonic() - t0
+        stats["sequential_tokens_per_s"] = (
+            len(bodies) * CB_NEW_TOKENS / stats["sequential_s"])
+
+        with _env(CB_ENV):
+            # warm-up: the engine loads the model at its first request
+            status, text, _ = _post(base, "/generate/", dict(
+                bodies[0], max_new_tokens=2))
+            check(status == 200, f"warm-up -> {status}: {text[:300]}")
+            engine_stats = json.loads(_post(base, "/serving_stats/", None,
+                                            method="GET")[1])
+            steps_before = sum(t["superstep"]
+                               for t in engine_stats["tick_timeline"])
+            dispatches_before = engine_stats["dispatches_total"]
+            for fn in (RPA.ragged_paged_attention, PA.paged_decode_attention,
+                       DA.decode_attention):
+                fn.launches = 0
+            results = [None] * len(bodies)
+            latency = [None] * len(bodies)
+
+            def fire(i):
+                if i == 3:  # one streamed request (_stream checks its 200)
+                    toks, _, secs = _stream(base, bodies[i])
+                    out = prompts[i] + toks
+                else:
+                    status, text, secs = _post(base, "/generate/",
+                                               bodies[i])
+                    out = json.loads(text)["tokens"] if status == 200 else []
+                if len(out) == len(prompts[i]) + CB_NEW_TOKENS:
+                    results[i] = out
+                latency[i] = secs
+
+            t0 = time.monotonic()
+            threads = [threading.Thread(target=fire, args=(i,))
+                       for i in range(len(bodies))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            stats["concurrent_s"] = time.monotonic() - t0
+            check(all(r is not None for r in results),
+                  "a concurrent request failed or came back short")
+            status, text, secs = _post(base, "/generate_batch/", {
+                "model_id": "smoke_cb", "inputs": prompts[:CB_BATCH_ROWS],
+                "block_size": block, "max_new_tokens": CB_NEW_TOKENS,
+                "temperature": 0})
+            check(status == 200, f"/generate_batch/ -> {status}: "
+                  f"{text[:300]}")
+            batch = json.loads(text)["sequences"]
+            check([len(b) for b in batch] == [len(p) + CB_NEW_TOKENS for p
+                                              in prompts[:CB_BATCH_ROWS]],
+                  "/generate_batch/ returned short sequences")
+            stats["batch_request_s"] = secs
+            status, text, _ = _post(base, "/serving_stats/", None,
+                                    method="GET")
+            launches = {"ragged_paged_attention":
+                        RPA.ragged_paged_attention.launches,
+                        "paged_decode_attention":
+                        PA.paged_decode_attention.launches,
+                        "decode_attention": DA.decode_attention.launches}
+            # sampled continuous batching (temperature 0.8, its own
+            # engine): the same request twice draws the same tokens, since
+            # each (row, position) has its own key, through the ragged kernel
+            sampled = []
+            for _ in range(2):
+                status_s, text_s, _ = _post(base, "/generate/", dict(
+                    bodies[2], temperature=0.8))
+                check(status_s == 200, f"sampled /generate/ -> {status_s}: "
+                      f"{text_s[:300]}")
+                sampled.append(json.loads(text_s)["tokens"])
+            n_p = len(prompts[2])
+            check(all(len(t) == n_p + CB_NEW_TOKENS and t[:n_p] == prompts[2]
+                      and all(0 <= x < vocab for x in t[n_p:])
+                      for t in sampled), "a sampled result is malformed")
+            check(sampled[0] == sampled[1],
+                  "the same sampled request drew different tokens")
+            check(RPA.ragged_paged_attention.launches
+                  > launches["ragged_paged_attention"],
+                  "the sampled requests did not launch the ragged kernel")
+            stats["sampled_differs_from_greedy"] = (
+                sampled[0] != results[2])
+            say("continuous", f"temperature 0.8: two runs of one request "
+                f"drew the same {CB_NEW_TOKENS} tokens "
+                f"({'not ' if not stats['sampled_differs_from_greedy'] else ''}"
+                f"different from greedy)")
+        check(status == 200, f"/serving_stats/ -> {status}")
+        serving = json.loads(text)
+        timeline = serving["tick_timeline"]
+        ticks = serving["dispatches_total"] - dispatches_before
+        check(len(timeline) == serving["dispatches_total"],
+              f"tick timeline holds {len(timeline)} of "
+              f"{serving['dispatches_total']} ticks")
+        steps = sum(t["superstep"] for t in timeline) - steps_before
+        mixed = [t for t in timeline
+                 if t["prefill_rows"] > 0 and t["decode_rows"] > 0]
+        stats.update(
+            concurrent_tokens_per_s=(len(bodies) * CB_NEW_TOKENS
+                                     / stats["concurrent_s"]),
+            latency_s=latency,
+            latency_p50_s=float(np.median(latency)),
+            latency_max_s=max(latency), ticks=ticks, mixed_steps=steps,
+            mixed_ticks=len(mixed),
+            max_superstep=max(t["superstep"] for t in timeline),
+            decode_tokens=serving["decode_tokens"],
+            decode_steps=serving["decode_steps"],
+            dispatch_ms=[t["dispatch_ms"] for t in timeline])
+        outputs = results + batch
+        references = alone + alone[:CB_BATCH_ROWS]
+        stats["exact_matches"] = sum(a == b for a, b in
+                                     zip(outputs, references))
+        say("continuous", f"8 concurrent /generate/ (one streamed) + a "
+            f"/generate_batch/ of {CB_BATCH_ROWS}: {ticks} unified ticks, "
+            f"{steps} mixed steps (superstep <= {stats['max_superstep']}), "
+            f"{len(mixed)} ticks mixing prefill and decode rows; "
+            f"{stats['exact_matches']}/{len(outputs)} results equal to the "
+            f"request served alone")
+        say("continuous", f"concurrent: {stats['concurrent_s']:.3f} s, "
+            f"{stats['concurrent_tokens_per_s']:.1f} tokens/s, latency p50 "
+            f"{stats['latency_p50_s']:.3f} s max "
+            f"{stats['latency_max_s']:.3f} s; the same 8 one after another: "
+            f"{stats['sequential_s']:.3f} s, "
+            f"{stats['sequential_tokens_per_s']:.1f} tokens/s; batch of "
+            f"{CB_BATCH_ROWS}: {stats['batch_request_s']:.3f} s, on {card}")
+
+        # the gate: every generated token is the argmax (within
+        # ARGMAX_ATOL) of the plain no-cache forward over its prefix
+        model = DS.get_engine("smoke_cb", block, 0, None,
+                              device=server.device)._model
+        worst = 0.0
+        with torch.inference_mode(), plain_kernels():
+            for out in outputs:
+                n_prompt = len(out) - CB_NEW_TOKENS
+                check(out[:n_prompt] in prompts, "a result lost its prompt")
+                x = torch.tensor([out[:-1]], device=device)
+                acts, _, _ = model.arch(x, skip_softmax=True)
+                logits = acts[-1][0, n_prompt - 1:].float()
+                gen = torch.tensor(out[n_prompt:], device=device)
+                gap = logits.max(-1).values - logits.gather(
+                    -1, gen[:, None])[:, 0]
+                worst = max(worst, float(gap.max()))
+        stats["argmax_worst_gap"] = worst
+        say("continuous", f"every generated token is the argmax of the "
+            f"plain no-cache forward over its prefix: worst gap to the top "
+            f"logit {worst:.2e} (<= {ARGMAX_ATOL})")
+        check(worst <= ARGMAX_ATOL, f"a generated token is {worst:.3e} below "
+              f"the top logit of the plain forward")
+        say("continuous", f"kernel launches {launches} for {steps} mixed "
+            f"steps x {n_attn} attention layers")
+        check(launches["ragged_paged_attention"] == n_attn * steps,
+              f"ragged_paged_attention launched "
+              f"{launches['ragged_paged_attention']} times, expected "
+              f"{n_attn * steps}")
+        check(launches["paged_decode_attention"] == 0
+              and launches["decode_attention"] == 0,
+              "a single-sequence kernel launched under continuous batching")
+        check(mixed, "no tick mixed prefill and decode rows")
+        stats.update(_profile_continuous(torch, base, bodies, model,
+                                         device))
+        say("continuous", f"loaded model, the same 8 one after another "
+            f"(single sequence, paged): {stats['loaded_sequential_s']:.3f} "
+            f"s = {stats['loaded_sequential_tokens_per_s']:.1f} tokens/s; "
+            f"the 8 concurrent again under torch.profiler: device busy "
+            f"{stats['profile_device_ms']:.2f} ms of "
+            f"{stats['profile_wall_ms']:.2f} ms "
+            f"({stats['profile_busy_share']:.1%}), ragged kernel "
+            f"{stats['profile_ragged_ms']:.2f} ms, cuBLAS "
+            f"{stats['profile_gemm_ms']:.2f} ms, on {card}")
+    finally:
+        DS.reset()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    return stats, launches["ragged_paged_attention"]
+
+
+def _profile_continuous(torch, base, bodies, model, device):
+    """Where the continuous-batching time goes: the 8 requests one after
+    another through generate_tokens with the model already loaded (the
+    single-sequence decode rate, without the per-request checkpoint load
+    of the HTTP path), then the 8 concurrent requests again under
+    torch.profiler: the device's busy share of the wall time, and the
+    ragged kernel's and cuBLAS's device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    with _env({"PAGED_KV_CACHE": "1"}):
+        t0 = time.monotonic()
+        for body in bodies:
+            model.generate_tokens(body["input"], body["block_size"],
+                                  body["max_new_tokens"], temperature=0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out["loaded_sequential_s"] = time.monotonic() - t0
+    out["loaded_sequential_tokens_per_s"] = (
+        len(bodies) * CB_NEW_TOKENS / out["loaded_sequential_s"])
+    done = [False] * len(bodies)
+
+    def fire(i):
+        status, text, _ = _post(base, "/generate/", bodies[i])
+        done[i] = status == 200 and len(json.loads(text)["tokens"]) == (
+            len(bodies[i]["input"][0]) + CB_NEW_TOKENS)
+
+    with _env(CB_ENV), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        out["profile_wall_ms"] = (time.monotonic() - t0) * 1e3
+    check(all(done), "a profiled request failed or came back short")
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and "#" not in evt.name):
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + \
+                evt.time_range.elapsed_us() / 1e3
+    device_ms = sum(kernels.values())
+    check(device == "cpu" or device_ms > 0, "the profiler saw no device time")
+    out.update(
+        profile_device_ms=device_ms,
+        profile_busy_share=device_ms / out["profile_wall_ms"],
+        profile_ragged_ms=sum(ms for n, ms in kernels.items()
+                              if "ragged_paged_kernel" in n),
+        profile_gemm_ms=sum(ms for n, ms in kernels.items()
+                            if any(f in n.lower() for f in (
+                                "gemm", "cutlass", "xmma", "nvjet"))),
+        profile_top_kernels_ms=[(n[:90], ms) for n, ms in sorted(
+            kernels.items(), key=lambda kv: -kv[1])[:10]])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1095,6 +1791,9 @@ def main(argv=None) -> int:
         stats, launches = phase_main_path(
             torch, "cuda", presets.gpt2(), presets.ADAMW, block=1024,
             vocab=50304, card=card)
+        cb_stats, launches["ragged_paged_attention"] = \
+            phase_continuous_batching(torch, presets.gpt2(), presets.ADAMW,
+                                      block=1024, vocab=50304, card=card)
         train_stats, train_launches = phase_training(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304, card=card)
         launches.update(train_launches)
@@ -1120,6 +1819,7 @@ def main(argv=None) -> int:
         with open(out, "w") as f:
             json.dump({"card": card, "cases": rows,
                        "unported_bounds": bounds, "main_path": stats,
+                       "continuous_batching": cb_stats,
                        "training": train_stats, "micro_step": step_stats,
                        "launches": launches,
                        "seconds": time.monotonic() - t_start}, f, indent=1)

@@ -4,12 +4,16 @@ facade (counterpart of penroz_tpu/models/model.py: serving and training).
 - :class:`CompiledArch` — a layer DSL built into an ``nn.Module`` tree whose
   ``state_dict`` keys equal the JAX package's flat parameter keys, with the
   forward and its cost, one training epoch (``train_epoch``), the one-step
-  decode (``_decode_step``) and sampling (``_sample``).
+  decode (``_decode_step``) and sampling (``_sample``, and
+  ``_sample_packed`` with positional keys for packed batches).
 - :class:`NeuralNetworkModel` — create, ``state_dict``, serialize /
   deserialize / delete over the ``PENROZC1`` container (optimizer state in
   the JAX package's optax leaf layout), training (``train_model``,
-  ``train_model_on_device``) and generation
-  (``generate_tokens``/``generate_tokens_stream`` over ``_generate_iter``).
+  ``train_model_on_device``), generation
+  (``generate_tokens``/``generate_tokens_stream`` over ``_generate_iter``,
+  on the contiguous cache or, under ``PAGED_KV_CACHE=1``, the paged pool)
+  and the continuous-batching scheduler's unified block
+  (``decode_mixed_step``).
 
 Training runs on one device.  Out of this slice, and refused with a
 ValueError (HTTP 400) rather than ignored: LoRA adapters, the training
@@ -42,6 +46,7 @@ from penroz_tpu_torch.device import resolve_device
 from penroz_tpu_torch.models import convert, dsl
 from penroz_tpu_torch.models.convert import as_tensor, from_jax_state_dict
 from penroz_tpu_torch.models.dsl import Mapper
+from penroz_tpu_torch.ops import attention as attn_ops
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops import losses
 from penroz_tpu_torch.ops import modules as M
@@ -78,6 +83,44 @@ def unported_training_options() -> None:
         if value is not None and value != off:
             raise ValueError(f"{name}={value!r} selects {what}, which "
                              f"penroz_tpu_torch does not support yet")
+
+
+def _max_generate_batch() -> int:
+    """Server-side /generate_batch/ row cap (PENROZ_MAX_GENERATE_BATCH)."""
+    try:
+        return max(1, int(os.environ.get("PENROZ_MAX_GENERATE_BATCH", "64")))
+    except ValueError:
+        log.warning("Unparseable PENROZ_MAX_GENERATE_BATCH=%r; "
+                    "using default 64",
+                    os.environ.get("PENROZ_MAX_GENERATE_BATCH"))
+        return 64
+
+
+def validate_batch_generation(prompts: list[list[int]], block_size: int,
+                              max_new_tokens: int) -> None:
+    """Reject batched-generation requests that cannot be served losslessly
+    (JAX ``validate_batch_generation``): an empty prompt, more rows than
+    ``PENROZ_MAX_GENERATE_BATCH``, or a row with ``prompt_len +
+    max_new_tokens > block_size`` (no overflow crop in a batch) — a
+    ValueError (HTTP 400) naming the rows."""
+    if not prompts or any(not p for p in prompts):
+        raise ValueError("each batched prompt needs at least one token")
+    max_batch = _max_generate_batch()
+    if len(prompts) > max_batch:
+        raise ValueError(
+            f"batched generation accepts at most {max_batch} prompts "
+            f"(got {len(prompts)}; raise PENROZ_MAX_GENERATE_BATCH to "
+            f"override)")
+    over = [(i, len(p)) for i, p in enumerate(prompts)
+            if len(p) + max_new_tokens > block_size]
+    if over:
+        detail = ", ".join(f"row {i} (prompt {n} tokens)"
+                           for i, n in over[:8])
+        more = f" and {len(over) - 8} more" if len(over) > 8 else ""
+        raise ValueError(
+            f"batched generation needs prompt_len + max_new_tokens "
+            f"({max_new_tokens}) <= block_size ({block_size}) for every "
+            f"row; overflowing: {detail}{more} — crop prompts first")
 
 
 def train_compute_dtype(device: torch.device) -> Optional[torch.dtype]:
@@ -150,15 +193,27 @@ class CompiledArch(nn.Module):
             specs.append((mod.num_kv_heads, mod.head_dim))
         return specs
 
+    @property
+    def max_positions(self) -> Optional[int]:
+        """Rows of the smallest learned position table (None without
+        one): a packed batch's positions must stay below it."""
+        sizes = [m.num_embeddings for m in self.modules()
+                 if isinstance(m, M.PositionEmbedding)]
+        return min(sizes) if sizes else None
+
     def forward(self, tokens, targets=None, *, kv=None, skip_softmax=False,
-                training=False, generator=None):
+                training=False, generator=None, pos_offset=None,
+                ragged_descs=None, ragged_rows=None):
         """Full forward collecting every top-level activation; returns
         ``(activations, cost, new_kv)``: ``cost`` is None without
         ``targets``, and the cache is advanced by the tokens fed (in
-        place).  ``training`` turns dropout on, drawing from
-        ``generator``.  The cost reads the logits, the input of the first
-        top-level softmax (or the last activation)."""
-        ctx = M.Ctx(kv=kv, training=training, generator=generator)
+        place) — except for a packed batch (``ragged_descs``), whose
+        lengths the descriptors carry.  ``training`` turns dropout on,
+        drawing from ``generator``.  The cost reads the logits, the input
+        of the first top-level softmax (or the last activation)."""
+        ctx = M.Ctx(kv=kv, training=training, generator=generator,
+                    pos_offset=pos_offset, ragged_descs=ragged_descs,
+                    ragged_rows=ragged_rows)
         acts = []
         h = tokens
         logits = None
@@ -173,7 +228,9 @@ class CompiledArch(nn.Module):
         cost = (self._cost_from_logits(h if logits is None else logits,
                                        targets)
                 if targets is not None else None)
-        new_kv = kv.advanced(tokens.shape[-1]) if kv is not None else None
+        new_kv = kv
+        if kv is not None and ragged_descs is None:
+            new_kv = kv.advanced(tokens.shape[-1])
         return acts, cost, new_kv
 
     def _cost_from_logits(self, logits, targets):
@@ -259,6 +316,53 @@ class CompiledArch(nn.Module):
             return torch.gather(idx, -1, choice)[..., 0]
         return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                                  generator=generator)[..., 0]
+
+    @staticmethod
+    def _sample_packed(logits, seed: int, row_ids, positions, temp, top_k):
+        """(Tp,) tokens from packed (Tp, V) logits with a POSITIONAL key per
+        slot: the Gumbel noise of candidate ``c`` is a counter-based hash
+        of ``(seed, row, position, c)``, so a (row, position) pair draws
+        the same token whatever packed slot, superstep or chunk split it
+        rides in — the invariance of the JAX package's ``fold_in(fold_in(
+        rng, row), position)`` keys (the numbers differ: JAX's generator
+        is not reproduced).  Gumbel-max draws exactly from
+        softmax(logits / temp), top-k restricted when given.  Padding
+        slots (``row_ids < 0``) draw as row 0 and are discarded."""
+        logits = logits.to(torch.float32) / max(float(temp), 1e-6)
+        row = torch.clamp(row_ids, min=0).to(torch.int64)[:, None]
+        pos = torch.clamp(positions, min=0).to(torch.int64)[:, None]
+        if top_k is not None:
+            scores, cand = torch.topk(logits, int(top_k), dim=-1)
+        else:
+            scores = logits
+            cand = torch.arange(logits.shape[-1], device=logits.device
+                                )[None, :]
+        u = _hash_uniform(seed, row, pos, cand)
+        choice = torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
+        if top_k is not None:
+            return torch.gather(cand, -1, choice[:, None])[:, 0]
+        return choice
+
+
+def _mix32(a, b, c):
+    """A lowbias32-style avalanche of three uint32 words (int64 tensors in
+    [0, 2^32)) — the mixer of the flash kernels' dropout hash."""
+    mul = attn_ops._mul32
+    x = mul(a, 0x9E3779B1) ^ mul(b, 0x85EBCA77) ^ mul(c, 0xC2B2AE3D)
+    x = x ^ (x >> 16)
+    x = mul(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = mul(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _hash_uniform(seed: int, row, pos, cand):
+    """Uniform draws in (0, 1), fp32, one per broadcast (row, position,
+    candidate), from a counter-based hash of ``seed`` and the three (the
+    seed enters as a host int: no host-to-device copy)."""
+    h = _mix32(_mix32(int(seed) & 0xFFFFFFFF, row, pos),
+               cand.to(torch.int64), 0x27D4EB2F)
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
 def _update_ratio(dw, w):
@@ -537,6 +641,96 @@ class NeuralNetworkModel:
             yield tok
             if stop_token is not None and tok == stop_token:
                 return
+
+    @torch.inference_mode()
+    def decode_mixed_step(self, kv, descs, tok_lit, tok_src, positions,
+                          sample_slot, last_tokens, seed: int = 0,
+                          temperature=1.0, top_k=None, row_ids=None):
+        """Run ``n`` unified RAGGED steps over the paged pool ``kv`` — the
+        continuous-batching scheduler's block (JAX ``decode_mixed_step``):
+        every step is one packed mixed batch in which prefill chunks and
+        decode steps share one forward, appends scatter through the block
+        table and every attention layer launches the ragged kernel once.
+
+        The host plans the whole block (serve/decode_scheduler.py
+        ``_plan_mixed``):
+
+        - ``descs`` (n, NB, 4) int32 descriptors per step
+          (ops/kv_cache.py::build_descriptors);
+        - ``tok_lit``/``tok_src`` (n, Tp): slot p feeds
+          ``last[tok_src]`` when ``tok_src >= 0`` (a decode step continues
+          its row's last token) else the literal (prompt tokens);
+        - ``positions`` (n, Tp) absolute position per packed slot;
+        - ``sample_slot`` (n, B): the slot whose sample becomes row b's
+          carried last token after that step (-1 keeps it); only these
+          slots are sampled;
+        - ``row_ids`` (n, Tp): row per slot (-1 padding), the positional
+          sampling keys of temperature > 0.
+
+        The JAX ``lax.scan`` becomes a loop of ``n`` forwards; the plan
+        goes to the device in one copy, the carried last tokens stay
+        there, and the (n, Tp) samples come back in one read at the end —
+        nothing in the loop reads the device.  Returns ``(samples (n, Tp)
+        int numpy, -1 at every slot no row samples, kv)``; the caller
+        replays emissions and keeps the host lengths authoritative."""
+        greedy, temp = self._sampling_setup(temperature)
+        descs = np.asarray(descs, np.int32)
+        n, NB = descs.shape[0], descs.shape[1]
+        tok_lit = np.asarray(tok_lit, np.int64)
+        Tp = tok_lit.shape[1]
+        if Tp % NB != 0:
+            raise ValueError(f"packed length {Tp} must be a multiple of "
+                             f"the descriptor count {NB}")
+        block_q = Tp // NB
+        positions = np.asarray(positions, np.int64).reshape(n, Tp)
+        limit = self.arch.max_positions
+        if limit is not None and int(positions.max()) >= limit:
+            raise ValueError(f"positions up to {int(positions.max())} exceed "
+                             f"the model's {limit} position embeddings")
+        B = kv.batch
+        if row_ids is None:
+            row_ids = np.full((n, Tp), -1, np.int64)
+        parts = [descs, tok_lit, tok_src, positions, sample_slot, row_ids,
+                 last_tokens]
+        for s in range(n):  # scatter index of every step, from the host table
+            parts += kv.packed_index(kv.packed_rows(descs[s], block_q))
+        sizes = [int(np.size(a)) for a in parts]
+        buf = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int64).reshape(-1) for a in parts]))
+        if self.device.type == "cuda":
+            buf = buf.pin_memory()
+        dev = buf.to(self.device, non_blocking=True)
+        views = list(torch.split(dev, sizes))
+        d_descs = views[0].view(n, NB, 4).to(torch.int32)
+        d_lit, d_src, d_pos, d_rid = (views[i].view(n, Tp)
+                                      for i in (1, 2, 3, 5))
+        d_sslot = views[4].view(n, B)
+        last = views[6]
+        d_scatter = views[7:]
+        outs = []
+        for s in range(n):
+            src = d_src[s]
+            toks = torch.where(src >= 0, last[torch.clamp(src, min=0)],
+                               d_lit[s])
+            acts, _, _ = self.arch(
+                toks[None, :], kv=kv, skip_softmax=True,
+                pos_offset=d_pos[s][None, :], ragged_descs=d_descs[s],
+                ragged_rows=(d_scatter[2 * s], d_scatter[2 * s + 1]))
+            sslot = d_sslot[s]
+            at = torch.clamp(sslot, min=0)
+            logits = acts[-1][0][at]                            # (B, V)
+            if greedy:
+                picked = torch.argmax(logits.to(torch.float32), dim=-1)
+            else:  # keys (row, position) of the sample slots themselves
+                picked = self.arch._sample_packed(logits, seed, d_rid[s][at],
+                                                  d_pos[s][at], temp, top_k)
+            last = torch.where(sslot >= 0, picked, last)
+            # the rows' samples back at their slots; slot Tp sinks the -1s
+            out = torch.full((Tp + 1,), -1, dtype=torch.int64,
+                             device=picked.device)
+            out.scatter_(0, torch.where(sslot >= 0, sslot, Tp), picked)
+            outs.append(out[:Tp])
+        return torch.stack(outs).to("cpu").numpy(), kv
 
     # -- persistence --------------------------------------------------------
 

@@ -7,10 +7,15 @@ GQA is computed by viewing the query heads as ``(kv_heads, group)`` in
 kv-major order and contracting against un-expanded K/V.  Layouts follow the
 JAX package at every public function: q (B, Hq, T, D), k/v (B, Hkv, S, D).
 
-Both attention paths go through hand-written CUDA kernels for CUDA tensors
-and their plain PyTorch versions for CPU tensors: :func:`cached_attention`
-(serving) through ops/kernels/decode_attention.py, :func:`causal_attention`
-(training, and the no-cache forward) through ops/kernels/flash_attention.py.
+Every attention path goes through a hand-written CUDA kernel for CUDA
+tensors and its plain PyTorch version for CPU tensors:
+:func:`cached_attention` (contiguous cache) through
+ops/kernels/decode_attention.py, :func:`paged_cached_attention` (paged
+pool) through ops/kernels/paged_attention.py,
+:func:`ragged_paged_cached_attention` (packed mixed batches of the
+continuous-batching scheduler) through ops/kernels/ragged_paged_attention.py
+and :func:`causal_attention` (training, and the no-cache forward) through
+ops/kernels/flash_attention.py.
 """
 
 from __future__ import annotations
@@ -315,3 +320,49 @@ def cached_attention(q, k_full, v_full, offset, length,
                                k_scale=k_scale, v_scale=v_scale,
                                window=window, alibi=alibi, scale=scale,
                                softcap=softcap)
+
+
+def paged_cached_attention(q, flat_k, flat_v, block_table, page_size: int,
+                           offset, length, k_scale=None, v_scale=None,
+                           window: Optional[int] = None,
+                           alibi: Optional[np.ndarray] = None,
+                           scale: Optional[float] = None,
+                           softcap: Optional[float] = None):
+    """Cached attention over a paged KV pool (block-table indirection).
+
+    q: (B, Hq, T, D); flat_k/flat_v: (Hkv, pool_rows, D) head-major pools
+    (int8 with ``k_scale``/``v_scale`` (Hkv, pool_rows, 1)); block_table
+    (B, pages_per_seq) int32.  CUDA tensors go to the paged kernel (or
+    raise); CPU tensors to its plain version — see
+    ops/kernels/paged_attention.py."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together "
+                         "(int8 pools carry scales for both streams)")
+    from penroz_tpu_torch.ops.kernels import paged_attention as pa
+    return pa.paged_decode_attention(q, flat_k, flat_v, block_table,
+                                     page_size, offset, length,
+                                     k_scale=k_scale, v_scale=v_scale,
+                                     window=window, alibi=alibi, scale=scale,
+                                     softcap=softcap)
+
+
+def ragged_paged_cached_attention(q, flat_k, flat_v, block_table,
+                                  page_size: int, descs, k_scale=None,
+                                  v_scale=None,
+                                  window: Optional[int] = None,
+                                  alibi: Optional[np.ndarray] = None,
+                                  scale: Optional[float] = None,
+                                  softcap: Optional[float] = None):
+    """Unified mixed-batch attention over a paged pool (the continuous-
+    batching path): prefill chunks and decode steps of many rows in one
+    launch.  CUDA tensors go to the ragged kernel (or raise); CPU tensors
+    to its plain version — see ops/kernels/ragged_paged_attention.py."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together "
+                         "(int8 pools carry scales for both streams)")
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    return rpa.ragged_paged_attention(q, flat_k, flat_v, block_table,
+                                      page_size, descs, k_scale=k_scale,
+                                      v_scale=v_scale, window=window,
+                                      alibi=alibi, scale=scale,
+                                      softcap=softcap)

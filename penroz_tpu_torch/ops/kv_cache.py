@@ -1,30 +1,81 @@
-"""Contiguous KV caches for autoregressive decoding (counterpart of
-penroz_tpu/ops/kv_cache.py ``KVState``/``QuantKVState``/``create_kv_state``).
+"""KV caches for autoregressive decoding (counterpart of
+penroz_tpu/ops/kv_cache.py ``KVState``/``QuantKVState``/``PagedKVState``/
+``QuantPagedKVState``/``create_kv_state``).
 
-Per-layer (B, Hkv, S_max, D) buffers preallocated once per generation; a
-single valid ``length`` shared by all layers advances once per model step.
-The JAX states are functional pytrees that return new states; these update
-their buffers and length IN PLACE (``append`` writes a slice, ``advanced``
-and ``reset`` move the length and return ``self``), which is what eager
-PyTorch wants — no copy of the cache per step.
+Contiguous caches hold per-layer (B, Hkv, S_max, D) buffers preallocated
+once per generation; a single valid ``length`` shared by all layers
+advances once per model step.  The JAX states are functional pytrees that
+return new states; these update their buffers and length IN PLACE
+(``append`` writes a slice, ``advanced`` and ``reset`` move the length and
+return ``self``), which is what eager PyTorch wants — no copy of the cache
+per step.
 
 ``TURBO_QUANT_KV_CACHE=1`` selects the int8 cache with per-token scales;
 the attention consumer reads the raw int8 buffers and dequantizes per tile
-inside the kernel.  The paged pool (``PAGED_KV_CACHE=1``) is not ported
-yet.
+inside the kernel.
+
+``PAGED_KV_CACHE=1`` selects the paged pool, in the JAX layout: per-layer
+head-major pools ``(Hkv, num_pages * page_size, D)``, a ``(B,
+pages_per_seq)`` int32 block table with -1 for unassigned pages, and, for
+int8 pools, ``(Hkv, rows, 1)`` fp32 per-token scales.  The JAX bump
+allocator runs inside jit; here it is host arithmetic on a numpy table
+(the authoritative copy), mirrored to a device tensor only when a page is
+handed out.  The scatter rows of a step are computed on the device from
+the host length (single sequence) or on the host from the descriptors
+(packed mixed batches), so no step reads the device back.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 
+import numpy as np
 import torch
 
 log = logging.getLogger(__name__)
 
 TURBO_QUANT_ENV = "TURBO_QUANT_KV_CACHE"
 PAGED_ENV = "PAGED_KV_CACHE"
+PAGE_SIZE_ENV = "PENROZ_KV_PAGE_SIZE"
+
+# -- pool-capacity drop accounting ------------------------------------------
+# A paged append past ``max_len`` clamps onto the last page (the JAX
+# allocator's contract) and a packed append drops its out-of-range slots;
+# the callers that can see such an overflow coming count it here, so
+# /serving_stats/ can surface silent truncation.
+_POOL_DROP_LOCK = threading.Lock()
+_POOL_DROPS = 0
+_POOL_DROP_WARNED = False
+
+
+def record_pool_drop(tokens: int = 1, context: str = ""):
+    """Count ``tokens`` KV writes dropped/overwritten at pool capacity.
+    Logs a warning on the first occurrence (per process)."""
+    global _POOL_DROPS, _POOL_DROP_WARNED
+    with _POOL_DROP_LOCK:
+        _POOL_DROPS += int(tokens)
+        first = not _POOL_DROP_WARNED
+        _POOL_DROP_WARNED = True
+    if first:
+        log.warning(
+            "KV pool capacity exceeded for the first time (%d token(s) "
+            "dropped%s) — sequences hitting this are truncated; grow the "
+            "pool (block_size / pool_pages) or admit fewer rows",
+            tokens, f"; {context}" if context else "")
+
+
+def pool_drop_count() -> int:
+    return _POOL_DROPS
+
+
+def reset_pool_drop_count():
+    """Test hook: zero the counter and re-arm the first-occurrence warning."""
+    global _POOL_DROPS, _POOL_DROP_WARNED
+    with _POOL_DROP_LOCK:
+        _POOL_DROPS = 0
+        _POOL_DROP_WARNED = False
 
 
 def turbo_quant_enabled() -> bool:
@@ -33,6 +84,18 @@ def turbo_quant_enabled() -> bool:
 
 def paged_enabled() -> bool:
     return os.environ.get(PAGED_ENV, "0") == "1"
+
+
+def default_page_size() -> int:
+    raw = os.environ.get(PAGE_SIZE_ENV, "128")
+    try:
+        size = int(raw)
+        if size <= 0:
+            raise ValueError
+    except ValueError:
+        log.warning("Ignoring invalid %s=%r; using 128", PAGE_SIZE_ENV, raw)
+        return 128
+    return size
 
 
 def _quantize_int8(t):
@@ -168,20 +231,422 @@ class QuantKVState(KVState):
         return sum(a.numel() * itemsize for a in (*self.k, *self.v))
 
 
+# ---------------------------------------------------------------------------
+# Paged pool
+# ---------------------------------------------------------------------------
+
+def build_descriptors(spans, block_q: int, num_blocks: int):
+    """Host-side descriptor builder for the ragged unified dispatch.
+
+    ``spans``: an ordered list of ``(row, q_start, q_len)`` work items — a
+    decode step is ``q_len = 1``, a prefill chunk ``q_len = chunk``.  Each
+    span is cut into ``ceil(q_len / block_q)`` consecutive
+    ``block_q``-token descriptor blocks ``(row, q_pos0, q_valid, kv_len)``
+    with ``kv_len = q_start + q_len`` (the row's valid length after the
+    append), padded with ``(-1, 0, 0, 0)`` rows up to ``num_blocks`` (the
+    shape bucket — utils/bucketing.py::bucket_count).  Returns ``(descs,
+    offsets)``: the ``(num_blocks, 4)`` int32 numpy array plus each span's
+    first block index, so span token ``i`` sits at packed slot
+    ``(offsets[s] + i // block_q) * block_q + i % block_q``."""
+    descs = np.zeros((num_blocks, 4), np.int32)
+    descs[:, 0] = -1
+    offsets = []
+    nb = 0
+    for row, q_start, q_len in spans:
+        offsets.append(nb)
+        done = 0
+        while done < q_len:
+            take = min(block_q, q_len - done)
+            if nb >= num_blocks:
+                raise ValueError(
+                    f"spans need more than num_blocks={num_blocks} "
+                    f"descriptor blocks of block_q={block_q}")
+            descs[nb] = (row, q_start + done, take, q_start + q_len)
+            nb += 1
+            done += take
+    return descs, offsets
+
+
+def packed_slots(offset: int, q_len: int, block_q: int) -> np.ndarray:
+    """Packed-array slot index of each of a span's ``q_len`` tokens, given
+    the span's first descriptor block ``offset``."""
+    i = np.arange(int(q_len))
+    return (int(offset) + i // int(block_q)) * int(block_q) + i % int(block_q)
+
+
+class PagedKVState(KVState):
+    """Paged KV cache: fixed-size pages in a shared pool + a block table.
+
+    Per-layer pools ``(Hkv, num_pages * page_size, D)`` (head-major: one
+    page of one head is a contiguous ``(page_size, D)`` block) and one
+    ``(B, pages_per_seq)`` block table mapping each sequence's logical page
+    to a physical page, -1 where none is assigned.  Pages are handed out by
+    a bump allocator that frees only on ``reset``, so ``create`` refuses a
+    pool smaller than ``batch * pages_per_seq``.
+
+    The allocator is host arithmetic: ``table`` (numpy) is authoritative,
+    ``block_table`` its device copy, rewritten only when an allocation
+    hands out a page.  ``length`` is a host int, or a (B,) numpy array for
+    ragged batches (``with_lengths``).  The attention kernels read the
+    pools through ``block_table`` (ops/kernels/paged_attention.py,
+    ops/kernels/ragged_paged_attention.py)."""
+
+    quantized = False
+
+    def __init__(self, k, v, table, page_size: int, pages_per_seq: int,
+                 device=None):
+        self.k = list(k)
+        self.v = list(v)
+        self.page_size = int(page_size)
+        self.pages_per_seq = int(pages_per_seq)
+        self.table = np.asarray(table, np.int32).copy()
+        self.device = (self.k[0].device if self.k
+                       else torch.device(device or "cpu"))
+        self.block_table = torch.as_tensor(self.table, device=self.device)
+        self._length = 0
+        self.ragged_lengths = None
+        self.next_free = 0
+        self.assigned_pages = 0
+        self._rows_key = None  # (length, T): scatter rows of this step
+        self._rows = None
+
+    @classmethod
+    def _create_pools(cls, specs, batch, max_len, dtype, page_size,
+                      pool_pages, device):
+        page = page_size or default_page_size()
+        pages_per_seq = -(-max_len // page)
+        num_pages = pool_pages or batch * pages_per_seq
+        if num_pages < batch * pages_per_seq:
+            raise ValueError(
+                f"pool_pages={num_pages} cannot back {batch} sequence(s) of "
+                f"{pages_per_seq} pages: the bump allocator frees only on "
+                "reset, so an undersized pool would alias live pages")
+        k = [torch.zeros((h, num_pages * page, d), dtype=dtype, device=device)
+             for h, d in specs]
+        v = [torch.zeros((h, num_pages * page, d), dtype=dtype, device=device)
+             for h, d in specs]
+        table = np.full((batch, pages_per_seq), -1, np.int32)
+        return k, v, table, page, pages_per_seq
+
+    @classmethod
+    def create(cls, specs, batch: int, max_len: int, dtype=torch.float32,
+               page_size: int | None = None, pool_pages: int | None = None,
+               device=None):
+        k, v, table, page, pages = cls._create_pools(
+            specs, batch, max_len, dtype, page_size, pool_pages, device)
+        return cls(k, v, table, page, pages, device=device)
+
+    @property
+    def length(self):
+        if self.ragged_lengths is not None:
+            return self.ragged_lengths
+        return self._length
+
+    @property
+    def max_len(self) -> int:
+        return self.pages_per_seq * self.page_size
+
+    @property
+    def batch(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def num_pool_pages(self) -> int:
+        if self.k:
+            return self.k[0].shape[1] // self.page_size
+        return int(self.table.size)
+
+    def _upload_table(self):
+        self.block_table.copy_(torch.from_numpy(self.table))
+        self._rows_key = None
+
+    def _allocate(self, new_length):
+        """Bump-allocate physical pages covering ``[0, new_length)`` (the
+        JAX allocator's arithmetic, on the host).  Idempotent within a
+        step: every layer's append calls it with the same length, and
+        ``assigned_pages`` makes the later calls hand out nothing.  Ragged
+        lengths allocate uniformly to the longest sequence; the counters
+        never walk backwards (a recycled row or a static table)."""
+        P, S = self.page_size, self.pages_per_seq
+        new_length = int(np.max(new_length))
+        needed = max(min(-(-new_length // P), S), self.assigned_pages)
+        delta = needed - self.assigned_pages
+        if delta <= 0:
+            return
+        slots = np.arange(self.assigned_pages, needed)
+        b_idx = np.arange(self.batch)[:, None]
+        self.table[:, slots] = (self.next_free + b_idx * delta
+                                + (slots[None, :] - self.assigned_pages))
+        self.next_free += self.batch * delta
+        self.assigned_pages = needed
+        self._upload_table()
+
+    def _note_overflow(self, T: int):
+        over = int(np.max(self.length)) + int(T) - self.max_len
+        if over > 0:
+            record_pool_drop(over, context=f"paged pool max_len="
+                                           f"{self.max_len}")
+
+    def _allocate_rows(self, T: int):
+        """Allocate pages for ``T`` new tokens; return the flat pool row of
+        each (batch, token), b-major, on the pool's device, and the new
+        valid length.  A position past ``max_len`` clamps onto the last
+        logical page, as the JAX allocator does."""
+        P, S = self.page_size, self.pages_per_seq
+        new_length = self.length + T
+        self._allocate(new_length)
+        if self.ragged_lengths is not None:
+            pos = self.ragged_lengths[:, None] + np.arange(T)[None, :]
+            page = np.clip(pos // P, 0, S - 1)
+            phys = np.take_along_axis(self.table, page, axis=1)
+            rows = torch.as_tensor((phys * P + pos % P).reshape(-1),
+                                   dtype=torch.int64, device=self.device)
+            return rows, new_length
+        key = (self._length, T)
+        if self._rows_key != key:
+            pos = torch.arange(T, device=self.device) + self._length
+            page = torch.clamp(pos // P, max=S - 1)
+            phys = self.block_table[:, page].to(torch.int64)  # (B, T)
+            self._rows = (phys * P + pos % P).reshape(-1)
+            self._rows_key = key
+        return self._rows, new_length
+
+    @staticmethod
+    def _to_rows(t):
+        """(B, H, T, d) -> head-major flat rows (H, B*T, d)."""
+        B, H, T, d = t.shape
+        return t.transpose(0, 1).reshape(H, B * T, d)
+
+    def _scatter(self, pools, layer_idx, rows, new):
+        pool = pools[layer_idx]
+        pool.index_copy_(1, rows, new.to(pool.dtype))
+
+    def append_rows(self, layer_idx: int, k_new, v_new):
+        """Scatter new K/V into the page pools; return the flat pools and
+        the length after the append (not advanced: the model advances it
+        once per step).  Precondition ``length + T <= max_len``: past it
+        the write clamps onto the last page (counted by
+        :func:`record_pool_drop`), as in the JAX package."""
+        self._note_overflow(k_new.shape[2])
+        rows, new_length = self._allocate_rows(k_new.shape[2])
+        self._scatter(self.k, layer_idx, rows, self._to_rows(k_new))
+        self._scatter(self.v, layer_idx, rows, self._to_rows(v_new))
+        return self.k[layer_idx], self.v[layer_idx], new_length
+
+    def append(self, layer_idx: int, k_new, v_new):
+        raise TypeError("a paged pool is written by append_rows or "
+                        "append_packed and read through its block table")
+
+    # -- ragged packed-batch path (unified mixed dispatch) ------------------
+
+    def packed_rows(self, descs, block_q: int) -> np.ndarray:
+        """Flat pool row per PACKED token for a ``(NB, 4)`` descriptor
+        array (host numpy, the JAX function's result).  Padding slots
+        (row = -1, t >= q_valid, or a position >= max_len) map to the
+        pool's row count, past its end: :meth:`append_packed` drops them.
+        Requires the rows' tables to be assigned (``with_static_table``)."""
+        P = self.page_size
+        descs = np.asarray(descs, np.int32)
+        t = np.arange(int(block_q), dtype=np.int32)[None, :]
+        row = descs[:, 0:1]
+        pos = descs[:, 1:2] + t
+        valid = (t < descs[:, 2:3]) & (row >= 0) & (pos < self.max_len)
+        page = np.clip(pos // P, 0, self.pages_per_seq - 1)
+        phys = self.table[np.clip(row, 0, None), page]
+        rows = phys.astype(np.int64) * P + pos % P
+        oob = self.k[0].shape[1] if self.k else 0
+        return np.where(valid & (phys >= 0), rows, oob).reshape(-1)
+
+    def packed_index(self, rows) -> tuple:
+        """``(slots, pool_rows)`` (host int64 arrays): the packed slots that
+        land in the pool and their rows, from a :meth:`packed_rows` array.
+        torch has no dropping scatter — an out-of-range index on the card is
+        a device assert — so the dropped slots are left out instead."""
+        rows = np.asarray(rows, np.int64)
+        oob = self.k[0].shape[1] if self.k else 0
+        slots = np.nonzero(rows < oob)[0]
+        return slots, rows[slots]
+
+    def _device_index(self, index):
+        """``(slots, pool_rows)`` int64 tensors on the pool's device, from a
+        :meth:`packed_rows` array or such a pair (host or device)."""
+        if not isinstance(index, tuple):
+            index = self.packed_index(index)
+        return tuple(torch.as_tensor(a, dtype=torch.int64, device=self.device)
+                     for a in index)
+
+    def append_packed(self, layer_idx: int, k_new, v_new, index):
+        """Scatter a PACKED mixed batch into the pools.  ``k_new``/
+        ``v_new``: (1, Hkv, Tp, D); ``index``: a :meth:`packed_rows` array,
+        or its :meth:`packed_index` pair (on the device, shared across
+        layers, on the hot path).  Lengths are not advanced: the
+        descriptors carry the post-append lengths."""
+        slots, rows = self._device_index(index)
+        self._scatter(self.k, layer_idx, rows, k_new[0][:, slots])
+        self._scatter(self.v, layer_idx, rows, v_new[0][:, slots])
+        return self.k[layer_idx], self.v[layer_idx]
+
+    def lengths_after_packed(self, descs) -> np.ndarray:
+        """Per-row (B,) valid lengths after a packed append: each live
+        descriptor raises its row to its ``kv_len``."""
+        descs = np.asarray(descs, np.int32)
+        lens = self._row_lengths().copy()
+        for row, _, _, kv_len in descs:
+            if row >= 0:
+                lens[row] = max(lens[row], kv_len)
+        return lens
+
+    def _row_lengths(self) -> np.ndarray:
+        if self.ragged_lengths is not None:
+            return self.ragged_lengths
+        return np.full(self.batch, self._length, np.int32)
+
+    def advanced(self, num_tokens: int):
+        if self.ragged_lengths is not None:
+            self.ragged_lengths = self.ragged_lengths + int(num_tokens)
+        else:
+            self._length += int(num_tokens)
+        return self
+
+    def with_lengths(self, lengths):
+        """Switch to ragged per-row lengths (in place)."""
+        self.ragged_lengths = np.asarray(lengths, np.int32).reshape(
+            self.batch).copy()
+        return self
+
+    def reset(self):
+        self.table[:] = -1
+        self._length = 0
+        self.ragged_lengths = None
+        self.next_free = 0
+        self.assigned_pages = 0
+        self._upload_table()
+        return self
+
+    def reset_row(self, row: int):
+        """Zero row ``row``'s valid length (ragged states only); its stale
+        pages stay, never attended."""
+        if self.ragged_lengths is None:
+            raise ValueError("reset_row requires ragged per-row lengths "
+                             "(call with_lengths first)")
+        self.ragged_lengths[int(row)] = 0
+        return self
+
+    def with_static_table(self):
+        """Partition the pool statically: row ``i`` owns physical pages
+        ``[i*S, (i+1)*S)``, so appends are pure scatters into each row's
+        own pages and a recycled row overwrites its own stale pages."""
+        B, S = self.table.shape
+        if self.num_pool_pages < B * S:
+            raise ValueError(
+                f"static page table needs pool_pages >= batch*pages_per_seq "
+                f"({B}*{S}); pool has {self.num_pool_pages}")
+        self.table[:] = (np.arange(B, dtype=np.int32)[:, None] * S
+                         + np.arange(S, dtype=np.int32)[None, :])
+        self.next_free = B * S
+        self.assigned_pages = S
+        self._upload_table()
+        return self
+
+    def _row_bytes(self) -> int:
+        """Bytes per token row summed over every layer's K and V pool."""
+        return sum(a.shape[0] * a.shape[2] * a.element_size()
+                   for a in (*self.k, *self.v))
+
+    def assigned_bytes(self) -> int:
+        """Bytes of the pages handed out (what live sequences hold)."""
+        live = min(self.next_free, self.num_pool_pages)
+        return live * self.page_size * self._row_bytes()
+
+    def logical_bytes(self) -> int:
+        """Bytes a contiguous per-sequence cache of max_len would occupy."""
+        return self.batch * self.max_len * self._row_bytes()
+
+
+class QuantPagedKVState(PagedKVState):
+    """Int8 paged pool: int8 page pools plus ``(Hkv, rows, 1)`` fp32
+    per-token scale pools; the kernels dequantize per page on chip."""
+
+    quantized = True
+
+    def __init__(self, k, v, table, page_size, pages_per_seq, k_scale,
+                 v_scale, out_dtype=torch.float32, device=None):
+        super().__init__(k, v, table, page_size, pages_per_seq,
+                         device=device)
+        self.k_scale = list(k_scale)
+        self.v_scale = list(v_scale)
+        self.out_dtype = out_dtype
+
+    @classmethod
+    def create(cls, specs, batch: int, max_len: int, dtype=torch.float32,
+               page_size: int | None = None, pool_pages: int | None = None,
+               device=None):
+        k, v, table, page, pages = cls._create_pools(
+            specs, batch, max_len, torch.int8, page_size, pool_pages, device)
+        rows = k[0].shape[1] if k else 0
+        ks = [torch.zeros((h, rows, 1), dtype=torch.float32, device=device)
+              for h, _ in specs]
+        vs = [torch.zeros((h, rows, 1), dtype=torch.float32, device=device)
+              for h, _ in specs]
+        return cls(k, v, table, page, pages, ks, vs, out_dtype=dtype,
+                   device=device)
+
+    def append_rows(self, layer_idx: int, k_new, v_new):
+        """Quantize, then scatter values and scales (same rows)."""
+        self._note_overflow(k_new.shape[2])
+        qk, sk = _quantize_int8(k_new)
+        qv, sv = _quantize_int8(v_new)
+        rows, new_length = self._allocate_rows(k_new.shape[2])
+        for pools, new in ((self.k, qk), (self.v, qv), (self.k_scale, sk),
+                           (self.v_scale, sv)):
+            self._scatter(pools, layer_idx, rows, self._to_rows(new))
+        return self.k[layer_idx], self.v[layer_idx], new_length
+
+    def append_packed(self, layer_idx: int, k_new, v_new, index):
+        """Quantize, then scatter a packed batch's values and scales."""
+        slots, rows = self._device_index(index)
+        qk, sk = _quantize_int8(k_new[0][:, slots])
+        qv, sv = _quantize_int8(v_new[0][:, slots])
+        for pools, new in ((self.k, qk), (self.v, qv), (self.k_scale, sk),
+                           (self.v_scale, sv)):
+            self._scatter(pools, layer_idx, rows, new)
+        return self.k[layer_idx], self.v[layer_idx]
+
+    def _row_bytes(self) -> int:
+        """int8 value rows + fp32 scale rows per token, over every layer."""
+        return super()._row_bytes() + sum(
+            a.shape[0] * a.shape[2] * a.element_size()
+            for a in (*self.k_scale, *self.v_scale))
+
+    def memory_bytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (*self.k, *self.v, *self.k_scale,
+                             *self.v_scale))
+
+    def logical_bytes(self) -> int:
+        itemsize = torch.empty((), dtype=self.out_dtype).element_size()
+        per_row = sum(a.shape[0] * a.shape[2] * itemsize
+                      for a in (*self.k, *self.v))
+        return self.batch * self.max_len * per_row
+
+
 def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,
                     quantized: bool | None = None, paged: bool | None = None,
                     device=None) -> KVState:
-    """Factory honouring ``TURBO_QUANT_KV_CACHE=1``.  ``PAGED_KV_CACHE=1``
-    raises: the paged pool and its kernels are still to be ported
-    (ROADMAP.md)."""
+    """Factory honouring ``TURBO_QUANT_KV_CACHE=1`` and ``PAGED_KV_CACHE=1``
+    (both together: the int8 paged pool, pages of
+    ``PENROZ_KV_PAGE_SIZE`` tokens, default 128)."""
     if quantized is None:
         quantized = turbo_quant_enabled()
     if paged is None:
         paged = paged_enabled()
     if paged:
-        raise NotImplementedError(
-            f"{PAGED_ENV}=1: the paged KV pool is not ported to "
-            "penroz_tpu_torch yet (ROADMAP.md, Queue 1)")
+        page = default_page_size()
+        log.info("%s KV cache enabled (%s=1, page_size=%d)",
+                 "Int8 paged" if quantized else "Paged", PAGED_ENV, page)
+        cls = QuantPagedKVState if quantized else PagedKVState
+        return cls.create(specs, batch, max_len, dtype, page_size=page,
+                          device=device)
     if quantized:
         log.info("TurboQuant KV cache enabled (%s=1)", TURBO_QUANT_ENV)
         return QuantKVState.create(specs, batch, max_len, dtype, device)

@@ -10,9 +10,9 @@ package's names, so ``state_dict()`` of the model's root module
 update in place (ops/kv_cache.py).
 
 Ported: the modules the GPT-2 DSL builds, for inference and training.
-``CausalSelfAttention`` has the no-cache (flash) and contiguous-cache
-branches; paged, ragged and sequence-parallel
-attention are still to be ported and have no state that could reach them.
+``CausalSelfAttention`` has the no-cache (flash), contiguous-cache, paged
+and ragged (packed mixed batch) branches; sequence-parallel attention is
+still to be ported and has no state that could reach it.
 """
 
 from __future__ import annotations
@@ -25,22 +25,39 @@ import torch.nn.functional as F
 from torch import nn
 
 from penroz_tpu_torch.ops import attention as attn_ops
+from penroz_tpu_torch.ops import kv_cache as KV
 
 
 class Ctx:
     """Per-call context threaded through module application: the KV cache,
     whose length is the position offset of the tokens fed, the training
     flag, and the ``torch.Generator`` (on the model's device) that dropout
-    draws from in training mode."""
+    draws from in training mode.
+
+    Ragged unified dispatch (paged caches only): ``ragged_descs`` is the
+    (NB, 4) int32 descriptor tensor on the device (ops/kv_cache.py::
+    build_descriptors) and ``ragged_rows`` the packed scatter index
+    (PagedKVState.packed_index — computed once a step, shared by every
+    layer).  When set, attention appends and attends through the packed
+    path and ``pos_offset`` holds the (1, Tp) per-token absolute positions
+    on the device."""
 
     def __init__(self, *, kv=None, training: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pos_offset=None, ragged_descs=None, ragged_rows=None):
         self.kv = kv  # ops.kv_cache.KVState or None
         self.training = training
         self.generator = generator
+        self.pos_offset = pos_offset
+        self.ragged_descs = ragged_descs
+        self.ragged_rows = ragged_rows
 
-    def offset(self) -> int:
-        """Current sequence position offset (0 when no cache attached)."""
+    def offset(self):
+        """Position offset of the tokens fed: the (1, Tp) per-token
+        positions of a packed batch, else the cache length (0 without a
+        cache)."""
+        if self.pos_offset is not None:
+            return self.pos_offset
         return self.kv.length if self.kv is not None else 0
 
     def require_generator(self) -> torch.Generator:
@@ -95,11 +112,16 @@ class Embedding(Module):
 
 
 class PositionEmbedding(Embedding):
-    """Learned position embedding indexed from the context offset."""
+    """Learned position embedding indexed from the context offset (per
+    token for a packed batch: positions are checked against the table
+    when the batch is planned, not here, which would read the device)."""
 
     def forward(self, x, ctx):
         num_positions = x.shape[-1]
-        offset = int(ctx.offset())
+        offset = ctx.offset()
+        if isinstance(offset, torch.Tensor):
+            return F.embedding(offset, self.weight)
+        offset = int(offset)
         if offset + num_positions > self.num_embeddings:
             raise ValueError(f"positions up to {offset + num_positions - 1} "
                              f"exceed the model's {self.num_embeddings} "
@@ -371,21 +393,43 @@ class CausalSelfAttention(Module):
 
         alibi = attn_ops.alibi_slopes(self.num_heads) if self.alibi else None
         if ctx.kv is not None:
-            if ctx.kv.quantized:
+            paged = isinstance(ctx.kv, KV.PagedKVState)
+            ragged = paged and ctx.ragged_descs is not None
+            if ragged:
+                store_k, store_v = ctx.kv.append_packed(
+                    self.layer_idx, k, v, ctx.ragged_rows)
+            elif paged:
+                store_k, store_v, length = ctx.kv.append_rows(
+                    self.layer_idx, k, v)
+            elif ctx.kv.quantized:
                 # int8 cache: store + attend on the raw buffers; the
                 # kernel dequantizes per tile.
                 store_k, store_v, length = ctx.kv.append_raw(
                     self.layer_idx, k, v)
-                scales = {"k_scale": ctx.kv.k_scale[self.layer_idx],
-                          "v_scale": ctx.kv.v_scale[self.layer_idx]}
             else:
                 store_k, store_v, length = ctx.kv.append(self.layer_idx,
                                                          k, v)
-                scales = {}
-            out = attn_ops.cached_attention(
-                q, store_k, store_v, offset, length,
-                window=self.sliding_window, alibi=alibi,
-                scale=self.attn_scale, softcap=self.logit_softcap, **scales)
+            # int8 caches carry per-token scales, read after the append
+            scales = ({"k_scale": ctx.kv.k_scale[self.layer_idx],
+                       "v_scale": ctx.kv.v_scale[self.layer_idx]}
+                      if ctx.kv.quantized else {})
+            opts = {"window": self.sliding_window, "alibi": alibi,
+                    "scale": self.attn_scale, "softcap": self.logit_softcap,
+                    **scales}
+            if ragged:
+                out = attn_ops.ragged_paged_cached_attention(
+                    q, store_k, store_v, ctx.kv.block_table,
+                    ctx.kv.page_size, ctx.ragged_descs, **opts)
+            elif paged:
+                if not isinstance(length, int):  # ragged (B,) host lengths
+                    length = torch.as_tensor(length, dtype=torch.int32,
+                                             device=q.device)
+                out = attn_ops.paged_cached_attention(
+                    q, store_k, store_v, ctx.kv.block_table,
+                    ctx.kv.page_size, offset, length, **opts)
+            else:
+                out = attn_ops.cached_attention(q, store_k, store_v, offset,
+                                                length, **opts)
         else:
             rate = self.dropout if ctx.training else 0.0
             out = attn_ops.causal_attention(

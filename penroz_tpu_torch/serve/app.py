@@ -3,15 +3,21 @@ of penroz_tpu/serve/app.py, serving and training; the machine with the card
 has no aiohttp).
 
 Routes: ``POST /model/``, ``POST /generate/`` (JSON, or ``stream: true``
-with one token per line), ``POST /decode/``, ``POST /tokenize/``,
-``PUT /train/``, ``GET /progress/?model_id=…``,
-``DELETE /model/?model_id=…`` and ``GET /healthz``.  Errors map as in the
-JAX service: unknown model 404, missing or mistyped field 422, bad value
-400, a model already training 409, anything else 500 with
-``{"detail": "Please refer to server logs"}``.
+with one token per line), ``POST /generate_batch/``, ``POST /decode/``,
+``POST /tokenize/``, ``PUT /train/``, ``GET /progress/?model_id=…``,
+``GET /serving_stats/``, ``DELETE /model/?model_id=…`` and
+``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
+missing or mistyped field 422, bad value 400, a model already training
+409, anything else 500 with ``{"detail": "Please refer to server logs"}``.
 
 Each request runs in its own thread; a generate request loads the model's
 checkpoint onto the server's device, as the JAX service does per request.
+With ``PENROZ_CONTINUOUS_BATCHING=1`` (and ``PAGED_KV_CACHE=1``) eligible
+``/generate/`` requests and every ``/generate_batch/`` row go to the
+continuous-batching scheduler instead (serve/decode_scheduler.py), whose
+engines keep their model loaded; the others take the single-sequence
+path.  Scheduler features and request fields that are not ported are
+refused with a 400 naming them.
 ``PUT /train/`` answers 202 and trains on a background thread, holding one
 lock per model; ``/progress/`` reads the checkpoint's metadata, which
 training rewrites at its start, every 10 s and at its end.
@@ -32,7 +38,9 @@ from penroz_tpu_torch.data.tokenizers import Tokenizer
 from penroz_tpu_torch.device import resolve_device
 from penroz_tpu_torch.models.dsl import Mapper
 from penroz_tpu_torch.models.model import (NeuralNetworkModel,
-                                           unported_training_options)
+                                           unported_training_options,
+                                           validate_batch_generation)
+from penroz_tpu_torch.serve import decode_scheduler as DS
 from penroz_tpu_torch.serve import schemas
 from penroz_tpu_torch.utils import checkpoint
 
@@ -44,6 +52,29 @@ class _HTTPError(Exception):
         super().__init__(detail)
         self.status = status
         self.detail = detail
+
+
+# Request fields of JAX-package serving features the port does not have.
+_UNPORTED_FIELDS = {
+    "timeout_ms": "request deadlines",
+    "adapter_id": "LoRA adapters",
+    "adapter_ids": "LoRA adapters",
+    "priority": "QoS priority classes",
+    "tenant": "tenant quotas",
+    "session_id": "KV session hibernation",
+    "session_ids": "KV session hibernation",
+}
+
+
+def _refuse_unported(body):
+    """ValueError (HTTP 400) naming the first set field, or scheduler knob
+    in the environment, of a serving feature that is not ported."""
+    for name in body.UNPORTED:
+        if getattr(body, name) is not None:
+            raise ValueError(f"the request field {name!r} selects "
+                             f"{_UNPORTED_FIELDS[name]}, which "
+                             f"penroz_tpu_torch does not support yet")
+    DS.unported_serving_options()
 
 
 class PenrozServer(ThreadingHTTPServer):
@@ -168,11 +199,58 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, {"message": f"Model {body.model_id} created "
                                          f"and saved successfully"})
 
+    def _start_stream_response(self):
+        self.send_response(200)
+        self.send_header("Content-Type", "text/plain; charset=utf-8")
+        self.send_header("Connection", "close")
+        self.end_headers()
+
+    def _try_scheduler_generate(self, body) -> bool:
+        """Serve /generate/ through the continuous-batching scheduler when
+        it is on and the request is eligible; False sends the request to
+        the single-sequence path."""
+        if not DS.enabled():
+            return False
+        prompt = NeuralNetworkModel._prompt_tokens(body.input)
+        if not DS.eligible(prompt, body.block_size, body.max_new_tokens):
+            return False
+        engine = DS.get_engine(body.model_id, body.block_size,
+                               body.temperature, body.top_k,
+                               device=self.server.device)
+        if engine is None:  # registry at capacity with nothing evictable
+            return False
+        if not body.stream:
+            tokens = DS.run_request(engine, prompt, body.max_new_tokens,
+                                    body.stop_token)
+            self._send_json(200, {"tokens": tokens})
+            return True
+        log.info("Streaming token generation for model %s via the "
+                 "continuous-batching scheduler", body.model_id)
+        req, events = DS.start_stream(engine, prompt, body.max_new_tokens,
+                                      body.stop_token)
+        self._start_stream_response()
+        try:
+            while True:
+                kind, value = DS.next_event(req, events)
+                if kind == "token":
+                    self.wfile.write(f"{value}\n".encode())
+                    self.wfile.flush()
+                elif kind == "done":
+                    break
+                else:
+                    log.error("Scheduler stream for model %s failed: %r",
+                              body.model_id, value)
+                    break
+        except OSError:  # the client went away: free the row
+            req.cancelled = True
+        self.close_connection = True
+        return True
+
     def generate(self, query):
         body = self._body(schemas.GenerateRequest)
-        if body.adapter_id is not None:
-            raise ValueError("LoRA adapters are not ported to "
-                             "penroz_tpu_torch yet")
+        _refuse_unported(body)
+        if self._try_scheduler_generate(body):
+            return
         log.info("Generating tokens using model %s", body.model_id)
         model = NeuralNetworkModel.deserialize(body.model_id,
                                                device=self.server.device,
@@ -182,10 +260,7 @@ class _Handler(BaseHTTPRequestHandler):
         if not body.stream:
             self._send_json(200, {"tokens": model.generate_tokens(*args)})
             return
-        self.send_response(200)
-        self.send_header("Content-Type", "text/plain; charset=utf-8")
-        self.send_header("Connection", "close")
-        self.end_headers()
+        self._start_stream_response()
         try:
             for token in model.generate_tokens_stream(*args):
                 self.wfile.write(f"{token}\n".encode())
@@ -194,6 +269,43 @@ class _Handler(BaseHTTPRequestHandler):
             log.exception("Streaming generation failed for model %s",
                           body.model_id)
         self.close_connection = True
+
+    def generate_batch(self, query):
+        """N prompts through the continuous-batching scheduler: the rows
+        join the shared in-flight batch (with any concurrent /generate/
+        traffic) and the batch answers once every row is done."""
+        body = self._body(schemas.GenerateBatchRequest)
+        _refuse_unported(body)
+        if not DS.enabled():
+            raise ValueError(
+                f"/generate_batch/ without {DS.ENABLE_ENV}=1 selects the "
+                f"legacy batched generation (generate_tokens_batched), "
+                f"which penroz_tpu_torch does not support yet")
+        prompts = [list(row) for row in body.inputs]
+        validate_batch_generation(prompts, body.block_size,
+                                  body.max_new_tokens)
+        log.info("Batch-generating %d sequence(s) using model %s",
+                 len(prompts), body.model_id)
+        if body.max_new_tokens < 1:
+            self._send_json(200, {"sequences": prompts})
+            return
+        engine = DS.get_engine(body.model_id, body.block_size,
+                               body.temperature, body.top_k,
+                               device=self.server.device)
+        if engine is None:
+            raise _HTTPError(503, "every decode engine is busy; retry")
+        handles = [DS.start_stream(engine, p, body.max_new_tokens,
+                                   body.stop_token) for p in prompts]
+        try:
+            sequences = [DS.collect(req, events) for req, events in handles]
+        except Exception:
+            for req, _ in handles:  # the batch answers as one: free the rows
+                req.cancelled = True
+            raise
+        self._send_json(200, {"sequences": sequences})
+
+    def serving_stats(self, query):
+        self._send_json(200, DS.serving_stats())
 
     def decode(self, query):
         body = self._body(schemas.DecodeTokensRequest)
@@ -250,8 +362,10 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, {"status": "ok"})
 
 
-_GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress}
+_GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress,
+        "/serving_stats/": _Handler.serving_stats}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
+         "/generate_batch/": _Handler.generate_batch,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize}
 _PUT = {"/train/": _Handler.train}
 _DELETE = {"/model/": _Handler.delete_model}
@@ -280,6 +394,7 @@ def main(argv=None):  # pragma: no cover
         server.serve_forever()
     finally:
         server.server_close()
+        DS.reset()
         server.join_training()
 
 

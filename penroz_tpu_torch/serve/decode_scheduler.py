@@ -1,0 +1,782 @@
+"""Continuous-batching decode scheduler: concurrent /generate/ and
+/generate_batch/ requests share one in-flight batch over the paged KV pool
+(counterpart of penroz_tpu/serve/decode_scheduler.py, its unified ragged
+core).
+
+Per ``(model, block_size, temperature, top_k)`` one :class:`DecodeEngine`
+owns a fixed-capacity batch (``PENROZ_SCHED_MAX_ROWS``, default 8) whose
+rows own static page ranges of one paged pool, and a worker thread that:
+
+- admits queued requests into free rows at block boundaries, each row in a
+  PREFILLING phase whose prompt is cut into chunks of
+  ``PENROZ_PREFILL_CHUNK`` tokens (default 256) with a power-of-two tail;
+- runs every tick as ONE unified block (``_tick_unified``): the host plans
+  up to ``PENROZ_SCHED_SUPERSTEP`` steps (default 8) in which each
+  prefilling row runs one chunk a step and each decoding row one token a
+  step, packs every step's spans into descriptor blocks, and runs the block
+  through ``NeuralNetworkModel.decode_mixed_step`` — each attention layer
+  launches the ragged paged-attention kernel once a step, the plan goes to
+  the device in one copy and the samples come back in one read;
+- replays the sampled block on the host: first tokens of finished
+  prefills, decode tokens, retirement on the stop token, ``max_new_tokens``
+  or a full row; a retired row's slot is free for the next admission.
+
+Greedy outputs equal the single-sequence path's token for token (the same
+positions, the same cached attention).  Temperature > 0 draws each
+(row, position) with a positional key, so a stream does not depend on
+packing, superstep or chunk split.
+
+The JAX package's asyncio event plumbing becomes threads: a request
+carries a callback that the worker calls with ``("token", id)``, then
+``("done", None)`` or ``("error", exc)``; :func:`run_request` and
+:func:`start_stream` bridge it to a ``queue.Queue`` per request for the
+``ThreadingHTTPServer`` handlers.  Only the worker thread touches the
+engine's tensors.
+
+Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
+radix prefix cache, speculative decoding, the phased ticks
+(``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over the
+contiguous cache, replicas, disaggregated prefill, serving meshes and
+pipeline stages; deadlines, QoS classes, tenants, sessions and LoRA
+adapters on requests are refused by the HTTP layer.
+
+Observability: :func:`serving_stats` backs ``GET /serving_stats/`` under
+the JAX package's key names.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+
+from penroz_tpu_torch.models.model import NeuralNetworkModel
+from penroz_tpu_torch.ops import kv_cache as KV
+from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+from penroz_tpu_torch.utils import bucketing, checkpoint
+
+log = logging.getLogger(__name__)
+
+ENABLE_ENV = "PENROZ_CONTINUOUS_BATCHING"
+MAX_ROWS_ENV = "PENROZ_SCHED_MAX_ROWS"
+MAX_ENGINES_ENV = "PENROZ_SCHED_MAX_ENGINES"
+PREFILL_CHUNK_ENV = "PENROZ_PREFILL_CHUNK"
+SUPERSTEP_ENV = "PENROZ_SCHED_SUPERSTEP"
+RAGGED_ENV = "PENROZ_RAGGED_ATTENTION"
+
+# Scheduler features of the JAX package this port does not have yet:
+# (variable, predicate on its value that selects the feature, what).
+_UNPORTED_SERVING_ENV = (
+    ("PENROZ_PREFIX_CACHE", lambda v: v == "1", "the radix prefix cache"),
+    ("PENROZ_SPEC_DECODE", lambda v: v == "1", "speculative decoding"),
+    (RAGGED_ENV, lambda v: v == "0", "the phased (non-unified) ticks"),
+    ("PENROZ_SCHED_REPLICAS", lambda v: _int(v) > 1, "engine replicas"),
+    ("PENROZ_DISAGG_PREFILL", lambda v: v == "1",
+     "disaggregated prefill"),
+    ("PENROZ_SERVE_MESH", lambda v: v == "1", "a serving mesh"),
+    ("PENROZ_SERVE_PIPE_STAGES", lambda v: _int(v) > 1,
+     "pipeline-parallel serving"),
+)
+
+# Tick-timeline entries kept per engine, and served per /serving_stats/
+# payload (the JAX package's defaults).
+_TIMELINE_LEN = 256
+_TIMELINE_SERVE = 120
+
+
+def _int(v: str) -> int:
+    try:
+        return int(v)
+    except ValueError:
+        return 0
+
+
+def enabled() -> bool:
+    return os.environ.get(ENABLE_ENV, "0") == "1"
+
+
+def _env_int(name: str, default: int, lo: int = 1) -> int:
+    try:
+        return max(lo, int(os.environ.get(name, str(default))))
+    except ValueError:
+        log.warning("Unparseable %s=%r; using default %d", name,
+                    os.environ.get(name), default)
+        return default
+
+
+def _max_rows() -> int:
+    return _env_int(MAX_ROWS_ENV, 8)
+
+
+def _max_engines() -> int:
+    return _env_int(MAX_ENGINES_ENV, 4)
+
+
+def _prefill_chunk() -> int:
+    return _env_int(PREFILL_CHUNK_ENV, 256)
+
+
+def _superstep_max() -> int:
+    """Unified steps per dispatch (1: one step a tick)."""
+    return _env_int(SUPERSTEP_ENV, 8)
+
+
+def unported_serving_options() -> None:
+    """Raise ValueError (HTTP 400) naming the knob when continuous batching
+    is on with a scheduler feature the port does not have, or without the
+    paged pool (the phased ticks over the contiguous cache)."""
+    if not enabled():
+        return
+    if not KV.paged_enabled():
+        raise ValueError(f"{ENABLE_ENV}=1 without {KV.PAGED_ENV}=1 selects "
+                         f"the phased ticks over the contiguous cache, "
+                         f"which penroz_tpu_torch does not support yet")
+    for name, selects, what in _UNPORTED_SERVING_ENV:
+        value = os.environ.get(name)
+        if value is not None and selects(value):
+            raise ValueError(f"{name}={value!r} selects {what}, which "
+                             f"penroz_tpu_torch does not support yet")
+
+
+def eligible(prompt: list[int], block_size: int, max_new_tokens: int) -> bool:
+    """A request the scheduler serves losslessly: a non-empty prompt that
+    fits its row with all its new tokens (the scheduler has no overflow
+    crop; other requests take the single-sequence path)."""
+    return (len(prompt) >= 1 and max_new_tokens >= 1
+            and len(prompt) + max_new_tokens <= block_size)
+
+
+class Request:
+    """One generation request in flight through an engine.
+
+    ``on_event(kind, value)`` is called FROM THE WORKER THREAD with
+    ``("token", int)`` per generated token (the stop token included), then
+    ``("done", None)`` or ``("error", exc)``.  Setting ``cancelled``
+    retires the row at the next block boundary."""
+
+    __slots__ = ("prompt", "max_new_tokens", "stop_token", "on_event",
+                 "cancelled")
+
+    def __init__(self, prompt, max_new_tokens, stop_token, on_event):
+        self.prompt = [int(t) for t in prompt]
+        self.max_new_tokens = int(max_new_tokens)
+        self.stop_token = stop_token
+        self.on_event = on_event
+        self.cancelled = False
+
+
+class _Row:
+    __slots__ = ("req", "produced", "prefilling", "prefilled", "chunks",
+                 "chunk_idx", "history")
+
+    def __init__(self, req: Request):
+        self.req = req
+        self.produced = 0
+        # PREFILLING phase: ``prefilled`` is the row's valid KV length so
+        # far; ``chunks`` the pow-2-tailed plan over the prompt.
+        self.prefilling = True
+        self.prefilled = 0
+        self.chunks: list = []
+        self.chunk_idx = 0
+        # prompt + every emitted token, in order
+        self.history = list(req.prompt)
+
+
+class DecodeEngine:
+    """Per-(model, block_size, sampling) continuous-batching engine over
+    the paged pool.  The worker thread owns the KV state, the host-side
+    per-row lengths (authoritative) and last tokens; ``submit`` only
+    queues."""
+
+    def __init__(self, model_id: str, block_size: int, temperature, top_k,
+                 capacity: int | None = None, device=None):
+        self.model_id = model_id
+        self.block_size = int(block_size)
+        self.temperature = temperature
+        self.top_k = top_k
+        self.capacity = capacity or _max_rows()
+        self.greedy = temperature is None or float(temperature) == 0.0
+        self._device = device
+        self._model = NeuralNetworkModel.deserialize(model_id, device=device,
+                                                     optimizer=False)
+        limit = self._model.arch.max_positions
+        if limit is not None and self.block_size > limit:
+            raise ValueError(f"block_size {self.block_size} exceeds the "
+                             f"model's {limit} position embeddings")
+        self._ckpt_stamp_v = self._ckpt_stamp()
+        self._lengths = np.zeros(self.capacity, np.int32)
+        self._last_tok = np.zeros(self.capacity, np.int32)
+        self._rows: list = [None] * self.capacity
+        self._alloc_state()
+
+        self._pending: collections.deque = collections.deque()
+        self._cond = threading.Condition()
+        self._shutdown = False
+        # Positional sampling keys (temperature > 0) derive from this seed.
+        self._seed = 0
+
+        # metrics (written by the worker thread only)
+        self._admissions = 0
+        self._completed = 0
+        self._decode_steps = 0
+        self._decode_tokens = 0
+        self._decode_time_s = 0.0
+        self._prefill_chunks = 0
+        self._dispatches = 0
+        self._dispatch_tokens = 0
+        self._pool_drops = 0
+        self._crashes_total = 0
+        self._engine_resets = 0
+        self._tick_timeline: collections.deque = collections.deque(
+            maxlen=_TIMELINE_LEN)
+
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"penroz-sched-{model_id}-{self.block_size}")
+        self._thread.start()
+
+    def _alloc_state(self):
+        """(Re)allocate the engine's paged pool from scratch with the static
+        per-row page partition — at construction and after a failed tick,
+        whose KV state is presumed corrupt."""
+        self._kv = (KV.create_kv_state(self._model.arch.kv_specs,
+                                       self.capacity, self.block_size,
+                                       self._model.dtype, paged=True,
+                                       device=self._model.device)
+                    .with_static_table()
+                    .with_lengths(np.zeros(self.capacity, np.int32)))
+        self._lengths[:] = 0
+        self._last_tok[:] = 0
+        self._rows = [None] * self.capacity
+
+    # -- public surface -----------------------------------------------------
+
+    def submit(self, req: Request):
+        with self._cond:
+            if self._shutdown:
+                raise RuntimeError("decode engine is shut down")
+            self._pending.append(req)
+            self._cond.notify_all()
+
+    def shutdown(self, timeout: float = 10.0) -> bool:
+        """Stop the engine, failing what is in flight; True iff the worker
+        thread joined."""
+        with self._cond:
+            self._shutdown = True
+            self._cond.notify_all()
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            log.error("Decode engine %s: worker thread failed to join "
+                      "within %.1fs", self.model_id, timeout)
+            return False
+        return True
+
+    @property
+    def active_rows(self) -> int:
+        return sum(1 for r in self._rows if r is not None)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._pending)
+
+    def idle(self) -> bool:
+        return self.active_rows == 0 and not self._pending
+
+    def stats(self) -> dict:
+        now = time.monotonic()
+        timeline = list(self._tick_timeline)[-_TIMELINE_SERVE:][::-1]
+        active = self.active_rows
+        return {
+            "model_id": self.model_id,
+            "block_size": self.block_size,
+            "temperature": 0.0 if self.greedy else float(self.temperature),
+            "top_k": self.top_k,
+            "capacity": self.capacity,
+            "active_rows": active,
+            "queue_depth": self.queue_depth,
+            "occupancy": active / self.capacity,
+            "superstep": _superstep_max(),
+            "dispatches_total": self._dispatches,
+            "tokens_per_dispatch_avg": (
+                round(self._dispatch_tokens / self._dispatches, 3)
+                if self._dispatches else None),
+            "decode_steps": self._decode_steps,
+            "decode_tokens": self._decode_tokens,
+            "decode_tokens_per_sec": round(
+                self._decode_tokens / self._decode_time_s, 2)
+            if self._decode_time_s > 0 else 0.0,
+            "tokens_per_decode_step": round(
+                self._decode_tokens / self._decode_steps, 3)
+            if self._decode_steps else 0.0,
+            "admissions": self._admissions,
+            "completed": self._completed,
+            "prefill_chunks": self._prefill_chunks,
+            "kv_pool_capacity_drops": self._pool_drops,
+            "crashes_total": self._crashes_total,
+            "engine_resets": self._engine_resets,
+            "tick_timeline": [
+                {"age_s": round(now - e["t"], 3),
+                 **{k: v for k, v in e.items() if k != "t"}}
+                for e in timeline],
+        }
+
+    # -- worker -------------------------------------------------------------
+
+    def _run(self):
+        while True:
+            with self._cond:
+                while (not self._shutdown and not self._pending
+                       and self.active_rows == 0):
+                    self._cond.wait()
+                if self._shutdown:
+                    break
+            try:
+                self._admit()
+                self._tick_unified()
+            except Exception as exc:  # noqa: BLE001 — fail requests, not thread
+                log.exception("Decode engine %s failed a tick", self.model_id)
+                self._crashes_total += 1
+                self._fail_all(exc)
+                try:
+                    self._engine_resets += 1
+                    self._alloc_state()
+                except Exception:  # noqa: BLE001 — the engine is unusable
+                    log.exception("Decode engine %s reset failed; shutting "
+                                  "it down", self.model_id)
+                    with self._cond:
+                        self._shutdown = True
+                    break
+        self._fail_all(RuntimeError("decode engine shut down"))
+
+    def _free_row(self):
+        for i, r in enumerate(self._rows):
+            if r is None:
+                return i
+        return None
+
+    def _admit(self):
+        while True:
+            row = self._free_row()
+            if row is None:
+                return
+            with self._cond:
+                if not self._pending:
+                    return
+                req = self._pending.popleft()
+            if req.cancelled:
+                continue
+            if self.active_rows == 0:
+                self._maybe_reload()
+            self._begin_prefill(row, req)
+
+    def _begin_prefill(self, row: int, req: Request):
+        """Claim ``row`` for ``req`` in the PREFILLING phase and plan its
+        chunks; the device work runs in the unified ticks."""
+        state = _Row(req)
+        state.chunks = bucketing.chunk_plan(len(req.prompt), _prefill_chunk())
+        self._rows[row] = state
+        self._lengths[row] = 0
+        self._last_tok[row] = 0
+        self._admissions += 1
+
+    def _tick_unified(self):
+        """One unified tick: plan an n-step mixed block, run it as ONE
+        ``decode_mixed_step`` round trip, replay the samples."""
+        t0 = time.monotonic()
+        plan = self._plan_mixed()
+        if plan is None:
+            return
+        comp = self._mixed_dispatch(plan)
+        dur_ms = (time.monotonic() - t0) * 1000.0
+        self._tick_timeline.append({
+            "t": t0,
+            "dispatch_ms": round(dur_ms, 3),
+            "occupancy": round(self.active_rows / self.capacity, 4),
+            "prefill_chunks": comp["prefill_chunks"],
+            "verify_rows": 0,
+            "shared_rows": comp["decode_rows"],
+            "emitted": comp["emitted"],
+            "superstep": plan["n"],
+            "unified": True,
+            "prefill_rows": comp["prefill_rows"],
+            "decode_rows": comp["decode_rows"],
+        })
+
+    def _plan_mixed(self):
+        """Host-side plan of one unified block (JAX ``_plan_mixed`` without
+        spec-decode verify spans): simulate every row's next
+        ``PENROZ_SCHED_SUPERSTEP`` steps — a prefilling row runs one chunk
+        a step and parks at its final chunk (whose sample is its first
+        token, shipped at this block's boundary), a decoding row runs one
+        token a step until its budget or its row is spent — and pack each
+        step's spans into descriptor arrays (the step count takes the pow-2
+        floor, the descriptor count the pow-2 ceiling)."""
+        rows = [(i, r) for i, r in enumerate(self._rows) if r is not None]
+        if not rows:
+            return None
+        block_q = RPA.default_block_q()
+        n_max = max(1, _superstep_max())
+        sim = {i: {"mode": "prefill" if state.prefilling else "decode",
+                   "len": int(self._lengths[i]), "chunk": state.chunk_idx,
+                   "produced": state.produced}
+               for i, state in rows}
+        steps = []
+        blocks_per_step = []
+        for _ in range(n_max):
+            spans, ops = [], []
+            for i, state in rows:
+                st = sim[i]
+                if st["mode"] == "prefill":
+                    size = state.chunks[st["chunk"]]
+                    final = st["chunk"] + 1 >= len(state.chunks)
+                    spans.append((i, st["len"], size))
+                    ops.append(("chunk", i, state, st["len"], size, final,
+                                len(spans) - 1))
+                    st["len"] += size
+                    st["chunk"] += 1
+                    if final:
+                        st["mode"] = "parked"
+                        st["produced"] += 1
+                elif st["mode"] == "decode":
+                    if (st["produced"] < state.req.max_new_tokens
+                            and st["len"] < self.block_size):
+                        spans.append((i, st["len"], 1))
+                        ops.append(("decode", i, state, len(spans) - 1))
+                        st["len"] += 1
+                        st["produced"] += 1
+            if not ops:
+                break
+            steps.append((spans, ops))
+            blocks_per_step.append(
+                sum(-(-q_len // block_q) for _, _, q_len in spans))
+        if not steps:
+            return None
+        n = bucketing.clamp_pow2_floor(len(steps), hi=n_max)
+        steps = steps[:n]
+        NB = bucketing.bucket_count(max(blocks_per_step[:n]))
+        Tp = NB * block_q
+        descs = np.zeros((n, NB, 4), np.int32)
+        tok_lit = np.zeros((n, Tp), np.int32)
+        tok_src = np.full((n, Tp), -1, np.int32)
+        positions = np.zeros((n, Tp), np.int32)
+        sample_slot = np.full((n, self.capacity), -1, np.int32)
+        row_ids = np.full((n, Tp), -1, np.int32)
+        replay = []
+        for s, (spans, ops) in enumerate(steps):
+            d, offsets = KV.build_descriptors(spans, block_q, NB)
+            descs[s] = d
+            step_ops = []
+            for op in ops:
+                kind, i, state, span_idx = op[0], op[1], op[2], op[-1]
+                q_start, q_len = spans[span_idx][1], spans[span_idx][2]
+                slots = KV.packed_slots(offsets[span_idx], q_len, block_q)
+                positions[s, slots] = q_start + np.arange(q_len)
+                row_ids[s, slots] = i
+                if kind == "chunk":
+                    _, _, _, start, size, final, _ = op
+                    tok_lit[s, slots] = state.history[start:start + size]
+                    if final:
+                        sample_slot[s, i] = slots[-1]
+                    step_ops.append(("chunk", i, state, size,
+                                     int(slots[-1]) if final else None))
+                else:
+                    tok_src[s, slots[0]] = i
+                    sample_slot[s, i] = slots[0]
+                    step_ops.append(("decode", i, state, int(slots[0])))
+            replay.append(step_ops)
+        return {"n": n, "descs": descs, "tok_lit": tok_lit,
+                "tok_src": tok_src, "positions": positions,
+                "sample_slot": sample_slot, "row_ids": row_ids,
+                "replay": replay}
+
+    def _mixed_dispatch(self, plan) -> dict:
+        """Run the planned block as ONE ``decode_mixed_step`` and replay its
+        (n, Tp) samples."""
+        t0 = time.monotonic()
+        arr, self._kv = self._model.decode_mixed_step(
+            self._kv, plan["descs"], plan["tok_lit"], plan["tok_src"],
+            plan["positions"], plan["sample_slot"], self._last_tok,
+            seed=self._seed, temperature=self.temperature, top_k=self.top_k,
+            row_ids=plan["row_ids"])
+        return self._replay_block(plan, arr, t0)
+
+    def _replay_block(self, plan, arr, t0) -> dict:
+        """Replay the block's samples step-major through the per-token
+        retirement path; rows retired mid-block (stop token, budget) are
+        skipped for the rest of it.  Host lengths stay authoritative."""
+        replay = plan["replay"]
+        prefill_rows = {op[1] for ops in replay for op in ops
+                        if op[0] == "chunk"}
+        decode_rows = {op[1] for ops in replay for op in ops
+                       if op[0] == "decode"}
+        emitted = 0         # decode-path tokens
+        emitted_total = 0   # every token out of this dispatch
+        chunks_run = 0
+        steps_decode = 0
+        for s, ops in enumerate(replay):
+            if any(op[0] == "decode" for op in ops):
+                steps_decode += 1
+            for op in ops:
+                kind, i, state = op[0], op[1], op[2]
+                if self._rows[i] is not state:
+                    continue    # retired mid-block
+                if kind == "chunk":
+                    size, final_slot = op[3], op[4]
+                    if state.req.cancelled:
+                        self._retire(i, notify=False)
+                        continue
+                    state.prefilled += size
+                    state.chunk_idx += 1
+                    self._prefill_chunks += 1
+                    self._lengths[i] = state.prefilled
+                    chunks_run += 1
+                    if final_slot is not None:
+                        emitted_total += 1
+                        self._finish_prefill(i, state,
+                                             int(arr[s, final_slot]))
+                else:
+                    slot = op[3]
+                    self._lengths[i] += 1
+                    tok = int(arr[s, slot])
+                    self._last_tok[i] = tok
+                    emitted += 1
+                    emitted_total += 1
+                    self._emit_token(i, state, tok)
+        self._decode_steps += steps_decode
+        self._decode_tokens += emitted
+        self._decode_time_s += time.monotonic() - t0
+        self._dispatches += 1
+        self._dispatch_tokens += emitted_total
+        return {"prefill_chunks": chunks_run,
+                "prefill_rows": len(prefill_rows),
+                "decode_rows": len(decode_rows),
+                "emitted": emitted_total}
+
+    def _finish_prefill(self, row: int, state: _Row, first: int):
+        """Final chunk done: its sample is the request's first token; the
+        row joins the decode batch (JAX ``_finish_prefill_local``)."""
+        state.prefilling = False
+        self._lengths[row] = state.prefilled  # == len(prompt)
+        self._last_tok[row] = first
+        self._emit_token(row, state, first)
+
+    def _emit_token(self, row: int, state: _Row, tok: int):
+        state.produced += 1
+        state.history.append(tok)
+        req = state.req
+        self._deliver(req, "token", tok)
+        if req.cancelled:
+            self._retire(row, notify=False)
+        elif req.stop_token is not None and tok == req.stop_token:
+            self._retire(row)
+        elif state.produced >= req.max_new_tokens:
+            self._retire(row)
+        elif self._lengths[row] >= self.block_size:
+            # Defensive: eligibility admits only prompt + max_new <= block,
+            # so this is a real pool-capacity truncation — count it.
+            dropped = req.max_new_tokens - state.produced
+            KV.record_pool_drop(dropped, context=f"scheduler row hit "
+                                                 f"block_size="
+                                                 f"{self.block_size}")
+            self._pool_drops += dropped
+            self._retire(row)
+
+    def _retire(self, row: int, notify: bool = True):
+        state = self._rows[row]
+        self._rows[row] = None
+        self._lengths[row] = 0
+        self._last_tok[row] = 0
+        self._kv.reset_row(row)
+        self._completed += 1
+        if notify and state is not None:
+            self._deliver(state.req, "done", None)
+
+    def _deliver(self, req: Request, kind: str, value):
+        try:
+            req.on_event(kind, value)
+        except Exception:  # noqa: BLE001 — a dead consumer must not kill the batch
+            log.exception("Decode scheduler consumer callback failed")
+            req.cancelled = True
+
+    def _fail_all(self, exc: Exception):
+        """Fail every in-flight and queued request."""
+        for i, state in enumerate(self._rows):
+            if state is not None:
+                self._rows[i] = None
+                self._lengths[i] = 0
+                self._last_tok[i] = 0
+                self._deliver(state.req, "error", exc)
+        with self._cond:
+            pending = list(self._pending)
+            self._pending.clear()
+        for req in pending:
+            self._deliver(req, "error", exc)
+
+    # -- model staleness ----------------------------------------------------
+
+    def _ckpt_stamp(self):
+        try:
+            return os.path.getmtime(checkpoint.source_path(self.model_id))
+        except OSError:
+            return None
+
+    def _maybe_reload(self):
+        """With no row in flight, pick up a newer checkpoint (a /train/
+        that finished since the engine loaded it)."""
+        stamp = self._ckpt_stamp()
+        if stamp == self._ckpt_stamp_v:
+            return
+        try:
+            self._model = NeuralNetworkModel.deserialize(
+                self.model_id, device=self._device, optimizer=False)
+            self._ckpt_stamp_v = stamp
+            log.info("Decode engine reloaded model %s (checkpoint changed)",
+                     self.model_id)
+        except KeyError:
+            log.warning("Decode engine %s: checkpoint vanished; serving "
+                        "cached weights", self.model_id)
+
+
+# ---------------------------------------------------------------------------
+# Engine registry
+# ---------------------------------------------------------------------------
+
+_ENGINES: dict = {}
+_REG_LOCK = threading.Lock()
+
+
+def _engine_key(model_id, block_size, temperature, top_k, device):
+    greedy = temperature is None or float(temperature) == 0.0
+    return (model_id, int(block_size), 0.0 if greedy else float(temperature),
+            int(top_k) if top_k is not None else None, str(device))
+
+
+def get_engine(model_id, block_size, temperature, top_k, device=None):
+    """Engine lookup/creation (deserializes the model on a miss).  Returns
+    None when the registry is at capacity with no idle engine (the caller
+    takes the single-sequence path).  Raises KeyError for an unknown model
+    (HTTP 404)."""
+    key = _engine_key(model_id, block_size, temperature, top_k, device)
+    with _REG_LOCK:
+        engine = _ENGINES.get(key)
+        if engine is not None and not engine._shutdown:
+            return engine
+        if engine is not None:
+            del _ENGINES[key]
+        if len(_ENGINES) >= _max_engines():
+            victim = next((k for k, e in _ENGINES.items() if e.idle()), None)
+            if victim is None:
+                log.warning("Decode engine registry full (%d) with no idle "
+                            "engine; request falls back to the "
+                            "single-sequence path", len(_ENGINES))
+                return None
+            _ENGINES.pop(victim).shutdown(timeout=5.0)
+        engine = DecodeEngine(model_id, block_size, temperature, top_k,
+                              device=device)
+        _ENGINES[key] = engine
+        return engine
+
+
+def reset():
+    """Shut every engine down and clear the registry (tests, shutdown)."""
+    with _REG_LOCK:
+        engines = list(_ENGINES.values())
+        _ENGINES.clear()
+    for engine in engines:
+        engine.shutdown(timeout=5.0)
+
+
+def serving_stats() -> dict:
+    """Scheduler observability — the /serving_stats/ payload, the JAX
+    package's key names for what this scheduler does."""
+    with _REG_LOCK:
+        engines = [e for e in _ENGINES.values() if not e._shutdown]
+    per = [e.stats() for e in engines]
+    capacity = sum(p["capacity"] for p in per)
+    active = sum(p["active_rows"] for p in per)
+    decode_steps = sum(p["decode_steps"] for p in per)
+    decode_tokens = sum(p["decode_tokens"] for p in per)
+    dispatches = sum(p["dispatches_total"] for p in per)
+    timeline = sorted((t for p in per for t in p["tick_timeline"]),
+                      key=lambda e: e["age_s"])[:_TIMELINE_SERVE]
+    return {
+        "continuous_batching_enabled": enabled(),
+        "engines": per,
+        "capacity": capacity,
+        "active_rows": active,
+        "queue_depth": sum(p["queue_depth"] for p in per),
+        "batch_occupancy": (active / capacity) if capacity else 0.0,
+        "decode_steps": decode_steps,
+        "decode_tokens": decode_tokens,
+        "decode_tokens_per_sec": round(
+            sum(p["decode_tokens_per_sec"] for p in per), 2),
+        "tokens_per_decode_step": round(
+            decode_tokens / decode_steps, 3) if decode_steps else 0.0,
+        "dispatches_total": dispatches,
+        "tokens_per_dispatch_avg": (
+            round(sum(p["tokens_per_dispatch_avg"] * p["dispatches_total"]
+                      for p in per if p["dispatches_total"]) / dispatches, 3)
+            if dispatches else None),
+        "tick_timeline": timeline,
+        "crashes_total": sum(p["crashes_total"] for p in per),
+        "engine_resets": sum(p["engine_resets"] for p in per),
+        "kv_pool_capacity_drops": KV.pool_drop_count(),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Thread request surface (serve/app.py)
+# ---------------------------------------------------------------------------
+
+def _queued_request(prompt, max_new_tokens, stop_token):
+    events: queue.Queue = queue.Queue()
+    req = Request(prompt, max_new_tokens, stop_token,
+                  lambda kind, value: events.put((kind, value)))
+    return req, events
+
+
+def next_event(req: Request, events: queue.Queue, timeout=None):
+    """The next ``(kind, value)`` of ``req``; on ``timeout`` (seconds) the
+    request is cancelled and TimeoutError raised."""
+    try:
+        return events.get(timeout=timeout)
+    except queue.Empty:
+        req.cancelled = True
+        raise TimeoutError(f"no scheduler event within {timeout} s")
+
+
+def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
+    """Wait for ``req``'s full sequence (prompt + generated, the
+    ``generate_tokens`` contract); re-raise its error.  ``timeout`` bounds
+    each wait for the next event (None: no bound)."""
+    tokens = list(req.prompt)
+    while True:
+        kind, value = next_event(req, events, timeout)
+        if kind == "token":
+            tokens.append(value)
+        elif kind == "done":
+            return tokens
+        else:
+            raise value
+
+
+def run_request(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
+                timeout=None) -> list[int]:
+    """Submit one request and wait for its full sequence (:func:`collect`)."""
+    req, events = _queued_request(prompt, max_new_tokens, stop_token)
+    engine.submit(req)
+    return collect(req, events, timeout)
+
+
+def start_stream(engine: DecodeEngine, prompt, max_new_tokens, stop_token):
+    """Submit a streaming request; returns ``(req, events)``: the caller
+    reads events with :func:`next_event` and sets ``req.cancelled`` when
+    its client goes away."""
+    req, events = _queued_request(prompt, max_new_tokens, stop_token)
+    engine.submit(req)
+    return req, events

@@ -50,6 +50,9 @@ def _check(kind, v) -> tuple[bool, Any]:
     if kind == "int_list":
         ok = isinstance(v, list) and all(_check(int, x)[0] for x in v)
         return ok, [_check(int, x)[1] for x in v] if ok else v
+    if kind == "int_lists":
+        ok = isinstance(v, list) and all(_check("int_list", x)[0] for x in v)
+        return ok, [_check("int_list", x)[1] for x in v] if ok else v
     raise TypeError(kind)
 
 
@@ -100,6 +103,10 @@ class CreateModelRequest(_Request):
 
 @dataclass
 class GenerateRequest(_Request):
+    """``POST /generate/``.  ``timeout_ms``, ``priority``, ``tenant``,
+    ``session_id`` and ``adapter_id`` (deadlines, QoS, sessions, LoRA) are
+    accepted as fields so that they can be refused with a 400: they are
+    not ported."""
     model_id: str
     input: list
     block_size: int
@@ -108,7 +115,11 @@ class GenerateRequest(_Request):
     top_k: Optional[int] = None
     stop_token: Optional[int] = None
     stream: bool = False
+    timeout_ms: Optional[int] = None
     adapter_id: Optional[str] = None
+    priority: Optional[str] = None
+    tenant: Optional[str] = None
+    session_id: Optional[str] = None
 
     FIELDS = (("model_id", str, _REQUIRED, False),
               ("input", list, _REQUIRED, False),
@@ -118,7 +129,51 @@ class GenerateRequest(_Request):
               ("top_k", int, None, True),
               ("stop_token", int, None, True),
               ("stream", bool, False, False),
-              ("adapter_id", str, None, True))
+              ("timeout_ms", int, None, True),
+              ("adapter_id", str, None, True),
+              ("priority", str, None, True),
+              ("tenant", str, None, True),
+              ("session_id", str, None, True))
+
+    UNPORTED = ("timeout_ms", "adapter_id", "priority", "tenant",
+                "session_id")
+
+
+@dataclass
+class GenerateBatchRequest(_Request):
+    """``POST /generate_batch/``: N prompts (ragged lengths) through the
+    continuous-batching scheduler.  As for /generate/, the fields of
+    features that are not ported are accepted only to be refused."""
+    model_id: str
+    inputs: list
+    block_size: int
+    max_new_tokens: int
+    temperature: float = 1.0
+    top_k: Optional[int] = None
+    stop_token: Optional[int] = None
+    timeout_ms: Optional[int] = None
+    adapter_id: Optional[str] = None
+    adapter_ids: Optional[list] = None
+    priority: Optional[str] = None
+    tenant: Optional[str] = None
+    session_ids: Optional[list] = None
+
+    FIELDS = (("model_id", str, _REQUIRED, False),
+              ("inputs", "int_lists", _REQUIRED, False),
+              ("block_size", int, _REQUIRED, False),
+              ("max_new_tokens", int, _REQUIRED, False),
+              ("temperature", float, 1.0, False),
+              ("top_k", int, None, True),
+              ("stop_token", int, None, True),
+              ("timeout_ms", int, None, True),
+              ("adapter_id", str, None, True),
+              ("adapter_ids", list, None, True),
+              ("priority", str, None, True),
+              ("tenant", str, None, True),
+              ("session_ids", list, None, True))
+
+    UNPORTED = ("timeout_ms", "adapter_id", "adapter_ids", "priority",
+                "tenant", "session_ids")
 
 
 @dataclass

@@ -238,6 +238,12 @@ def shm_model_path(model_id: str) -> str:
     return os.path.join(SHM_PATH, model_path(model_id))
 
 
+def source_path(model_id: str) -> str:
+    """The file :func:`load` reads: the shm copy, else the durable one."""
+    shm_path = shm_model_path(model_id)
+    return shm_path if os.path.exists(shm_path) else model_path(model_id)
+
+
 def _mkstemp_for(path: str):
     """Unique temp sibling of ``path`` (umask-respecting permissions)."""
     directory = os.path.dirname(path) or "."

@@ -217,3 +217,148 @@ def test_train_errors(server, toy_gpt_layers, toy_optimizer, monkeypatch):
     assert status == 202
     body = _poll_progress(server, "e", {"Error"})
     assert "no shards" in body["status"]["message"]
+
+
+# -- paged pool and continuous batching --------------------------------------
+
+@pytest.fixture
+def paged(monkeypatch):
+    from penroz_tpu_torch.serve import decode_scheduler
+    monkeypatch.setenv("PAGED_KV_CACHE", "1")
+    monkeypatch.setenv("PENROZ_KV_PAGE_SIZE", "4")
+    yield
+    decode_scheduler.reset()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_paged_generate_matches_jax_past_block(server, paged, monkeypatch,
+                                               toy_gpt_layers, toy_optimizer,
+                                               int8):
+    """Single-sequence /generate/ over the paged pool: 5 + 25 tokens run
+    past the 16-token block (crop + re-prefill) with the JAX package's
+    greedy tokens, streamed and not."""
+    if int8:
+        monkeypatch.setenv("TURBO_QUANT_KV_CACHE", "1")
+    jm = JModel("paged", JMapper(toy_gpt_layers, toy_optimizer))
+    jm.serialize(sync_flush=True)
+    expected = jm.generate_tokens([1, 2, 3, 4, 5], 16, 25, temperature=0)
+    status, text = _call(server, "POST", "/generate/", _gen("paged"))
+    assert status == 200, text
+    assert json.loads(text)["tokens"] == expected
+    status, text = _call(server, "POST", "/generate/",
+                         _gen("paged", stream=True))
+    assert [int(t) for t in text.split()] == expected[5:]
+
+
+def test_continuous_batching_matches_single_sequence(
+        server, paged, monkeypatch, toy_gpt_layers, toy_optimizer):
+    """Three concurrent /generate/ requests (one streamed) and a
+    /generate_batch/ of the same prompts share the scheduler's engine and
+    return the single-sequence tokens; /serving_stats/ reports the
+    unified ticks."""
+    monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
+    monkeypatch.setenv("PENROZ_PREFILL_CHUNK", "2")
+    jm = JModel("cb", JMapper(toy_gpt_layers, toy_optimizer))
+    jm.serialize(sync_flush=True)
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [4, 4, 4, 2, 2, 2, 1]]
+    expected = [jm.generate_tokens([p], 16, 6, temperature=0)
+                for p in prompts]
+    results = [None] * 3
+
+    def fire(i):
+        body = _gen("cb", input=[prompts[i]], max_new_tokens=6,
+                    stream=i == 1)
+        results[i] = _call(server, "POST", "/generate/", body)
+
+    threads = [threading.Thread(target=fire, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert all(r is not None and r[0] == 200 for r in results), results
+    assert json.loads(results[0][1])["tokens"] == expected[0]
+    assert [int(t) for t in results[1][1].split()] == expected[1][5:]
+    assert json.loads(results[2][1])["tokens"] == expected[2]
+    status, text = _call(server, "POST", "/generate_batch/", {
+        "model_id": "cb", "inputs": prompts, "block_size": 16,
+        "max_new_tokens": 6, "temperature": 0})
+    assert status == 200, text
+    assert json.loads(text)["sequences"] == expected
+    status, text = _call(server, "GET", "/serving_stats/")
+    assert status == 200
+    stats = json.loads(text)
+    for key in ("continuous_batching_enabled", "engines", "capacity",
+                "active_rows", "queue_depth", "decode_tokens",
+                "decode_steps", "dispatches_total", "tick_timeline"):
+        assert key in stats, key
+    assert stats["continuous_batching_enabled"] is True
+    assert stats["capacity"] == 8 and stats["active_rows"] == 0
+    # six rows of 6 tokens: the first of each comes from its prefill
+    assert stats["decode_tokens"] == 6 * 5
+    tick = stats["tick_timeline"][0]
+    for key in ("unified", "prefill_rows", "decode_rows", "prefill_chunks",
+                "emitted", "superstep", "dispatch_ms"):
+        assert key in tick, key
+    assert all(t["unified"] for t in stats["tick_timeline"])
+    assert sum(t["emitted"] for t in stats["tick_timeline"]) == 36
+    # an ineligible request (prompt + new tokens past the block) takes the
+    # single-sequence paged path, crop and all
+    status, text = _call(server, "POST", "/generate/", _gen("cb"))
+    assert status == 200
+    assert json.loads(text)["tokens"] == jm.generate_tokens(
+        [1, 2, 3, 4, 5], 16, 25, temperature=0)
+    assert _call(server, "POST", "/generate/",
+                 _gen("nope", max_new_tokens=3))[0] == 404
+    status, text = _call(server, "POST", "/generate_batch/", {
+        "model_id": "cb", "inputs": [[1] * 12], "block_size": 16,
+        "max_new_tokens": 6})
+    assert status == 400 and "row 0" in text
+
+
+@pytest.mark.parametrize("env,field", [
+    ({"PENROZ_PREFIX_CACHE": "1"}, None),
+    ({"PENROZ_SPEC_DECODE": "1"}, None),
+    ({"PENROZ_RAGGED_ATTENTION": "0"}, None),
+    ({"PAGED_KV_CACHE": "0"}, None),
+    ({"PENROZ_SCHED_REPLICAS": "2"}, None),
+    ({"PENROZ_DISAGG_PREFILL": "1"}, None),
+    ({"PENROZ_SERVE_MESH": "1"}, None),
+    ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
+    ({}, ("timeout_ms", 100)),
+    ({}, ("priority", "interactive")),
+    ({}, ("tenant", "t1")),
+    ({}, ("session_id", "s1")),
+    ({}, ("adapter_id", "a1")),
+    ({"PENROZ_CONTINUOUS_BATCHING": "0"}, "batch"),
+])
+def test_unported_serving_options_400(server, paged, monkeypatch, env,
+                                      field, toy_gpt_layers, toy_optimizer):
+    """Each scheduler knob and request field of a feature that is not
+    ported is a 400 that names it, on /generate/ and /generate_batch/."""
+    monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    jm = JModel("ref", JMapper(toy_gpt_layers, toy_optimizer))
+    jm.serialize(sync_flush=True)
+    body = _gen("ref", max_new_tokens=3)
+    batch = {"model_id": "ref", "inputs": [[1, 2]], "block_size": 16,
+             "max_new_tokens": 3}
+    if field == "batch":
+        status, text = _call(server, "POST", "/generate_batch/", batch)
+        assert status == 400 and "PENROZ_CONTINUOUS_BATCHING" in text
+        return
+    if field is not None:
+        name, value = field
+        body[name] = value
+        batch_name = {"session_id": "session_ids"}.get(name, name)
+        batch[batch_name] = ([value] if batch_name == "session_ids"
+                             else value)
+        names = [name, batch_name]
+    else:
+        names = [next(iter(env))]
+        if names[0] == "PAGED_KV_CACHE":
+            names = ["PENROZ_CONTINUOUS_BATCHING"]
+    status, text = _call(server, "POST", "/generate/", body)
+    assert status == 400 and names[0] in text, text
+    status, text = _call(server, "POST", "/generate_batch/", batch)
+    assert status == 400 and names[-1] in text, text

@@ -263,3 +263,164 @@ def test_training_step_launches_every_kernel(dev):
     assert [a - b for a, b in zip(after, before)] == [4, 4, 2, 2]
     assert bool(torch.isfinite(cost)) and abs(float(cost) - np.log(512)) < 1
     assert ratios.shape == (len(model.arch.param_order),)
+
+
+# ---------------------------------------------------------------------------
+# paged decode and ragged paged attention (continuous-batching slice): the
+# same tolerances as the contiguous decode kernel above; padding slots of
+# the ragged kernel must be exactly zero.
+# ---------------------------------------------------------------------------
+
+from penroz_tpu_torch.ops.kernels import paged_attention as PA  # noqa: E402
+from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA  # noqa: E402,E501
+
+
+def _paged_pools(dev, lengths, Hkv, D, P, pages_per_seq, dtype, int8,
+                 seed=0):
+    """Pools with each sequence's live pages on shuffled physical pages and
+    -1 past them; int8 pools quantized by the cache's own quantizer."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    num_pages = len(lengths) * pages_per_seq + 3
+    rows = num_pages * P
+    k = torch.randn(1, Hkv, rows, D, generator=g).to(dev, dtype)
+    v = torch.randn(1, Hkv, rows, D, generator=g).to(dev, dtype)
+    perm = torch.randperm(num_pages, generator=g).tolist()
+    table = torch.full((len(lengths), pages_per_seq), -1, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(lengths):
+        live = -(-n // P)
+        table[r, :live] = torch.tensor(perm[used:used + live])
+        used += live
+    table = table.to(dev)
+    if not int8:
+        return k[0], v[0], table, {}
+    qk, sk = KV._quantize_int8(k)
+    qv, sv = KV._quantize_int8(v)
+    return qk[0], qv[0], table, {"k_scale": sk[0], "v_scale": sv[0]}
+
+
+def _check_close(out, ref, ref_abs):
+    if out.dtype != torch.bfloat16:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        return
+    err = (out.float() - ref.float()).abs()
+    tol = 2.0 ** -7 * (ref_abs.float() + ref.float().abs())
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("case", [
+    dict(lengths=[1024], Hq=12, Hkv=12, T=1, D=64, P=128, dtype="float32"),
+    dict(lengths=[700, 1024, 3, 130], Hq=12, Hkv=12, T=1, D=64, P=128,
+         dtype="bfloat16"),
+    dict(lengths=[37, 90], Hq=8, Hkv=2, T=3, D=128, P=8, dtype="float32"),
+    dict(lengths=[300, 41], Hq=4, Hkv=4, T=2, D=64, P=16, dtype="float32",
+         int8=True),
+    dict(lengths=[300, 41], Hq=4, Hkv=4, T=2, D=64, P=16, dtype="bfloat16",
+         int8=True),
+    dict(lengths=[500, 77], Hq=4, Hkv=2, T=4, D=64, P=32, dtype="float32",
+         window=50, alibi=True, softcap=5.0),
+    dict(lengths=[64, 129], Hq=2, Hkv=1, T=1, D=256, P=8, dtype="bfloat16",
+         scale=0.1),
+    dict(lengths=[1004], Hq=12, Hkv=12, T=1004, D=64, P=128,
+         dtype="float32"),
+    dict(lengths=[1024], Hq=12, Hkv=12, T=1024, D=64, P=128,
+         dtype="float32"),
+], ids=["gpt2_L1024", "gpt2_B4_ragged_bf16", "gqa_d128_p8", "int8",
+        "int8_bf16", "window_alibi_softcap", "d256_scale_bf16",
+        "gpt2_prefill_T1004", "gpt2_prefill_T1024"])
+def test_paged_decode_kernel_matches_plain(dev, case):
+    dtype = getattr(torch, case["dtype"])
+    lengths, T, P = case["lengths"], case["T"], case["P"]
+    pages = -(-max(lengths) // P) + 1
+    k, v, table, scales = _paged_pools(dev, lengths, case["Hkv"], case["D"],
+                                       P, pages, dtype, case.get("int8"))
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q = torch.randn(len(lengths), case["Hq"], T, case["D"],
+                    generator=g).to(dev, dtype)
+    kw = {key: case[key] for key in ("window", "softcap", "scale")
+          if key in case}
+    if case.get("alibi"):
+        kw["alibi"] = TA.alibi_slopes(case["Hq"])
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = PA.paged_decode_attention.launches
+    out = PA.paged_decode_attention(q, k, v, table, P, 0, lens, **scales,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention.launches == before + 1
+    ref = PA.paged_decode_attention_reference(q, k, v, table, P, 0, lens,
+                                              **scales, **kw)
+    ref_abs = PA.paged_decode_attention_reference(q, k, v.abs(), table, P,
+                                                  0, lens, **scales, **kw)
+    _check_close(out, ref, ref_abs)
+    if len(lengths) == 1:  # scalar length: the single-sequence path
+        out = PA.paged_decode_attention(q, k, v, table, P, lengths[0] - T,
+                                        lengths[0], **scales, **kw)
+        _check_close(out, ref, ref_abs)
+
+
+def _ragged_case(dev, spans, NB, BQ, Hq, Hkv, D, P, dtype, int8, seed=0):
+    from penroz_tpu_torch.ops.kv_cache import build_descriptors
+    lengths = [q0 + n for _, q0, n in spans]
+    pages = -(-max(lengths) // P) + 1
+    k, v, table, scales = _paged_pools(dev, lengths, Hkv, D, P, pages, dtype,
+                                       int8, seed)
+    descs, offsets = build_descriptors(
+        [(i, q0, n) for i, (_, q0, n) in enumerate(spans)], BQ, NB)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    q = torch.randn(1, Hq, NB * BQ, D, generator=g).to(dev, dtype)
+    return q, k, v, table, scales, torch.as_tensor(descs, device=dev)
+
+
+@pytest.mark.parametrize("case", [
+    dict(spans=[(0, 0, 256)] + [(i, 100 * i + 50, 1) for i in range(1, 8)],
+         NB=64, BQ=8, Hq=12, Hkv=12, D=64, P=128, dtype="float32"),
+    dict(spans=[(0, 0, 256)] + [(i, 100 * i + 50, 1) for i in range(1, 8)],
+         NB=64, BQ=8, Hq=12, Hkv=12, D=64, P=128, dtype="bfloat16"),
+    dict(spans=[(0, 40, 20), (1, 7, 1), (2, 0, 5)], NB=8, BQ=8, Hq=8,
+         Hkv=2, D=128, P=8, dtype="float32"),
+    dict(spans=[(0, 40, 20), (1, 7, 1)], NB=8, BQ=4, Hq=4, Hkv=4, D=64,
+         P=16, dtype="float32", int8=True),
+    dict(spans=[(0, 90, 30), (1, 200, 1)], NB=16, BQ=8, Hq=4, Hkv=2, D=64,
+         P=16, dtype="float32", window=40, alibi=True, softcap=6.0),
+], ids=["gpt2_mixed", "gpt2_mixed_bf16", "gqa_p8", "int8",
+        "window_alibi_softcap"])
+def test_ragged_kernel_matches_plain(dev, case):
+    dtype = getattr(torch, case["dtype"])
+    q, k, v, table, scales, descs = _ragged_case(
+        dev, case["spans"], case["NB"], case["BQ"], case["Hq"], case["Hkv"],
+        case["D"], case["P"], dtype, case.get("int8"))
+    kw = {key: case[key] for key in ("window", "softcap") if key in case}
+    if case.get("alibi"):
+        kw["alibi"] = TA.alibi_slopes(case["Hq"])
+    before = RPA.ragged_paged_attention.launches
+    out = RPA.ragged_paged_attention(q, k, v, table, case["P"], descs,
+                                     **scales, **kw)
+    torch.cuda.synchronize()
+    assert RPA.ragged_paged_attention.launches == before + 1
+    ref = RPA.ragged_paged_attention_reference(q, k, v, table, case["P"],
+                                               descs, **scales, **kw)
+    ref_abs = RPA.ragged_paged_attention_reference(
+        q, k, v.abs(), table, case["P"], descs, **scales, **kw)
+    _check_close(out, ref, ref_abs)
+    # padding slots (row -1 descriptors, t >= q_valid) are exactly zero
+    d = descs.cpu()
+    t = torch.arange(case["BQ"])
+    pad = ((t[None, :] >= d[:, 2:3]) | (d[:, 0:1] < 0)).reshape(-1)
+    assert pad.any()
+    assert torch.all(out[0][:, pad.to(dev)] == 0)
+
+
+def test_paged_kernels_reject_what_they_cannot_take(dev):
+    q, k, v, table, _, descs = _ragged_case(
+        dev, [(0, 0, 5)], 2, 4, 4, 4, 64, 8, torch.float32, False)
+    with pytest.raises(ValueError, match="int32"):
+        RPA.ragged_paged_attention(q, k, v, table.long(), 8, descs)
+    with pytest.raises(ValueError, match="multiple"):
+        RPA.ragged_paged_attention(q[:, :, :7].contiguous(), k, v, table, 8,
+                                   descs)
+    with pytest.raises(ValueError, match="length"):
+        PA.paged_decode_attention(q[:, :, :2].contiguous(), k, v, table, 8,
+                                  0, 1)
+    with pytest.raises(ValueError, match="cuda|device"):
+        PA.paged_decode_attention(q[:, :, :1].contiguous(), k.cpu(), v,
+                                  table, 8, 0, 1)

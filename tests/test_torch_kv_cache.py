@@ -98,5 +98,7 @@ def test_create_kv_state_honours_env(monkeypatch):
     assert isinstance(state, TKV.QuantKVState) and state.quantized
     assert state.k[0].dtype == torch.int8
     monkeypatch.setenv(TKV.PAGED_ENV, "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TKV.create_kv_state([(1, 8)], 1, 4)
+    state = TKV.create_kv_state([(1, 8)], 1, 4)
+    assert type(state) is TKV.QuantPagedKVState
+    monkeypatch.setenv(TKV.TURBO_QUANT_ENV, "0")
+    assert type(TKV.create_kv_state([(1, 8)], 1, 4)) is TKV.PagedKVState

@@ -147,8 +147,10 @@ def test_errors_are_values(toy_gpt_layers, toy_optimizer, monkeypatch):
     with pytest.raises(ValueError, match="prompt"):
         tm.generate_tokens([], 16, 4, temperature=0)
     monkeypatch.setenv("PAGED_KV_CACHE", "1")
-    with pytest.raises(NotImplementedError):
-        tm.generate_tokens(PROMPT, 16, 4, temperature=0)
+    with pytest.raises(ValueError, match="position"):
+        tm.generate_tokens(list(range(14)), 32, 4, temperature=0)
+    with pytest.raises(ValueError, match="prompt"):
+        tm.generate_tokens([], 16, 4, temperature=0)
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

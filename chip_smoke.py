@@ -16,10 +16,10 @@ prints no result:
                decode attention (serving), flash attention forward and
                backward and cross-entropy forward and backward (training),
                paged decode (decode steps and phase 4's prefills of 128,
-               1004 and 1024 tokens) and ragged paged attention (paged pool
-               and continuous batching), in fp32 and bf16.  Then the bound of
-               the TPU kernel not ported yet, reckoned from its Pallas cost
-               estimate.
+               1004 and 1024 tokens), ragged paged attention (paged pool
+               and continuous batching) and chunked gated linear attention
+               (the hybrid's SSM layers, phase 4c's shapes; also held to
+               the token-sequential oracle), in fp32 and bf16.
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
                50304, block 1024; random weights from seed 0): POST /model/,
@@ -44,6 +44,21 @@ prints no result:
                tokens both times.  Aggregate tokens/s, p50 and max latency,
                the same requests one after another, and a torch.profiler
                pass.
+4c. hybrid   — a server with the hybrid attention/SSM model
+               (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
+               ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
+               weights from seed 0): greedy /generate/ 128 + 128 twice, on
+               the int8 cache, and under PAGED_KV_CACHE=1 (fp32 and int8;
+               the same tokens as the contiguous cache of the same
+               precision); /output/ on a 16-token prompt, whose argmax is
+               the first greedy token of that prompt within ARGMAX_ATOL;
+               in-process compute_output at 1 x 1024, its logits held to
+               the same forward with the sequential oracle in place of the
+               kernel; /evaluate/ at 8 x 1024 on a synthetic shard, equal
+               to in-process evaluate_model; a torch.profiler pass over one
+               no-cache forward at 8 x 1024.  The chunked kernel's count is
+               reset just before and read just after: exactly 6 launches a
+               no-cache forward, none on the cached path.
 5. training  — the same server trains GPT-2 124M (AdamW, bf16 compute, the
                default on the card) through PUT /train/ on a synthetic uint16
                shard: batch 8 x block 1024, step 4 (two micro-steps an
@@ -98,6 +113,7 @@ SOURCES = [
     ("flash_attention", "penroz_tpu_torch/csrc/flash_attention.cu"),
     ("cross_entropy", "penroz_tpu_torch/csrc/cross_entropy.cu"),
     ("paged_attention", "penroz_tpu_torch/csrc/paged_attention.cu"),
+    ("ssm_scan", "penroz_tpu_torch/csrc/ssm_scan.cu"),
 ]
 # Launch sites of the main paths: (name, source, TPU kernel it replaces,
 # phase-3 case that stands for it).
@@ -122,6 +138,8 @@ KERNELS = [
     ("ragged_paged_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
      "penroz_tpu/ops/pallas/ragged_paged_attention.py:161",
      "ragged_gpt2_mixed"),
+    ("gla_chunked", "penroz_tpu_torch/csrc/ssm_scan.cu",
+     "penroz_tpu/ops/pallas/ssm_scan.py:74", "gla_gpt2_B8_T1024_fp32"),
 ]
 
 # Tolerances against the plain version (same inputs, same dtype).  fp32 and
@@ -161,6 +179,15 @@ TRAIN_BATCH, TRAIN_BLOCK, TRAIN_STEP = 8, 1024, 4
 # (fp32, summation order through 12 layers).
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL = 1e-4
+# Chunked GLA against its plain version (same block_t, both fp32 math):
+# element by element within GLA_C * (sum |terms| + |ref|), sum |terms| the
+# plain version on |q|, |k|, |v| (every decay is positive); the two round
+# the cumsum of the log-gates (|la| up to ~90 over a chunk) in another
+# order, which moves a decay factor by up to ~1e-5.  Against the
+# token-sequential oracle (products of gates, not exp of cumsums), gates
+# above the 1e-6 log floor: GLA_SEQ_C on the same scale.
+GLA_C = 1e-4
+GLA_SEQ_C = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -849,6 +876,104 @@ def ragged_cases():
     return cases
 
 
+def run_gla_case(torch, case, flush):
+    """The chunked GLA kernel against its plain version (and, where
+    ``sequential``, against the token-sequential oracle); one row.  No
+    single PyTorch call computes this function: library_ms is null."""
+    from penroz_tpu_torch.ops import ssm as SSM
+    from penroz_tpu_torch.ops.kernels import ssm_scan as SS
+    B, T, H, dk, dv = (case[k] for k in ("B", "T", "H", "dk", "dv"))
+    dtype = getattr(torch, case["dtype"])
+    g = torch.Generator(device="cuda").manual_seed(case["seed"])
+    q = (torch.randn(B, T, H, dk, device="cuda", generator=g)
+         * dk ** -0.5).to(dtype)
+    k = torch.randn(B, T, H, dk, device="cuda", generator=g).to(dtype)
+    v = torch.randn(B, T, H, dv, device="cuda", generator=g).to(dtype)
+    logits = torch.randn(B, T, H, device="cuda", generator=g)
+    if case.get("below_floor"):  # sigmoid(-20) ~ 2e-9 < the 1e-6 floor
+        low = torch.rand(B, T, H, device="cuda", generator=g) < 0.1
+        logits = torch.where(low, -20.0, logits)
+    gates = torch.sigmoid(logits)
+    kernel = lambda: SS.gla_chunked(q, k, v, gates)  # noqa: E731
+    plain = lambda: SS.gla_chunked_reference(q, k, v, gates)  # noqa: E731
+    before = SS.gla_chunked.launches
+    out = kernel()
+    torch.cuda.synchronize()
+    check(SS.gla_chunked.launches == before + 1,
+          f"{case['name']}: launch not counted")
+    check(bool(torch.isfinite(out).all()), f"{case['name']}: non-finite")
+    ref = plain()
+    terms = SS.gla_chunked_reference(q.abs(), k.abs(), v.abs(), gates)
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    ratio = float((diff / (GLA_C * (terms + ref.abs())).clamp_min(1e-30)
+                   ).max())
+    tol_text = f"{GLA_C:g} * (sum|terms| + |ref|)"
+    check(ratio <= 1.0, f"{case['name']}: max abs err {err:.3e}, "
+          f"{ratio:.2f} x the tolerance {tol_text}")
+    seq_ratio = None
+    if case.get("sequential"):
+        seq = SSM.gla_full_reference(q, k, v, gates)
+        seq_ratio = float(((out - seq).abs() / (
+            GLA_SEQ_C * (terms + seq.abs())).clamp_min(1e-30)).max())
+        check(seq_ratio <= 1.0, f"{case['name']}: {seq_ratio:.2f} x the "
+              f"tolerance {GLA_SEQ_C:g} * (sum|terms| + |seq|) against the "
+              f"sequential oracle")
+        del seq
+    del ref, terms, diff
+    iters = case.get("iters", 10)
+    ms = _time_ms(torch, kernel, iters, flush)
+    plain_ms = _time_ms(torch, plain, 3, flush)
+    # bytes: q, k, v read once, the fp32 gates read once, the fp32 output
+    # written once.  operations: the least any implementation does, the
+    # token-sequential recurrence (S update and q . S, 2 dk dv FMAs a token
+    # and head); all of it fp32 math whatever the input type.  The chunked
+    # algebra's count (causal halves of the scores) and the Pallas
+    # CostEstimate's (full block_t x block_t tiles) are kept beside it.
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = B * T * H
+    nbytes = rows * ((2 * dk + dv) * item + 4 + 4 * dv)
+    ops = 4 * rows * dk * dv
+    L = SS.chunk_length(T)
+    chunks = B * H * (-(-T // L))
+    row = _row(case["name"], err, ratio, tol_text, ms, plain_ms, None,
+               nbytes, ops, PEAK_OPS_PER_S["float32"])
+    row.update(
+        sequential_err_over_tol=seq_ratio,
+        chunked_ops=chunks * (L * (L + 1) * (dk + dv) + 4 * L * dk * dv),
+        pallas_ops=4 * chunks * L * L * (dk + dv))
+    row["chunked_bound_ms"] = row["chunked_ops"] / PEAK_OPS_PER_S[
+        "float32"] * 1e3
+    row["pallas_bound_ms"] = row["pallas_ops"] / PEAK_OPS_PER_S[
+        "float32"] * 1e3
+    if seq_ratio is not None:
+        say("kernels", f"{case['name']}: against the sequential oracle "
+            f"{seq_ratio:.3f} x {GLA_SEQ_C:g} * (sum|terms| + |seq|)")
+    return row
+
+
+def gla_cases():
+    gpt2 = dict(H=12, dk=64, dv=64)
+    cases = [
+        # /evaluate/'s shape (phase 4c) and /output/'s
+        dict(gpt2, name="gla_gpt2_B8_T1024_fp32", B=8, T=1024,
+             dtype="float32", sequential=True),
+        dict(gpt2, name="gla_gpt2_B1_T1024_fp32", B=1, T=1024,
+             dtype="float32", sequential=True),
+        dict(gpt2, name="gla_gpt2_B8_T1000_fp32", B=8, T=1000,
+             dtype="float32"),
+        dict(gpt2, name="gla_gpt2_B8_T1024_bf16", B=8, T=1024,
+             dtype="bfloat16"),
+        dict(gpt2, name="gla_gpt2_B8_T1024_below_floor", B=8, T=1024,
+             dtype="float32", below_floor=True),
+        dict(name="gla_H32_D128_B2_T1024_fp32", B=2, T=1024, H=32, dk=128,
+             dv=128, dtype="float32"),
+    ]
+    for i, c in enumerate(cases):
+        c["seed"] = 400 + i
+    return cases
+
+
 def training_cases():
     gpt2 = dict(B=8, Hq=12, Hkv=12, T=1024, D=64)
     cases = [dict(gpt2, name="flash_gpt2_B8_T1024_bf16", dtype="bfloat16"),
@@ -913,35 +1038,12 @@ def phase_kernels(torch):
     for case in ragged_cases():
         rows[case["name"]] = run_ragged_case(torch, case, flush)
         torch.cuda.empty_cache()
+    for case in gla_cases():
+        rows[case["name"]] = run_gla_case(torch, case, flush)
+        torch.cuda.empty_cache()
     del flush
     say("kernels", f"ok: {len(rows)} cases within tolerance")
     return rows
-
-
-def unported_bounds():
-    """Least card times of the TPU kernels not ported yet, reckoned from
-    each Pallas kernel's own ``pl.CostEstimate`` (flops, bytes_accessed) at
-    GPT-2 width (12 heads, D 64, 1024 positions) against the peaks above."""
-    H, D, T, B = 12, 64, 1024, 8
-    bt = 128
-    cases = [  # (kernel, shape, flops, bytes, dtype of its arithmetic)
-        ("gla_chunked (ssm_scan.py:120)",
-         "B 8, T 1024, dk = dv = 64, block 128, fp32",
-         4 * B * H * T * bt * 2 * D, 4 * B * H * T * D * 4, "float32")]
-    out = {}
-    for name, shape, ops, nbytes, dtype in cases:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-        out[name] = {"shape": shape, "ops": ops, "bytes": nbytes,
-                     "bytes_ms": t_bytes, "ops_ms": t_ops,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"}
-        say("bounds", f"{name}, not ported: {shape}: {ops:.3e} operations "
-            f"({t_ops:.5f} ms), {nbytes:.3e} bytes ({t_bytes:.5f} ms): "
-            f"bound {max(t_bytes, t_ops):.5f} ms "
-            f"({out[name]['bound_by']})")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1440,6 +1542,20 @@ def phase_continuous_batching(torch, layers, optimizer, block, vocab, card,
     return stats, launches["ragged_paged_attention"]
 
 
+def _device_kernel_ms(torch, prof):
+    """Device ms by kernel name in a torch.profiler trace: device kernels
+    only (user annotations such as the optimizer's
+    "Optimizer.step#AdamW.step" span kernels and would count twice)."""
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and "#" not in evt.name):
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + \
+                evt.time_range.elapsed_us() / 1e3
+    return kernels
+
+
 def _profile_continuous(torch, base, bodies, model, device):
     """Where the continuous-batching time goes: the 8 requests one after
     another through generate_tokens with the model already loaded (the
@@ -1477,13 +1593,7 @@ def _profile_continuous(torch, base, bodies, model, device):
             t.join(timeout=600)
         out["profile_wall_ms"] = (time.monotonic() - t0) * 1e3
     check(all(done), "a profiled request failed or came back short")
-    kernels = {}
-    for evt in prof.events():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)
-                and "#" not in evt.name):
-            kernels[evt.name] = kernels.get(evt.name, 0.0) + \
-                evt.time_range.elapsed_us() / 1e3
+    kernels = _device_kernel_ms(torch, prof)
     device_ms = sum(kernels.values())
     check(device == "cpu" or device_ms > 0, "the profiler saw no device time")
     out.update(
@@ -1491,6 +1601,278 @@ def _profile_continuous(torch, base, bodies, model, device):
         profile_busy_share=device_ms / out["profile_wall_ms"],
         profile_ragged_ms=sum(ms for n, ms in kernels.items()
                               if "ragged_paged_kernel" in n),
+        profile_gemm_ms=sum(ms for n, ms in kernels.items()
+                            if any(f in n.lower() for f in (
+                                "gemm", "cutlass", "xmma", "nvjet"))),
+        profile_top_kernels_ms=[(n[:90], ms) for n, ms in sorted(
+            kernels.items(), key=lambda kv: -kv[1])[:10]])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4c: the hybrid attention/SSM model over HTTP
+# ---------------------------------------------------------------------------
+
+HYBRID = dict(d=768, heads=12, depth=12, vocab=50304, block=1024,
+              ssm_every=2)
+OUTPUT_PROMPT_LEN = 16
+EVAL_BATCH, EVAL_BLOCK, EVAL_EPOCHS = 8, 1024, 2
+# compute_output's logits at 1 x 1024 with the kernel against the same
+# forward with the sequential oracle in its place (fp32, 12 layers; the
+# two GLA forms differ by ~1e-6 relative, GLA_SEQ_C bounds them)
+HYBRID_LOGITS_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def sequential_gla():
+    """Route the no-cache SSM forward to the token-sequential oracle for
+    the duration (this script's comparison only; the package has no such
+    switch)."""
+    from penroz_tpu_torch.ops import ssm as SSM
+    from penroz_tpu_torch.ops.kernels import ssm_scan as SS
+    saved = SS.gla_chunked
+    SS.gla_chunked = lambda q, k, v, g, block_t=None: \
+        SSM.gla_full_reference(q, k, v, g)
+    try:
+        yield
+    finally:
+        SS.gla_chunked = saved
+
+
+def phase_hybrid(torch, optimizer, card, device="cuda"):
+    """The hybrid attention/SSM model over HTTP and in process; returns
+    (stats, launches of the chunked GLA kernel in this phase)."""
+    import numpy as np
+
+    from penroz_tpu_torch.models import presets
+    from penroz_tpu_torch.models.model import CompiledArch, NeuralNetworkModel
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import ssm_scan as SS
+    from penroz_tpu_torch.serve.app import create_app
+    from penroz_tpu_torch.utils import checkpoint
+
+    layers = presets.hybrid_custom(**HYBRID)
+    vocab, block = HYBRID["vocab"], HYBRID["block"]
+    with torch.device("meta"):
+        arch = CompiledArch(layers)
+    n_ssm, n_attn = len(arch.ssm_layers), len(arch.attn_layers)
+    check((n_ssm, n_attn) == (6, 6), f"hybrid has {n_ssm} ssm and {n_attn} "
+          f"attention layers, not 6 and 6")
+    rng = np.random.default_rng(0)
+    os.makedirs("data", exist_ok=True)
+    np.save(os.path.join("data", "hybrid_000000.npy"), rng.integers(
+        0, vocab, EVAL_BATCH * EVAL_BLOCK * EVAL_EPOCHS + 1).astype(np.uint16))
+    prompt = rng.integers(0, vocab, PROMPT_LEN).tolist()
+    long_input = rng.integers(0, vocab, (1, block)).tolist()
+    server = create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    stats = {}
+    forwards = 0
+    try:
+        status, text, _ = _post(base, "/model/", {
+            "model_id": "smoke_hybrid", "layers": layers,
+            "optimizer": optimizer})
+        check(status == 200, f"POST /model/ -> {status}: {text[:300]}")
+        SS.gla_chunked.launches = 0
+        DA.decode_attention.launches = 0
+        greedy = {"model_id": "smoke_hybrid", "input": [prompt],
+                  "block_size": block, "max_new_tokens": NEW_TOKENS,
+                  "temperature": 0}
+        tokens = {}
+        for name, env in (("contiguous", {}), ("again", {}),
+                          ("int8", {"TURBO_QUANT_KV_CACHE": "1"}),
+                          ("paged", {"PAGED_KV_CACHE": "1"}),
+                          ("paged_int8", {"PAGED_KV_CACHE": "1",
+                                          "TURBO_QUANT_KV_CACHE": "1"})):
+            with _env(env):
+                status, text, secs = _post(base, "/generate/", greedy)
+            check(status == 200, f"hybrid {name} /generate/ -> {status}: "
+                  f"{text[:300]}")
+            tokens[name] = json.loads(text)["tokens"]
+            stats[f"generate_{name}_s"] = secs
+        first = tokens["contiguous"]
+        check(len(first) == PROMPT_LEN + NEW_TOKENS and first[:PROMPT_LEN]
+              == prompt and all(0 <= t < vocab for t in first),
+              "hybrid greedy output malformed")
+        check(tokens["again"] == first, "hybrid greedy not deterministic")
+        check(tokens["paged"] == first,
+              "hybrid paged tokens differ from the contiguous cache's")
+        check(tokens["paged_int8"] == tokens["int8"],
+              "hybrid int8 paged tokens differ from the int8 cache's")
+        agree = sum(a == b for a, b in zip(tokens["int8"][PROMPT_LEN:],
+                                           first[PROMPT_LEN:]))
+        stats["int8_tokens_equal_fp32"] = agree
+        check(SS.gla_chunked.launches == 0,
+              "the chunked kernel launched on the cached path")
+        stats["decode_attention_launches"] = DA.decode_attention.launches
+        check(DA.decode_attention.launches >= n_attn * 3 * NEW_TOKENS,
+              f"decode_attention launched {DA.decode_attention.launches} "
+              f"times for 3 x {NEW_TOKENS} tokens on the contiguous caches")
+        say("hybrid", f"greedy {PROMPT_LEN}+{NEW_TOKENS}: identical twice, "
+            f"paged == contiguous, paged int8 == int8, int8 "
+            f"{agree}/{NEW_TOKENS} equal to fp32; "
+            f"{stats['generate_contiguous_s']:.3f} s a request (checkpoint "
+            f"load included); the chunked kernel not launched (cached "
+            f"update_dense), decode kernel {DA.decode_attention.launches} "
+            f"launches, on {card}")
+
+        # /output/ on a short prompt: its argmax is the first greedy token
+        short = prompt[:OUTPUT_PROMPT_LEN]
+        status, text, _ = _post(base, "/generate/", dict(
+            greedy, input=[short], max_new_tokens=1))
+        check(status == 200, f"/generate/ 1 token -> {status}")
+        tok = json.loads(text)["tokens"][-1]
+        status, text, secs = _post(base, "/output/", {
+            "model_id": "smoke_hybrid", "input": [short]})
+        forwards += 1
+        check(status == 200, f"/output/ -> {status}: {text[:300]}")
+        body = json.loads(text)
+        probs = np.asarray(body["output"], np.float64)
+        check(probs.shape == (1, vocab) and body["cost"] is None
+              and np.isfinite(probs).all(), "/output/ malformed")
+        gap = float(np.log(probs.max()) - np.log(probs[0, tok]))
+        stats.update(output_request_s=secs, output_argmax_gap=gap)
+        say("hybrid", f"/output/ {OUTPUT_PROMPT_LEN} tokens in {secs:.3f} "
+            f"s: the first greedy token is its argmax within {gap:.2e} "
+            f"(<= {ARGMAX_ATOL}) in log-probability")
+        check(gap <= ARGMAX_ATOL, f"/output/'s argmax is {gap:.3e} above "
+              f"the first greedy token")
+
+        # in-process compute_output at 1 x 1024, kernel vs sequential oracle
+        model = NeuralNetworkModel.deserialize("smoke_hybrid", device=device,
+                                               optimizer=False)
+        torch.cuda.synchronize()
+        before = SS.gla_chunked.launches
+        t0 = time.monotonic()
+        direct = model.generate_tokens([prompt], block, NEW_TOKENS,
+                                       temperature=0)
+        torch.cuda.synchronize()
+        stats["generate_s"] = time.monotonic() - t0
+        stats["tokens_per_s"] = NEW_TOKENS / stats["generate_s"]
+        check(direct == first, "hybrid generate_tokens != HTTP generate")
+        check(SS.gla_chunked.launches == before,
+              "the chunked kernel launched on the cached path")
+        say("hybrid", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS}: "
+            f"{stats['generate_s']:.3f} s = {stats['tokens_per_s']:.1f} "
+            f"tokens/s (model loaded) on {card}")
+        t0 = time.monotonic()
+        out, _ = model.compute_output(long_input)
+        torch.cuda.synchronize()
+        stats["compute_output_s"] = time.monotonic() - t0
+        forwards += 1
+        x = torch.tensor(long_input, device=device)
+        with torch.inference_mode():
+            kernel_acts, _, _ = model.arch(x, skip_softmax=True)
+            forwards += 1
+            t0 = time.monotonic()
+            with sequential_gla():
+                plain_acts, _, _ = model.arch(x, skip_softmax=True)
+            torch.cuda.synchronize()
+            stats["sequential_forward_s"] = time.monotonic() - t0
+        err = float((kernel_acts[-1] - plain_acts[-1]).abs().max())
+        last = torch.softmax(plain_acts[-1][:, -1].float(), dim=-1)
+        out_err = float((torch.tensor(out, device=device) - last).abs().max())
+        stats.update(logits_max_abs_err=err, output_max_abs_err=out_err)
+        del kernel_acts, plain_acts
+        say("hybrid", f"compute_output 1 x {block}: {stats['compute_output_s']:.3f} "
+            f"s; logits with the kernel vs the sequential oracle: max abs "
+            f"err {err:.2e} (atol {HYBRID_LOGITS_ATOL}), its softmax "
+            f"{out_err:.2e}; the oracle's forward "
+            f"{stats['sequential_forward_s']:.3f} s")
+        check(err <= HYBRID_LOGITS_ATOL, f"hybrid logits differ from the "
+              f"sequential oracle's by {err:.3e}")
+        check(out_err <= HYBRID_LOGITS_ATOL, "compute_output differs from "
+              "the sequential oracle's softmax")
+
+        # /evaluate/ at 8 x 1024 against in-process evaluate_model
+        evaluate = {"model_id": "smoke_hybrid", "dataset_id": "hybrid",
+                    "shard": 0, "epochs": EVAL_EPOCHS,
+                    "batch_size": EVAL_BATCH, "block_size": EVAL_BLOCK,
+                    "step_size": EVAL_BATCH}
+        status, text, secs = _post(base, "/evaluate/", evaluate)
+        forwards += EVAL_EPOCHS
+        check(status == 200, f"/evaluate/ -> {status}: {text[:300]}")
+        cost = json.loads(text)["cost"]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        local = model.evaluate_model("hybrid", None, 0, EVAL_EPOCHS,
+                                     EVAL_BATCH, EVAL_BLOCK, EVAL_BATCH)
+        stats["evaluate_s"] = time.monotonic() - t0
+        forwards += EVAL_EPOCHS
+        stats.update(evaluate_request_s=secs, evaluate_cost=cost,
+                     evaluate_cost_local=local,
+                     evaluate_tokens_per_s=(EVAL_EPOCHS * EVAL_BATCH
+                                            * EVAL_BLOCK / stats["evaluate_s"]))
+        say("hybrid", f"/evaluate/ {EVAL_EPOCHS} x {EVAL_BATCH} x "
+            f"{EVAL_BLOCK}: cost {cost:.6f} in {secs:.3f} s (in process "
+            f"{local:.6f}, {stats['evaluate_s']:.3f} s = "
+            f"{stats['evaluate_tokens_per_s']:.0f} tokens/s) on {card}")
+        check(math.isfinite(cost) and abs(cost - math.log(vocab)) < 1.0,
+              f"/evaluate/ cost {cost} not near ln {vocab}")
+        check(abs(cost - local) <= 1e-6 * abs(local),
+              f"/evaluate/ {cost} != evaluate_model {local}")
+        launches = SS.gla_chunked.launches
+        say("hybrid", f"chunked GLA launches {launches} for {forwards} "
+            f"no-cache forwards x {n_ssm} ssm layers")
+        check(launches == n_ssm * forwards, f"gla_chunked launched "
+              f"{launches} times, expected {n_ssm * forwards}")
+        stats["gla_launches"] = launches
+        stats.update(_profile_hybrid(torch, model, vocab, device))
+        say("hybrid", f"one no-cache forward at {EVAL_BATCH} x {EVAL_BLOCK} "
+            f"under torch.profiler: device busy {stats['profile_device_ms']:.2f} "
+            f"ms of {stats['profile_wall_ms']:.2f} ms "
+            f"({stats['profile_busy_share']:.1%}); chunked GLA "
+            f"{stats['profile_gla_ms']:.2f} ms, flash "
+            f"{stats['profile_flash_ms']:.2f} ms, cuBLAS "
+            f"{stats['profile_gemm_ms']:.2f} ms, on {card}")
+        status, _, _ = _post(base, "/model/?model_id=smoke_hybrid", None,
+                             method="DELETE")
+        check(status == 204, f"DELETE /model/ -> {status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    return stats, launches
+
+
+def _profile_hybrid(torch, model, vocab, device):
+    """Where a no-cache hybrid forward's time goes (the /evaluate/ shape,
+    with its cost): after a warm-up, one forward on the host clock and one
+    under torch.profiler (device ms by kernel, the busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=device).manual_seed(4)
+    x, y = (torch.randint(0, vocab, (EVAL_BATCH, EVAL_BLOCK), device=device,
+                          generator=g) for _ in range(2))
+
+    def forward():
+        with torch.inference_mode():
+            _, cost, _ = model.arch(x, y, skip_softmax=True)
+        float(cost)
+
+    forward()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    forward()
+    out = {"forward_wall_ms": (time.monotonic() - t0) * 1e3}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        forward()
+        out["profile_wall_ms"] = (time.monotonic() - t0) * 1e3
+    kernels = _device_kernel_ms(torch, prof)
+    device_ms = sum(kernels.values())
+    check(device_ms > 0, "the profiler saw no device time")
+    out.update(
+        profile_device_ms=device_ms,
+        profile_busy_share=device_ms / out["profile_wall_ms"],
+        profile_gla_ms=sum(ms for n, ms in kernels.items()
+                           if "gla_chunked_kernel" in n),
+        profile_flash_ms=sum(ms for n, ms in kernels.items()
+                             if "flash_fwd_" in n),
         profile_gemm_ms=sum(ms for n, ms in kernels.items()
                             if any(f in n.lower() for f in (
                                 "gemm", "cutlass", "xmma", "nvjet"))),
@@ -1670,15 +2052,7 @@ def phase_train_profile(torch, layers, optimizer, vocab):
         t0 = time.monotonic()
         epoch()
         traced_wall = time.monotonic() - t0
-    kernels = {}
-    for evt in prof.events():
-        # device kernels only: user annotations such as the optimizer's
-        # "Optimizer.step#AdamW.step" span kernels and would count twice
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)
-                and "#" not in evt.name):
-            kernels[evt.name] = kernels.get(evt.name, 0.0) + \
-                evt.time_range.elapsed_us() / 1e3
+    kernels = _device_kernel_ms(torch, prof)
     device_ms = sum(kernels.values())
     check(device_ms > 0, "the profiler saw no device time")
     ours = {key: sum(ms for name, ms in kernels.items() if frag in name)
@@ -1786,7 +2160,6 @@ def main(argv=None) -> int:
         card, name = phase_device(torch)
         phase_build()
         rows = phase_kernels(torch)
-        bounds = unported_bounds()
         from penroz_tpu_torch.models import presets
         stats, launches = phase_main_path(
             torch, "cuda", presets.gpt2(), presets.ADAMW, block=1024,
@@ -1794,6 +2167,8 @@ def main(argv=None) -> int:
         cb_stats, launches["ragged_paged_attention"] = \
             phase_continuous_batching(torch, presets.gpt2(), presets.ADAMW,
                                       block=1024, vocab=50304, card=card)
+        hybrid_stats, launches["gla_chunked"] = phase_hybrid(
+            torch, presets.ADAMW, card)
         train_stats, train_launches = phase_training(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304, card=card)
         launches.update(train_launches)
@@ -1818,8 +2193,9 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
         with open(out, "w") as f:
             json.dump({"card": card, "cases": rows,
-                       "unported_bounds": bounds, "main_path": stats,
+                       "main_path": stats,
                        "continuous_batching": cb_stats,
+                       "hybrid": hybrid_stats,
                        "training": train_stats, "micro_step": step_stats,
                        "launches": launches,
                        "seconds": time.monotonic() - t_start}, f, indent=1)

@@ -37,6 +37,7 @@ _LEAF_ALGOS = {
     "softmaxlast": M.SoftmaxOnLast,
     "dropout": M.Dropout,
     "attention": M.CausalSelfAttention,
+    "ssm": M.GatedSSM,
 }
 
 _OPTIMIZERS = ("adamw", "adam", "sgd")

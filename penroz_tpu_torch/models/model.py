@@ -11,8 +11,10 @@ facade (counterpart of penroz_tpu/models/model.py: serving and training).
   the JAX package's optax leaf layout), training (``train_model``,
   ``train_model_on_device``), generation
   (``generate_tokens``/``generate_tokens_stream`` over ``_generate_iter``,
-  on the contiguous cache or, under ``PAGED_KV_CACHE=1``, the paged pool)
-  and the continuous-batching scheduler's unified block
+  on the contiguous cache or, under ``PAGED_KV_CACHE=1``, the paged pool,
+  with the recurrent ``ssm`` child for hybrid models), the raw forward
+  (``compute_output``), forward-only evaluation (``evaluate_model``) and
+  the continuous-batching scheduler's unified block
   (``decode_mixed_step``).
 
 Training runs on one device.  Out of this slice, and refused with a
@@ -22,6 +24,8 @@ worker process (``PENROZ_TRAIN_WORKER``), rematerialization
 ``PENROZ_WUS``, ``PENROZ_SP_MODE``, ``PENROZ_PIPE_REMAT``), decode-priority
 micro-stepping (``PENROZ_DECODE_PRIORITY_MS``) and the ``/stats/``
 refresh (``PENROZ_STATS_INTERVAL``): see :func:`unported_training_options`.
+Evaluation runs on one device too; the meshes and sequence-parallel modes
+it would take are refused the same way (:func:`unported_evaluation_options`).
 
 The JAX package fuses up to 128 decode steps per dispatch with
 ``lax.scan`` over power-of-two chunks; eager PyTorch runs one step per
@@ -75,14 +79,32 @@ _UNPORTED_TRAINING_ENV = (
 )
 
 
-def unported_training_options() -> None:
-    """Raise ValueError naming any JAX-package training feature selected by
-    the environment that the port does not have (see the module note)."""
+# The subset of those that selects a mesh for forward-only evaluation
+# (the JAX package's ``_eval_mesh``).
+_EVAL_MESH_ENV = ("PENROZ_FSDP", "PENROZ_MESH_MODEL", "PENROZ_MESH_SEQUENCE",
+                  "PENROZ_MESH_EXPERT", "PENROZ_MESH_PIPE", "PENROZ_SP_MODE")
+
+
+def _refuse_unported(names=None) -> None:
     for name, off, what in _UNPORTED_TRAINING_ENV:
+        if names is not None and name not in names:
+            continue
         value = os.environ.get(name)
         if value is not None and value != off:
             raise ValueError(f"{name}={value!r} selects {what}, which "
                              f"penroz_tpu_torch does not support yet")
+
+
+def unported_training_options() -> None:
+    """Raise ValueError naming any JAX-package training feature selected by
+    the environment that the port does not have (see the module note)."""
+    _refuse_unported()
+
+
+def unported_evaluation_options() -> None:
+    """Raise ValueError naming a mesh or sequence-parallel mode selected by
+    the environment for ``/evaluate/``: the port evaluates on one device."""
+    _refuse_unported(_EVAL_MESH_ENV)
 
 
 def _max_generate_batch() -> int:
@@ -149,6 +171,7 @@ class CompiledArch(nn.Module):
         self.classification = any(isinstance(m, M.Softmax)
                                   for m in self.layers)
         self.attn_layers: list[M.CausalSelfAttention] = []
+        self.ssm_layers: list[M.GatedSSM] = []
         self._index_attention()
 
     @property
@@ -158,12 +181,16 @@ class CompiledArch(nn.Module):
 
     def _index_attention(self):
         """Assign KV-cache slots and infer head dims from the preceding
-        fused QKV projection."""
+        fused QKV projection.  ``ssm`` layers get their own slot sequence:
+        their state lives in the cache's recurrent child."""
 
         def visit(mod):
             if isinstance(mod, M.CausalSelfAttention):
                 mod.layer_idx = len(self.attn_layers)
                 self.attn_layers.append(mod)
+            if isinstance(mod, M.GatedSSM):
+                mod.layer_idx = len(self.ssm_layers)
+                self.ssm_layers.append(mod)
             if isinstance(mod, M.Sequential):
                 prev = None
                 for child in mod.layers:
@@ -192,6 +219,13 @@ class CompiledArch(nn.Module):
                                  "or pass head_dim explicitly")
             specs.append((mod.num_kv_heads, mod.head_dim))
         return specs
+
+    @property
+    def ssm_specs(self) -> list[tuple[int, int, int]]:
+        """Per-``ssm``-layer (num_heads, head_dim, value_dim) for the
+        fixed-size recurrent state (ops/ssm.py::SSMState.create)."""
+        return [(mod.num_heads, mod.head_dim, mod.value_dim)
+                for mod in self.ssm_layers]
 
     @property
     def max_positions(self) -> Optional[int]:
@@ -439,6 +473,76 @@ class NeuralNetworkModel:
         self.arch.load_state_dict(tensors, strict=True, assign=True)
         return self
 
+    # -- inference ----------------------------------------------------------
+
+    def _as_input(self, data):
+        """A request's input as a tensor on the model's device: integer
+        data as int64 token ids, (batch, length) for a model with
+        attention layers; anything else in the parameters' dtype."""
+        try:
+            arr = np.asarray(data)
+        except ValueError:
+            raise ValueError(
+                "input rows have inconsistent lengths; expected a "
+                "rectangular batch like [[1, 2, 3], [4, 5, 6]]")
+        if arr.dtype.kind in "iu":
+            if self.arch.attn_layers and arr.ndim != 2:
+                # say what is wrong at the API boundary (HTTP 400) rather
+                # than deep in the stack
+                raise ValueError(
+                    f"token input must be 2-D (batch, length) for this "
+                    f"model, e.g. [[1, 2, 3]]; got {arr.ndim}-D")
+            return torch.as_tensor(arr.astype(np.int64), device=self.device)
+        return torch.as_tensor(arr).to(self.device, self.dtype)
+
+    @torch.inference_mode()
+    def compute_output(self, input, target=None):
+        """Raw forward: (final activation as nested lists, cost or None)
+        (JAX ``compute_output``)."""
+        x = self._as_input(input)
+        t = None
+        if target is not None:
+            arr = np.asarray(target)
+            t = (torch.as_tensor(arr.astype(np.int64), device=self.device)
+                 if self.arch.classification
+                 else torch.as_tensor(arr, dtype=torch.float32,
+                                      device=self.device))
+        acts, cost, _ = self.arch(x, t)
+        output = acts[-1].to("cpu", torch.float32).tolist()
+        return output, (float(cost) if cost is not None else None)
+
+    @torch.inference_mode()
+    def evaluate_model(self, dataset_id, target_dataset_id, shard, epochs,
+                       batch_size, block_size, step_size) -> float:
+        """Forward-only evaluation with the training loader's windows (JAX
+        ``evaluate_model``, one device): one ``(batch_size, block_size)``
+        buffer per epoch, forwarded once and weighted by ``1/epochs`` (the
+        reference forwards it ``num_steps`` times, with equal results).
+        ``target_dataset_id`` reads the targets from a second dataset
+        aligned with the inputs; ``step_size`` is unused, as there."""
+        from penroz_tpu_torch.data.loaders import Loader
+        unported_evaluation_options()
+        buffer_size = batch_size * block_size
+        loader = Loader(dataset_id, begin_shard=shard, begin_idx=0,
+                        buffer_size=buffer_size, idx_offset=buffer_size)
+        target_loader = None
+        if target_dataset_id:
+            target_loader = Loader(target_dataset_id, begin_shard=shard,
+                                   begin_idx=0, buffer_size=buffer_size,
+                                   idx_offset=buffer_size)
+        avg_cost = 0.0
+        for _ in range(epochs):
+            if target_loader is not None:
+                x, _ = loader.next_batch(target_offset=0)
+                y, _ = target_loader.next_batch(target_offset=0)
+            else:
+                x, y = loader.next_batch()
+            x, y = (torch.from_numpy(a.reshape(batch_size, block_size))
+                    .to(self.device, torch.int64) for a in (x, y))
+            _, cost, _ = self.arch(x, y, skip_softmax=True)
+            avg_cost += float(cost) / epochs
+        return avg_cost
+
     # -- training -----------------------------------------------------------
 
     @property
@@ -603,7 +707,8 @@ class NeuralNetworkModel:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         greedy, temp = self._sampling_setup(temperature)
         kv = KV.create_kv_state(self.arch.kv_specs, 1, block_size,
-                                self.dtype, device=self.device)
+                                self.dtype, device=self.device,
+                                ssm_specs=self.arch.ssm_specs)
         produced = 0
         last = None
         while produced < max_new_tokens:

@@ -1,6 +1,7 @@
-"""GPT-2 layer-DSL configs (copy of penroz_tpu/models/presets.py
-``gpt2``/``gpt2_custom``).  Plain JSON-able DSL lists accepted by
-``POST /model/`` of either package."""
+"""GPT-2 and hybrid attention/SSM layer-DSL configs (copy of
+penroz_tpu/models/presets.py ``gpt2``/``gpt2_custom``/``_ssm_block``/
+``hybrid_custom``).  Plain JSON-able DSL lists accepted by ``POST /model/``
+of either package."""
 
 from __future__ import annotations
 
@@ -59,3 +60,50 @@ def gpt2_custom(d: int, heads: int, depth: int, vocab: int = 50304,
                {"linear": {"in_features": d, "out_features": vocab,
                            "bias": False}},
                {"softmaxlast": {"dim": -1}}])
+
+
+def _ssm_block(d: int, heads: int, head_dim: int, value_dim: int,
+               proj_std: float, dropout: float) -> dict:
+    """One gated-SSM residual block: LN → fused qkvg projection → O(1)
+    recurrent mix → output projection.  The fused linear emits
+    ``heads * (2*head_dim + value_dim + 1)`` features — [q | k | v | gate]
+    in :class:`penroz_tpu_torch.ops.modules.GatedSSM`'s split order."""
+    std = 0.02
+    fused = heads * (2 * head_dim + value_dim + 1)
+    return {"residual": [
+        {"sequential": [
+            {"layernorm": {"normalized_shape": d}},
+            {"linear": {"in_features": d, "out_features": fused},
+             "normal": {"mean": 0.0, "std": std}, "zeros": {}},
+            {"ssm": {"num_heads": heads, "head_dim": head_dim,
+                     "value_dim": value_dim}},
+            {"linear": {"in_features": heads * value_dim, "out_features": d},
+             "normal": {"mean": 0.0, "std": proj_std}, "zeros": {}},
+            {"dropout": {"p": dropout}}]},
+        {"sequential": [
+            {"layernorm": {"normalized_shape": d}},
+            {"linear": {"in_features": d, "out_features": 4 * d},
+             "normal": {"mean": 0.0, "std": std}, "zeros": {}},
+            {"gelu": {"approximate": "tanh"}},
+            {"linear": {"in_features": 4 * d, "out_features": d},
+             "normal": {"mean": 0.0, "std": proj_std}, "zeros": {}},
+            {"dropout": {"p": dropout}}]}]}
+
+
+def hybrid_custom(d: int, heads: int, depth: int, vocab: int = 50304,
+                  block: int = 1024, dropout: float = 0.0,
+                  ssm_every: int = 2) -> list:
+    """Hybrid attention/SSM stack: every ``ssm_every``-th residual block is a
+    gated-SSM block (O(1) per-row state), the rest stay full attention
+    (O(T) KV rows).  ``ssm_every=1`` yields a pure-SSM model with no KV
+    rows at all."""
+    base = gpt2_custom(d=d, heads=heads, depth=depth, vocab=vocab,
+                       block=block, dropout=dropout)
+    proj_std = 0.02 / (2 * depth) ** 0.5
+    head_dim = d // heads
+    # Blocks occupy base[2:2+depth]; replace the selected ones in place.
+    for i in range(depth):
+        if i % ssm_every == 0:
+            base[2 + i] = _ssm_block(d, heads, head_dim, head_dim,
+                                     proj_std, dropout)
+    return base

@@ -10,6 +10,12 @@ return new states; these update their buffers and length IN PLACE
 return ``self``), which is what eager PyTorch wants — no copy of the cache
 per step.
 
+Every variant may carry an ``ssm`` child: the fixed-size recurrent state of
+a hybrid model's ``ssm`` layers (ops/ssm.py::SSMState), attached by
+``create_kv_state(..., ssm_specs=...)``, emptied by ``reset`` and counted
+by ``memory_bytes``.  A pure-SSM model's cache has no K/V layers and only
+that child.
+
 ``TURBO_QUANT_KV_CACHE=1`` selects the int8 cache with per-token scales;
 the attention consumer reads the raw int8 buffers and dequantizes per tile
 inside the kernel.
@@ -33,6 +39,8 @@ import threading
 
 import numpy as np
 import torch
+
+from penroz_tpu_torch.ops.ssm import SSMState
 
 log = logging.getLogger(__name__)
 
@@ -124,6 +132,7 @@ class KVState:
         self.k = list(k)
         self.v = list(v)
         self._length = int(length)
+        self.ssm = None  # optional ops.ssm.SSMState (hybrid models)
 
     @property
     def length(self) -> int:
@@ -169,16 +178,25 @@ class KVState:
     def reset(self):
         """Empty the cache (in place; stale rows are never attended)."""
         self._length = 0
+        self._reset_ssm()
         return self
+
+    def _reset_ssm(self):
+        if self.ssm is not None:
+            self.ssm.reset()
+
+    def _ssm_bytes(self) -> int:
+        return self.ssm.nbytes() if self.ssm is not None else 0
 
     def memory_bytes(self) -> int:
         """Bytes of the K/V value buffers (int8 scales not included, as in
-        the JAX package)."""
-        return sum(a.numel() * a.element_size() for a in (*self.k, *self.v))
+        the JAX package) and of the recurrent ``ssm`` child."""
+        return (sum(a.numel() * a.element_size() for a in (*self.k, *self.v))
+                + self._ssm_bytes())
 
     def logical_bytes(self) -> int:
-        """Bytes an unquantized cache of the same shape would occupy."""
-        return self.memory_bytes()
+        """Bytes an unquantized K/V cache of the same shape would occupy."""
+        return self.memory_bytes() - self._ssm_bytes()
 
 
 class QuantKVState(KVState):
@@ -300,6 +318,7 @@ class PagedKVState(KVState):
         self.page_size = int(page_size)
         self.pages_per_seq = int(pages_per_seq)
         self.table = np.asarray(table, np.int32).copy()
+        self.ssm = None  # optional ops.ssm.SSMState (hybrid models)
         self.device = (self.k[0].device if self.k
                        else torch.device(device or "cpu"))
         self.block_table = torch.as_tensor(self.table, device=self.device)
@@ -521,6 +540,7 @@ class PagedKVState(KVState):
         self.next_free = 0
         self.assigned_pages = 0
         self._upload_table()
+        self._reset_ssm()
         return self
 
     def reset_row(self, row: int):
@@ -621,7 +641,7 @@ class QuantPagedKVState(PagedKVState):
     def memory_bytes(self) -> int:
         return sum(a.numel() * a.element_size()
                    for a in (*self.k, *self.v, *self.k_scale,
-                             *self.v_scale))
+                             *self.v_scale)) + self._ssm_bytes()
 
     def logical_bytes(self) -> int:
         itemsize = torch.empty((), dtype=self.out_dtype).element_size()
@@ -632,10 +652,13 @@ class QuantPagedKVState(PagedKVState):
 
 def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,
                     quantized: bool | None = None, paged: bool | None = None,
-                    device=None) -> KVState:
+                    device=None, ssm_specs=None) -> KVState:
     """Factory honouring ``TURBO_QUANT_KV_CACHE=1`` and ``PAGED_KV_CACHE=1``
     (both together: the int8 paged pool, pages of
-    ``PENROZ_KV_PAGE_SIZE`` tokens, default 128)."""
+    ``PENROZ_KV_PAGE_SIZE`` tokens, default 128).  ``ssm_specs``, the
+    per-``ssm``-layer ``(num_heads, head_dim, value_dim)`` of a hybrid
+    model (models/model.py::CompiledArch.ssm_specs), attaches the
+    recurrent ``ssm`` child."""
     if quantized is None:
         quantized = turbo_quant_enabled()
     if paged is None:
@@ -645,9 +668,13 @@ def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,
         log.info("%s KV cache enabled (%s=1, page_size=%d)",
                  "Int8 paged" if quantized else "Paged", PAGED_ENV, page)
         cls = QuantPagedKVState if quantized else PagedKVState
-        return cls.create(specs, batch, max_len, dtype, page_size=page,
-                          device=device)
-    if quantized:
+        state = cls.create(specs, batch, max_len, dtype, page_size=page,
+                           device=device)
+    elif quantized:
         log.info("TurboQuant KV cache enabled (%s=1)", TURBO_QUANT_ENV)
-        return QuantKVState.create(specs, batch, max_len, dtype, device)
-    return KVState.create(specs, batch, max_len, dtype, device)
+        state = QuantKVState.create(specs, batch, max_len, dtype, device)
+    else:
+        state = KVState.create(specs, batch, max_len, dtype, device)
+    if ssm_specs:
+        state.ssm = SSMState.create(ssm_specs, batch, device=device)
+    return state

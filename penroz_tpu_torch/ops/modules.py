@@ -9,10 +9,13 @@ package's names, so ``state_dict()`` of the model's root module
 :class:`Ctx` carrying the KV cache and the position offset; the caches
 update in place (ops/kv_cache.py).
 
-Ported: the modules the GPT-2 DSL builds, for inference and training.
-``CausalSelfAttention`` has the no-cache (flash), contiguous-cache, paged
-and ragged (packed mixed batch) branches; sequence-parallel attention is
-still to be ported and has no state that could reach it.
+Ported: the modules the GPT-2 and hybrid attention/SSM DSLs build, for
+inference and training.  ``CausalSelfAttention`` has the no-cache (flash),
+contiguous-cache, paged and ragged (packed mixed batch) branches;
+sequence-parallel attention is still to be ported and has no state that
+could reach it.  ``GatedSSM`` has the no-cache (chunked kernel) and dense
+cached branches; its packed ragged branch belongs to the scheduler's SSM
+rows, which are not ported (the scheduler refuses SSM models).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 
 from penroz_tpu_torch.ops import attention as attn_ops
 from penroz_tpu_torch.ops import kv_cache as KV
+from penroz_tpu_torch.ops import ssm as ssm_ops
 
 
 class Ctx:
@@ -439,6 +443,54 @@ class CausalSelfAttention(Module):
                 alibi=alibi, scale=self.attn_scale,
                 softcap=self.logit_softcap)
         return out.transpose(1, 2).reshape(B, T, q_dim)
+
+
+class GatedSSM(Module):
+    """Gated linear-attention (SSD) token mixer with O(1) per-row state
+    (JAX package ``GatedSSM``, ops/modules.py:1313).
+
+    Consumes a fused projection laid out ``[q (H·dk) | k (H·dk) | v (H·dv)
+    | gate (H)]`` and runs ``S_t = σ(gate_t)·S_{t-1} + k_t ⊗ v_t,
+    y_t = q_t·S_t`` (ops/ssm.py), q scaled by ``dk^-0.5`` and the gate in
+    fp32.  No positional encoding: the recurrence is the position signal.
+    With the cache's ``ssm`` child in the Ctx the tokens go through the
+    sequential ``update_dense`` at the cache length; without a cache,
+    through :func:`ops.ssm.gla_full` (the chunked kernel on the card at
+    inference).  ``layer_idx`` indexes the model's ssm layers, assigned by
+    ``CompiledArch``."""
+
+    def __init__(self, num_heads: int, head_dim: int,
+                 value_dim: Optional[int] = None):
+        super().__init__()
+        self.num_heads = int(num_heads)
+        self.head_dim = int(head_dim)
+        self.value_dim = (int(value_dim) if value_dim is not None
+                          else int(head_dim))
+        self.layer_idx = 0  # assigned by CompiledArch
+
+    @property
+    def fused_dim(self) -> int:
+        """Input width the preceding fused Linear must produce."""
+        return self.num_heads * (2 * self.head_dim + self.value_dim + 1)
+
+    def forward(self, x, ctx):
+        B, T, total = x.shape
+        H, dk, dv = self.num_heads, self.head_dim, self.value_dim
+        if total != self.fused_dim:
+            raise ValueError(f"ssm fused input width {total} != expected "
+                             f"{self.fused_dim} (H={H}, dk={dk}, dv={dv})")
+        q = x[..., :H * dk].reshape(B, T, H, dk) * (dk ** -0.5)
+        k = x[..., H * dk:2 * H * dk].reshape(B, T, H, dk)
+        v = x[..., 2 * H * dk:2 * H * dk + H * dv].reshape(B, T, H, dv)
+        # fp32 gate: σ saturates in bf16 after ~8 tokens of decay product
+        g = torch.sigmoid(x[..., 2 * H * dk + H * dv:].float()
+                          ).reshape(B, T, H)
+        ssm = getattr(ctx.kv, "ssm", None) if ctx.kv is not None else None
+        if ssm is not None:
+            y = ssm.update_dense(self.layer_idx, q, k, v, g, ctx.offset())
+        else:
+            y = ssm_ops.gla_full(q, k, v, g, training=ctx.training)
+        return y.reshape(B, T, H * dv).to(x.dtype)
 
 
 class _NormWeight(nn.Module):

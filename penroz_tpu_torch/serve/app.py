@@ -3,8 +3,10 @@ of penroz_tpu/serve/app.py, serving and training; the machine with the card
 has no aiohttp).
 
 Routes: ``POST /model/``, ``POST /generate/`` (JSON, or ``stream: true``
-with one token per line), ``POST /generate_batch/``, ``POST /decode/``,
-``POST /tokenize/``, ``PUT /train/``, ``GET /progress/?model_id=…``,
+with one token per line), ``POST /generate_batch/``, ``POST /output/``
+(the raw forward and its cost), ``POST /evaluate/`` (forward-only cost over
+a dataset), ``POST /decode/``, ``POST /tokenize/``, ``PUT /train/``,
+``GET /progress/?model_id=…``,
 ``GET /serving_stats/``, ``DELETE /model/?model_id=…`` and
 ``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
 missing or mistyped field 422, bad value 400, a model already training
@@ -304,6 +306,26 @@ class _Handler(BaseHTTPRequestHandler):
             raise
         self._send_json(200, {"sequences": sequences})
 
+    def output(self, query):
+        body = self._body(schemas.OutputRequest)
+        log.info("Requesting output for model %s", body.model_id)
+        model = NeuralNetworkModel.deserialize(body.model_id,
+                                               device=self.server.device,
+                                               optimizer=False)
+        output, cost = model.compute_output(body.input, body.target)
+        self._send_json(200, {"output": output, "cost": cost})
+
+    def evaluate(self, query):
+        body = self._body(schemas.EvaluateRequest)
+        log.info("Requesting evaluation of model %s", body.model_id)
+        model = NeuralNetworkModel.deserialize(body.model_id,
+                                               device=self.server.device,
+                                               optimizer=False)
+        cost = model.evaluate_model(body.dataset_id, body.target_dataset_id,
+                                    body.shard, body.epochs, body.batch_size,
+                                    body.block_size, body.step_size)
+        self._send_json(200, {"cost": cost})
+
     def serving_stats(self, query):
         self._send_json(200, DS.serving_stats())
 
@@ -366,6 +388,7 @@ _GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress,
         "/serving_stats/": _Handler.serving_stats}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/generate_batch/": _Handler.generate_batch,
+         "/output/": _Handler.output, "/evaluate/": _Handler.evaluate,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize}
 _PUT = {"/train/": _Handler.train}
 _DELETE = {"/model/": _Handler.delete_model}

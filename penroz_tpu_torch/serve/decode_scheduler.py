@@ -33,6 +33,8 @@ carries a callback that the worker calls with ``("token", id)``, then
 ``ThreadingHTTPServer`` handlers.  Only the worker thread touches the
 engine's tensors.
 
+Models with ``ssm`` layers are refused (HTTP 400): their rows need the
+packed recurrent update (``SSMState.update_packed``), not ported yet.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 radix prefix cache, speculative decoding, the phased ticks
 (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over the
@@ -204,6 +206,12 @@ class DecodeEngine:
         self._device = device
         self._model = NeuralNetworkModel.deserialize(model_id, device=device,
                                                      optimizer=False)
+        if self._model.arch.ssm_layers:
+            raise ValueError(
+                f"model {model_id} has {len(self._model.arch.ssm_layers)} "
+                f"ssm layer(s): continuous batching of SSM rows (the "
+                f"packed recurrent update) is not ported to "
+                f"penroz_tpu_torch yet; serve it with {ENABLE_ENV}=0")
         limit = self._model.arch.max_positions
         if limit is not None and self.block_size > limit:
             raise ValueError(f"block_size {self.block_size} exceeds the "

@@ -29,7 +29,14 @@ def _is_int(v) -> bool:
 
 
 def _check(kind, v) -> tuple[bool, Any]:
-    """(ok, coerced value) of ``v`` against a field kind."""
+    """(ok, coerced value) of ``v`` against a field kind (a tuple of kinds
+    takes the first that fits)."""
+    if isinstance(kind, tuple):
+        for k in kind:
+            ok, coerced = _check(k, v)
+            if ok:
+                return True, coerced
+        return False, v
     if kind is str:
         return isinstance(v, str), v
     if kind is int:
@@ -54,6 +61,12 @@ def _check(kind, v) -> tuple[bool, Any]:
         ok = isinstance(v, list) and all(_check("int_list", x)[0] for x in v)
         return ok, [_check("int_list", x)[1] for x in v] if ok else v
     raise TypeError(kind)
+
+
+def _kind_name(kind) -> str:
+    if isinstance(kind, tuple):
+        return " or ".join(_kind_name(k) for k in kind)
+    return getattr(kind, "__name__", kind)
 
 
 class _Request:
@@ -83,7 +96,7 @@ class _Request:
             if not ok:
                 errors.append({"loc": [name], "type": "type_error",
                                "msg": f"Input should be of type "
-                                      f"{getattr(kind, '__name__', kind)}"})
+                                      f"{_kind_name(kind)}"})
             values[name] = coerced
         if errors:
             raise ValidationError(errors)
@@ -195,6 +208,20 @@ class DecodeTokensRequest(_Request):
 
 
 @dataclass
+class OutputRequest(_Request):
+    """``POST /output/``: the raw forward of ``input`` (token ids, or
+    features for a non-token model), with the cost against ``target``
+    when given."""
+    model_id: str
+    input: list
+    target: Optional[list | int] = None
+
+    FIELDS = (("model_id", str, _REQUIRED, False),
+              ("input", list, _REQUIRED, False),
+              ("target", (list, int), None, True))
+
+
+@dataclass
 class TrainingRequest(_Request):
     """``PUT /train/``.  ``device`` absent means the server's device (the
     port runs on the card unless told ``"cpu"``; the JAX package's default
@@ -219,3 +246,15 @@ class TrainingRequest(_Request):
               ("step_size", int, _REQUIRED, False),
               ("device", str, None, True),
               ("adapter", dict, None, True))
+
+
+@dataclass
+class EvaluateRequest(TrainingRequest):
+    """``POST /evaluate/``: the training request's fields, and an optional
+    dataset to read the targets from.  ``device`` and ``adapter`` are
+    accepted and not read, as in the JAX service: the model is evaluated
+    on the server's device."""
+    target_dataset_id: Optional[str] = None
+
+    FIELDS = TrainingRequest.FIELDS + (
+        ("target_dataset_id", str, None, True),)

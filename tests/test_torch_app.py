@@ -1,13 +1,16 @@
 """The port's HTTP service on the CPU: /model/ → /generate/ (greedy tokens
 equal to the JAX package's on the same weights), streaming, /decode/,
 /tokenize/, error statuses and DELETE; PUT /train/ (202, 409, 404, 400,
-422) and GET /progress/ until Trained or Error."""
+422) and GET /progress/ until Trained or Error; /output/ and /evaluate/
+of a hybrid attention/SSM model (the JAX package's numbers on a shared
+checkpoint, and their error statuses)."""
 
 import json
 import threading
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 from penroz_tpu.models.dsl import Mapper as JMapper
@@ -19,18 +22,26 @@ from penroz_tpu_torch.utils import checkpoint as tckpt
 
 
 @pytest.fixture
-def server(workdir, monkeypatch):
+def app(workdir, monkeypatch):
+    """The serving server object; torn down (training threads and
+    checkpoint flushes joined) before the test's cwd is restored."""
     monkeypatch.setattr(tckpt, "SHM_PATH", jckpt.SHM_PATH)
     srv = create_app(device="cpu")
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
-    host, port = srv.server_address[:2]
-    yield f"http://{host}:{port}"
+    yield srv
     srv.shutdown()
     srv.server_close()
     thread.join(timeout=10)
     assert not thread.is_alive()
     assert srv.join_training(timeout=60)
+    tckpt.join_flushes()
+
+
+@pytest.fixture
+def server(app):
+    host, port = app.server_address[:2]
+    return f"http://{host}:{port}"
 
 
 def _call(base, method, path, body=None):
@@ -140,20 +151,25 @@ def _train_body(model_id, **kw):
     return body
 
 
-def _poll_progress(base, model_id, until, timeout=60.0):
+def _poll_progress(base, model_id, until, timeout=60.0, runs=0):
+    """Poll /progress/ until the status is in ``until`` and the average-cost
+    history holds at least ``runs`` finished runs (a run's end appends
+    one; until a new run rewrites the checkpoint, it reads the previous
+    run's terminal status)."""
     import time
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         status, text = _call(base, "GET", f"/progress/?model_id={model_id}")
         assert status == 200, text
         body = json.loads(text)
-        if body["status"]["code"] in until:
+        if (body["status"]["code"] in until
+                and len(body["average_cost_history"]) >= runs):
             return body
         time.sleep(0.05)
     raise AssertionError(f"{model_id} never reached {until}: {body}")
 
 
-def test_train_202_409_progress(server, toy_gpt_layers, toy_optimizer,
+def test_train_202_409_progress(server, app, toy_gpt_layers, toy_optimizer,
                                 toy_shards, monkeypatch):
     """PUT /train/ answers 202 and trains in the background; a second PUT
     while it runs is a 409; /progress/ reaches Trained with one entry per
@@ -181,11 +197,14 @@ def test_train_202_409_progress(server, toy_gpt_layers, toy_optimizer,
     assert [p["epoch"] for p in body["progress"]] == [1, 2, 3]
     assert body["average_cost"] is not None
     assert len(body["average_cost_history"]) == 1
-    # the model trains again once the first run is over
+    # the model trains again once the first run is over: its thread holds
+    # the model's training lock a moment after the checkpoint reads Trained
+    assert app.join_training(timeout=60)
     status, _ = _call(server, "PUT", "/train/", _train_body("tr", epochs=1))
     assert status == 202
-    assert _poll_progress(server, "tr", {"Trained", "Error"}, )[
-        "status"]["code"] == "Trained"
+    body = _poll_progress(server, "tr", {"Trained", "Error"}, runs=2)
+    assert body["status"]["code"] == "Trained", body
+    assert [p["epoch"] for p in body["progress"]] == [1]
 
 
 def test_train_errors(server, toy_gpt_layers, toy_optimizer, monkeypatch):
@@ -362,3 +381,98 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     assert status == 400 and names[0] in text, text
     status, text = _call(server, "POST", "/generate_batch/", batch)
     assert status == 400 and names[-1] in text, text
+
+
+# -- /output/ and /evaluate/ (hybrid attention/SSM model) --------------------
+
+def test_output_and_evaluate_match_jax(server, toy_hybrid_layers,
+                                       toy_optimizer, toy_shards):
+    """/output/ and /evaluate/ of a hybrid model checkpointed by the JAX
+    package answer the JAX package's numbers (atol 1e-5, rel 1e-5)."""
+    jm = JModel("hyb", JMapper(toy_hybrid_layers, toy_optimizer))
+    jm.serialize(sync_flush=True)
+    x = [[1, 2, 3, 4, 5, 6], [7, 8, 9, 10, 11, 12]]
+    y = [[2, 3, 4, 5, 6, 7], [8, 9, 10, 11, 12, 13]]
+    want, want_cost = jm.compute_output(x, y)
+    status, text = _call(server, "POST", "/output/",
+                         {"model_id": "hyb", "input": x, "target": y})
+    assert status == 200, text
+    body = json.loads(text)
+    assert set(body) == {"output", "cost"}
+    np.testing.assert_allclose(body["output"], want, atol=1e-5)
+    np.testing.assert_allclose(body["cost"], want_cost, atol=1e-5)
+    status, text = _call(server, "POST", "/output/",
+                         {"model_id": "hyb", "input": x})
+    assert status == 200 and json.loads(text)["cost"] is None
+    evaluate = {"model_id": "hyb", "dataset_id": toy_shards, "shard": 0,
+                "epochs": 2, "batch_size": 2, "block_size": 16,
+                "step_size": 1}
+    status, text = _call(server, "POST", "/evaluate/", evaluate)
+    assert status == 200, text
+    np.testing.assert_allclose(json.loads(text)["cost"],
+                               jm.evaluate_model(toy_shards, None, 0, 2, 2,
+                                                 16, 1), rtol=1e-5)
+
+
+def test_output_and_evaluate_errors(server, toy_hybrid_layers, toy_optimizer,
+                                    toy_shards, monkeypatch):
+    assert _call(server, "POST", "/model/",
+                 {"model_id": "h", "layers": toy_hybrid_layers,
+                  "optimizer": toy_optimizer})[0] == 200
+    out = {"model_id": "h", "input": [[1, 2, 3]]}
+    assert _call(server, "POST", "/output/", out)[0] == 200
+    assert _call(server, "POST", "/output/", dict(out, model_id="nope")
+                 )[0] == 404
+    status, text = _call(server, "POST", "/output/", dict(out, input=[1, 2]))
+    assert status == 400 and "2-D" in text
+    status, text = _call(server, "POST", "/output/", {"model_id": "h"})
+    assert status == 422 and "input" in text
+    assert _call(server, "POST", "/output/", dict(out, target="x"))[0] == 422
+    # a fused projection of the wrong width for its ssm layer
+    bad = json.loads(json.dumps(toy_hybrid_layers))
+    bad[2]["residual"][0]["sequential"][1]["linear"]["out_features"] = 99
+    bad[2]["residual"][0]["sequential"][3]["linear"]["in_features"] = 99
+    assert _call(server, "POST", "/model/",
+                 {"model_id": "bad", "layers": bad,
+                  "optimizer": toy_optimizer})[0] == 200
+    status, text = _call(server, "POST", "/output/", dict(out, model_id="bad"))
+    assert status == 400 and "ssm fused input width 99" in text
+    evaluate = {"model_id": "h", "dataset_id": toy_shards, "shard": 0,
+                "epochs": 1, "batch_size": 2, "block_size": 16,
+                "step_size": 1}
+    assert _call(server, "POST", "/evaluate/", evaluate)[0] == 200
+    assert _call(server, "POST", "/evaluate/", dict(evaluate, model_id="nope")
+                 )[0] == 404
+    body = dict(evaluate)
+    del body["epochs"]
+    status, text = _call(server, "POST", "/evaluate/", body)
+    assert status == 422 and "epochs" in text
+    status, text = _call(server, "POST", "/evaluate/",
+                         dict(evaluate, dataset_id="missing"))
+    assert status == 400 and "no shards" in text
+    monkeypatch.setenv("PENROZ_MESH_MODEL", "2")
+    status, text = _call(server, "POST", "/evaluate/", evaluate)
+    assert status == 400 and "PENROZ_MESH_MODEL" in text
+
+
+def test_ssm_model_refused_under_continuous_batching(server, paged,
+                                                     monkeypatch,
+                                                     toy_hybrid_layers,
+                                                     toy_optimizer):
+    """The scheduler's rows have no recurrent state yet: a model with ssm
+    layers is a 400 naming them under continuous batching, and serves on
+    the single-sequence path without it."""
+    assert _call(server, "POST", "/model/",
+                 {"model_id": "h", "layers": toy_hybrid_layers,
+                  "optimizer": toy_optimizer})[0] == 200
+    body = _gen("h", input=[[1, 2, 3]], max_new_tokens=4)
+    single = _call(server, "POST", "/generate/", body)
+    assert single[0] == 200
+    monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
+    for path, payload in (("/generate/", body),
+                          ("/generate_batch/",
+                           {"model_id": "h", "inputs": [[1, 2], [3]],
+                            "block_size": 16, "max_new_tokens": 4,
+                            "temperature": 0})):
+        status, text = _call(server, "POST", path, payload)
+        assert status == 400 and "ssm layer" in text, (path, text)

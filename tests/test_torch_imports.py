@@ -53,3 +53,17 @@ def test_training_slice_modules_import_without_a_card():
     assert "cross_entropy" not in build._LIBS
     for src in ("flash_attention.cu", "cross_entropy.cu"):
         assert (ROOT / "penroz_tpu_torch" / "csrc" / src).exists()
+
+
+def test_ssm_slice_modules_import_without_a_card():
+    """The hybrid slice's modules import on a host without nvcc or a card:
+    the chunked-GLA kernel is built and loaded only when launched."""
+    import importlib
+    for name in ("penroz_tpu_torch.ops.kernels.ssm_scan",
+                 "penroz_tpu_torch.ops.ssm"):
+        module = importlib.import_module(name)
+        assert (ROOT / (name.replace(".", "/") + ".py")).exists()
+        assert module.__doc__
+    from penroz_tpu_torch.ops.kernels import build
+    assert "ssm_scan" not in build._LIBS
+    assert (ROOT / "penroz_tpu_torch" / "csrc" / "ssm_scan.cu").exists()

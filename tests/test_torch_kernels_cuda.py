@@ -424,3 +424,105 @@ def test_paged_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="cuda|device"):
         PA.paged_decode_attention(q[:, :, :1].contiguous(), k.cpu(), v,
                                   table, 8, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# chunked gated linear attention (hybrid attention/SSM slice).  Against the
+# plain version with the same block_t: element by element within
+# 1e-4 * (sum |terms| + |ref|), sum |terms| being the plain version run on
+# |q|, |k|, |v| (every decay is positive): both compute in fp32 from the same
+# inputs, but their cumsums of the log-gates round in another order (|la|
+# up to ~90 over a chunk), which moves each decay factor by up to ~1e-5.
+# Against the token-sequential oracle (products of gates, not exp of
+# cumsums): 1e-3 on the same scale, gates above the 1e-6 log floor.
+# ---------------------------------------------------------------------------
+
+from penroz_tpu_torch.ops import ssm as SSM  # noqa: E402
+from penroz_tpu_torch.ops.kernels import ssm_scan as SS  # noqa: E402
+
+
+def _gla_inputs(dev, B, T, H, dk, dv, dtype, below_floor=False, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(B, T, H, dk, generator=g) * dk ** -0.5
+    k = torch.randn(B, T, H, dk, generator=g)
+    v = torch.randn(B, T, H, dv, generator=g)
+    logits = torch.randn(B, T, H, generator=g)
+    if below_floor:  # sigmoid(-20) ~ 2e-9, under the 1e-6 log floor
+        logits[torch.rand(B, T, H, generator=g) < 0.1] = -20.0
+    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+            torch.sigmoid(logits).to(dev))
+
+
+def _gla_worst(out, ref, q, k, v, g, block_t, c):
+    terms = SS.gla_chunked_reference(q.abs(), k.abs(), v.abs(), g, block_t)
+    err = (out - ref).abs()
+    return float((err / (c * (terms + ref.abs())).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("B,T,H,dk,dv,block_t,dtype,below_floor", [
+    (8, 1024, 12, 64, 64, 128, torch.float32, False),   # /evaluate/'s shape
+    (1, 1024, 12, 64, 64, 128, torch.float32, False),   # /output/'s shape
+    (8, 1000, 12, 64, 64, 128, torch.float32, False),   # ragged tail
+    (8, 1024, 12, 64, 64, 128, torch.bfloat16, False),
+    (2, 1024, 12, 64, 64, 128, torch.float32, True),
+    (2, 1024, 32, 128, 128, 128, torch.float32, False),
+    (2, 13, 3, 8, 4, 8, torch.float32, False),
+    (1, 5, 2, 8, 8, 128, torch.float32, False),
+    (1, 300, 2, 32, 96, 64, torch.bfloat16, False)],
+    ids=["gpt2_B8_T1024", "gpt2_B1_T1024", "gpt2_T1000", "gpt2_bf16",
+         "below_floor", "H32_D128", "tiny_tail", "T5", "dk32_dv96_bf16"])
+def test_gla_kernel_matches_plain(dev, B, T, H, dk, dv, block_t, dtype,
+                                  below_floor):
+    q, k, v, g = _gla_inputs(dev, B, T, H, dk, dv, dtype, below_floor)
+    before = SS.gla_chunked.launches
+    out = SS.gla_chunked(q, k, v, g, block_t=block_t)
+    torch.cuda.synchronize()
+    assert SS.gla_chunked.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, T, H, dv)
+    assert bool(torch.isfinite(out).all())
+    ref = SS.gla_chunked_reference(q, k, v, g, block_t)
+    assert _gla_worst(out, ref, q, k, v, g, block_t, 1e-4) <= 1.0
+    if not below_floor and T >= 1000:
+        seq = SSM.gla_full_reference(q, k, v, g)
+        assert _gla_worst(out, seq, q, k, v, g, block_t, 1e-3) <= 1.0
+
+
+def test_gla_kernel_takes_strided_views_and_ssm_layer_launches_it(dev):
+    """q, k, v as GatedSSM slices them out of the fused projection (token
+    stride = the fused width); the no-cache inference forward of a
+    GatedSSM launches the kernel once, training the oracle."""
+    from penroz_tpu_torch.ops.modules import Ctx, GatedSSM
+    B, T, H, d = 2, 200, 4, 32
+    fused = torch.randn(B, T, H * (3 * d + 1), device=dev)
+    q = fused[..., :H * d].reshape(B, T, H, d)
+    k = fused[..., H * d:2 * H * d].reshape(B, T, H, d)
+    v = fused[..., 2 * H * d:3 * H * d].reshape(B, T, H, d)
+    g = torch.sigmoid(fused[..., 3 * H * d:]).reshape(B, T, H)
+    out = SS.gla_chunked(q, k, v, g)
+    ref = SS.gla_chunked_reference(q, k, v, g)
+    assert _gla_worst(out, ref, q, k, v, g, 128, 1e-4) <= 1.0
+    layer = GatedSSM(H, d)
+    before = SS.gla_chunked.launches
+    with torch.no_grad():
+        y = layer(fused, Ctx())
+        y_train = layer(fused, Ctx(training=True))
+    torch.cuda.synchronize()
+    assert SS.gla_chunked.launches == before + 1
+    assert _gla_worst(y.reshape(B, T, H, d), y_train.reshape(B, T, H, d),
+                      q * d ** -0.5, k, v, g, 128, 1e-3) <= 1.0
+
+
+def test_gla_kernel_rejects_what_it_cannot_take(dev):
+    q, k, v, g = _gla_inputs(dev, 1, 16, 2, 8, 8, torch.float32)
+    with pytest.raises(ValueError, match="fp32"):
+        SS.gla_chunked(q, k, v, g.double())
+    with pytest.raises(ValueError, match="dtype"):
+        SS.gla_chunked(q, k.bfloat16(), v, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        SS.gla_chunked(torch.randn(1, 16, 2, 16, device=dev)[..., ::2], k, v,
+                       g)
+    with pytest.raises(ValueError, match="shape|expected"):
+        SS.gla_chunked(q, k, v[:, :8], g)
+    big = _gla_inputs(dev, 1, 256, 1, 256, 256, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        SS.gla_chunked(*big, block_t=256)

@@ -14,12 +14,15 @@ prints no result:
                plain and library times (CUDA events, L2 flushed before each
                launch) and the least time the card could take (bound):
                decode attention (serving), flash attention forward and
-               backward and cross-entropy forward and backward (training),
+               backward (training; bf16 also with a 128-token window and
+               ALiBi and at T 1000, the Hopper kernels' mask and ragged
+               edges) and cross-entropy forward and backward (training),
                paged decode (decode steps and phase 4's prefills of 128,
                1004 and 1024 tokens), ragged paged attention (paged pool
                and continuous batching) and chunked gated linear attention
                (the hybrid's SSM layers, phase 4c's shapes; also held to
-               the token-sequential oracle), in fp32 and bf16.
+               the token-sequential oracle), in fp32 and bf16.  The flash
+               rows also carry the host microseconds of one wrapper call.
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
                50304, block 1024; random weights from seed 0): POST /model/,
@@ -272,6 +275,21 @@ def _time_ms(torch, fn, iters, flush):
     return total / iters
 
 
+def _host_us(torch, fn, iters):
+    """Mean host microseconds of one call of ``fn`` (a wrapper: its Python,
+    its allocations, the C entry point and the launch), with a spin kernel
+    queued first so that no call waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~12 ms of device time
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
 def _row(name, err, err_over_tol, tol_text, ms, plain_ms, library_ms,
          nbytes, ops, peak):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -408,11 +426,9 @@ def kernel_cases():
     return cases
 
 
-def run_flash_case(torch, case, flush):
-    """Flash forward and backward against the plain versions; two rows."""
+def _flash_inputs(torch, case):
+    """q, k, v, dO on the card from the case's seed, and the options."""
     from penroz_tpu_torch.ops import attention as A
-    from penroz_tpu_torch.ops.kernels import flash_attention as FA
-    F = torch.nn.functional
     B, Hq, Hkv, T, D = (case[k] for k in ("B", "Hq", "Hkv", "T", "D"))
     dtype = getattr(torch, case["dtype"])
     g = torch.Generator(device="cuda").manual_seed(case["seed"])
@@ -422,16 +438,16 @@ def run_flash_case(torch, case, flush):
           "dropout_rate": case.get("rate", 0.0), "seed": case.get("seed")}
     if case.get("alibi"):
         kw["alibi"] = A.alibi_slopes(Hq)
-    fwd_before = FA.flash_forward.launches
-    bwd_before = FA.flash_backward.launches
-    out, lse = FA.flash_forward(q, k, v, **kw)
-    dq, dk, dv = FA.flash_backward(q, k, v, out, lse, dout, **kw)
-    torch.cuda.synchronize()
-    check(FA.flash_forward.launches == fwd_before + 1
-          and FA.flash_backward.launches == bwd_before + 1,
-          f"{case['name']}: launches not counted")
+    return q, k, v, dout, kw
+
+
+def _flash_errors(torch, case, q, k, v, dout, kw, out, lse, grads):
+    """(forward max abs err, its ratio to the tolerance, backward max abs
+    err, its ratio) of a kernel's results against the plain versions;
+    fails past the tolerance."""
+    from penroz_tpu_torch.ops import attention as A
+    from penroz_tpu_torch.ops.kernels import flash_attention as FA
     c = FLASH_C[case["dtype"]]
-    tol_text = f"{c:.3g} * (sum|terms| + |ref|) + dS err + 1e-6"
 
     def worst(got, ref, terms, extra=0.0):
         check(bool(torch.isfinite(got).all()), f"{case['name']}: non-finite")
@@ -449,6 +465,7 @@ def run_flash_case(torch, case, flush):
     del ref, ref_abs
     rq, rk, rv, p_drop, ds, ds_err = FA.flash_backward_reference(
         q, k, v, out, lse, dout, terms=True, **kw)
+    Hkv = k.shape[1]
     qg = A._group_query_heads(q, Hkv).float().abs()
     dg = A._group_query_heads(dout, Hkv).float().abs()
     ka = k.float().abs()
@@ -460,19 +477,41 @@ def run_flash_case(torch, case, flush):
          torch.einsum("bhgts,bhgtd->bhsd", ds_err, qg)),
         (torch.einsum("bhgts,bhgtd->bhsd", p_drop.abs_(), dg), 0.0))
     del p_drop, ds, ds_err
-    errs = [worst(a, b, *t) for a, b, t in zip((dq, dk, dv), (rq, rk, rv),
-                                                bounds)]
-    err_b = max(e for e, _ in errs)
+    errs = [worst(a, b, *t) for a, b, t in zip(grads, (rq, rk, rv), bounds)]
     ratio_b = max(r for _, r in errs)
     check(ratio_b <= 1.0, f"{case['name']} backward: {ratio_b:.2f} x "
           f"tolerance (dq/dk/dv {[round(r, 3) for _, r in errs]})")
-    del rq, rk, rv, bounds
+    return err_f, ratio_f, max(e for e, _ in errs), ratio_b
+
+
+def run_flash_case(torch, case, flush):
+    """Flash forward and backward against the plain versions; two rows."""
+    from penroz_tpu_torch.ops.kernels import flash_attention as FA
+    F = torch.nn.functional
+    B, Hq, Hkv, T, D = (case[k] for k in ("B", "Hq", "Hkv", "T", "D"))
+    dtype = getattr(torch, case["dtype"])
+    q, k, v, dout, kw = _flash_inputs(torch, case)
+    fwd_before = FA.flash_forward.launches
+    bwd_before = FA.flash_backward.launches
+    out, lse = FA.flash_forward(q, k, v, **kw)
+    grads = FA.flash_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    check(FA.flash_forward.launches == fwd_before + 1
+          and FA.flash_backward.launches == bwd_before + 1,
+          f"{case['name']}: launches not counted")
+    c = FLASH_C[case["dtype"]]
+    tol_text = f"{c:.3g} * (sum|terms| + |ref|) + dS err + 1e-6"
+    err_f, ratio_f, err_b, ratio_b = _flash_errors(
+        torch, case, q, k, v, dout, kw, out, lse, grads)
+    del grads
 
     iters = case.get("iters", 10)
     fwd = lambda: FA.flash_forward(q, k, v, **kw)  # noqa: E731
     bwd = lambda: FA.flash_backward(q, k, v, out, lse, dout, **kw)  # noqa
     ms_f = _time_ms(torch, fwd, iters, flush)
     ms_b = _time_ms(torch, bwd, iters, flush)
+    host_f = _host_us(torch, fwd, 20)
+    host_b = _host_us(torch, bwd, 20)
     plain_f = _time_ms(torch, lambda: FA.flash_forward_reference(
         q, k, v, **kw), 3, flush)
     plain_b = _time_ms(torch, lambda: FA.flash_backward_reference(
@@ -515,11 +554,16 @@ def run_flash_case(torch, case, flush):
     # q, k, v, out, dO and lse; write dq, dk, dv.
     fwd_bytes = (2 * qn + 2 * kn) * item + 4 * rows
     bwd_bytes = (3 * qn + 2 * kn) * item + 4 * rows + (qn + 2 * kn) * item
-    return [
+    pair = [
         _row(case["name"] + "_fwd", err_f, ratio_f, tol_text, ms_f, plain_f,
              lib_f, fwd_bytes, 4 * D * pairs, peak),
         _row(case["name"] + "_bwd", err_b, ratio_b, tol_text, ms_b, plain_b,
              lib_b, bwd_bytes, 10 * D * pairs, peak)]
+    for row, host in zip(pair, (host_f, host_b)):
+        row["host_us"] = host
+    say("kernels", f"{case['name']}: host per wrapper call fwd {host_f:.1f} "
+        f"us bwd {host_b:.1f} us")
+    return pair
 
 
 def run_ce_case(torch, case, flush):
@@ -989,6 +1033,12 @@ def training_cases():
                   D=256, dtype="bfloat16"),
              dict(name="flash_D256_T512_fp32", B=1, Hq=8, Hkv=4, T=512,
                   D=256, dtype="float32")]
+    # the Hopper kernels' mask (window edge, ALiBi) and ragged-edge paths
+    edges = [dict(name="flash_window128_alibi_T1024_bf16", B=1, Hq=12,
+                  Hkv=12, T=1024, D=64, dtype="bfloat16", window=128,
+                  alibi=True, seed=200),
+             dict(gpt2, name="flash_gpt2_B8_T1000_bf16", T=1000,
+                  dtype="bfloat16", seed=201)]
     ce = [dict(name="ce_gpt2_N8192_V50304_bf16", N=8192, V=50304,
                dtype="bfloat16"),
           dict(name="ce_gpt2_N8192_V50304_fp32", N=8192, V=50304,
@@ -997,7 +1047,7 @@ def training_cases():
                dtype="float32")]
     for i, c in enumerate(cases + ce):
         c["seed"] = 100 + i
-    return cases, ce
+    return cases + edges, ce
 
 
 @contextlib.contextmanager

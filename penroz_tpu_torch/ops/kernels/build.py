@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled with nvcc for ``sm_90a`` into a shared library under the package's
 ``_build/`` directory (listed in .gitignore) and loaded with ctypes.  The
-library name carries a hash of the source and flags, so an edited source
-never loads a stale build.  Nothing here runs at import time: the CPU tests
-import every module on a host without nvcc.
+library name carries a hash of the source, the local headers it includes
+(``#include "<name>.cuh"`` from ``csrc/``) and the flags, so an edited
+source or header never loads a stale build.  Nothing here runs at import
+time: the CPU tests import every module on a host without nvcc.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dtype codes of the kernels' C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by name
@@ -47,12 +50,24 @@ def nvcc_path() -> str:
                        "under /usr/local/cuda)")
 
 
+def _source_bytes(path: str, seen: set) -> bytes:
+    """``path`` followed by the local headers it includes, depth first,
+    each once."""
+    with open(path, "rb") as f:
+        text = f.read()
+    seen.add(path)
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = os.path.join(os.path.dirname(path), inc.decode())
+        if header not in seen:
+            text += _source_bytes(header, seen)
+    return text
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` if needed; return the library path."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    digest = hashlib.sha256(_source_bytes(src, set()) +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(lib):
         return lib

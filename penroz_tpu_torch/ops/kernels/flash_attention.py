@@ -37,13 +37,17 @@ _COUNT_LOCK = threading.Lock()
 _P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
 _FWD_ARGTYPES = [_P] * 7 + [_I] * 7 + [_F, _I, _U, _F, _P]
-_BWD_ARGTYPES = [_P] * 11 + [_I] * 7 + [_F, _I, _U, _F, _P]
+_BWD_ARGTYPES = [_P] * 12 + [_I] * 7 + [_F, _I, _U, _F, _P]
 
 
 def _seed_tensor(seed, device) -> torch.Tensor:
-    """The dropout seed as an int32 scalar on ``device`` (0 when None)."""
+    """The dropout seed as an int32 scalar on ``device`` (0 when None).  A
+    Python int is written by a fill on the device, not copied from the host,
+    so the call does not wait for the device."""
     if seed is None:
-        return torch.zeros((), dtype=torch.int32, device=device)
+        seed = 0
+    if isinstance(seed, int):
+        return torch.full((), seed, dtype=torch.int32, device=device)
     return torch.as_tensor(seed, dtype=torch.int32, device=device).reshape(())
 
 
@@ -215,7 +219,9 @@ def _launch_forward(q, k, v, args):
     return out, lse
 
 
-def _launch_backward(q, k, v, dout, lse, delta, args):
+def _launch_backward(q, k, v, out, dout, lse, args):
+    """(dq, dk, dv, delta): the dq kernel writes delta = rowsum(dO·O)
+    (B, Hq, T) fp32 into a scratch that the dkv kernel reads."""
     (slopes, seed_t, Hq, Hkv, T, D, code, window, sm_scale, dropout,
      keep_below, drop_scale) = args
     lib = build.load("flash_attention")
@@ -223,13 +229,14 @@ def _launch_backward(q, k, v, dout, lse, delta, args):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), seed_t.data_ptr(), slopes,
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.shape[0], Hq,
-             Hkv, T, D, code, window, sm_scale, dropout, keep_below,
-             drop_scale, build.stream(q))
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             seed_t.data_ptr(), slopes, dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), q.shape[0], Hq, Hkv, T, D, code, window,
+             sm_scale, dropout, keep_below, drop_scale, build.stream(q))
     build.check(lib, err, "flash_attention backward")
-    return dq, dk, dv
+    return dq, dk, dv, delta
 
 
 def flash_forward(q, k, v, window: Optional[int] = None, alibi=None,
@@ -258,7 +265,8 @@ def flash_backward(q, k, v, out, lse, dout, window: Optional[int] = None,
                    dropout_rate: float = 0.0, seed=None):
     """(dq, dk, dv); CUDA tensors launch the dq and the dkv kernel (one
     count for the pair), CPU tensors run :func:`flash_backward_reference`.
-    delta = rowsum(dO·O) is a torch op here, as in the JAX package."""
+    On the card the dq kernel computes delta = rowsum(dO·O) from ``out``
+    itself (the JAX package computes it outside its kernels)."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, dout,
                                         window=window, alibi=alibi,
@@ -268,11 +276,10 @@ def flash_backward(q, k, v, out, lse, dout, window: Optional[int] = None,
     _check("out", out, q.device, q.dtype, q.shape)
     _check("dout", dout, q.device, q.dtype, q.shape)
     _check("lse", lse, q.device, torch.float32, q.shape[:3] + (1,))
-    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    grads = _launch_backward(q, k, v, dout, lse, delta, args)
+    dq, dk, dv, _ = _launch_backward(q, k, v, out, dout, lse, args)
     with _COUNT_LOCK:
         flash_backward.launches += 1
-    return grads
+    return dq, dk, dv
 
 
 flash_backward.launches = 0

@@ -8,7 +8,9 @@ equals the JAX oracle's bit for bit.
 Shapes: B=1, T=S=256, D=64, Pallas blocks 128.  Tolerance (fp32 both
 sides, the same algorithm summed in another order: blockwise online
 softmax against whole rows): atol 2e-5 on outputs and logsumexp, 5e-5 on
-gradients, whose entries sum up to 256 products."""
+gradients, whose entries sum up to 256 products.  The bf16 cases (the
+type in which the CUDA kernels are held to the plain version on the card)
+have their own bound, in their test's docstring."""
 
 import jax
 import jax.numpy as jnp
@@ -128,3 +130,75 @@ def test_causal_attention_dispatch_and_softcap_reference():
         capped.numpy(), TA.causal_attention_reference(
             tq, tk, tv, softcap=5.0).numpy(), atol=1e-6)
     assert "softcap_reference" in TA._WARNED_ONCE
+
+
+def _bf16(a):
+    """numpy fp32 -> (torch bf16, jax bf16): the same rounded values."""
+    return (torch.as_tensor(a).to(torch.bfloat16),
+            jnp.asarray(a).astype(jnp.bfloat16))
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa"])
+def test_flash_bf16_matches_pallas_interpret(name):
+    """bf16 inputs through the port's plain version (forward, and the
+    backward through the autograd Function) and the Pallas kernels in
+    interpret mode, which round at the same points (p to bf16 before P·V,
+    dS and p~ to bf16 before their products, each result once).  The
+    backward runs both on the port's forward output and logsumexp, so both
+    compute the same delta.  Element by element, each side within one bf16
+    rounding of p, p~ or dS (relative 2^-8) and of its result:
+    |got - want| <= 2^-7 * (sum|terms| + |want|) + dS err + 1e-6, sum|terms|
+    the element's sum taken on absolute values (sum_j w_j |v_j| for the
+    output, sum |dS||k| for dq, sum |dS||q| for dk, sum |p~||dO| for dv)
+    and dS err the fp32 error bound of dP - delta
+    (flash_backward_reference's ``terms``); lse atol 1e-4."""
+    case = CASES[name]
+    hq, hkv = case["hq"], case["hkv"]
+    (tq, jq), (tk, jk), (tv, jv), (tg, jg) = map(_bf16, _inputs(hq, hkv))
+    _, jlse = JFA._flash_forward(jq, jk, jv, True, 128, 128, interpret=True,
+                                 return_lse=True)
+    jout = JFA._flash_forward(jq, jk, jv, True, 128, 128, interpret=True)
+
+    q, k, v = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+    out = FA.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), tg)
+    _, lse = FA.flash_forward(tq, tk, tv)
+    ref_abs, _ = FA.flash_forward_reference(tq, tk, tv.abs())
+
+    c = 2.0 ** -7
+
+    def within(got, want, terms, extra=0.0):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        bound = c * (terms + np.abs(want)) + extra + 1e-6
+        assert np.all(np.abs(got - want) <= bound), \
+            float(np.max(np.abs(got - want) / bound))
+
+    assert out.dtype == torch.bfloat16
+    within(out.detach().float().numpy(), _f32(jout),
+           ref_abs.float().numpy())
+    np.testing.assert_allclose(lse.numpy(), _f32(jlse), atol=1e-4, rtol=0)
+
+    jout_port = jnp.asarray(out.detach().float().numpy()).astype(
+        jnp.bfloat16)
+    jgrads = JFA._flash_backward(jq, jk, jv, jout_port,
+                                 jnp.asarray(lse.numpy()), jg, True, 128,
+                                 128, 0.0, None, interpret=True)
+    *_, p_drop, ds, ds_err = FA.flash_backward_reference(
+        tq, tk, tv, out.detach(), lse, tg, terms=True)
+    qg = TA._group_query_heads(tq, hkv).float().abs()
+    dg = TA._group_query_heads(tg, hkv).float().abs()
+    ka = tk.float().abs()
+    terms = (
+        (torch.einsum("bhgts,bhsd->bhgtd", ds.abs(), ka).reshape(tq.shape),
+         torch.einsum("bhgts,bhsd->bhgtd", ds_err, ka).reshape(tq.shape)),
+        (torch.einsum("bhgts,bhgtd->bhsd", ds.abs(), qg),
+         torch.einsum("bhgts,bhgtd->bhsd", ds_err, qg)),
+        (torch.einsum("bhgts,bhgtd->bhsd", p_drop.abs(), dg),
+         torch.zeros(())))
+    for got, want, (term, extra) in zip(grads, jgrads, terms):
+        assert got.dtype == torch.bfloat16
+        within(got.float().numpy(), _f32(want), term.numpy(), extra.numpy())

@@ -157,20 +157,13 @@ def _worst(out, ref, terms, dtype, extra=0.0):
                   / _bound(terms, ref, dtype, extra)).max())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,Hq,Hkv,T,D,kw", [
-    (2, 4, 4, 200, 64, {}),
-    (1, 8, 2, 130, 128, {}),
-    (1, 4, 2, 96, 256, {}),
-    (1, 4, 4, 150, 64, {"window": 33, "alibi": True}),
-    (2, 2, 1, 100, 64, {"dropout_rate": 0.1, "seed": 77, "scale": 0.2}),
-], ids=["mha", "gqa_d128", "d256", "window_alibi", "dropout_scale"])
-def test_flash_kernels_match_plain(dev, dtype, B, Hq, Hkv, T, D, kw):
+def _check_flash(dev, dtype, B, Hq, Hkv, T, D, kw, seed=5):
+    """Forward and backward kernels against the plain versions, each
+    element within its bound; returns the kernels' results."""
     kw = dict(kw)
     if kw.pop("alibi", False):
         kw["alibi"] = TA.alibi_slopes(Hq)
-    q, k, v = _inputs(dev, B, Hq, Hkv, T, T, D, dtype, seed=5)
+    q, k, v = _inputs(dev, B, Hq, Hkv, T, T, D, dtype, seed=seed)
     dout = torch.randn(B, Hq, T, D, device=dev).to(dtype)
     before = (FA.flash_forward.launches, FA.flash_backward.launches)
     out, lse = FA.flash_forward(q, k, v, **kw)
@@ -197,6 +190,65 @@ def test_flash_kernels_match_plain(dev, dtype, B, Hq, Hkv, T, D, kw):
     for got, want, (term, extra) in zip((dq, dk, dv), (rq, rk, rv), bounds):
         assert got.dtype == dtype
         assert _worst(got, want, term, dtype, extra) <= 1.0
+    return (q, k, v, dout, kw), (out, lse, dq, dk, dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,T,D,kw", [
+    (2, 4, 4, 200, 64, {}),
+    (1, 8, 2, 130, 128, {}),
+    (1, 4, 2, 96, 256, {}),
+    (1, 4, 4, 150, 64, {"window": 33, "alibi": True}),
+    (2, 2, 1, 100, 64, {"dropout_rate": 0.1, "seed": 77, "scale": 0.2}),
+], ids=["mha", "gqa_d128", "d256", "window_alibi", "dropout_scale"])
+def test_flash_kernels_match_plain(dev, dtype, B, Hq, Hkv, T, D, kw):
+    _check_flash(dev, dtype, B, Hq, Hkv, T, D, kw)
+
+
+# The bf16 Hopper kernels (TMA ring + wgmma, D 64 and 128): the ragged edges
+# of their 128-row blocks and 128-, 64- or 32-row streamed tiles (T 1 to
+# 1000), GQA, windows that skip and mask whole tiles with ALiBi, dropout,
+# and the same tolerances as above.
+@pytest.mark.parametrize("B,Hq,Hkv,T,D,kw", [
+    (1, 2, 2, 1, 64, {}),
+    (2, 2, 1, 127, 64, {}),
+    (1, 4, 4, 129, 64, {}),
+    (1, 4, 2, 1000, 64, {}),
+    (2, 4, 2, 130, 128, {}),
+    (1, 8, 2, 257, 128, {}),
+    (1, 4, 2, 1000, 64, {"window": 200, "alibi": True}),
+    (1, 4, 2, 520, 128, {"window": 100, "alibi": True}),
+    (1, 4, 4, 300, 64, {"dropout_rate": 0.1, "seed": 5}),
+    (1, 4, 2, 300, 128, {"dropout_rate": 0.2, "seed": 6, "alibi": True}),
+], ids=["T1", "T127_gqa", "T129", "T1000_gqa", "T130_d128", "gqa4_d128",
+        "window_alibi_T1000", "window_alibi_d128", "dropout",
+        "dropout_alibi_d128"])
+def test_flash_hopper_kernels_match_plain(dev, B, Hq, Hkv, T, D, kw):
+    _check_flash(dev, torch.bfloat16, B, Hq, Hkv, T, D, kw, seed=T)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_hopper_kernels_are_deterministic_and_write_delta(dev, D):
+    """Two launches give the same bits (no atomics), and the delta the dq
+    kernel writes is rowsum(dO * O) within 1e-5 of the row's sum of
+    |dO * O| (fp32 sums in another order)."""
+    (q, k, v, dout, kw), first = _check_flash(
+        dev, torch.bfloat16, 2, 8, 2, 1000, D,
+        {"window": 300, "alibi": True, "dropout_rate": 0.1, "seed": 9})
+    out, lse = FA.flash_forward(q, k, v, **kw)
+    dq, dk, dv = FA.flash_backward(q, k, v, out, lse, dout, **kw)
+    for a, b in zip(first, (out, lse, dq, dk, dv)):
+        assert torch.equal(a, b)
+    args = FA._kernel_args(q, k, v, kw["window"], kw["alibi"], None,
+                           kw["dropout_rate"], kw["seed"])
+    *grads, delta = FA._launch_backward(q, k, v, out, dout, lse, args)
+    for a, b in zip(grads, (dq, dk, dv)):
+        assert torch.equal(a, b)
+    prod = dout.float() * out.float()
+    assert delta.shape == (2, 8, 1000) and delta.dtype == torch.float32
+    assert bool(((delta - prod.sum(-1)).abs()
+                 <= 1e-5 * prod.abs().sum(-1)).all())
 
 
 def test_flash_autograd_and_rejections(dev):

@@ -13,13 +13,19 @@ prints no result:
                the main paths give it, with the stated tolerance; kernel,
                plain and library times (CUDA events, L2 flushed before each
                launch) and the least time the card could take (bound):
-               decode attention (serving), flash attention forward and
-               backward (training; bf16 also with a 128-token window and
-               ALiBi and at T 1000, the Hopper kernels' mask and ragged
-               edges) and cross-entropy forward and backward (training),
-               paged decode (decode steps and phase 4's prefills of 128,
-               1004 and 1024 tokens), ragged paged attention (paged pool
-               and continuous batching) and chunked gated linear attention
+               decode attention (serving; also at the split-K edges: one
+               key, a ragged last split, lengths 1-1024, a narrow window,
+               a query with no key, which must read zeros, more splits
+               than head dims; every decode case launched twice,
+               bit-identical, and also timed after a read-only flush),
+               flash attention
+               forward and backward (training; bf16 also with a 128-token
+               window and ALiBi and at T 1000, the Hopper kernels' mask
+               and ragged edges) and cross-entropy forward and backward
+               (training), paged decode (decode steps, its split edges,
+               and phase 4's prefills of 128, 1004 and 1024 tokens),
+               ragged paged attention (paged pool and continuous
+               batching) and chunked gated linear attention
                (the hybrid's SSM layers, phase 4c's shapes; also held to
                the token-sequential oracle), in fp32 and bf16.  The flash
                rows also carry the host microseconds of one wrapper call.
@@ -53,8 +59,11 @@ prints no result:
                weights from seed 0): greedy /generate/ 128 + 128 twice, on
                the int8 cache, and under PAGED_KV_CACHE=1 (fp32 and int8;
                the same tokens as the contiguous cache of the same
-               precision); /output/ on a 16-token prompt, whose argmax is
-               the first greedy token of that prompt within ARGMAX_ATOL;
+               precision); where the int8 tokens first leave the fp32
+               ones, and the fp32 top-1 minus top-2 logit gap there
+               (recorded, not gated); /output/ on a 16-token prompt,
+               whose argmax is the first greedy token of that prompt
+               within ARGMAX_ATOL;
                in-process compute_output at 1 x 1024, its logits held to
                the same forward with the sequential oracle in place of the
                kernel; /evaluate/ at 8 x 1024 on a synthetic shard, equal
@@ -254,17 +263,22 @@ def _attended_pairs(T, L, window):
     return pairs, first_key
 
 
-def _time_ms(torch, fn, iters, flush):
+def _time_ms(torch, fn, iters, flush, clean=False):
     """Mean device ms of ``fn`` over ``iters`` launches, each after an L2
-    flush, timed with CUDA events around the launch alone.  A spin kernel
-    queued first keeps the device busy while the host enqueues the flush,
-    the events and ``fn``, so host-side launch overhead is not timed."""
+    flush (``flush`` written, or with ``clean`` read, which leaves no dirty
+    lines for ``fn``'s misses to write back), timed with CUDA events around
+    the launch alone.  A spin kernel queued first keeps the device busy
+    while the host enqueues the flush, the events and ``fn``, so host-side
+    launch overhead is not timed."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         torch.cuda._sleep(5_000_000)  # ~3 ms of device time
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -291,7 +305,7 @@ def _host_us(torch, fn, iters):
 
 
 def _row(name, err, err_over_tol, tol_text, ms, plain_ms, library_ms,
-         nbytes, ops, peak):
+         nbytes, ops, peak, clean_ms=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     row = {"name": name, "max_abs_err": err, "err_over_tol": err_over_tol,
@@ -300,19 +314,34 @@ def _row(name, err, err_over_tol, tol_text, ms, plain_ms, library_ms,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ops": ops}
     lib = f"{library_ms:.4f}" if library_ms is not None else "null"
+    clean = ""
+    if clean_ms is not None:
+        row["ms_read_flush"] = clean_ms
+        clean = f" (read flush {clean_ms:.4f} ms)"
     say("kernels", f"{name}: err {err:.2e} ({err_over_tol:.3f} x "
-        f"{tol_text}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-        f"{lib} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{tol_text}) kernel {ms:.4f} ms{clean} plain {plain_ms:.4f} ms "
+        f"library {lib} ms bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
     return row
 
 
 def run_case(torch, case, flush):
+    """The contiguous decode kernel against its plain version; one row.
+    ``lengths`` (one per sequence) instead of ``L`` passes a length tensor;
+    a query before position 0 attends no key, and the kernel must write
+    zeros there (the plain version averages the masked row)."""
     from penroz_tpu_torch.ops import attention as A
     from penroz_tpu_torch.ops import kv_cache as KV
     from penroz_tpu_torch.ops.kernels import decode_attention as DA
     F = torch.nn.functional
-    B, Hq, Hkv, T, S, D, L = (case[k] for k in
-                              ("B", "Hq", "Hkv", "T", "S", "D", "L"))
+    B, Hq, Hkv, T, S, D = (case[k] for k in ("B", "Hq", "Hkv", "T", "S", "D"))
+    lens = case.get("lengths", [case.get("L")] * B)
+    L = max(lens)
+    if "lengths" in case:
+        length, offset = torch.tensor(lens, dtype=torch.int32,
+                                      device="cuda"), 0
+    else:
+        length, offset = L, L - T
     dtype = getattr(torch, case["dtype"])
     window = case.get("window")
     g = torch.Generator(device="cuda").manual_seed(case["seed"])
@@ -328,21 +357,31 @@ def run_case(torch, case, flush):
         k, v, _ = state.append_raw(0, k, v)
         kw.update(k_scale=state.k_scale[0], v_scale=state.v_scale[0])
         scale_bytes = 4
-    kernel = lambda: DA.decode_attention(q, k, v, L - T, L, **kw)  # noqa: E731
-    plain = lambda: DA.decode_attention_reference(q, k, v, L - T, L,  # noqa
-                                                  **kw)
+    kernel = lambda: DA.decode_attention(  # noqa: E731
+        q, k, v, offset, length, **kw)
+    plain = lambda: DA.decode_attention_reference(  # noqa: E731
+        q, k, v, offset, length, **kw)
     before = DA.decode_attention.launches
     out = kernel()
     torch.cuda.synchronize()
     check(DA.decode_attention.launches == before + 1,
           f"{case['name']}: launch not counted")
-    ref = plain().float()
+    check(torch.equal(kernel(), out),
+          f"{case['name']}: two launches differ")
+    # rows before position 0: zeros from the kernel, left out of the
+    # comparison with the plain version
+    pos = torch.tensor(lens, device="cuda")[:, None] - T + torch.arange(
+        T, device="cuda")
+    empty = (pos < 0)[:, None, :, None]
+    check(bool((out.masked_select(empty) == 0).all()),
+          f"{case['name']}: a row with no attended key is not zero")
+    ref = plain().float().masked_fill(empty, 0.0)
     diff = (out.float() - ref).abs()
     err = float(diff.max())
     if case["dtype"] == "bfloat16":
-        ref_abs = DA.decode_attention_reference(q, k, v.abs(), L - T, L,
+        ref_abs = DA.decode_attention_reference(q, k, v.abs(), offset, length,
                                                 **kw).float()
-        tol = BF16_STEP * (ref_abs + ref.abs())
+        tol = BF16_STEP * (ref_abs + ref.abs()).masked_fill(empty, 1.0)
         tol_text = "2^-7 * (sum w|v| + |ref|)"
     else:
         tol = torch.full_like(ref, FP32_ATOL)
@@ -353,6 +392,7 @@ def run_case(torch, case, flush):
           f"{err_over_tol:.2f} x the tolerance {tol_text}")
     iters = case.get("iters", 20)
     ms = _time_ms(torch, kernel, iters, flush)
+    clean_ms = _time_ms(torch, kernel, iters, flush, clean=True)
     plain_ms = _time_ms(torch, plain, max(3, iters // 4), flush)
 
     library_ms = None
@@ -364,30 +404,36 @@ def run_case(torch, case, flush):
             vd = (v[:, :, :L].float() * kw["v_scale"][:, :, :L]).to(dtype)
         else:
             kd, vd = k[:, :, :L], v[:, :, :L]
-        pos = torch.arange(L - T, L, device="cuda")[:, None]
-        key = torch.arange(L, device="cuda")[None, :]
-        mask = key <= pos
+        key = torch.arange(L, device="cuda")[None, None, :]
+        mask = key <= pos[:, :, None]                       # (B, T, L)
         if window:
-            mask &= key > pos - window
+            mask &= key > pos[:, :, None] - window
         bias = None
         if case.get("alibi"):
             slopes = torch.as_tensor(kw["alibi"], device="cuda")
-            bias = slopes[:, None, None] * (key - pos).float()
-            bias = bias.masked_fill(~mask, float("-inf")).to(dtype)[None]
+            bias = slopes[None, :, None, None] * (
+                key[:, None] - pos[:, None, :, None]).float()
+            bias = bias.masked_fill(~mask[:, None], float("-inf")).to(dtype)
         attn_mask = bias if bias is not None else (
-            None if T == 1 and not window else mask)
+            None if T == 1 and not window and "lengths" not in case
+            else mask[:, None])
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, kd, vd, attn_mask=attn_mask, enable_gqa=Hq != Hkv)
         library_ms = _time_ms(torch, sdpa, iters, flush)
 
-    pairs, first_key = _attended_pairs(T, L, window)
+    pairs, keys = 0, 0
+    for n in lens:
+        p_n, first_key = _attended_pairs(T, n, window)
+        pairs += p_n
+        keys += n - first_key
     itemsize = torch.empty((), dtype=dtype).element_size()
     kv_item = 1 if case.get("int8") else itemsize
     nbytes = (2 * q.numel() * itemsize
-              + 2 * B * Hkv * (L - first_key) * (D * kv_item + scale_bytes))
+              + 2 * Hkv * keys * (D * kv_item + scale_bytes))
     return _row(case["name"], err, err_over_tol, tol_text, ms, plain_ms,
-                library_ms, nbytes, 4 * D * pairs * B * Hq,
-                PEAK_OPS_PER_S[case["dtype"]])
+                library_ms, nbytes, 4 * D * pairs * Hq,
+                PEAK_OPS_PER_S[case["dtype"]],
+                clean_ms)
 
 
 def kernel_cases():
@@ -420,6 +466,22 @@ def kernel_cases():
         dict(gpt2, name="gpt2_prefill_T256_window_alibi_softcap", T=256,
              L=300, dtype="float32", window=64, alibi=True, softcap=20.0,
              iters=10),
+        # the edges of the decode tiles' split: one key, a ragged last
+        # split, lengths spread 1-1024, a window narrower than the splits
+        # with 8 query tokens, and a query before position 0 (no key)
+        dict(gpt2, name="gpt2_decode_L1", T=1, L=1, dtype="float32"),
+        dict(gpt2, name="gpt2_decode_L65", T=1, L=65, dtype="float32"),
+        dict(gpt2, name="gpt2_B8_lengths_1_1024", B=8, T=1,
+             lengths=[1024, 700, 129, 1, 513, 900, 257, 64],
+             dtype="float32"),
+        dict(gpt2, name="gpt2_T8_window60", T=8, L=1000, dtype="float32",
+             window=60),
+        dict(gpt2, name="gpt2_no_attended_row_bf16", B=2, T=3,
+             lengths=[2, 700], dtype="bfloat16"),
+        # more splits (16) than head dims (8): each block sends every
+        # row's (max, sum) to the ranks past D too
+        dict(name="d8_gqa32x8_T4_L1024", B=1, Hq=32, Hkv=8, S=1024, D=8,
+             T=4, L=1024, dtype="float32"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = i
@@ -710,6 +772,8 @@ def run_paged_case(torch, case, flush):
     torch.cuda.synchronize()
     check(PA.paged_decode_attention.launches == before + 1,
           f"{case['name']}: launch not counted")
+    check(torch.equal(kernel(), out),
+          f"{case['name']}: two launches differ")
     check(bool(torch.isfinite(out).all()), f"{case['name']}: non-finite")
     ref = plain()
     err, ratio, text = _tolerance(
@@ -720,6 +784,7 @@ def run_paged_case(torch, case, flush):
           f"{ratio:.2f} x the tolerance {text}")
     iters = case.get("iters", 20)
     ms = _time_ms(torch, kernel, iters, flush)
+    clean_ms = _time_ms(torch, kernel, iters, flush, clean=True)
     plain_ms = _time_ms(torch, plain, max(3, iters // 4), flush)
 
     library_ms = None
@@ -759,7 +824,8 @@ def run_paged_case(torch, case, flush):
                                                        + scale_bytes)
               + table.numel() * 4)
     return _row(case["name"], err, ratio, text, ms, plain_ms, library_ms,
-                nbytes, 4 * D * pairs * Hq, PEAK_OPS_PER_S[case["dtype"]])
+                nbytes, 4 * D * pairs * Hq, PEAK_OPS_PER_S[case["dtype"]],
+                clean_ms)
 
 
 def run_ragged_case(torch, case, flush):
@@ -878,6 +944,14 @@ def paged_cases():
              dtype="float32", softcap=30.0),
         dict(gpt2, name="paged_gpt2_B8_ragged_unassigned", lengths=spread,
              dtype="float32", spare_pages=2),
+        # the split's edges on the pool: one key, and a ragged last split
+        # over pages of 16 (granules of four pages)
+        dict(gpt2, name="paged_gpt2_decode_L1", lengths=[1], dtype="float32",
+             spare_pages=1),
+        dict(gpt2, name="paged_gpt2_L65_P16", P=16, lengths=[65],
+             dtype="float32", spare_pages=3),
+        dict(name="paged_d8_gqa32x8_T4_L1024", Hq=32, Hkv=8, T=4, D=8,
+             P=128, lengths=[1024], dtype="float32"),
         # the prefills of phase 4's paged requests: the 128-token prompt,
         # the overflow prompt and the re-prefill of the crop past the block
         dict(gpt2, name="paged_gpt2_prefill_T128", T=128, lengths=[128],
@@ -1807,6 +1881,26 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
         say("hybrid", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS}: "
             f"{stats['generate_s']:.3f} s = {stats['tokens_per_s']:.1f} "
             f"tokens/s (model loaded) on {card}")
+
+        # where the int8 cache's greedy tokens first leave the fp32 ones,
+        # and how close the fp32 logits' top two were there (recorded only)
+        diverge = next((i for i, (a, b) in enumerate(zip(
+            tokens["int8"][PROMPT_LEN:], first[PROMPT_LEN:])) if a != b), None)
+        stats["int8_first_divergence"] = diverge
+        if diverge is not None:
+            prefix = torch.tensor([first[:PROMPT_LEN + diverge]],
+                                  device=device)
+            with torch.inference_mode():
+                acts, _, _ = model.arch(prefix, skip_softmax=True)
+            forwards += 1
+            top2 = torch.topk(acts[-1][0, -1].float(), 2).values
+            stats["int8_divergence_fp32_gap"] = float(top2[0] - top2[1])
+            del acts
+            say("hybrid", f"int8 vs fp32 greedy tokens: first difference at "
+                f"generated index {diverge}; fp32 top-1 minus top-2 logit "
+                f"there {stats['int8_divergence_fp32_gap']:.3e}")
+        else:
+            say("hybrid", "int8 vs fp32 greedy tokens: no difference")
         t0 = time.monotonic()
         out, _ = model.compute_output(long_input)
         torch.cuda.synchronize()

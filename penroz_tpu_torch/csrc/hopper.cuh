@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: TMA tile
 // loads that complete on an mbarrier, wgmma shared-memory descriptors and
-// products, and the host-side tensor map of a (B, H, T, D) bf16 tensor.
+// products, the host-side tensor map of a (B, H, T, D) bf16 tensor;
+// cp.async copies, ldmatrix and mma.sync (m16n8k16) for the decode kernels
+// (decode_core.cuh), and the halves of a thread-block cluster barrier.
 //
 // Layout convention: every tile a wgmma reads from shared memory arrives by
 // TMA with the 128-byte swizzle, as rows of 64 bf16 (128 bytes; a D = 128
@@ -258,6 +260,87 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t a,
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// --- cp.async ---------------------------------------------------------------
+
+// 16 bytes global -> shared, bypassing L1; `full` false writes 16 zeros
+// (src-size 0) and reads nothing, so `src` only has to be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending; the
+// completed copies are then visible to this thread (to the block after a
+// barrier).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// --- thread-block clusters ----------------------------------------------------
+
+// The two halves of a cluster barrier: arrive early (relaxed: it orders no
+// memory), wait later; once every thread has waited, every block of the
+// cluster has started, so its shared memory may be written remotely.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// --- mma.sync (m16n8k16, bf16 in, fp32 accumulate) ---------------------------
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives, in r[i], row l / 4, columns 2 (l % 4) and +1 of
+// matrix i (with .trans: rows 2 (l % 4) and +1 of column l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16 x 8 fp32) += a (16 x 16, row) . b (16 x 8, col); lane l = 4 g + t
+// holds a: rows g, g + 8 x columns 2t (+1), 2t + 8 (+9); b: rows 2t (+1),
+// 2t + 8 (+9) x column g; d: rows g, g + 8 x columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // --- host: tensor maps ------------------------------------------------------

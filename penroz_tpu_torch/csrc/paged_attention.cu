@@ -2,38 +2,44 @@
 // paged decode kernel and the ragged (packed mixed-batch) kernel.
 //
 // Replaces penroz_tpu/ops/pallas/paged_attention.py::paged_decode_attention
-// and penroz_tpu/ops/pallas/ragged_paged_attention.py::ragged_paged_attention.
-// Both read K/V from head-major pools (Hkv, num_pages * P, D): logical key j
-// of a sequence lives at pool row table[seq, j / P] * P + j % P.  Pools are
-// fp32/bf16 in the query dtype, or int8 with (Hkv, rows, 1) fp32 per-token
-// scales, dequantized per tile on chip.  Score order, as in the Pallas
-// kernels: scale, then softcap·tanh(s/softcap), then ALiBi
-// slope·(j - position), then the mask with the finite -1e30.  Running max,
-// sum and accumulator are fp32; a row with no attended key writes zeros.
+// (:152) and penroz_tpu/ops/pallas/ragged_paged_attention.py::
+// ragged_paged_attention (:161).  Both read K/V from head-major pools
+// (Hkv, num_pages * P, D): logical key j of a sequence lives at pool row
+// table[seq, j / P] * P + j % P.  Pools are fp32/bf16 in the query dtype, or
+// int8 with (Hkv, rows, 1) fp32 per-token scales, dequantized on chip.
+// Score order, as in the Pallas kernels: scale, then softcap·tanh(s/softcap),
+// then ALiBi slope·(j - position), then the mask with the finite -1e30.
+// Running max, sum and accumulator are fp32; a row with no attended key
+// writes zeros.
 //
 // - Paged decode: q (B, Hq, T, D); query t of sequence b sits at position
 //   len_b - T + t and attends keys j <= that position (and j > position -
-//   window).  One block per (tile of 16 query rows, kv head, sequence).
+//   window).  It is the contiguous decode kernel with the page table in
+//   front (csrc/decode_core.cuh, PAGED = true).  What bounds it on an H100:
+//   at decode every live K/V row is read once for 4·D flops per query row,
+//   so bytes (each sequence's live pages once per kv head); at a long
+//   prefill the L²/2 score pairs.  What the design does about it: decode
+//   tiles (T·G < 64 rows) split each sequence's live key range, in whole
+//   pages, across enough blocks to cover the SMs, merge the splits in the
+//   same launch, keep scores in registers and stream keys through a
+//   cp.async ring; each block reads its split's page ids into shared
+//   memory once (one table lookup per page).  Prefill tiles run tensor
+//   cores (bf16) or register-tiled FMAs (fp32) over double-buffered 64-key
+//   tiles.
 // - Ragged: q (1, Hq, Tp, D) packed, Tp = NB · block_q; descriptor d =
 //   (row, q_pos0, q_valid, kv_len) owns packed slots [d·block_q,
 //   (d+1)·block_q); slot t is query position q_pos0 + t, attending keys
 //   k <= q_pos0 + t of sequence `row`.  Slots t >= q_valid and descriptors
 //   with row = -1 write zeros.  One block per (tile of 16 query rows,
-//   kv head, descriptor).
-//
-// The query group folds into rows in kv-major order, as in the Pallas
-// kernels: row r of kv head h is query head h·G + r / T (T = queries per
-// sequence, or block_q), token r % T.
-//
-// What bounds it on an H100: at decode every live K/V row is read once and
-// used for 4·D flops per query row, so both kernels are memory-bound (each
-// sequence's live pages once per kv head, plus q and out); a long prefill
-// chunk is bound by its score pairs.  What the design does about it: the key
-// loop of each block stops at the last position its rows attend and starts
-// at the window's first, so traffic tracks the live length, not the table's
-// span; int8 pools are read as int8.  What it does not do yet: split the key
-// axis across blocks (at B = 1 decode only Hkv blocks run), overlap loads
-// with compute, or use tensor cores.
+//   kv head, descriptor).  The query group folds into rows in kv-major
+//   order, as in the Pallas kernel: row r of kv head h is query head
+//   h·G + r / block_q, slot r % block_q.  What bounds it: as the paged
+//   decode, bytes at decode and score pairs at prefill.  What the design
+//   does: the key loop of each block stops at the last position its rows
+//   attend and starts at the window's first, so traffic tracks the live
+//   length, not the table's span; int8 pools are read as int8.  What it does
+//   not do yet: split the key axis, overlap loads with compute, or use
+//   tensor cores.
 //
 // Unassigned table entries (-1) are clamped to page 0 before any address
 // arithmetic (they back only masked positions), and pool offsets are 64-bit.
@@ -44,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_core.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -51,7 +59,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlockM = 16;  // query rows per block
 constexpr int kBlockN = 64;  // keys per tile (two per lane in the softmax)
 constexpr int kDescCols = 4;
-constexpr float kNegInf = -1e30f;
+using decode_core::kNegInf;
 
 struct Params {
   const void* q;
@@ -60,13 +68,16 @@ struct Params {
   const float* k_scale;  // (Hkv, pool_rows, 1), or null unless int8
   const float* v_scale;
   const int* table;      // (num_seqs, pages_per_seq)
-  const int* lengths;    // paged decode: (B,) lengths, or null: `length`
+  // Unused since the paged decode kernel moved to decode_core.cuh; kept so
+  // the ragged kernel's parameter layout, which moves ptxas's schedule,
+  // stays as it was until the ragged kernel's redesign drops them.
+  const int* lengths;
   int length;
   const int* descs;      // ragged: (NB, 4)
   const float* slopes;   // (Hq,) ALiBi slopes, or null
   void* out;
   int hkv, d, group;
-  int t;                 // queries per sequence (decode) or block_q (ragged)
+  int t;                 // block_q
   int tp;                // ragged: packed length NB · block_q
   int page, pages_per_seq;
   long long pool_rows;
@@ -75,52 +86,10 @@ struct Params {
   float softcap;         // 0: no softcap
 };
 
-// Eight consecutive elements to fp32 (16-byte loads for fp32/bf16, 8 for int8).
-__device__ __forceinline__ void load8(const float* p, float* x) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const int8_t* p, float* x) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(c[i]);
-}
-
-// Round an fp32 value to the query dtype (identity for fp32): int8 pages
-// dequantize as (int8 -> fp32 · scale) -> q dtype, and P is cast to the
-// value dtype before the P·V product, as in the Pallas kernels.
-template <typename QT>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ bool attends(int j, int pos, int window) {
-  return j <= pos && (window <= 0 || j > pos - window);
-}
+using decode_core::attends;
+using decode_core::load8;
+using decode_core::round_to;
+using decode_core::store;
 
 // What one block attends: rows m0 .. m0 + mv of kv head h, row r at
 // q_rows + (r / T) · group_stride + (r % T) · D (same for out), query
@@ -307,31 +276,6 @@ __device__ __forceinline__ void token_range(int m0, int mv, int T, int* t_lo,
 
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int T = p.t;
-  const int rows = p.group * T;
-  Tile tl;
-  tl.h = h;
-  tl.m0 = blockIdx.x * kBlockM;
-  tl.mv = min(kBlockM, rows - tl.m0);
-  const int len = p.lengths != nullptr ? p.lengths[b] : p.length;
-  tl.first = len - T;
-  tl.t_valid = T;
-  int t_lo, t_hi;
-  token_range(tl.m0, tl.mv, T, &t_lo, &t_hi);
-  tl.kv_end = min(tl.first + t_hi + 1, p.pages_per_seq * p.page);
-  tl.kv_begin = p.window > 0 ? max(0, tl.first + t_lo - p.window + 1) : 0;
-  tl.q_off = (static_cast<size_t>(b) * p.hkv + h) * rows * p.d;
-  tl.group_stride = static_cast<size_t>(T) * p.d;
-  tl.table = p.table + static_cast<size_t>(b) * p.pages_per_seq;
-  attend_tile<QT, KT>(p, tl, smem);
-}
-
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads)
 ragged_paged_kernel(const Params p) {
   extern __shared__ float smem[];
   const int dsc = blockIdx.z;
@@ -416,25 +360,34 @@ extern "C" int penroz_paged_decode_attention(
     const void* v_scale, const void* table, const void* lengths, int length,
     const void* slopes, void* out, int batch, int hq, int hkv, int t, int d,
     int page, int pages_per_seq, long long pool_rows, int q_dtype, int window,
-    float scale, float softcap, void* stream) {
-  Params p = make_params(q, k, v, k_scale, v_scale, table, slopes, out, hq,
-                         hkv, t, d, page, pages_per_seq, pool_rows, window,
-                         scale, softcap);
+    float scale, float softcap, int tile_rows, int n_split, int granule,
+    void* stream) {
+  decode_core::Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.lengths = static_cast<const int*>(lengths);
   p.length = length;
-  const dim3 grid((p.group * t + kBlockM - 1) / kBlockM, hkv, batch);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool quantized = k_scale != nullptr;
-  if (q_dtype == 0)
-    return quantized ? launch(paged_decode_kernel<float, int8_t>, p, grid, st)
-                     : launch(paged_decode_kernel<float, float>, p, grid, st);
-  if (q_dtype == 1)
-    return quantized
-               ? launch(paged_decode_kernel<__nv_bfloat16, int8_t>, p, grid,
-                        st)
-               : launch(paged_decode_kernel<__nv_bfloat16, __nv_bfloat16>, p,
-                        grid, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  p.slopes = static_cast<const float*>(slopes);
+  p.table = static_cast<const int*>(table);
+  p.out = out;
+  p.kv_rows = pool_rows;
+  p.max_len = pages_per_seq * page;
+  p.page = page;
+  p.pages_per_seq = pages_per_seq;
+  p.hkv = hkv;
+  p.t = t;
+  p.d = d;
+  p.group = hq / hkv;
+  p.window = window;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.n_split = n_split;
+  p.granule = granule;
+  return decode_core::launch_cached<true>(
+      p, batch, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int penroz_ragged_paged_attention(

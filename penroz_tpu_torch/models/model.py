@@ -26,6 +26,9 @@ micro-stepping (``PENROZ_DECODE_PRIORITY_MS``) and the ``/stats/``
 refresh (``PENROZ_STATS_INTERVAL``): see :func:`unported_training_options`.
 Evaluation runs on one device too; the meshes and sequence-parallel modes
 it would take are refused the same way (:func:`unported_evaluation_options`).
+Every route that runs attention refuses ``PENROZ_DISABLE_FLASH=1``, the
+JAX package's switch to its plain attention path
+(:func:`unported_attention_options`).
 
 The JAX package fuses up to 128 decode steps per dispatch with
 ``lax.scan`` over power-of-two chunks; eager PyTorch runs one step per
@@ -99,6 +102,17 @@ def unported_training_options() -> None:
     """Raise ValueError naming any JAX-package training feature selected by
     the environment that the port does not have (see the module note)."""
     _refuse_unported()
+
+
+def unported_attention_options() -> None:
+    """Raise ValueError when ``PENROZ_DISABLE_FLASH=1`` asks for the plain
+    attention path: the JAX package then skips its attention kernels, but
+    the port has no plain attention path on the card."""
+    value = os.environ.get("PENROZ_DISABLE_FLASH")
+    if value == "1":
+        raise ValueError(f"PENROZ_DISABLE_FLASH={value!r} selects the plain "
+                         f"attention path, which penroz_tpu_torch does not "
+                         f"support yet")
 
 
 def unported_evaluation_options() -> None:

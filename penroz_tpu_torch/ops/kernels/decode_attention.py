@@ -1,11 +1,16 @@
-"""Cached (decode/prefill) attention: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Cached (decode/prefill) attention: the CUDA kernel's wrapper, its plain
+PyTorch version and the split-K plan the two share.
 
 Replaces penroz_tpu/ops/pallas/decode_attention.py::decode_attention.  The
-kernel (csrc/decode_attention.cu) is memory-bound at decode — it reads each
-valid K/V row once — and bounds its key loop by the valid length, not the
-cache capacity; its source note says what the design does and does not do
-yet.
+kernel (csrc/decode_attention.cu, device code in csrc/decode_core.cuh) is
+memory-bound at decode — it reads each valid K/V row once — and
+score-bound at a long prefill; its source note says what the design does
+about each.  At decode (T·G < 64 query rows a kv head) :func:`split_plan`
+cuts each (batch, kv head, row tile)'s key range into splits that cover
+the card's SMs, one block each, merged inside the same launch;
+:func:`split_ranges` is the cut, shared by the kernel (the same
+arithmetic in C) and :func:`decode_attention_split_reference`, which runs
+the split-and-merge algorithm in plain PyTorch for the tests.
 
 :func:`decode_attention` launches the kernel for CUDA tensors and raises on
 anything it cannot take; for CPU tensors it runs
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,8 +33,98 @@ from penroz_tpu_torch.ops.kernels import build
 
 _COUNT_LOCK = threading.Lock()
 _SLOPES: dict = {}  # (slopes bytes, device) -> device tensor
+_SM_COUNT: dict = {}  # device index -> multiprocessor count
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+# The kernels' finite mask value.
+NEG_INF = -1e30
+# Query rows a kv head (T * G) from which the kernels run prefill tiles
+# (64-row tiles over 64-key tiles) instead of split decode tiles.
+PREFILL_ROWS = 64
+# Keys a split covers at least (whole pages on a pool of smaller pages), and
+# the most splits a row tile takes: its blocks form one thread-block
+# cluster, of at most 16 on an H100 (csrc/decode_core.cuh kMaxSplits).
+SPLIT_GRANULE = 64
+MAX_SPLITS = 16
+# Blocks a decode launch aims for: two per SM, so every SM has one while
+# another waits on memory.
+BLOCKS_PER_SM = 2
+
+
+class SplitPlan(NamedTuple):
+    """How one launch tiles its work.  ``tile_rows`` query rows (1, 4 or
+    8) per decode tile, ``row_tiles`` of them per (batch, kv head), each
+    key range cut into ``n_split`` splits of whole ``granule``s; a
+    ``tile_rows`` of 0 selects the prefill tiles (no split)."""
+    tile_rows: int
+    row_tiles: int
+    n_split: int
+    granule: int
+
+
+def split_plan(batch: int, hkv: int, rows: int, max_len: int,
+               window: Optional[int] = None,
+               page_size: Optional[int] = None,
+               sm_count: int = 132) -> SplitPlan:
+    """The kernels' tiling for ``rows`` = T * G query rows a kv head over at
+    most ``max_len`` keys.  At decode (``rows < PREFILL_ROWS``) each
+    (batch, kv head, row tile)'s key range is cut into enough splits for
+    ``BLOCKS_PER_SM`` blocks an SM, at most ``MAX_SPLITS`` and at most one
+    per granule of the keys a tile can attend.  A granule is 64 keys, or,
+    on a pool whose pages are not a multiple of 64 keys, the fewest whole
+    pages that hold 64."""
+    granule = (SPLIT_GRANULE
+               if page_size is None or page_size % SPLIT_GRANULE == 0
+               else page_size * -(-SPLIT_GRANULE // page_size))
+    if rows >= PREFILL_ROWS:
+        return SplitPlan(0, 0, 1, granule)
+    tile_rows = 1 if rows == 1 else 4 if rows <= 4 else 8
+    row_tiles = -(-rows // tile_rows)
+    span = max_len if window is None else min(max_len, int(window) + rows - 1)
+    most = -(-max(span, 1) // granule)
+    want = -(-BLOCKS_PER_SM * sm_count // (batch * hkv * row_tiles))
+    return SplitPlan(tile_rows, row_tiles, max(1, min(want, most, MAX_SPLITS)),
+                     granule)
+
+
+def tile_keys(m0: int, mv: int, T: int, first: int, max_len: int,
+              window: Optional[int] = None) -> tuple:
+    """Keys [kb, ke) that rows m0 .. m0 + mv - 1 attend when token 0 sits at
+    ``first`` (a tile that wraps past a query head holds every token)."""
+    t_lo, t_hi = 0, T - 1
+    if m0 // T == (m0 + mv - 1) // T:
+        t_lo, t_hi = m0 % T, (m0 + mv - 1) % T
+    ke = min(first + t_hi + 1, max_len)
+    kb = max(0, first + t_lo - int(window) + 1) if window else 0
+    return kb, ke
+
+
+def split_ranges(kb: int, ke: int, n_split: int, granule: int) -> list:
+    """The ``n_split`` key ranges [lo, hi) of [kb, ke): whole granules from
+    kb's granule on, ceil(span / n_split) keys each rounded up to a granule,
+    clipped to [kb, ke); lo >= hi is an empty split.  csrc/decode_core.cuh
+    ``split_keys`` is the same arithmetic."""
+    if ke <= kb:
+        return [(kb, kb)] * n_split
+    base = kb // granule * granule
+    per = -(-(ke - base) // n_split)
+    chunk = -(-per // granule) * granule
+    return [(max(kb, base + s * chunk), min(ke, base + (s + 1) * chunk))
+            for s in range(n_split)]
+
+
+def sm_count(device) -> int:
+    """Multiprocessors of a CUDA ``device``, read once per device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def normalize_lengths(length, batch: int, device=None) -> torch.Tensor:
@@ -88,6 +183,104 @@ def decode_attention_reference(q, k_full, v_full, offset, length,
     out = A._attend(qg, k_full, v_full, mask, bias=bias, scale=scale,
                     softcap=softcap)
     return out.reshape(B, Hq, T, D)
+
+
+def plan_for(batch: int, hq: int, hkv: int, t: int, length, max_len: int,
+             window: Optional[int], page_size: Optional[int],
+             sms: int) -> SplitPlan:
+    """:func:`split_plan` of one call: an int ``length`` bounds the keys,
+    per-sequence lengths on the device only ``max_len``."""
+    if not isinstance(length, torch.Tensor):
+        max_len = int(length)
+    return split_plan(batch, hkv, (hq // hkv) * t, max_len, window, page_size,
+                      sms)
+
+
+def split_attend(q, k_full, v_full, lengths, plan: SplitPlan, max_len: int,
+                 window: Optional[int] = None, alibi=None,
+                 scale: Optional[float] = None,
+                 softcap: Optional[float] = None):
+    """The decode tiles' algorithm in plain PyTorch: for each (sequence, row
+    tile) the key range of :func:`tile_keys` cut by :func:`split_ranges`,
+    each split's (max, sum, P·V) of its attended keys (probabilities
+    rounded to q's dtype before P·V), merged in split order.  k_full/v_full
+    (B, Hkv, S, D) in q's dtype; ``lengths`` one int per sequence."""
+    if plan.tile_rows == 0:
+        raise ValueError("split_attend: the plan selects prefill tiles")
+    B, Hq, T, D = q.shape
+    Hkv = k_full.shape[1]
+    G = Hq // Hkv
+    rows = G * T
+    R = plan.tile_rows
+    sm_scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, Hkv, rows, D)
+    kf, vf = k_full.float(), v_full.float()
+    slopes = (None if alibi is None else torch.as_tensor(
+        np.asarray(alibi, np.float32)).reshape(Hkv, G))
+    neg = torch.tensor(NEG_INF)
+    out = torch.zeros(B, Hkv, rows, D)
+    for b in range(B):
+        first = int(lengths[b]) - T
+        for m0 in range(0, rows, R):
+            mv = min(R, rows - m0)
+            r = torch.arange(m0, m0 + mv)
+            pos = first + r % T
+            kb, ke = tile_keys(m0, mv, T, first, max_len, window)
+            parts = []
+            for lo, hi in split_ranges(kb, ke, plan.n_split, plan.granule):
+                if hi <= lo:
+                    parts.append((torch.full((Hkv, mv), NEG_INF),
+                                  torch.zeros(Hkv, mv),
+                                  torch.zeros(Hkv, mv, D)))
+                    continue
+                j = torch.arange(lo, hi)
+                s = torch.einsum("hrd,hnd->hrn", qf[b, :, m0:m0 + mv],
+                                 kf[b, :, lo:hi]) * sm_scale
+                if softcap is not None:
+                    s = float(softcap) * torch.tanh(s / float(softcap))
+                if slopes is not None:
+                    s = s + slopes[:, r // T][..., None] * (
+                        j[None, :] - pos[:, None]).float()
+                att = j[None, :] <= pos[:, None]
+                if window is not None:
+                    att &= j[None, :] > pos[:, None] - int(window)
+                s = torch.where(att, s, neg)
+                m = s.amax(-1)
+                p = torch.where(att, torch.exp(s - m[..., None]), 0.0)
+                acc = p.to(q.dtype).float() @ vf[b, :, lo:hi]
+                parts.append((m, p.sum(-1), acc))
+            mx = torch.stack([m for m, _, _ in parts]).amax(0)
+            total = torch.zeros(Hkv, mv)
+            merged = torch.zeros(Hkv, mv, D)
+            for m, l, acc in parts:
+                e = torch.exp(m - mx)
+                total = total + l * e
+                merged = merged + acc * e[..., None]
+            out[b, :, m0:m0 + mv] = merged / torch.where(
+                total == 0, 1.0, total)[..., None]
+    return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+def decode_attention_split_reference(q, k_full, v_full, offset, length,
+                                     k_scale=None, v_scale=None,
+                                     window: Optional[int] = None,
+                                     alibi=None,
+                                     scale: Optional[float] = None,
+                                     softcap: Optional[float] = None,
+                                     sms: int = 132):
+    """:func:`decode_attention` as its decode tiles compute it, in plain
+    PyTorch on the CPU: the same :func:`split_plan` for a card of ``sms``
+    SMs, then :func:`split_attend`.  For the tests; nothing on the main path
+    calls it.  Queries sit at ``length - T + t`` (``offset`` is implied)."""
+    if k_scale is not None:
+        k_full = (k_full.to(torch.float32) * k_scale).to(q.dtype)
+        v_full = (v_full.to(torch.float32) * v_scale).to(q.dtype)
+    B, Hq, T, _ = q.shape
+    S = k_full.shape[2]
+    plan = plan_for(B, Hq, k_full.shape[1], T, length, S, window, None, sms)
+    lengths = normalize_lengths(length, B).tolist()
+    return split_attend(q, k_full, v_full, lengths, plan, S, window=window,
+                        alibi=alibi, scale=scale, softcap=softcap)
 
 
 def slopes_on(alibi, device) -> torch.Tensor:
@@ -169,6 +362,8 @@ def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
             raise ValueError(f"decode_attention: {slopes.numel()} ALiBi "
                              f"slopes for {Hq} query heads")
     sm_scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
+    plan = plan_for(B, Hq, Hkv, T, length, S, window, None,
+                    sm_count(q.device))
 
     lib = build.load("decode_attention")
     fn = build.function(lib, "penroz_decode_attention", _ARGTYPES)
@@ -183,6 +378,7 @@ def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
                  build.DTYPE_CODES[q.dtype],
                  int(window) if window is not None else 0, sm_scale,
                  float(softcap) if softcap is not None else 0.0,
+                 plan.tile_rows, plan.n_split, plan.granule,
                  build.stream(q))
     build.check(lib, err, "decode_attention")
     with _COUNT_LOCK:

@@ -2,11 +2,12 @@
 version.
 
 Replaces penroz_tpu/ops/pallas/paged_attention.py::paged_decode_attention.
-The kernel (csrc/paged_attention.cu) is the contiguous decode walk with a
-block-table indirection: each block loops over its sequence's logical keys
-up to its last query position (from the window's first), fetching each key
-row through ``block_table[b, j // page_size]``; its source note says what
-bounds it and what the design does about that.
+The kernel (csrc/paged_attention.cu) is the contiguous decode kernel
+(csrc/decode_core.cuh) with a block-table indirection: key j of sequence b
+is pool row ``block_table[b, j // page_size] * page_size + j % page_size``,
+each split of a decode tile covering whole pages
+(:func:`~penroz_tpu_torch.ops.kernels.decode_attention.split_plan`); its
+source note says what bounds it and what the design does about that.
 
 :func:`paged_decode_attention` launches the kernel for CUDA tensors and
 raises on anything it cannot take; for CPU tensors it runs
@@ -28,7 +29,8 @@ from penroz_tpu_torch.ops.kernels import decode_attention as DA
 _COUNT_LOCK = threading.Lock()
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
 
 
 def gather_pages(flat, block_table, page_size: int, rows_of=None):
@@ -72,6 +74,29 @@ def paged_decode_attention_reference(q, flat_k, flat_v, block_table,
     return DA.decode_attention_reference(q, k_full, v_full, offset, length,
                                          window=window, alibi=alibi,
                                          scale=scale, softcap=softcap)
+
+
+def paged_decode_attention_split_reference(
+        q, flat_k, flat_v, block_table, page_size: int, offset, length,
+        k_scale=None, v_scale=None, window: Optional[int] = None, alibi=None,
+        scale: Optional[float] = None, softcap: Optional[float] = None,
+        sms: int = 132):
+    """:func:`paged_decode_attention` as its decode tiles compute it, in
+    plain PyTorch on the CPU: the dense view through the table, then the
+    same split plan (whole pages a split) and split-and-merge as the
+    contiguous kernel's (:func:`~penroz_tpu_torch.ops.kernels.
+    decode_attention.split_attend`).  For the tests; nothing on the main
+    path calls it."""
+    k_full, v_full = dequantized_views(q, flat_k, flat_v, block_table,
+                                       page_size, k_scale, v_scale)
+    B, Hq, T, _ = q.shape
+    max_len = block_table.shape[1] * page_size
+    plan = DA.plan_for(B, Hq, flat_k.shape[0], T, length, max_len, window,
+                       page_size, sms)
+    lengths = DA.normalize_lengths(length, B).tolist()
+    return DA.split_attend(q, k_full, v_full, lengths, plan, max_len,
+                           window=window, alibi=alibi, scale=scale,
+                           softcap=softcap)
 
 
 def check_pools(kernel: str, q, flat_k, flat_v, block_table, page_size: int,
@@ -171,6 +196,8 @@ def paged_decode_attention(q, flat_k, flat_v, block_table, page_size: int,
                              f"<= {max_len}")
     win, slopes, sm_scale, cap = options(name, q, window, alibi, scale,
                                          softcap)
+    plan = DA.plan_for(B, Hq, Hkv, T, length, max_len, window,
+                       int(page_size), DA.sm_count(q.device))
     lib = build.load("paged_attention")
     fn = build.function(lib, "penroz_paged_decode_attention", _ARGTYPES)
     out = torch.empty_like(q)
@@ -182,7 +209,8 @@ def paged_decode_attention(q, flat_k, flat_v, block_table, page_size: int,
                  slopes.data_ptr() if slopes is not None else None,
                  out.data_ptr(), B, Hq, Hkv, T, D, int(page_size),
                  pages_per_seq, rows, build.DTYPE_CODES[q.dtype], win,
-                 sm_scale, cap, build.stream(q))
+                 sm_scale, cap, plan.tile_rows, plan.n_split, plan.granule,
+                 build.stream(q))
     build.check(lib, err, name)
     with _COUNT_LOCK:
         paged_decode_attention.launches += 1

@@ -40,6 +40,7 @@ from penroz_tpu_torch.data.tokenizers import Tokenizer
 from penroz_tpu_torch.device import resolve_device
 from penroz_tpu_torch.models.dsl import Mapper
 from penroz_tpu_torch.models.model import (NeuralNetworkModel,
+                                           unported_attention_options,
                                            unported_training_options,
                                            validate_batch_generation)
 from penroz_tpu_torch.serve import decode_scheduler as DS
@@ -69,8 +70,10 @@ _UNPORTED_FIELDS = {
 
 
 def _refuse_unported(body):
-    """ValueError (HTTP 400) naming the first set field, or scheduler knob
-    in the environment, of a serving feature that is not ported."""
+    """ValueError (HTTP 400) naming the first set field, or scheduler or
+    attention knob in the environment, of a serving feature that is not
+    ported."""
+    unported_attention_options()
     for name in body.UNPORTED:
         if getattr(body, name) is not None:
             raise ValueError(f"the request field {name!r} selects "
@@ -308,6 +311,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def output(self, query):
         body = self._body(schemas.OutputRequest)
+        unported_attention_options()
         log.info("Requesting output for model %s", body.model_id)
         model = NeuralNetworkModel.deserialize(body.model_id,
                                                device=self.server.device,
@@ -317,6 +321,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def evaluate(self, query):
         body = self._body(schemas.EvaluateRequest)
+        unported_attention_options()
         log.info("Requesting evaluation of model %s", body.model_id)
         model = NeuralNetworkModel.deserialize(body.model_id,
                                                device=self.server.device,
@@ -353,6 +358,7 @@ class _Handler(BaseHTTPRequestHandler):
             except RuntimeError as e:  # asked for a card this host lacks
                 raise ValueError(str(e))
         unported_training_options()
+        unported_attention_options()
         checkpoint.load(body.model_id, arrays=())  # unknown model: 404
         if not self.server.start_training(body.model_id, (
                 device, body.dataset_id, body.shard, body.epochs,

@@ -39,8 +39,10 @@ Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 radix prefix cache, speculative decoding, the phased ticks
 (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over the
 contiguous cache, replicas, disaggregated prefill, serving meshes and
-pipeline stages; deadlines, QoS classes, tenants, sessions and LoRA
-adapters on requests are refused by the HTTP layer.
+pipeline stages, and the overload knobs (server deadlines, the bounded
+queue, the circuit breaker and its fallback, the admission window, the tick
+watchdog, the graceful drain); deadlines, QoS classes, tenants, sessions
+and LoRA adapters on requests are refused by the HTTP layer.
 
 Observability: :func:`serving_stats` backs ``GET /serving_stats/`` under
 the JAX package's key names.
@@ -83,6 +85,18 @@ _UNPORTED_SERVING_ENV = (
     ("PENROZ_SERVE_MESH", lambda v: v == "1", "a serving mesh"),
     ("PENROZ_SERVE_PIPE_STAGES", lambda v: _int(v) > 1,
      "pipeline-parallel serving"),
+    ("PENROZ_REQ_TIMEOUT_MS", lambda v: _float(v) > 0, "request deadlines"),
+    ("PENROZ_SCHED_MAX_QUEUE", lambda v: _int(v) > 0,
+     "a bounded admission queue"),
+    ("PENROZ_ENGINE_MAX_CRASHES", lambda v: True, "the engine circuit breaker"),
+    ("PENROZ_BREAKER_COOLDOWN_MS", lambda v: True,
+     "the engine circuit breaker"),
+    ("PENROZ_SCHED_FALLBACK", lambda v: v == "1",
+     "the circuit breaker's single-sequence fallback"),
+    ("PENROZ_SCHED_ADMIT_MS", lambda v: _float(v) > 0,
+     "the admission coalescing window"),
+    ("PENROZ_TICK_WATCHDOG_MS", lambda v: _float(v) > 0, "the tick watchdog"),
+    ("PENROZ_DRAIN_S", lambda v: True, "the graceful drain"),
 )
 
 # Tick-timeline entries kept per engine, and served per /serving_stats/
@@ -96,6 +110,13 @@ def _int(v: str) -> int:
         return int(v)
     except ValueError:
         return 0
+
+
+def _float(v: str) -> float:
+    try:
+        return float(v)
+    except ValueError:
+        return 0.0
 
 
 def enabled() -> bool:

@@ -82,8 +82,9 @@ def main(argv=None) -> int:
                 evt.time_range.elapsed_us() / 1e3
             n_kernels += 1
     device_ms = sum(kernels.values())
-    attn_ms = sum(v for k, v in kernels.items()
-                  if "decode_attention_kernel" in k)
+    # the decode-attention launches: split decode tiles and prefill tiles
+    # (csrc/decode_core.cuh)
+    attn_ms = sum(v for k, v in kernels.items() if "decode_core::" in k)
     top = [(name[:100], ms) for name, ms in
            sorted(kernels.items(), key=lambda kv: -kv[1])[:8]]
     print(json.dumps({

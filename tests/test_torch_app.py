@@ -343,6 +343,14 @@ def test_continuous_batching_matches_single_sequence(
     ({"PENROZ_DISAGG_PREFILL": "1"}, None),
     ({"PENROZ_SERVE_MESH": "1"}, None),
     ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
+    ({"PENROZ_REQ_TIMEOUT_MS": "500"}, None),
+    ({"PENROZ_SCHED_MAX_QUEUE": "4"}, None),
+    ({"PENROZ_ENGINE_MAX_CRASHES": "3"}, None),
+    ({"PENROZ_BREAKER_COOLDOWN_MS": "1000"}, None),
+    ({"PENROZ_SCHED_FALLBACK": "1"}, None),
+    ({"PENROZ_SCHED_ADMIT_MS": "5"}, None),
+    ({"PENROZ_TICK_WATCHDOG_MS": "100"}, None),
+    ({"PENROZ_DRAIN_S": "5"}, None),
     ({}, ("timeout_ms", 100)),
     ({}, ("priority", "interactive")),
     ({}, ("tenant", "t1")),
@@ -381,6 +389,41 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     assert status == 400 and names[0] in text, text
     status, text = _call(server, "POST", "/generate_batch/", batch)
     assert status == 400 and names[-1] in text, text
+
+
+@pytest.mark.parametrize("route", ["generate", "generate_batch", "output",
+                                   "evaluate", "train"])
+def test_disable_flash_400_on_attention_routes(server, paged, monkeypatch,
+                                               toy_gpt_layers, toy_optimizer,
+                                               toy_shards, route):
+    """PENROZ_DISABLE_FLASH=1 selects the JAX package's plain attention
+    path, which the port does not have: every route that runs attention
+    answers 400 naming it; set to 0 the route serves as before."""
+    monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
+    assert _call(server, "POST", "/model/",
+                 {"model_id": "f", "layers": toy_gpt_layers,
+                  "optimizer": toy_optimizer})[0] == 200
+    method, path, body = {
+        "generate": ("POST", "/generate/", _gen("f", max_new_tokens=3)),
+        "generate_batch": ("POST", "/generate_batch/", {
+            "model_id": "f", "inputs": [[1, 2]], "block_size": 16,
+            "max_new_tokens": 3}),
+        "output": ("POST", "/output/", {"model_id": "f",
+                                        "input": [[1, 2, 3]]}),
+        "evaluate": ("POST", "/evaluate/", {
+            "model_id": "f", "dataset_id": toy_shards, "shard": 0,
+            "epochs": 1, "batch_size": 2, "block_size": 16,
+            "step_size": 1}),
+        "train": ("PUT", "/train/", _train_body("f", epochs=1)),
+    }[route]
+    monkeypatch.setenv("PENROZ_DISABLE_FLASH", "1")
+    status, text = _call(server, method, path, body)
+    assert status == 400 and "PENROZ_DISABLE_FLASH" in text, text
+    monkeypatch.setenv("PENROZ_DISABLE_FLASH", "0")
+    status, text = _call(server, method, path, body)
+    assert status in (200, 202), text
+    if route == "train":
+        _poll_progress(server, "f", {"Trained", "Error"})
 
 
 # -- /output/ and /evaluate/ (hybrid attention/SSM model) --------------------

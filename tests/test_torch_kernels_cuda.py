@@ -127,6 +127,84 @@ def test_kernel_gpt2_decode_shape(dev):
     assert np.isfinite(out.float().cpu().numpy()).all()
 
 
+# The decode tiles' split-K edges, at the card's own split plan: one key, a
+# ragged last split, lengths 1-1024, a window narrower than the splits with
+# several query tokens, GQA 32 x 8, ALiBi + softcap, int8 scales, the
+# largest tile (eight rows, D 256) in a 16-block cluster, and D 8 in
+# 16-block clusters (more splits than head dims).  Each is
+# held to the plain version and to the split reference (the same cut and
+# merge in plain PyTorch, on the CPU).
+@pytest.mark.parametrize("case", [
+    dict(B=1, Hq=12, Hkv=12, T=1, S=1024, D=64, lengths=[1]),
+    dict(B=1, Hq=12, Hkv=12, T=1, S=1024, D=64, lengths=[65]),
+    dict(B=8, Hq=12, Hkv=12, T=1, S=1024, D=64,
+         lengths=[1024, 700, 129, 1, 513, 900, 257, 64]),
+    dict(B=1, Hq=12, Hkv=12, T=8, S=1024, D=64, lengths=[1000], window=60),
+    dict(B=1, Hq=32, Hkv=8, T=1, S=1024, D=128, lengths=[1024]),
+    dict(B=2, Hq=8, Hkv=4, T=3, S=600, D=64, lengths=[600, 77],
+         alibi=True, softcap=5.0),
+    dict(B=1, Hq=12, Hkv=12, T=1, S=1024, D=64, lengths=[1000], int8=True),
+    dict(B=1, Hq=8, Hkv=1, T=1, S=1024, D=256, lengths=[1024]),
+    dict(B=1, Hq=32, Hkv=8, T=4, S=1024, D=8, lengths=[1024]),
+    dict(B=1, Hq=32, Hkv=8, T=2, S=1024, D=8, lengths=[1000], int8=True),
+], ids=["L1", "L65", "B8_lengths_1_1024", "T8_window60", "gqa_32x8",
+        "alibi_softcap", "int8", "rows8_D256_16_splits",
+        "D8_gqa_T4_16_splits", "D8_gqa_int8_16_splits"])
+def test_kernel_split_edges(dev, case):
+    B, T = case["B"], case["T"]
+    q, k, v = _inputs(dev, B, case["Hq"], case["Hkv"], T, case["S"],
+                      case["D"], torch.float32, seed=4)
+    kw = {key: case[key] for key in ("window", "softcap") if key in case}
+    if case.get("alibi"):
+        kw["alibi"] = TA.alibi_slopes(case["Hq"])
+    if case.get("int8"):
+        state = KV.QuantKVState.create([(case["Hkv"], case["D"])], B,
+                                       case["S"], torch.float32, device=dev)
+        k, v, _ = state.append_raw(0, k, v)
+        kw.update(k_scale=state.k_scale[0], v_scale=state.v_scale[0])
+    length = torch.tensor(case["lengths"], dtype=torch.int32, device=dev)
+    out = DA.decode_attention(q, k, v, 0, length, **kw)
+    _compare(out, q, k, v, 0, length, **kw)
+    cpu = {key: (val.cpu() if isinstance(val, torch.Tensor) else val)
+           for key, val in kw.items()}
+    split = DA.decode_attention_split_reference(
+        q.cpu(), k.cpu(), v.cpu(), 0, length.cpu(), sms=DA.sm_count(dev),
+        **cpu)
+    torch.testing.assert_close(out.cpu(), split, atol=1e-4, rtol=0)
+
+
+def test_kernel_row_with_no_attended_key_is_zero(dev):
+    """A query before position 0 (length < T) attends no key: zeros."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _inputs(dev, 2, 4, 2, 3, 64, 64, dtype, seed=6)
+        lengths = torch.tensor([2, 40], dtype=torch.int32, device=dev)
+        out = DA.decode_attention(q, k, v, 0, lengths)
+        assert not out[0, :, 0].any()
+        split = DA.decode_attention_split_reference(
+            q.cpu(), k.cpu(), v.cpu(), 0, lengths.cpu(),
+            sms=DA.sm_count(dev))
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(out.float().cpu(), split.float(),
+                                   atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernels_two_launches_are_bit_identical(dev, dtype):
+    """The splits merge in a fixed order: the same inputs give the same
+    bits, launch after launch, contiguous and paged."""
+    q, k, v = _inputs(dev, 1, 12, 12, 1, 1024, 64, dtype, seed=7)
+    outs = [DA.decode_attention(q, k, v, 1023, 1024) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    pk, pv, table, _ = _paged_pools(dev, [1024, 300], 12, 64, 128, 9, dtype,
+                                    False)
+    q2 = torch.randn(2, 12, 1, 64, device=dev).to(dtype)
+    lens = torch.tensor([1024, 300], dtype=torch.int32, device=dev)
+    outs = [PA.paged_decode_attention(q2, pk, pv, table, 128, 0, lens)
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
 # ---------------------------------------------------------------------------
 # flash attention and cross-entropy (training slice)
 #
@@ -377,9 +455,17 @@ def _check_close(out, ref, ref_abs):
          dtype="float32"),
     dict(lengths=[1024], Hq=12, Hkv=12, T=1024, D=64, P=128,
          dtype="float32"),
+    dict(lengths=[1], Hq=12, Hkv=12, T=1, D=64, P=128, dtype="float32"),
+    dict(lengths=[65, 1000, 16], Hq=12, Hkv=12, T=1, D=64, P=16,
+         dtype="float32"),
+    dict(lengths=[1024, 700, 129, 1, 513, 900, 257, 64], Hq=12, Hkv=12,
+         T=1, D=64, P=128, dtype="bfloat16"),
+    dict(lengths=[300], Hq=8, Hkv=2, T=64, D=128, P=16, dtype="bfloat16"),
+    dict(lengths=[1024], Hq=32, Hkv=8, T=4, D=8, P=128, dtype="float32"),
 ], ids=["gpt2_L1024", "gpt2_B4_ragged_bf16", "gqa_d128_p8", "int8",
         "int8_bf16", "window_alibi_softcap", "d256_scale_bf16",
-        "gpt2_prefill_T1004", "gpt2_prefill_T1024"])
+        "gpt2_prefill_T1004", "gpt2_prefill_T1024", "L1", "L65_P16",
+        "B8_spread_bf16", "gqa_prefill_tile_bf16", "D8_gqa_T4_16_splits"])
 def test_paged_decode_kernel_matches_plain(dev, case):
     dtype = getattr(torch, case["dtype"])
     lengths, T, P = case["lengths"], case["T"], case["P"]
@@ -404,6 +490,16 @@ def test_paged_decode_kernel_matches_plain(dev, case):
     ref_abs = PA.paged_decode_attention_reference(q, k, v.abs(), table, P,
                                                   0, lens, **scales, **kw)
     _check_close(out, ref, ref_abs)
+    plan = DA.split_plan(len(lengths), case["Hkv"],
+                         case["Hq"] // case["Hkv"] * T, pages * P,
+                         kw.get("window"), P, DA.sm_count(dev))
+    if plan.tile_rows:  # the split reference: the same cut and merge
+        cpu = {key: (val.cpu() if isinstance(val, torch.Tensor) else val)
+               for key, val in {**scales, **kw}.items()}
+        split = PA.paged_decode_attention_split_reference(
+            q.cpu(), k.cpu(), v.cpu(), table.cpu(), P, 0, lens.cpu(),
+            sms=DA.sm_count(dev), **cpu)
+        _check_close(out.cpu(), split, ref_abs.cpu())
     if len(lengths) == 1:  # scalar length: the single-sequence path
         out = PA.paged_decode_attention(q, k, v, table, P, lengths[0] - T,
                                         lengths[0], **scales, **kw)

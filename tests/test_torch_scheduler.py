@@ -195,6 +195,14 @@ def test_eligibility_and_unported_options(monkeypatch):
         monkeypatch.delenv(name)
     monkeypatch.setenv("PENROZ_SCHED_REPLICAS", "1")
     DS.unported_serving_options()
+    # the overload knobs at the values that leave their feature off
+    for name, value in (("PENROZ_REQ_TIMEOUT_MS", "0"),
+                        ("PENROZ_SCHED_MAX_QUEUE", "0"),
+                        ("PENROZ_SCHED_FALLBACK", "0"),
+                        ("PENROZ_SCHED_ADMIT_MS", "0"),
+                        ("PENROZ_TICK_WATCHDOG_MS", "0")):
+        monkeypatch.setenv(name, value)
+    DS.unported_serving_options()
 
 
 def test_crash_fails_requests_and_resets(jmodel, paged_env, make_engine,

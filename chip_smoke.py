@@ -25,7 +25,11 @@ prints no result:
                (training), paged decode (decode steps, its split edges,
                and phase 4's prefills of 128, 1004 and 1024 tokens),
                ragged paged attention (paged pool and continuous
-               batching) and chunked gated linear attention
+               batching: the GPT-2 mixed step in fp32, bf16 and int8,
+               128-row blocks, GQA, window + ALiBi + softcap, padding,
+               decode rows at 1-1024 keys, D 8 at 16 splits; padding
+               slots exactly zero, two launches bit-identical, also timed
+               after a read-only flush) and chunked gated linear attention
                (the hybrid's SSM layers, phase 4c's shapes; also held to
                the token-sequential oracle), in fp32 and bf16.  The flash
                rows also carry the host microseconds of one wrapper call.
@@ -379,8 +383,8 @@ def run_case(torch, case, flush):
     diff = (out.float() - ref).abs()
     err = float(diff.max())
     if case["dtype"] == "bfloat16":
-        ref_abs = DA.decode_attention_reference(q, k, v.abs(), offset, length,
-                                                **kw).float()
+        ref_abs = DA.decode_attention_reference(q, k, _abs(v), offset,
+                                                length, **kw).float()
         tol = BF16_STEP * (ref_abs + ref.abs()).masked_fill(empty, 1.0)
         tol_text = "2^-7 * (sum w|v| + |ref|)"
     else:
@@ -715,6 +719,13 @@ def _random_pools(torch, lengths, Hkv, D, P, pages_per_seq, dtype, int8,
     return qk[0], qv[0], table, {"k_scale": sk[0], "v_scale": sv[0]}
 
 
+def _abs(v):
+    """|v| for the bf16 tolerance's sum w|v|: an int8 cache is widened
+    first, since int8 abs() wraps -128 (which the quantizer emits from bf16
+    input) to -128."""
+    return v.abs() if v.is_floating_point() else v.short().abs()
+
+
 def _tolerance(torch, out, ref, ref_abs_fn, dtype_name):
     """(max abs err, err / tol, tol text) of a kernel output against its
     plain version: fp32 and int8 pools atol 1e-4; bf16 2^-7 · (Σ w|v| +
@@ -778,7 +789,7 @@ def run_paged_case(torch, case, flush):
     ref = plain()
     err, ratio, text = _tolerance(
         torch, out, ref, lambda: PA.paged_decode_attention_reference(
-            q, k, v.abs(), table, P, offset, length, **scales, **kw),
+            q, k, _abs(v), table, P, offset, length, **scales, **kw),
         case["dtype"])
     check(ratio <= 1.0, f"{case['name']}: max abs err {err:.3e}, "
           f"{ratio:.2f} x the tolerance {text}")
@@ -833,6 +844,7 @@ def run_ragged_case(torch, case, flush):
     (q_start, q_len) per row (row i is span i)."""
     from penroz_tpu_torch.ops import attention as A
     from penroz_tpu_torch.ops import kv_cache as KV
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
     from penroz_tpu_torch.ops.kernels import paged_attention as PA
     from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
     from penroz_tpu_torch.utils import bucketing
@@ -862,6 +874,8 @@ def run_ragged_case(torch, case, flush):
     torch.cuda.synchronize()
     check(RPA.ragged_paged_attention.launches == before + 1,
           f"{case['name']}: launch not counted")
+    check(torch.equal(kernel(), out),
+          f"{case['name']}: two launches differ")
     check(bool(torch.isfinite(out).all()), f"{case['name']}: non-finite")
     real = torch.zeros(NB * BQ, dtype=torch.bool)
     for (_, _, n), off in zip(spans, offsets):
@@ -871,11 +885,12 @@ def run_ragged_case(torch, case, flush):
     ref = plain()
     err, ratio, text = _tolerance(
         torch, out, ref, lambda: RPA.ragged_paged_attention_reference(
-            q, k, v.abs(), table, P, descs, **scales, **kw), case["dtype"])
+            q, k, _abs(v), table, P, descs, **scales, **kw), case["dtype"])
     check(ratio <= 1.0, f"{case['name']}: max abs err {err:.3e}, "
           f"{ratio:.2f} x the tolerance {text}")
     iters = case.get("iters", 20)
     ms = _time_ms(torch, kernel, iters, flush)
+    clean_ms = _time_ms(torch, kernel, iters, flush, clean=True)
     plain_ms = _time_ms(torch, plain, max(3, iters // 4), flush)
 
     library_ms = None
@@ -922,8 +937,14 @@ def run_ragged_case(torch, case, flush):
     nbytes = (2 * q.numel() * item + 2 * Hkv * rows * (D * kv_item
                                                        + scale_bytes)
               + descs.numel() * 4 + table.numel() * 4)
-    return _row(case["name"], err, ratio, text, ms, plain_ms, library_ms,
-                nbytes, 4 * D * pairs * Hq, PEAK_OPS_PER_S[case["dtype"]])
+    row = _row(case["name"], err, ratio, text, ms, plain_ms, library_ms,
+               nbytes, 4 * D * pairs * Hq, PEAK_OPS_PER_S[case["dtype"]],
+               clean_ms)
+    plan = RPA.ragged_plan(NB, BQ, Hq, Hkv, pages, P, kw["window"],
+                           DA.sm_count(q.device))
+    row.update(descriptors=NB, tile_rows=plan.tile_rows,
+               n_split=plan.n_split)
+    return row
 
 
 def paged_cases():
@@ -988,6 +1009,15 @@ def ragged_cases():
         dict(gpt2, name="ragged_gpt2_padding", spans=[(99, 1), (499, 1),
                                                       (9, 3)],
              dtype="float32", padding=10),
+        # seven decode rows at 1-1024 keys beside a 64-token chunk: the
+        # splits of the longest range, and of ranges shorter than a split
+        dict(gpt2, name="ragged_gpt2_spread_1_1024",
+             spans=[(0, 64)] + [(n - 1, 1) for n in
+                                (1, 65, 200, 513, 700, 1000, 1024)],
+             dtype="float32"),
+        # more splits (16) than head dims (8), GQA 4:1, two 8-row tiles
+        dict(name="ragged_d8_gqa_16_splits", Hq=32, Hkv=8, D=8, P=128,
+             BQ=4, spans=[(1021, 3)], dtype="float32"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 300 + i
@@ -1724,7 +1754,7 @@ def _profile_continuous(torch, base, bodies, model, device):
         profile_device_ms=device_ms,
         profile_busy_share=device_ms / out["profile_wall_ms"],
         profile_ragged_ms=sum(ms for n, ms in kernels.items()
-                              if "ragged_paged_kernel" in n),
+                              if "decode_core::Ragged" in n),
         profile_gemm_ms=sum(ms for n, ms in kernels.items()
                             if any(f in n.lower() for f in (
                                 "gemm", "cutlass", "xmma", "nvjet"))),

@@ -59,7 +59,7 @@ extern "C" int penroz_decode_attention(
   p.softcap = softcap;
   p.n_split = n_split;
   p.granule = granule;
-  return decode_core::launch_cached<false>(
+  return decode_core::launch_cached<decode_core::Contiguous>(
       p, batch, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
 }
 

@@ -11,6 +11,9 @@ the card's SMs, one block each, merged inside the same launch;
 :func:`split_ranges` is the cut, shared by the kernel (the same
 arithmetic in C) and :func:`decode_attention_split_reference`, which runs
 the split-and-merge algorithm in plain PyTorch for the tests.
+:func:`ragged_split_plan` is the ragged kernel's plan (from the pool's
+span: its descriptors stay on the device), and :func:`split_attend` with
+``valid`` its split reference's core.
 
 :func:`decode_attention` launches the kernel for CUDA tensors and raises on
 anything it cannot take; for CPU tensors it runs
@@ -51,6 +54,10 @@ MAX_SPLITS = 16
 # Blocks a decode launch aims for: two per SM, so every SM has one while
 # another waits on memory.
 BLOCKS_PER_SM = 2
+# Granules a split of a ragged descriptor's key range walks at least (its
+# split granule), and at most over the longest range the pool allows
+# (ragged_split_plan).
+RAGGED_WALK = 4
 
 
 class SplitPlan(NamedTuple):
@@ -82,20 +89,59 @@ def split_plan(batch: int, hkv: int, rows: int, max_len: int,
         return SplitPlan(0, 0, 1, granule)
     tile_rows = 1 if rows == 1 else 4 if rows <= 4 else 8
     row_tiles = -(-rows // tile_rows)
-    span = max_len if window is None else min(max_len, int(window) + rows - 1)
-    most = -(-max(span, 1) // granule)
     want = -(-BLOCKS_PER_SM * sm_count // (batch * hkv * row_tiles))
-    return SplitPlan(tile_rows, row_tiles, max(1, min(want, most, MAX_SPLITS)),
-                     granule)
+    most = _granules(rows, max_len, window, granule)
+    return SplitPlan(tile_rows, row_tiles,
+                     max(1, min(want, most, MAX_SPLITS)), granule)
+
+
+def _granules(rows: int, max_len: int, window: Optional[int],
+              granule: int) -> int:
+    """Granules of the keys a tile of ``rows`` query rows can attend: the
+    most splits it can use."""
+    span = max_len if window is None else min(max_len, int(window) + rows - 1)
+    return -(-max(span, 1) // granule)
+
+
+def ragged_split_plan(num_descs: int, hkv: int, rows: int, max_len: int,
+                      window: Optional[int] = None,
+                      page_size: Optional[int] = None,
+                      sm_count: int = 132) -> SplitPlan:
+    """The ragged kernel's tiling for ``rows`` = G * block_q query rows a
+    kv head and descriptor over a pool of ``max_len`` keys a sequence.  A
+    descriptor's length stays on the device (the wrapper reads nothing
+    back), so the plan comes from shapes and the pool's span.  Where
+    :func:`split_plan`'s count for filling the card is the larger (few
+    descriptors), it stands.  Else splits are whole ``RAGGED_WALK``
+    granules, as many as the longest range needs: a range of up to
+    ``RAGGED_WALK`` granules (a prefill chunk's, a short decode row's) runs
+    in one block with no merge, a longer one in splits of that many
+    granules; the splits that hold no key leave at once."""
+    plan = split_plan(num_descs, hkv, rows, max_len, window, page_size,
+                      sm_count)
+    if plan.tile_rows == 0:
+        return plan
+    walk = -(-_granules(rows, max_len, window, plan.granule) // RAGGED_WALK)
+    if plan.n_split > walk:
+        return plan
+    return plan._replace(n_split=min(walk, MAX_SPLITS),
+                         granule=plan.granule * RAGGED_WALK)
 
 
 def tile_keys(m0: int, mv: int, T: int, first: int, max_len: int,
-              window: Optional[int] = None) -> tuple:
+              window: Optional[int] = None,
+              valid: Optional[int] = None) -> tuple:
     """Keys [kb, ke) that rows m0 .. m0 + mv - 1 attend when token 0 sits at
-    ``first`` (a tile that wraps past a query head holds every token)."""
+    ``first`` (a tile that wraps past a query head holds every token).
+    With ``valid`` (a ragged descriptor's real slots) only tokens below it
+    count, and a tile without one gets (0, 0)."""
     t_lo, t_hi = 0, T - 1
     if m0 // T == (m0 + mv - 1) // T:
         t_lo, t_hi = m0 % T, (m0 + mv - 1) % T
+    if valid is not None:
+        t_hi = min(t_hi, valid - 1)
+        if t_hi < t_lo:
+            return 0, 0
     ke = min(first + t_hi + 1, max_len)
     kb = max(0, first + t_lo - int(window) + 1) if window else 0
     return kb, ke
@@ -199,12 +245,14 @@ def plan_for(batch: int, hq: int, hkv: int, t: int, length, max_len: int,
 def split_attend(q, k_full, v_full, lengths, plan: SplitPlan, max_len: int,
                  window: Optional[int] = None, alibi=None,
                  scale: Optional[float] = None,
-                 softcap: Optional[float] = None):
+                 softcap: Optional[float] = None, valid=None):
     """The decode tiles' algorithm in plain PyTorch: for each (sequence, row
     tile) the key range of :func:`tile_keys` cut by :func:`split_ranges`,
     each split's (max, sum, P·V) of its attended keys (probabilities
     rounded to q's dtype before P·V), merged in split order.  k_full/v_full
-    (B, Hkv, S, D) in q's dtype; ``lengths`` one int per sequence."""
+    (B, Hkv, S, D) in q's dtype; ``lengths`` one int per sequence.
+    ``valid`` (ragged descriptors): per sequence, the tokens that are real;
+    the others attend nothing and come back zero."""
     if plan.tile_rows == 0:
         raise ValueError("split_attend: the plan selects prefill tiles")
     B, Hq, T, D = q.shape
@@ -221,11 +269,14 @@ def split_attend(q, k_full, v_full, lengths, plan: SplitPlan, max_len: int,
     out = torch.zeros(B, Hkv, rows, D)
     for b in range(B):
         first = int(lengths[b]) - T
+        n_valid = T if valid is None else int(valid[b])
         for m0 in range(0, rows, R):
             mv = min(R, rows - m0)
             r = torch.arange(m0, m0 + mv)
             pos = first + r % T
-            kb, ke = tile_keys(m0, mv, T, first, max_len, window)
+            real = (r % T < n_valid)[:, None]
+            kb, ke = tile_keys(m0, mv, T, first, max_len, window,
+                               None if valid is None else n_valid)
             parts = []
             for lo, hi in split_ranges(kb, ke, plan.n_split, plan.granule):
                 if hi <= lo:
@@ -241,7 +292,7 @@ def split_attend(q, k_full, v_full, lengths, plan: SplitPlan, max_len: int,
                 if slopes is not None:
                     s = s + slopes[:, r // T][..., None] * (
                         j[None, :] - pos[:, None]).float()
-                att = j[None, :] <= pos[:, None]
+                att = (j[None, :] <= pos[:, None]) & real
                 if window is not None:
                     att &= j[None, :] > pos[:, None] - int(window)
                 s = torch.where(att, s, neg)

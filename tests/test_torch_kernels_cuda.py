@@ -41,13 +41,20 @@ def _inputs(dev, B, Hq, Hkv, T, S, D, dtype, seed=0):
     return q, k, v
 
 
+def _abs(v):
+    """|v| for the bf16 tolerance's sum w|v|: an int8 cache is widened
+    first, since int8 abs() wraps -128 (which the quantizer emits from bf16
+    input) to -128."""
+    return v.to(torch.int16).abs() if v.dtype == torch.int8 else v.abs()
+
+
 def _compare(out, q, k, v, offset, length, **kw):
     """The kernel's output against the plain version on the same inputs."""
     ref = DA.decode_attention_reference(q, k, v, offset, length, **kw)
     if q.dtype != torch.bfloat16:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
         return
-    ref_abs = DA.decode_attention_reference(q, k, v.abs(), offset, length,
+    ref_abs = DA.decode_attention_reference(q, k, _abs(v), offset, length,
                                             **kw).float()
     err = (out.float() - ref.float()).abs()
     tol = 2.0 ** -7 * (ref_abs + ref.float().abs())
@@ -174,12 +181,17 @@ def test_kernel_split_edges(dev, case):
 
 
 def test_kernel_row_with_no_attended_key_is_zero(dev):
-    """A query before position 0 (length < T) attends no key: zeros."""
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _inputs(dev, 2, 4, 2, 3, 64, 64, dtype, seed=6)
-        lengths = torch.tensor([2, 40], dtype=torch.int32, device=dev)
+    """A query before position 0 (length < T) attends no key: zeros, also
+    where a whole row tile lies before position 0 (T 16: 8-row tiles)."""
+    for dtype, T, first_len in ((torch.float32, 3, 2),
+                                (torch.bfloat16, 3, 2),
+                                (torch.float32, 16, 4),
+                                (torch.bfloat16, 16, 4)):
+        q, k, v = _inputs(dev, 2, 4, 2, T, 64, 64, dtype, seed=6)
+        lengths = torch.tensor([first_len, 40], dtype=torch.int32,
+                               device=dev)
         out = DA.decode_attention(q, k, v, 0, lengths)
-        assert not out[0, :, 0].any()
+        assert not out[0, :, :T - first_len].any()
         split = DA.decode_attention_split_reference(
             q.cpu(), k.cpu(), v.cpu(), 0, lengths.cpu(),
             sms=DA.sm_count(dev))
@@ -487,7 +499,7 @@ def test_paged_decode_kernel_matches_plain(dev, case):
     assert PA.paged_decode_attention.launches == before + 1
     ref = PA.paged_decode_attention_reference(q, k, v, table, P, 0, lens,
                                               **scales, **kw)
-    ref_abs = PA.paged_decode_attention_reference(q, k, v.abs(), table, P,
+    ref_abs = PA.paged_decode_attention_reference(q, k, _abs(v), table, P,
                                                   0, lens, **scales, **kw)
     _check_close(out, ref, ref_abs)
     plan = DA.split_plan(len(lengths), case["Hkv"],
@@ -530,13 +542,36 @@ def _ragged_case(dev, spans, NB, BQ, Hq, Hkv, D, P, dtype, int8, seed=0):
          P=16, dtype="float32", int8=True),
     dict(spans=[(0, 90, 30), (1, 200, 1)], NB=16, BQ=8, Hq=4, Hkv=2, D=64,
          P=16, dtype="float32", window=40, alibi=True, softcap=6.0),
+    # decode rows from 1 to 1024 keys beside a 64-token chunk
+    dict(spans=[(0, 0, 64)] + [(i, n - 1, 1) for i, n in enumerate(
+        (1, 64, 65, 300, 513, 1000, 1024), 1)], NB=16, BQ=8, Hq=12, Hkv=12,
+         D=64, P=128, dtype="float32"),
+    dict(spans=[(0, 0, 64)] + [(i, n - 1, 1) for i, n in enumerate(
+        (1, 64, 65, 300, 513, 1000, 1024), 1)], NB=16, BQ=8, Hq=12, Hkv=12,
+         D=64, P=16, dtype="bfloat16", int8=True),
+    # more splits (16) than head dims (8), GQA 4:1, two 8-row tiles
+    dict(spans=[(0, 1021, 3)], NB=1, BQ=4, Hq=32, Hkv=8, D=8, P=128,
+         dtype="float32"),
+    # every descriptor padding
+    dict(spans=[(0, 40, 5)], NB=8, BQ=8, Hq=12, Hkv=12, D=64, P=128,
+         dtype="float32", all_padding=True),
+    # block_q 128: prefill tiles on tensor cores, and on FMAs in fp32
+    dict(spans=[(0, 896, 128), (1, 500, 100), (2, 1000, 1)], NB=4, BQ=128,
+         Hq=32, Hkv=8, D=128, P=128, dtype="bfloat16"),
+    dict(spans=[(0, 896, 128), (1, 500, 100), (2, 1000, 1)], NB=4, BQ=128,
+         Hq=32, Hkv=8, D=128, P=128, dtype="float32"),
 ], ids=["gpt2_mixed", "gpt2_mixed_bf16", "gqa_p8", "int8",
-        "window_alibi_softcap"])
+        "window_alibi_softcap", "spread_1_1024", "spread_int8_bf16_p16",
+        "D8_gqa_16_splits", "all_padding", "bq128_gqa32x8_D128_bf16",
+        "bq128_gqa32x8_D128_fp32"])
 def test_ragged_kernel_matches_plain(dev, case):
     dtype = getattr(torch, case["dtype"])
     q, k, v, table, scales, descs = _ragged_case(
         dev, case["spans"], case["NB"], case["BQ"], case["Hq"], case["Hkv"],
         case["D"], case["P"], dtype, case.get("int8"))
+    if case.get("all_padding"):
+        descs = torch.zeros_like(descs)
+        descs[:, 0] = -1
     kw = {key: case[key] for key in ("window", "softcap") if key in case}
     if case.get("alibi"):
         kw["alibi"] = TA.alibi_slopes(case["Hq"])
@@ -545,11 +580,21 @@ def test_ragged_kernel_matches_plain(dev, case):
                                      **scales, **kw)
     torch.cuda.synchronize()
     assert RPA.ragged_paged_attention.launches == before + 1
+    # two launches on the same inputs give the same bits
+    assert torch.equal(RPA.ragged_paged_attention(
+        q, k, v, table, case["P"], descs, **scales, **kw), out)
     ref = RPA.ragged_paged_attention_reference(q, k, v, table, case["P"],
                                                descs, **scales, **kw)
     ref_abs = RPA.ragged_paged_attention_reference(
-        q, k, v.abs(), table, case["P"], descs, **scales, **kw)
+        q, k, _abs(v), table, case["P"], descs, **scales, **kw)
     _check_close(out, ref, ref_abs)
+    # the split reference: the same cut and merge
+    cpu = {key: (val.cpu() if isinstance(val, torch.Tensor) else val)
+           for key, val in {**scales, **kw}.items()}
+    split = RPA.ragged_paged_attention_split_reference(
+        q.cpu(), k.cpu(), v.cpu(), table.cpu(), case["P"], descs.cpu(),
+        sms=DA.sm_count(dev), **cpu)
+    _check_close(out.cpu(), split, ref_abs.cpu())
     # padding slots (row -1 descriptors, t >= q_valid) are exactly zero
     d = descs.cpu()
     t = torch.arange(case["BQ"])

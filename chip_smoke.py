@@ -30,8 +30,9 @@ prints no result:
                decode rows at 1-1024 keys, D 8 at 16 splits; padding
                slots exactly zero, two launches bit-identical, also timed
                after a read-only flush) and chunked gated linear attention
-               (the hybrid's SSM layers, phase 4c's shapes; also held to
-               the token-sequential oracle), in fp32 and bf16.  The flash
+               (the hybrid's SSM layers, phase 4c's shapes and B 1 x 4096;
+               also held to the token-sequential oracle; two launches
+               bit-identical), in fp32 and bf16.  The flash
                rows also carry the host microseconds of one wrapper call.
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
@@ -67,7 +68,7 @@ prints no result:
                ones, and the fp32 top-1 minus top-2 logit gap there
                (recorded, not gated); /output/ on a 16-token prompt,
                whose argmax is the first greedy token of that prompt
-               within ARGMAX_ATOL;
+               within ARGMAX_ATOL, and at 1 x 1024 (timed);
                in-process compute_output at 1 x 1024, its logits held to
                the same forward with the sequential oracle in place of the
                kernel; /evaluate/ at 8 x 1024 on a synthetic shard, equal
@@ -204,6 +205,11 @@ STEP_GRAD_RTOL = 1e-4
 # above the 1e-6 log floor: GLA_SEQ_C on the same scale.
 GLA_C = 1e-4
 GLA_SEQ_C = 1e-3
+# Tensor-core peaks a GLA row's operations bound is restated at when the
+# kernel beats the fp32 FMA rate (name, FLOP/s).
+GLA_TENSOR_PEAK = {"float32": ("3xTF32 tensor cores, 495 / 3 TFLOP/s",
+                               495e12 / 3),
+                   "bfloat16": ("bf16 tensor cores, 989 TFLOP/s", 989e12)}
 
 
 class SmokeFailure(Exception):
@@ -1049,6 +1055,7 @@ def run_gla_case(torch, case, flush):
     torch.cuda.synchronize()
     check(SS.gla_chunked.launches == before + 1,
           f"{case['name']}: launch not counted")
+    check(torch.equal(kernel(), out), f"{case['name']}: two launches differ")
     check(bool(torch.isfinite(out).all()), f"{case['name']}: non-finite")
     ref = plain()
     terms = SS.gla_chunked_reference(q.abs(), k.abs(), v.abs(), gates)
@@ -1078,15 +1085,23 @@ def run_gla_case(torch, case, flush):
     # and head); all of it fp32 math whatever the input type.  The chunked
     # algebra's count (causal halves of the scores) and the Pallas
     # CostEstimate's (full block_t x block_t tiles) are kept beside it.
+    # The kernel's products run on tensor cores (3xTF32; a bf16 operand is
+    # exact in one TF32 pass), so where it beats the fp32 FMA rate the
+    # operations bound is restated at the tensor-core peak of the inputs'
+    # type: 3xTF32 (495 / 3 TFLOP/s) for fp32, bf16 (989) for bf16.
     item = torch.empty((), dtype=dtype).element_size()
     rows = B * T * H
     nbytes = rows * ((2 * dk + dv) * item + 4 + 4 * dv)
     ops = 4 * rows * dk * dv
     L = SS.chunk_length(T)
     chunks = B * H * (-(-T // L))
+    peak, peak_name = PEAK_OPS_PER_S["float32"], "fp32 FMA, 67 TFLOP/s"
+    if ms < ops / peak * 1e3:
+        peak, peak_name = GLA_TENSOR_PEAK[case["dtype"]]
     row = _row(case["name"], err, ratio, tol_text, ms, plain_ms, None,
-               nbytes, ops, PEAK_OPS_PER_S["float32"])
+               nbytes, ops, peak)
     row.update(
+        ops_peak=peak_name,
         sequential_err_over_tol=seq_ratio,
         chunked_ops=chunks * (L * (L + 1) * (dk + dv) + 4 * L * dk * dv),
         pallas_ops=4 * chunks * L * L * (dk + dv))
@@ -1116,6 +1131,9 @@ def gla_cases():
              dtype="float32", below_floor=True),
         dict(name="gla_H32_D128_B2_T1024_fp32", B=2, T=1024, H=32, dk=128,
              dv=128, dtype="float32"),
+        # many tiles of one sequence: the carry's chain of checkpoints
+        dict(gpt2, name="gla_gpt2_B1_T4096_fp32", B=1, T=4096,
+             dtype="float32", sequential=True),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 400 + i
@@ -1893,6 +1911,18 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
             f"(<= {ARGMAX_ATOL}) in log-probability")
         check(gap <= ARGMAX_ATOL, f"/output/'s argmax is {gap:.3e} above "
               f"the first greedy token")
+        # /output/ at 1 x block: the chunked kernel at B 1 on every ssm layer
+        status, text, secs = _post(base, "/output/", {
+            "model_id": "smoke_hybrid", "input": long_input})
+        forwards += 1
+        check(status == 200, f"/output/ 1 x {block} -> {status}: "
+              f"{text[:300]}")
+        probs = np.asarray(json.loads(text)["output"], np.float64)
+        check(probs.shape == (1, vocab) and np.isfinite(probs).all(),
+              f"/output/ 1 x {block} malformed")
+        stats["output_long_request_s"] = secs
+        say("hybrid", f"/output/ 1 x {block} tokens in {secs:.3f} s "
+            f"(checkpoint load included)")
 
         # in-process compute_output at 1 x 1024, kernel vs sequential oracle
         model = NeuralNetworkModel.deserialize("smoke_hybrid", device=device,

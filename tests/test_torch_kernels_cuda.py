@@ -661,16 +661,31 @@ def _gla_worst(out, ref, q, k, v, g, block_t, c):
     (2, 1024, 32, 128, 128, 128, torch.float32, False),
     (2, 13, 3, 8, 4, 8, torch.float32, False),
     (1, 5, 2, 8, 8, 128, torch.float32, False),
-    (1, 300, 2, 32, 96, 64, torch.bfloat16, False)],
+    (1, 300, 2, 32, 96, 64, torch.bfloat16, False),
+    (1, 4096, 12, 64, 64, 128, torch.float32, False),
+    (4, 4096, 12, 64, 64, 128, torch.float32, False),
+    (1, 512, 4, 128, 128, 256, torch.float32, False),
+    (1, 100, 3, 8, 5, 8, torch.float32, False),
+    (2, 77, 3, 12, 20, 128, torch.bfloat16, False)],
     ids=["gpt2_B8_T1024", "gpt2_B1_T1024", "gpt2_T1000", "gpt2_bf16",
-         "below_floor", "H32_D128", "tiny_tail", "T5", "dk32_dv96_bf16"])
+         "below_floor", "H32_D128", "tiny_tail", "T5", "dk32_dv96_bf16",
+         "gpt2_B1_T4096", "tiles_outnumber_resident", "D128_block_t256",
+         "odd_dv_scalar_copies", "bf16_scalar_copies"])
 def test_gla_kernel_matches_plain(dev, B, T, H, dk, dv, block_t, dtype,
                                   below_floor):
+    """Also: two launches give the same bits (the carry's recipe is fixed);
+    B 1 x 4096 walks 64 tiles of one sequence through seven checkpoints;
+    B 4 x 4096 has 3072 tiles, several times the blocks the card holds at
+    once; D 128 at block_t 256 (the kernel's tiles do not depend on
+    block_t) was refused for shared memory before the kernel's redesign;
+    odd or unaligned widths take the element-wise copies."""
     q, k, v, g = _gla_inputs(dev, B, T, H, dk, dv, dtype, below_floor)
     before = SS.gla_chunked.launches
     out = SS.gla_chunked(q, k, v, g, block_t=block_t)
+    again = SS.gla_chunked(q, k, v, g, block_t=block_t)
     torch.cuda.synchronize()
-    assert SS.gla_chunked.launches == before + 1
+    assert SS.gla_chunked.launches == before + 2
+    assert torch.equal(out, again)
     assert out.dtype == torch.float32 and out.shape == (B, T, H, dv)
     assert bool(torch.isfinite(out).all())
     ref = SS.gla_chunked_reference(q, k, v, g, block_t)

@@ -37,16 +37,30 @@ prints no result:
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
                50304, block 1024; random weights from seed 0): POST /model/,
-               greedy /generate/ twice, streamed, past block 1024 (crop +
-               T=1024 re-prefill), under TURBO_QUANT_KV_CACHE=1, /decode/,
-               DELETE /model/.  Kernel launch counts are reset just before
-               and read just after; each generated token must have launched
-               the decode kernel once per attention layer.  The same
-               requests again under PAGED_KV_CACHE=1 (fp32, past the block,
-               int8): the same tokens, the paged kernel 12 times a
-               generated token and the contiguous one not at all.  Then the
-               cached (kernel) forward is held against the plain no-cache
-               forward (the plain versions patched in) on the card.
+               greedy /generate/ twice (1 prefill + one 128-step chunk of
+               CUDA-graph replays each; the first captures, the second
+               captures nothing), streamed (chunks ramping 8 to 64),
+               past block 1024 (chunks of 16 and 4, then a T=1024
+               re-prefill a token), under TURBO_QUANT_KV_CACHE=1, /decode/,
+               DELETE /model/ (which drops the idle decode runners).  In
+               process, the eager step loop (graphs off) gives the graph
+               path's tokens on each cache, and both are timed (tokens/s,
+               device busy share and kernels a token under
+               torch.profiler).  Kernel launch counts are reset just before
+               and read just after.  The HTTP requests run under a
+               torch.profiler trace (device activity only): the device must
+               have run the decode kernel once per attention layer in
+               every dispatched step (prefills, replays, capture warm-ups,
+               overshoot included), and the wrapper must have launched it
+               once per attention layer in every step that was not a
+               replay.  The same requests again under PAGED_KV_CACHE=1
+               (fp32, past the block, int8): the same tokens, the paged
+               kernel 12 times a dispatched step and the contiguous one not
+               at all.  What a device length (a
+               captured step's) costs a decode launch against a host one,
+               at 129 and 1024 keys.  Then the cached (kernel) forward is
+               held against the plain no-cache forward (the plain versions
+               patched in) on the card.
 4b. continuous — a server under PAGED_KV_CACHE=1
                PENROZ_CONTINUOUS_BATCHING=1 PENROZ_SCHED_MAX_ROWS=8: 8
                concurrent greedy /generate/ (prompts of 16-700 tokens, 64
@@ -64,7 +78,9 @@ prints no result:
                weights from seed 0): greedy /generate/ 128 + 128 twice, on
                the int8 cache, and under PAGED_KV_CACHE=1 (fp32 and int8;
                the same tokens as the contiguous cache of the same
-               precision); where the int8 tokens first leave the fp32
+               precision), through CUDA graphs, each equal in process to
+               the eager step loop's, 12 launches a dispatched step, graph
+               and eager timed; where the int8 tokens first leave the fp32
                ones, and the fp32 top-1 minus top-2 logit gap there
                (recorded, not gated); /output/ on a 16-token prompt,
                whose argmax is the first greedy token of that prompt
@@ -75,7 +91,10 @@ prints no result:
                to in-process evaluate_model; a torch.profiler pass over one
                no-cache forward at 8 x 1024.  The chunked kernel's count is
                reset just before and read just after: exactly 6 launches a
-               no-cache forward, none on the cached path.
+               no-cache forward, none on the cached path, none in the
+               /stats/ pass at 1 x 256 (the SSM layers' differentiable
+               oracle; the fp32 flash and cross-entropy kernels forward and
+               backward).
 5. training  — the same server trains GPT-2 124M (AdamW, bf16 compute, the
                default on the card) through PUT /train/ on a synthetic uint16
                shard: batch 8 x block 1024, step 4 (two micro-steps an
@@ -85,8 +104,12 @@ prints no result:
                attention layer and the cross-entropy forward and backward
                once.  Costs finite, the first near ln 50304, the last below
                it; tokens/s; then greedy /generate/ from the trained model
-               twice, identical.  Then one epoch's time by kernel, under
-               torch.profiler (the Python API, same shapes).
+               twice, identical.  GET /stats/ of the trained model (the
+               refresh at the end of training): one entry a non-softmax
+               layer and a parameter, all finite, 404 and 422; the refresh
+               in process at 8 x 1024, timed, its fp32 flash and
+               cross-entropy launches counted.  Then one epoch's time by
+               kernel, under torch.profiler (the Python API, same shapes).
 6. micro-step — one fp32 training micro-step at GPT-2 width (B 1, T 1024):
                loss and every parameter gradient through the kernels against
                the same step with the plain versions patched in.
@@ -1251,10 +1274,156 @@ def _stream(base, body, timeout=900):
     return tokens, first, time.monotonic() - t0
 
 
+class _StepLedger:
+    """Dispatched decode steps (prefills, replayed and eager steps, capture
+    warm-ups, overshoot included) and the replayed ones among them, by the
+    kernel they launch: the paged one under PAGED_KV_CACHE=1, else the
+    contiguous one.  ``with ledger.request():`` around each request."""
+
+    def __init__(self):
+        self.steps = {"decode_attention": 0, "paged_decode_attention": 0}
+        self.replayed = dict.fromkeys(self.steps, 0)
+
+    @contextlib.contextmanager
+    def request(self):
+        from penroz_tpu_torch.models import decode_graphs as DG
+        kernel = ("paged_decode_attention"
+                  if os.environ.get("PAGED_KV_CACHE") == "1"
+                  else "decode_attention")
+        before = DG.dispatched_steps(), DG.STATS["replayed_steps"]
+        try:
+            yield
+        finally:
+            self.steps[kernel] += DG.dispatched_steps() - before[0]
+            self.replayed[kernel] += DG.STATS["replayed_steps"] - before[1]
+
+
+def _runner_stats():
+    """A copy of the runners' counts (models/decode_graphs.py STATS)."""
+    from penroz_tpu_torch.models import decode_graphs as DG
+    return {k: list(v) if isinstance(v, list) else v
+            for k, v in DG.STATS.items()}
+
+
+def _decode_counters():
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    return {"decode_attention": DA.decode_attention,
+            "paged_decode_attention": PA.paged_decode_attention}
+
+
+def _zero_decode_counts():
+    """Zero the decode wrappers' launch counts and their kernels' device
+    run counters."""
+    for fn in _decode_counters().values():
+        fn.launches = 0
+        fn.runs.reset()
+
+
+def _check_launches(n_attn, ledger, what):
+    """Since the counts were zeroed: the device ran each kernel once per
+    attention layer in every dispatched step, replays included (the
+    kernel's own run counter), and the wrapper launched it once per
+    attention layer in every step that was not a replay; no other
+    single-sequence kernel ran.  Returns (wrapper launches, device runs)
+    by wrapper name."""
+    fns = _decode_counters()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    ran = {name: fn.runs.read() for name, fn in fns.items()}
+    for name, steps in ledger.steps.items():
+        eager = steps - ledger.replayed[name]
+        check(ran[name] == n_attn * steps,
+              f"{what}: the device ran {name}'s kernel {ran[name]} times, "
+              f"expected {n_attn} x {steps} dispatched steps")
+        check(launches[name] == n_attn * eager,
+              f"{what}: {name} launched {launches[name]} times, expected "
+              f"{n_attn} x {eager} dispatched steps that were not replays")
+    return launches, ran
+
+
+@contextlib.contextmanager
+def _graphs(on):
+    """Decode steps on the card replay captured graphs (on) or run the
+    eager step (off), in this process."""
+    from penroz_tpu_torch.models import decode_graphs as DG
+    saved, DG._GRAPHS = DG._GRAPHS, on
+    try:
+        yield
+    finally:
+        DG._GRAPHS = saved
+
+
+def _decode_timing(torch, model, prompt, block, graphs):
+    """``generate_tokens`` of PROMPT_LEN + NEW_TOKENS greedy with the model
+    loaded and its runner warm, graphs on or off:
+    the median of three host-clock runs (each ending in a synchronize) and
+    of three prefill-only runs (one new token), then one run under
+    torch.profiler: device busy ms and share, device kernels a generated
+    token, and the device's idle time split into gaps of at most
+    GAP_SHORT_US between kernels (launch gaps, inside a graph or of
+    launches queued ahead) and longer ones (the device waiting for the
+    host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def median_s(new):
+        walls = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            model.generate_tokens([prompt], block, new, temperature=0)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        return sorted(walls)[1], walls
+
+    with _graphs(graphs):
+        out = model.generate_tokens([prompt], block, NEW_TOKENS,
+                                    temperature=0)
+        torch.cuda.synchronize()
+        wall, walls = median_s(NEW_TOKENS)
+        prefill, _ = median_s(1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            model.generate_tokens([prompt], block, NEW_TOKENS, temperature=0)
+            torch.cuda.synchronize()
+            traced = time.monotonic() - t0
+    kernels = [evt for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)
+               and "#" not in evt.name
+               and not evt.name.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(evt.time_range.elapsed_us() for evt in kernels) / 1e3
+    gaps, end = [], None
+    for start, stop in sorted((evt.time_range.start, evt.time_range.end)
+                              for evt in kernels):
+        if end is not None and start > end:
+            gaps.append(start - end)
+        end = stop if end is None else max(end, stop)
+    short = [g for g in gaps if g <= GAP_SHORT_US]
+    return out, {"s": wall, "walls_s": walls,
+                 "tokens_per_s": NEW_TOKENS / wall, "prefill_s": prefill,
+                 "traced_wall_ms": traced * 1e3,
+                 "device_busy_ms": device_ms,
+                 "device_busy_share": device_ms / (traced * 1e3),
+                 "kernels_per_token": len(kernels) / NEW_TOKENS,
+                 "idle_short_gaps_ms": sum(short) / 1e3,
+                 "short_gaps": len(short),
+                 "idle_long_gaps_ms": (sum(gaps) - sum(short)) / 1e3,
+                 "long_gaps": len(gaps) - len(short)}
+
+
+def _trace_text(t):
+    return (f"device busy {t['device_busy_ms']:.2f} ms of "
+            f"{t['traced_wall_ms']:.2f} ms ({t['device_busy_share']:.1%}), "
+            f"idle {t['idle_short_gaps_ms']:.2f} ms in {t['short_gaps']} "
+            f"gaps <= {GAP_SHORT_US:.0f} us and "
+            f"{t['idle_long_gaps_ms']:.2f} ms in {t['long_gaps']} longer; "
+            f"{t['kernels_per_token']:.1f} kernels a token")
+
+
 def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
     """Drive the port's server; returns (stats dict, launch counts)."""
+    from penroz_tpu_torch.models import decode_graphs as DG
     from penroz_tpu_torch.models.model import CompiledArch, NeuralNetworkModel
-    from penroz_tpu_torch.ops.kernels import decode_attention as DA
     from penroz_tpu_torch.serve.app import create_app
     from penroz_tpu_torch.utils import checkpoint
 
@@ -1265,6 +1434,7 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
     thread.start()
     base = "http://%s:%d" % server.server_address[:2]
     stats = {}
+    ledger = _StepLedger()
     try:
         rng = torch.Generator().manual_seed(1)
         prompt = torch.randint(0, vocab, (PROMPT_LEN,), generator=rng).tolist()
@@ -1277,9 +1447,12 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
 
         greedy = {"model_id": "smoke", "input": [prompt], "block_size": block,
                   "max_new_tokens": NEW_TOKENS, "temperature": 0}
-        DA.decode_attention.launches = 0
+        DG.reset()
+        _zero_decode_counts()
         generated = 0
-        status, text, secs = _post(base, "/generate/", greedy)
+        http = _StepLedger()
+        with http.request():
+            status, text, secs = _post(base, "/generate/", greedy)
         check(status == 200, f"/generate/ -> {status}: {text[:300]}")
         first = json.loads(text)["tokens"]
         generated += len(first) - PROMPT_LEN
@@ -1287,41 +1460,60 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
               and first[:PROMPT_LEN] == prompt
               and all(0 <= t < vocab for t in first),
               "greedy output malformed")
-        stats["greedy_request_s"] = secs
-        status, text, secs = _post(base, "/generate/", greedy)
+        # one prefill, then one 128-step chunk (127 kept), after the
+        # capture's warm-up steps
+        check(DG.STATS["captures"] == 1 and http.steps[
+            "decode_attention"] == 1 + NEW_TOKENS + DG.WARMUP_STEPS,
+              f"first request: {DG.STATS}, {http.steps}")
+        stats.update(greedy_request_s=secs,
+                     first_request_capture_s=DG.STATS["capture_s"][0])
+        before = http.steps["decode_attention"]
+        with http.request():
+            status, text, secs = _post(base, "/generate/", greedy)
         check(status == 200 and json.loads(text)["tokens"] == first,
               "greedy /generate/ not deterministic")
+        check(DG.STATS["captures"] == 1, "the second request on the "
+              "same key captured again")
+        check(http.steps["decode_attention"] - before == 1 + NEW_TOKENS,
+              "the second request did not dispatch 1 prefill + one "
+              f"{NEW_TOKENS}-step chunk")
         generated += NEW_TOKENS
         stats["greedy_request_s_2"] = secs
-        say("main_path", f"greedy {PROMPT_LEN}+{NEW_TOKENS}: identical twice, "
-            f"{stats['greedy_request_s']:.3f} s / {secs:.3f} s per request "
-            f"(checkpoint load included) on {card}")
+        say("main_path", f"greedy {PROMPT_LEN}+{NEW_TOKENS}: identical "
+            f"twice, {stats['greedy_request_s']:.3f} s (capture "
+            f"{stats['first_request_capture_s']:.3f} s of it) / "
+            f"{secs:.3f} s (nothing captured) per request (checkpoint "
+            f"load included); 1 prefill + one {NEW_TOKENS}-step chunk "
+            f"each, on {card}")
 
-        streamed, ttft, secs = _stream(base, greedy)
+        with http.request():
+            streamed, ttft, secs = _stream(base, greedy)
         check(streamed == first[PROMPT_LEN:], "stream != non-stream")
         generated += len(streamed)
         stats.update(stream_first_token_s=ttft, stream_request_s=secs)
-        say("main_path", f"stream == non-stream; first token {ttft:.3f} s, "
-            f"all {secs:.3f} s")
+        say("main_path", f"stream == non-stream; first token "
+            f"{ttft:.3f} s, all {secs:.3f} s")
 
-        over = dict(greedy, input=[long_prompt], max_new_tokens=OVERFLOW_NEW)
-        status, text, secs = _post(base, "/generate/", over)
+        over = dict(greedy, input=[long_prompt],
+                    max_new_tokens=OVERFLOW_NEW)
+        with http.request():
+            status, text, secs = _post(base, "/generate/", over)
         tokens = json.loads(text)["tokens"] if status == 200 else []
-        check(status == 200 and len(tokens) == len(long_prompt) + OVERFLOW_NEW,
+        check(status == 200
+              and len(tokens) == len(long_prompt) + OVERFLOW_NEW,
               f"overflow /generate/ -> {status}: {text[:300]}")
         generated += OVERFLOW_NEW
         stats["overflow_request_s"] = secs
-        say("main_path", f"overflow {len(long_prompt)}+{OVERFLOW_NEW} past "
-            f"block {block}: crop + re-prefill ok in {secs:.3f} s")
+        say("main_path", f"overflow {len(long_prompt)}+{OVERFLOW_NEW} "
+            f"past block {block}: chunks of 16 and 4 (the room left), "
+            f"then a re-prefill a token, ok in {secs:.3f} s")
 
-        os.environ["TURBO_QUANT_KV_CACHE"] = "1"
-        try:
+        with _env({"TURBO_QUANT_KV_CACHE": "1"}), http.request():
             status, text, secs = _post(base, "/generate/", greedy)
-        finally:
-            del os.environ["TURBO_QUANT_KV_CACHE"]
         check(status == 200, f"int8 /generate/ -> {status}: {text[:300]}")
         int8 = json.loads(text)["tokens"]
-        check(len(int8) == len(first) and all(0 <= t < vocab for t in int8),
+        check(len(int8) == len(first)
+              and all(0 <= t < vocab for t in int8),
               "int8 output malformed")
         generated += NEW_TOKENS
         agree = sum(a == b for a, b in zip(int8[PROMPT_LEN:],
@@ -1329,49 +1521,85 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
         stats["int8_request_s"] = secs
         say("main_path", f"TURBO_QUANT_KV_CACHE=1: ok in {secs:.3f} s, "
             f"{agree}/{NEW_TOKENS} tokens equal to the fp32 cache's")
+        wrapper, ran = _check_launches(n_attn, http,
+                                       "HTTP, contiguous caches")
+        da_launches = ran["decode_attention"]
+        say("main_path", f"HTTP requests: the device ran the decode kernel "
+            f"{da_launches} times (its run counter), {n_attn} a dispatched "
+            f"step {http.steps}, {http.replayed} of them replays; the "
+            f"wrapper launched it {wrapper['decode_attention']} times, "
+            f"{n_attn} a step that was not a replay")
 
-        # decode-only rate: the same request through the Python API, with
-        # the checkpoint already loaded
+        _zero_decode_counts()
+
+        # in process, the checkpoint loaded once: graph path == HTTP, the
+        # eager step loop == the graph path on each cache; decode rates
         t0 = time.monotonic()
         model = NeuralNetworkModel.deserialize("smoke", device=device,
                                                optimizer=False)
         torch.cuda.synchronize()
         stats["checkpoint_load_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        direct = model.generate_tokens([prompt], block, NEW_TOKENS,
-                                       temperature=0)
-        torch.cuda.synchronize()
-        stats["generate_s"] = time.monotonic() - t0
-        check(direct == first, "direct generate != HTTP generate")
-        generated += NEW_TOKENS
-        stats["tokens_per_s"] = NEW_TOKENS / stats["generate_s"]
-        say("main_path", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS}: "
-            f"{stats['generate_s']:.3f} s = {stats['tokens_per_s']:.1f} "
-            f"tokens/s (checkpoint load {stats['checkpoint_load_s']:.2f} s "
-            f"apart) on {card}")
+        for name, env, body, want in (
+                ("contiguous", {}, greedy, first),
+                ("overflow", {}, over, tokens),
+                ("int8", {"TURBO_QUANT_KV_CACHE": "1"}, greedy, int8)):
+            for graphs in (True, False):
+                with _env(env), _graphs(graphs), ledger.request():
+                    got = model.generate_tokens(
+                        body["input"], block, body["max_new_tokens"],
+                        temperature=0)
+                check(got == want, f"{name}: generate_tokens with graphs "
+                      f"{'on' if graphs else 'off'} != the HTTP graph "
+                      f"path's tokens")
+                generated += body["max_new_tokens"]
+        timing = {}
+        for mode, graphs in (("graph", True), ("eager", False)):
+            with ledger.request():
+                out, timing[mode] = _decode_timing(torch, model, prompt,
+                                                   block, graphs)
+            check(out == first, f"{mode} timing run != the HTTP tokens")
+            generated += 5 * NEW_TOKENS + 3
+        stats["decode"] = timing
+        stats["tokens_per_s"] = timing["graph"]["tokens_per_s"]
+        stats["eager_tokens_per_s"] = timing["eager"]["tokens_per_s"]
+        for mode in ("graph", "eager"):
+            t = timing[mode]
+            say("main_path", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS} "
+                f"{mode}: {t['s']:.4f} s = {t['tokens_per_s']:.1f} tokens/s "
+                f"(median of 3; prefill alone {t['prefill_s']:.4f} s); "
+                f"traced: {_trace_text(t)}, on {card}")
+        say("main_path", "graph path == eager step loop on the contiguous "
+            "fp32, overflow and int8 caches (in process, exact tokens)")
+        _check_launches(n_attn, ledger, "in process, contiguous caches")
 
         paged_stats, paged_launches = _paged_single_sequence(
             torch, base, model, greedy, over, first, tokens, int8, n_attn,
             card)
         stats.update(paged_stats)
+        launches = {"decode_attention": da_launches,
+                    "paged_decode_attention": paged_launches}
+        stats["dispatched_steps"] = {"http": dict(http.steps),
+                                     "http_replayed": dict(http.replayed),
+                                     "in_process": dict(ledger.steps)}
+        stats["runner_stats"] = _runner_stats()
+        stats["split_plan"] = _split_plan_cost(torch)
 
         status, text, _ = _post(base, "/decode/", {"encoding": "byte",
                                                   "tokens": first})
         check(status == 200 and "text" in json.loads(text), "/decode/ failed")
+        stats["idle_runner_bytes"] = [r.nbytes for r in DG._IDLE.values()]
         status, _, _ = _post(base, "/model/?model_id=smoke", None,
                              method="DELETE")
         check(status == 204, f"DELETE /model/ -> {status}")
+        check(not DG._IDLE, "DELETE /model/ left idle decode runners")
         status, _, _ = _post(base, "/generate/", greedy)
         check(status == 404, f"/generate/ after DELETE -> {status}")
-        launches = {"decode_attention": DA.decode_attention.launches,
-                    "paged_decode_attention": paged_launches}
         stats["generated_tokens"] = generated
-        say("main_path", f"/decode/ 200, DELETE 204, then 404; kernel "
-            f"launches {launches} for {generated} generated tokens x "
-            f"{n_attn} attention layers")
-        check(launches["decode_attention"] >= n_attn * generated,
-              f"decode_attention launched {launches['decode_attention']} "
-              f"times, expected >= {n_attn * generated}")
+        say("main_path", f"/decode/ 200, DELETE 204 (dropped "
+            f"{len(stats['idle_runner_bytes'])} idle runners of "
+            f"{stats['idle_runner_bytes']} bytes), then 404; the HTTP "
+            f"requests ran the decode kernels {launches} times on the "
+            f"device ({generated} tokens kept in the phase)")
 
         # reference on the loaded weights: the cached (kernel) forward vs
         # the plain no-cache forward (plain versions patched in), both on
@@ -1390,6 +1618,7 @@ def phase_main_path(torch, device, layers, optimizer, block, vocab, card):
         say("main_path", f"cached (kernel) vs plain forward logits: max abs "
             f"err {err:.2e} (atol 1e-3)")
     finally:
+        DG.reset()
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
@@ -1402,62 +1631,125 @@ def _paged_single_sequence(torch, base, model, greedy, over, first,
                            over_tokens, int8_tokens, n_attn, card):
     """Phase 4's requests again under PAGED_KV_CACHE=1 (fp32, past the
     block, int8 with TURBO_QUANT_KV_CACHE=1): the same greedy tokens as
-    the contiguous cache's, through the paged kernel, 12 launches a
-    generated token and no launch of the contiguous decode kernel.  The
-    paged count is reset just before and read just after."""
-    from penroz_tpu_torch.ops.kernels import decode_attention as DA
-    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    the contiguous cache's, through the paged kernel, which the device
+    runs 12 times a dispatched step (a profiler trace of the HTTP
+    requests); in process, the eager step loop's tokens equal the graph
+    path's.  The counts are reset just before and read just after.
+    Returns (stats, the paged kernel's runs in the HTTP requests)."""
     stats = {}
-    da_before = DA.decode_attention.launches
-    PA.paged_decode_attention.launches = 0
-    generated = 0
-    os.environ["PAGED_KV_CACHE"] = "1"
-    try:
-        status, text, secs = _post(base, "/generate/", greedy)
+    http, ledger = _StepLedger(), _StepLedger()
+    _zero_decode_counts()
+    with _env({"PAGED_KV_CACHE": "1"}):
+        with http.request():
+            status, text, secs = _post(base, "/generate/", greedy)
         check(status == 200 and json.loads(text)["tokens"] == first,
               f"paged /generate/ -> {status}: tokens differ from the "
               f"contiguous cache's")
-        generated += NEW_TOKENS
         stats["paged_request_s"] = secs
-        status, text, secs = _post(base, "/generate/", over)
-        check(status == 200 and json.loads(text)["tokens"] == over_tokens,
-              f"paged overflow /generate/ -> {status}: tokens differ from "
-              f"the contiguous cache's")
-        generated += OVERFLOW_NEW
+        with http.request():
+            status, text, secs = _post(base, "/generate/", over)
+        check(status == 200
+              and json.loads(text)["tokens"] == over_tokens,
+              f"paged overflow /generate/ -> {status}: tokens differ "
+              f"from the contiguous cache's")
         stats["paged_overflow_request_s"] = secs
-        os.environ["TURBO_QUANT_KV_CACHE"] = "1"
-        try:
+        with _env({"TURBO_QUANT_KV_CACHE": "1"}), http.request():
             status, text, secs = _post(base, "/generate/", greedy)
-        finally:
-            del os.environ["TURBO_QUANT_KV_CACHE"]
-        check(status == 200 and json.loads(text)["tokens"] == int8_tokens,
-              f"int8 paged /generate/ -> {status}: tokens differ from the "
-              f"contiguous int8 cache's")
-        generated += NEW_TOKENS
+        check(status == 200
+              and json.loads(text)["tokens"] == int8_tokens,
+              f"int8 paged /generate/ -> {status}: tokens differ from "
+              f"the contiguous int8 cache's")
         stats["paged_int8_request_s"] = secs
-        t0 = time.monotonic()
-        direct = model.generate_tokens(greedy["input"], greedy["block_size"],
-                                       NEW_TOKENS, temperature=0)
-        torch.cuda.synchronize()
-        stats["paged_generate_s"] = time.monotonic() - t0
-        check(direct == first, "paged generate_tokens != contiguous")
-        generated += NEW_TOKENS
-    finally:
-        del os.environ["PAGED_KV_CACHE"]
-    launches = PA.paged_decode_attention.launches
-    stats["paged_tokens_per_s"] = NEW_TOKENS / stats["paged_generate_s"]
+        wrapper, ran = _check_launches(n_attn, http, "HTTP, paged pool")
+        launches = ran["paged_decode_attention"]
+        _zero_decode_counts()
+        for name, env, body, want in (
+                ("paged", {}, greedy, first),
+                ("paged overflow", {}, over, over_tokens),
+                ("int8 paged", {"TURBO_QUANT_KV_CACHE": "1"}, greedy,
+                 int8_tokens)):
+            for graphs in (True, False):
+                with _env(env), _graphs(graphs), ledger.request():
+                    got = model.generate_tokens(
+                        body["input"], body["block_size"],
+                        body["max_new_tokens"], temperature=0)
+                check(got == want, f"{name}: generate_tokens with graphs "
+                      f"{'on' if graphs else 'off'} != the HTTP tokens")
+        with ledger.request():
+            _, timing = _decode_timing(torch, model, greedy["input"][0],
+                                       greedy["block_size"], graphs=True)
+    _check_launches(n_attn, ledger, "in process, paged pool")
+    stats.update(paged_decode=timing, paged_tokens_per_s=timing[
+        "tokens_per_s"], paged_dispatched_steps={
+            "http": dict(http.steps), "http_replayed": dict(http.replayed),
+            "in_process": dict(ledger.steps)})
     say("main_path", f"PAGED_KV_CACHE=1: greedy, overflow past the block and "
-        f"int8 tokens equal the contiguous cache's; generate_tokens "
-        f"{stats['paged_generate_s']:.3f} s = "
-        f"{stats['paged_tokens_per_s']:.1f} tokens/s on {card}; paged "
-        f"kernel launches {launches} for {generated} tokens x {n_attn} "
-        f"layers")
-    check(launches == n_attn * generated,
-          f"paged_decode_attention launched {launches} times, expected "
-          f"{n_attn * generated}")
-    check(DA.decode_attention.launches == da_before,
-          "decode_attention launched on the paged path")
+        f"int8 tokens equal the contiguous cache's, graph == eager in "
+        f"process; generate_tokens {timing['s']:.4f} s = "
+        f"{timing['tokens_per_s']:.1f} tokens/s, device busy "
+        f"{timing['device_busy_share']:.1%}, on {card}; HTTP requests: the "
+        f"device ran the paged kernel {launches} times (its run counter) "
+        f"for {http.steps['paged_decode_attention']} dispatched steps x "
+        f"{n_attn} layers, {http.replayed['paged_decode_attention']} of "
+        f"them replays; the wrapper launched it "
+        f"{wrapper['paged_decode_attention']} times")
     return stats, launches
+
+
+# A device idle gap between two kernels up to this long is launch latency
+# (inside a graph, or of launches queued ahead); a longer one is the device
+# waiting for the host.
+GAP_SHORT_US = 20.0
+# Keys a decode step attends at the split-plan measurement (item: a device
+# length plans its splits over the whole block).
+PLAN_LENGTHS = (129, 1024)
+
+
+def _split_plan_cost(torch):
+    """What a device length costs one decode-kernel launch: GPT-2's decode
+    step (12 heads, D 64, fp32, block 1024) timed with an int length (the
+    plan covers the valid keys) and with the (1,) device length a captured
+    step passes (the plan covers the block), contiguous and paged (pages
+    of 128), at PLAN_LENGTHS; L2 flushed before each launch."""
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    g = torch.Generator(device="cuda").manual_seed(7)
+    H, D, S, P = 12, 64, 1024, 128
+    q = torch.randn(1, H, 1, D, device="cuda", generator=g)
+    k, v = (torch.randn(1, H, S, D, device="cuda", generator=g)
+            for _ in range(2))
+    flat_k, flat_v = (t[0].contiguous() for t in (k, v))  # (H, S, D)
+    table = torch.arange(S // P, dtype=torch.int32, device="cuda")[None]
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for L in PLAN_LENGTHS:
+        dev_len = torch.tensor([L], dtype=torch.int32, device="cuda")
+        row = {}
+        for name, fn in (
+                ("contiguous", lambda n: DA.decode_attention(
+                    q, k, v, L - 1, n)),
+                ("paged", lambda n: PA.paged_decode_attention(
+                    q, flat_k, flat_v, table, P, L - 1, n))):
+            host_ms = _time_ms(torch, lambda: fn(L), 50, flush)
+            device_ms = _time_ms(torch, lambda: fn(dev_len), 50, flush)
+            err = float((fn(L) - fn(dev_len)).abs().max())
+            check(err <= FP32_ATOL, f"{name} L {L}: host and device lengths "
+                  f"differ by {err:.2e}")
+            plans = [DA.plan_for(1, H, H, 1, n, S, None,
+                                 P if name == "paged" else None,
+                                 DA.sm_count(q.device))
+                     for n in (L, dev_len)]
+            row[name] = {"host_length_ms": host_ms,
+                         "device_length_ms": device_ms,
+                         "host_plan": plans[0]._asdict(),
+                         "device_plan": plans[1]._asdict()}
+            say("main_path", f"split plan, {name} L {L}: int length "
+                f"{host_ms:.4f} ms ({plans[0].n_split} splits), device "
+                f"length {device_ms:.4f} ms ({plans[1].n_split} splits over "
+                f"the block)")
+        out[str(L)] = row
+    del flush
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1816,9 +2108,9 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
     (stats, launches of the chunked GLA kernel in this phase)."""
     import numpy as np
 
+    from penroz_tpu_torch.models import decode_graphs as DG
     from penroz_tpu_torch.models import presets
     from penroz_tpu_torch.models.model import CompiledArch, NeuralNetworkModel
-    from penroz_tpu_torch.ops.kernels import decode_attention as DA
     from penroz_tpu_torch.ops.kernels import ssm_scan as SS
     from penroz_tpu_torch.serve.app import create_app
     from penroz_tpu_torch.utils import checkpoint
@@ -1847,23 +2139,28 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
             "model_id": "smoke_hybrid", "layers": layers,
             "optimizer": optimizer})
         check(status == 200, f"POST /model/ -> {status}: {text[:300]}")
+        DG.reset()
         SS.gla_chunked.launches = 0
-        DA.decode_attention.launches = 0
+        _zero_decode_counts()
+        http, ledger = _StepLedger(), _StepLedger()
         greedy = {"model_id": "smoke_hybrid", "input": [prompt],
                   "block_size": block, "max_new_tokens": NEW_TOKENS,
                   "temperature": 0}
         tokens = {}
-        for name, env in (("contiguous", {}), ("again", {}),
-                          ("int8", {"TURBO_QUANT_KV_CACHE": "1"}),
-                          ("paged", {"PAGED_KV_CACHE": "1"}),
-                          ("paged_int8", {"PAGED_KV_CACHE": "1",
-                                          "TURBO_QUANT_KV_CACHE": "1"})):
-            with _env(env):
+        caches = (("contiguous", {}), ("again", {}),
+                  ("int8", {"TURBO_QUANT_KV_CACHE": "1"}),
+                  ("paged", {"PAGED_KV_CACHE": "1"}),
+                  ("paged_int8", {"PAGED_KV_CACHE": "1",
+                                  "TURBO_QUANT_KV_CACHE": "1"}))
+        for name, env in caches:
+            with _env(env), http.request():
                 status, text, secs = _post(base, "/generate/", greedy)
-            check(status == 200, f"hybrid {name} /generate/ -> {status}: "
-                  f"{text[:300]}")
+            check(status == 200, f"hybrid {name} /generate/ -> "
+                  f"{status}: {text[:300]}")
             tokens[name] = json.loads(text)["tokens"]
             stats[f"generate_{name}_s"] = secs
+        http_counts, ran = _check_launches(n_attn, http, "hybrid, HTTP")
+        _zero_decode_counts()
         first = tokens["contiguous"]
         check(len(first) == PROMPT_LEN + NEW_TOKENS and first[:PROMPT_LEN]
               == prompt and all(0 <= t < vocab for t in first),
@@ -1876,19 +2173,50 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
         agree = sum(a == b for a, b in zip(tokens["int8"][PROMPT_LEN:],
                                            first[PROMPT_LEN:]))
         stats["int8_tokens_equal_fp32"] = agree
+        # in process: the eager step loop's tokens == the graph path's
+        model = NeuralNetworkModel.deserialize("smoke_hybrid", device=device,
+                                               optimizer=False)
+        for name, env in caches[2:]:
+            with _env(env), _graphs(False), ledger.request():
+                got = model.generate_tokens([prompt], block, NEW_TOKENS,
+                                            temperature=0)
+            check(got == tokens[name], f"hybrid {name}: the eager step "
+                  f"loop's tokens != the graph path's")
+        timing = {}
+        for mode, graphs in (("graph", True), ("eager", False)):
+            with ledger.request():
+                out, timing[mode] = _decode_timing(torch, model, prompt,
+                                                   block, graphs)
+            check(out == first, f"hybrid {mode} timing run != HTTP tokens")
+        stats["decode"] = timing
+        stats["tokens_per_s"] = timing["graph"]["tokens_per_s"]
+        stats["eager_tokens_per_s"] = timing["eager"]["tokens_per_s"]
         check(SS.gla_chunked.launches == 0,
               "the chunked kernel launched on the cached path")
-        stats["decode_attention_launches"] = DA.decode_attention.launches
-        check(DA.decode_attention.launches >= n_attn * 3 * NEW_TOKENS,
-              f"decode_attention launched {DA.decode_attention.launches} "
-              f"times for 3 x {NEW_TOKENS} tokens on the contiguous caches")
+        _check_launches(n_attn, ledger, "hybrid, in process")
+        stats.update(decode_ran=dict(ran), decode_launches=http_counts,
+                     dispatched_steps={"http": dict(http.steps),
+                                       "http_replayed": dict(http.replayed),
+                                       "in_process": dict(ledger.steps)},
+                     runner_stats=_runner_stats())
         say("hybrid", f"greedy {PROMPT_LEN}+{NEW_TOKENS}: identical twice, "
             f"paged == contiguous, paged int8 == int8, int8 "
-            f"{agree}/{NEW_TOKENS} equal to fp32; "
+            f"{agree}/{NEW_TOKENS} equal to fp32, the eager step loop == "
+            f"the graph path on int8, paged and paged int8 "
+            f"(contiguous: the timing runs); "
             f"{stats['generate_contiguous_s']:.3f} s a request (checkpoint "
             f"load included); the chunked kernel not launched (cached "
-            f"update_dense), decode kernel {DA.decode_attention.launches} "
-            f"launches, on {card}")
+            f"update_dense); HTTP requests: the device ran the decode "
+            f"kernels {ran} times (their run counters), {n_attn} a "
+            f"dispatched step ({http.steps}, {http.replayed} of them "
+            f"replays), the "
+            f"wrappers launched them {http_counts} times, on {card}")
+        for mode in ("graph", "eager"):
+            t = timing[mode]
+            say("hybrid", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS} "
+                f"{mode}: {t['s']:.4f} s = {t['tokens_per_s']:.1f} tokens/s "
+                f"(median of 3; prefill alone {t['prefill_s']:.4f} s); "
+                f"traced: {_trace_text(t)}")
 
         # /output/ on a short prompt: its argmax is the first greedy token
         short = prompt[:OUTPUT_PROMPT_LEN]
@@ -1925,23 +2253,6 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
             f"(checkpoint load included)")
 
         # in-process compute_output at 1 x 1024, kernel vs sequential oracle
-        model = NeuralNetworkModel.deserialize("smoke_hybrid", device=device,
-                                               optimizer=False)
-        torch.cuda.synchronize()
-        before = SS.gla_chunked.launches
-        t0 = time.monotonic()
-        direct = model.generate_tokens([prompt], block, NEW_TOKENS,
-                                       temperature=0)
-        torch.cuda.synchronize()
-        stats["generate_s"] = time.monotonic() - t0
-        stats["tokens_per_s"] = NEW_TOKENS / stats["generate_s"]
-        check(direct == first, "hybrid generate_tokens != HTTP generate")
-        check(SS.gla_chunked.launches == before,
-              "the chunked kernel launched on the cached path")
-        say("hybrid", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS}: "
-            f"{stats['generate_s']:.3f} s = {stats['tokens_per_s']:.1f} "
-            f"tokens/s (model loaded) on {card}")
-
         # where the int8 cache's greedy tokens first leave the fp32 ones,
         # and how close the fp32 logits' top two were there (recorded only)
         diverge = next((i for i, (a, b) in enumerate(zip(
@@ -2023,6 +2334,9 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
         check(launches == n_ssm * forwards, f"gla_chunked launched "
               f"{launches} times, expected {n_ssm * forwards}")
         stats["gla_launches"] = launches
+        stats["stats_pass"] = _hybrid_stats_pass(torch, model, rng, vocab)
+        check(SS.gla_chunked.launches == launches,
+              "the /stats/ pass launched the chunked kernel")
         stats.update(_profile_hybrid(torch, model, vocab, device))
         say("hybrid", f"one no-cache forward at {EVAL_BATCH} x {EVAL_BLOCK} "
             f"under torch.profiler: device busy {stats['profile_device_ms']:.2f} "
@@ -2041,6 +2355,60 @@ def phase_hybrid(torch, optimizer, card, device="cuda"):
         checkpoint.join_flushes()
     check(not thread.is_alive(), "server thread did not stop")
     return stats, launches
+
+
+HYBRID_STATS_SHAPE = (1, 256)
+
+
+def _hybrid_stats_pass(torch, model, rng, vocab):
+    """The hybrid's /stats/ pass (``_compute_stats``) on the card at
+    HYBRID_STATS_SHAPE: its SSM layers take the differentiable sequential
+    oracle (the chunked kernel has no backward), its attention layers the
+    fp32 flash kernels, forward and backward, and the cost the
+    cross-entropy kernels; every number finite."""
+    counters = _training_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    x, y = (rng.integers(0, vocab, HYBRID_STATS_SHAPE) for _ in range(2))
+    t0 = time.monotonic()
+    doc = model._compute_stats(x, y)
+    secs = time.monotonic() - t0
+    counts = {name: fn.launches - before[name]
+              for name, fn in counters.items()}
+    n_attn = len(model.arch.attn_layers)
+    check(counts == {"flash_attention_fwd": n_attn,
+                     "flash_attention_bwd": n_attn, "ce_forward": 1,
+                     "ce_backward": 1},
+          f"hybrid /stats/ pass launches {counts}")
+    _check_stats_doc(doc, model)
+    say("hybrid", f"/stats/ pass at {HYBRID_STATS_SHAPE}: {secs:.3f} s, "
+        f"launches {counts} (GLA by its differentiable oracle), every "
+        f"number finite")
+    return {"s": secs, "launches": counts}
+
+
+def _check_stats_doc(doc, model):
+    """A /stats/ document: one entry a non-softmax top-level layer, one a
+    parameter, every number in it finite."""
+    from penroz_tpu_torch.ops import modules as M
+    n_layers = sum(not isinstance(m, M.Softmax) for m in model.arch.layers)
+    check(isinstance(doc, dict) and len(doc["layers"]) == n_layers
+          and len(doc["weights"]) == len(model.arch.param_order),
+          f"/stats/ document has {len(doc['layers'])} layers and "
+          f"{len(doc['weights'])} weights, not {n_layers} and "
+          f"{len(model.arch.param_order)}")
+
+    def numbers(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                yield from numbers(x)
+        elif isinstance(v, list):
+            for x in v:
+                yield from numbers(x)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield v
+
+    check(all(math.isfinite(v) for v in numbers(doc)),
+          "a /stats/ number is not finite")
 
 
 def _profile_hybrid(torch, model, vocab, device):
@@ -2206,6 +2574,80 @@ def phase_training(torch, layers, optimizer, vocab, card):
         checkpoint.join_flushes()
     check(not thread.is_alive(), "server thread did not stop")
     return stats, launches
+
+
+def phase_stats(torch, card):
+    """GET /stats/ of the model phase 5 trained (refreshed at the end of
+    training from its last 8 x 1024 micro-batch): one entry a non-softmax
+    top-level layer and one a parameter, every number finite; an unknown
+    model 404, no model_id 422.  Then the refresh in process on a batch of
+    the same shape, timed (the instrumented pass, then the host
+    histograms), with its launches counted just around it: fp32 (the
+    parameters' dtype), the flash forward and backward once per attention
+    layer, cross-entropy forward and backward once."""
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    from penroz_tpu_torch.serve.app import create_app
+    from penroz_tpu_torch.utils import checkpoint
+
+    server = create_app(device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    stats = {}
+    try:
+        status, text, secs = _post(base, "/stats/?model_id=smoke_train",
+                                   None, method="GET")
+        check(status == 200, f"/stats/ -> {status}: {text[:300]}")
+        doc = json.loads(text)
+        model = NeuralNetworkModel.deserialize("smoke_train", device="cuda",
+                                               optimizer=False)
+        _check_stats_doc(doc, model)
+        stats["request_s"] = secs
+        status, _, _ = _post(base, "/stats/?model_id=nope", None,
+                             method="GET")
+        check(status == 404, f"/stats/ of an unknown model -> {status}")
+        status, _, _ = _post(base, "/stats/", None, method="GET")
+        check(status == 422, f"/stats/ without model_id -> {status}")
+        say("stats", f"GET /stats/ 200 in {secs:.3f} s: "
+            f"{len(doc['layers'])} layers, {len(doc['weights'])} weights, "
+            f"all finite; unknown model 404, no model_id 422")
+
+        rng = np.random.default_rng(5)
+        x, y = (rng.integers(0, TRAIN_VOCAB_USED, (TRAIN_BATCH, TRAIN_BLOCK))
+                for _ in range(2))
+        counters = _training_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        acts, _, _ = model.arch.stats_grads(
+            *(torch.as_tensor(a, device=model.device) for a in (x, y)))
+        torch.cuda.synchronize()
+        stats["pass_s"] = time.monotonic() - t0
+        del acts
+        t0 = time.monotonic()
+        local = model._compute_stats(x, y)
+        stats["refresh_s"] = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        n_attn = len(model.arch.attn_layers)
+        check(launches == {name: 2 * (n_attn if "flash" in name else 1)
+                           for name in counters},
+              f"two /stats/ passes launched {launches}")
+        _check_stats_doc(local, model)
+        stats["launches_a_pass"] = {k: v // 2 for k, v in launches.items()}
+        say("stats", f"refresh in process at {TRAIN_BATCH} x {TRAIN_BLOCK} "
+            f"fp32: {stats['refresh_s']:.3f} s (the instrumented pass "
+            f"{stats['pass_s']:.3f} s, the rest host histograms); a pass "
+            f"launches {stats['launches_a_pass']}, on {card}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    return stats
 
 
 # Kernel-name fragments of the port's training kernels in a profiler trace
@@ -2376,6 +2818,7 @@ def main(argv=None) -> int:
         train_stats, train_launches = phase_training(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304, card=card)
         launches.update(train_launches)
+        train_stats["stats"] = phase_stats(torch, card)
         train_stats["profile"] = phase_train_profile(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304)
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,

@@ -37,7 +37,7 @@ extern "C" int penroz_decode_attention(
     const void* v_scale, const void* lengths, int length, const void* slopes,
     void* out, int batch, int hq, int hkv, int t, int s, int d, int q_dtype,
     int window, float scale, float softcap, int tile_rows, int n_split,
-    int granule, void* stream) {
+    int granule, void* runs, void* stream) {
   decode_core::Params p = {};
   p.q = q;
   p.k = k;
@@ -59,6 +59,7 @@ extern "C" int penroz_decode_attention(
   p.softcap = softcap;
   p.n_split = n_split;
   p.granule = granule;
+  p.runs = static_cast<unsigned long long*>(runs);
   return decode_core::launch_cached<decode_core::Contiguous>(
       p, batch, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
 }

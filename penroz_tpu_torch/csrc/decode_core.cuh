@@ -131,7 +131,16 @@ struct Params {
   int* tickets;          // ragged, split: [tile], zero between launches
   int part_rows;         // the launch's tile rows
   int page_shift;        // paged: log2(page) when a power of two, else -1
+  unsigned long long* runs;  // or null: one added a launch that runs
 };
+
+// Block 0's thread 0 adds one to p.runs: what ran, a replay of a captured
+// launch included, where the wrapper counts what it launched.
+__device__ __forceinline__ void count_run(const Params& p) {
+  if (p.runs != nullptr && threadIdx.x == 0 &&
+      blockIdx.x + blockIdx.y + blockIdx.z == 0)
+    atomicAdd(p.runs, 1ull);
+}
 
 // Where a kernel's queries and keys live (its last template argument).
 struct Contiguous {
@@ -1229,6 +1238,7 @@ template <typename QT, typename KT, int R, typename L, int DCAP = 0>
 __global__ void __launch_bounds__(kDecodeThreads)
 decode_split_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_run(p);
   constexpr bool RAGGED = L::kRagged;
   const int y = RAGGED ? blockIdx.x : blockIdx.y;
   const int rt = y % p.row_tiles;
@@ -1354,6 +1364,7 @@ inline size_t fma_smem_bytes(int d, int pages) {
 template <typename KT, int DCAP, typename L>
 __global__ void __launch_bounds__(kFmaThreads)
 prefill_fma_kernel(const Params p) {
+  count_run(p);
   using S = Fma<DCAP>;
   constexpr bool PAGED = L::kPaged;
   constexpr bool RAGGED = L::kRagged;
@@ -1658,6 +1669,7 @@ inline size_t mma_smem_bytes(int d, int pages) {
 template <typename KT, int DCAP, typename L>
 __global__ void __launch_bounds__(kMmaThreads)
 prefill_mma_kernel(const Params p) {
+  count_run(p);
   using bf16 = __nv_bfloat16;
   using S = Mma<KT, DCAP>;
   constexpr bool PAGED = L::kPaged;

@@ -76,7 +76,7 @@ extern "C" int penroz_paged_decode_attention(
     const void* slopes, void* out, int batch, int hq, int hkv, int t, int d,
     int page, int pages_per_seq, long long pool_rows, int q_dtype, int window,
     float scale, float softcap, int tile_rows, int n_split, int granule,
-    void* stream) {
+    void* runs, void* stream) {
   decode_core::Params p = {};
   p.q = q;
   p.k = k;
@@ -102,6 +102,7 @@ extern "C" int penroz_paged_decode_attention(
   p.softcap = softcap;
   p.n_split = n_split;
   p.granule = granule;
+  p.runs = static_cast<unsigned long long*>(runs);
   return decode_core::launch_cached<decode_core::Paged>(
       p, batch, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
 }

@@ -3,16 +3,18 @@ facade (counterpart of penroz_tpu/models/model.py: serving and training).
 
 - :class:`CompiledArch` — a layer DSL built into an ``nn.Module`` tree whose
   ``state_dict`` keys equal the JAX package's flat parameter keys, with the
-  forward and its cost, one training epoch (``train_epoch``), the one-step
-  decode (``_decode_step``) and sampling (``_sample``, and
-  ``_sample_packed`` with positional keys for packed batches).
+  forward and its cost, one training epoch (``train_epoch``), the
+  instrumented ``/stats/`` pass (``stats_grads``) and sampling
+  (``_sample_packed``, with positional keys).
 - :class:`NeuralNetworkModel` — create, ``state_dict``, serialize /
   deserialize / delete over the ``PENROZC1`` container (optimizer state in
   the JAX package's optax leaf layout), training (``train_model``,
-  ``train_model_on_device``), generation
-  (``generate_tokens``/``generate_tokens_stream`` over ``_generate_iter``,
-  on the contiguous cache or, under ``PAGED_KV_CACHE=1``, the paged pool,
-  with the recurrent ``ssm`` child for hybrid models), the raw forward
+  ``train_model_on_device``, refreshing ``/stats/``), generation
+  (``generate_tokens``/``generate_tokens_stream`` over ``_generate_iter``:
+  chunks of up to ``PENROZ_DECODE_CHUNK`` steps through the process-wide
+  runners of models/decode_graphs.py, CUDA graphs on the card, on the
+  contiguous cache or, under ``PAGED_KV_CACHE=1``, the paged pool, with
+  the recurrent ``ssm`` child for hybrid models), the raw forward
   (``compute_output``), forward-only evaluation (``evaluate_model``) and
   the continuous-batching scheduler's unified block
   (``decode_mixed_step``).
@@ -21,9 +23,9 @@ Training runs on one device.  Out of this slice, and refused with a
 ValueError (HTTP 400) rather than ignored: LoRA adapters, the training
 worker process (``PENROZ_TRAIN_WORKER``), rematerialization
 (``PENROZ_REMAT``), meshes (``PENROZ_MESH_*``, ``PENROZ_FSDP``,
-``PENROZ_WUS``, ``PENROZ_SP_MODE``, ``PENROZ_PIPE_REMAT``), decode-priority
-micro-stepping (``PENROZ_DECODE_PRIORITY_MS``) and the ``/stats/``
-refresh (``PENROZ_STATS_INTERVAL``): see :func:`unported_training_options`.
+``PENROZ_WUS``, ``PENROZ_SP_MODE``, ``PENROZ_PIPE_REMAT``) and
+decode-priority micro-stepping (``PENROZ_DECODE_PRIORITY_MS``): see
+:func:`unported_training_options`.
 Evaluation runs on one device too; the meshes and sequence-parallel modes
 it would take are refused the same way (:func:`unported_evaluation_options`).
 Every route that runs attention refuses ``PENROZ_DISABLE_FLASH=1``, the
@@ -31,14 +33,15 @@ JAX package's switch to its plain attention path
 (:func:`unported_attention_options`).
 
 The JAX package fuses up to 128 decode steps per dispatch with
-``lax.scan`` over power-of-two chunks; eager PyTorch runs one step per
-loop iteration.  The tokens are the same: the cache fills to
-``block_size`` either way, and the overflow crop and re-prefill happen at
-the same token.
+``lax.scan`` over power-of-two chunks; the port dispatches the same chunks
+(``_decode_chunk_size``), each as that many replays of one captured step.
+The greedy tokens are the same: the cache fills to ``block_size`` either
+way, and the overflow crop and re-prefill happen at the same token.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import random
@@ -50,7 +53,7 @@ import torch
 from torch import nn
 
 from penroz_tpu_torch.device import resolve_device
-from penroz_tpu_torch.models import convert, dsl
+from penroz_tpu_torch.models import convert, decode_graphs, dsl
 from penroz_tpu_torch.models.convert import as_tensor, from_jax_state_dict
 from penroz_tpu_torch.models.dsl import Mapper
 from penroz_tpu_torch.ops import attention as attn_ops
@@ -58,6 +61,7 @@ from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops import losses
 from penroz_tpu_torch.ops import modules as M
 from penroz_tpu_torch.utils import checkpoint
+from penroz_tpu_torch.utils import stats as stats_lib
 
 log = logging.getLogger(__name__)
 
@@ -78,7 +82,6 @@ _UNPORTED_TRAINING_ENV = (
     ("PENROZ_SP_MODE", None, "a sequence-parallel attention mode"),
     ("PENROZ_PIPE_REMAT", None, "a pipeline remat schedule"),
     ("PENROZ_DECODE_PRIORITY_MS", None, "decode-priority micro-stepping"),
-    ("PENROZ_STATS_INTERVAL", None, "the /stats/ refresh"),
 )
 
 
@@ -119,6 +122,24 @@ def unported_evaluation_options() -> None:
     """Raise ValueError naming a mesh or sequence-parallel mode selected by
     the environment for ``/evaluate/``: the port evaluates on one device."""
     _refuse_unported(_EVAL_MESH_ENV)
+
+
+DECODE_CHUNK_ENV = "PENROZ_DECODE_CHUNK"
+
+
+def _chunk_budget() -> int:
+    """Decode steps fused per dispatch (PENROZ_DECODE_CHUNK, default 128)."""
+    return max(1, int(os.environ.get(DECODE_CHUNK_ENV, "128")))
+
+
+def _decode_chunk_size(remaining: int, cap: int) -> int:
+    """Pow-2 ceiling of the remaining tail, clipped by ``cap`` (a non-pow-2
+    cap floors back down) — the JAX package's bounded-program-set chunk
+    policy."""
+    chunk = min(1 << (remaining - 1).bit_length(), cap)
+    if chunk & (chunk - 1):
+        chunk = 1 << (chunk.bit_length() - 1)
+    return chunk
 
 
 def _max_generate_batch() -> int:
@@ -182,6 +203,7 @@ class CompiledArch(nn.Module):
         super().__init__()
         self.layers_dsl = layers
         self.layers = nn.ModuleList(dsl.build_modules(layers))
+        self.algos = [dsl.layer_algo(entry) for entry in layers]
         self.classification = any(isinstance(m, M.Softmax)
                                   for m in self.layers)
         self.attn_layers: list[M.CausalSelfAttention] = []
@@ -256,7 +278,9 @@ class CompiledArch(nn.Module):
         ``(activations, cost, new_kv)``: ``cost`` is None without
         ``targets``, and the cache is advanced by the tokens fed (in
         place) — except for a packed batch (``ragged_descs``), whose
-        lengths the descriptors carry.  ``training`` turns dropout on,
+        lengths the descriptors carry, and a cache bound to device
+        positions (``kv.at_positions``), whose host length the caller
+        mirrors.  ``training`` turns dropout on,
         drawing from ``generator``.  The cost reads the logits, the input
         of the first top-level softmax (or the last activation)."""
         ctx = M.Ctx(kv=kv, training=training, generator=generator,
@@ -277,7 +301,8 @@ class CompiledArch(nn.Module):
                                        targets)
                 if targets is not None else None)
         new_kv = kv
-        if kv is not None and ragged_descs is None:
+        if (kv is not None and ragged_descs is None
+                and kv.positions is None):
             new_kv = kv.advanced(tokens.shape[-1])
         return acts, cost, new_kv
 
@@ -338,35 +363,37 @@ class CompiledArch(nn.Module):
                     if named else torch.zeros(0)
         return cost_sum * inv, ratios
 
-    def _decode_step(self, tokens, kv, generator, temp, *, greedy, top_k):
-        """Feed tokens through the stack with the KV cache and sample the
-        next token on the device."""
-        acts, _, new_kv = self.forward(tokens, kv=kv, skip_softmax=True)
-        logits = acts[-1]
-        if logits.ndim == 3:
-            logits = logits[:, -1, :]
-        tok = self._sample(logits, generator, temp, greedy=greedy,
-                           top_k=top_k)
-        return tok[:, None], new_kv
+    def stats_grads(self, x, y):
+        """Activations, activation gradients and weight gradients of one
+        batch — the ``/stats/`` inputs (JAX ``stats_grads``).  One forward
+        in the parameters' dtype with ``training=False`` (no dropout) and
+        ``skip_softmax=True``; every top-level activation keeps its
+        gradient (``retain_grad``, the reference's own method, where the
+        JAX package differentiates zero deltas added to each); the cost
+        comes from the logits and one ``backward()`` fills the rest.  The
+        SSM layers take their differentiable oracle, as the gradient needs
+        (ops/ssm.py::gla_full).  Returns ``(acts, act_grads,
+        weight_grads)``, the weight gradients in :attr:`param_order`; a
+        tensor the cost does not reach has a zero gradient, as in JAX."""
+        params = {k: p.detach().requires_grad_(True)
+                  for k, p in self.named_parameters()}
+        with torch.enable_grad():
+            acts, cost, _ = torch.func.functional_call(
+                self, params, (x, y), {"skip_softmax": True})
+            for a in acts:
+                if a.requires_grad:
+                    a.retain_grad()
+            cost.backward()
+
+        def grad_of(t):
+            return (t.grad if t.grad is not None
+                    else torch.zeros_like(t)).detach()
+
+        return ([a.detach() for a in acts], [grad_of(a) for a in acts],
+                [grad_of(params[k]) for k in self.param_order])
 
     @staticmethod
-    def _sample(logits, generator, temp, *, greedy, top_k):
-        """(B,) next tokens from (B, V) logits: argmax | top-k |
-        categorical, with the temperature floored at 1e-6."""
-        logits = logits.to(torch.float32)
-        if greedy:
-            return torch.argmax(logits, dim=-1)
-        logits = logits / max(float(temp), 1e-6)
-        if top_k is not None:
-            vals, idx = torch.topk(logits, int(top_k), dim=-1)
-            choice = torch.multinomial(torch.softmax(vals, dim=-1), 1,
-                                       generator=generator)
-            return torch.gather(idx, -1, choice)[..., 0]
-        return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                 generator=generator)[..., 0]
-
-    @staticmethod
-    def _sample_packed(logits, seed: int, row_ids, positions, temp, top_k):
+    def _sample_packed(logits, seed, row_ids, positions, temp, top_k):
         """(Tp,) tokens from packed (Tp, V) logits with a POSITIONAL key per
         slot: the Gumbel noise of candidate ``c`` is a counter-based hash
         of ``(seed, row, position, c)``, so a (row, position) pair draws
@@ -375,8 +402,14 @@ class CompiledArch(nn.Module):
         rng, row), position)`` keys (the numbers differ: JAX's generator
         is not reproduced).  Gumbel-max draws exactly from
         softmax(logits / temp), top-k restricted when given.  Padding
-        slots (``row_ids < 0``) draw as row 0 and are discarded."""
-        logits = logits.to(torch.float32) / max(float(temp), 1e-6)
+        slots (``row_ids < 0``) draw as row 0 and are discarded.  ``seed``
+        and ``temp`` are host numbers, or device scalars (int64, fp32) that
+        a captured step reads at replay."""
+        logits = logits.to(torch.float32)
+        if isinstance(temp, torch.Tensor):
+            logits = logits / torch.clamp(temp, min=1e-6)
+        else:
+            logits = logits / max(float(temp), 1e-6)
         row = torch.clamp(row_ids, min=0).to(torch.int64)[:, None]
         pos = torch.clamp(positions, min=0).to(torch.int64)[:, None]
         if top_k is not None:
@@ -404,12 +437,14 @@ def _mix32(a, b, c):
     return x ^ (x >> 16)
 
 
-def _hash_uniform(seed: int, row, pos, cand):
+def _hash_uniform(seed, row, pos, cand):
     """Uniform draws in (0, 1), fp32, one per broadcast (row, position,
     candidate), from a counter-based hash of ``seed`` and the three (the
-    seed enters as a host int: no host-to-device copy)."""
-    h = _mix32(_mix32(int(seed) & 0xFFFFFFFF, row, pos),
-               cand.to(torch.int64), 0x27D4EB2F)
+    seed enters as a host int, no host-to-device copy, or as an int64
+    device scalar)."""
+    seed = (seed if isinstance(seed, torch.Tensor) else int(seed)) \
+        & 0xFFFFFFFF
+    h = _mix32(_mix32(seed, row, pos), cand.to(torch.int64), 0x27D4EB2F)
     return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
@@ -598,7 +633,10 @@ class NeuralNetworkModel:
         JAX package does, although an epoch consumes ``num_steps``
         buffers.  The compute dtype is :func:`train_compute_dtype`;
         update ratios are sampled every ``max(1, epochs // 100)`` epochs;
-        a checkpoint is written when 10 s have passed since the last."""
+        a checkpoint is written when 10 s have passed since the last, and
+        with it the ``/stats/`` document is refreshed from the epoch's last
+        micro-batch when ``PENROZ_STATS_INTERVAL`` seconds (default 60)
+        have passed since the last refresh, and always at the end."""
         from penroz_tpu_torch.data.loaders import Loader
         try:
             unported_training_options()
@@ -616,6 +654,10 @@ class NeuralNetworkModel:
             sample_every = max(1, epochs // 100)
             generator = torch.Generator(device=self.device).manual_seed(0)
             last_save = time.monotonic()
+            last_stats = time.monotonic()
+            stats_interval = float(
+                os.environ.get("PENROZ_STATS_INTERVAL", "60"))
+            last_batch = None  # host micro-batch for /stats/
             for epoch in range(epochs):
                 t0 = time.monotonic()
                 long_training = t0 - last_save >= 10
@@ -624,6 +666,7 @@ class NeuralNetworkModel:
                     x, y = loader.next_batch()
                     xs.append(x.reshape(batch_size, block_size))
                     ys.append(y.reshape(batch_size, block_size))
+                last_batch = (xs[-1], ys[-1])
                 xs = torch.from_numpy(np.stack(xs)).to(self.device,
                                                        torch.int64)
                 ys = torch.from_numpy(np.stack(ys)).to(self.device,
@@ -646,12 +689,16 @@ class NeuralNetworkModel:
                 log.info("Epoch %d: cost=%.4f %.0f tokens/sec", epoch + 1,
                          cost, buffer_size / max(duration, 1e-9))
                 if long_training:
-                    self._record_overall_progress()
+                    refresh = time.monotonic() - last_stats >= stats_interval
+                    self._record_overall_progress(
+                        last_batch if refresh else None)
+                    if refresh:
+                        last_stats = time.monotonic()
                     self.serialize()
                     last_save = time.monotonic()
             self.status = {"code": "Trained",
                            "message": f"Trained {epochs} epoch(s)"}
-            self._record_overall_progress()
+            self._record_overall_progress(last_batch)
             self.serialize()
         except Exception as e:  # noqa: BLE001 — recorded, then re-raised
             self.status = {"code": "Error", "message": str(e)}
@@ -661,10 +708,10 @@ class NeuralNetworkModel:
                 log.exception("Failed to persist error status")
             raise
 
-    def _record_overall_progress(self):
+    def _record_overall_progress(self, last_batch):
         """Fold the run's progress into the overall average-cost history
-        (JAX ``_record_overall_progress``; ``stats`` stays as it is: the
-        ``/stats/`` refresh is not ported)."""
+        and, given ``last_batch`` ``(x, y)``, refresh ``/stats/`` from it
+        (JAX ``_record_overall_progress``)."""
         if self.progress:
             avg_progress_cost = (sum(p["cost"] for p in self.progress)
                                  / len(self.progress))
@@ -673,6 +720,26 @@ class NeuralNetworkModel:
             self.avg_cost_history.append(self.avg_cost)
             if len(self.avg_cost_history) > 100:
                 self.avg_cost_history.pop(random.randint(1, 98))
+        if last_batch is not None:
+            self.stats = self._compute_stats(*last_batch)
+
+    def _compute_stats(self, x, y) -> dict:
+        """The ``/stats/`` document of one (batch, length) micro-batch of
+        token ids and targets (JAX ``_compute_stats``): the instrumented
+        pass (``CompiledArch.stats_grads``), then the numpy histograms of
+        utils/stats.py."""
+        x, y = (torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+                for a in (x, y))
+        acts, act_grads, weight_grads = self.arch.stats_grads(x, y)
+
+        def host(ts):
+            return [t.to("cpu", torch.float32).numpy() for t in ts]
+
+        named = dict(self.arch.named_parameters())
+        weights = host(named[k].detach() for k in self.arch.param_order)
+        return stats_lib.build_stats(self.arch.algos, host(acts),
+                                     host(act_grads), weights,
+                                     host(weight_grads))
 
     @classmethod
     def train_model_on_device(cls, model_id, device, dataset_id, shard,
@@ -708,58 +775,119 @@ class NeuralNetworkModel:
     @torch.inference_mode()
     def _generate_iter(self, context: list[int], block_size: int,
                        max_new_tokens: int, temperature: float,
-                       top_k: Optional[int]):
-        """Yield new tokens one at a time, appending each to ``context``.
+                       top_k: Optional[int], ramp: bool = False):
+        """Yield new tokens one at a time, appending each to ``context``
+        (JAX ``_generate_iter``).
 
-        Prefill the last ``block_size`` tokens of the context, then decode
-        one token per step until the cache holds ``block_size`` entries;
-        then crop the context to ``context[-block_size:]`` and prefill
-        again (the JAX package's overflow path)."""
+        Chunked, pipelined decode through a process-wide runner
+        (models/decode_graphs.py; CUDA graphs on the card): one (re)prefill
+        dispatch, then up to ``PENROZ_DECODE_CHUNK`` decode-and-sample
+        steps a dispatch.  The next chunk is dispatched before the previous
+        chunk's tokens are read (an async copy to pinned memory and an
+        event); the last sampled token stays on the device as the next
+        chunk's input, and a chunk dispatched past a ``stop_token`` is
+        abandoned.  When the cache holds ``block_size`` entries the
+        context is cropped to ``context[-block_size:]`` and prefilled again
+        (the reference's overflow path); that needs the host context, so
+        the pipeline drains there.  A chunk is the power-of-two ceiling of
+        the tokens still wanted, clipped by the budget, by the room left in
+        the block and, with ``ramp`` (streaming), by a budget that starts
+        at 8 and doubles each dispatch; the overshoot is discarded."""
         if not context:
             raise ValueError("generation needs at least one prompt token")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         greedy, temp = self._sampling_setup(temperature)
-        kv = KV.create_kv_state(self.arch.kv_specs, 1, block_size,
-                                self.dtype, device=self.device,
-                                ssm_specs=self.arch.ssm_specs)
-        produced = 0
-        last = None
-        while produced < max_new_tokens:
-            if kv.length == 0 or kv.length >= block_size:
-                kv.reset()
-                feed = context[-block_size:]
-                x = torch.tensor([feed], dtype=torch.int64,
-                                 device=self.device)
-            else:
-                x = last
-            last, kv = self.arch._decode_step(x, kv, self._generator, temp,
-                                              greedy=greedy, top_k=top_k)
-            tok = int(last[0, 0])
-            context.append(tok)
-            produced += 1
-            yield tok
+        chunk_budget = _chunk_budget()
+        ramp_budget = 8 if ramp else chunk_budget
+        limit = self.arch.max_positions
+        seed = None if greedy else torch.randint(
+            0, 2 ** 31 - 1, (), generator=self._generator,
+            device=self.device)
+        with decode_graphs.runner(self.arch, self.dtype, block_size, greedy,
+                                  top_k, self.device) as runner:
+            runner.start(self.arch, seed, temp)
+            cache_len = 0
+            produced = 0    # tokens yielded to the caller
+            dispatched = 0  # tokens sampled on the device (a chunk ahead)
+            pending = None  # (host tokens, event, count) to read
+
+            def flush(entry):
+                nonlocal produced
+                host, event, count = entry
+                if event is not None:
+                    event.synchronize()
+                for tok in host[0, :count].tolist():
+                    context.append(tok)
+                    produced += 1
+                    yield tok
+                    if produced >= max_new_tokens:
+                        return
+
+            while produced < max_new_tokens:
+                new_pending = None
+                if dispatched < max_new_tokens:
+                    at_boundary = cache_len == 0 or cache_len >= block_size
+                    if at_boundary and pending is not None:
+                        # the re-prefill reads the host context: drain first
+                        yield from flush(pending)
+                        pending = None
+                        if produced >= max_new_tokens:
+                            break
+                    if at_boundary:
+                        feed = context[-block_size:]
+                        toks = runner.prefill(feed, len(context) - len(feed))
+                        cache_len, count = len(feed), 1
+                    else:
+                        room = block_size - cache_len
+                        remaining = max_new_tokens - dispatched
+                        chunk = _decode_chunk_size(
+                            remaining, min(chunk_budget, ramp_budget, room))
+                        count = min(chunk, remaining)
+                        if limit is not None and cache_len + count > limit:
+                            # (the overshoot's positions clamp, as JAX's
+                            # gather does; its tokens are discarded)
+                            raise ValueError(
+                                f"positions up to {cache_len + count - 1} "
+                                f"exceed the model's {limit} position "
+                                f"embeddings; use a smaller block_size")
+                        toks = runner.decode(chunk)
+                        cache_len += chunk
+                        ramp_budget = min(ramp_budget * 2, chunk_budget)
+                    new_pending = (*runner.to_host(toks), count)
+                    dispatched += count
+                # reading the previous chunk overlaps the one just queued
+                if pending is not None:
+                    yield from flush(pending)
+                pending = new_pending
+            if pending is not None and produced < max_new_tokens:
+                yield from flush(pending)
 
     def generate_tokens(self, input, block_size, max_new_tokens,
                         temperature=1.0, top_k=None, stop_token=None):
         """Autoregressive generation; returns prompt + generated ids (the
         stop token, when hit, included)."""
         context = self._prompt_tokens(input)
-        for tok in self._generate_iter(context, block_size, max_new_tokens,
-                                       temperature, top_k):
-            if stop_token is not None and tok == stop_token:
-                break
+        with contextlib.closing(self._generate_iter(
+                context, block_size, max_new_tokens, temperature,
+                top_k)) as tokens:
+            for tok in tokens:
+                if stop_token is not None and tok == stop_token:
+                    break
         return context
 
     def generate_tokens_stream(self, input, block_size, max_new_tokens,
                                temperature=1.0, top_k=None, stop_token=None):
-        """Streaming variant yielding each new token."""
+        """Streaming variant yielding each new token (chunks ramp up from
+        8 steps, so the first tokens come early)."""
         context = self._prompt_tokens(input)
-        for tok in self._generate_iter(context, block_size, max_new_tokens,
-                                       temperature, top_k):
-            yield tok
-            if stop_token is not None and tok == stop_token:
-                return
+        with contextlib.closing(self._generate_iter(
+                context, block_size, max_new_tokens, temperature, top_k,
+                ramp=True)) as tokens:
+            for tok in tokens:
+                yield tok
+                if stop_token is not None and tok == stop_token:
+                    return
 
     @torch.inference_mode()
     def decode_mixed_step(self, kv, descs, tok_lit, tok_src, positions,
@@ -901,4 +1029,7 @@ class NeuralNetworkModel:
 
     @classmethod
     def delete(cls, model_id: str):
+        """Remove the checkpoint, and the idle decode runners: one may
+        hold the model's weights."""
         checkpoint.delete(model_id)
+        decode_graphs.drop_idle()

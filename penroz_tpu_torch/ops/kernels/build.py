@@ -109,6 +109,42 @@ def function(lib: ctypes.CDLL, name: str, argtypes: list):
     return fn
 
 
+class RunCounter:
+    """A device counter, one a device, that a kernel adds one to each time
+    a launch of it runs (csrc/decode_core.cuh ``count_run``): a replay of
+    a captured launch too, which the wrapper's ``launches`` (what it
+    launched) does not see."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict = {}
+
+    def pointer(self, device) -> int:
+        """The counter's address on ``device``, made (zero) at first use,
+        which must not be under a graph capture."""
+        with self._lock:
+            t = self._counts.get(device)
+            if t is None:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError("a run counter's first use is under "
+                                       "a graph capture")
+                t = self._counts[device] = torch.zeros(
+                    (), dtype=torch.int64, device=device)
+        return t.data_ptr()
+
+    def read(self) -> int:
+        """Runs counted on every device so far (after a synchronize)."""
+        with self._lock:
+            for device in self._counts:
+                torch.cuda.synchronize(device)
+            return sum(int(t) for t in self._counts.values())
+
+    def reset(self):
+        with self._lock:
+            for t in self._counts.values():
+                t.zero_()
+
+
 def stream(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream

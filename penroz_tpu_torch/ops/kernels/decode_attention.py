@@ -19,7 +19,9 @@ span: its descriptors stay on the device), and :func:`split_attend` with
 anything it cannot take; for CPU tensors it runs
 :func:`decode_attention_reference`, the jnp oracle's semantics in PyTorch
 (penroz_tpu/ops/attention.py ``cached_attention``).  Nothing falls back
-from the card to the plain version.
+from the card to the plain version.  ``decode_attention.launches`` counts
+the launches the wrapper makes (none while a graph is captured),
+``decode_attention.runs`` the launches that ran, replays included.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ _SLOPES: dict = {}  # (slopes bytes, device) -> device tensor
 _SM_COUNT: dict = {}  # device index -> multiprocessor count
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
 
 # The kernels' finite mask value.
 NEG_INF = -1e30
@@ -430,11 +432,14 @@ def decode_attention(q, k_full, v_full, offset, length, k_scale=None,
                  int(window) if window is not None else 0, sm_scale,
                  float(softcap) if softcap is not None else 0.0,
                  plan.tile_rows, plan.n_split, plan.granule,
+                 decode_attention.runs.pointer(q.device),
                  build.stream(q))
     build.check(lib, err, "decode_attention")
-    with _COUNT_LOCK:
-        decode_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # else recorded
+        with _COUNT_LOCK:
+            decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.runs = build.RunCounter()

@@ -30,7 +30,7 @@ _COUNT_LOCK = threading.Lock()
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2)
 
 
 def gather_pages(flat, block_table, page_size: int, rows_of=None):
@@ -210,11 +210,14 @@ def paged_decode_attention(q, flat_k, flat_v, block_table, page_size: int,
                  out.data_ptr(), B, Hq, Hkv, T, D, int(page_size),
                  pages_per_seq, rows, build.DTYPE_CODES[q.dtype], win,
                  sm_scale, cap, plan.tile_rows, plan.n_split, plan.granule,
+                 paged_decode_attention.runs.pointer(q.device),
                  build.stream(q))
     build.check(lib, err, name)
-    with _COUNT_LOCK:
-        paged_decode_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # else recorded
+        with _COUNT_LOCK:
+            paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.runs = build.RunCounter()

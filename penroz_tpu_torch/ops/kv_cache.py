@@ -10,6 +10,14 @@ return new states; these update their buffers and length IN PLACE
 return ``self``), which is what eager PyTorch wants — no copy of the cache
 per step.
 
+Device positions (the captured decode step of models/decode_graphs.py):
+while a state is bound to :class:`StepPositions` (``at_positions``), every
+append writes at the bound device positions (``index_copy_``; paged rows
+computed on the device through the block table, which the host filled for
+the whole chunk before the dispatch) and returns the bound device length,
+and nothing reads or moves the host ``length``; the host mirrors it after
+the chunk (``advanced``).
+
 Every variant may carry an ``ssm`` child: the fixed-size recurrent state of
 a hybrid model's ``ssm`` layers (ops/ssm.py::SSMState), attached by
 ``create_kv_state(..., ssm_specs=...)``, emptied by ``reset`` and counted
@@ -36,6 +44,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -121,10 +130,28 @@ def _dequantize_int8(q, scale, dtype):
     return (q.to(torch.float32) * scale).to(dtype)
 
 
+class StepPositions(NamedTuple):
+    """Where one step's T fed tokens go, on the device: ``index`` (T,)
+    int64 cache positions and ``length`` (B,) int32, the valid length
+    after the append."""
+    index: torch.Tensor
+    length: torch.Tensor
+
+
+def step_positions(pos, T: int, batch: int) -> StepPositions:
+    """:class:`StepPositions` of T tokens fed at the (1,) int64 device
+    position ``pos`` (the cache length before the step), for ``batch``
+    rows sharing it."""
+    index = pos if T == 1 else pos + torch.arange(T, device=pos.device)
+    length = (pos + T).to(torch.int32).expand(batch)
+    return StepPositions(index, length)
+
+
 class KVState:
     """Preallocated KV buffers: per-layer (B, Hkv, S_max, D), updated in
     place.  ``length`` is a host int: the contiguous path never needs a
-    device read to know where to write."""
+    device read to know where to write (under :meth:`at_positions` the
+    bound device positions take its place)."""
 
     quantized = False
 
@@ -133,6 +160,13 @@ class KVState:
         self.v = list(v)
         self._length = int(length)
         self.ssm = None  # optional ops.ssm.SSMState (hybrid models)
+        self.positions = None  # StepPositions while a step is bound
+
+    def at_positions(self, positions):
+        """Bind (a :class:`StepPositions`) or unbind (None) the device
+        positions the next appends write at; returns ``self``."""
+        self.positions = positions
+        return self
 
     @property
     def length(self) -> int:
@@ -152,28 +186,41 @@ class KVState:
     def max_len(self) -> int:
         return self.k[0].shape[2] if self.k else 0
 
-    def _slot(self, new):
-        start, stop = self._length, self._length + new.shape[2]
+    def _store(self, layer_idx: int, pairs):
+        """Write each ``(buffers, new)`` pair's (B, H, T, ·) rows at the
+        current length (or the bound device positions); return the valid
+        length after the append (a host int, or the bound (B,) device
+        length)."""
+        T = pairs[0][1].shape[2]
+        if self.positions is not None:
+            for bufs, new in pairs:
+                bufs[layer_idx].index_copy_(2, self.positions.index, new)
+            return self.positions.length
+        start, stop = self._length, self._length + T
         if stop > self.max_len:
-            raise ValueError(f"KV append of {new.shape[2]} token(s) at "
-                             f"length {start} exceeds capacity "
-                             f"{self.max_len}")
-        return slice(start, stop)
+            raise ValueError(f"KV append of {T} token(s) at length {start} "
+                             f"exceeds capacity {self.max_len}")
+        for bufs, new in pairs:
+            bufs[layer_idx][:, :, start:stop] = new
+        return stop
 
     def append(self, layer_idx: int, k_new, v_new):
         """Write new K/V at the current length; return the full buffers and
         the length after the append.  Does NOT advance ``length`` — the
         model advances it once per step (``advanced``) after every layer
         has appended."""
-        slot = self._slot(k_new)
-        self.k[layer_idx][:, :, slot] = k_new
-        self.v[layer_idx][:, :, slot] = v_new
-        return self.k[layer_idx], self.v[layer_idx], slot.stop
+        length = self._store(layer_idx, ((self.k, k_new), (self.v, v_new)))
+        return self.k[layer_idx], self.v[layer_idx], length
 
     def advanced(self, num_tokens: int):
         """Advance the valid length by ``num_tokens`` (in place)."""
         self._length += int(num_tokens)
         return self
+
+    def reserve(self, length: int):
+        """Make room for appends up to ``length`` before they are
+        dispatched at device positions (a contiguous cache always has
+        it)."""
 
     def reset(self):
         """Empty the cache (in place; stale rows are never attended)."""
@@ -228,13 +275,12 @@ class QuantKVState(KVState):
         The consumer passes the scales to ``cached_attention`` so that
         dequantization happens per tile inside the kernel — no
         full-precision copy of the cache is ever made."""
-        slot = self._slot(k_new)
         qk, sk = _quantize_int8(k_new)
         qv, sv = _quantize_int8(v_new)
-        for buf, new in ((self.k, qk), (self.v, qv),
-                         (self.k_scale, sk), (self.v_scale, sv)):
-            buf[layer_idx][:, :, slot] = new
-        return self.k[layer_idx], self.v[layer_idx], slot.stop
+        length = self._store(layer_idx, ((self.k, qk), (self.v, qv),
+                                         (self.k_scale, sk),
+                                         (self.v_scale, sv)))
+        return self.k[layer_idx], self.v[layer_idx], length
 
     def append(self, layer_idx: int, k_new, v_new):
         """Store + return the dequantized full cache (the oracle of
@@ -322,6 +368,7 @@ class PagedKVState(KVState):
         self.device = (self.k[0].device if self.k
                        else torch.device(device or "cpu"))
         self.block_table = torch.as_tensor(self.table, device=self.device)
+        self.positions = None
         self._length = 0
         self.ragged_lengths = None
         self.next_free = 0
@@ -376,7 +423,13 @@ class PagedKVState(KVState):
         return int(self.table.size)
 
     def _upload_table(self):
-        self.block_table.copy_(torch.from_numpy(self.table))
+        """Copy the host table into ``block_table`` (same address), in
+        stream order and without waiting: from a pinned copy on the card,
+        so a chunk can be allocated while the previous one runs."""
+        table = torch.from_numpy(self.table)
+        if self.block_table.is_cuda:
+            table = table.pin_memory()
+        self.block_table.copy_(table, non_blocking=True)
         self._rows_key = None
 
     def _allocate(self, new_length):
@@ -400,6 +453,11 @@ class PagedKVState(KVState):
         self.assigned_pages = needed
         self._upload_table()
 
+    def reserve(self, length: int):
+        """Hand out the pages covering ``[0, length)`` now, so a chunk of
+        steps at device positions finds them in the table."""
+        self._allocate(length)
+
     def _note_overflow(self, T: int):
         over = int(np.max(self.length)) + int(T) - self.max_len
         if over > 0:
@@ -410,8 +468,18 @@ class PagedKVState(KVState):
         """Allocate pages for ``T`` new tokens; return the flat pool row of
         each (batch, token), b-major, on the pool's device, and the new
         valid length.  A position past ``max_len`` clamps onto the last
-        logical page, as the JAX allocator does."""
+        logical page, as the JAX allocator does.  Under bound device
+        positions nothing is allocated (the pages are already in the
+        table; an unassigned one reads as page 0) and the rows come from
+        the device table."""
         P, S = self.page_size, self.pages_per_seq
+        if self.positions is not None:
+            index = self.positions.index
+            page = torch.clamp(index // P, max=S - 1)
+            phys = torch.clamp(self.block_table[:, page], min=0)
+            rows = phys.to(torch.int64) * P + index % P
+            return rows.reshape(-1), self.positions.length
+        self._note_overflow(T)
         new_length = self.length + T
         self._allocate(new_length)
         if self.ragged_lengths is not None:
@@ -446,7 +514,6 @@ class PagedKVState(KVState):
         once per step).  Precondition ``length + T <= max_len``: past it
         the write clamps onto the last page (counted by
         :func:`record_pool_drop`), as in the JAX package."""
-        self._note_overflow(k_new.shape[2])
         rows, new_length = self._allocate_rows(k_new.shape[2])
         self._scatter(self.k, layer_idx, rows, self._to_rows(k_new))
         self._scatter(self.v, layer_idx, rows, self._to_rows(v_new))
@@ -613,7 +680,6 @@ class QuantPagedKVState(PagedKVState):
 
     def append_rows(self, layer_idx: int, k_new, v_new):
         """Quantize, then scatter values and scales (same rows)."""
-        self._note_overflow(k_new.shape[2])
         qk, sk = _quantize_int8(k_new)
         qv, sv = _quantize_int8(v_new)
         rows, new_length = self._allocate_rows(k_new.shape[2])

@@ -116,15 +116,19 @@ class Embedding(Module):
 
 
 class PositionEmbedding(Embedding):
-    """Learned position embedding indexed from the context offset (per
-    token for a packed batch: positions are checked against the table
-    when the batch is planned, not here, which would read the device)."""
+    """Learned position embedding indexed from the context offset.  Device
+    positions (a packed batch's, a captured decode step's) are checked
+    against the table where the host plans them, not here, which would
+    read the device; past the table they clamp to its last row, as the
+    JAX package's gather does (a discarded overshoot step's)."""
 
     def forward(self, x, ctx):
         num_positions = x.shape[-1]
         offset = ctx.offset()
         if isinstance(offset, torch.Tensor):
-            return F.embedding(offset, self.weight)
+            return F.embedding(torch.clamp(offset,
+                                           max=self.num_embeddings - 1),
+                               self.weight)
         offset = int(offset)
         if offset + num_positions > self.num_embeddings:
             raise ValueError(f"positions up to {offset + num_positions - 1} "

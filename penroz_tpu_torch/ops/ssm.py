@@ -96,25 +96,39 @@ class SSMState:
         self.ckpt_pos[row].fill_(-1)
         return self
 
-    def update_dense(self, layer_idx: int, q, k, v, g, start: int):
+    def update_dense(self, layer_idx: int, q, k, v, g, start):
         """Token-sequential scan over T for B rows at position offset
         ``start`` (the cache length, shared by the rows; the JAX package's
         per-row offsets serve the scheduler's rows, not ported); updates
-        this layer's state and checkpoints in place and returns y
-        (B, T, H, dv) fp32."""
-        T = q.shape[1]
+        this layer's state and checkpoints in place (the tensors keep
+        their addresses, as a captured step needs) and returns y
+        (B, T, H, dv) fp32.  ``start`` is a host int, or the (1, T) int64
+        device positions of a captured step, which place the checkpoints
+        at device indices."""
+        B, T = q.shape[0], q.shape[1]
         C = self.ckpt_slots
         q, k, v, g = (t.float() for t in (q, k, v, g))
-        s = self.state[layer_idx]
+        state = self.state[layer_idx]
         ck = self.ckpt[layer_idx]
+        if isinstance(start, torch.Tensor):  # the checkpoints' keys
+            keys = start.reshape(-1) + 1
+            slots = keys % C
+            keys = keys.to(torch.int32)
+        s = state
         ys = []
         for t in range(T):
             s = g[:, t, :, None, None] * s + _outer(k[:, t], v[:, t])
             ys.append(torch.einsum("bhk,bhkv->bhv", q[:, t], s))
-            length = int(start) + t + 1  # the checkpoint's key
-            ck[:, length % C] = s
-            self.ckpt_pos[:, length % C] = length
-        self.state[layer_idx] = s
+            if isinstance(start, torch.Tensor):
+                slot = slots[t:t + 1]
+                ck.index_copy_(1, slot, s[:, None])
+                self.ckpt_pos.index_copy_(
+                    1, slot, keys[t:t + 1].view(1, 1).expand(B, 1))
+            else:
+                length = int(start) + t + 1  # the checkpoint's key
+                ck[:, length % C] = s
+                self.ckpt_pos[:, length % C] = length
+        state.copy_(s)
         return torch.stack(ys, dim=1)
 
 
@@ -138,8 +152,11 @@ def gla_full_reference(q, k, v, g):
 
 def gla_full(q, k, v, g, training: bool = False):
     """Full causal gated linear attention without a cache.  Inference on
-    the card runs the chunked CUDA kernel; training and the CPU run the
-    differentiable sequential oracle (the kernel has no backward)."""
-    if not training and q.device.type == "cuda":
+    the card runs the chunked CUDA kernel; training, any call that needs a
+    gradient (the ``/stats/`` pass) and the CPU run the differentiable
+    sequential oracle (the kernel has no backward)."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, g))
+    if not training and not needs_grad and q.device.type == "cuda":
         return ssm_scan.gla_chunked(q, k, v, g)
     return gla_full_reference(q, k, v, g)

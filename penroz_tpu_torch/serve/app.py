@@ -6,9 +6,9 @@ Routes: ``POST /model/``, ``POST /generate/`` (JSON, or ``stream: true``
 with one token per line), ``POST /generate_batch/``, ``POST /output/``
 (the raw forward and its cost), ``POST /evaluate/`` (forward-only cost over
 a dataset), ``POST /decode/``, ``POST /tokenize/``, ``PUT /train/``,
-``GET /progress/?model_id=…``,
-``GET /serving_stats/``, ``DELETE /model/?model_id=…`` and
-``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
+``GET /progress/?model_id=…``, ``GET /stats/?model_id=…`` (the training
+diagnostics, ``null`` before any training), ``GET /serving_stats/``,
+``DELETE /model/?model_id=…`` and ``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
 missing or mistyped field 422, bad value 400, a model already training
 409, anything else 500 with ``{"detail": "Please refer to server logs"}``.
 
@@ -379,6 +379,14 @@ class _Handler(BaseHTTPRequestHandler):
             "status": data.get("status"),
         })
 
+    def model_stats(self, query):
+        """The ``/stats/`` document training refreshed (JAX
+        ``model_stats``; the MoE routing key is not ported with the
+        ``moe`` algo), read from the checkpoint's metadata."""
+        model_id = self._model_id(query)
+        log.info("Requesting stats for model %s", model_id)
+        self._send_json(200, checkpoint.load(model_id, arrays=()).get("stats"))
+
     def delete_model(self, query):
         model_id = self._model_id(query)
         log.info("Requesting deletion of model %s", model_id)
@@ -391,6 +399,7 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 _GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress,
+        "/stats/": _Handler.model_stats,
         "/serving_stats/": _Handler.serving_stats}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/generate_batch/": _Handler.generate_batch,

@@ -734,3 +734,78 @@ def test_gla_kernel_rejects_what_it_cannot_take(dev):
     big = _gla_inputs(dev, 1, 256, 1, 256, 256, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         SS.gla_chunked(*big, block_t=256)
+
+
+# -- multi-step decode through CUDA graphs --------------------------------
+
+from penroz_tpu_torch.models import decode_graphs as DG  # noqa: E402
+from penroz_tpu_torch.models import presets  # noqa: E402
+from penroz_tpu_torch.models.dsl import Mapper  # noqa: E402
+from penroz_tpu_torch.models.model import NeuralNetworkModel  # noqa: E402
+
+GRAPH_CACHES = {"contiguous": {}, "int8": {"TURBO_QUANT_KV_CACHE": "1"},
+                "paged": {"PAGED_KV_CACHE": "1", "PENROZ_KV_PAGE_SIZE": "16"}}
+
+
+@pytest.mark.parametrize("cache", sorted(GRAPH_CACHES))
+@pytest.mark.parametrize("family", ["gpt", "hybrid"])
+def test_graph_decode_equals_eager_steps(dev, monkeypatch, family, cache):
+    """The captured step replayed chunk by chunk gives the eager step
+    loop's greedy tokens (graphs off), across the overflow crop, and top-k
+    sampled tokens; a second request captures nothing.  The kernel's run
+    counter shows the device ran it once per attention layer in every
+    dispatched step, replays included; the wrapper counts only the steps
+    that were not replays."""
+    for key, value in GRAPH_CACHES[cache].items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setenv("PENROZ_DECODE_CHUNK", "16")
+    build = presets.gpt2_custom if family == "gpt" else presets.hybrid_custom
+    layers = build(d=128, heads=2, depth=2, vocab=256, block=64)
+    model = NeuralNetworkModel("g", Mapper(layers, presets.ADAMW),
+                               device="cuda")
+    n_attn = len(model.arch.attn_layers)
+    prompt = list(range(1, 40))
+    counter = (PA.paged_decode_attention if cache == "paged"
+               else DA.decode_attention)
+    DG.reset()
+    runs = {}
+    for graphs in (True, False):
+        monkeypatch.setattr(DG, "_GRAPHS", graphs)
+        model._generator = model._new_generator()  # the same request seed
+        launched, ran = counter.launches, counter.runs.read()
+        steps, replayed = DG.dispatched_steps(), DG.STATS["replayed_steps"]
+        runs[graphs] = [model.generate_tokens(prompt, 64, 40, temperature=0),
+                        model.generate_tokens(prompt, 64, 40,
+                                              temperature=0.8, top_k=8)]
+        steps = DG.dispatched_steps() - steps
+        replayed = DG.STATS["replayed_steps"] - replayed
+        assert (replayed > 0) == graphs
+        assert counter.runs.read() - ran == n_attn * steps
+        assert counter.launches - launched == n_attn * (steps - replayed)
+    assert runs[True] == runs[False]
+    assert DG.STATS["captures"] == 2  # greedy and top-k, once each
+    monkeypatch.setattr(DG, "_GRAPHS", True)
+    model.generate_tokens(prompt, 64, 40, temperature=0)
+    assert DG.STATS["captures"] == 2
+    DG.reset()
+
+
+def test_run_counter_counts_replays(dev):
+    """A captured decode launch adds nothing to the wrapper's count; each
+    replay adds one to the kernel's run counter."""
+    q, k, v = _inputs(dev, 1, 2, 2, 1, 64, 64, torch.float32)
+    length = torch.tensor([40], dtype=torch.int32, device=dev)
+    DA.decode_attention(q, k, v, 39, length)  # first use, outside capture
+    torch.cuda.synchronize()
+    launched = DA.decode_attention.launches
+    ran = DA.decode_attention.runs.read()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.decode_attention(q, k, v, 39, length)
+    assert DA.decode_attention.launches == launched
+    assert DA.decode_attention.runs.read() == ran
+    for _ in range(3):
+        graph.replay()
+    assert DA.decode_attention.runs.read() == ran + 3
+    assert DA.decode_attention.launches == launched
+    _compare(out, q, k, v, 39, length)

@@ -99,17 +99,22 @@ def test_sampling_deterministic_under_fixed_generator(toy_gpt_layers,
 
 
 def test_top_k_draws_stay_in_top_k_set():
+    """The keyed draw of generation (seed and temperature as device
+    scalars, as a captured step reads them): top-k draws stay in the
+    top-k set, and top-1 is the argmax."""
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(64, 50, generator=g)
     top = torch.topk(logits, 4, dim=-1).indices
-    for _ in range(5):
-        tok = CompiledArch._sample(logits, g, 2.0, greedy=False, top_k=4)
+    rows = torch.zeros(64, dtype=torch.int64)
+    positions = torch.arange(64)
+    for seed in range(5):
+        tok = CompiledArch._sample_packed(logits, torch.tensor(seed), rows,
+                                          positions, torch.tensor(2.0), 4)
         assert tok.shape == (64,)
         assert bool((tok[:, None] == top).any(dim=-1).all())
-    greedy = CompiledArch._sample(logits, g, 1.0, greedy=True, top_k=None)
-    assert torch.equal(greedy, logits.argmax(-1))
-    one = CompiledArch._sample(logits, g, 1e-9, greedy=False, top_k=1)
-    assert torch.equal(one, greedy)
+    one = CompiledArch._sample_packed(logits, torch.tensor(0), rows,
+                                      positions, torch.tensor(1e-9), 1)
+    assert torch.equal(one, logits.argmax(-1))
 
 
 def test_bf16_model_generates(toy_gpt_layers, toy_optimizer):

@@ -32,8 +32,14 @@ prints no result:
                after a read-only flush) and chunked gated linear attention
                (the hybrid's SSM layers, phase 4c's shapes and B 1 x 4096;
                also held to the token-sequential oracle; two launches
-               bit-identical), in fp32 and bf16.  The flash
-               rows also carry the host microseconds of one wrapper call.
+               bit-identical), in fp32 and bf16.  Phase 4d's shapes too
+               (GQA 16/8, D 128, bf16): decode at 1024 keys and the
+               1000-token prefill, the paged decode and its 128- and
+               1000-token prefills, a ragged mixed step, the flash
+               forward and backward at T 1024; and the Gemma-2-2B decode
+               (GQA 8/4, D 256, window 4096, softcap 50, 8192 keys).  The
+               flash rows also carry the host microseconds of one wrapper
+               call.
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
                50304, block 1024; random weights from seed 0): POST /model/,
@@ -95,6 +101,25 @@ prints no result:
                /stats/ pass at 1 x 256 (the SSM layers' differentiable
                oracle; the fp32 flash and cross-entropy kernels forward and
                backward).
+4d. qwen3    — the slice's main path: a checkpoint of the published
+               Qwen/Qwen3-0.6B config.json (28 layers, d 1024, GQA 16/8,
+               head_dim 128, vocab 151936, tied embeddings; random bf16
+               weights from seed 0, N(0, 0.02), norms 1 + N(0, 0.1))
+               written here in the HF layout, two safetensors shards and
+               an index; POST /import/ (timed); greedy /generate/ 128 +
+               128 twice (the second captures nothing), streamed, a
+               1000-token prompt, on the contiguous cache and under
+               PAGED_KV_CACHE=1 (the same tokens), the decode kernels' run
+               counters 28 a dispatched step; in process, graph == eager
+               on both caches, tokens/s and device busy share (graph,
+               paged graph, eager), the checkpoint load timed; /output/ at
+               1 x 1024 (28 flash-forward launches); the card's logits at
+               8 positions against the port's CPU forward of the same
+               bf16 weights (QWEN3_LOGIT_FACTOR); 4 concurrent requests
+               under PENROZ_CONTINUOUS_BATCHING=1 PAGED_KV_CACHE=1 (the
+               ragged kernel 28 a mixed step, each token the plain
+               forward's argmax, near ties excepted as stated at
+               _qwen3_continuous); DELETE /model/.
 5. training  — the same server trains GPT-2 124M (AdamW, bf16 compute, the
                default on the card) through PUT /train/ on a synthetic uint16
                shard: batch 8 x block 1024, step 4 (two micro-steps an
@@ -156,13 +181,15 @@ SOURCES = [
     ("ssm_scan", "penroz_tpu_torch/csrc/ssm_scan.cu"),
 ]
 # Launch sites of the main paths: (name, source, TPU kernel it replaces,
-# phase-3 case that stands for it).
+# phase-3 case that stands for it: phase 4d's shape for the four kernels
+# the Qwen3 path runs).
 KERNELS = [
     ("decode_attention", "penroz_tpu_torch/csrc/decode_attention.cu",
-     "penroz_tpu/ops/pallas/decode_attention.py:155", "gpt2_decode_L1024"),
+     "penroz_tpu/ops/pallas/decode_attention.py:155",
+     "qwen3_decode_L1024_bf16"),
     ("flash_attention_fwd", "penroz_tpu_torch/csrc/flash_attention.cu",
      "penroz_tpu/ops/pallas/flash_attention.py:200",
-     "flash_gpt2_B8_T1024_bf16_fwd"),
+     "flash_qwen3_T1024_bf16_fwd"),
     ("flash_attention_bwd", "penroz_tpu_torch/csrc/flash_attention.cu",
      "penroz_tpu/ops/pallas/flash_attention.py:411",
      "flash_gpt2_B8_T1024_bf16_bwd"),
@@ -174,10 +201,10 @@ KERNELS = [
      "ce_gpt2_N8192_V50304_bf16_bwd"),
     ("paged_decode_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
      "penroz_tpu/ops/pallas/paged_attention.py:152",
-     "paged_gpt2_decode_L1024"),
+     "paged_qwen3_decode_L1024_bf16"),
     ("ragged_paged_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
      "penroz_tpu/ops/pallas/ragged_paged_attention.py:161",
-     "ragged_gpt2_mixed"),
+     "ragged_qwen3_mixed_bf16"),
     ("gla_chunked", "penroz_tpu_torch/csrc/ssm_scan.cu",
      "penroz_tpu/ops/pallas/ssm_scan.py:74", "gla_gpt2_B8_T1024_fp32"),
 ]
@@ -472,6 +499,7 @@ def run_case(torch, case, flush):
 def kernel_cases():
     gpt2 = dict(B=1, Hq=12, Hkv=12, S=1024, D=64)
     gqa = dict(B=1, Hq=32, Hkv=8, S=1024, D=128)
+    qwen3 = dict(B=1, Hq=16, Hkv=8, S=1024, D=128)
     cases = []
     for dtype, tag in (("float32", ""), ("bfloat16", "_bf16")):
         cases += [
@@ -515,6 +543,17 @@ def kernel_cases():
         # row's (max, sum) to the ranks past D too
         dict(name="d8_gqa32x8_T4_L1024", B=1, Hq=32, Hkv=8, S=1024, D=8,
              T=4, L=1024, dtype="float32"),
+        # phase 4d's Qwen3-0.6B attention (GQA 16/8, D 128, bf16): a
+        # decode step at 1024 keys and the 1000-token prompt's prefill
+        dict(qwen3, name="qwen3_decode_L1024_bf16", T=1, L=1024,
+             dtype="bfloat16"),
+        dict(qwen3, name="qwen3_prefill_T1000_bf16", T=1000, L=1000,
+             dtype="bfloat16", iters=5),
+        # the Gemma-2-2B attention the gemma2 import reaches: GQA 8/4,
+        # D 256, a 4096-token window and softcap 50 at 8192 keys
+        dict(name="gemma2_decode_L8192_window4096_softcap50_bf16", B=1,
+             Hq=8, Hkv=4, S=8192, D=256, T=1, L=8192, window=4096,
+             softcap=50.0, dtype="bfloat16"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = i
@@ -978,6 +1017,7 @@ def run_ragged_case(torch, case, flush):
 
 def paged_cases():
     gpt2 = dict(Hq=12, Hkv=12, T=1, D=64, P=128)
+    qwen3 = dict(Hq=16, Hkv=8, T=1, D=128, P=128)
     spread = [1024, 700, 129, 1, 513, 900, 257, 64]
     cases = [
         dict(gpt2, name="paged_gpt2_decode_L1024", lengths=[1024],
@@ -1010,6 +1050,14 @@ def paged_cases():
              dtype="float32", iters=5),
         dict(gpt2, name="paged_gpt2_prefill_T1024", T=1024, lengths=[1024],
              dtype="float32", iters=5),
+        # phase 4d's paged requests: a decode step at 1024 keys and the
+        # 128- and 1000-token prefills, GQA 16/8, D 128, bf16
+        dict(qwen3, name="paged_qwen3_decode_L1024_bf16", lengths=[1024],
+             dtype="bfloat16"),
+        dict(qwen3, name="paged_qwen3_prefill_T128_bf16", T=128,
+             lengths=[128], dtype="bfloat16", spare_pages=7, iters=10),
+        dict(qwen3, name="paged_qwen3_prefill_T1000_bf16", T=1000,
+             lengths=[1000], dtype="bfloat16", iters=5),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 200 + i
@@ -1047,6 +1095,11 @@ def ragged_cases():
         # more splits (16) than head dims (8), GQA 4:1, two 8-row tiles
         dict(name="ragged_d8_gqa_16_splits", Hq=32, Hkv=8, D=8, P=128,
              BQ=4, spans=[(1021, 3)], dtype="float32"),
+        # phase 4d's mixed step: a 256-token chunk of the 900-token prompt
+        # beside three decode rows, GQA 16/8, D 128, bf16
+        dict(name="ragged_qwen3_mixed_bf16", Hq=16, Hkv=8, D=128, P=128,
+             BQ=8, spans=[(512, 256), (215, 1), (515, 1), (963, 1)],
+             dtype="bfloat16"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 300 + i
@@ -1183,7 +1236,10 @@ def training_cases():
                   Hkv=12, T=1024, D=64, dtype="bfloat16", window=128,
                   alibi=True, seed=200),
              dict(gpt2, name="flash_gpt2_B8_T1000_bf16", T=1000,
-                  dtype="bfloat16", seed=201)]
+                  dtype="bfloat16", seed=201),
+             # phase 4d's /output/ at 1 x 1024: GQA 16/8, D 128, bf16
+             dict(name="flash_qwen3_T1024_bf16", B=1, Hq=16, Hkv=8, T=1024,
+                  D=128, dtype="bfloat16", seed=202)]
     ce = [dict(name="ce_gpt2_N8192_V50304_bf16", N=8192, V=50304,
                dtype="bfloat16"),
           dict(name="ce_gpt2_N8192_V50304_fp32", N=8192, V=50304,
@@ -2454,6 +2510,494 @@ def _profile_hybrid(torch, model, vocab, device):
 
 
 # ---------------------------------------------------------------------------
+# 4d: a HuggingFace checkpoint at Qwen3-0.6B width, imported over HTTP
+# ---------------------------------------------------------------------------
+
+# The published Qwen/Qwen3-0.6B config.json (its architecture keys).
+QWEN3_CONFIG = {
+    "architectures": ["Qwen3ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 151643,
+    "eos_token_id": 151645, "head_dim": 128, "hidden_act": "silu",
+    "hidden_size": 1024, "initializer_range": 0.02,
+    "intermediate_size": 3072, "max_position_embeddings": 40960,
+    "max_window_layers": 28, "model_type": "qwen3",
+    "num_attention_heads": 16, "num_hidden_layers": 28,
+    "num_key_value_heads": 8, "rms_norm_eps": 1e-06, "rope_scaling": None,
+    "rope_theta": 1000000, "sliding_window": None,
+    "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+    "use_cache": True, "use_sliding_window": False, "vocab_size": 151936}
+QWEN3_SHARDS = 2
+QWEN3_BLOCK = 1024
+QWEN3_LONG_PROMPT = 1000
+QWEN3_LONG_NEW = 24
+QWEN3_CB_PROMPT_LENS = (16, 200, 500, 900)
+QWEN3_CB_NEW = 64
+# The card's logits against the port's CPU forward of the same bf16
+# weights: at 8 positions spread over the 128-token prompt.  Tolerance:
+# each bf16 forward rounds its activations at the same points and deviates
+# from the fp32 forward of those weights by rounding alone; the CPU's
+# deviation e_cpu is measured here (its bf16 forward against its fp32
+# forward).  The card's kernels round once more (the attention kernels'
+# probabilities to bf16 before P.V, FLASH_C's reasoning), so its deviation
+# is allowed twice e_cpu, and the two bf16 forwards may differ by
+# e_cpu + 2 e_cpu = QWEN3_LOGIT_FACTOR * e_cpu.
+QWEN3_REF_POSITIONS = 8
+QWEN3_LOGIT_FACTOR = 3.0
+
+
+def _qwen3_tensors(cfg):
+    """(HF key, shape, kind) of every tensor of the checkpoint, in the HF
+    layout (tied embeddings: no lm_head)."""
+    d, hd = cfg["hidden_size"], cfg["head_dim"]
+    heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    inter = cfg["intermediate_size"]
+    out = [("model.embed_tokens.weight", (cfg["vocab_size"], d), "normal")]
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        out += [(f"{p}.input_layernorm.weight", (d,), "norm"),
+                (f"{p}.self_attn.q_proj.weight", (heads * hd, d), "normal"),
+                (f"{p}.self_attn.k_proj.weight", (kv * hd, d), "normal"),
+                (f"{p}.self_attn.v_proj.weight", (kv * hd, d), "normal"),
+                (f"{p}.self_attn.o_proj.weight", (d, heads * hd), "normal"),
+                (f"{p}.self_attn.q_norm.weight", (hd,), "norm"),
+                (f"{p}.self_attn.k_norm.weight", (hd,), "norm"),
+                (f"{p}.post_attention_layernorm.weight", (d,), "norm"),
+                (f"{p}.mlp.gate_proj.weight", (inter, d), "normal"),
+                (f"{p}.mlp.up_proj.weight", (inter, d), "normal"),
+                (f"{p}.mlp.down_proj.weight", (d, inter), "normal")]
+    out.append(("model.norm.weight", (d,), "norm"))
+    return out
+
+
+def _write_safetensors(torch, path, tensors):
+    """A safetensors file of bf16 CPU tensors: the 8-byte little-endian
+    header length, the JSON header (padded to 8 bytes), the raw bytes."""
+    header, offset = {}, 0
+    for name, t in tensors:
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for _, t in tensors:
+            f.write(t.view(torch.int16).numpy().tobytes())
+
+
+def write_qwen3_checkpoint(torch, path, seed=0, device="cuda"):
+    """The Qwen3-0.6B-shaped checkpoint from ``seed``: config.json (the
+    published values), the weights as BF16 safetensors in QWEN3_SHARDS
+    shards with a model.safetensors.index.json.  Projections and the
+    embedding ~ N(0, initializer_range) (the config's 0.02, as HF
+    initializes them), norm weights ~ 1 + N(0, 0.1); drawn on the card
+    from one generator.  Returns the bytes written."""
+    cfg = QWEN3_CONFIG
+    os.makedirs(path, exist_ok=True)
+    specs = _qwen3_tensors(cfg)
+    sizes = [math.prod(shape) * 2 for _, shape, _ in specs]
+    total = sum(sizes)
+    groups, acc = [[]], 0
+    for spec, size in zip(specs, sizes):
+        if acc >= total * len(groups) / QWEN3_SHARDS \
+                and len(groups) < QWEN3_SHARDS:
+            groups.append([])
+        groups[-1].append(spec)
+        acc += size
+    g = torch.Generator(device=device).manual_seed(seed)
+    std = cfg["initializer_range"]
+    weight_map = {}
+    for n, group in enumerate(groups):
+        fname = f"model-{n + 1:05d}-of-{len(groups):05d}.safetensors"
+        tensors = []
+        for name, shape, kind in group:
+            t = torch.randn(shape, generator=g, device=device)
+            t = t * std if kind == "normal" else 1.0 + 0.1 * t
+            tensors.append((name, t.to(torch.bfloat16).cpu()))
+        _write_safetensors(torch, os.path.join(path, fname), tensors)
+        weight_map.update(dict.fromkeys((name for name, _ in tensors),
+                                        fname))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=1)
+    return total
+
+
+def phase_qwen3(torch, card, device="cuda"):
+    """The slice's main path: a Qwen3-0.6B-shaped checkpoint (28 layers,
+    full widths, random bf16 weights from seed 0, written here in the HF
+    layout) through POST /import/, served on the contiguous and paged
+    caches, under continuous batching and by /output/, then deleted.
+    Returns (stats, {kernel: device runs or launches in this phase})."""
+    import numpy as np
+
+    from penroz_tpu_torch.models import decode_graphs as DG
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    from penroz_tpu_torch.ops import kv_cache as KV
+    from penroz_tpu_torch.ops.kernels import flash_attention as FA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve.app import create_app
+    from penroz_tpu_torch.utils import checkpoint
+
+    cfg = QWEN3_CONFIG
+    vocab, n_attn = cfg["vocab_size"], cfg["num_hidden_layers"]
+    block = QWEN3_BLOCK
+    stats, launches = {}, {}
+    ckpt = os.path.join(WORK, "hf_qwen3_0.6b")
+    t0 = time.monotonic()
+    stats["checkpoint_bytes"] = write_qwen3_checkpoint(torch, ckpt,
+                                                       device=device)
+    stats["write_s"] = time.monotonic() - t0
+    say("qwen3", f"wrote the Qwen3-0.6B-shaped checkpoint "
+        f"({stats['checkpoint_bytes'] / 1e9:.3f} GB bf16, {QWEN3_SHARDS} "
+        f"shards + index) in {stats['write_s']:.2f} s")
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, vocab, PROMPT_LEN).tolist()
+    long_prompt = rng.integers(0, vocab, QWEN3_LONG_PROMPT).tolist()
+    server = create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    try:
+        status, text, secs = _post(base, "/import/", {
+            "hf_repo_id": ckpt, "model_id": "qwen3"})
+        check(status == 200, f"POST /import/ -> {status}: {text[:300]}")
+        stats["import_s"] = secs
+        status, text, _ = _post(base, "/progress/?model_id=qwen3", None,
+                                method="GET")
+        check(status == 200 and json.loads(text)["status"]["code"]
+              == "Imported", f"/progress/ after the import: {text[:300]}")
+        say("qwen3", f"POST /import/ 200 in {secs:.2f} s (read, remap, "
+            f"bf16 cast, to the card, checkpoint written), status "
+            f"Imported, on {card}")
+
+        greedy = {"model_id": "qwen3", "input": [prompt],
+                  "block_size": block, "max_new_tokens": NEW_TOKENS,
+                  "temperature": 0}
+        DG.reset()
+        _zero_decode_counts()
+        http = _StepLedger()
+        with http.request():
+            status, text, secs = _post(base, "/generate/", greedy)
+        check(status == 200, f"/generate/ -> {status}: {text[:300]}")
+        first = json.loads(text)["tokens"]
+        check(len(first) == PROMPT_LEN + NEW_TOKENS
+              and first[:PROMPT_LEN] == prompt
+              and all(0 <= t < vocab for t in first),
+              "qwen3 greedy output malformed")
+        check(DG.STATS["captures"] == 1 and http.steps["decode_attention"]
+              == 1 + NEW_TOKENS + DG.WARMUP_STEPS,
+              f"first request: {DG.STATS}, {http.steps}")
+        stats["greedy_request_s"] = secs
+        with http.request():
+            status, text, secs = _post(base, "/generate/", greedy)
+        check(status == 200 and json.loads(text)["tokens"] == first,
+              "qwen3 greedy /generate/ not deterministic")
+        check(DG.STATS["captures"] == 1,
+              "the second qwen3 request captured again")
+        stats["greedy_request_s_2"] = secs
+        with http.request():
+            streamed, ttft, secs = _stream(base, greedy)
+        check(streamed == first[PROMPT_LEN:], "qwen3 stream != non-stream")
+        stats.update(stream_first_token_s=ttft, stream_request_s=secs)
+        long_body = dict(greedy, input=[long_prompt],
+                         max_new_tokens=QWEN3_LONG_NEW)
+        with http.request():
+            status, text, secs = _post(base, "/generate/", long_body)
+        long_tokens = json.loads(text)["tokens"] if status == 200 else []
+        check(len(long_tokens) == QWEN3_LONG_PROMPT + QWEN3_LONG_NEW
+              and long_tokens[:QWEN3_LONG_PROMPT] == long_prompt,
+              f"qwen3 {QWEN3_LONG_PROMPT}-token prompt -> {status}: "
+              f"{text[:300]}")
+        stats["long_prompt_request_s"] = secs
+        wrapper, ran = _check_launches(n_attn, http, "qwen3 HTTP, "
+                                       "contiguous cache")
+        launches["decode_attention"] = ran["decode_attention"]
+        say("qwen3", f"greedy {PROMPT_LEN}+{NEW_TOKENS} twice (identical; "
+            f"{stats['greedy_request_s']:.3f} s with the capture, "
+            f"{stats['greedy_request_s_2']:.3f} s without, checkpoint load "
+            f"included), streamed (first token {ttft:.3f} s), "
+            f"{QWEN3_LONG_PROMPT}+{QWEN3_LONG_NEW} in "
+            f"{stats['long_prompt_request_s']:.3f} s; the device ran the "
+            f"decode kernel {ran['decode_attention']} times = {n_attn} x "
+            f"{http.steps['decode_attention']} dispatched steps, the wrapper "
+            f"launched it {wrapper['decode_attention']} times")
+
+        _zero_decode_counts()
+        http_p = _StepLedger()
+        with _env({"PAGED_KV_CACHE": "1"}):
+            with http_p.request():
+                status, text, secs = _post(base, "/generate/", greedy)
+            check(status == 200 and json.loads(text)["tokens"] == first,
+                  f"qwen3 paged /generate/ -> {status}: tokens differ from "
+                  f"the contiguous cache's")
+            stats["paged_request_s"] = secs
+            with http_p.request():
+                streamed, _, _ = _stream(base, greedy)
+            check(streamed == first[PROMPT_LEN:],
+                  "qwen3 paged stream != the contiguous tokens")
+            with http_p.request():
+                status, text, _ = _post(base, "/generate/", long_body)
+            check(status == 200 and json.loads(text)["tokens"]
+                  == long_tokens, "qwen3 paged long prompt: tokens differ "
+                  "from the contiguous cache's")
+        wrapper, ran = _check_launches(n_attn, http_p, "qwen3 HTTP, paged "
+                                       "pool")
+        launches["paged_decode_attention"] = ran["paged_decode_attention"]
+        say("qwen3", f"PAGED_KV_CACHE=1: the contiguous cache's tokens "
+            f"(greedy, streamed, {QWEN3_LONG_PROMPT}-token prompt); the "
+            f"device ran the paged kernel {ran['paged_decode_attention']} "
+            f"times = {n_attn} x {http_p.steps['paged_decode_attention']} "
+            f"dispatched steps")
+
+        # in process: the eager step loop gives the graph path's tokens on
+        # both caches; decode rates with the model loaded
+        _zero_decode_counts()
+        ledger = _StepLedger()
+        t0 = time.monotonic()
+        model = NeuralNetworkModel.deserialize("qwen3", device=device,
+                                               optimizer=False)
+        torch.cuda.synchronize()
+        stats["checkpoint_load_s"] = time.monotonic() - t0
+        check(model.dtype == torch.bfloat16, f"imported dtype {model.dtype}")
+        for name, env, body, want in (
+                ("contiguous", {}, greedy, first),
+                ("long prompt", {}, long_body, long_tokens),
+                ("paged", {"PAGED_KV_CACHE": "1"}, greedy, first)):
+            for graphs in (True, False):
+                with _env(env), _graphs(graphs), ledger.request():
+                    got = model.generate_tokens(
+                        body["input"], block, body["max_new_tokens"],
+                        temperature=0)
+                check(got == want, f"qwen3 {name}: generate_tokens with "
+                      f"graphs {'on' if graphs else 'off'} != the HTTP "
+                      f"tokens")
+        timing = {}
+        for name, env in (("graph", {}), ("paged_graph",
+                                          {"PAGED_KV_CACHE": "1"})):
+            with _env(env), ledger.request():
+                out, timing[name] = _decode_timing(torch, model, prompt,
+                                                   block, graphs=True)
+            check(out == first, f"qwen3 {name} timing run != the HTTP "
+                  f"tokens")
+        with ledger.request():
+            out, timing["eager"] = _decode_timing(torch, model, prompt,
+                                                  block, graphs=False)
+        check(out == first, "qwen3 eager timing run != the HTTP tokens")
+        _check_launches(n_attn, ledger, "qwen3 in process")
+        stats["decode"] = timing
+        stats["tokens_per_s"] = timing["graph"]["tokens_per_s"]
+        stats["paged_tokens_per_s"] = timing["paged_graph"]["tokens_per_s"]
+        stats["eager_tokens_per_s"] = timing["eager"]["tokens_per_s"]
+        say("qwen3", f"checkpoint load (deserialize to the card) "
+            f"{stats['checkpoint_load_s']:.2f} s; graph == eager in process "
+            f"on the contiguous and paged caches and the long prompt")
+        for name, t in timing.items():
+            say("qwen3", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS} {name}: "
+                f"{t['s']:.4f} s = {t['tokens_per_s']:.1f} tokens/s (median "
+                f"of 3; prefill alone {t['prefill_s']:.4f} s); traced: "
+                f"{_trace_text(t)}, on {card}")
+
+        # /output/ at 1 x 1024: the flash forward, once per layer
+        FA.flash_forward.launches = 0
+        out_input = rng.integers(0, vocab, (1, block)).tolist()
+        status, text, secs = _post(base, "/output/", {
+            "model_id": "qwen3", "input": out_input})
+        launches["flash_attention_fwd"] = FA.flash_forward.launches
+        check(status == 200, f"/output/ -> {status}: {text[:300]}")
+        probs = np.asarray(json.loads(text)["output"], np.float64)
+        check(probs.shape == (1, vocab) and np.isfinite(probs).all()
+              and abs(probs.sum() - 1.0) < 1e-2,
+              f"/output/ returned shape {probs.shape}, sum {probs.sum()}")
+        check(launches["flash_attention_fwd"] == n_attn,
+              f"/output/ launched the flash forward "
+              f"{launches['flash_attention_fwd']} times, not {n_attn}")
+        stats["output_1x1024_request_s"] = secs
+        say("qwen3", f"/output/ 1 x {block}: softmax over {vocab} sums to "
+            f"{probs.sum():.4f}, {n_attn} flash-forward launches, "
+            f"{secs:.3f} s (checkpoint load included)")
+
+        stats.update(_qwen3_cpu_reference(torch, model, prompt, device))
+        tol = stats["logits_tolerance"]
+        say("qwen3", f"card vs CPU bf16 forward of the same weights at "
+            f"{QWEN3_REF_POSITIONS} positions: max abs err "
+            f"{stats['logits_max_abs_err']:.4e} (tolerance {tol:.4e} = "
+            f"{QWEN3_LOGIT_FACTOR:g} x the CPU bf16 forward's "
+            f"{stats['cpu_bf16_vs_fp32']:.4e} from its fp32 forward; "
+            f"logits up to {stats['logits_max_abs']:.3f}); top-1 equal at "
+            f"{stats['top1_equal']}/{QWEN3_REF_POSITIONS}")
+        check(stats["logits_max_abs_err"] <= tol,
+              f"card vs CPU logits differ by "
+              f"{stats['logits_max_abs_err']:.3e} > {tol:.3e}")
+        del model
+        torch.cuda.empty_cache()
+
+        cb_stats, launches["ragged_paged_attention"] = _qwen3_continuous(
+            torch, base, n_attn, vocab, block, tol, device)
+        stats["continuous"] = cb_stats
+
+        status, _, _ = _post(base, "/model/?model_id=qwen3", None,
+                             method="DELETE")
+        check(status == 204, f"DELETE /model/ -> {status}")
+        check(_post(base, "/generate/", greedy)[0] == 404,
+              "/generate/ after DELETE is not a 404")
+        say("qwen3", f"DELETE /model/ 204, then 404; runs and launches in "
+            f"this phase {launches}")
+    finally:
+        DS.reset()
+        DG.reset()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(not thread.is_alive(), "server thread did not stop")
+    return stats, launches
+
+
+def _qwen3_cpu_reference(torch, model, prompt, device):
+    """The card's no-cache forward (the flash kernel) against the port's
+    CPU forward of the same bf16 weights at QWEN3_REF_POSITIONS positions
+    of ``prompt``, and the CPU fp32 forward of those weights, which sets
+    the tolerance (QWEN3_LOGIT_FACTOR)."""
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    T = len(prompt)
+    at = [round(i * (T - 1) / (QWEN3_REF_POSITIONS - 1))
+          for i in range(QWEN3_REF_POSITIONS)]
+    x = torch.tensor([prompt])
+    with torch.inference_mode():
+        card, _, _ = model.arch(x.to(device), skip_softmax=True)
+        card = card[-1][0, at].float().cpu()
+    t0 = time.monotonic()
+    cpu_model = NeuralNetworkModel.deserialize("qwen3", device="cpu",
+                                               optimizer=False)
+    with torch.inference_mode():
+        bf16, _, _ = cpu_model.arch(x, skip_softmax=True)
+        bf16 = bf16[-1][0, at].float()
+        for p in cpu_model.arch.parameters():
+            p.data = p.data.float()
+        fp32, _, _ = cpu_model.arch(x, skip_softmax=True)
+        fp32 = fp32[-1][0, at]
+    cpu_s = time.monotonic() - t0
+    e_cpu = float((bf16 - fp32).abs().max())
+    return {"logits_max_abs_err": float((card - bf16).abs().max()),
+            "card_vs_cpu_fp32": float((card - fp32).abs().max()),
+            "cpu_bf16_vs_fp32": e_cpu,
+            "logits_tolerance": QWEN3_LOGIT_FACTOR * e_cpu,
+            "logits_max_abs": float(fp32.abs().max()),
+            "top1_equal": int((card.argmax(-1) == bf16.argmax(-1)).sum()),
+            "reference_positions": at, "cpu_reference_s": cpu_s}
+
+
+def _qwen3_continuous(torch, base, n_attn, vocab, block, logit_tol, device):
+    """4 concurrent greedy /generate/ under PAGED_KV_CACHE=1
+    PENROZ_CONTINUOUS_BATCHING=1 (prompts of QWEN3_CB_PROMPT_LENS tokens,
+    QWEN3_CB_NEW new): the ragged kernel once per attention layer per
+    mixed step, and every generated token the argmax of the plain no-cache
+    forward over its prefix (bf16, the plain attention patched in) within
+    ARGMAX_ATOL, or, where the plain forward's two best logits lie closer
+    than 2 x ``logit_tol`` (two bf16 forwards' logits may each be off by
+    ``logit_tol``), within 2 x ``logit_tol``.  Returns (stats, ragged
+    kernel launches)."""
+    import numpy as np
+
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n).tolist()
+               for n in QWEN3_CB_PROMPT_LENS]
+    bodies = [{"model_id": "qwen3", "input": [p], "block_size": block,
+               "max_new_tokens": QWEN3_CB_NEW, "temperature": 0}
+              for p in prompts]
+    stats = {}
+    with _env(CB_ENV):
+        status, text, _ = _post(base, "/generate/", dict(
+            bodies[0], max_new_tokens=2))
+        check(status == 200, f"qwen3 continuous warm-up -> {status}: "
+              f"{text[:300]}")
+        serving = json.loads(_post(base, "/serving_stats/", None,
+                                   method="GET")[1])
+        steps_before = sum(t["superstep"] for t in serving["tick_timeline"])
+        for fn in (RPA.ragged_paged_attention, PA.paged_decode_attention,
+                   DA.decode_attention):
+            fn.launches = 0
+        results = [None] * len(bodies)
+
+        def fire(i):
+            status, text, secs = _post(base, "/generate/", bodies[i])
+            out = json.loads(text)["tokens"] if status == 200 else []
+            if len(out) == len(prompts[i]) + QWEN3_CB_NEW:
+                results[i] = (out, secs)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        stats["concurrent_s"] = time.monotonic() - t0
+        ragged = RPA.ragged_paged_attention.launches
+        single = (PA.paged_decode_attention.launches
+                  + DA.decode_attention.launches)
+        serving = json.loads(_post(base, "/serving_stats/", None,
+                                   method="GET")[1])
+    check(all(r is not None for r in results),
+          "a qwen3 concurrent request failed or came back short")
+    steps = sum(t["superstep"] for t in serving["tick_timeline"]) \
+        - steps_before
+    check(ragged == n_attn * steps, f"qwen3: the ragged kernel launched "
+          f"{ragged} times, expected {n_attn} x {steps} mixed steps")
+    check(single == 0, "a single-sequence kernel launched under continuous "
+          "batching")
+    model = DS.get_engine("qwen3", block, 0, None, device=device)._model
+    gaps, near_ties = [], 0
+    with torch.inference_mode(), plain_kernels():
+        for (out, _), prompt in zip(results, prompts):
+            n = len(prompt)
+            check(out[:n] == prompt, "a qwen3 result lost its prompt")
+            x = torch.tensor([out[:-1]], device=device)
+            acts, _, _ = model.arch(x, skip_softmax=True)
+            logits = acts[-1][0, n - 1:].float()
+            top2 = logits.topk(2, dim=-1).values
+            gen = torch.tensor(out[n:], device=device)
+            gap = top2[:, 0] - logits.gather(-1, gen[:, None])[:, 0]
+            tie = (top2[:, 0] - top2[:, 1]) <= 2 * logit_tol
+            near_ties += int(tie.sum())
+            bound = torch.where(tie, torch.full_like(gap, 2 * logit_tol),
+                                torch.full_like(gap, ARGMAX_ATOL))
+            check(bool((gap <= bound).all()), f"qwen3 continuous: a token "
+                  f"{float((gap - bound).max()):.3e} past its bound below "
+                  f"the top logit of the plain forward")
+            gaps.append(gap)
+    gaps = torch.cat(gaps)
+    stats.update(
+        tokens_per_s=len(bodies) * QWEN3_CB_NEW / stats["concurrent_s"],
+        latency_s=[secs for _, secs in results], mixed_steps=steps,
+        argmax_exact=int((gaps <= ARGMAX_ATOL).sum()),
+        tokens=int(gaps.numel()), near_ties=near_ties,
+        worst_gap=float(gaps.max()))
+    say("qwen3", f"continuous batching: {len(bodies)} concurrent requests "
+        f"(prompts {QWEN3_CB_PROMPT_LENS}, {QWEN3_CB_NEW} new) in "
+        f"{stats['concurrent_s']:.3f} s = {stats['tokens_per_s']:.1f} "
+        f"tokens/s; {steps} mixed steps, {ragged} ragged launches; "
+        f"{stats['argmax_exact']}/{stats['tokens']} tokens the plain "
+        f"forward's argmax within {ARGMAX_ATOL}, {near_ties} near ties "
+        f"(top-2 within {2 * logit_tol:.3e}), worst gap "
+        f"{stats['worst_gap']:.3e}")
+    return stats, ragged
+
+
+# ---------------------------------------------------------------------------
 # 5: training over HTTP
 # ---------------------------------------------------------------------------
 
@@ -2815,9 +3359,16 @@ def main(argv=None) -> int:
                                       block=1024, vocab=50304, card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
+        qwen3_stats, qwen3_launches = phase_qwen3(torch, card)
         train_stats, train_launches = phase_training(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304, card=card)
         launches.update(train_launches)
+        # each kernel's count over every main path that ran it (each
+        # phase zeroes the counts before its traffic, reads them after)
+        phase_launches = {"gpt2_and_hybrid": dict(launches),
+                          "qwen3": qwen3_launches}
+        for name_, n in qwen3_launches.items():
+            launches[name_] += n
         train_stats["stats"] = phase_stats(torch, card)
         train_stats["profile"] = phase_train_profile(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304)
@@ -2842,7 +3393,8 @@ def main(argv=None) -> int:
             json.dump({"card": card, "cases": rows,
                        "main_path": stats,
                        "continuous_batching": cb_stats,
-                       "hybrid": hybrid_stats,
+                       "hybrid": hybrid_stats, "qwen3": qwen3_stats,
+                       "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,
                        "launches": launches,
                        "seconds": time.monotonic() - t_start}, f, indent=1)

@@ -3,7 +3,9 @@ between ``torch.optim`` and the JAX package's optax checkpoint leaves.
 
 The JAX package's ``NeuralNetworkModel.state_dict()`` (and its checkpoints)
 hold numpy arrays under the same flat keys as the port's module tree, so
-conversion is a key- and shape-checked copy.  bf16 arrays arrive as
+conversion is a key- and shape-checked copy (a one-element array where the
+module holds a 0-d buffer, as the JAX checkpoint stores BatchNorm1d's int32
+counter, is reshaped).  bf16 arrays arrive as
 ``ml_dtypes`` arrays; they are reinterpreted through 16-bit integers
 without importing ``ml_dtypes``.  Optimizer state travels as the flat
 ``opt_state_leaves`` list of the optax state (:func:`opt_state_leaves`),
@@ -25,6 +27,15 @@ def as_tensor(a) -> torch.Tensor:
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(arr.copy())
+
+
+def fit_scalar(t: torch.Tensor, shape) -> torch.Tensor:
+    """A one-element tensor as the 0-d tensor ``shape`` asks for: the JAX
+    package's checkpoint stores a 0-d array (BatchNorm1d's int32
+    ``num_batches_tracked``) with shape (1,)."""
+    if len(shape) == 0 and tuple(t.shape) == (1,):
+        return t.reshape(())
+    return t
 
 
 def _optimizer_kind(config: dict) -> str:

@@ -3,11 +3,12 @@
 ``Mapper``).  Parameter keys come from module registration (see
 ops/modules.py), so there is no separate bind step.
 
-Algos outside the ported slice raise ``ValueError("Unsupported layer: …")``
-as ``to_layer`` does for unknown algos.  Initialization draws from an
-explicit ``torch.Generator``; its numbers differ from ``jax.random``'s for
-the same seed, so a model carried over from the JAX package goes through
-models/convert.py instead.
+Every dense algo of the JAX table builds, and the ``transformerblock``
+macro; ``moe`` and an unknown algo raise ``ValueError("Unsupported layer:
+…")`` as ``to_layer`` does, ``moe``'s naming it.  Initialization draws
+from an explicit ``torch.Generator``; its numbers differ from
+``jax.random``'s for the same seed, so a model carried over from the JAX
+package goes through models/convert.py instead.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 
 import torch
 
+from penroz_tpu_torch.models import hf_families
 from penroz_tpu_torch.ops import modules as M
 
 # Init-override keys that may sit alongside the layer algo in a DSL entry.
@@ -25,20 +27,35 @@ _CONTAINER_ALGOS = {
     "sequential": M.Sequential,
     "summation": M.Summation,
     "residual": M.ResidualConnection,
+    "parallelresidual": M.ParallelResidual,
 }
 
 _LEAF_ALGOS = {
     "linear": M.Linear,
     "embedding": M.Embedding,
     "position": M.PositionEmbedding,
+    "scaledembedding": M.ScaledEmbedding,
+    "flatten": M.Flatten,
+    "batchnorm1d": M.BatchNorm1d,
     "layernorm": M.LayerNorm,
+    "rmsnorm": M.RMSNorm,
+    "relu": M.ReLU,
     "gelu": M.GELU,
+    "silu": M.SiLU,
+    "sigmoid": M.Sigmoid,
+    "tanh": M.Tanh,
     "softmax": M.Softmax,
     "softmaxlast": M.SoftmaxOnLast,
     "dropout": M.Dropout,
     "attention": M.CausalSelfAttention,
     "ssm": M.GatedSSM,
+    "gatedmlp": M.GatedMLP,
+    "clamp": M.Clamp,
+    "softcap": M.Softcap,
 }
+
+# Algos of the JAX package's table that the port does not build.
+_UNPORTED_ALGOS = {"moe": "the mixture-of-experts layer"}
 
 _OPTIMIZERS = ("adamw", "adam", "sgd")
 
@@ -58,6 +75,19 @@ def to_layer(entry: dict) -> M.Module:
     args = entry[algo]
     if algo in _CONTAINER_ALGOS:
         mod = _CONTAINER_ALGOS[algo](*[to_layer(e) for e in args])
+    elif algo == "transformerblock":
+        kwargs = {"attn_block": to_layer(args["attn_block"]),
+                  "mlp_block": to_layer(args["mlp_block"]),
+                  "post_norm_on_residual": bool(
+                      args.get("post_norm_on_residual", True))}
+        for name in ("post_attn_norm", "post_mlp_norm"):
+            if name in args:
+                kwargs[name] = to_layer(args[name])
+        mod = M.TransformerBlock(**kwargs)
+    elif algo in _UNPORTED_ALGOS:
+        raise ValueError(f"Unsupported layer: {algo} (the {algo!r} algo, "
+                         f"{_UNPORTED_ALGOS[algo]}, is not supported by "
+                         f"penroz_tpu_torch yet)")
     elif algo in _LEAF_ALGOS:
         mod = _LEAF_ALGOS[algo](**args)
     else:
@@ -184,3 +214,10 @@ class Mapper:
 
     def init_params(self, mods: list[M.Module], seed: int = 0):
         init_module_params(mods, seed=seed)
+
+    # -- HuggingFace config and weights (models/hf_families.py) -----------
+
+    from_hf_config = staticmethod(hf_families.from_hf_config)
+    detect_hf_n_layer = staticmethod(hf_families.detect_hf_n_layer)
+    map_hf_state_dict_to_custom = staticmethod(
+        hf_families.map_hf_state_dict_to_custom)

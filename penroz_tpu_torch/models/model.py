@@ -514,7 +514,7 @@ class NeuralNetworkModel:
                              f"{missing[:8]}, unexpected {extra[:8]}")
         tensors = {}
         for key, ref in expected.items():
-            t = as_tensor(arrays[key])
+            t = convert.fit_scalar(as_tensor(arrays[key]), ref.shape)
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                                  f"{tuple(ref.shape)}")
@@ -988,8 +988,10 @@ class NeuralNetworkModel:
         checkpoint.save(self.model_id, {
             "layers": self.layers_dsl,
             "optimizer": self.optimizer_config,
-            "params": self.state_dict(),
-            "buffers": {},
+            "params": {k: v.detach().to("cpu")
+                       for k, v in self.arch.named_parameters()},
+            "buffers": {k: v.detach().to("cpu")
+                        for k, v in self.arch.named_buffers()},
             "opt_state_leaves": self._opt_state_leaves(),
             "sharded": {},
             "shard_tag": None,
@@ -1025,6 +1027,58 @@ class NeuralNetworkModel:
                                            "message": None})
         model._opt_leaves = (data.get("opt_state_leaves") if optimizer
                              else _NOT_LOADED)
+        return model
+
+    # -- HuggingFace import -------------------------------------------------
+
+    @classmethod
+    def from_huggingface(cls, model_id: str, hf_repo_id: str,
+                         revision: Optional[str] = None, device=None
+                         ) -> "NeuralNetworkModel":
+        """Import a local HuggingFace checkpoint directory (JAX
+        ``from_huggingface``): its ``config.json`` read as transformers
+        would (models/hf_config.py), its weights by the port's own
+        safetensors reader (models/hf_loader.py), the family's DSL and key
+        remap (models/hf_families.py), every mapped parameter cast to
+        bf16, a fresh AdamW state, status ``Imported``, then a checkpoint
+        either package loads.  The key set and the shapes must equal the
+        DSL's (KeyError, ValueError).  ``revision`` names a hub revision
+        and is unused: the port imports only from a local directory
+        (ValueError otherwise)."""
+        from penroz_tpu_torch.models import hf_config, hf_loader
+        local_dir = hf_loader.resolve_checkpoint_dir(hf_repo_id, revision)
+        config = hf_config.load(local_dir)
+        sd = hf_loader.load_state_dict(local_dir)
+        n_layer = Mapper.detect_hf_n_layer(sd)
+        if not n_layer:
+            cfg = getattr(config, "text_config", None) or config
+            n_layer = int(getattr(cfg, "n_layer", 0)
+                          or getattr(cfg, "num_hidden_layers", 0))
+        layers = Mapper.from_hf_config(config, n_layer_override=n_layer)
+        mapper = Mapper(layers, {"adamw": {"lr": 6e-4, "betas": [0.9, 0.95],
+                                           "eps": 1e-8}})
+        with torch.device("meta"):
+            expected = {k: tuple(p.shape) for k, p in
+                        CompiledArch(layers).named_parameters()}
+        mapped = Mapper.map_hf_state_dict_to_custom(sd, n_layer, config)
+        del sd
+        if set(expected) != set(mapped):
+            raise KeyError(f"HF state dict mismatch: missing "
+                           f"{sorted(set(expected) - set(mapped))}, "
+                           f"unexpected {sorted(set(mapped) - set(expected))}")
+        for key, value in mapped.items():
+            if tuple(value.shape) != expected[key]:
+                raise ValueError(f"Shape mismatch for {key}: HF "
+                                 f"{tuple(value.shape)} vs model "
+                                 f"{expected[key]}")
+        params = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)
+                                      ).to(torch.bfloat16)
+                  for k, v in mapped.items()}
+        del mapped
+        model = cls(model_id, mapper, device=device, params=params)
+        model.status = {"code": "Imported",
+                        "message": f"Imported from {hf_repo_id}"}
+        model.serialize()
         return model
 
     @classmethod

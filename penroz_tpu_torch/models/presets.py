@@ -1,6 +1,6 @@
-"""GPT-2 and hybrid attention/SSM layer-DSL configs (copy of
+"""GPT-2, hybrid attention/SSM and makemore-MLP layer-DSL configs (copy of
 penroz_tpu/models/presets.py ``gpt2``/``gpt2_custom``/``_ssm_block``/
-``hybrid_custom``).  Plain JSON-able DSL lists accepted by ``POST /model/``
+``hybrid_custom``/``makemore_mlp``).  Plain JSON-able DSL lists accepted by ``POST /model/``
 of either package."""
 
 from __future__ import annotations
@@ -107,3 +107,19 @@ def hybrid_custom(d: int, heads: int, depth: int, vocab: int = 50304,
             base[2 + i] = _ssm_block(d, heads, head_dim, head_dim,
                                      proj_std, dropout)
     return base
+
+
+def makemore_mlp(vocab: int = 27, d_embed: int = 10,
+                 d_hidden: int = 200) -> list:
+    """Char-level MLP in the makemore style: per-position embedding → tanh
+    MLP → softmax cross-entropy."""
+    return [
+        {"embedding": {"num_embeddings": vocab, "embedding_dim": d_embed},
+         "normal": {"mean": 0.0, "std": 0.02}},
+        {"linear": {"in_features": d_embed, "out_features": d_hidden},
+         "normal": {"mean": 0.0, "std": 0.02}, "zeros": {}},
+        {"tanh": {}},
+        {"linear": {"in_features": d_hidden, "out_features": vocab},
+         "normal": {"mean": 0.0, "std": 0.02}, "zeros": {}},
+        {"softmaxlast": {"dim": -1}},
+    ]

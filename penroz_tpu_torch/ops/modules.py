@@ -9,13 +9,17 @@ package's names, so ``state_dict()`` of the model's root module
 :class:`Ctx` carrying the KV cache and the position offset; the caches
 update in place (ops/kv_cache.py).
 
-Ported: the modules the GPT-2 and hybrid attention/SSM DSLs build, for
-inference and training.  ``CausalSelfAttention`` has the no-cache (flash),
-contiguous-cache, paged and ragged (packed mixed batch) branches;
-sequence-parallel attention is still to be ported and has no state that
-could reach it.  ``GatedSSM`` has the no-cache (chunked kernel) and dense
-cached branches; its packed ragged branch belongs to the scheduler's SSM
-rows, which are not ported (the scheduler refuses SSM models).
+Ported: every dense algo of the JAX package's DSL (the ``moe`` algo is
+not), for inference and training.  BatchNorm1d's running statistics are
+registered buffers (``running_mean``, ``running_var``, an int32
+``num_batches_tracked``) that a training-mode forward updates in place, as
+the JAX package's ``ctx.buffer_updates`` do.  ``CausalSelfAttention`` has
+the no-cache (flash), contiguous-cache, paged and ragged (packed mixed
+batch) branches; sequence-parallel attention is still to be ported and
+has no state that could reach it.  ``GatedSSM`` has the no-cache (chunked
+kernel) and dense cached branches; its packed ragged branch belongs to
+the scheduler's SSM rows, which are not ported (the scheduler refuses SSM
+models).
 """
 
 from __future__ import annotations
@@ -115,6 +119,22 @@ class Embedding(Module):
         return F.embedding(x, self.weight)
 
 
+class ScaledEmbedding(Embedding):
+    """Embedding whose output is scaled by a constant (Gemma's sqrt(d)).
+    The scale is rounded to the output's dtype first, as the JAX package's
+    ``jnp.asarray(scale, out.dtype)`` does."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 scale: float = 1.0):
+        super().__init__(num_embeddings, embedding_dim)
+        self.scale = float(scale)
+
+    def forward(self, x, ctx):
+        out = super().forward(x, ctx)
+        scale = float(torch.tensor(self.scale, dtype=out.dtype))
+        return out * scale
+
+
 class PositionEmbedding(Embedding):
     """Learned position embedding indexed from the context offset.  Device
     positions (a packed batch's, a captured decode step's) are checked
@@ -197,6 +217,66 @@ class LayerNorm(Module):
         return out
 
 
+class Flatten(Module):
+    def __init__(self, start_dim: int = 1, end_dim: int = -1):
+        super().__init__()
+        self.start_dim = start_dim
+        self.end_dim = end_dim
+
+    def forward(self, x, ctx):
+        start = self.start_dim if self.start_dim >= 0 \
+            else x.ndim + self.start_dim
+        end = self.end_dim if self.end_dim >= 0 else x.ndim + self.end_dim
+        return x.reshape(x.shape[:start] + (-1,) + x.shape[end + 1:])
+
+
+class BatchNorm1d(Module):
+    """Batch normalization over dim 1.  In training the batch statistics
+    normalize and the running ones move by ``momentum`` (the variance
+    unbiased), in place under no_grad; in eval the running ones
+    normalize.  The statistics stay fp32 whatever the compute dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.num_features = int(num_features)
+        self.eps = float(eps)
+        self.momentum = float(momentum)
+        self.weight = nn.Parameter(torch.ones(self.num_features))
+        self.bias = nn.Parameter(torch.zeros(self.num_features))
+        self.register_buffer("running_mean", torch.zeros(self.num_features))
+        self.register_buffer("running_var", torch.ones(self.num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.int32))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x, ctx):
+        reduce_dims = (tuple(i for i in range(x.ndim) if i != 1)
+                       if x.ndim > 2 else (0,))
+        if ctx.training:
+            mean = x.mean(dim=reduce_dims)
+            var = x.var(dim=reduce_dims, unbiased=False)
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                unbiased = var.detach() * (n / max(n - 1, 1))
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean.detach())
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mean, var = mean.reshape(shape), var.reshape(shape)
+        return ((x - mean) * torch.rsqrt(var + self.eps)
+                * self.weight.reshape(shape) + self.bias.reshape(shape))
+
+
 class GELU(Module):
     def __init__(self, approximate: str = "none"):
         super().__init__()
@@ -204,6 +284,77 @@ class GELU(Module):
 
     def forward(self, x, ctx):
         return F.gelu(x, approximate=self.approximate)
+
+
+class Softcap(Module):
+    """Logit soft-capping ``cap * tanh(x / cap)`` in fp32 (Gemma-2's
+    ``final_logit_softcapping``)."""
+
+    def __init__(self, cap: float):
+        super().__init__()
+        if float(cap) <= 0.0:
+            raise ValueError(f"softcap must be > 0, got {cap}")
+        self.cap = float(cap)
+
+    def forward(self, x, ctx):
+        return (self.cap * torch.tanh(x.to(torch.float32) / self.cap)
+                ).to(x.dtype)
+
+
+class Clamp(Module):
+    """Elementwise clipping (OLMo v1 and MPT ``clip_qkv`` on the fused QKV
+    projection)."""
+
+    def __init__(self, min: Optional[float] = None,
+                 max: Optional[float] = None):
+        super().__init__()
+        if min is None and max is None:
+            raise ValueError("clamp needs at least one of min/max")
+        self.min = float(min) if min is not None else None
+        self.max = float(max) if max is not None else None
+
+    def forward(self, x, ctx):
+        return torch.clamp(x, self.min, self.max)
+
+
+class RMSNorm(Module):
+    """RMS normalization computed in fp32, cast back before the weight."""
+
+    def __init__(self, normalized_shape: int, eps: float = 1e-6):
+        super().__init__()
+        self.normalized_shape = int(normalized_shape)
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x, ctx):
+        xf = x.to(torch.float32)
+        norm = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                           + self.eps)
+        return (xf * norm).to(x.dtype) * self.weight
+
+
+class ReLU(Module):
+    def forward(self, x, ctx):
+        return F.relu(x)
+
+
+class SiLU(Module):
+    def forward(self, x, ctx):
+        return F.silu(x)
+
+
+class Sigmoid(Module):
+    def forward(self, x, ctx):
+        return torch.sigmoid(x)
+
+
+class Tanh(Module):
+    def forward(self, x, ctx):
+        return torch.tanh(x)
 
 
 class Softmax(Module):
@@ -280,6 +431,77 @@ class ResidualConnection(Sequential):
         for layer in self.layers:
             x = x + layer(x, ctx)
         return x
+
+
+class ParallelResidual(Sequential):
+    """x = x + sum of child(x): every child reads the same input (the
+    GPT-NeoX ``use_parallel_residual`` block).  The branches' keys sit one
+    level flat (``layers.i.{branch}.*``), which the NeoX remap relies on."""
+
+    def forward(self, x, ctx):
+        out = x
+        for layer in self.layers:
+            out = out + layer(x, ctx)
+        return out
+
+
+class TransformerBlock(Module):
+    """Pre-norm decoder block with optional post-norms:
+    ``post_norm_on_residual=True`` gives ``h = post_norm(x + branch(x))``,
+    ``False`` (Gemma 2) ``h = x + post_norm(branch(x))``."""
+
+    def __init__(self, attn_block: Module, mlp_block: Module,
+                 post_attn_norm: Optional[Module] = None,
+                 post_mlp_norm: Optional[Module] = None,
+                 post_norm_on_residual: bool = True):
+        super().__init__()
+        self.attn_block = attn_block
+        self.mlp_block = mlp_block
+        self.post_attn_norm = post_attn_norm
+        self.post_mlp_norm = post_mlp_norm
+        self.post_norm_on_residual = bool(post_norm_on_residual)
+
+    def forward(self, x, ctx):
+        on_residual = self.post_norm_on_residual
+        attn_out = self.attn_block(x, ctx)
+        if self.post_attn_norm is not None and not on_residual:
+            attn_out = self.post_attn_norm(attn_out, ctx)
+        h = x + attn_out
+        if self.post_attn_norm is not None and on_residual:
+            h = self.post_attn_norm(h, ctx)
+        mlp_out = self.mlp_block(h, ctx)
+        if self.post_mlp_norm is not None and not on_residual:
+            mlp_out = self.post_mlp_norm(mlp_out, ctx)
+        out = h + mlp_out
+        if self.post_mlp_norm is not None and on_residual:
+            out = self.post_mlp_norm(out, ctx)
+        return out
+
+
+class GatedMLP(Module):
+    """SwiGLU/GeGLU gated MLP: ``down(act(gate(x)) * up(x))``."""
+
+    def __init__(self, in_features: int, intermediate_size: int,
+                 bias: bool = False, activation: str = "gelu_pytorch_tanh"):
+        super().__init__()
+        self.gate_proj = Linear(in_features, intermediate_size, bias=bias)
+        self.up_proj = Linear(in_features, intermediate_size, bias=bias)
+        self.down_proj = Linear(intermediate_size, in_features, bias=bias)
+        self.activation = activation
+
+    def forward(self, x, ctx):
+        gated = (_gated_activation(self.activation, self.gate_proj(x, ctx))
+                 * self.up_proj(x, ctx))
+        return self.down_proj(gated, ctx)
+
+
+def _gated_activation(name: str, x):
+    """silu / gelu / gelu_pytorch_tanh, as the JAX package maps them (any
+    other name is the exact gelu)."""
+    if name in ("silu", "swish"):
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh" if name == "gelu_pytorch_tanh"
+                  else "none")
 
 
 # ---------------------------------------------------------------------------

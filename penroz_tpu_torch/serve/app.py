@@ -6,11 +6,13 @@ Routes: ``POST /model/``, ``POST /generate/`` (JSON, or ``stream: true``
 with one token per line), ``POST /generate_batch/``, ``POST /output/``
 (the raw forward and its cost), ``POST /evaluate/`` (forward-only cost over
 a dataset), ``POST /decode/``, ``POST /tokenize/``, ``PUT /train/``,
+``POST /import/`` (a local HuggingFace checkpoint directory),
 ``GET /progress/?model_id=…``, ``GET /stats/?model_id=…`` (the training
 diagnostics, ``null`` before any training), ``GET /serving_stats/``,
 ``DELETE /model/?model_id=…`` and ``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
-missing or mistyped field 422, bad value 400, a model already training
-409, anything else 500 with ``{"detail": "Please refer to server logs"}``.
+missing or mistyped field 422, bad value 400 (a hub id on ``/import/``),
+a model already training or importing 409, anything else 500 with
+``{"detail": "Please refer to server logs"}``.
 
 Each request runs in its own thread; a generate request loads the model's
 checkpoint onto the server's device, as the JAX service does per request.
@@ -94,13 +96,20 @@ class PenrozServer(ThreadingHTTPServer):
         self._train_threads: list[threading.Thread] = []
         super().__init__(address, _Handler)
 
-    def start_training(self, model_id: str, args: tuple) -> bool:
-        """Train ``model_id`` on a background thread unless it is already
-        training (then False)."""
+    def try_lock(self, model_id: str):
+        """The model's operation lock, acquired, or None while training or
+        an import holds it."""
         with self._train_guard:
             lock = self._train_locks.setdefault(model_id, threading.Lock())
-            if not lock.acquire(blocking=False):
-                return False
+        return lock if lock.acquire(blocking=False) else None
+
+    def start_training(self, model_id: str, args: tuple) -> bool:
+        """Train ``model_id`` on a background thread unless it is already
+        training or importing (then False)."""
+        lock = self.try_lock(model_id)
+        if lock is None:
+            return False
+        with self._train_guard:
             self._train_threads = [t for t in self._train_threads
                                    if t.is_alive()]
             thread = threading.Thread(target=_train_job,
@@ -344,6 +353,35 @@ class _Handler(BaseHTTPRequestHandler):
         tokens = Tokenizer(body.encoding).tokenize(body.text)
         self._send_json(200, {"encoding": body.encoding, "tokens": tokens})
 
+    def _device(self, name):
+        """The request's device, or the server's when absent; a card this
+        host lacks is a ValueError (HTTP 400)."""
+        if name is None:
+            return self.server.device
+        try:
+            return resolve_device(name)
+        except RuntimeError as e:
+            raise ValueError(str(e))
+
+    def import_model(self, query):
+        body = self._body(schemas.ImportModelRequest)
+        log.info("Requesting import of HuggingFace model %s as %s",
+                 body.hf_repo_id, body.model_id)
+        device = self._device(body.device)
+        lock = self.server.try_lock(body.model_id)
+        if lock is None:
+            raise _HTTPError(409, f"Operation already in progress for model "
+                                  f"{body.model_id}.")
+        try:
+            NeuralNetworkModel.from_huggingface(
+                body.model_id, body.hf_repo_id, body.revision, device=device)
+        finally:
+            lock.release()
+        self._send_json(200, {
+            "model_id": body.model_id, "status": "imported",
+            "message": f"Model imported from HuggingFace ({body.hf_repo_id}) "
+                       f"and ready for use"})
+
     def train(self, query):
         body = self._body(schemas.TrainingRequest)
         log.info("Requesting training for model %s on device %s",
@@ -351,12 +389,7 @@ class _Handler(BaseHTTPRequestHandler):
         if body.adapter is not None:
             raise ValueError("LoRA adapter training is not ported to "
                              "penroz_tpu_torch yet")
-        device = self.server.device
-        if body.device is not None:
-            try:
-                device = resolve_device(body.device)
-            except RuntimeError as e:  # asked for a card this host lacks
-                raise ValueError(str(e))
+        device = self._device(body.device)
         unported_training_options()
         unported_attention_options()
         checkpoint.load(body.model_id, arrays=())  # unknown model: 404
@@ -404,6 +437,7 @@ _GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress,
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/generate_batch/": _Handler.generate_batch,
          "/output/": _Handler.output, "/evaluate/": _Handler.evaluate,
+         "/import/": _Handler.import_model,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize}
 _PUT = {"/train/": _Handler.train}
 _DELETE = {"/model/": _Handler.delete_model}

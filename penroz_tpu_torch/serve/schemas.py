@@ -258,3 +258,20 @@ class EvaluateRequest(TrainingRequest):
 
     FIELDS = TrainingRequest.FIELDS + (
         ("target_dataset_id", str, None, True),)
+
+
+@dataclass
+class ImportModelRequest(_Request):
+    """``POST /import/``: a HuggingFace checkpoint in a local directory
+    (``hf_repo_id`` names the directory; the port imports no hub id).
+    ``device`` absent means the server's device (the card unless the
+    server runs on the CPU; the JAX package's default is ``"cpu"``)."""
+    hf_repo_id: str
+    model_id: str
+    revision: Optional[str] = None
+    device: Optional[str] = None
+
+    FIELDS = (("hf_repo_id", str, _REQUIRED, False),
+              ("model_id", str, _REQUIRED, False),
+              ("revision", str, None, True),
+              ("device", str, None, True))

@@ -3,7 +3,9 @@ equal to the JAX package's on the same weights), streaming, /decode/,
 /tokenize/, error statuses and DELETE; PUT /train/ (202, 409, 404, 400,
 422) and GET /progress/ until Trained or Error; /output/ and /evaluate/
 of a hybrid attention/SSM model (the JAX package's numbers on a shared
-checkpoint, and their error statuses)."""
+checkpoint, and their error statuses); POST /import/ of a local
+HuggingFace checkpoint → /generate/, its 409 and error statuses, and
+imports loading across the two packages."""
 
 import json
 import threading
@@ -519,3 +521,117 @@ def test_ssm_model_refused_under_continuous_batching(server, paged,
                             "temperature": 0})):
         status, text = _call(server, "POST", path, payload)
         assert status == 400 and "ssm layer" in text, (path, text)
+
+
+def _hf_checkpoint(workdir, name="hf_qwen3"):
+    """A tiny Qwen3 checkpoint written by transformers (bf16 safetensors)."""
+    import torch
+    from transformers import Qwen3Config, Qwen3ForCausalLM
+    torch.manual_seed(0)
+    model = Qwen3ForCausalLM(Qwen3Config(
+        vocab_size=96, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        intermediate_size=64, tie_word_embeddings=True)).eval()
+    path = str(workdir / name)
+    model.to(torch.bfloat16).save_pretrained(path, safe_serialization=True)
+    return path
+
+
+def _bf16_bits(value):
+    import torch
+    if isinstance(value, torch.Tensor):
+        return value.view(torch.int16).numpy()
+    return np.asarray(value).view(np.int16)
+
+
+def test_import_then_generate(server, workdir):
+    """POST /import/ of a local checkpoint → /progress/ Imported →
+    /generate/ (the tokens of the imported model in process, streamed
+    too); the errors: a hub id 400, a missing field 422, an unknown
+    device 400, and nothing saved by a refused import."""
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    ckpt = _hf_checkpoint(workdir)
+    status, text = _call(server, "POST", "/import/",
+                         {"hf_repo_id": ckpt, "model_id": "q3"})
+    assert status == 200, text
+    assert json.loads(text) == {
+        "model_id": "q3", "status": "imported",
+        "message": f"Model imported from HuggingFace ({ckpt}) and ready "
+                   f"for use"}
+    status, text = _call(server, "GET", "/progress/?model_id=q3")
+    assert json.loads(text)["status"]["code"] == "Imported"
+    tckpt.join_flushes()
+    local = NeuralNetworkModel.deserialize("q3", device="cpu")
+    expected = local.generate_tokens([1, 2, 3, 4, 5], 16, 10, temperature=0)
+    status, text = _call(server, "POST", "/generate/",
+                         _gen("q3", max_new_tokens=10))
+    assert status == 200 and json.loads(text)["tokens"] == expected
+    status, text = _call(server, "POST", "/generate/",
+                         _gen("q3", max_new_tokens=10, stream=True))
+    assert [int(t) for t in text.split()] == expected[5:]
+
+    status, text = _call(server, "POST", "/import/",
+                         {"hf_repo_id": "Qwen/Qwen3-0.6B", "model_id": "x"})
+    assert status == 400 and "local" in text
+    assert _call(server, "POST", "/import/", {"model_id": "x"})[0] == 422
+    assert _call(server, "POST", "/import/",
+                 {"hf_repo_id": ckpt, "model_id": "x",
+                  "device": "tpuu"})[0] == 400
+    assert _call(server, "GET", "/progress/?model_id=x")[0] == 404
+
+
+def test_import_while_importing_is_409(server, workdir, monkeypatch):
+    """A second import of the same model_id while the first runs is a 409;
+    another model_id is not held up."""
+    from penroz_tpu_torch.serve import app as app_mod
+    ckpt = _hf_checkpoint(workdir)
+    entered, release = threading.Event(), threading.Event()
+    real = app_mod.NeuralNetworkModel.from_huggingface
+
+    def slow(model_id, *args, **kwargs):
+        if model_id == "slow":
+            entered.set()
+            assert release.wait(30)
+        return real(model_id, *args, **kwargs)
+
+    monkeypatch.setattr(app_mod.NeuralNetworkModel, "from_huggingface",
+                        slow)
+    results = {}
+    first = threading.Thread(target=lambda: results.setdefault(
+        "first", _call(server, "POST", "/import/",
+                       {"hf_repo_id": ckpt, "model_id": "slow"})))
+    first.start()
+    assert entered.wait(30)
+    status, text = _call(server, "POST", "/import/",
+                         {"hf_repo_id": ckpt, "model_id": "slow"})
+    assert status == 409 and "already in progress" in text
+    assert _call(server, "POST", "/import/",
+                 {"hf_repo_id": ckpt, "model_id": "other"})[0] == 200
+    release.set()
+    first.join(60)
+    assert results["first"][0] == 200
+    assert _call(server, "POST", "/import/",
+                 {"hf_repo_id": ckpt, "model_id": "slow"})[0] == 200
+
+
+def test_imports_load_across_packages(server, workdir):
+    """A checkpoint the port imported loads in the JAX package with the
+    same bf16 parameters, and one the JAX package imported serves in the
+    port with the port's own import's tokens."""
+    ckpt = _hf_checkpoint(workdir)
+    assert _call(server, "POST", "/import/",
+                 {"hf_repo_id": ckpt, "model_id": "by_port"})[0] == 200
+    jm_own = JModel.from_huggingface("by_jax", ckpt)
+    tckpt.join_flushes()
+    jckpt.join_flushes()
+    jm = JModel.deserialize("by_port")
+    assert jm.status["code"] == "Imported"
+    assert set(jm.params) == set(jm_own.params)
+    for key, value in jm_own.params.items():
+        np.testing.assert_array_equal(_bf16_bits(jm.params[key]),
+                                      _bf16_bits(value), err_msg=key)
+    assert len(jm.generate_tokens([1, 2, 3], 16, 4, temperature=0)) == 7
+    port_tokens = json.loads(_call(server, "POST", "/generate/",
+                                   _gen("by_port"))[1])["tokens"]
+    status, text = _call(server, "POST", "/generate/", _gen("by_jax"))
+    assert status == 200 and json.loads(text)["tokens"] == port_tokens

@@ -1,12 +1,18 @@
 """The PyTorch port imports no JAX: an ``ast`` walk over every module of
 ``penroz_tpu_torch`` and over ``chip_smoke.py`` finds no import of
-``jax``, ``jaxlib``, ``optax`` or ``penroz_tpu``."""
+``jax``, ``jaxlib``, ``optax`` or ``penroz_tpu``, nor of ``transformers``,
+``safetensors``, ``huggingface_hub`` or ``ml_dtypes``, which the machine
+with the card does not have either; a process where those cannot be
+imported imports a HuggingFace checkpoint."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "optax", "penroz_tpu"}
+HF_PACKAGES = {"transformers", "safetensors", "huggingface_hub", "ml_dtypes"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "penroz_tpu"} | HF_PACKAGES
 
 
 def _imported_roots(path: pathlib.Path):
@@ -67,3 +73,38 @@ def test_ssm_slice_modules_import_without_a_card():
     from penroz_tpu_torch.ops.kernels import build
     assert "ssm_scan" not in build._LIBS
     assert (ROOT / "penroz_tpu_torch" / "csrc" / "ssm_scan.cu").exists()
+
+
+def test_hf_import_runs_without_the_hf_packages(tmp_path):
+    """``from_huggingface`` in a process where ``transformers``,
+    ``safetensors``, ``huggingface_hub``, ``ml_dtypes`` and JAX cannot be
+    imported (``sys.modules`` entries of None)."""
+    import torch
+    from transformers import Qwen3Config, Qwen3ForCausalLM
+    torch.manual_seed(0)
+    model = Qwen3ForCausalLM(Qwen3Config(
+        vocab_size=64, hidden_size=16, num_hidden_layers=1,
+        num_attention_heads=2, num_key_value_heads=1, head_dim=8,
+        intermediate_size=32, tie_word_embeddings=True)).eval()
+    model.to(torch.bfloat16).save_pretrained(tmp_path / "ckpt",
+                                             safe_serialization=True)
+    blocked = sorted(HF_PACKAGES | {"jax", "jaxlib", "optax", "penroz_tpu"})
+    script = f"""
+import os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(ROOT)!r})
+os.chdir({str(tmp_path)!r})
+from penroz_tpu_torch.utils import checkpoint
+checkpoint.SHM_PATH = {str(tmp_path / "shm")!r}
+os.makedirs(checkpoint.SHM_PATH)
+from penroz_tpu_torch.models.model import NeuralNetworkModel
+m = NeuralNetworkModel.from_huggingface("q", "ckpt", device="cpu")
+tokens = m.generate_tokens([1, 2, 3], 8, 3, temperature=0)
+checkpoint.join_flushes()
+print(m.status["code"], len(tokens))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-2:] == ["Imported", "6"]

@@ -37,9 +37,11 @@ prints no result:
                1000-token prefill, the paged decode and its 128- and
                1000-token prefills, a ragged mixed step, the flash
                forward and backward at T 1024; and the Gemma-2-2B decode
-               (GQA 8/4, D 256, window 4096, softcap 50, 8192 keys).  The
-               flash rows also carry the host microseconds of one wrapper
-               call.
+               (GQA 8/4, D 256, window 4096, softcap 50, 8192 keys).
+               Phase 4e's shapes (MHA 16/16, D 128, bf16): decode and
+               paged decode at 1024 keys, the ragged mixed step, flash
+               forward and backward at 1 x 1024.  The flash rows also
+               carry the host microseconds of one wrapper call.
 4. serving   — the port's HTTP server in a thread on 127.0.0.1 serving GPT-2
                124M width (presets.gpt2(): d 768, 12 heads, 12 layers, vocab
                50304, block 1024; random weights from seed 0): POST /model/,
@@ -119,7 +121,18 @@ prints no result:
                under PENROZ_CONTINUOUS_BATCHING=1 PAGED_KV_CACHE=1 (the
                ragged kernel 28 a mixed step, each token the plain
                forward's argmax, near ties excepted as stated at
-               _qwen3_continuous); DELETE /model/.
+               _hf_continuous); DELETE /model/.
+4e. qmoe     — the same path (phase_import) for the MoE slice: the
+               published Qwen/Qwen1.5-MoE-A2.7B config.json (d 2048, MHA
+               16/16, 60 experts of width 1408, top-4 without
+               renormalization, a shared expert of width 5632 behind its
+               sigmoid gate, vocab 151936, untied head) with its 24 layers
+               cut to QMOE_LAYERS = 2 (~1.76 B parameters, ~3.5 GB bf16):
+               the import, greedy, streamed and 1000-token requests on both
+               caches, graph == eager, the decode kernels 2 a dispatched
+               step, /output/ with 2 flash-forward launches, the card's
+               logits against the CPU forward, 4 concurrent requests (the
+               ragged kernel 2 a mixed step), DELETE.
 5. training  — the same server trains GPT-2 124M (AdamW, bf16 compute, the
                default on the card) through PUT /train/ on a synthetic uint16
                shard: batch 8 x block 1024, step 4 (two micro-steps an
@@ -135,9 +148,23 @@ prints no result:
                in process at 8 x 1024, timed, its fp32 flash and
                cross-entropy launches counted.  Then one epoch's time by
                kernel, under torch.profiler (the Python API, same shapes).
+5b. moe_training — the same training path for an MoE model at GPT-2
+               width (moe_train_layers: d 768, 12 heads, 4 blocks, vocab
+               50304, block 1024; each MLP 8 experts of width 3072, top-2,
+               capacity dispatch at 1.25, load-balance coefficient 0.01):
+               PUT /train/ bf16 at 8 x 1024, step 4, the same launch
+               counts, costs finite and falling, greedy /generate/ twice
+               identical; then GET /stats/'s moe_router_fractions (4
+               entries of 8 finite values, each summing to 1 within 1e-5),
+               the greedy tokens again under PAGED_KV_CACHE=1, and a
+               POST /dataset/ that ends failed with the datasets module
+               blocked in process (this machine has it, and a download
+               would reach for the network), the server still answering.
 6. micro-step — one fp32 training micro-step at GPT-2 width (B 1, T 1024):
                loss and every parameter gradient through the kernels against
-               the same step with the plain versions patched in.
+               the same step with the plain versions patched in; then the
+               same for phase 5b's MoE model (the load-balance loss in the
+               loss, the router and expert stacks among the gradients).
 7. result    — the kernels JSON line, the card line, then the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -181,15 +208,15 @@ SOURCES = [
     ("ssm_scan", "penroz_tpu_torch/csrc/ssm_scan.cu"),
 ]
 # Launch sites of the main paths: (name, source, TPU kernel it replaces,
-# phase-3 case that stands for it: phase 4d's shape for the four kernels
-# the Qwen3 path runs).
+# phase-3 case that stands for it: phase 4e's shape, Qwen1.5-MoE's MHA
+# 16/16, D 128, bf16, for the four kernels its serving path runs).
 KERNELS = [
     ("decode_attention", "penroz_tpu_torch/csrc/decode_attention.cu",
      "penroz_tpu/ops/pallas/decode_attention.py:155",
-     "qwen3_decode_L1024_bf16"),
+     "qmoe_decode_L1024_bf16"),
     ("flash_attention_fwd", "penroz_tpu_torch/csrc/flash_attention.cu",
      "penroz_tpu/ops/pallas/flash_attention.py:200",
-     "flash_qwen3_T1024_bf16_fwd"),
+     "flash_qmoe_T1024_bf16_fwd"),
     ("flash_attention_bwd", "penroz_tpu_torch/csrc/flash_attention.cu",
      "penroz_tpu/ops/pallas/flash_attention.py:411",
      "flash_gpt2_B8_T1024_bf16_bwd"),
@@ -201,10 +228,10 @@ KERNELS = [
      "ce_gpt2_N8192_V50304_bf16_bwd"),
     ("paged_decode_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
      "penroz_tpu/ops/pallas/paged_attention.py:152",
-     "paged_qwen3_decode_L1024_bf16"),
+     "paged_qmoe_decode_L1024_bf16"),
     ("ragged_paged_attention", "penroz_tpu_torch/csrc/paged_attention.cu",
      "penroz_tpu/ops/pallas/ragged_paged_attention.py:161",
-     "ragged_qwen3_mixed_bf16"),
+     "ragged_qmoe_mixed_bf16"),
     ("gla_chunked", "penroz_tpu_torch/csrc/ssm_scan.cu",
      "penroz_tpu/ops/pallas/ssm_scan.py:74", "gla_gpt2_B8_T1024_fp32"),
 ]
@@ -271,7 +298,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# When each phase tag first and last spoke (monotonic seconds): the
+# phases' wall times, reported at the end.
+SPOKE: dict = {}
+
+
 def say(phase, msg):
+    now = time.monotonic()
+    SPOKE.setdefault(phase, [now, now])[1] = now
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -554,6 +588,10 @@ def kernel_cases():
         dict(name="gemma2_decode_L8192_window4096_softcap50_bf16", B=1,
              Hq=8, Hkv=4, S=8192, D=256, T=1, L=8192, window=4096,
              softcap=50.0, dtype="bfloat16"),
+        # phase 4e's Qwen1.5-MoE-A2.7B attention (MHA 16/16, D 128,
+        # bf16): a decode step at 1024 keys
+        dict(B=1, Hq=16, Hkv=16, S=1024, D=128,
+             name="qmoe_decode_L1024_bf16", T=1, L=1024, dtype="bfloat16"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = i
@@ -1058,6 +1096,9 @@ def paged_cases():
              lengths=[128], dtype="bfloat16", spare_pages=7, iters=10),
         dict(qwen3, name="paged_qwen3_prefill_T1000_bf16", T=1000,
              lengths=[1000], dtype="bfloat16", iters=5),
+        # phase 4e's paged decode step: MHA 16/16, D 128, bf16
+        dict(qwen3, Hkv=16, name="paged_qmoe_decode_L1024_bf16",
+             lengths=[1024], dtype="bfloat16"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 200 + i
@@ -1098,6 +1139,10 @@ def ragged_cases():
         # phase 4d's mixed step: a 256-token chunk of the 900-token prompt
         # beside three decode rows, GQA 16/8, D 128, bf16
         dict(name="ragged_qwen3_mixed_bf16", Hq=16, Hkv=8, D=128, P=128,
+             BQ=8, spans=[(512, 256), (215, 1), (515, 1), (963, 1)],
+             dtype="bfloat16"),
+        # the same mixed step at phase 4e's MHA 16/16
+        dict(name="ragged_qmoe_mixed_bf16", Hq=16, Hkv=16, D=128, P=128,
              BQ=8, spans=[(512, 256), (215, 1), (515, 1), (963, 1)],
              dtype="bfloat16"),
     ]
@@ -1239,7 +1284,10 @@ def training_cases():
                   dtype="bfloat16", seed=201),
              # phase 4d's /output/ at 1 x 1024: GQA 16/8, D 128, bf16
              dict(name="flash_qwen3_T1024_bf16", B=1, Hq=16, Hkv=8, T=1024,
-                  D=128, dtype="bfloat16", seed=202)]
+                  D=128, dtype="bfloat16", seed=202),
+             # phase 4e's /output/ at 1 x 1024: MHA 16/16, D 128, bf16
+             dict(name="flash_qmoe_T1024_bf16", B=1, Hq=16, Hkv=16, T=1024,
+                  D=128, dtype="bfloat16", seed=203)]
     ce = [dict(name="ce_gpt2_N8192_V50304_bf16", N=8192, V=50304,
                dtype="bfloat16"),
           dict(name="ce_gpt2_N8192_V50304_fp32", N=8192, V=50304,
@@ -2510,7 +2558,8 @@ def _profile_hybrid(torch, model, vocab, device):
 
 
 # ---------------------------------------------------------------------------
-# 4d: a HuggingFace checkpoint at Qwen3-0.6B width, imported over HTTP
+# 4d, 4e: HuggingFace checkpoints at Qwen3-0.6B and Qwen1.5-MoE-A2.7B width,
+# imported over HTTP
 # ---------------------------------------------------------------------------
 
 # The published Qwen/Qwen3-0.6B config.json (its architecture keys).
@@ -2526,6 +2575,32 @@ QWEN3_CONFIG = {
     "rope_theta": 1000000, "sliding_window": None,
     "tie_word_embeddings": True, "torch_dtype": "bfloat16",
     "use_cache": True, "use_sliding_window": False, "vocab_size": 151936}
+# The published Qwen/Qwen1.5-MoE-A2.7B config.json (its architecture keys),
+# its 24 layers cut to QMOE_LAYERS so the import fits the script's time;
+# every width is the published one.
+QMOE_CONFIG = {
+    "architectures": ["Qwen2MoeForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "decoder_sparse_step": 1,
+    "eos_token_id": 151643, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 5632,
+    "max_position_embeddings": 8192, "max_window_layers": 21,
+    "model_type": "qwen2_moe", "moe_intermediate_size": 1408,
+    "norm_topk_prob": False, "num_attention_heads": 16,
+    "num_experts": 60, "num_experts_per_tok": 4, "num_hidden_layers": 24,
+    "num_key_value_heads": 16, "output_router_logits": False,
+    "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "router_aux_loss_coef": 0.001, "shared_expert_intermediate_size": 5632,
+    "sliding_window": 32768, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True,
+    "use_sliding_window": False, "vocab_size": 151936}
+QMOE_LAYERS = 2
+# The imported checkpoints: phase name, model id, config as written, title.
+HF_MODELS = {
+    "qwen3": dict(config=QWEN3_CONFIG, title="Qwen3-0.6B",
+                  dir="hf_qwen3_0.6b"),
+    "qmoe": dict(config=dict(QMOE_CONFIG, num_hidden_layers=QMOE_LAYERS),
+                 title="Qwen1.5-MoE-A2.7B", dir="hf_qwen1.5_moe_a2.7b"),
+}
 QWEN3_SHARDS = 2
 QWEN3_BLOCK = 1024
 QWEN3_LONG_PROMPT = 1000
@@ -2545,12 +2620,15 @@ QWEN3_REF_POSITIONS = 8
 QWEN3_LOGIT_FACTOR = 3.0
 
 
-def _qwen3_tensors(cfg):
-    """(HF key, shape, kind) of every tensor of the checkpoint, in the HF
-    layout (tied embeddings: no lm_head)."""
-    d, hd = cfg["hidden_size"], cfg["head_dim"]
+def _hf_tensors(cfg):
+    """(HF key, shape, kind) of every tensor of a Qwen3 (tied embeddings:
+    no lm_head; q/k norms) or a Qwen2-MoE (q/k/v biases; each layer's
+    router, experts, shared expert and its gate; an lm_head) checkpoint,
+    in the HF layout."""
+    moe = cfg["model_type"] == "qwen2_moe"
+    d = cfg["hidden_size"]
     heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    inter = cfg["intermediate_size"]
+    hd = cfg.get("head_dim") or d // heads
     out = [("model.embed_tokens.weight", (cfg["vocab_size"], d), "normal")]
     for i in range(cfg["num_hidden_layers"]):
         p = f"model.layers.{i}"
@@ -2558,14 +2636,32 @@ def _qwen3_tensors(cfg):
                 (f"{p}.self_attn.q_proj.weight", (heads * hd, d), "normal"),
                 (f"{p}.self_attn.k_proj.weight", (kv * hd, d), "normal"),
                 (f"{p}.self_attn.v_proj.weight", (kv * hd, d), "normal"),
-                (f"{p}.self_attn.o_proj.weight", (d, heads * hd), "normal"),
-                (f"{p}.self_attn.q_norm.weight", (hd,), "norm"),
-                (f"{p}.self_attn.k_norm.weight", (hd,), "norm"),
-                (f"{p}.post_attention_layernorm.weight", (d,), "norm"),
-                (f"{p}.mlp.gate_proj.weight", (inter, d), "normal"),
-                (f"{p}.mlp.up_proj.weight", (inter, d), "normal"),
-                (f"{p}.mlp.down_proj.weight", (d, inter), "normal")]
+                (f"{p}.self_attn.o_proj.weight", (d, heads * hd), "normal")]
+        if moe:
+            out += [(f"{p}.self_attn.{n}_proj.bias", (w * hd,), "normal")
+                    for n, w in (("q", heads), ("k", kv), ("v", kv))]
+        else:
+            out += [(f"{p}.self_attn.q_norm.weight", (hd,), "norm"),
+                    (f"{p}.self_attn.k_norm.weight", (hd,), "norm")]
+        out.append((f"{p}.post_attention_layernorm.weight", (d,), "norm"))
+        mlps = [(f"{p}.mlp", cfg["intermediate_size"])]
+        if moe:
+            out.append((f"{p}.mlp.gate.weight", (cfg["num_experts"], d),
+                        "normal"))
+            mlps = [(f"{p}.mlp.experts.{e}", cfg["moe_intermediate_size"])
+                    for e in range(cfg["num_experts"])]
+            mlps.append((f"{p}.mlp.shared_expert",
+                         cfg["shared_expert_intermediate_size"]))
+        for m, inter in mlps:
+            out += [(f"{m}.gate_proj.weight", (inter, d), "normal"),
+                    (f"{m}.up_proj.weight", (inter, d), "normal"),
+                    (f"{m}.down_proj.weight", (d, inter), "normal")]
+        if moe:
+            out.append((f"{p}.mlp.shared_expert_gate.weight", (1, d),
+                        "normal"))
     out.append(("model.norm.weight", (d,), "norm"))
+    if not cfg["tie_word_embeddings"]:
+        out.append(("lm_head.weight", (cfg["vocab_size"], d), "normal"))
     return out
 
 
@@ -2588,16 +2684,15 @@ def _write_safetensors(torch, path, tensors):
             f.write(t.view(torch.int16).numpy().tobytes())
 
 
-def write_qwen3_checkpoint(torch, path, seed=0, device="cuda"):
-    """The Qwen3-0.6B-shaped checkpoint from ``seed``: config.json (the
-    published values), the weights as BF16 safetensors in QWEN3_SHARDS
-    shards with a model.safetensors.index.json.  Projections and the
-    embedding ~ N(0, initializer_range) (the config's 0.02, as HF
-    initializes them), norm weights ~ 1 + N(0, 0.1); drawn on the card
-    from one generator.  Returns the bytes written."""
-    cfg = QWEN3_CONFIG
+def write_hf_checkpoint(torch, path, cfg, seed=0, device="cuda"):
+    """A checkpoint of config ``cfg`` from ``seed``: config.json (the
+    published values, the depth as given), the weights as BF16
+    safetensors in QWEN3_SHARDS shards with a model.safetensors.index.json.
+    Projections, biases and the embedding ~ N(0, initializer_range) (the
+    config's 0.02, as HF initializes them), norm weights ~ 1 + N(0, 0.1);
+    drawn on the card from one generator.  Returns the bytes written."""
     os.makedirs(path, exist_ok=True)
-    specs = _qwen3_tensors(cfg)
+    specs = _hf_tensors(cfg)
     sizes = [math.prod(shape) * 2 for _, shape, _ in specs]
     total = sum(sizes)
     groups, acc = [[]], 0
@@ -2628,12 +2723,13 @@ def write_qwen3_checkpoint(torch, path, seed=0, device="cuda"):
     return total
 
 
-def phase_qwen3(torch, card, device="cuda"):
-    """The slice's main path: a Qwen3-0.6B-shaped checkpoint (28 layers,
-    full widths, random bf16 weights from seed 0, written here in the HF
-    layout) through POST /import/, served on the contiguous and paged
-    caches, under continuous batching and by /output/, then deleted.
-    Returns (stats, {kernel: device runs or launches in this phase})."""
+def phase_import(torch, card, tag, device="cuda"):
+    """A HuggingFace checkpoint of HF_MODELS[tag] (Qwen3-0.6B at 28 layers,
+    or Qwen1.5-MoE-A2.7B at QMOE_LAYERS; full widths, random bf16 weights
+    from seed 0, written here in the HF layout) through POST /import/,
+    served on the contiguous and paged caches, under continuous batching
+    and by /output/, then deleted.  Returns (stats, {kernel: device runs
+    or launches in this phase})."""
     import numpy as np
 
     from penroz_tpu_torch.models import decode_graphs as DG
@@ -2645,16 +2741,17 @@ def phase_qwen3(torch, card, device="cuda"):
     from penroz_tpu_torch.serve.app import create_app
     from penroz_tpu_torch.utils import checkpoint
 
-    cfg = QWEN3_CONFIG
+    hf = HF_MODELS[tag]
+    cfg = hf["config"]
     vocab, n_attn = cfg["vocab_size"], cfg["num_hidden_layers"]
     block = QWEN3_BLOCK
     stats, launches = {}, {}
-    ckpt = os.path.join(WORK, "hf_qwen3_0.6b")
+    ckpt = os.path.join(WORK, hf["dir"])
     t0 = time.monotonic()
-    stats["checkpoint_bytes"] = write_qwen3_checkpoint(torch, ckpt,
-                                                       device=device)
+    stats["checkpoint_bytes"] = write_hf_checkpoint(torch, ckpt, cfg,
+                                                    device=device)
     stats["write_s"] = time.monotonic() - t0
-    say("qwen3", f"wrote the Qwen3-0.6B-shaped checkpoint "
+    say(tag, f"wrote the {hf['title']}-shaped checkpoint, {n_attn} layers "
         f"({stats['checkpoint_bytes'] / 1e9:.3f} GB bf16, {QWEN3_SHARDS} "
         f"shards + index) in {stats['write_s']:.2f} s")
     rng = np.random.default_rng(0)
@@ -2666,18 +2763,18 @@ def phase_qwen3(torch, card, device="cuda"):
     base = "http://%s:%d" % server.server_address[:2]
     try:
         status, text, secs = _post(base, "/import/", {
-            "hf_repo_id": ckpt, "model_id": "qwen3"})
+            "hf_repo_id": ckpt, "model_id": tag})
         check(status == 200, f"POST /import/ -> {status}: {text[:300]}")
         stats["import_s"] = secs
-        status, text, _ = _post(base, "/progress/?model_id=qwen3", None,
+        status, text, _ = _post(base, f"/progress/?model_id={tag}", None,
                                 method="GET")
         check(status == 200 and json.loads(text)["status"]["code"]
               == "Imported", f"/progress/ after the import: {text[:300]}")
-        say("qwen3", f"POST /import/ 200 in {secs:.2f} s (read, remap, "
+        say(tag, f"POST /import/ 200 in {secs:.2f} s (read, remap, "
             f"bf16 cast, to the card, checkpoint written), status "
             f"Imported, on {card}")
 
-        greedy = {"model_id": "qwen3", "input": [prompt],
+        greedy = {"model_id": tag, "input": [prompt],
                   "block_size": block, "max_new_tokens": NEW_TOKENS,
                   "temperature": 0}
         DG.reset()
@@ -2690,7 +2787,7 @@ def phase_qwen3(torch, card, device="cuda"):
         check(len(first) == PROMPT_LEN + NEW_TOKENS
               and first[:PROMPT_LEN] == prompt
               and all(0 <= t < vocab for t in first),
-              "qwen3 greedy output malformed")
+              f"{tag} greedy output malformed")
         check(DG.STATS["captures"] == 1 and http.steps["decode_attention"]
               == 1 + NEW_TOKENS + DG.WARMUP_STEPS,
               f"first request: {DG.STATS}, {http.steps}")
@@ -2698,13 +2795,13 @@ def phase_qwen3(torch, card, device="cuda"):
         with http.request():
             status, text, secs = _post(base, "/generate/", greedy)
         check(status == 200 and json.loads(text)["tokens"] == first,
-              "qwen3 greedy /generate/ not deterministic")
+              f"{tag} greedy /generate/ not deterministic")
         check(DG.STATS["captures"] == 1,
-              "the second qwen3 request captured again")
+              f"the second {tag} request captured again")
         stats["greedy_request_s_2"] = secs
         with http.request():
             streamed, ttft, secs = _stream(base, greedy)
-        check(streamed == first[PROMPT_LEN:], "qwen3 stream != non-stream")
+        check(streamed == first[PROMPT_LEN:], f"{tag} stream != non-stream")
         stats.update(stream_first_token_s=ttft, stream_request_s=secs)
         long_body = dict(greedy, input=[long_prompt],
                          max_new_tokens=QWEN3_LONG_NEW)
@@ -2713,13 +2810,13 @@ def phase_qwen3(torch, card, device="cuda"):
         long_tokens = json.loads(text)["tokens"] if status == 200 else []
         check(len(long_tokens) == QWEN3_LONG_PROMPT + QWEN3_LONG_NEW
               and long_tokens[:QWEN3_LONG_PROMPT] == long_prompt,
-              f"qwen3 {QWEN3_LONG_PROMPT}-token prompt -> {status}: "
+              f"{tag} {QWEN3_LONG_PROMPT}-token prompt -> {status}: "
               f"{text[:300]}")
         stats["long_prompt_request_s"] = secs
-        wrapper, ran = _check_launches(n_attn, http, "qwen3 HTTP, "
+        wrapper, ran = _check_launches(n_attn, http, f"{tag} HTTP, "
                                        "contiguous cache")
         launches["decode_attention"] = ran["decode_attention"]
-        say("qwen3", f"greedy {PROMPT_LEN}+{NEW_TOKENS} twice (identical; "
+        say(tag, f"greedy {PROMPT_LEN}+{NEW_TOKENS} twice (identical; "
             f"{stats['greedy_request_s']:.3f} s with the capture, "
             f"{stats['greedy_request_s_2']:.3f} s without, checkpoint load "
             f"included), streamed (first token {ttft:.3f} s), "
@@ -2735,22 +2832,22 @@ def phase_qwen3(torch, card, device="cuda"):
             with http_p.request():
                 status, text, secs = _post(base, "/generate/", greedy)
             check(status == 200 and json.loads(text)["tokens"] == first,
-                  f"qwen3 paged /generate/ -> {status}: tokens differ from "
+                  f"{tag} paged /generate/ -> {status}: tokens differ from "
                   f"the contiguous cache's")
             stats["paged_request_s"] = secs
             with http_p.request():
                 streamed, _, _ = _stream(base, greedy)
             check(streamed == first[PROMPT_LEN:],
-                  "qwen3 paged stream != the contiguous tokens")
+                  f"{tag} paged stream != the contiguous tokens")
             with http_p.request():
                 status, text, _ = _post(base, "/generate/", long_body)
             check(status == 200 and json.loads(text)["tokens"]
-                  == long_tokens, "qwen3 paged long prompt: tokens differ "
+                  == long_tokens, f"{tag} paged long prompt: tokens differ "
                   "from the contiguous cache's")
-        wrapper, ran = _check_launches(n_attn, http_p, "qwen3 HTTP, paged "
+        wrapper, ran = _check_launches(n_attn, http_p, f"{tag} HTTP, paged "
                                        "pool")
         launches["paged_decode_attention"] = ran["paged_decode_attention"]
-        say("qwen3", f"PAGED_KV_CACHE=1: the contiguous cache's tokens "
+        say(tag, f"PAGED_KV_CACHE=1: the contiguous cache's tokens "
             f"(greedy, streamed, {QWEN3_LONG_PROMPT}-token prompt); the "
             f"device ran the paged kernel {ran['paged_decode_attention']} "
             f"times = {n_attn} x {http_p.steps['paged_decode_attention']} "
@@ -2761,7 +2858,7 @@ def phase_qwen3(torch, card, device="cuda"):
         _zero_decode_counts()
         ledger = _StepLedger()
         t0 = time.monotonic()
-        model = NeuralNetworkModel.deserialize("qwen3", device=device,
+        model = NeuralNetworkModel.deserialize(tag, device=device,
                                                optimizer=False)
         torch.cuda.synchronize()
         stats["checkpoint_load_s"] = time.monotonic() - t0
@@ -2775,7 +2872,7 @@ def phase_qwen3(torch, card, device="cuda"):
                     got = model.generate_tokens(
                         body["input"], block, body["max_new_tokens"],
                         temperature=0)
-                check(got == want, f"qwen3 {name}: generate_tokens with "
+                check(got == want, f"{tag} {name}: generate_tokens with "
                       f"graphs {'on' if graphs else 'off'} != the HTTP "
                       f"tokens")
         timing = {}
@@ -2784,22 +2881,22 @@ def phase_qwen3(torch, card, device="cuda"):
             with _env(env), ledger.request():
                 out, timing[name] = _decode_timing(torch, model, prompt,
                                                    block, graphs=True)
-            check(out == first, f"qwen3 {name} timing run != the HTTP "
+            check(out == first, f"{tag} {name} timing run != the HTTP "
                   f"tokens")
         with ledger.request():
             out, timing["eager"] = _decode_timing(torch, model, prompt,
                                                   block, graphs=False)
-        check(out == first, "qwen3 eager timing run != the HTTP tokens")
-        _check_launches(n_attn, ledger, "qwen3 in process")
+        check(out == first, f"{tag} eager timing run != the HTTP tokens")
+        _check_launches(n_attn, ledger, f"{tag} in process")
         stats["decode"] = timing
         stats["tokens_per_s"] = timing["graph"]["tokens_per_s"]
         stats["paged_tokens_per_s"] = timing["paged_graph"]["tokens_per_s"]
         stats["eager_tokens_per_s"] = timing["eager"]["tokens_per_s"]
-        say("qwen3", f"checkpoint load (deserialize to the card) "
+        say(tag, f"checkpoint load (deserialize to the card) "
             f"{stats['checkpoint_load_s']:.2f} s; graph == eager in process "
             f"on the contiguous and paged caches and the long prompt")
         for name, t in timing.items():
-            say("qwen3", f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS} {name}: "
+            say(tag, f"generate_tokens {PROMPT_LEN}+{NEW_TOKENS} {name}: "
                 f"{t['s']:.4f} s = {t['tokens_per_s']:.1f} tokens/s (median "
                 f"of 3; prefill alone {t['prefill_s']:.4f} s); traced: "
                 f"{_trace_text(t)}, on {card}")
@@ -2808,7 +2905,7 @@ def phase_qwen3(torch, card, device="cuda"):
         FA.flash_forward.launches = 0
         out_input = rng.integers(0, vocab, (1, block)).tolist()
         status, text, secs = _post(base, "/output/", {
-            "model_id": "qwen3", "input": out_input})
+            "model_id": tag, "input": out_input})
         launches["flash_attention_fwd"] = FA.flash_forward.launches
         check(status == 200, f"/output/ -> {status}: {text[:300]}")
         probs = np.asarray(json.loads(text)["output"], np.float64)
@@ -2819,13 +2916,13 @@ def phase_qwen3(torch, card, device="cuda"):
               f"/output/ launched the flash forward "
               f"{launches['flash_attention_fwd']} times, not {n_attn}")
         stats["output_1x1024_request_s"] = secs
-        say("qwen3", f"/output/ 1 x {block}: softmax over {vocab} sums to "
+        say(tag, f"/output/ 1 x {block}: softmax over {vocab} sums to "
             f"{probs.sum():.4f}, {n_attn} flash-forward launches, "
             f"{secs:.3f} s (checkpoint load included)")
 
-        stats.update(_qwen3_cpu_reference(torch, model, prompt, device))
+        stats.update(_hf_cpu_reference(torch, model, tag, prompt, device))
         tol = stats["logits_tolerance"]
-        say("qwen3", f"card vs CPU bf16 forward of the same weights at "
+        say(tag, f"card vs CPU bf16 forward of the same weights at "
             f"{QWEN3_REF_POSITIONS} positions: max abs err "
             f"{stats['logits_max_abs_err']:.4e} (tolerance {tol:.4e} = "
             f"{QWEN3_LOGIT_FACTOR:g} x the CPU bf16 forward's "
@@ -2838,16 +2935,16 @@ def phase_qwen3(torch, card, device="cuda"):
         del model
         torch.cuda.empty_cache()
 
-        cb_stats, launches["ragged_paged_attention"] = _qwen3_continuous(
-            torch, base, n_attn, vocab, block, tol, device)
+        cb_stats, launches["ragged_paged_attention"] = _hf_continuous(
+            torch, base, tag, n_attn, vocab, block, tol, device)
         stats["continuous"] = cb_stats
 
-        status, _, _ = _post(base, "/model/?model_id=qwen3", None,
+        status, _, _ = _post(base, f"/model/?model_id={tag}", None,
                              method="DELETE")
         check(status == 204, f"DELETE /model/ -> {status}")
         check(_post(base, "/generate/", greedy)[0] == 404,
               "/generate/ after DELETE is not a 404")
-        say("qwen3", f"DELETE /model/ 204, then 404; runs and launches in "
+        say(tag, f"DELETE /model/ 204, then 404; runs and launches in "
             f"this phase {launches}")
     finally:
         DS.reset()
@@ -2861,7 +2958,7 @@ def phase_qwen3(torch, card, device="cuda"):
     return stats, launches
 
 
-def _qwen3_cpu_reference(torch, model, prompt, device):
+def _hf_cpu_reference(torch, model, tag, prompt, device):
     """The card's no-cache forward (the flash kernel) against the port's
     CPU forward of the same bf16 weights at QWEN3_REF_POSITIONS positions
     of ``prompt``, and the CPU fp32 forward of those weights, which sets
@@ -2875,7 +2972,7 @@ def _qwen3_cpu_reference(torch, model, prompt, device):
         card, _, _ = model.arch(x.to(device), skip_softmax=True)
         card = card[-1][0, at].float().cpu()
     t0 = time.monotonic()
-    cpu_model = NeuralNetworkModel.deserialize("qwen3", device="cpu",
+    cpu_model = NeuralNetworkModel.deserialize(tag, device="cpu",
                                                optimizer=False)
     with torch.inference_mode():
         bf16, _, _ = cpu_model.arch(x, skip_softmax=True)
@@ -2895,7 +2992,8 @@ def _qwen3_cpu_reference(torch, model, prompt, device):
             "reference_positions": at, "cpu_reference_s": cpu_s}
 
 
-def _qwen3_continuous(torch, base, n_attn, vocab, block, logit_tol, device):
+def _hf_continuous(torch, base, tag, n_attn, vocab, block, logit_tol,
+                   device):
     """4 concurrent greedy /generate/ under PAGED_KV_CACHE=1
     PENROZ_CONTINUOUS_BATCHING=1 (prompts of QWEN3_CB_PROMPT_LENS tokens,
     QWEN3_CB_NEW new): the ragged kernel once per attention layer per
@@ -2915,14 +3013,14 @@ def _qwen3_continuous(torch, base, n_attn, vocab, block, logit_tol, device):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, vocab, n).tolist()
                for n in QWEN3_CB_PROMPT_LENS]
-    bodies = [{"model_id": "qwen3", "input": [p], "block_size": block,
+    bodies = [{"model_id": tag, "input": [p], "block_size": block,
                "max_new_tokens": QWEN3_CB_NEW, "temperature": 0}
               for p in prompts]
     stats = {}
     with _env(CB_ENV):
         status, text, _ = _post(base, "/generate/", dict(
             bodies[0], max_new_tokens=2))
-        check(status == 200, f"qwen3 continuous warm-up -> {status}: "
+        check(status == 200, f"{tag} continuous warm-up -> {status}: "
               f"{text[:300]}")
         serving = json.loads(_post(base, "/serving_stats/", None,
                                    method="GET")[1])
@@ -2952,19 +3050,19 @@ def _qwen3_continuous(torch, base, n_attn, vocab, block, logit_tol, device):
         serving = json.loads(_post(base, "/serving_stats/", None,
                                    method="GET")[1])
     check(all(r is not None for r in results),
-          "a qwen3 concurrent request failed or came back short")
+          f"a {tag} concurrent request failed or came back short")
     steps = sum(t["superstep"] for t in serving["tick_timeline"]) \
         - steps_before
-    check(ragged == n_attn * steps, f"qwen3: the ragged kernel launched "
+    check(ragged == n_attn * steps, f"{tag}: the ragged kernel launched "
           f"{ragged} times, expected {n_attn} x {steps} mixed steps")
     check(single == 0, "a single-sequence kernel launched under continuous "
           "batching")
-    model = DS.get_engine("qwen3", block, 0, None, device=device)._model
+    model = DS.get_engine(tag, block, 0, None, device=device)._model
     gaps, near_ties = [], 0
     with torch.inference_mode(), plain_kernels():
         for (out, _), prompt in zip(results, prompts):
             n = len(prompt)
-            check(out[:n] == prompt, "a qwen3 result lost its prompt")
+            check(out[:n] == prompt, f"a {tag} result lost its prompt")
             x = torch.tensor([out[:-1]], device=device)
             acts, _, _ = model.arch(x, skip_softmax=True)
             logits = acts[-1][0, n - 1:].float()
@@ -2975,7 +3073,7 @@ def _qwen3_continuous(torch, base, n_attn, vocab, block, logit_tol, device):
             near_ties += int(tie.sum())
             bound = torch.where(tie, torch.full_like(gap, 2 * logit_tol),
                                 torch.full_like(gap, ARGMAX_ATOL))
-            check(bool((gap <= bound).all()), f"qwen3 continuous: a token "
+            check(bool((gap <= bound).all()), f"{tag} continuous: a token "
                   f"{float((gap - bound).max()):.3e} past its bound below "
                   f"the top logit of the plain forward")
             gaps.append(gap)
@@ -2986,7 +3084,7 @@ def _qwen3_continuous(torch, base, n_attn, vocab, block, logit_tol, device):
         argmax_exact=int((gaps <= ARGMAX_ATOL).sum()),
         tokens=int(gaps.numel()), near_ties=near_ties,
         worst_gap=float(gaps.max()))
-    say("qwen3", f"continuous batching: {len(bodies)} concurrent requests "
+    say(tag, f"continuous batching: {len(bodies)} concurrent requests "
         f"(prompts {QWEN3_CB_PROMPT_LENS}, {QWEN3_CB_NEW} new) in "
         f"{stats['concurrent_s']:.3f} s = {stats['tokens_per_s']:.1f} "
         f"tokens/s; {steps} mixed steps, {ragged} ragged launches; "
@@ -3009,8 +3107,11 @@ def _training_counters():
             "ce_forward": CE.ce_forward, "ce_backward": CE.ce_backward}
 
 
-def phase_training(torch, layers, optimizer, vocab, card):
-    """Train GPT-2 124M over HTTP; returns (stats, launch counts)."""
+def phase_training(torch, layers, optimizer, vocab, card,
+                   model_id="smoke_train", tag="training", then=None):
+    """Train ``layers`` (GPT-2 124M; phase 5b's MoE model) over HTTP, then
+    ``then(base, model_id, outs)`` while the server runs, with the trained
+    model's greedy tokens; returns (stats, launch counts)."""
     import numpy as np
 
     from penroz_tpu_torch.models.model import CompiledArch
@@ -3035,10 +3136,10 @@ def phase_training(torch, layers, optimizer, vocab, card):
     counters = _training_counters()
     try:
         status, text, secs = _post(base, "/model/", {
-            "model_id": "smoke_train", "layers": layers,
+            "model_id": model_id, "layers": layers,
             "optimizer": optimizer})
         check(status == 200, f"POST /model/ -> {status}: {text[:300]}")
-        body = {"model_id": "smoke_train", "dataset_id": "smoke", "shard": 0,
+        body = {"model_id": model_id, "dataset_id": "smoke", "shard": 0,
                 "epochs": TRAIN_EPOCHS, "batch_size": TRAIN_BATCH,
                 "block_size": TRAIN_BLOCK, "step_size": TRAIN_STEP}
         for fn in counters.values():
@@ -3048,11 +3149,11 @@ def phase_training(torch, layers, optimizer, vocab, card):
         check(status == 202, f"PUT /train/ -> {status}: {text[:300]}")
         status, text, _ = _post(base, "/train/", body, method="PUT")
         check(status == 409, f"second PUT /train/ -> {status}, not 409")
-        say("training", f"PUT /train/ 202, again 409; {TRAIN_EPOCHS} epochs "
+        say(tag, f"PUT /train/ 202, again 409; {TRAIN_EPOCHS} epochs "
             f"x {num_steps} micro-steps of {TRAIN_BATCH} x {TRAIN_BLOCK}")
         progress = None
         while time.monotonic() - t0 < 900:
-            status, text, _ = _post(base, "/progress/?model_id=smoke_train",
+            status, text, _ = _post(base, f"/progress/?model_id={model_id}",
                                     None, method="GET")
             check(status == 200, f"/progress/ -> {status}: {text[:300]}")
             progress = json.loads(text)
@@ -3069,7 +3170,7 @@ def phase_training(torch, layers, optimizer, vocab, card):
               f"training ended {progress['status']}")
         costs = [p["cost"] for p in progress["progress"]]
         stats["costs"] = costs
-        say("training", f"Trained; costs {[round(c, 4) for c in costs]}; "
+        say(tag, f"Trained; costs {[round(c, 4) for c in costs]}; "
             f"launches {launches} for {micro_steps} micro-steps x {n_attn} "
             f"attention layers")
         check(all(math.isfinite(c) for c in costs), "non-finite cost")
@@ -3090,14 +3191,14 @@ def phase_training(torch, layers, optimizer, vocab, card):
         stats["epoch_s"] = [p["durationInSecs"] for p in later]
         stats["tokens_per_s"] = (num_steps * buffer * len(later)
                                  / sum(stats["epoch_s"]))
-        say("training", f"epochs 2-{TRAIN_EPOCHS}: "
+        say(tag, f"epochs 2-{TRAIN_EPOCHS}: "
             f"{sum(stats['epoch_s']) / len(later):.4f} s an epoch, "
             f"{stats['tokens_per_s']:.0f} tokens/s trained (speedPerSec, "
             f"which counts one buffer an epoch: "
             f"{sum(stats['speed_per_s']) / len(later):.0f}) on {card}")
 
         prompt = list(range(1, 33))
-        greedy = {"model_id": "smoke_train", "input": [prompt],
+        greedy = {"model_id": model_id, "input": [prompt],
                   "block_size": TRAIN_BLOCK, "max_new_tokens": 32,
                   "temperature": 0}
         outs = []
@@ -3108,8 +3209,10 @@ def phase_training(torch, layers, optimizer, vocab, card):
         check(outs[0] == outs[1] and len(outs[0]) == 64
               and all(0 <= t < vocab for t in outs[0]),
               "greedy /generate/ of the trained model not deterministic")
-        say("training", "greedy /generate/ of the trained model: identical "
+        say(tag, "greedy /generate/ of the trained model: identical "
             "twice")
+        if then is not None:
+            stats.update(then(base, model_id, outs[0]))
     finally:
         server.shutdown()
         server.server_close()
@@ -3118,6 +3221,100 @@ def phase_training(torch, layers, optimizer, vocab, card):
         checkpoint.join_flushes()
     check(not thread.is_alive(), "server thread did not stop")
     return stats, launches
+
+
+# Phase 5b's model: GPT-2 width (d 768, 12 heads, vocab 50304, block
+# 1024) at 4 blocks whose MLPs are ``moe`` layers: 8 experts of width
+# 3072, top-2, capacity dispatch at 1.25, load-balance coefficient 0.01.
+MOE_TRAIN = dict(d=768, heads=12, depth=4, vocab=50304, block=1024)
+MOE_ARGS = dict(num_experts=8, top_k=2, intermediate_size=3072,
+                dispatch="capacity", capacity_factor=1.25,
+                aux_loss_coef=0.01)
+
+
+def moe_train_layers():
+    """presets.gpt2_custom at MOE_TRAIN with each block's MLP a ``moe``."""
+    from penroz_tpu_torch.models import presets
+    d = MOE_TRAIN["d"]
+    layers = presets.gpt2_custom(**MOE_TRAIN)
+    for entry in layers:
+        if "residual" in entry:
+            entry["residual"][1] = {"sequential": [
+                {"layernorm": {"normalized_shape": d}},
+                {"moe": dict(MOE_ARGS, in_features=d)}]}
+    return layers
+
+
+@contextlib.contextmanager
+def _blocked(module):
+    """``import module`` raises ModuleNotFoundError in this process for
+    the duration."""
+    saved = sys.modules.get(module)
+    sys.modules[module] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules[module]
+        else:
+            sys.modules[module] = saved
+
+
+def _moe_after_training(base, model_id, tokens):
+    """Phase 5b's checks on the trained MoE model, the server running:
+    GET /stats/ carries ``moe_router_fractions``, one entry a ``moe``
+    layer of num_experts finite values summing to 1 (within 1e-5); the
+    greedy tokens again under PAGED_KV_CACHE=1; a POST /dataset/ ends
+    ``failed`` with a ModuleNotFoundError, and the server still answers.
+    The ``datasets`` module is blocked in this process (the server runs
+    in it) for the request: the card's machine has one, and a download
+    through it would reach for the network."""
+    status, text, _ = _post(base, f"/stats/?model_id={model_id}", None,
+                            method="GET")
+    check(status == 200, f"/stats/ -> {status}: {text[:300]}")
+    routing = json.loads(text).get("moe_router_fractions") or {}
+    E = MOE_ARGS["num_experts"]
+    check(len(routing) == MOE_TRAIN["depth"]
+          and all(len(v) == E and all(math.isfinite(x) for x in v)
+                  and abs(sum(v) - 1.0) <= 1e-5 for v in routing.values()),
+          f"moe_router_fractions malformed: {routing}")
+    say("moe_training", "GET /stats/: moe_router_fractions "
+        + "; ".join(f"{k.split('.')[1]}: max {max(v):.3f} min {min(v):.3f}"
+                    for k, v in routing.items()))
+    prompt, new = tokens[:32], len(tokens) - 32
+    with _env({"PAGED_KV_CACHE": "1"}):
+        status, text, _ = _post(base, "/generate/", {
+            "model_id": model_id, "input": [prompt],
+            "block_size": MOE_TRAIN["block"], "max_new_tokens": new,
+            "temperature": 0})
+    check(status == 200 and json.loads(text)["tokens"] == tokens,
+          f"paged /generate/ of the trained MoE model -> {status}: tokens "
+          f"differ from the contiguous cache's")
+    with _env({"PENROZ_DOWNLOAD_RETRIES": "2",
+               "PENROZ_DOWNLOAD_BACKOFF_S": "0.1"}), _blocked("datasets"):
+        status, text, _ = _post(base, "/dataset/", {
+            "dataset_id": "smoke_download", "encoding": "byte",
+            "path": "penroz/none", "split": "train", "shard_size": 1024})
+        check(status == 202, f"POST /dataset/ -> {status}: {text[:300]}")
+        t0, download = time.monotonic(), None
+        while time.monotonic() - t0 < 60:
+            doc = json.loads(_post(base, "/dataset/?dataset_id="
+                                   "smoke_download", None, method="GET")[1])
+            download = doc["download"]
+            if download and download["state"] != "downloading":
+                break
+            time.sleep(0.1)
+    check(download is not None and download["state"] == "failed"
+          and download["error"].startswith("ModuleNotFoundError")
+          and doc["files"] == [],
+          f"POST /dataset/ without datasets ended {download}")
+    check(_post(base, "/healthz", None, method="GET")[0] == 200,
+          "the server stopped answering after the failed download")
+    say("moe_training", f"greedy tokens equal on the paged cache; POST "
+        f"/dataset/ 202, then {download['state']} after "
+        f"{download['attempts']} attempts ({download['error'][:60]}); "
+        f"/healthz still 200")
+    return {"moe_router_fractions": routing, "dataset_download": download}
 
 
 def phase_stats(torch, card):
@@ -3280,10 +3477,12 @@ def phase_train_profile(torch, layers, optimizer, vocab):
 # 6: one micro-step, kernels against plain
 # ---------------------------------------------------------------------------
 
-def phase_micro_step(torch, layers, optimizer, vocab):
+def phase_micro_step(torch, layers, optimizer, vocab, tag="micro_step"):
     """fp32 loss and gradients of one micro-step at GPT-2 width (B 1,
     T 1024) through the kernels, against the same step with the plain
-    versions patched in."""
+    versions patched in (a training forward: the MoE layers' load-balance
+    loss rides in the loss, and the router and expert stacks get their
+    gradients through it)."""
     from penroz_tpu_torch.models.dsl import Mapper
     from penroz_tpu_torch.models.model import NeuralNetworkModel
     model = NeuralNetworkModel("step", Mapper(layers, optimizer),
@@ -3305,7 +3504,7 @@ def phase_micro_step(torch, layers, optimizer, vocab):
     loss_err = abs(float(cost) - float(ref_cost))
     worst = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
                 for a, b in zip(grads, ref_grads))
-    say("micro_step", f"fp32 B1 T{TRAIN_BLOCK}: loss {float(cost):.6f} vs "
+    say(tag, f"fp32 B1 T{TRAIN_BLOCK}: loss {float(cost):.6f} vs "
         f"plain {float(ref_cost):.6f} (|diff| {loss_err:.2e}, rtol "
         f"{STEP_LOSS_RTOL}); worst gradient max|diff|/max|g| {worst:.2e} "
         f"(<= {STEP_GRAD_RTOL}) over {len(params)} parameters")
@@ -3359,21 +3558,31 @@ def main(argv=None) -> int:
                                       block=1024, vocab=50304, card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
-        qwen3_stats, qwen3_launches = phase_qwen3(torch, card)
+        qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
+        qmoe_stats, qmoe_launches = phase_import(torch, card, "qmoe")
         train_stats, train_launches = phase_training(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304, card=card)
         launches.update(train_launches)
-        # each kernel's count over every main path that ran it (each
-        # phase zeroes the counts before its traffic, reads them after)
-        phase_launches = {"gpt2_and_hybrid": dict(launches),
-                          "qwen3": qwen3_launches}
-        for name_, n in qwen3_launches.items():
-            launches[name_] += n
         train_stats["stats"] = phase_stats(torch, card)
         train_stats["profile"] = phase_train_profile(
             torch, presets.gpt2(), presets.ADAMW, vocab=50304)
+        moe_layers = moe_train_layers()
+        moe_stats, moe_launches = phase_training(
+            torch, moe_layers, presets.ADAMW, vocab=50304, card=card,
+            model_id="smoke_moe", tag="moe_training",
+            then=_moe_after_training)
+        # each kernel's count over every main path that ran it (each
+        # phase zeroes the counts before its traffic, reads them after)
+        phase_launches = {"gpt2_and_hybrid": dict(launches),
+                          "qwen3": qwen3_launches, "qmoe": qmoe_launches,
+                          "moe_training": moe_launches}
+        for extra in (qwen3_launches, qmoe_launches, moe_launches):
+            for name_, n in extra.items():
+                launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
                                       vocab=50304)
+        moe_step_stats = phase_micro_step(torch, moe_layers, presets.ADAMW,
+                                          vocab=50304, tag="moe_micro_step")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3394,11 +3603,15 @@ def main(argv=None) -> int:
                        "main_path": stats,
                        "continuous_batching": cb_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
-                       "phase_launches": phase_launches,
+                       "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,
+                       "moe_training": moe_stats,
+                       "moe_micro_step": moe_step_stats,
                        "launches": launches,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
-    say("done", f"{time.monotonic() - t_start:.1f} s")
+    say("done", f"{time.monotonic() - t_start:.1f} s; from each phase's "
+        f"first line to its last: " + ", ".join(
+            f"{k} {b - a:.1f} s" for k, (a, b) in SPOKE.items()))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

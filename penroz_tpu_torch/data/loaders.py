@@ -1,12 +1,16 @@
-"""Rank-strided shard loading for training (counterpart of
-penroz_tpu/data/loaders.py ``Loader``, its numpy path).
+"""Datasets: download and sharding, and rank-strided shard loading for
+training (counterpart of penroz_tpu/data/loaders.py, its numpy path).
 
-``Loader.next_batch`` walks the sorted ``data/{dataset_id}_*.npy`` shards
-with the JAX package's ``(shard, idx)`` state: a window of
-``buffer_size + target_offset`` tokens starting at ``idx`` (concatenated
-across the following shards, wrapping to the first), then ``idx`` advances
-by ``idx_offset``.  The JAX package's native mmap stream reads the same
-windows faster; it is not ported.
+``Downloader`` tokenizes a HuggingFace ``datasets`` split with the port's
+tokenizer (data/tokenizers.py) into fixed-size uint16 ``.npy`` shards
+named ``{dataset_id}_{idx:06d}``, byte for byte the JAX package's shards
+of the same source.  ``Loader.list``/``delete`` back ``GET``/``DELETE
+/dataset/``, and ``Loader.next_batch`` walks the sorted
+``data/{dataset_id}_*.npy`` shards with the JAX package's ``(shard,
+idx)`` state: a window of ``buffer_size + target_offset`` tokens starting
+at ``idx`` (concatenated across the following shards, wrapping to the
+first), then ``idx`` advances by ``idx_offset``.  The JAX package's
+native mmap stream reads the same windows faster; it is not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import glob
 import os
 
 import numpy as np
+
+from penroz_tpu_torch.data.tokenizers import Tokenizer
 
 DATA_FOLDER = "data"
 
@@ -34,6 +40,14 @@ class Loader:
     def _files(self) -> list[str]:
         pattern = os.path.join(DATA_FOLDER, f"{self.dataset_id}_*.npy")
         return sorted(os.path.basename(p) for p in glob.glob(pattern))
+
+    def list(self) -> list[str]:
+        return self._files()
+
+    def delete(self):
+        for name in self._files():
+            os.remove(os.path.join(DATA_FOLDER, name))
+        self._cache.clear()
 
     def _shard_data(self, files: list[str], shard_idx: int) -> np.ndarray:
         shard_idx %= len(files)
@@ -70,3 +84,53 @@ class Loader:
              .astype(np.int32) if target_offset else None)
         self.idx += self.idx_offset
         return x, y
+
+
+class Downloader:
+    def __init__(self, dataset_id: str, shard_size: int = 2 ** 24,
+                 encoding: str = "byte"):
+        self.dataset_id = dataset_id
+        self.shard_size = int(shard_size)
+        self.tokenizer = Tokenizer(encoding)
+
+    def download(self, path: str, name: str | None = None,
+                 split: str = "train"):
+        """Load the split with ``datasets`` (imported here: the port does
+        not depend on it, and without it a download fails with
+        ModuleNotFoundError), tokenize each ``text`` row and write
+        fixed-size uint16 shards, the final partial one too.  Each shard
+        is written under a temporary name and published with
+        ``os.replace``, so a reader never sees a half-written shard.  One
+        attempt: the API layer retries (serve/app.py).  The rows are
+        tokenized one after another; the JAX package's thread pool gains
+        nothing for the pure-Python byte tokenizer."""
+        import datasets
+        ds = datasets.load_dataset(path, name, split=split)
+        os.makedirs(DATA_FOLDER, exist_ok=True)
+        buffer = np.empty(self.shard_size, np.uint16)
+        fill = 0
+        shard_idx = 0
+
+        def flush(upto: int):
+            nonlocal shard_idx
+            final = os.path.join(DATA_FOLDER,
+                                 f"{self.dataset_id}_{shard_idx:06d}.npy")
+            tmp = final + ".tmp"
+            with open(tmp, "wb") as f:  # a file object: no .npy appended
+                np.save(f, buffer[:upto])
+            os.replace(tmp, final)
+            shard_idx += 1
+
+        for text in ds["text"]:
+            arr = np.asarray(self.tokenizer.tokenize(text), np.uint16)
+            pos = 0
+            while pos < len(arr):
+                take = min(len(arr) - pos, self.shard_size - fill)
+                buffer[fill:fill + take] = arr[pos:pos + take]
+                fill += take
+                pos += take
+                if fill == self.shard_size:
+                    flush(fill)
+                    fill = 0
+        if fill:
+            flush(fill)

@@ -123,9 +123,11 @@ def load_opt_state_leaves(config: dict, optimizer, params: dict, leaves):
 def from_jax_state_dict(arrays: dict, layers: list[dict], optimizer: dict,
                         model_id: str = "converted", device=None):
     """The port's ``NeuralNetworkModel`` for a layer DSL with the given
-    parameters and buffers (``{key: np.ndarray | tensor}``).  Dtypes are
-    kept (a bf16 checkpoint serves in bf16); keys or shapes that do not
-    match the DSL raise ValueError."""
+    parameters and buffers (``{key: np.ndarray | tensor}``; the MoE
+    stacks are parameters like any other).  Dtypes are kept (a bf16
+    checkpoint serves in bf16); parameter keys or shapes that do not match
+    the DSL raise ValueError, and a buffer the arrays lack keeps its
+    module default (``NeuralNetworkModel.load_state``)."""
     from penroz_tpu_torch.models.dsl import Mapper
     from penroz_tpu_torch.models.model import NeuralNetworkModel
     return NeuralNetworkModel(model_id, Mapper(layers, optimizer),

@@ -3,9 +3,9 @@
 ``Mapper``).  Parameter keys come from module registration (see
 ops/modules.py), so there is no separate bind step.
 
-Every dense algo of the JAX table builds, and the ``transformerblock``
-macro; ``moe`` and an unknown algo raise ``ValueError("Unsupported layer:
-…")`` as ``to_layer`` does, ``moe``'s naming it.  Initialization draws
+Every algo of the JAX table builds, and the ``transformerblock`` macro;
+an unknown algo raises ``ValueError("Unsupported layer: …")`` as
+``to_layer`` does.  Initialization draws
 from an explicit ``torch.Generator``; its numbers differ from
 ``jax.random``'s for the same seed, so a model carried over from the JAX
 package goes through models/convert.py instead.
@@ -52,10 +52,8 @@ _LEAF_ALGOS = {
     "gatedmlp": M.GatedMLP,
     "clamp": M.Clamp,
     "softcap": M.Softcap,
+    "moe": M.MixtureOfExperts,
 }
-
-# Algos of the JAX package's table that the port does not build.
-_UNPORTED_ALGOS = {"moe": "the mixture-of-experts layer"}
 
 _OPTIMIZERS = ("adamw", "adam", "sgd")
 
@@ -84,10 +82,6 @@ def to_layer(entry: dict) -> M.Module:
             if name in args:
                 kwargs[name] = to_layer(args[name])
         mod = M.TransformerBlock(**kwargs)
-    elif algo in _UNPORTED_ALGOS:
-        raise ValueError(f"Unsupported layer: {algo} (the {algo!r} algo, "
-                         f"{_UNPORTED_ALGOS[algo]}, is not supported by "
-                         f"penroz_tpu_torch yet)")
     elif algo in _LEAF_ALGOS:
         mod = _LEAF_ALGOS[algo](**args)
     else:

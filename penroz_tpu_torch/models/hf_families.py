@@ -5,11 +5,10 @@ parameter keys, family by family (copy of the JAX package's
 penroz_tpu/models/dsl.py).  numpy only; the configs come from
 models/hf_config.py.
 
-Families: gpt2; llama, mistral, phi3, qwen2 and qwen3; gemma and gemma
+Families: gpt2; llama, mistral, phi3, qwen2 and qwen3; mixtral and
+qwen2_moe (their MLPs the ``moe`` algo, dense dispatch); gemma and gemma
 2-4 (gemma3n refused); gpt_neox, phi, olmo, olmo2 and stablelm; gptj;
-falcon (with the RW/ALiBi layout); gpt_bigcode, opt, bloom and mpt.
-``mixtral`` and ``qwen2_moe`` need the ``moe`` algo, which the port does
-not build: they are refused with a ValueError that names it.  The other
+falcon (with the RW/ALiBi layout); gpt_bigcode, opt, bloom and mpt.  The
 refusals keep the JAX package's conditions and messages.
 """
 
@@ -21,18 +20,11 @@ from typing import Any, Optional
 
 import numpy as np
 
-# Families whose MLPs are the ``moe`` algo.
-_MOE_FAMILIES = ("mixtral", "qwen2_moe")
-
 
 def from_hf_config(config, n_layer_override: Optional[int] = None
                    ) -> list[dict]:
     """Build the layer DSL for a HuggingFace model config."""
     model_type = getattr(config, "model_type", "") or ""
-    if model_type in _MOE_FAMILIES:
-        raise ValueError(f"{model_type} checkpoints need the 'moe' algo "
-                         f"(mixture-of-experts MLPs), which "
-                         f"penroz_tpu_torch does not support yet")
     if model_type == "gpt2":
         return _gpt2_dsl_from_config(config, n_layer_override)
     if model_type.startswith("gemma"):
@@ -903,7 +895,8 @@ def _map_gemma_state_dict(sd: dict, n_layer: int, config=None) -> dict:
 # modules with pre-norm blocks, no +1 norm offset and no embedding scale)
 # ---------------------------------------------------------------------------
 
-_LLAMA_FAMILY = ("llama", "mistral", "phi3", "qwen2", "qwen3")
+_LLAMA_FAMILY = ("llama", "mistral", "mixtral", "phi3", "qwen2", "qwen3",
+                 "qwen2_moe")
 
 
 def _llama_text_config(config):
@@ -911,11 +904,59 @@ def _llama_text_config(config):
     return get() if callable(get) else config
 
 
+def _llama_moe_entry(model_type: str, cfg, d: int, n: int,
+                     activation: str) -> dict:
+    """Sparse-MoE MLP entry for the llama family.
+
+    Mixtral: softmax over ALL experts → top-k → renormalize; dense
+    dispatch reproduces HF bit-for-bit.  The aux coefficient is rescaled
+    toward HF's load_balancing_loss_func (ONE loss from fractions pooled
+    across layers with top-k-summed slots): coef × top_k / n_layers
+    matches the coefficient SCALE; the per-layer-vs-pooled structural
+    difference remains — the Switch formulation, not a bug.
+
+    Qwen2-MoE: fine-grained experts with ``norm_topk_prob`` (default
+    False — raw softmax mass on the selected experts) plus an always-on
+    shared expert behind a sigmoid token gate.  Non-default
+    ``decoder_sparse_step``/``mlp_only_layers`` (dense layers mixed into
+    the stack) are refused loudly — importing them as sparse would be
+    wrong math.
+    """
+    if model_type == "qwen2_moe":
+        if int(getattr(cfg, "decoder_sparse_step", 1) or 1) != 1 or \
+                list(getattr(cfg, "mlp_only_layers", []) or []):
+            raise ValueError(
+                "qwen2_moe with decoder_sparse_step != 1 or non-empty "
+                "mlp_only_layers (dense layers mixed into the stack) is "
+                "not supported")
+        return {"moe": {
+            "in_features": d,
+            "intermediate_size": int(cfg.moe_intermediate_size),
+            "num_experts": int(cfg.num_experts),
+            "top_k": int(cfg.num_experts_per_tok),
+            "activation": activation,
+            "norm_topk": bool(getattr(cfg, "norm_topk_prob", False)),
+            "shared_expert_size":
+                int(cfg.shared_expert_intermediate_size),
+            "aux_loss_coef": (
+                float(getattr(cfg, "router_aux_loss_coef", 0.0) or 0.0)
+                * int(cfg.num_experts_per_tok) / n)}}
+    return {"moe": {"in_features": d,
+                    "intermediate_size": int(cfg.intermediate_size),
+                    "num_experts": int(cfg.num_local_experts),
+                    "top_k": int(cfg.num_experts_per_tok),
+                    "activation": activation,
+                    "aux_loss_coef": (
+                        float(getattr(cfg, "router_aux_loss_coef",
+                                      0.0) or 0.0)
+                        * int(cfg.num_experts_per_tok) / n)}}
+
+
 def _llama_biases(model_type: str, cfg) -> tuple[bool, bool]:
     """(qkv_bias, o_bias).  Qwen2 hardcodes qkv bias on / o bias off in its
     attention module; Llama/Mistral follow ``attention_bias`` (default
     False) for all four projections."""
-    if model_type == "qwen2":
+    if model_type in ("qwen2", "qwen2_moe"):
         return True, False
     bias = bool(getattr(cfg, "attention_bias", False) or False)
     return bias, bias
@@ -1009,10 +1050,14 @@ def _llama_dsl_from_config(config, n_layer_override=None) -> list[dict]:
                             "bias": o_bias}}]},
             "mlp_block": {"sequential": [
                 {"rmsnorm": {"normalized_shape": d, "eps": eps}},
-                {"gatedmlp": {"in_features": d,
-                              "intermediate_size":
-                                  int(cfg.intermediate_size),
-                              "activation": activation}}]},
+                # Mixtral and Qwen2-MoE: the sparse MoE MLP (dense
+                # dispatch, HF's routing; see _llama_moe_entry)
+                (_llama_moe_entry(model_type, cfg, d, n, activation)
+                 if model_type in ("mixtral", "qwen2_moe") else
+                 {"gatedmlp": {"in_features": d,
+                               "intermediate_size":
+                                   int(cfg.intermediate_size),
+                               "activation": activation}})]},
             "post_norm_on_residual": False,
         }})
     layers += [
@@ -1948,6 +1993,35 @@ def _map_llama_state_dict(sd: dict, n_layer: int, config=None) -> dict:
             out[f"{dst}.mlp_block.1.up_proj.weight"] = gu[half:]
             out[f"{dst}.mlp_block.1.down_proj.weight"] = \
                 sd[f"{src}.mlp.down_proj.weight"]
+        elif f"{src}.block_sparse_moe.gate.weight" in sd:
+            # Mixtral sparse MoE: per-expert w1/w3/w2 stack onto our
+            # leading-E gate/up/down layout; router gate copies straight.
+            out[f"{dst}.mlp_block.1.router.weight"] = \
+                sd[f"{src}.block_sparse_moe.gate.weight"]
+            # Sized from config, not key-probing: a truncated checkpoint
+            # missing expert e then fails on its precise absent key
+            # instead of a downstream shape mismatch.
+            n_exp = int(getattr(_llama_text_config(config),
+                                "num_local_experts"))
+            for ours, theirs in (("gate_proj", "w1"), ("up_proj", "w3"),
+                                 ("down_proj", "w2")):
+                out[f"{dst}.mlp_block.1.experts.{ours}.weight"] = np.stack(
+                    [np.asarray(sd[f"{src}.block_sparse_moe.experts."
+                                   f"{e}.{theirs}.weight"])
+                     for e in range(n_exp)])
+        elif f"{src}.mlp.gate.weight" in sd:
+            # Qwen2-MoE: fine experts + always-on shared expert.
+            out[f"{dst}.mlp_block.1.router.weight"] = \
+                sd[f"{src}.mlp.gate.weight"]
+            n_exp = int(getattr(_llama_text_config(config), "num_experts"))
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                out[f"{dst}.mlp_block.1.experts.{proj}.weight"] = np.stack(
+                    [np.asarray(sd[f"{src}.mlp.experts.{e}.{proj}.weight"])
+                     for e in range(n_exp)])
+                out[f"{dst}.mlp_block.1.shared_expert.{proj}.weight"] = \
+                    sd[f"{src}.mlp.shared_expert.{proj}.weight"]
+            out[f"{dst}.mlp_block.1.shared_expert_gate.weight"] = \
+                sd[f"{src}.mlp.shared_expert_gate.weight"]
         else:
             for proj in ("gate_proj", "up_proj", "down_proj"):
                 out[f"{dst}.mlp_block.1.{proj}.weight"] = \

@@ -271,6 +271,17 @@ class CompiledArch(nn.Module):
                  if isinstance(m, M.PositionEmbedding)]
         return min(sizes) if sizes else None
 
+    def check_positions(self, length: int, what: str) -> None:
+        """ValueError (HTTP 400) naming the table size when ``length``
+        positions (``what``: a ``block_size``, an input's length) do not
+        fit the smallest learned position table.  Every route checks
+        before its first token; the JAX package does not, and past the
+        table its gather reads NaN (NaN logits, token 0)."""
+        limit = self.max_positions
+        if limit is not None and length > limit:
+            raise ValueError(f"{what} {length} exceeds the model's learned "
+                             f"position table of {limit} positions")
+
     def forward(self, tokens, targets=None, *, kv=None, skip_softmax=False,
                 training=False, generator=None, pos_offset=None,
                 ragged_descs=None, ragged_rows=None):
@@ -282,7 +293,9 @@ class CompiledArch(nn.Module):
         positions (``kv.at_positions``), whose host length the caller
         mirrors.  ``training`` turns dropout on,
         drawing from ``generator``.  The cost reads the logits, the input
-        of the first top-level softmax (or the last activation)."""
+        of the first top-level softmax (or the last activation), plus the
+        auxiliary losses a training forward collects (the MoE load
+        balance), as the JAX package's ``forward`` adds them."""
         ctx = M.Ctx(kv=kv, training=training, generator=generator,
                     pos_offset=pos_offset, ragged_descs=ragged_descs,
                     ragged_rows=ragged_rows)
@@ -300,6 +313,8 @@ class CompiledArch(nn.Module):
         cost = (self._cost_from_logits(h if logits is None else logits,
                                        targets)
                 if targets is not None else None)
+        if cost is not None and ctx.aux_losses:
+            cost = cost + sum(ctx.aux_losses)
         new_kv = kv
         if (kv is not None and ragged_descs is None
                 and kv.positions is None):
@@ -322,7 +337,11 @@ class CompiledArch(nn.Module):
         The parameters are cast to ``compute_dtype`` once per epoch; each
         micro-step's gradient (in that dtype) is added to an fp32 sum,
         which is averaged and cast to each parameter's dtype before
-        ``optimizer.step()``.  Returns ``(cost, ratios)``: the mean cost
+        ``optimizer.step()``.  Each micro-step's cost carries its own
+        auxiliary losses; a buffer a micro-step writes in place (BatchNorm's
+        statistics, the MoE ``router_fraction``) is what the next one
+        reads, so the last micro-step's value stands, as in the JAX
+        package's scan carry.  Returns ``(cost, ratios)``: the mean cost
         (fp32 device scalar) and, when ``with_ratios``, the update ratios
         ``std(Δw) / std(w)`` of every parameter in :attr:`param_order`
         (fp32 device vector), else None."""
@@ -504,16 +523,23 @@ class NeuralNetworkModel:
                 for k, v in self.arch.state_dict().items()}
 
     def load_state(self, arrays: dict):
-        """Install parameters from a flat ``{key: tensor | ndarray}`` dict
-        (exact key set and shapes; dtypes are kept as given)."""
+        """Install parameters and buffers from a flat ``{key: tensor |
+        ndarray}`` dict (exact parameter key set and shapes; dtypes are
+        kept as given).  A buffer the dict lacks keeps its module default,
+        as the JAX package's ``deserialize`` migrates a checkpoint written
+        before its module gained the buffer (the MoE ``router_fraction``)."""
         expected = self.arch.state_dict()
-        missing = sorted(set(expected) - set(arrays))
+        buffers = {k for k, _ in self.arch.named_buffers()}
+        missing = sorted(set(expected) - set(arrays) - buffers)
         extra = sorted(set(arrays) - set(expected))
         if missing or extra:
             raise ValueError(f"parameter keys differ from the DSL: missing "
                              f"{missing[:8]}, unexpected {extra[:8]}")
         tensors = {}
         for key, ref in expected.items():
+            if key not in arrays:
+                tensors[key] = ref.to(self.device)
+                continue
             t = convert.fit_scalar(as_tensor(arrays[key]), ref.shape)
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: shape {tuple(t.shape)} != "
@@ -549,6 +575,7 @@ class NeuralNetworkModel:
         """Raw forward: (final activation as nested lists, cost or None)
         (JAX ``compute_output``)."""
         x = self._as_input(input)
+        self.arch.check_positions(x.shape[-1], "an input of length")
         t = None
         if target is not None:
             arr = np.asarray(target)
@@ -571,6 +598,7 @@ class NeuralNetworkModel:
         aligned with the inputs; ``step_size`` is unused, as there."""
         from penroz_tpu_torch.data.loaders import Loader
         unported_evaluation_options()
+        self.arch.check_positions(block_size, "block_size")
         buffer_size = batch_size * block_size
         loader = Loader(dataset_id, begin_shard=shard, begin_idx=0,
                         buffer_size=buffer_size, idx_offset=buffer_size)
@@ -792,15 +820,12 @@ class NeuralNetworkModel:
         the pipeline drains there.  A chunk is the power-of-two ceiling of
         the tokens still wanted, clipped by the budget, by the room left in
         the block and, with ``ramp`` (streaming), by a budget that starts
-        at 8 and doubles each dispatch; the overshoot is discarded."""
-        if not context:
-            raise ValueError("generation needs at least one prompt token")
-        if block_size < 1:
-            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        at 8 and doubles each dispatch; the overshoot is discarded.
+        Positions stay below ``block_size``, which the callers checked
+        against the position table (:meth:`_check_generation`)."""
         greedy, temp = self._sampling_setup(temperature)
         chunk_budget = _chunk_budget()
         ramp_budget = 8 if ramp else chunk_budget
-        limit = self.arch.max_positions
         seed = None if greedy else torch.randint(
             0, 2 ** 31 - 1, (), generator=self._generator,
             device=self.device)
@@ -844,13 +869,6 @@ class NeuralNetworkModel:
                         chunk = _decode_chunk_size(
                             remaining, min(chunk_budget, ramp_budget, room))
                         count = min(chunk, remaining)
-                        if limit is not None and cache_len + count > limit:
-                            # (the overshoot's positions clamp, as JAX's
-                            # gather does; its tokens are discarded)
-                            raise ValueError(
-                                f"positions up to {cache_len + count - 1} "
-                                f"exceed the model's {limit} position "
-                                f"embeddings; use a smaller block_size")
                         toks = runner.decode(chunk)
                         cache_len += chunk
                         ramp_budget = min(ramp_budget * 2, chunk_budget)
@@ -863,11 +881,22 @@ class NeuralNetworkModel:
             if pending is not None and produced < max_new_tokens:
                 yield from flush(pending)
 
+    def _check_generation(self, context: list[int], block_size: int):
+        """Refuse, before any token, a request generation cannot serve: no
+        prompt, ``block_size`` < 1, or a ``block_size`` past the learned
+        position table (ValueError, HTTP 400)."""
+        if not context:
+            raise ValueError("generation needs at least one prompt token")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.arch.check_positions(block_size, "block_size")
+
     def generate_tokens(self, input, block_size, max_new_tokens,
                         temperature=1.0, top_k=None, stop_token=None):
         """Autoregressive generation; returns prompt + generated ids (the
         stop token, when hit, included)."""
         context = self._prompt_tokens(input)
+        self._check_generation(context, block_size)
         with contextlib.closing(self._generate_iter(
                 context, block_size, max_new_tokens, temperature,
                 top_k)) as tokens:
@@ -878,9 +907,17 @@ class NeuralNetworkModel:
 
     def generate_tokens_stream(self, input, block_size, max_new_tokens,
                                temperature=1.0, top_k=None, stop_token=None):
-        """Streaming variant yielding each new token (chunks ramp up from
-        8 steps, so the first tokens come early)."""
+        """Streaming variant: checks the request at once (see
+        :meth:`_check_generation`), then returns an iterator of the new
+        tokens (chunks ramp up from 8 steps, so the first tokens come
+        early)."""
         context = self._prompt_tokens(input)
+        self._check_generation(context, block_size)
+        return self._stream_tokens(context, block_size, max_new_tokens,
+                                   temperature, top_k, stop_token)
+
+    def _stream_tokens(self, context, block_size, max_new_tokens,
+                       temperature, top_k, stop_token):
         with contextlib.closing(self._generate_iter(
                 context, block_size, max_new_tokens, temperature, top_k,
                 ramp=True)) as tokens:

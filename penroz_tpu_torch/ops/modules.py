@@ -9,11 +9,14 @@ package's names, so ``state_dict()`` of the model's root module
 :class:`Ctx` carrying the KV cache and the position offset; the caches
 update in place (ops/kv_cache.py).
 
-Ported: every dense algo of the JAX package's DSL (the ``moe`` algo is
-not), for inference and training.  BatchNorm1d's running statistics are
-registered buffers (``running_mean``, ``running_var``, an int32
-``num_batches_tracked``) that a training-mode forward updates in place, as
-the JAX package's ``ctx.buffer_updates`` do.  ``CausalSelfAttention`` has
+Ported: every algo of the JAX package's DSL, for inference and training.
+BatchNorm1d's running statistics are registered buffers
+(``running_mean``, ``running_var``, an int32 ``num_batches_tracked``) that
+a training-mode forward updates in place, as the JAX package's
+``ctx.buffer_updates`` do; so is ``MixtureOfExperts``' ``router_fraction``,
+whose load-balance loss a training forward appends to ``ctx.aux_losses``.
+``MixtureOfExperts`` runs on one device: its expert-parallel dispatch
+goes with the meshes, which are not ported.  ``CausalSelfAttention`` has
 the no-cache (flash), contiguous-cache, paged and ragged (packed mixed
 batch) branches; sequence-parallel attention is still to be ported and
 has no state that could reach it.  ``GatedSSM`` has the no-cache (chunked
@@ -48,7 +51,10 @@ class Ctx:
     (PagedKVState.packed_index — computed once a step, shared by every
     layer).  When set, attention appends and attends through the packed
     path and ``pos_offset`` holds the (1, Tp) per-token absolute positions
-    on the device."""
+    on the device.
+
+    ``aux_losses`` collects the auxiliary training losses (the MoE load
+    balance) that the model adds to its cost."""
 
     def __init__(self, *, kv=None, training: bool = False,
                  generator: Optional[torch.Generator] = None,
@@ -59,6 +65,7 @@ class Ctx:
         self.pos_offset = pos_offset
         self.ragged_descs = ragged_descs
         self.ragged_rows = ragged_rows
+        self.aux_losses: list[torch.Tensor] = []
 
     def offset(self):
         """Position offset of the tokens fed: the (1, Tp) per-token
@@ -137,10 +144,12 @@ class ScaledEmbedding(Embedding):
 
 class PositionEmbedding(Embedding):
     """Learned position embedding indexed from the context offset.  Device
-    positions (a packed batch's, a captured decode step's) are checked
-    against the table where the host plans them, not here, which would
-    read the device; past the table they clamp to its last row, as the
-    JAX package's gather does (a discarded overshoot step's)."""
+    positions (a packed batch's, a captured decode step's) are not read
+    back here: the model refuses a ``block_size`` or an input past the
+    table before any token (``CompiledArch.check_positions``), so no live
+    position passes it, and the clamp only keeps the gather inside the
+    table.  (The JAX package's gather does not clamp: past the table it
+    reads NaN.)"""
 
     def forward(self, x, ctx):
         num_positions = x.shape[-1]
@@ -153,7 +162,7 @@ class PositionEmbedding(Embedding):
         if offset + num_positions > self.num_embeddings:
             raise ValueError(f"positions up to {offset + num_positions - 1} "
                              f"exceed the model's {self.num_embeddings} "
-                             f"position embeddings; use a smaller block_size")
+                             f"position embeddings")
         positions = offset + torch.arange(num_positions,
                                           device=self.weight.device)
         return F.embedding(positions, self.weight)
@@ -504,6 +513,190 @@ def _gated_activation(name: str, x):
                   else "none")
 
 
+class _Weight(nn.Module):
+    """Holder that gives a bare parameter its ``…weight`` key (the qk-norm
+    weights, filled with ones; the MoE router and expert stacks, which
+    their module initializes)."""
+
+    def __init__(self, *shape: int, fill: Optional[float] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(shape) if fill is None
+                                   else torch.full(shape, fill))
+
+
+class MixtureOfExperts(Module):
+    """Top-k routed mixture of gated-MLP experts (JAX package
+    ``MixtureOfExperts``, ops/modules.py:681), on one device.
+
+    The expert weights are stacked on a leading expert dimension under the
+    JAX key names (``experts.gate_proj.weight`` (E, H, D), ``up_proj`` the
+    same, ``down_proj`` (E, D, H)); ``router.weight`` is (E, D).  Routing
+    (:meth:`router_weights`) runs in fp32.  Two dispatch modes:
+
+    - ``"dense"``: every expert runs on every token, and the outputs are
+      combined by the router weights (zero off the top-k);
+    - ``"capacity"``: the forward's tokens, flattened, are cut into groups
+      of ``DISPATCH_GROUP`` (the last padded with rows of zero weight);
+      in each group a selected token takes the next slot of its expert's
+      queue in token order, and tokens past the capacity ``ceil(top_k ·
+      group / E · capacity_factor)`` lose that expert (Switch dropping).
+      The dispatch is the JAX package's static one-hot formulation: no
+      device read, no data-dependent shape, so it runs inside a captured
+      CUDA graph; which tokens drop depends on the tokens a forward gets,
+      so callers feed the same blocks as the JAX package.
+
+    ``shared_expert_size`` adds Qwen2-MoE's always-on expert, scaled by a
+    sigmoid token gate.  The expert products are PyTorch matrix products:
+    the JAX package leaves them to XLA outside any Pallas kernel.  A
+    training forward writes the per-expert routing fraction into the
+    ``router_fraction`` buffer and, with ``aux_loss_coef`` > 0, appends
+    the Switch load-balance loss to ``ctx.aux_losses``."""
+
+    DISPATCH_GROUP = 512
+
+    def __init__(self, in_features: int, intermediate_size: int,
+                 num_experts: int, top_k: int = 2, bias: bool = False,
+                 activation: str = "silu", aux_loss_coef: float = 0.0,
+                 dispatch: str = "dense", capacity_factor: float = 1.25,
+                 norm_topk: bool = True, shared_expert_size: int = 0):
+        super().__init__()
+        if top_k < 1 or top_k > num_experts:
+            raise ValueError(f"top_k={top_k} outside [1, {num_experts}]")
+        if bias:
+            raise ValueError("MixtureOfExperts does not support bias yet")
+        if dispatch not in ("dense", "capacity"):
+            raise ValueError(f"dispatch must be 'dense' or 'capacity', "
+                             f"got {dispatch!r}")
+        if float(capacity_factor) <= 0.0:
+            raise ValueError(f"capacity_factor must be > 0, "
+                             f"got {capacity_factor}")
+        d, h, e = int(in_features), int(intermediate_size), int(num_experts)
+        self.in_features, self.intermediate_size, self.num_experts = d, h, e
+        self.top_k = int(top_k)
+        self.activation = activation
+        self.aux_loss_coef = float(aux_loss_coef)
+        self.dispatch = dispatch
+        self.capacity_factor = float(capacity_factor)
+        self.norm_topk = bool(norm_topk)
+        self.shared_expert_size = int(shared_expert_size)
+        # registration order = the JAX param_shapes order
+        self.router = _Weight(e, d)
+        self.experts = nn.Module()
+        self.experts.gate_proj = _Weight(e, h, d)
+        self.experts.up_proj = _Weight(e, h, d)
+        self.experts.down_proj = _Weight(e, d, h)
+        if self.shared_expert_size:
+            hs = self.shared_expert_size
+            self.shared_expert = nn.Module()
+            self.shared_expert.gate_proj = _Weight(hs, d)
+            self.shared_expert.up_proj = _Weight(hs, d)
+            self.shared_expert.down_proj = _Weight(d, hs)
+            self.shared_expert_gate = _Weight(1, d)
+        self.register_buffer("router_fraction",
+                             torch.zeros(e, dtype=torch.float32))
+
+    def reset_parameters(self, generator):
+        # U(-1/sqrt(fan_in), ·) a leaf; fan_in is the trailing dim
+        for p in self.parameters():
+            _uniform_(p, 1.0 / math.sqrt(p.shape[-1]), generator)
+
+    def router_weights(self, x, ctx):
+        """(B, T, E) combine weights in fp32: softmax over every expert,
+        top-k (the lower index first among equal probabilities, as
+        ``jax.lax.top_k``: a stable descending sort), renormalized when
+        ``norm_topk``.  The logits product runs in fp32 too: a bf16
+        product flips experts on near-tie tokens."""
+        logits = x.to(torch.float32) @ self.router.weight.to(
+            torch.float32).t()
+        probs = torch.softmax(logits, dim=-1)
+        top_vals, top_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+        top_vals = top_vals[..., :self.top_k]
+        top_idx = top_idx[..., :self.top_k]
+        if self.norm_topk:
+            top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+        if ctx.training:
+            # f_e: the share of routing slots on expert e; P_e: its mean
+            # probability.  E · Σ (f_e / k) P_e is 1 under uniform routing.
+            counts = torch.zeros_like(probs).scatter_(
+                -1, top_idx, 1.0).sum(dim=tuple(range(probs.ndim - 1)))
+            fractions = counts / (probs.numel() // self.num_experts)
+            mean_probs = probs.mean(dim=tuple(range(probs.ndim - 1)))
+            with torch.no_grad():
+                self.router_fraction.copy_(fractions / self.top_k)
+            if self.aux_loss_coef > 0.0:
+                aux = self.num_experts * torch.sum(
+                    (fractions / self.top_k) * mean_probs)
+                ctx.aux_losses.append(self.aux_loss_coef * aux)
+        return torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
+
+    def forward(self, x, ctx):
+        w_gate = self.experts.gate_proj.weight
+        w_up = self.experts.up_proj.weight
+        w_down = self.experts.down_proj.weight
+        weights = self.router_weights(x, ctx).to(x.dtype)
+        if self.dispatch == "capacity":
+            routed = self._apply_capacity(x, weights, w_gate, w_up, w_down)
+        else:
+            g = torch.einsum("btd,ehd->bteh", x, w_gate)
+            u = torch.einsum("btd,ehd->bteh", x, w_up)
+            y = torch.einsum("bteh,edh->bted",
+                             _gated_activation(self.activation, g) * u,
+                             w_down)
+            routed = torch.einsum("bted,bte->btd", y, weights)
+        if self.shared_expert_size:
+            se = self.shared_expert
+            shared = F.linear(
+                _gated_activation(self.activation,
+                                  F.linear(x, se.gate_proj.weight))
+                * F.linear(x, se.up_proj.weight), se.down_proj.weight)
+            gate = torch.sigmoid(F.linear(x, self.shared_expert_gate.weight))
+            routed = routed + gate * shared
+        return routed
+
+    def _apply_capacity(self, x, weights, w_gate, w_up, w_down):
+        """Capacity dispatch (JAX ``_apply_capacity``): one-hot dispatch
+        and combine products over fixed-size groups, static shapes."""
+        B, T, d = x.shape
+        E = self.num_experts
+        tokens = B * T
+        group = min(tokens, self.DISPATCH_GROUP)
+        padded = -(-tokens // group) * group
+        n_groups = padded // group
+        cap = int(math.ceil(self.top_k * group / E * self.capacity_factor))
+        cap = max(1, min(cap, group))
+        flat_x = x.reshape(tokens, d)
+        flat_w = weights.reshape(tokens, E)
+        if padded != tokens:
+            flat_x = F.pad(flat_x, (0, 0, 0, padded - tokens))
+            flat_w = F.pad(flat_w, (0, 0, 0, padded - tokens))
+        gx = flat_x.reshape(n_groups, group, d)
+        gw = flat_w.reshape(n_groups, group, E)
+        disp, combine = self._dispatch_plan(gw, cap, x.dtype)
+        expert_in = torch.einsum("gsec,gsd->gecd", disp, gx)
+        gate = torch.einsum("gecd,ehd->gech", expert_in, w_gate)
+        up = torch.einsum("gecd,ehd->gech", expert_in, w_up)
+        out_e = torch.einsum("gech,edh->gecd",
+                             _gated_activation(self.activation, gate) * up,
+                             w_down)
+        y = torch.einsum("gsec,gecd->gsd", combine, out_e)
+        return y.reshape(padded, d)[:tokens].reshape(B, T, d)
+
+    @staticmethod
+    def _dispatch_plan(gw, cap: int, dtype):
+        """(dispatch, combine), both (G, S, E, C): a selected token takes
+        the next slot of its expert's queue (cumsum order); a token past
+        ``cap`` gets the overflow class ``cap``, an all-zero row (the
+        comparison with ``arange(cap)``; ``F.one_hot`` would refuse the
+        class), so it is dropped."""
+        sel = gw > 0
+        pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1
+        slot = torch.where(sel & (pos < cap), pos, torch.full_like(pos, cap))
+        disp = (slot[..., None] == torch.arange(cap, device=gw.device)
+                ).to(dtype)
+        return disp, disp * gw[..., None]
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -575,8 +768,9 @@ class CausalSelfAttention(Module):
                          self.num_kv_heads * self.head_dim)
                         if qk_norm_scope == "flat"
                         else (self.head_dim, self.head_dim))
-            self.q_norm = _NormWeight(q_w)  # keys q_norm.weight, k_norm.weight
-            self.k_norm = _NormWeight(k_w)
+            # keys q_norm.weight, k_norm.weight
+            self.q_norm = _Weight(q_w, fill=1.0)
+            self.k_norm = _Weight(k_w, fill=1.0)
 
     def _head_rmsnorm(self, x, w):
         """fp32 RMS over the last dim, learned multiplicative weight."""
@@ -717,14 +911,6 @@ class GatedSSM(Module):
         else:
             y = ssm_ops.gla_full(q, k, v, g, training=ctx.training)
         return y.reshape(B, T, H * dv).to(x.dtype)
-
-
-class _NormWeight(nn.Module):
-    """Holder that gives qk-norm weights their ``q_norm.weight`` keys."""
-
-    def __init__(self, width: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(width))
 
 
 def _validated_rope_scaling(rope_scaling: Optional[dict]):

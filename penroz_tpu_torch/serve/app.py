@@ -8,10 +8,14 @@ with one token per line), ``POST /generate_batch/``, ``POST /output/``
 a dataset), ``POST /decode/``, ``POST /tokenize/``, ``PUT /train/``,
 ``POST /import/`` (a local HuggingFace checkpoint directory),
 ``GET /progress/?model_id=…``, ``GET /stats/?model_id=…`` (the training
-diagnostics, ``null`` before any training), ``GET /serving_stats/``,
-``DELETE /model/?model_id=…`` and ``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
-missing or mistyped field 422, bad value 400 (a hub id on ``/import/``),
-a model already training or importing 409, anything else 500 with
+diagnostics, ``null`` before any training; an MoE model's routing
+fractions beside them), ``GET /serving_stats/``,
+``DELETE /model/?model_id=…``, ``GET``/``POST``/``DELETE /dataset/`` and
+``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
+missing or mistyped field 422, bad value 400 (a hub id on ``/import/``, a
+``block_size`` or an input past the model's learned position table,
+refused before any token), a model already training or importing, or a
+dataset already downloading, 409, anything else 500 with
 ``{"detail": "Please refer to server logs"}``.
 
 Each request runs in its own thread; a generate request loads the model's
@@ -25,6 +29,13 @@ refused with a 400 naming them.
 ``PUT /train/`` answers 202 and trains on a background thread, holding one
 lock per model; ``/progress/`` reads the checkpoint's metadata, which
 training rewrites at its start, every 10 s and at its end.
+``POST /dataset/`` answers 202 and downloads on a background thread, one
+per dataset, retrying ``PENROZ_DOWNLOAD_RETRIES`` times (default 3) with
+a backoff of ``PENROZ_DOWNLOAD_BACKOFF_S`` (default 1.0) doubling; its
+state (``downloading``, then ``complete`` or ``failed`` with the error)
+is ``GET /dataset/``'s ``download``.  The source is the ``datasets``
+module: where it is missing, or cannot reach its source, the download
+ends ``failed``.
 
 Run: ``python -m penroz_tpu_torch.serve.app [--device cpu] [--port 8000]``.
 """
@@ -34,10 +45,13 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
+from penroz_tpu_torch.data.loaders import Downloader, Loader
 from penroz_tpu_torch.data.tokenizers import Tokenizer
 from penroz_tpu_torch.device import resolve_device
 from penroz_tpu_torch.models.dsl import Mapper
@@ -91,15 +105,18 @@ class PenrozServer(ThreadingHTTPServer):
 
     def __init__(self, address, device=None):
         self.device = resolve_device(device)
-        self._train_guard = threading.Lock()
+        self._guard = threading.Lock()
         self._train_locks: dict[str, threading.Lock] = {}
-        self._train_threads: list[threading.Thread] = []
+        self._jobs: list[threading.Thread] = []  # training, downloads
+        # Each dataset's last download this process (GET /dataset/'s
+        # "download"; "downloading" holds off another): under _guard.
+        self.download_status: dict[str, dict] = {}
         super().__init__(address, _Handler)
 
     def try_lock(self, model_id: str):
         """The model's operation lock, acquired, or None while training or
         an import holds it."""
-        with self._train_guard:
+        with self._guard:
             lock = self._train_locks.setdefault(model_id, threading.Lock())
         return lock if lock.acquire(blocking=False) else None
 
@@ -109,20 +126,66 @@ class PenrozServer(ThreadingHTTPServer):
         lock = self.try_lock(model_id)
         if lock is None:
             return False
-        with self._train_guard:
-            self._train_threads = [t for t in self._train_threads
-                                   if t.is_alive()]
-            thread = threading.Thread(target=_train_job,
-                                      args=(lock, model_id, args),
-                                      name=f"train-{model_id}", daemon=True)
-            self._train_threads.append(thread)
-        thread.start()
+        self._start(threading.Thread(target=_train_job,
+                                     args=(lock, model_id, args),
+                                     name=f"train-{model_id}", daemon=True))
         return True
 
+    def _start(self, thread: threading.Thread):
+        with self._guard:
+            self._jobs = [t for t in self._jobs if t.is_alive()]
+            self._jobs.append(thread)
+        thread.start()
+
+    def start_download(self, dataset_id: str, downloader: Downloader,
+                       source: tuple) -> bool:
+        """Download ``dataset_id`` on a background thread unless it is
+        already downloading (then False)."""
+        with self._guard:
+            status = self.download_status.get(dataset_id)
+            if status is not None and status["state"] == "downloading":
+                return False
+            self.download_status[dataset_id] = {
+                "state": "downloading", "attempts": 0, "error": None}
+        self._start(threading.Thread(
+            target=self._download_job, args=(dataset_id, downloader, source),
+            name=f"download-{dataset_id}", daemon=True))
+        return True
+
+    def _download_job(self, dataset_id, downloader, source):
+        """Up to ``PENROZ_DOWNLOAD_RETRIES`` attempts with a doubling
+        backoff, ending ``complete`` or ``failed`` with the last error."""
+        attempts = max(1, int(os.environ.get("PENROZ_DOWNLOAD_RETRIES",
+                                             "3")))
+        backoff_s = float(os.environ.get("PENROZ_DOWNLOAD_BACKOFF_S", "1.0"))
+        for attempt in range(1, attempts + 1):
+            self._set_download(dataset_id, attempts=attempt)
+            try:
+                downloader.download(*source)
+            except Exception as e:  # noqa: BLE001 — reported to clients
+                log.exception("Dataset %s download attempt %d/%d failed",
+                              dataset_id, attempt, attempts)
+                self._set_download(dataset_id,
+                                   error=f"{type(e).__name__}: {e}")
+                if attempt < attempts:
+                    time.sleep(backoff_s * 2 ** (attempt - 1))
+            else:
+                self._set_download(dataset_id, state="complete", error=None)
+                return
+        self._set_download(dataset_id, state="failed")
+        log.error("Dataset %s download failed terminally after %d "
+                  "attempt(s)", dataset_id, attempts)
+
+    def _set_download(self, dataset_id: str, **fields):
+        with self._guard:
+            self.download_status[dataset_id] = {
+                **self.download_status[dataset_id], **fields}
+
     def join_training(self, timeout: float = None) -> bool:
-        """Wait for the training threads; True when none is left."""
-        with self._train_guard:
-            threads = list(self._train_threads)
+        """Wait for the training and download threads; True when none is
+        left."""
+        with self._guard:
+            threads = list(self._jobs)
         for t in threads:
             t.join(timeout)
         return not any(t.is_alive() for t in threads)
@@ -196,10 +259,14 @@ class _Handler(BaseHTTPRequestHandler):
         self._dispatch(_DELETE)
 
     def _model_id(self, query) -> str:
-        model_id = query.get("model_id", [None])[0]
-        if model_id is None:
-            raise _HTTPError(422, "Missing query parameter model_id")
-        return model_id
+        return self._query(query, "model_id")
+
+    @staticmethod
+    def _query(query, name: str) -> str:
+        value = query.get(name, [None])[0]
+        if value is None:
+            raise _HTTPError(422, f"Missing query parameter {name}")
+        return value
 
     # -- handlers -----------------------------------------------------------
 
@@ -274,9 +341,10 @@ class _Handler(BaseHTTPRequestHandler):
         if not body.stream:
             self._send_json(200, {"tokens": model.generate_tokens(*args)})
             return
+        tokens = model.generate_tokens_stream(*args)  # refuses before 200
         self._start_stream_response()
         try:
-            for token in model.generate_tokens_stream(*args):
+            for token in tokens:
                 self.wfile.write(f"{token}\n".encode())
                 self.wfile.flush()
         except Exception:  # noqa: BLE001 — headers went out: end the stream
@@ -414,11 +482,51 @@ class _Handler(BaseHTTPRequestHandler):
 
     def model_stats(self, query):
         """The ``/stats/`` document training refreshed (JAX
-        ``model_stats``; the MoE routing key is not ported with the
-        ``moe`` algo), read from the checkpoint's metadata."""
+        ``model_stats``), read from the checkpoint's metadata.  Once it
+        exists, an MoE model's per-expert routing fractions go beside it
+        under ``moe_router_fractions`` (``{buffer key: [E floats]}``); of
+        the checkpoint's arrays only those buffers are read."""
         model_id = self._model_id(query)
         log.info("Requesting stats for model %s", model_id)
-        self._send_json(200, checkpoint.load(model_id, arrays=()).get("stats"))
+        data = checkpoint.load(model_id,
+                               arrays=(("buffers", "router_fraction"),))
+        stats = data.get("stats")
+        if stats is not None:
+            routing = {name: [float(x) for x in buf.reshape(-1).tolist()]
+                       for name, buf in (data.get("buffers") or {}).items()
+                       if name.endswith("router_fraction")}
+            if routing:
+                stats = dict(stats, moe_router_fractions=routing)
+        self._send_json(200, stats)
+
+    def list_dataset(self, query):
+        dataset_id = self._query(query, "dataset_id")
+        log.info("Requesting list of files for dataset %s", dataset_id)
+        with self.server._guard:
+            status = self.server.download_status.get(dataset_id)
+        self._send_json(200, {"files": Loader(dataset_id).list(),
+                              "download": status})
+
+    def download_dataset(self, query):
+        body = self._body(schemas.DownloadDatasetRequest)
+        log.info("Requesting download of dataset %s", body.dataset_id)
+        downloader = Downloader(body.dataset_id, body.shard_size,
+                                body.encoding)
+        if not self.server.start_download(
+                body.dataset_id, downloader,
+                (body.path, body.name, body.split)):
+            raise _HTTPError(409, f"Downloading dataset {body.dataset_id} "
+                                  f"already in progress.")
+        self._send_json(202, {"message": f"Downloading Dataset "
+                                         f"{body.dataset_id} "
+                                         f"asynchronously."})
+
+    def delete_dataset(self, query):
+        dataset_id = self._query(query, "dataset_id")
+        log.info("Requesting deletion of dataset %s", dataset_id)
+        Loader(dataset_id).delete()
+        self.send_response(204)
+        self.end_headers()
 
     def delete_model(self, query):
         model_id = self._model_id(query)
@@ -433,14 +541,17 @@ class _Handler(BaseHTTPRequestHandler):
 
 _GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress,
         "/stats/": _Handler.model_stats,
-        "/serving_stats/": _Handler.serving_stats}
+        "/serving_stats/": _Handler.serving_stats,
+        "/dataset/": _Handler.list_dataset}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/generate_batch/": _Handler.generate_batch,
          "/output/": _Handler.output, "/evaluate/": _Handler.evaluate,
          "/import/": _Handler.import_model,
+         "/dataset/": _Handler.download_dataset,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize}
 _PUT = {"/train/": _Handler.train}
-_DELETE = {"/model/": _Handler.delete_model}
+_DELETE = {"/model/": _Handler.delete_model,
+           "/dataset/": _Handler.delete_dataset}
 
 
 def create_app(device=None, host: str = "127.0.0.1",

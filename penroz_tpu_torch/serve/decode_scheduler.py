@@ -233,10 +233,7 @@ class DecodeEngine:
                 f"ssm layer(s): continuous batching of SSM rows (the "
                 f"packed recurrent update) is not ported to "
                 f"penroz_tpu_torch yet; serve it with {ENABLE_ENV}=0")
-        limit = self._model.arch.max_positions
-        if limit is not None and self.block_size > limit:
-            raise ValueError(f"block_size {self.block_size} exceeds the "
-                             f"model's {limit} position embeddings")
+        self._model.arch.check_positions(self.block_size, "block_size")
         self._ckpt_stamp_v = self._ckpt_stamp()
         self._lengths = np.zeros(self.capacity, np.int32)
         self._last_tok = np.zeros(self.capacity, np.int32)

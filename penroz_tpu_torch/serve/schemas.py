@@ -275,3 +275,22 @@ class ImportModelRequest(_Request):
               ("model_id", str, _REQUIRED, False),
               ("revision", str, None, True),
               ("device", str, None, True))
+
+
+@dataclass
+class DownloadDatasetRequest(_Request):
+    """``POST /dataset/``: a HuggingFace ``datasets`` split, tokenized with
+    ``encoding`` into shards of ``shard_size`` tokens."""
+    dataset_id: str
+    encoding: str
+    path: str
+    split: str
+    shard_size: int
+    name: Optional[str] = None
+
+    FIELDS = (("dataset_id", str, _REQUIRED, False),
+              ("encoding", str, _REQUIRED, False),
+              ("path", str, _REQUIRED, False),
+              ("split", str, _REQUIRED, False),
+              ("shard_size", int, _REQUIRED, False),
+              ("name", str, None, True))

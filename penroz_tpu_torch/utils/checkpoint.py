@@ -143,7 +143,9 @@ def _decode_tree(tree, array_leaf):
 
 
 def _wanted_arrays(tree, sections) -> set[int]:
-    """Indices of the arrays under the top-level keys ``sections``."""
+    """Indices of the arrays under the top-level keys ``sections``; a
+    ``(key, suffix)`` pair takes only the entries of that key's dict whose
+    names end with ``suffix``."""
     found: set[int] = set()
 
     def walk(x):
@@ -160,6 +162,12 @@ def _wanted_arrays(tree, sections) -> set[int]:
     for key, value in tree["__dict__"]:
         if key in sections:
             walk(value)
+        for section in sections:
+            if isinstance(section, tuple) and section[0] == key \
+                    and isinstance(value, dict) and "__dict__" in value:
+                for name, leaf in value["__dict__"]:
+                    if isinstance(name, str) and name.endswith(section[1]):
+                        walk(leaf)
     return found
 
 
@@ -322,8 +330,11 @@ def load(model_id: str, arrays=None) -> dict:
     """Read a checkpoint, repopulating the shm cache on a miss.
 
     ``arrays``: top-level keys (e.g. ``("params", "buffers")``) whose arrays
-    are read; the others come back as None leaves without being read.  An
-    empty tuple reads the metadata alone (``/progress/``).  None reads all.
+    are read, or ``(key, suffix)`` pairs for the entries of that key's dict
+    whose names end with ``suffix`` (``/stats/`` reads the MoE
+    ``router_fraction`` buffers so); the others come back as None leaves
+    without being read.  An empty tuple reads the metadata alone
+    (``/progress/``).  None reads all.
 
     :raises KeyError: if the model was never created (→ HTTP 404).
     """

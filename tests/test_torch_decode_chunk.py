@@ -100,9 +100,10 @@ def test_decode_chunk_size_equals_jax(monkeypatch):
 
 def test_generate_dispatch_count(toy_optimizer, monkeypatch):
     """96 tokens at budget 128: one prefill and ONE 128-step chunk (33
-    overshot steps discarded), as in the JAX package."""
+    overshot steps discarded), as in the JAX package.  (The position
+    table holds the block: a block_size past it is refused.)"""
     layers = presets.gpt2_custom(d=32, heads=4, depth=2, vocab=64,
-                                 block=128)
+                                 block=256)
     jm, tm = _pair(layers, toy_optimizer)
     port, jax_calls = _count_chunks(monkeypatch, jm)
     monkeypatch.setenv("PENROZ_DECODE_CHUNK", "128")
@@ -115,13 +116,13 @@ def test_generate_dispatch_count(toy_optimizer, monkeypatch):
     assert jax_calls == port
 
 
-def test_generate_tail_overshoot_chunking(toy_gpt_layers, toy_optimizer,
-                                          monkeypatch):
-    """11 new tokens at budget 16: one 16-step chunk, 6 discarded (past
-    the 16-row position table, whose lookups clamp); the stream ramps 8,
-    then 2, and equals the batch."""
+def test_generate_tail_overshoot_chunking(toy_optimizer, monkeypatch):
+    """11 new tokens at budget 16: one 16-step chunk, 6 discarded; the
+    stream ramps 8, then 2, and equals the batch.  (A 64-row position
+    table: a block_size past the table is refused.)"""
     monkeypatch.setenv("PENROZ_DECODE_CHUNK", "16")
-    jm, tm = _pair(toy_gpt_layers, toy_optimizer)
+    layers = presets.gpt2_custom(d=32, heads=4, depth=2, vocab=64, block=64)
+    jm, tm = _pair(layers, toy_optimizer)
     port, jax_calls = _count_chunks(monkeypatch, jm)
     batch = tm.generate_tokens([[1, 2]], block_size=64, max_new_tokens=11,
                                temperature=0.0)

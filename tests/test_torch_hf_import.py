@@ -6,7 +6,8 @@ family, from checkpoints that ``transformers`` writes here (offline):
   ``save_pretrained`` writes and for a minimal one (the dims a published
   config holds, every other value left to the family's defaults), and the
   refusals raise the same ValueError;
-- the mapped parameters are bitwise equal to the JAX package's (bf16);
+- the mapped parameters are bitwise equal to the JAX package's (bf16),
+  the MoE families' stacked experts included;
 - with both packages' parameters cast to fp32, the logits agree within
   1e-4 (the same fp32 math summed in another order) and the first 8
   greedy tokens are equal;
@@ -155,6 +156,25 @@ FAMILIES = {
     "mpt": ("MptConfig", "MptForCausalLM", dict(
         d_model=32, n_heads=4, n_layers=2, vocab_size=96,
         attn_config={"alibi": True, "clip_qkv": 4.0}), 17),
+    "mixtral": ("MixtralConfig", "MixtralForCausalLM", dict(
+        vocab_size=96, hidden_size=16, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=4,
+        intermediate_size=24, num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=64, tie_word_embeddings=False), 0),
+    "qwen2_moe": ("Qwen2MoeConfig", "Qwen2MoeForCausalLM", dict(
+        vocab_size=96, hidden_size=16, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=4,
+        intermediate_size=32, moe_intermediate_size=8,
+        shared_expert_intermediate_size=24, num_experts=6,
+        num_experts_per_tok=3, max_position_embeddings=64,
+        tie_word_embeddings=False), 0),
+    "qwen2_moe_norm_topk": ("Qwen2MoeConfig", "Qwen2MoeForCausalLM", dict(
+        vocab_size=96, hidden_size=16, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=32, moe_intermediate_size=8,
+        shared_expert_intermediate_size=24, num_experts=6,
+        num_experts_per_tok=2, norm_topk_prob=True,
+        max_position_embeddings=64, tie_word_embeddings=False), 0),
 }
 
 # A config.json with only the dims a published config names: every other
@@ -234,6 +254,23 @@ MINIMAL = {
               "num_attention_heads": 4, "vocab_size": 128},
     "mpt": {"model_type": "mpt", "d_model": 64, "n_layers": 2,
             "n_heads": 4, "vocab_size": 128},
+    "mixtral": {"model_type": "mixtral", "hidden_size": 64,
+                "num_hidden_layers": 2, "num_attention_heads": 4,
+                "num_key_value_heads": 2, "intermediate_size": 128,
+                "vocab_size": 128},
+    # Qwen/Qwen1.5-MoE-A2.7B's config.json at a smaller depth
+    "qwen2_moe": {"model_type": "qwen2_moe", "hidden_size": 2048,
+                  "num_hidden_layers": 2, "num_attention_heads": 16,
+                  "num_key_value_heads": 16, "intermediate_size": 5632,
+                  "moe_intermediate_size": 1408,
+                  "shared_expert_intermediate_size": 5632,
+                  "num_experts": 60, "num_experts_per_tok": 4,
+                  "norm_topk_prob": False, "decoder_sparse_step": 1,
+                  "vocab_size": 151936, "max_position_embeddings": 8192,
+                  "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+                  "tie_word_embeddings": False,
+                  "router_aux_loss_coef": 0.001,
+                  "use_sliding_window": False},
 }
 
 # Configs each package must refuse with the same ValueError.
@@ -316,6 +353,13 @@ REFUSED = {
     "mpt_six_heads": {"model_type": "mpt", "d_model": 96, "n_layers": 2,
                       "n_heads": 6, "vocab_size": 128},
     "gemma3n": {"model_type": "gemma3n"},
+    "qwen2_moe_sparse_step": {"model_type": "qwen2_moe", "hidden_size": 64,
+                              "num_hidden_layers": 2,
+                              "num_attention_heads": 4, "vocab_size": 128,
+                              "decoder_sparse_step": 2},
+    "qwen2_moe_mlp_only": {"model_type": "qwen2_moe", "hidden_size": 64,
+                           "num_hidden_layers": 2, "num_attention_heads": 4,
+                           "vocab_size": 128, "mlp_only_layers": [1]},
 }
 
 
@@ -377,16 +421,20 @@ def test_gemma4_dims_only_surface_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("model_type", ["mixtral", "qwen2_moe"])
 def test_moe_families_refused_naming_the_algo(tmp_path, model_type):
+    """The MoE families were refused naming the ``moe`` algo; now they
+    build it: the DSL equals the JAX package's over AutoConfig, each MLP
+    a ``moe`` entry (dense dispatch) with the aux coefficient rescaled by
+    top_k / n_layers."""
     raw = {"model_type": model_type, "hidden_size": 64,
            "num_hidden_layers": 2, "num_attention_heads": 4,
            "intermediate_size": 128, "vocab_size": 128}
-    cfg = hf_config.load(_write_config(tmp_path, model_type, raw))
-    with pytest.raises(ValueError, match="'moe' algo"):
-        Mapper.from_hf_config(cfg)
-    # the JAX package builds it with the moe algo
-    jdsl = JMapper.from_hf_config(transformers.AutoConfig.from_pretrained(
-        _write_config(tmp_path, model_type, raw)))
-    assert "moe" in json.dumps(jdsl)
+    jax_dsl, port_dsl = _dsl_pair(_write_config(tmp_path, model_type, raw))
+    assert port_dsl == jax_dsl and port_dsl[0] == "dsl"
+    moes = [b["transformerblock"]["mlp_block"]["sequential"][1]["moe"]
+            for b in port_dsl[1][1:3]]
+    assert len(moes) == 2 and all("dispatch" not in m for m in moes)
+    assert moes[0]["aux_loss_coef"] == pytest.approx(
+        0.001 * moes[0]["top_k"] / 2)
 
 
 def test_unknown_model_type_refused(tmp_path):
@@ -448,7 +496,7 @@ def test_import_matches_jax(port_dir, family):
     assert tm.layers_dsl == jm.layers_dsl
     assert tm.dtype == torch.bfloat16
     tsd = tm.state_dict()
-    assert set(tsd) == set(jm.params)
+    assert set(tsd) == set(jm.params) | set(jm.buffers)
     for key, value in jm.params.items():
         np.testing.assert_array_equal(_bits(tsd[key]), _bits(value),
                                       err_msg=key)

@@ -10,7 +10,8 @@ inputs cast, the JAX package's ``compute_dtype``) <= 2e-2; parameter
 gradients of the parametrised modules <= 1e-4 (fp32).  Also: BatchNorm1d's
 running statistics over two training steps and through a two-micro-step
 epoch, the ``makemore_mlp`` preset trained end to end, and one AdamW step
-of a tiny llama-shaped DSL (parameters <= 1e-5); ``moe`` is refused."""
+of a tiny llama-shaped DSL (parameters <= 1e-5); ``moe``'s argument
+checks (its parity is tests/test_torch_moe.py's)."""
 
 import jax
 import jax.numpy as jnp
@@ -318,10 +319,18 @@ def test_adamw_step_of_a_llama_shaped_dsl(shared):
 
 
 def test_moe_algo_refused():
+    """The ``moe`` algo builds; its invalid arguments are refused with the
+    JAX package's ValueErrors (tests/test_torch_moe.py holds it to JAX),
+    and an unknown algo is still refused."""
     entry = {"moe": {"in_features": 8, "intermediate_size": 16,
                      "num_experts": 4}}
-    with pytest.raises(ValueError, match="Unsupported layer: moe "
-                                         r"\(the 'moe' algo"):
-        tdsl.build_modules([entry])
+    mod, = tdsl.build_modules([entry])
+    assert mod.router.weight.shape == (4, 8) and mod.top_k == 2
+    for bad, match in ((dict(top_k=5), r"top_k=5 outside \[1, 4\]"),
+                       (dict(bias=True), "does not support bias"),
+                       (dict(dispatch="sparse"), "dispatch must be"),
+                       (dict(capacity_factor=0), "capacity_factor must")):
+        with pytest.raises(ValueError, match=match):
+            tdsl.build_modules([{"moe": {**entry["moe"], **bad}}])
     with pytest.raises(ValueError, match="Unsupported layer: nope"):
         tdsl.build_modules([{"nope": {}}])

@@ -141,8 +141,8 @@ def test_port_init_builds_gpt2_keys_without_jax(toy_optimizer):
 
 
 def test_errors_are_values(toy_gpt_layers, toy_optimizer, monkeypatch):
-    with pytest.raises(ValueError, match="Unsupported layer"):
-        tdsl.to_layer({"moe": {}})
+    with pytest.raises(ValueError, match="Unsupported layer: mixture"):
+        tdsl.to_layer({"mixture": {}})
     with pytest.raises(ValueError, match="Unsupported optimizer"):
         tdsl.Mapper(toy_gpt_layers, {"lion": {}})
     tm = NeuralNetworkModel("t", tdsl.Mapper(toy_gpt_layers, toy_optimizer),

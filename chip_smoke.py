@@ -27,7 +27,10 @@ prints no result:
                ragged paged attention (paged pool and continuous
                batching: the GPT-2 mixed step in fp32, bf16 and int8,
                128-row blocks, GQA, window + ALiBi + softcap, padding,
-               decode rows at 1-1024 keys, D 8 at 16 splits; padding
+               decode rows at 1-1024 keys, D 8 at 16 splits, phase 4f's
+               traffic in fp32 and int8: a prefix hit's 128-token suffix
+               chunk and verify spans of 5, 2 and 3 rows, two rows
+               aliasing the same 4 pages of the pool's tail; padding
                slots exactly zero, two launches bit-identical, also timed
                after a read-only flush) and chunked gated linear attention
                (the hybrid's SSM layers, phase 4c's shapes and B 1 x 4096;
@@ -80,6 +83,29 @@ prints no result:
                tokens both times.  Aggregate tokens/s, p50 and max latency,
                the same requests one after another, and a torch.profiler
                pass.
+4f. prefix_spec — the same server and model under PAGED_KV_CACHE=1
+               PENROZ_CONTINUOUS_BATCHING=1 PENROZ_SCHED_MAX_ROWS=8 (64
+               prefix-cache pages, the default).  Prefix traffic, fp32 and
+               int8 pages: a 512-token prefix (numpy seed 0) + suffixes of
+               16-200 tokens, 64 new each; one request warms the cache,
+               then 8 stream concurrently, with PENROZ_PREFIX_CACHE off,
+               on, on, off (a fresh engine each turn): tokens equal in
+               every turn, 8 hits covering 8 x 512 tokens, fewer prefill
+               chunks with the cache, an empty page audit and no pin
+               left; TTFT p50/max and tokens/s on against off.
+               Speculation traffic, PENROZ_SPEC_DECODE=1 at K 4, n-gram 3
+               in the same turns: 8 concurrent greedy /generate/ (prompts
+               a seeded 64-token sequence x 4, 128 new) and the same
+               shape sampled (temperature 0.8, top_k 40) in one
+               /generate_batch/: tokens equal on and off, verify spans
+               run; random weights never copy, so each sequence's first
+               token is searched until the model emits it after the
+               prompt, which gives each row one draft; accept rate,
+               tokens a decode step, tokens/s on against off.  One
+               request with both knobs equals both off.  Every traffic:
+               the ragged kernel 12 times a unified step (its count reset
+               just before, read just after; the steps counted in
+               process).
 4c. hybrid   — a server with the hybrid attention/SSM model
                (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
                ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
@@ -104,22 +130,23 @@ prints no result:
                oracle; the fp32 flash and cross-entropy kernels forward and
                backward).
 4d. qwen3    — the slice's main path: a checkpoint of the published
-               Qwen/Qwen3-0.6B config.json (28 layers, d 1024, GQA 16/8,
-               head_dim 128, vocab 151936, tied embeddings; random bf16
+               Qwen/Qwen3-0.6B config.json (d 1024, GQA 16/8, head_dim
+               128, vocab 151936, tied embeddings; its 28 layers cut to
+               QWEN3_LAYERS = 14 to keep the script's time; random bf16
                weights from seed 0, N(0, 0.02), norms 1 + N(0, 0.1))
                written here in the HF layout, two safetensors shards and
                an index; POST /import/ (timed); greedy /generate/ 128 +
                128 twice (the second captures nothing), streamed, a
                1000-token prompt, on the contiguous cache and under
                PAGED_KV_CACHE=1 (the same tokens), the decode kernels' run
-               counters 28 a dispatched step; in process, graph == eager
+               counters 14 a dispatched step; in process, graph == eager
                on both caches, tokens/s and device busy share (graph,
                paged graph, eager), the checkpoint load timed; /output/ at
-               1 x 1024 (28 flash-forward launches); the card's logits at
+               1 x 1024 (14 flash-forward launches); the card's logits at
                8 positions against the port's CPU forward of the same
                bf16 weights (QWEN3_LOGIT_FACTOR); 4 concurrent requests
                under PENROZ_CONTINUOUS_BATCHING=1 PAGED_KV_CACHE=1 (the
-               ragged kernel 28 a mixed step, each token the plain
+               ragged kernel 14 a mixed step, each token the plain
                forward's argmax, near ties excepted as stated at
                _hf_continuous); DELETE /model/.
 4e. qmoe     — the same path (phase_import) for the MoE slice: the
@@ -801,22 +828,30 @@ def run_ce_case(torch, case, flush):
 
 
 def _random_pools(torch, lengths, Hkv, D, P, pages_per_seq, dtype, int8,
-                  seed, extra_pages=4):
+                  seed, extra_pages=4, shared=None):
     """Paged pools on the card with each sequence's live pages on shuffled
     physical pages and -1 past them; int8 pools quantized by the cache's
-    own quantizer.  Returns (k, v, table, scale kwargs)."""
+    own quantizer.  ``shared`` = (rows, n): those rows' first n logical
+    pages alias the same n pages of the pool's tail, past the rows'
+    partition of ``len(lengths) * pages_per_seq`` pages (a radix prefix
+    hit's block table), the other pages shuffled within the partition.
+    Returns (k, v, table, scale kwargs)."""
     from penroz_tpu_torch.ops import kv_cache as KV
     g = torch.Generator(device="cuda").manual_seed(seed)
-    num_pages = len(lengths) * pages_per_seq + extra_pages
+    base = len(lengths) * pages_per_seq
+    num_pages = base + extra_pages
     k = torch.randn(1, Hkv, num_pages * P, D, device="cuda", generator=g)
     v = torch.randn(1, Hkv, num_pages * P, D, device="cuda", generator=g)
-    perm = torch.randperm(num_pages, device="cuda", generator=g).cpu()
+    perm = torch.randperm(base if shared else num_pages, device="cuda",
+                          generator=g).cpu()
     table = torch.full((len(lengths), pages_per_seq), -1, dtype=torch.int32)
     used = 0
     for r, n in enumerate(lengths):
         live = -(-n // P)
-        table[r, :live] = perm[used:used + live]
-        used += live
+        first = shared[1] if shared and r in shared[0] else 0
+        table[r, first:live] = perm[used:used + live - first]
+        table[r, :first] = torch.arange(base, base + first)
+        used += live - first
     table = table.cuda()
     if not int8:
         return k[0].to(dtype), v[0].to(dtype), table, {}
@@ -960,8 +995,10 @@ def run_ragged_case(torch, case, flush):
     dtype = getattr(torch, case["dtype"])
     ends = [q0 + n for _, q0, n in spans]
     pages = -(-max(ends) // P)
+    shared = case.get("shared")
     k, v, table, scales = _random_pools(torch, ends, Hkv, D, P, pages,
-                                        dtype, case.get("int8"), case["seed"])
+                                        dtype, case.get("int8"), case["seed"],
+                                        shared=shared)
     need = sum(-(-n // BQ) for _, _, n in spans)
     NB = bucketing.bucket_count(need + case.get("padding", 0))
     descs_np, offsets = KV.build_descriptors(spans, BQ, NB)
@@ -1034,6 +1071,8 @@ def run_ragged_case(torch, case, flush):
     kv_item = 1 if case.get("int8") else item
     scale_bytes = 4 if case.get("int8") else 0
     rows = _live_rows(P, [(q0, q0 + n) for _, q0, n in spans], kw["window"])
+    if shared:  # a page that two rows alias is read once
+        rows -= (len(shared[0]) - 1) * shared[1] * P
     pairs = 0
     for _, q0, n in spans:
         for t_ in range(n):
@@ -1111,6 +1150,7 @@ def ragged_cases():
     # spread over 100-1000: a GPT-2 mixed step of the scheduler
     mixed = [(0, 256)] + [(n - 1, 1) for n in
                           (100, 250, 400, 550, 700, 850, 1000)]
+    prefix_verify = [(512, 128), (700, 5), (300, 2), (997, 3)]
     cases = [
         dict(gpt2, name="ragged_gpt2_mixed", spans=mixed, dtype="float32"),
         dict(gpt2, name="ragged_gpt2_mixed_bf16", spans=mixed,
@@ -1145,6 +1185,15 @@ def ragged_cases():
         dict(name="ragged_qmoe_mixed_bf16", Hq=16, Hkv=16, D=128, P=128,
              BQ=8, spans=[(512, 256), (215, 1), (515, 1), (963, 1)],
              dtype="bfloat16"),
+        # phase 4f's traffic: a prefix hit's 128-token suffix chunk from
+        # position 512 and a 5-row verify span, both rows aliasing the same
+        # 4 pages of the pool's tail (positions 0-511), beside verify spans
+        # of 2 and 3 rows
+        dict(gpt2, name="ragged_gpt2_prefix_verify", spans=prefix_verify,
+             shared=((0, 1), 4), dtype="float32"),
+        dict(gpt2, name="ragged_gpt2_prefix_verify_int8",
+             spans=prefix_verify, shared=((0, 1), 4), dtype="float32",
+             int8=True),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 300 + i
@@ -2178,6 +2227,381 @@ def _profile_continuous(torch, base, bodies, model, device):
 
 
 # ---------------------------------------------------------------------------
+# 4f: the radix prefix cache and speculative decoding over HTTP
+# ---------------------------------------------------------------------------
+
+# Prefix traffic: a shared 512-token prefix (numpy seed 0) and a distinct
+# suffix a request; one request warms the cache, then the wave of 8 runs
+# concurrently, each streamed (its first line is its time to first token).
+PF_PREFIX_LEN = 512
+PF_WARM_SUFFIX = 24
+PF_SUFFIX_LENS = (16, 40, 64, 90, 120, 150, 180, 200)
+PF_NEW_TOKENS = 64
+# Speculation traffic: 8 requests, each prompt a 64-token sequence S
+# (numpy seed 1, one a request) repeated 4 times, 128 new tokens; the knobs
+# at their defaults (K 4, n-gram 3); sampled at temperature 0.8, top_k 40.
+# Random weights never copy their context, so the drafter, which needs the
+# trailing 3-gram of prompt + output to have occurred before, would find
+# nothing: S[0] is set to the token the model itself emits after S x 4
+# (a fixed point, searched with one-token requests), so every row's first
+# decode step has a draft, S[1:5].
+SPEC_PERIOD, SPEC_REPEATS, SPEC_NEW_TOKENS = 64, 4, 128
+SPEC_TEMPERATURE, SPEC_TOP_K = 0.8, 40
+SPEC_SEARCH_ROUNDS = 32
+
+
+# Each traffic runs knob off, on, on, off (a fresh engine each turn): the
+# on / off numbers are means of two turns, and every turn's tokens must
+# equal the first's.
+TURNS = ("off", "on", "on", "off")
+
+
+def _merge_turns(rows):
+    """One row from a knob setting's turns: a number that differs between
+    them is their mean; ``turns`` keeps every turn."""
+    out = {}
+    for key, value in rows[0].items():
+        values = [r[key] for r in rows]
+        if all(v == value for v in values):
+            out[key] = value
+        elif all(isinstance(v, (int, float)) for v in values):
+            out[key] = sum(values) / len(values)
+        else:
+            out[key] = values
+    out["turns"] = rows
+    return out
+
+
+@contextlib.contextmanager
+def _mixed_steps():
+    """Count the unified steps every engine runs (the ``n`` of each
+    ``decode_mixed_step`` block) for the duration: ``{"steps": N}``."""
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    real = NeuralNetworkModel.decode_mixed_step
+    count = {"steps": 0}
+
+    def counted(self, kv, descs, *args, **kwargs):
+        count["steps"] += len(descs)
+        return real(self, kv, descs, *args, **kwargs)
+
+    NeuralNetworkModel.decode_mixed_step = counted
+    try:
+        yield count
+    finally:
+        NeuralNetworkModel.decode_mixed_step = real
+
+
+def _wave(base, bodies):
+    """The bodies as concurrent streamed /generate/ requests: (full
+    sequences, seconds to each first token, wall seconds)."""
+    out = [None] * len(bodies)
+    ttft = [None] * len(bodies)
+
+    def fire(i):
+        toks, first, _ = _stream(base, bodies[i])
+        out[i] = bodies[i]["input"][0] + toks
+        ttft[i] = first
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    check(all(o is not None for o in out), "a wave request failed")
+    return out, ttft, wall
+
+
+def _drafting_prompts(base, body, vocab, sampling):
+    """8 prompts S x 4 whose first emitted token (greedy, or the row's
+    positional draw when ``sampling`` has a temperature: rows are taken
+    in order by one /generate_batch/) is S[0], so each row's history ends
+    in a 3-gram seen before.  One-token batches probe S[0] <- the token
+    emitted; a row still moving after 4 probes starts over from a new
+    seeded S."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    seqs = [rng.integers(0, vocab, SPEC_PERIOD).tolist() for _ in range(8)]
+    moves = [0] * 8
+    for _ in range(SPEC_SEARCH_ROUNDS):
+        prompts = [s * SPEC_REPEATS for s in seqs]
+        status, text, _ = _post(base, "/generate_batch/", dict(
+            body, inputs=prompts, max_new_tokens=1, **sampling))
+        check(status == 200, f"/generate_batch/ -> {status}: {text[:300]}")
+        firsts = [seq[-1] for seq in json.loads(text)["sequences"]]
+        if all(s[0] == t for s, t in zip(seqs, firsts)):
+            return prompts
+        for i, t in enumerate(firsts):
+            if seqs[i][0] != t:
+                moves[i] += 1
+                if moves[i] % 4 == 0:
+                    seqs[i] = rng.integers(0, vocab, SPEC_PERIOD).tolist()
+                else:
+                    seqs[i][0] = t
+    raise SmokeFailure(f"no drafting prompts in {SPEC_SEARCH_ROUNDS} "
+                       f"rounds ({sampling})")
+
+
+def phase_prefix_spec(torch, layers, optimizer, block, vocab, card,
+                      device="cuda"):
+    """GPT-2 124M fp32 under PAGED_KV_CACHE=1 PENROZ_CONTINUOUS_BATCHING=1
+    PENROZ_SCHED_MAX_ROWS=8, prefix-cache pages at their default (64).
+
+    Prefix traffic, fp32 and int8 pages, cache off then on (each on a
+    fresh engine): a warm request (the prefix + its own suffix, 2 new
+    tokens), then the wave of 8.  Gates: each request's tokens equal
+    between cache on and off; the wave's 8 hits cover 8 x 512 tokens; the
+    cache-on wave runs fewer prefill chunks; no page leaked and no pin
+    left (``page_audit()``); the ragged kernel launches once per attention
+    layer per unified step.  Speculation traffic, PENROZ_SPEC_DECODE=1 at
+    its defaults against off: 8 concurrent greedy /generate/ and the same
+    prompts sampled in one /generate_batch/ (rows taken in order, so each
+    (row, position) key is the same in both runs): equal tokens,
+    verify spans run; one prefix-traffic request with both knobs on equals
+    both off.  Counts are reset just before each traffic and read just
+    after."""
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import CompiledArch
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve.app import create_app
+    from penroz_tpu_torch.utils import checkpoint
+
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, PF_PREFIX_LEN).tolist()
+    warm_prompt = prefix + rng.integers(0, vocab, PF_WARM_SUFFIX).tolist()
+    prompts = [prefix + rng.integers(0, vocab, n).tolist()
+               for n in PF_SUFFIX_LENS]
+    body = {"model_id": "smoke_pf", "block_size": block, "temperature": 0}
+    bodies = [dict(body, input=[p], max_new_tokens=PF_NEW_TOKENS)
+              for p in prompts]
+    server = create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    stats = {"prefix": {}, "spec": {}}
+    launches = 0
+
+    def engine_stats():
+        status, text, _ = _post(base, "/serving_stats/", None, method="GET")
+        check(status == 200, f"/serving_stats/ -> {status}")
+        engines = json.loads(text)["engines"]
+        check(len(engines) == 1, f"{len(engines)} engines, expected 1")
+        return engines[0]
+
+    def counted(run):
+        """Run ``run()`` with the ragged count zeroed just before and read
+        just after; check it against the unified steps run."""
+        nonlocal launches
+        RPA.ragged_paged_attention.launches = 0
+        with _mixed_steps() as count:
+            result = run()
+        n = RPA.ragged_paged_attention.launches
+        check(n == n_attn * count["steps"], f"ragged_paged_attention "
+              f"launched {n} times for {count['steps']} unified steps x "
+              f"{n_attn} attention layers")
+        launches += n
+        return result, count["steps"]
+
+    try:
+        status, text, _ = _post(base, "/model/", {
+            "model_id": "smoke_pf", "layers": layers,
+            "optimizer": optimizer})
+        check(status == 200, f"POST /model/ -> {status}: {text[:300]}")
+        for dtype, quant in (("fp32", "0"), ("int8", "1")):
+            outs, turns = [], {"off": [], "on": []}
+            for cache in TURNS:
+                DS.reset()  # an engine sizes its pool when it is built
+                env = dict(CB_ENV, PENROZ_PREFIX_CACHE=
+                           "1" if cache == "on" else "0",
+                           TURBO_QUANT_KV_CACHE=quant)
+                with _env(env):
+                    status, text, _ = _post(base, "/generate/", dict(
+                        body, input=[warm_prompt], max_new_tokens=2))
+                    check(status == 200, f"warm-up -> {status}: "
+                          f"{text[:300]}")
+                    before = engine_stats()
+                    (out, ttft, wall), steps = counted(
+                        lambda: _wave(base, bodies))
+                    after = engine_stats()
+                    engine = DS.get_engine("smoke_pf", block, 0, None,
+                                           device=server.device)
+                    cache_obj = engine._prefix_cache
+                    row = {
+                        "ttft_p50_s": float(np.median(ttft)),
+                        "ttft_max_s": max(ttft), "wall_s": wall,
+                        "tokens_per_s": len(bodies) * PF_NEW_TOKENS / wall,
+                        "prefill_chunks": after["prefill_chunks"]
+                        - before["prefill_chunks"], "mixed_steps": steps}
+                    if cache == "on":
+                        pc, pc0 = after["prefix_cache"], before["prefix_cache"]
+                        row.update(hits=pc["hits"] - pc0["hits"],
+                                   hit_tokens=pc["hit_tokens"]
+                                   - pc0["hit_tokens"],
+                                   misses=pc["misses"] - pc0["misses"],
+                                   cached_pages=pc["cached_pages"],
+                                   audit=cache_obj.page_audit(),
+                                   pins=sum(nd.refs for nd in
+                                            cache_obj.iter_nodes()))
+                        check(row["hits"] == len(bodies)
+                              and row["misses"] == 0 and row["hit_tokens"]
+                              == len(bodies) * PF_PREFIX_LEN,
+                              f"{dtype}: the wave hit {row['hits']} times "
+                              f"for {row['hit_tokens']} tokens, expected "
+                              f"8 x 512")
+                        check(not row["audit"] and row["pins"] == 0,
+                              f"{dtype}: page audit {row['audit']}, "
+                              f"{row['pins']} pins left")
+                    else:
+                        check(after["prefix_cache"] is None
+                              and cache_obj is None,
+                              "a prefix cache with PENROZ_PREFIX_CACHE=0")
+                outs.append(out)
+                turns[cache].append(row)
+            on, off = (_merge_turns(turns[c]) for c in ("on", "off"))
+            stats["prefix"][f"{dtype}_on"] = on
+            stats["prefix"][f"{dtype}_off"] = off
+            same = sum(all(o[i] == outs[0][i] for o in outs)
+                       for i in range(len(bodies)))
+            say("prefix", f"{dtype}: the wave of 8 (512-token prefix + "
+                f"16-200, {PF_NEW_TOKENS} new), cache on / off (means of "
+                f"two turns each): TTFT p50 {on['ttft_p50_s']:.4f} / "
+                f"{off['ttft_p50_s']:.4f} s, max {on['ttft_max_s']:.4f} / "
+                f"{off['ttft_max_s']:.4f} s; {on['tokens_per_s']:.1f} / "
+                f"{off['tokens_per_s']:.1f} tokens/s; prefill chunks "
+                f"{on['prefill_chunks']} / {off['prefill_chunks']}; hits "
+                f"{on['hits']} covering {on['hit_tokens']} tokens, "
+                f"{on['cached_pages']} pages cached; {same}/8 equal in all "
+                f"four turns; on {card}")
+            check(same == len(bodies), f"{dtype}: {len(bodies) - same} "
+                  f"requests differ between prefix cache on and off")
+            check(max(r["prefill_chunks"] for r in turns["on"])
+                  < min(r["prefill_chunks"] for r in turns["off"]),
+                  f"{dtype}: the cache did not cut the prefill chunks")
+
+        # speculation: off, then on, each on a fresh engine
+        sampling = {"temperature": SPEC_TEMPERATURE, "top_k": SPEC_TOP_K}
+        DS.reset()
+        with _env(dict(CB_ENV, PENROZ_SPEC_DECODE="0",
+                       PENROZ_PREFIX_CACHE="0", TURBO_QUANT_KV_CACHE="0")):
+            spec_prompts = _drafting_prompts(base, body, vocab, {})
+            sampled_prompts = _drafting_prompts(base, body, vocab, sampling)
+        spec_bodies = [dict(body, input=[p], max_new_tokens=SPEC_NEW_TOKENS)
+                       for p in spec_prompts]
+        spec_out, turns = [], {"off": [], "on": []}
+        for spec in TURNS:
+            DS.reset()
+            with _env(dict(CB_ENV, PENROZ_SPEC_DECODE=
+                           "1" if spec == "on" else "0",
+                           PENROZ_PREFIX_CACHE="0",
+                           TURBO_QUANT_KV_CACHE="0")):
+                status, text, _ = _post(base, "/generate/", dict(
+                    spec_bodies[0], max_new_tokens=2))
+                check(status == 200, f"warm-up -> {status}: {text[:300]}")
+                before = engine_stats()
+                (out, ttft, wall), steps = counted(
+                    lambda: _wave(base, spec_bodies))
+                after = engine_stats()
+
+                def batch():
+                    status, text, secs = _post(base, "/generate_batch/", dict(
+                        body, inputs=sampled_prompts,
+                        max_new_tokens=SPEC_NEW_TOKENS, **sampling))
+                    check(status == 200, f"sampled /generate_batch/ -> "
+                          f"{status}: {text[:300]}")
+                    return json.loads(text)["sequences"], secs
+                (sampled, sampled_s), _ = counted(batch)
+                sampled_stats = [e for e in json.loads(_post(
+                    base, "/serving_stats/", None, method="GET")[1])[
+                    "engines"] if e["temperature"] > 0][0]
+            drafted = (after["spec_drafted_tokens"]
+                       - before["spec_drafted_tokens"])
+            accepted = (after["spec_accepted_tokens"]
+                        - before["spec_accepted_tokens"])
+            tokens = after["decode_tokens"] - before["decode_tokens"]
+            dsteps = after["decode_steps"] - before["decode_steps"]
+            turns[spec].append({
+                "tokens_per_s": len(spec_bodies) * SPEC_NEW_TOKENS / wall,
+                "wall_s": wall, "ttft_p50_s": float(np.median(ttft)),
+                "verify_steps": after["spec_verify_steps"]
+                - before["spec_verify_steps"],
+                "drafted": drafted, "accepted": accepted,
+                "accept_rate": accepted / drafted if drafted else None,
+                "tokens_per_decode_step": tokens / dsteps,
+                "mixed_steps": steps, "sampled_s": sampled_s,
+                "sampled_verify_steps": sampled_stats["spec_verify_steps"],
+                "sampled_accept_rate": sampled_stats["spec_accept_rate"]})
+            spec_out.append((out, sampled))
+        on, off = (_merge_turns(turns[c]) for c in ("on", "off"))
+        stats["spec"] = {"on": on, "off": off}
+        greedy_same = sum(all(o[0][i] == spec_out[0][0][i] for o in spec_out)
+                          for i in range(8))
+        sampled_same = sum(all(o[1][i] == spec_out[0][1][i]
+                               for o in spec_out) for i in range(8))
+        say("spec", f"8 concurrent ({SPEC_PERIOD} tokens x {SPEC_REPEATS}, "
+            f"{SPEC_NEW_TOKENS} new) speculation on / off (means of two "
+            f"turns each): "
+            f"{on['tokens_per_s']:.1f} / {off['tokens_per_s']:.1f} tokens/s, "
+            f"{on['tokens_per_decode_step']:.3f} / "
+            f"{off['tokens_per_decode_step']:.3f} tokens a decode step, "
+            f"{on['mixed_steps']} / {off['mixed_steps']} unified steps; "
+            f"{on['verify_steps']} verify spans, accept rate "
+            f"{on['accept_rate']}; greedy {greedy_same}/8 equal, sampled "
+            f"{sampled_same}/8 equal (accept rate "
+            f"{on['sampled_accept_rate']}), all four turns; on {card}")
+        check(greedy_same == 8, "greedy tokens differ with speculation on")
+        check(sampled_same == 8, "sampled tokens differ with speculation on")
+        check(spec_out[0][1] != spec_out[0][0], "sampling drew the greedy "
+              "tokens")
+        check(all(r["verify_steps"] > 0 and r["sampled_verify_steps"] > 0
+                  for r in turns["on"]), "no verify span ran")
+        check(all(r["verify_steps"] == 0 for r in turns["off"]),
+              "a verify span with speculation off")
+
+        # both knobs together: the first speculation request again, after
+        # one that registers its pages, against both off
+        DS.reset()
+        with _env(dict(CB_ENV, PENROZ_SPEC_DECODE="1",
+                       PENROZ_PREFIX_CACHE="1", TURBO_QUANT_KV_CACHE="0")):
+            def both():
+                results = []
+                for b in (dict(spec_bodies[0], max_new_tokens=2),
+                          spec_bodies[0]):
+                    status, text, _ = _post(base, "/generate/", b)
+                    check(status == 200, f"/generate/ -> {status}: "
+                          f"{text[:300]}")
+                    results.append(json.loads(text)["tokens"])
+                return results[-1]
+            got, _ = counted(both)
+            both_stats = engine_stats()
+        check(both_stats["prefix_cache"]["hits"] == 1,
+              "the combined request missed the prefix cache")
+        check(both_stats["spec_verify_steps"] > 0,
+              "the combined request ran no verify span")
+        check(got == spec_out[0][0][0],
+              "prefix cache + speculation differ from both off")
+        stats["both"] = {"verify_steps": both_stats["spec_verify_steps"],
+                         "hits": both_stats["prefix_cache"]["hits"]}
+        say("spec", f"prefix cache + speculation on one request: equal to "
+            f"both off ({both_stats['spec_verify_steps']} verify spans, "
+            f"{both_stats['prefix_cache']['hit_tokens']} tokens hit); "
+            f"ragged launches in this phase {launches}")
+    finally:
+        DS.reset()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    return stats, launches
+
+
+# ---------------------------------------------------------------------------
 # 4c: the hybrid attention/SSM model over HTTP
 # ---------------------------------------------------------------------------
 
@@ -2562,7 +2986,9 @@ def _profile_hybrid(torch, model, vocab, device):
 # imported over HTTP
 # ---------------------------------------------------------------------------
 
-# The published Qwen/Qwen3-0.6B config.json (its architecture keys).
+# The published Qwen/Qwen3-0.6B config.json (its architecture keys), its
+# 28 layers cut to QWEN3_LAYERS so the whole script stays within 900 s;
+# every width is the published one.
 QWEN3_CONFIG = {
     "architectures": ["Qwen3ForCausalLM"], "attention_bias": False,
     "attention_dropout": 0.0, "bos_token_id": 151643,
@@ -2593,10 +3019,12 @@ QMOE_CONFIG = {
     "sliding_window": 32768, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "use_cache": True,
     "use_sliding_window": False, "vocab_size": 151936}
+QWEN3_LAYERS = 14
 QMOE_LAYERS = 2
 # The imported checkpoints: phase name, model id, config as written, title.
 HF_MODELS = {
-    "qwen3": dict(config=QWEN3_CONFIG, title="Qwen3-0.6B",
+    "qwen3": dict(config=dict(QWEN3_CONFIG, num_hidden_layers=QWEN3_LAYERS),
+                  title="Qwen3-0.6B",
                   dir="hf_qwen3_0.6b"),
     "qmoe": dict(config=dict(QMOE_CONFIG, num_hidden_layers=QMOE_LAYERS),
                  title="Qwen1.5-MoE-A2.7B", dir="hf_qwen1.5_moe_a2.7b"),
@@ -2724,9 +3152,10 @@ def write_hf_checkpoint(torch, path, cfg, seed=0, device="cuda"):
 
 
 def phase_import(torch, card, tag, device="cuda"):
-    """A HuggingFace checkpoint of HF_MODELS[tag] (Qwen3-0.6B at 28 layers,
-    or Qwen1.5-MoE-A2.7B at QMOE_LAYERS; full widths, random bf16 weights
-    from seed 0, written here in the HF layout) through POST /import/,
+    """A HuggingFace checkpoint of HF_MODELS[tag] (Qwen3-0.6B at
+    QWEN3_LAYERS, or Qwen1.5-MoE-A2.7B at QMOE_LAYERS; full widths, random
+    bf16 weights from seed 0, written here in the HF layout) through
+    POST /import/,
     served on the contiguous and paged caches, under continuous batching
     and by /output/, then deleted.  Returns (stats, {kernel: device runs
     or launches in this phase})."""
@@ -3556,6 +3985,10 @@ def main(argv=None) -> int:
         cb_stats, launches["ragged_paged_attention"] = \
             phase_continuous_batching(torch, presets.gpt2(), presets.ADAMW,
                                       block=1024, vocab=50304, card=card)
+        pf_stats, pf_launches = phase_prefix_spec(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
+        launches["ragged_paged_attention"] += pf_launches
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -3574,6 +4007,8 @@ def main(argv=None) -> int:
         # each kernel's count over every main path that ran it (each
         # phase zeroes the counts before its traffic, reads them after)
         phase_launches = {"gpt2_and_hybrid": dict(launches),
+                          "prefix_spec": {"ragged_paged_attention":
+                                          pf_launches},
                           "qwen3": qwen3_launches, "qmoe": qmoe_launches,
                           "moe_training": moe_launches}
         for extra in (qwen3_launches, qmoe_launches, moe_launches):
@@ -3602,6 +4037,7 @@ def main(argv=None) -> int:
             json.dump({"card": card, "cases": rows,
                        "main_path": stats,
                        "continuous_batching": cb_stats,
+                       "prefix_spec": pf_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

@@ -929,7 +929,8 @@ class NeuralNetworkModel:
     @torch.inference_mode()
     def decode_mixed_step(self, kv, descs, tok_lit, tok_src, positions,
                           sample_slot, last_tokens, seed: int = 0,
-                          temperature=1.0, top_k=None, row_ids=None):
+                          temperature=1.0, top_k=None, row_ids=None,
+                          verify_slots=None):
         """Run ``n`` unified RAGGED steps over the paged pool ``kv`` — the
         continuous-batching scheduler's block (JAX ``decode_mixed_step``):
         every step is one packed mixed batch in which prefill chunks and
@@ -946,10 +947,15 @@ class NeuralNetworkModel:
           its row's last token) else the literal (prompt tokens);
         - ``positions`` (n, Tp) absolute position per packed slot;
         - ``sample_slot`` (n, B): the slot whose sample becomes row b's
-          carried last token after that step (-1 keeps it); only these
-          slots are sampled;
+          carried last token after that step (-1 keeps it);
+        - ``verify_slots`` (n, V), optional: the slots of speculative
+          verify spans (-1 padding), sampled besides ``sample_slot``'s
+          and carried nowhere — the host compares them with the draft;
         - ``row_ids`` (n, Tp): row per slot (-1 padding), the positional
-          sampling keys of temperature > 0.
+          sampling keys of temperature > 0: a slot at (row, position)
+          draws what a plain decode step at that position would.
+
+        Only the ``sample_slot`` and ``verify_slots`` slots are sampled.
 
         The JAX ``lax.scan`` becomes a loop of ``n`` forwards; the plan
         goes to the device in one copy, the carried last tokens stay
@@ -974,8 +980,11 @@ class NeuralNetworkModel:
         B = kv.batch
         if row_ids is None:
             row_ids = np.full((n, Tp), -1, np.int64)
+        V = 0 if verify_slots is None else int(np.shape(verify_slots)[1])
         parts = [descs, tok_lit, tok_src, positions, sample_slot, row_ids,
                  last_tokens]
+        if V:
+            parts.append(verify_slots)
         for s in range(n):  # scatter index of every step, from the host table
             parts += kv.packed_index(kv.packed_rows(descs[s], block_q))
         sizes = [int(np.size(a)) for a in parts]
@@ -990,7 +999,8 @@ class NeuralNetworkModel:
                                       for i in (1, 2, 3, 5))
         d_sslot = views[4].view(n, B)
         last = views[6]
-        d_scatter = views[7:]
+        d_vslot = views[7].view(n, V) if V else None
+        d_scatter = views[7 + bool(V):]
         outs = []
         for s in range(n):
             src = d_src[s]
@@ -1001,18 +1011,19 @@ class NeuralNetworkModel:
                 pos_offset=d_pos[s][None, :], ragged_descs=d_descs[s],
                 ragged_rows=(d_scatter[2 * s], d_scatter[2 * s + 1]))
             sslot = d_sslot[s]
-            at = torch.clamp(sslot, min=0)
-            logits = acts[-1][0][at]                            # (B, V)
+            slots = sslot if not V else torch.cat([sslot, d_vslot[s]])
+            at = torch.clamp(slots, min=0)
+            logits = acts[-1][0][at]                    # (B [+ V], vocab)
             if greedy:
                 picked = torch.argmax(logits.to(torch.float32), dim=-1)
-            else:  # keys (row, position) of the sample slots themselves
+            else:  # keys (row, position) of the sampled slots themselves
                 picked = self.arch._sample_packed(logits, seed, d_rid[s][at],
                                                   d_pos[s][at], temp, top_k)
-            last = torch.where(sslot >= 0, picked, last)
-            # the rows' samples back at their slots; slot Tp sinks the -1s
+            last = torch.where(sslot >= 0, picked[:B], last)
+            # the samples back at their slots; slot Tp sinks the -1s
             out = torch.full((Tp + 1,), -1, dtype=torch.int64,
                              device=picked.device)
-            out.scatter_(0, torch.where(sslot >= 0, sslot, Tp), picked)
+            out.scatter_(0, torch.where(slots >= 0, slots, Tp), picked)
             outs.append(out[:Tp])
         return torch.stack(outs).to("cpu").numpy(), kv
 

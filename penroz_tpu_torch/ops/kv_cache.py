@@ -37,6 +37,15 @@ allocator runs inside jit; here it is host arithmetic on a numpy table
 handed out.  The scatter rows of a step are computed on the device from
 the host length (single sequence) or on the host from the descriptors
 (packed mixed batches), so no step reads the device back.
+
+``PENROZ_PREFIX_CACHE=1`` (with the paged pool) reserves
+``PENROZ_PREFIX_CACHE_PAGES`` pages (default 64) past the rows' static
+partition (``create_kv_state(extra_pool_pages=…)``); :class:`RadixPrefixCache`
+decides which of them hold which whole-page prompt blocks, and the pool
+aliases them into a row's table (``with_row_prefix``) and copies a
+finished prompt's pages into them (``copy_pages``).  Every table rewrite
+goes through ``_upload_table``, in stream order, so it cannot race a step
+still in flight.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ log = logging.getLogger(__name__)
 TURBO_QUANT_ENV = "TURBO_QUANT_KV_CACHE"
 PAGED_ENV = "PAGED_KV_CACHE"
 PAGE_SIZE_ENV = "PENROZ_KV_PAGE_SIZE"
+PREFIX_CACHE_ENV = "PENROZ_PREFIX_CACHE"
+PREFIX_CACHE_PAGES_ENV = "PENROZ_PREFIX_CACHE_PAGES"
 
 # -- pool-capacity drop accounting ------------------------------------------
 # A paged append past ``max_len`` clamps onto the last page (the JAX
@@ -101,6 +112,28 @@ def turbo_quant_enabled() -> bool:
 
 def paged_enabled() -> bool:
     return os.environ.get(PAGED_ENV, "0") == "1"
+
+
+def prefix_cache_enabled() -> bool:
+    """``PENROZ_PREFIX_CACHE=1`` opts into radix prefix-KV sharing over the
+    paged pool (page granularity is the sharing unit; the
+    continuous-batching scheduler checks ``PAGED_KV_CACHE=1`` too)."""
+    return os.environ.get(PREFIX_CACHE_ENV, "0") == "1"
+
+
+def prefix_cache_pages() -> int:
+    """Pool pages reserved for the radix prefix cache
+    (``PENROZ_PREFIX_CACHE_PAGES``, default 64)."""
+    raw = os.environ.get(PREFIX_CACHE_PAGES_ENV, "64")
+    try:
+        pages = int(raw)
+        if pages < 0:
+            raise ValueError
+    except ValueError:
+        log.warning("Ignoring invalid %s=%r; using 64",
+                    PREFIX_CACHE_PAGES_ENV, raw)
+        return 64
+    return pages
 
 
 def default_page_size() -> int:
@@ -635,6 +668,54 @@ class PagedKVState(KVState):
         self._upload_table()
         return self
 
+    def with_row_prefix(self, row, prefix_pages):
+        """Rebuild row ``row``'s block-table entries as ``prefix_pages``
+        aliased over its leading logical pages and its own static-partition
+        pages for the rest (radix prefix-KV sharing; in place).  Suffix
+        appends land at positions >= ``len(prefix_pages) * page_size``, so
+        the shared pages are only ever read.  Requires the static partition
+        (:meth:`with_static_table`)."""
+        S = self.pages_per_seq
+        n = len(prefix_pages)
+        if n > S:
+            raise ValueError(f"prefix of {n} pages exceeds pages_per_seq={S}")
+        entries = np.arange(int(row) * S, int(row) * S + S, dtype=np.int32)
+        entries[:n] = np.asarray(list(prefix_pages), np.int32)
+        self.table[int(row)] = entries
+        self._upload_table()
+        return self
+
+    def restore_row_table(self, row):
+        """Drop row ``row``'s prefix aliases, restoring its own static
+        partition (retirement: the next occupant must not write through
+        stale shared entries)."""
+        return self.with_row_prefix(row, ())
+
+    def _page_rows(self, pages) -> torch.Tensor:
+        """Flat pool rows of whole physical ``pages``, on the pool's
+        device."""
+        rows = (np.asarray(list(pages), np.int64)[:, None] * self.page_size
+                + np.arange(self.page_size)).reshape(-1)
+        return torch.as_tensor(rows, device=self.device)
+
+    def _pool_lists(self):
+        return (self.k, self.v)
+
+    def copy_pages(self, src_pages, dst_pages):
+        """Copy whole physical pages ``src_pages[i] -> dst_pages[i]`` in
+        every layer's pools (in place): prefix-cache registration copies a
+        finished prompt's row-private pages into the reserved region, so
+        slot recycling cannot clobber them."""
+        if len(src_pages) != len(dst_pages):
+            raise ValueError("copy_pages needs equal-length page lists")
+        if not len(src_pages):
+            return self
+        src, dst = self._page_rows(src_pages), self._page_rows(dst_pages)
+        for pools in self._pool_lists():
+            for pool in pools:
+                pool.index_copy_(1, dst, pool.index_select(1, src))
+        return self
+
     def _row_bytes(self) -> int:
         """Bytes per token row summed over every layer's K and V pool."""
         return sum(a.shape[0] * a.shape[2] * a.element_size()
@@ -698,6 +779,11 @@ class QuantPagedKVState(PagedKVState):
             self._scatter(pools, layer_idx, rows, new)
         return self.k[layer_idx], self.v[layer_idx]
 
+    def _pool_lists(self):
+        """Values and their per-token scales: a copied page keeps its
+        scales."""
+        return (self.k, self.v, self.k_scale, self.v_scale)
+
     def _row_bytes(self) -> int:
         """int8 value rows + fp32 scale rows per token, over every layer."""
         return super()._row_bytes() + sum(
@@ -718,13 +804,16 @@ class QuantPagedKVState(PagedKVState):
 
 def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,
                     quantized: bool | None = None, paged: bool | None = None,
-                    device=None, ssm_specs=None) -> KVState:
+                    device=None, ssm_specs=None,
+                    extra_pool_pages: int = 0) -> KVState:
     """Factory honouring ``TURBO_QUANT_KV_CACHE=1`` and ``PAGED_KV_CACHE=1``
     (both together: the int8 paged pool, pages of
     ``PENROZ_KV_PAGE_SIZE`` tokens, default 128).  ``ssm_specs``, the
     per-``ssm``-layer ``(num_heads, head_dim, value_dim)`` of a hybrid
     model (models/model.py::CompiledArch.ssm_specs), attaches the
-    recurrent ``ssm`` child."""
+    recurrent ``ssm`` child.  ``extra_pool_pages`` grows a paged pool past
+    the per-row partition (``batch * pages_per_seq`` pages): the reserved
+    region of the radix prefix cache."""
     if quantized is None:
         quantized = turbo_quant_enabled()
     if paged is None:
@@ -734,8 +823,11 @@ def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,
         log.info("%s KV cache enabled (%s=1, page_size=%d)",
                  "Int8 paged" if quantized else "Paged", PAGED_ENV, page)
         cls = QuantPagedKVState if quantized else PagedKVState
+        pool_pages = None
+        if extra_pool_pages:
+            pool_pages = batch * -(-max_len // page) + int(extra_pool_pages)
         state = cls.create(specs, batch, max_len, dtype, page_size=page,
-                           device=device)
+                           pool_pages=pool_pages, device=device)
     elif quantized:
         log.info("TurboQuant KV cache enabled (%s=1)", TURBO_QUANT_ENV)
         state = QuantKVState.create(specs, batch, max_len, dtype, device)
@@ -744,3 +836,252 @@ def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,
     if ssm_specs:
         state.ssm = SSMState.create(ssm_specs, batch, device=device)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Radix prefix-KV cache (host-side bookkeeping over the paged pool)
+# ---------------------------------------------------------------------------
+
+class _RadixNode:
+    __slots__ = ("key", "page", "children", "parent", "refs", "last_use")
+
+    def __init__(self, key, page, parent, last_use):
+        self.key = key          # page_size-token tuple (edge label)
+        self.page = page        # physical pool page holding this block's KV
+        self.children = {}
+        self.parent = parent
+        self.refs = 0           # live rows aliasing this page
+        self.last_use = last_use
+
+
+class RadixPrefixCache:
+    """Radix tree over page-granularity prompt blocks -> pages of a
+    reserved region of the paged KV pool (JAX ``RadixPrefixCache``).
+
+    Pure host bookkeeping: aliasing matched pages into a row's block table
+    and copying a finished prompt's pages into the region are the caller's
+    (:meth:`PagedKVState.with_row_prefix`, :meth:`PagedKVState.copy_pages`).
+    This class decides WHICH pages, with:
+
+    - whole-page sharing only (suffix appends into a partly filled page
+      would corrupt its other readers);
+    - refcounted pinning: a page aliased into a live row's table is never
+      evicted (its page would be recycled under a reader);
+    - LRU eviction of unpinned LEAVES only (an interior page is a prefix
+      of its children's chains).
+
+    Greedy outputs with a hit equal a miss's: the aliased pages hold the
+    K/V the suffix prefill would recompute, at the same absolute
+    positions.  ``namespace`` keys a separate root per set of weights
+    (``None``, the base model, is the only one the port uses)."""
+
+    def __init__(self, pages, page_size: int):
+        self.page_size = int(page_size)
+        self._pages = list(pages)
+        self._free = list(reversed(self._pages))
+        self._roots: dict = {None: _RadixNode(None, -1, None, 0)}
+        self._clock = 0
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.inserted_pages = 0
+        self.evicted_pages = 0
+        self.unpin_underflows = 0
+
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def capacity_pages(self) -> int:
+        return len(self._pages)
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self._pages) - len(self._free)
+
+    def stats(self) -> dict:
+        total = self.hits + self.misses
+        return {
+            "capacity_pages": self.capacity_pages,
+            "cached_pages": self.cached_pages,
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": (self.hits / total) if total else None,
+            "hit_tokens": self.hit_tokens,
+            "inserted_pages": self.inserted_pages,
+            "evicted_pages": self.evicted_pages,
+        }
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _blocks(self, tokens, limit=None):
+        P = self.page_size
+        n = len(tokens) if limit is None else min(int(limit), len(tokens))
+        for b in range(n // P):
+            yield tuple(int(t) for t in tokens[b * P:(b + 1) * P])
+
+    # -- lookup / registration ----------------------------------------------
+
+    def _ns_root(self, namespace):
+        root = self._roots.get(namespace)
+        if root is None:
+            root = self._roots[namespace] = _RadixNode(None, -1, None, 0)
+        return root
+
+    def chain(self, tokens, limit=None, namespace=None) -> list:
+        """The cached node chain of ``tokens``' longest whole-page prefix,
+        without hit/miss accounting; touches LRU recency like
+        :meth:`match`."""
+        nodes = []
+        node = self._ns_root(namespace)
+        for key in self._blocks(tokens, limit):
+            child = node.children.get(key)
+            if child is None:
+                break
+            nodes.append(child)
+            node = child
+        t = self._tick()
+        for nd in nodes:
+            nd.last_use = t
+        return nodes
+
+    def match(self, tokens, limit=None, namespace=None) -> list:
+        """Longest cached whole-page prefix of ``tokens``: the matched node
+        chain (``[n.page for n in nodes]`` are the pages to alias, in
+        logical order).  ``limit`` caps the usable token count (admission
+        passes ``len(prompt) - 1``, so one real token is left to produce
+        the first sample).  A hit iff at least one page matched."""
+        nodes = self.chain(tokens, limit, namespace)
+        if nodes:
+            self.hits += 1
+            self.hit_tokens += len(nodes) * self.page_size
+        else:
+            self.misses += 1
+        return nodes
+
+    def pin(self, nodes):
+        """Hold ``nodes``' pages against eviction while a live row aliases
+        them (admission; :meth:`unpin` at retirement)."""
+        for nd in nodes:
+            nd.refs += 1
+
+    def unpin(self, nodes):
+        for nd in nodes:
+            nd.refs -= 1
+            if nd.refs < 0:  # an unpaired unpin must not become a pin
+                nd.refs = 0
+                self.unpin_underflows += 1
+                log.warning("RadixPrefixCache.unpin underflow on node key "
+                            "%r: refcount went negative, clamped to 0",
+                            nd.key)
+
+    def iter_nodes(self):
+        """Every cached node of every namespace (roots excluded), depth
+        first; do not mutate while iterating."""
+        stack = [nd for root in self._roots.values()
+                 for nd in root.children.values()]
+        while stack:
+            nd = stack.pop()
+            stack.extend(nd.children.values())
+            yield nd
+
+    def page_audit(self) -> list[str]:
+        """Violations of the page bookkeeping (empty: sound): cached and
+        free must partition the reserved region, no page on both sides,
+        on neither (leaked), outside it (foreign) or under two nodes, no
+        negative refcount."""
+        problems: list[str] = []
+        region = set(self._pages)
+        free = list(self._free)
+        free_set = set(free)
+        if len(free) != len(free_set):
+            problems.append("duplicate pages on the free list")
+        cached: dict = {}
+        for nd in self.iter_nodes():
+            if nd.page in cached:
+                problems.append(f"page {nd.page} owned by two nodes")
+            cached[nd.page] = nd
+            if nd.page not in region:
+                problems.append(f"cached page {nd.page} outside the "
+                                f"reserved region")
+            if nd.refs < 0:
+                problems.append(f"page {nd.page}: negative refs {nd.refs}")
+        overlap = free_set & set(cached)
+        if overlap:
+            problems.append(f"pages both free and cached: {sorted(overlap)}")
+        leaked = region - free_set - set(cached)
+        if leaked:
+            problems.append(f"pages neither free nor cached (leaked): "
+                            f"{sorted(leaked)}")
+        foreign = free_set - region
+        if foreign:
+            problems.append(f"free-list pages outside the reserved region: "
+                            f"{sorted(foreign)}")
+        return problems
+
+    def insert(self, tokens, limit=None,
+               namespace=None) -> list[tuple[int, int]]:
+        """Ensure a node for every full page block of ``tokens``; returns
+        the ``(block_index, page)`` pairs NEWLY allocated, whose K/V the
+        caller must ``copy_pages`` in.  Allocation evicts unpinned LRU
+        leaves on demand and stops early (no error) when all that is left
+        is pinned; a partial chain is a valid prefix.  The chain being
+        built is pinned meanwhile, so it never evicts its own nodes."""
+        created = []
+        chain = []
+        node = self._ns_root(namespace)
+        t = self._tick()
+        try:
+            for b, key in enumerate(self._blocks(tokens, limit)):
+                child = node.children.get(key)
+                if child is None:
+                    page = self._alloc()
+                    if page is None:
+                        break
+                    child = _RadixNode(key, page, node, t)
+                    node.children[key] = child
+                    created.append((b, page))
+                    self.inserted_pages += 1
+                child.last_use = t
+                child.refs += 1
+                chain.append(child)
+                node = child
+        finally:
+            for nd in chain:
+                nd.refs -= 1
+        return created
+
+    def _alloc(self):
+        if self._free:
+            return self._free.pop()
+        victim = self._lru_leaf()
+        if victim is None:
+            return None
+        self._evict(victim)
+        return self._free.pop()
+
+    def _lru_leaf(self):
+        best = None
+        stack = [nd for root in self._roots.values()
+                 for nd in root.children.values()]
+        while stack:
+            nd = stack.pop()
+            if nd.children:
+                stack.extend(nd.children.values())
+            elif nd.refs == 0 and (best is None
+                                   or nd.last_use < best.last_use):
+                best = nd
+        return best
+
+    def _evict(self, node):
+        del node.parent.children[node.key]
+        self._free.append(node.page)
+        self.evicted_pages += 1
+
+    def clear(self):
+        """Drop every cached prefix and reclaim all pages (a model reload:
+        K/V of the old weights must never serve the new ones).  Called with
+        no row in flight, so nothing is pinned; the counters survive."""
+        self._roots = {None: _RadixNode(None, -1, None, 0)}
+        self._free = list(reversed(self._pages))

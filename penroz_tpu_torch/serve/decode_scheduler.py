@@ -21,10 +21,24 @@ rows own static page ranges of one paged pool, and a worker thread that:
   prefills, decode tokens, retirement on the stop token, ``max_new_tokens``
   or a full row; a retired row's slot is free for the next admission.
 
+With ``PENROZ_PREFIX_CACHE=1`` the pool grows by
+``PENROZ_PREFIX_CACHE_PAGES`` pages (default 64) past the rows' static
+partition, and a :class:`~penroz_tpu_torch.ops.kv_cache.RadixPrefixCache`
+hands them out: an admission matches its prompt's longest cached
+whole-page prefix, aliases those pages into its row's block table (pinned
+until retirement) and prefills only the suffix; a finished prefill copies
+its new full pages into the tail and registers them.  With
+``PENROZ_SPEC_DECODE=1`` a decoding row with a prompt-lookup draft
+(serve/spec_decode.py) runs one K+1-row verify span at the block's first
+step, and its replay emits the accepted draft tokens plus the model's
+next one; the host length then skips the rejected positions, which the
+next span overwrites.
+
 Greedy outputs equal the single-sequence path's token for token (the same
-positions, the same cached attention).  Temperature > 0 draws each
-(row, position) with a positional key, so a stream does not depend on
-packing, superstep or chunk split.
+positions, the same cached attention), with or without a prefix hit or
+speculation.  Temperature > 0 draws each (row, position) with a
+positional key, so a stream does not depend on packing, superstep, chunk
+split, a prefix hit or speculation.
 
 The JAX package's asyncio event plumbing becomes threads: a request
 carries a callback that the worker calls with ``("token", id)``, then
@@ -36,9 +50,8 @@ engine's tensors.
 Models with ``ssm`` layers are refused (HTTP 400): their rows need the
 packed recurrent update (``SSMState.update_packed``), not ported yet.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
-radix prefix cache, speculative decoding, the phased ticks
-(``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over the
-contiguous cache, replicas, disaggregated prefill, serving meshes and
+phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
+the contiguous cache, replicas, disaggregated prefill, serving meshes and
 pipeline stages, and the overload knobs (server deadlines, the bounded
 queue, the circuit breaker and its fallback, the admission window, the tick
 watchdog, the graceful drain); deadlines, QoS classes, tenants, sessions
@@ -62,6 +75,7 @@ import numpy as np
 from penroz_tpu_torch.models.model import NeuralNetworkModel
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+from penroz_tpu_torch.serve import spec_decode
 from penroz_tpu_torch.utils import bucketing, checkpoint
 
 log = logging.getLogger(__name__)
@@ -76,8 +90,6 @@ RAGGED_ENV = "PENROZ_RAGGED_ATTENTION"
 # Scheduler features of the JAX package this port does not have yet:
 # (variable, predicate on its value that selects the feature, what).
 _UNPORTED_SERVING_ENV = (
-    ("PENROZ_PREFIX_CACHE", lambda v: v == "1", "the radix prefix cache"),
-    ("PENROZ_SPEC_DECODE", lambda v: v == "1", "speculative decoding"),
     (RAGGED_ENV, lambda v: v == "0", "the phased (non-unified) ticks"),
     ("PENROZ_SCHED_REPLICAS", lambda v: _int(v) > 1, "engine replicas"),
     ("PENROZ_DISAGG_PREFILL", lambda v: v == "1",
@@ -103,6 +115,10 @@ _UNPORTED_SERVING_ENV = (
 # payload (the JAX package's defaults).
 _TIMELINE_LEN = 256
 _TIMELINE_SERVE = 120
+
+
+def _rate(num, den):
+    return (num / den) if den else None
 
 
 def _int(v: str) -> int:
@@ -195,7 +211,7 @@ class Request:
 
 class _Row:
     __slots__ = ("req", "produced", "prefilling", "prefilled", "chunks",
-                 "chunk_idx", "history")
+                 "chunk_idx", "history", "prefix_nodes")
 
     def __init__(self, req: Request):
         self.req = req
@@ -208,6 +224,8 @@ class _Row:
         self.chunk_idx = 0
         # prompt + every emitted token, in order
         self.history = list(req.prompt)
+        # radix nodes aliased into the row's table, pinned until retirement
+        self.prefix_nodes: list = []
 
 
 class DecodeEngine:
@@ -235,6 +253,10 @@ class DecodeEngine:
                 f"penroz_tpu_torch yet; serve it with {ENABLE_ENV}=0")
         self._model.arch.check_positions(self.block_size, "block_size")
         self._ckpt_stamp_v = self._ckpt_stamp()
+        # the radix prefix cache's reserved pool tail
+        self._extra_pages = (KV.prefix_cache_pages()
+                             if KV.prefix_cache_enabled() else 0)
+        self._prefix_cache = None
         self._lengths = np.zeros(self.capacity, np.int32)
         self._last_tok = np.zeros(self.capacity, np.int32)
         self._rows: list = [None] * self.capacity
@@ -256,6 +278,9 @@ class DecodeEngine:
         self._dispatches = 0
         self._dispatch_tokens = 0
         self._pool_drops = 0
+        self._spec_verify_steps = 0
+        self._spec_drafted_tokens = 0
+        self._spec_accepted_tokens = 0
         self._crashes_total = 0
         self._engine_resets = 0
         self._tick_timeline: collections.deque = collections.deque(
@@ -268,14 +293,22 @@ class DecodeEngine:
 
     def _alloc_state(self):
         """(Re)allocate the engine's paged pool from scratch with the static
-        per-row page partition — at construction and after a failed tick,
-        whose KV state is presumed corrupt."""
+        per-row page partition, and the radix prefix cache over the pool's
+        tail (pages ``[capacity * pages_per_seq, num_pool_pages)``, which the
+        partition never touches) — at construction and after a failed
+        tick, whose KV and prefix state are presumed corrupt."""
         self._kv = (KV.create_kv_state(self._model.arch.kv_specs,
                                        self.capacity, self.block_size,
                                        self._model.dtype, paged=True,
-                                       device=self._model.device)
+                                       device=self._model.device,
+                                       extra_pool_pages=self._extra_pages)
                     .with_static_table()
                     .with_lengths(np.zeros(self.capacity, np.int32)))
+        self._prefix_cache = None
+        if self._extra_pages > 0:
+            base = self.capacity * self._kv.pages_per_seq
+            self._prefix_cache = KV.RadixPrefixCache(
+                range(base, self._kv.num_pool_pages), self._kv.page_size)
         self._lengths[:] = 0
         self._last_tok[:] = 0
         self._rows = [None] * self.capacity
@@ -345,6 +378,14 @@ class DecodeEngine:
             "kv_pool_capacity_drops": self._pool_drops,
             "crashes_total": self._crashes_total,
             "engine_resets": self._engine_resets,
+            "prefix_cache": (self._prefix_cache.stats()
+                             if self._prefix_cache is not None else None),
+            "spec_decode": self._spec_on(),
+            "spec_verify_steps": self._spec_verify_steps,
+            "spec_drafted_tokens": self._spec_drafted_tokens,
+            "spec_accepted_tokens": self._spec_accepted_tokens,
+            "spec_accept_rate": _rate(self._spec_accepted_tokens,
+                                      self._spec_drafted_tokens),
             "tick_timeline": [
                 {"age_s": round(now - e["t"], 3),
                  **{k: v for k, v in e.items() if k != "t"}}
@@ -401,12 +442,26 @@ class DecodeEngine:
             self._begin_prefill(row, req)
 
     def _begin_prefill(self, row: int, req: Request):
-        """Claim ``row`` for ``req`` in the PREFILLING phase and plan its
-        chunks; the device work runs in the unified ticks."""
+        """Claim ``row`` for ``req`` in the PREFILLING phase: match the
+        radix prefix cache, alias the matched pages into the row's block
+        table (pinned), and plan chunks over the rest of the prompt; the
+        device work runs in the unified ticks."""
         state = _Row(req)
-        state.chunks = bucketing.chunk_plan(len(req.prompt), _prefill_chunk())
+        if self._prefix_cache is not None:
+            # at most len - 1 tokens: the final chunk must feed one real
+            # token to produce the first sample
+            nodes = self._prefix_cache.match(req.prompt,
+                                             limit=len(req.prompt) - 1)
+            if nodes:
+                self._prefix_cache.pin(nodes)
+                state.prefix_nodes = nodes
+                state.prefilled = len(nodes) * self._prefix_cache.page_size
+            # rebuilt on a miss too: no stale alias survives
+            self._kv.with_row_prefix(row, [nd.page for nd in nodes])
+        state.chunks = bucketing.chunk_plan(len(req.prompt) - state.prefilled,
+                                            _prefill_chunk())
         self._rows[row] = state
-        self._lengths[row] = 0
+        self._lengths[row] = state.prefilled
         self._last_tok[row] = 0
         self._admissions += 1
 
@@ -424,7 +479,7 @@ class DecodeEngine:
             "dispatch_ms": round(dur_ms, 3),
             "occupancy": round(self.active_rows / self.capacity, 4),
             "prefill_chunks": comp["prefill_chunks"],
-            "verify_rows": 0,
+            "verify_rows": comp["verify_rows"],
             "shared_rows": comp["decode_rows"],
             "emitted": comp["emitted"],
             "superstep": plan["n"],
@@ -434,20 +489,25 @@ class DecodeEngine:
         })
 
     def _plan_mixed(self):
-        """Host-side plan of one unified block (JAX ``_plan_mixed`` without
-        spec-decode verify spans): simulate every row's next
-        ``PENROZ_SCHED_SUPERSTEP`` steps — a prefilling row runs one chunk
-        a step and parks at its final chunk (whose sample is its first
-        token, shipped at this block's boundary), a decoding row runs one
-        token a step until its budget or its row is spent — and pack each
-        step's spans into descriptor arrays (the step count takes the pow-2
-        floor, the descriptor count the pow-2 ceiling)."""
+        """Host-side plan of one unified block (JAX ``_plan_mixed``):
+        simulate every row's next ``PENROZ_SCHED_SUPERSTEP`` steps — a
+        prefilling row runs one chunk a step and parks at its final chunk
+        (whose sample is its first token, shipped at this block's
+        boundary), a drafted row runs one ``(len, K+1)`` verify span at
+        step 0 and parks (only the host can plan its next draft), a
+        decoding row runs one token a step until its budget or its row is
+        spent — and pack each step's spans into descriptor arrays (the
+        step count takes the pow-2 floor, the descriptor count the pow-2
+        ceiling)."""
         rows = [(i, r) for i, r in enumerate(self._rows) if r is not None]
         if not rows:
             return None
         block_q = RPA.default_block_q()
         n_max = max(1, _superstep_max())
-        sim = {i: {"mode": "prefill" if state.prefilling else "decode",
+        drafts = dict(self._plan_drafts(
+            [i for i, state in rows if not state.prefilling]))
+        sim = {i: {"mode": ("prefill" if state.prefilling
+                            else "verify" if i in drafts else "decode"),
                    "len": int(self._lengths[i]), "chunk": state.chunk_idx,
                    "produced": state.produced}
                for i, state in rows}
@@ -468,6 +528,11 @@ class DecodeEngine:
                     if final:
                         st["mode"] = "parked"
                         st["produced"] += 1
+                elif st["mode"] == "verify":
+                    draft = drafts[i]
+                    spans.append((i, st["len"], len(draft) + 1))
+                    ops.append(("verify", i, state, draft, len(spans) - 1))
+                    st["mode"] = "parked"
                 elif st["mode"] == "decode":
                     if (st["produced"] < state.req.max_new_tokens
                             and st["len"] < self.block_size):
@@ -492,6 +557,7 @@ class DecodeEngine:
         positions = np.zeros((n, Tp), np.int32)
         sample_slot = np.full((n, self.capacity), -1, np.int32)
         row_ids = np.full((n, Tp), -1, np.int32)
+        verify = [[] for _ in range(n)]
         replay = []
         for s, (spans, ops) in enumerate(steps):
             d, offsets = KV.build_descriptors(spans, block_q, NB)
@@ -510,15 +576,28 @@ class DecodeEngine:
                         sample_slot[s, i] = slots[-1]
                     step_ops.append(("chunk", i, state, size,
                                      int(slots[-1]) if final else None))
+                elif kind == "verify":
+                    draft = op[3]
+                    tok_lit[s, slots] = ([int(self._last_tok[i])]
+                                         + [int(t) for t in draft])
+                    verify[s] += [int(sl) for sl in slots]
+                    step_ops.append(("verify", i, state, draft,
+                                     [int(sl) for sl in slots]))
                 else:
                     tok_src[s, slots[0]] = i
                     sample_slot[s, i] = slots[0]
                     step_ops.append(("decode", i, state, int(slots[0])))
             replay.append(step_ops)
+        verify_slots = None
+        V = max(len(v) for v in verify)
+        if V:
+            verify_slots = np.full((n, V), -1, np.int32)
+            for s, v in enumerate(verify):
+                verify_slots[s, :len(v)] = v
         return {"n": n, "descs": descs, "tok_lit": tok_lit,
                 "tok_src": tok_src, "positions": positions,
                 "sample_slot": sample_slot, "row_ids": row_ids,
-                "replay": replay}
+                "verify_slots": verify_slots, "replay": replay}
 
     def _mixed_dispatch(self, plan) -> dict:
         """Run the planned block as ONE ``decode_mixed_step`` and replay its
@@ -528,24 +607,28 @@ class DecodeEngine:
             self._kv, plan["descs"], plan["tok_lit"], plan["tok_src"],
             plan["positions"], plan["sample_slot"], self._last_tok,
             seed=self._seed, temperature=self.temperature, top_k=self.top_k,
-            row_ids=plan["row_ids"])
+            row_ids=plan["row_ids"], verify_slots=plan["verify_slots"])
         return self._replay_block(plan, arr, t0)
 
     def _replay_block(self, plan, arr, t0) -> dict:
         """Replay the block's samples step-major through the per-token
         retirement path; rows retired mid-block (stop token, budget) are
-        skipped for the rest of it.  Host lengths stay authoritative."""
+        skipped for the rest of it.  A verify span emits its accepted
+        draft tokens and the model's token after them, stopping at a
+        retirement.  Host lengths stay authoritative: a verify row's length
+        moves past the accepted run only, so its rejected positions are
+        never attended and the next span overwrites them."""
         replay = plan["replay"]
-        prefill_rows = {op[1] for ops in replay for op in ops
-                        if op[0] == "chunk"}
-        decode_rows = {op[1] for ops in replay for op in ops
-                       if op[0] == "decode"}
+        rows_of = lambda kind: {op[1] for ops in replay for op in ops
+                                if op[0] == kind}
+        prefill_rows, decode_rows = rows_of("chunk"), rows_of("decode")
+        verify_rows = rows_of("verify")
         emitted = 0         # decode-path tokens
         emitted_total = 0   # every token out of this dispatch
         chunks_run = 0
         steps_decode = 0
         for s, ops in enumerate(replay):
-            if any(op[0] == "decode" for op in ops):
+            if any(op[0] in ("decode", "verify") for op in ops):
                 steps_decode += 1
             for op in ops:
                 kind, i, state = op[0], op[1], op[2]
@@ -565,7 +648,7 @@ class DecodeEngine:
                         emitted_total += 1
                         self._finish_prefill(i, state,
                                              int(arr[s, final_slot]))
-                else:
+                elif kind == "decode":
                     slot = op[3]
                     self._lengths[i] += 1
                     tok = int(arr[s, slot])
@@ -573,6 +656,21 @@ class DecodeEngine:
                     emitted += 1
                     emitted_total += 1
                     self._emit_token(i, state, tok)
+                else:   # verify
+                    draft, slots = op[3], op[4]
+                    out = [int(arr[s, sl]) for sl in slots]
+                    accepted = spec_decode.accept_length(draft, out)
+                    self._spec_verify_steps += 1
+                    self._spec_drafted_tokens += len(draft)
+                    self._spec_accepted_tokens += accepted
+                    self._lengths[i] += accepted + 1
+                    for tok in out[:accepted + 1]:
+                        self._last_tok[i] = tok
+                        emitted += 1
+                        emitted_total += 1
+                        self._emit_token(i, state, tok)
+                        if self._rows[i] is not state:
+                            break
         self._decode_steps += steps_decode
         self._decode_tokens += emitted
         self._decode_time_s += time.monotonic() - t0
@@ -581,6 +679,7 @@ class DecodeEngine:
         return {"prefill_chunks": chunks_run,
                 "prefill_rows": len(prefill_rows),
                 "decode_rows": len(decode_rows),
+                "verify_rows": len(verify_rows),
                 "emitted": emitted_total}
 
     def _finish_prefill(self, row: int, state: _Row, first: int):
@@ -589,7 +688,60 @@ class DecodeEngine:
         state.prefilling = False
         self._lengths[row] = state.prefilled  # == len(prompt)
         self._last_tok[row] = first
+        self._register_prefix(row, state)
         self._emit_token(row, state, first)
+
+    def _register_prefix(self, row: int, state: _Row):
+        """Copy the finished prompt's new full pages into the cache's tail
+        and hang them on the radix tree (JAX ``_register_prefix``); the
+        aliased blocks already live there, so only the blocks this row
+        prefilled are copied."""
+        if self._prefix_cache is None:
+            return
+        created = self._prefix_cache.insert(state.req.prompt)
+        if created:
+            S = self._kv.pages_per_seq
+            self._kv.copy_pages([row * S + b for b, _ in created],
+                                [page for _, page in created])
+
+    def _release_prefix(self, row: int, state):
+        """Unpin the row's aliased radix pages and restore its static
+        table: the slot's next occupant must not write through the shared
+        entries."""
+        if state is None or not state.prefix_nodes:
+            return
+        self._prefix_cache.unpin(state.prefix_nodes)
+        state.prefix_nodes = []
+        self._kv.restore_row_table(row)
+
+    # -- speculative decoding (PENROZ_SPEC_DECODE=1) -------------------------
+
+    def _spec_on(self) -> bool:
+        """Speculation applies to greedy and sampling engines alike: the
+        unified block samples with positional keys, so verifying a
+        point-mass draft by its longest matching prefix is exact rejection
+        sampling (serve/spec_decode.py)."""
+        return spec_decode.enabled()
+
+    def _plan_drafts(self, rows: list[int]) -> list[tuple[int, list[int]]]:
+        """(row, draft) pairs for this block's verify spans.  A draft is
+        capped by the request's remaining budget - 1 (the model's token
+        after the draft covers the last position) and by
+        ``block_size - 1 - length``, so a span never writes past the row."""
+        if not rows or not self._spec_on():
+            return []
+        k, n = spec_decode.draft_k(), spec_decode.ngram()
+        plan = []
+        for i in rows:
+            state = self._rows[i]
+            cap = min(k, state.req.max_new_tokens - state.produced - 1,
+                      self.block_size - 1 - int(self._lengths[i]))
+            if cap < 1:
+                continue
+            draft = spec_decode.propose(state.history, cap, n)
+            if draft:
+                plan.append((i, draft))
+        return plan
 
     def _emit_token(self, row: int, state: _Row, tok: int):
         state.produced += 1
@@ -617,6 +769,7 @@ class DecodeEngine:
         self._rows[row] = None
         self._lengths[row] = 0
         self._last_tok[row] = 0
+        self._release_prefix(row, state)
         self._kv.reset_row(row)
         self._completed += 1
         if notify and state is not None:
@@ -636,6 +789,11 @@ class DecodeEngine:
                 self._rows[i] = None
                 self._lengths[i] = 0
                 self._last_tok[i] = 0
+                try:
+                    self._release_prefix(i, state)
+                except Exception:  # noqa: BLE001 — the device may be what
+                    # failed; the reset rebuilds the pool and the cache
+                    log.exception("Failed to restore row %d block table", i)
                 self._deliver(state.req, "error", exc)
         with self._cond:
             pending = list(self._pending)
@@ -661,6 +819,10 @@ class DecodeEngine:
             self._model = NeuralNetworkModel.deserialize(
                 self.model_id, device=self._device, optimizer=False)
             self._ckpt_stamp_v = stamp
+            if self._prefix_cache is not None:
+                # cached K/V of the old weights must not serve the new ones
+                # (no row is in flight, so nothing is pinned)
+                self._prefix_cache.clear()
             log.info("Decode engine reloaded model %s (checkpoint changed)",
                      self.model_id)
         except KeyError:
@@ -730,6 +892,10 @@ def serving_stats() -> dict:
     dispatches = sum(p["dispatches_total"] for p in per)
     timeline = sorted((t for p in per for t in p["tick_timeline"]),
                       key=lambda e: e["age_s"])[:_TIMELINE_SERVE]
+    pc = [p["prefix_cache"] for p in per if p["prefix_cache"] is not None]
+    pc_lookups = sum(c["hits"] + c["misses"] for c in pc)
+    spec_drafted = sum(p["spec_drafted_tokens"] for p in per)
+    spec_accepted = sum(p["spec_accepted_tokens"] for p in per)
     return {
         "continuous_batching_enabled": enabled(),
         "engines": per,
@@ -749,6 +915,13 @@ def serving_stats() -> dict:
                       for p in per if p["dispatches_total"]) / dispatches, 3)
             if dispatches else None),
         "tick_timeline": timeline,
+        "prefix_cache_hit_rate": _rate(sum(c["hits"] for c in pc),
+                                       pc_lookups),
+        "prefix_cache_evicted_pages": sum(c["evicted_pages"] for c in pc),
+        "spec_decode_enabled": spec_decode.enabled(),
+        "spec_drafted_tokens": spec_drafted,
+        "spec_accepted_tokens": spec_accepted,
+        "spec_accept_rate": _rate(spec_accepted, spec_drafted),
         "crashes_total": sum(p["crashes_total"] for p in per),
         "engine_resets": sum(p["engine_resets"] for p in per),
         "kv_pool_capacity_drops": KV.pool_drop_count(),

@@ -337,8 +337,6 @@ def test_continuous_batching_matches_single_sequence(
 
 
 @pytest.mark.parametrize("env,field", [
-    ({"PENROZ_PREFIX_CACHE": "1"}, None),
-    ({"PENROZ_SPEC_DECODE": "1"}, None),
     ({"PENROZ_RAGGED_ATTENTION": "0"}, None),
     ({"PAGED_KV_CACHE": "0"}, None),
     ({"PENROZ_SCHED_REPLICAS": "2"}, None),
@@ -391,6 +389,63 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     assert status == 400 and names[0] in text, text
     status, text = _call(server, "POST", "/generate_batch/", batch)
     assert status == 400 and names[-1] in text, text
+
+
+@pytest.mark.parametrize("route", ["generate", "generate_batch"])
+@pytest.mark.parametrize("knob", ["PENROZ_PREFIX_CACHE",
+                                  "PENROZ_SPEC_DECODE"])
+def test_prefix_cache_and_spec_decode_serve(server, paged, monkeypatch,
+                                            toy_gpt_layers, toy_optimizer,
+                                            knob, route):
+    """Under continuous batching the radix prefix cache and speculative
+    decoding serve (200) the tokens the knob off gives, twice (a prefix
+    hit the second time), on /generate/ (buffered and streamed) and
+    /generate_batch/; /serving_stats/ shows the feature at work."""
+    from penroz_tpu_torch.serve import decode_scheduler
+    monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
+    monkeypatch.setenv("PENROZ_PREFIX_CACHE_PAGES", "8")
+    monkeypatch.setenv("PENROZ_SPEC_NGRAM", "1")
+    monkeypatch.setenv("PENROZ_SCHED_SUPERSTEP", "1")  # a draft a token
+    jm = JModel("knob", JMapper(toy_gpt_layers, toy_optimizer))
+    jm.serialize(sync_flush=True)
+    prompts = [[1, 2, 3, 1, 2, 3, 1, 2], [1, 2, 3, 1, 2, 3, 1, 5, 9]]
+
+    def serve():
+        if route == "generate_batch":
+            status, text = _call(server, "POST", "/generate_batch/", {
+                "model_id": "knob", "inputs": prompts, "block_size": 16,
+                "max_new_tokens": 6, "temperature": 0})
+            assert status == 200, text
+            return json.loads(text)["sequences"]
+        out = []
+        for i, p in enumerate(prompts):
+            status, text = _call(server, "POST", "/generate/", _gen(
+                "knob", input=[p], max_new_tokens=6, stream=i == 1))
+            assert status == 200, text
+            out.append(json.loads(text)["tokens"] if i == 0
+                       else p + [int(t) for t in text.split()])
+        return out
+
+    off = serve()
+    assert off == [jm.generate_tokens([p], 16, 6, temperature=0)
+                   for p in prompts]
+    decode_scheduler.reset()    # engines are sized when they are built
+    monkeypatch.setenv(knob, "1")
+    assert serve() == off
+    assert serve() == off
+    status, text = _call(server, "GET", "/serving_stats/")
+    assert status == 200
+    stats = json.loads(text)
+    engine = next(e for e in stats["engines"] if e["prefix_cache"]
+                  or e["spec_decode"])
+    if knob == "PENROZ_PREFIX_CACHE":
+        assert engine["prefix_cache"]["hits"] >= 2
+        assert stats["prefix_cache_hit_rate"] > 0
+        assert stats["spec_decode_enabled"] is False
+    else:
+        assert engine["spec_decode"] is True
+        assert stats["spec_decode_enabled"] is True
+        assert stats["spec_drafted_tokens"] > 0
 
 
 @pytest.mark.parametrize("route", ["generate", "generate_batch", "output",

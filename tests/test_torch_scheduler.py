@@ -182,9 +182,7 @@ def test_eligibility_and_unported_options(monkeypatch):
         DS.unported_serving_options()
     monkeypatch.setenv("PAGED_KV_CACHE", "1")
     DS.unported_serving_options()
-    for name, value in (("PENROZ_PREFIX_CACHE", "1"),
-                        ("PENROZ_SPEC_DECODE", "1"),
-                        ("PENROZ_RAGGED_ATTENTION", "0"),
+    for name, value in (("PENROZ_RAGGED_ATTENTION", "0"),
                         ("PENROZ_SCHED_REPLICAS", "2"),
                         ("PENROZ_DISAGG_PREFILL", "1"),
                         ("PENROZ_SERVE_MESH", "1"),
@@ -194,6 +192,10 @@ def test_eligibility_and_unported_options(monkeypatch):
             DS.unported_serving_options()
         monkeypatch.delenv(name)
     monkeypatch.setenv("PENROZ_SCHED_REPLICAS", "1")
+    DS.unported_serving_options()
+    # the prefix cache and speculation are ported
+    monkeypatch.setenv("PENROZ_PREFIX_CACHE", "1")
+    monkeypatch.setenv("PENROZ_SPEC_DECODE", "1")
     DS.unported_serving_options()
     # the overload knobs at the values that leave their feature off
     for name, value in (("PENROZ_REQ_TIMEOUT_MS", "0"),

@@ -106,6 +106,33 @@ prints no result:
                the ragged kernel 12 times a unified step (its count reset
                just before, read just after; the steps counted in
                process).
+4g. resilience — GPT-2 124M under PAGED_KV_CACHE=1
+               PENROZ_CONTINUOUS_BATCHING=1 PENROZ_SCHED_MAX_ROWS=8
+               PENROZ_PREFIX_CACHE=1 (the breaker's cooldown at 200 ms):
+               a greedy request sets T0 and the ragged kernel's device runs
+               (its run counter); decode.step:raise@1+ (utils/faults.py):
+               three 500s, then 503 with Retry-After in [1, 30] and
+               /readyz 503 naming the model; PENROZ_SCHED_FALLBACK=1
+               answers T0 through the paged decode kernel (its runs
+               counted); disarmed, after the cooldown the probe answers T0
+               (ragged runs = 12 x its mixed steps), /readyz 200, 3 resets.
+               Again with a shared 512-token prefix: the same tokens as
+               with the cache off, a cold probe, a clean page audit, a hit
+               after it.  decode.step:sleep@50: an in-flight deadline 504,
+               a stream ending in "timeout" after its first tokens;
+               PENROZ_SCHED_MAX_QUEUE=1 and 12 concurrent requests: 429s
+               with Retry-After, every admitted request T0.  POST /profile/
+               around a single-sequence /generate/ (contiguous cache) and a
+               scheduler one: the Chrome trace holds the decode and ragged
+               kernels and penroz/sched_mixed, a second stop 409.  A
+               ByteBPE (vocab 512) on its native core, equal to the
+               oracle, through /tokenize/, /generate/ and /decode/;
+               /openapi.json's paths equal the route tables, /docs 200.
+               PUT /train/ through the native loader stream over two
+               uint16 shards (its batches equal the numpy path's), the
+               flash and cross-entropy kernels counted.  Last, on a server
+               of its own, shutdown under PENROZ_DRAIN_S=5 with 4 rows in
+               flight: all 200, no worker thread left.
 4c. hybrid   — a server with the hybrid attention/SSM model
                (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
                ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
@@ -3947,6 +3974,526 @@ def phase_micro_step(torch, layers, optimizer, vocab, tag="micro_step"):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 4g: fault tolerance, the rest of the REST surface, the host data path
+# ---------------------------------------------------------------------------
+
+# GPT-2 124M under continuous batching over the paged pool with the prefix
+# cache on; the breaker's cooldown cut from 1000 ms to 200 ms so that the
+# phase need not wait a second for each probe.
+RES_ENV = dict(CB_ENV, PENROZ_PREFIX_CACHE="1",
+               PENROZ_BREAKER_COOLDOWN_MS="200")
+RES_PROMPT_LEN, RES_NEW_TOKENS = 16, 64
+RES_SUFFIXES = (16, 40)          # after phase 4f's 512-token prefix
+RES_QUEUE_REQUESTS = 12          # > 8 rows + a queue of 1
+# Deadlines under decode.step:sleep@50: 64 new tokens take at least 9
+# blocks (a prefill block, then 8 of up to 8 steps), so 450 ms; an
+# in-flight deadline of 150 ms and a streamed one of 400 ms (after the
+# first block's token) both expire before the request ends.
+RES_SLEEP_MS, RES_INFLIGHT_MS, RES_STREAM_MS = 50, 150, 400
+RES_DRAIN_REQUESTS = 4
+RES_BPE_VOCAB = 512
+RES_TRAIN = dict(epochs=2, batch_size=4, step_size=2)   # at the block
+RES_SHARD_TOKENS = 6000          # two shards; 4 micro-steps wrap them
+RES_WORDS = ("the", "quick", "brown", "fox", "jumps", "over", "lazy",
+             "dog", "héllo", "wörld", "naïve", "café", "日本語", "テキスト",
+             "42", "1999", "shells", "sea", "ñandú", "emoji😀")
+
+
+def _request(base, path, body=None, method="POST", timeout=900):
+    """(status, headers, text) of one request."""
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode() if body is not None
+        else None, method=method, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _kernel_counters():
+    """Every main-path kernel wrapper, by name."""
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    return {**_decode_counters(), **_training_counters(),
+            "ragged_paged_attention": RPA.ragged_paged_attention}
+
+
+def phase_resilience(torch, layers, optimizer, block, vocab, card,
+                     device="cuda"):
+    """GPT-2 124M (fp32, paged, continuous batching, prefix cache on):
+    the breaker (3 crashes, 503 + Retry-After, /readyz, the fallback
+    through the paged kernel, the probe that closes it; again under a
+    shared prefix, whose reset leaves a clean audit), deadlines (an
+    in-flight 504, a stream's ``timeout`` line), the bounded queue (429),
+    a /profile/ capture (the decode and ragged kernels and the
+    ``penroz/sched_mixed`` range in its trace), the ``bpe:`` tokenizer on
+    its native core, /openapi.json and /docs, training through the native
+    loader, then the graceful drain on a server of its own.  Returns
+    (stats, counts of the phase: the decode kernels' device runs, the
+    other kernels' launches).  ``device="cpu"`` rehearses it
+    at a toy size through the plain versions (no kernel counts)."""
+    import numpy as np
+
+    from penroz_tpu_torch.data import bpe, loaders
+    from penroz_tpu_torch.models.model import CompiledArch
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import app as app_mod
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.utils import checkpoint, faults, native_build
+
+    t_phase = time.monotonic()
+    on_card = device != "cpu"
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(0)
+    p0 = rng.integers(0, vocab, RES_PROMPT_LEN).tolist()
+    prefix = np.random.default_rng(0).integers(0, vocab,
+                                               PF_PREFIX_LEN).tolist()
+    pair = [prefix + rng.integers(0, vocab, n).tolist()
+            for n in RES_SUFFIXES]
+    body = {"model_id": "smoke_res", "block_size": block, "temperature": 0,
+            "max_new_tokens": RES_NEW_TOKENS}
+    gen = lambda prompt, **kw: dict(body, input=[prompt], **kw)  # noqa: E731
+    counters = _kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    stats = {}
+
+    device_counted = _decode_counters()
+
+    def harvest():
+        """Add the counts since the last harvest to the phase's totals and
+        zero them: the decode kernels' device runs (replays included, as
+        phase 4 counts them), the other wrappers' launches."""
+        for name, fn in counters.items():
+            if name in device_counted:
+                totals[name] += fn.runs.read()
+                fn.runs.reset()
+            else:
+                totals[name] += fn.launches
+            fn.launches = 0
+
+    def tokens(result, what):
+        status, _, text = result
+        check(status == 200, f"{what} -> {status}: {text[:300]}")
+        out = json.loads(text)["tokens"]
+        check(len(out) >= RES_NEW_TOKENS, f"{what}: short result")
+        return out
+
+    def readyz():
+        status, _, text = _request(base, "/readyz", None, "GET")
+        return status, json.loads(text)
+
+    def engine_stats():
+        status, _, text = _request(base, "/serving_stats/", None, "GET")
+        check(status == 200, f"/serving_stats/ -> {status}")
+        engines = json.loads(text)["engines"]
+        check(len(engines) == 1, f"{len(engines)} engines, expected 1")
+        return engines[0]
+
+    def arm(spec):
+        faults.reset()
+        if spec:
+            os.environ[faults.ENV] = spec
+        else:
+            os.environ.pop(faults.ENV, None)
+
+    def breaker_cycle(prompt, ref, what):
+        """Three crashed requests, the 503, /readyz, the fallback, the
+        probe; returns the probe's mixed steps and the ragged kernel's
+        device runs over it."""
+        arm("decode.step:raise@1+")
+        crashed = [_request(base, "/generate/", gen(prompt))[0]
+                   for _ in range(3)]
+        check(crashed == [500] * 3, f"{what}: crashed requests answered "
+              f"{crashed}, expected three 500s")
+        status, headers, text = _request(base, "/generate/", gen(prompt))
+        retry = headers.get("Retry-After")
+        check(status == 503 and retry is not None and 1 <= int(retry) <= 30,
+              f"{what}: the fourth request answered {status} with "
+              f"Retry-After {retry}: {text[:200]}")
+        ready = readyz()
+        check(ready == (503, {"ready": False, "draining": False,
+                              "breaker_open_engines": ["smoke_res"],
+                              "stuck_engines": []}),
+              f"{what}: /readyz with the breaker open: {ready}")
+        fallback = None
+        if what == "breaker":
+            harvest()
+            _zero_decode_counts()
+            ledger = _StepLedger()
+            with _env({DS.FALLBACK_ENV: "1"}), ledger.request():
+                fallback = tokens(_request(base, "/generate/", gen(prompt)),
+                                  "fallback /generate/")
+            if on_card:
+                _, paged_runs = _check_launches(n_attn, ledger, "fallback")
+                check(paged_runs["paged_decode_attention"] > 0,
+                      "the fallback ran no paged decode kernel")
+                stats["fallback_paged_runs"] = paged_runs[
+                    "paged_decode_attention"]
+            check(fallback == ref, "the fallback's tokens differ from the "
+                  "scheduler's")
+            stats["fallback_steps"] = ledger.steps["paged_decode_attention"]
+        arm(None)
+        time.sleep(0.25)                 # the 200 ms cooldown
+        RPA.ragged_paged_attention.runs.reset()
+        with _mixed_steps() as count:
+            probe = tokens(_request(base, "/generate/", gen(prompt)),
+                           f"{what} probe")
+        runs = RPA.ragged_paged_attention.runs.read()
+        check(probe == ref, f"{what}: the probe's tokens differ")
+        check(not on_card or runs == n_attn * count["steps"] > 0,
+              f"{what}: the ragged kernel ran {runs} times for "
+              f"{count['steps']} mixed steps x {n_attn} layers")
+        check(readyz()[0] == 200, f"{what}: /readyz after the probe")
+        return count["steps"], runs
+
+    server = app_mod.create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    _zero_decode_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        status, _, text = _request(base, "/model/", {
+            "model_id": "smoke_res", "layers": layers,
+            "optimizer": optimizer})
+        check(status == 200, f"POST /model/ -> {status}: {text[:300]}")
+        # the shared-prefix pair without the cache: the references
+        DS.reset()
+        with _env(dict(RES_ENV, PENROZ_PREFIX_CACHE="0")):
+            refs = [tokens(_request(base, "/generate/", gen(p)), "ref")
+                    for p in pair]
+        DS.reset()
+        with _env(RES_ENV):
+            # -- the breaker ------------------------------------------------
+            t0 = time.monotonic()
+            RPA.ragged_paged_attention.runs.reset()
+            with _mixed_steps() as count:
+                ref0 = tokens(_request(base, "/generate/", gen(p0)), "T0")
+            runs0 = RPA.ragged_paged_attention.runs.read()
+            check(not on_card or runs0 == n_attn * count["steps"] > 0,
+                  f"T0: the ragged kernel "
+                  f"ran {runs0} times for {count['steps']} mixed steps")
+            steps, runs = breaker_cycle(p0, ref0, "breaker")
+            es = engine_stats()
+            check(es["engine_resets"] == 3 and es["crashes_total"] == 3
+                  # the 503 and the fallback's request, shed at the door
+                  and not es["breaker_open"] and es["breaker_rejections"] == 2
+                  and es["consecutive_crashes"] == 0,
+                  f"breaker counters: {es}")
+            stats["breaker"] = {"T0_ragged_runs": runs0,
+                                "T0_mixed_steps": count["steps"],
+                                "probe_mixed_steps": steps,
+                                "probe_ragged_runs": runs,
+                                "s": time.monotonic() - t0}
+            say("resilience", f"breaker: 3 x 500, 503 with Retry-After, "
+                f"/readyz 503 naming smoke_res, fallback 200 = T0 through "
+                f"the paged kernel ({stats.get('fallback_paged_runs')} "
+                f"runs), "
+                f"probe 200 = T0 (ragged kernel {runs} runs = {n_attn} x "
+                f"{steps} mixed steps), 3 resets, "
+                f"{stats['breaker']['s']:.1f} s")
+            # -- again under a shared prefix ---------------------------------
+            t0 = time.monotonic()
+            got = [tokens(_request(base, "/generate/", gen(p)), "pair")
+                   for p in pair]
+            check(got == refs, "the shared-prefix pair's tokens differ "
+                  "from the cache-off references")
+            check(engine_stats()["prefix_cache"]["hits"] >= 1,
+                  "the pair's second request did not hit the cache")
+            breaker_cycle(pair[1], refs[1], "prefix breaker")
+            engine = DS.get_engine("smoke_res", block, 0, None,
+                                   device=server.device)
+            cache = engine._prefix_cache
+            pc = cache.stats()
+            check(pc["hits"] == 0 and pc["misses"] == 1,
+                  f"the probe after the reset was not a cold prefill: {pc}")
+            check(cache.page_audit() == [] and all(
+                nd.refs == 0 for nd in cache.iter_nodes()),
+                "the rebuilt prefix cache leaked a page or a pin")
+            again = tokens(_request(base, "/generate/", gen(pair[1])),
+                           "pair again")
+            check(again == refs[1] and cache.stats()["hits"] == 1,
+                  "the pair's request after the reset did not hit again")
+            stats["prefix_breaker_s"] = time.monotonic() - t0
+            say("resilience", f"prefix breaker: same tokens as the "
+                f"cache-off references, cold probe, clean audit, hit "
+                f"again; {stats['prefix_breaker_s']:.1f} s")
+
+            # -- deadlines and the bounded queue -----------------------------
+            t0 = time.monotonic()
+            arm(f"decode.step:sleep@{RES_SLEEP_MS}")
+            status, _, text = _request(base, "/generate/",
+                                       gen(p0, timeout_ms=RES_INFLIGHT_MS))
+            check(status == 504 and "Deadline" in text,
+                  f"an in-flight deadline answered {status}: {text[:200]}")
+            status, _, text = _request(base, "/generate/", gen(
+                p0, stream=True, timeout_ms=RES_STREAM_MS))
+            lines = text.split()
+            check(status == 200 and lines[-1] == "timeout"
+                  and len(lines) >= 2
+                  and [int(t) for t in lines[:-1]]
+                  == ref0[RES_PROMPT_LEN:RES_PROMPT_LEN + len(lines) - 1],
+                  f"the stream's deadline: {status} {lines[-3:]}")
+            stats["stream_tokens_before_timeout"] = len(lines) - 1
+            results = [None] * RES_QUEUE_REQUESTS
+
+            def fire(i):
+                results[i] = _request(base, "/generate/", gen(p0))
+
+            with _env({DS.MAX_QUEUE_ENV: "1"}):
+                threads = [threading.Thread(target=fire, args=(i,))
+                           for i in range(RES_QUEUE_REQUESTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=600)
+            arm(None)
+            shed = [r for r in results if r is not None and r[0] == 429]
+            admitted = [r for r in results if r is not None and r[0] == 200]
+            check(len(shed) + len(admitted) == RES_QUEUE_REQUESTS and shed,
+                  f"the bounded queue answered "
+                  f"{[r and r[0] for r in results]}")
+            check(all(1 <= int(r[1].get("Retry-After", 0)) <= 30
+                      for r in shed), "a 429 without a Retry-After")
+            check(all(json.loads(r[2])["tokens"] == ref0 for r in admitted),
+                  "an admitted request's tokens differ from T0")
+            stats["queue"] = {"shed_429": len(shed),
+                              "admitted": len(admitted),
+                              "s": time.monotonic() - t0}
+            say("resilience", f"deadlines: in-flight 504, stream "
+                f"'timeout' after {stats['stream_tokens_before_timeout']} "
+                f"token(s); queue of 1: {len(shed)} x 429, "
+                f"{len(admitted)} x 200 = T0; {stats['queue']['s']:.1f} s")
+
+            # -- /profile/ ---------------------------------------------------
+            t0 = time.monotonic()
+            log_dir = os.path.join(WORK, "profile_resilience")
+            status, _, text = _request(base, "/profile/", {
+                "action": "start", "log_dir": log_dir})
+            check(status == 200, f"/profile/ start -> {status}: {text}")
+            with _env({"PAGED_KV_CACHE": "0",
+                       "PENROZ_CONTINUOUS_BATCHING": "0"}):
+                single = tokens(_request(base, "/generate/", gen(p0)),
+                                "profiled single-sequence /generate/")
+            sched = tokens(_request(base, "/generate/", gen(p0)),
+                           "profiled scheduler /generate/")
+            status, _, text = _request(base, "/profile/", {"action": "stop"})
+            check(status == 200, f"/profile/ stop -> {status}: {text}")
+            check(_request(base, "/profile/", {"action": "stop"})[0] == 409,
+                  "a second stop did not answer 409")
+            traces = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+            check(len(traces) == 1, f"trace files: {traces}")
+            with open(os.path.join(log_dir, traces[0])) as f:
+                events = json.load(f)["traceEvents"]
+            names = [e.get("name", "") for e in events]
+            kernels = {
+                "decode": sum("decode_core::Contiguous" in n for n in names),
+                "ragged": sum("decode_core::Ragged" in n for n in names),
+                "sched_mixed": names.count("penroz/sched_mixed")}
+            check(kernels["sched_mixed"] and (not on_card or all(
+                kernels.values())), f"the trace misses a kernel or range: "
+                f"{kernels}")
+            check(sched == ref0 and len(single) == len(ref0),
+                  "a profiled request's tokens")
+            stats["profile"] = dict(kernels, events=len(events),
+                                    s=time.monotonic() - t0)
+            say("resilience", f"/profile/: trace of {len(events)} events "
+                f"holds {kernels['decode']} contiguous decode and "
+                f"{kernels['ragged']} ragged kernel runs and "
+                f"{kernels['sched_mixed']} penroz/sched_mixed ranges; "
+                f"a second stop 409")
+
+            # -- the bpe: tokenizer ------------------------------------------
+            t0 = time.monotonic()
+            wrng = np.random.default_rng(0)
+            text = " ".join(RES_WORDS[i] for i in
+                            wrng.integers(0, len(RES_WORDS), 4000))
+            model = bpe.ByteBPE.train_from_text(text, RES_BPE_VOCAB)
+            check(model.native and native_build.loaded().get("penroz_bpe"),
+                  "the native BPE core did not load")
+            check(model.merges == bpe._py_train(text.encode(),
+                                                len(model.merges)),
+                  "the native core's merges differ from the oracle's")
+            ids = model.encode(text)
+            check(ids == bpe._PyEncoder(model.merges).encode(text.encode()),
+                  "the native core's ids differ from the oracle's")
+            path = os.path.join(WORK, "smoke_bpe.json")
+            model.save(path)
+            status, _, out = _request(base, "/tokenize/", {
+                "encoding": f"bpe:{path}", "text": text[:400]})
+            check(status == 200 and json.loads(out)["tokens"] == (
+                model.encode(text[:400]) + [model.eot_token]),
+                f"/tokenize/ bpe: -> {status}")
+            # ids below RES_BPE_VOCAB, all in GPT-2's vocabulary (the
+            # modulo only matters to a toy-vocabulary rehearsal)
+            prompt_ids = [t % vocab for t in json.loads(out)["tokens"][:64]]
+            generated = tokens(_request(base, "/generate/", gen(
+                prompt_ids, max_new_tokens=RES_NEW_TOKENS)),
+                "/generate/ of a bpe prompt")
+            status, _, out = _request(base, "/decode/", {
+                "encoding": f"bpe:{path}", "tokens": generated})
+            check(status == 200 and isinstance(json.loads(out)["text"], str),
+                  f"/decode/ bpe: -> {status}")
+            stats["bpe"] = {"merges": len(model.merges), "ids": len(ids),
+                            "s": time.monotonic() - t0}
+            say("resilience", f"bpe: native core, {len(model.merges)} "
+                f"merges and {len(ids)} ids equal to the oracle's, "
+                f"/tokenize/ and /generate/ through bpe:")
+
+            # -- /openapi.json and /docs -------------------------------------
+            status, _, out = _request(base, "/openapi.json", None, "GET")
+            spec = json.loads(out)
+            routes = {(m, p) for m, table in (
+                ("get", app_mod._GET), ("post", app_mod._POST),
+                ("put", app_mod._PUT), ("delete", app_mod._DELETE))
+                for p in table}
+            check(status == 200 and {(m, p) for p, ops in
+                                     spec["paths"].items()
+                                     for m in ops} == routes,
+                  "/openapi.json's paths differ from the route tables")
+            check(_request(base, "/docs", None, "GET")[0] == 200,
+                  "/docs did not answer 200")
+            DS.reset()
+
+        # -- training through the native loader ------------------------------
+        t0 = time.monotonic()
+        os.makedirs("data", exist_ok=True)
+        drng = np.random.default_rng(1)
+        for i in range(2):
+            np.save(os.path.join("data", f"smoke_res_{i:06d}.npy"),
+                    drng.integers(0, TRAIN_VOCAB_USED,
+                                  RES_SHARD_TOKENS).astype(np.uint16))
+        buffer = RES_TRAIN["batch_size"] * block
+        native = loaders.Loader("smoke_res", buffer_size=buffer)
+        batches = [native.next_batch() for _ in range(5)]
+        check(native._stream is not None
+              and native_build.loaded().get("penroz_loader"),
+              "the native loader stream did not load")
+        with _env({loaders.NATIVE_LOADER_ENV: "0"}):
+            plain = loaders.Loader("smoke_res", buffer_size=buffer)
+            for (x, y), (xp, yp) in zip(batches, (plain.next_batch()
+                                                  for _ in range(5))):
+                check(np.array_equal(x, xp) and np.array_equal(y, yp),
+                      "a native batch differs from the numpy path's")
+        streams = []
+        real = loaders.Loader._native_stream
+
+        def counted(self, files):
+            out = real(self, files)
+            streams.append(out is not None)
+            return out
+
+        loaders.Loader._native_stream = counted
+        harvest()
+        try:
+            train = dict(RES_TRAIN, block_size=block, model_id="smoke_res",
+                         dataset_id="smoke_res", shard=0)
+            status, _, text = _request(base, "/train/", train, "PUT")
+            check(status == 202, f"PUT /train/ -> {status}: {text[:300]}")
+            check(server.join_training(timeout=600), "training still runs")
+        finally:
+            loaders.Loader._native_stream = real
+        status, _, text = _request(
+            base, "/progress/?model_id=smoke_res", None, "GET")
+        progress = json.loads(text)
+        check(progress["status"]["code"] == "Trained",
+              f"training ended {progress['status']}")
+        costs = [p["cost"] for p in progress["progress"]]
+        check(all(math.isfinite(c) for c in costs), "a non-finite cost")
+        micro = RES_TRAIN["epochs"] * (buffer // (
+            RES_TRAIN["step_size"] * block))
+        train_launches = {n: counters[n].launches for n in
+                          _training_counters()}
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            check(not on_card or train_launches[name] >= n_attn * micro,
+                  f"{name} launched {train_launches[name]} times, expected "
+                  f">= {n_attn} x {micro}")
+        for name in ("ce_forward", "ce_backward"):
+            check(not on_card or train_launches[name] >= micro,
+                  f"{name} launched {train_launches[name]} times, expected "
+                  f">= {micro}")
+        check(streams and all(streams),
+              "training did not read through the native stream")
+        stats["training"] = {"micro_steps": micro, "costs": costs,
+                             "launches": train_launches,
+                             "s": time.monotonic() - t0}
+        say("resilience", f"training: {micro} micro-steps through the "
+            f"native stream (numpy batches equal), launches "
+            f"{train_launches}, costs {[round(c, 4) for c in costs]}")
+    finally:
+        arm(None)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        server.join_training(timeout=60)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+
+    # -- the graceful drain, on a server of its own ----------------------------
+    t0 = time.monotonic()
+    before = {t for t in threading.enumerate()
+              if t.name.startswith("penroz-sched")}
+    server = app_mod.create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    results = [None] * RES_DRAIN_REQUESTS
+    try:
+        with _env(dict(RES_ENV, PENROZ_DRAIN_S="5")):
+            arm(f"decode.step:sleep@{RES_SLEEP_MS}")
+
+            def fire(i):
+                results[i] = _request(base, "/generate/", gen(p0))
+
+            threads = [threading.Thread(target=fire, args=(i,))
+                       for i in range(RES_DRAIN_REQUESTS)]
+            for th in threads:
+                th.start()
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                status, _, text = _request(base, "/serving_stats/", None,
+                                           "GET")
+                if json.loads(text)["active_rows"] >= RES_DRAIN_REQUESTS:
+                    break
+                time.sleep(0.01)
+            check(time.monotonic() < deadline, "the drain's rows were "
+                  "never all admitted")
+            t_shut = time.monotonic()
+            server.shutdown()
+            stats["drain_shutdown_s"] = time.monotonic() - t_shut
+            for th in threads:
+                th.join(timeout=60)
+    finally:
+        arm(None)
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    outs = [tokens(r, "a drained request") if r else None for r in results]
+    check(all(o is not None and o == outs[0] for o in outs),
+          "a drained request failed or its tokens differ")
+    left = {t for t in threading.enumerate()
+            if t.name.startswith("penroz-sched")} - before
+    check(not left, f"worker threads outlived the drain: {left}")
+    stats["drain_s"] = time.monotonic() - t0
+    say("resilience", f"drain: {RES_DRAIN_REQUESTS} rows in flight "
+        f"finished 200 during a {stats['drain_shutdown_s']:.2f} s shutdown, "
+        f"no worker thread left")
+    harvest()
+    for name in ("ragged_paged_attention", "paged_decode_attention",
+                 "decode_attention", "flash_attention_fwd",
+                 "flash_attention_bwd", "ce_forward", "ce_backward"):
+        check(not on_card or totals[name] > 0,
+              f"{name} was launched no time in the phase")
+    stats["seconds"] = time.monotonic() - t_phase
+    say("resilience", f"{stats['seconds']:.1f} s; counts {totals} (the "
+        f"decode kernels' device runs) on {card}")
+    return stats, totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="penroz_tpu_torch chip smoke")
     parser.add_argument("--out", help="also write every measurement here "
@@ -3989,6 +4536,9 @@ def main(argv=None) -> int:
             torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
             card=card)
         launches["ragged_paged_attention"] += pf_launches
+        res_stats, res_launches = phase_resilience(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -4010,8 +4560,10 @@ def main(argv=None) -> int:
                           "prefix_spec": {"ragged_paged_attention":
                                           pf_launches},
                           "qwen3": qwen3_launches, "qmoe": qmoe_launches,
-                          "moe_training": moe_launches}
-        for extra in (qwen3_launches, qmoe_launches, moe_launches):
+                          "moe_training": moe_launches,
+                          "resilience": res_launches}
+        for extra in (qwen3_launches, qmoe_launches, moe_launches,
+                      res_launches):
             for name_, n in extra.items():
                 launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
@@ -4038,6 +4590,7 @@ def main(argv=None) -> int:
                        "main_path": stats,
                        "continuous_batching": cb_stats,
                        "prefix_spec": pf_stats,
+                       "resilience": res_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

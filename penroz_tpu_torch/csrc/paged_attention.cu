@@ -113,7 +113,8 @@ extern "C" int penroz_ragged_paged_attention(
     const void* slopes, void* out, int num_descs, int block_q, int hq,
     int hkv, int d, int page, int pages_per_seq, long long pool_rows,
     int q_dtype, int window, float scale, float softcap, int tile_rows,
-    int n_split, int granule, void* part, void* tickets, void* stream) {
+    int n_split, int granule, void* part, void* tickets, void* runs,
+    void* stream) {
   decode_core::Params p = {};
   p.q = q;
   p.k = k;
@@ -141,6 +142,7 @@ extern "C" int penroz_ragged_paged_attention(
   p.granule = granule;
   p.part = static_cast<float*>(part);
   p.tickets = static_cast<int*>(tickets);
+  p.runs = static_cast<unsigned long long*>(runs);
   return decode_core::launch_cached<decode_core::Ragged>(
       p, num_descs, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
 }

@@ -60,7 +60,7 @@ from penroz_tpu_torch.ops import attention as attn_ops
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops import losses
 from penroz_tpu_torch.ops import modules as M
-from penroz_tpu_torch.utils import checkpoint
+from penroz_tpu_torch.utils import checkpoint, profiling
 from penroz_tpu_torch.utils import stats as stats_lib
 
 log = logging.getLogger(__name__)
@@ -689,21 +689,23 @@ class NeuralNetworkModel:
             for epoch in range(epochs):
                 t0 = time.monotonic()
                 long_training = t0 - last_save >= 10
-                xs, ys = [], []
-                for _ in range(num_steps):
-                    x, y = loader.next_batch()
-                    xs.append(x.reshape(batch_size, block_size))
-                    ys.append(y.reshape(batch_size, block_size))
-                last_batch = (xs[-1], ys[-1])
-                xs = torch.from_numpy(np.stack(xs)).to(self.device,
-                                                       torch.int64)
-                ys = torch.from_numpy(np.stack(ys)).to(self.device,
-                                                       torch.int64)
+                with profiling.span("penroz/load_batch"):
+                    xs, ys = [], []
+                    for _ in range(num_steps):
+                        x, y = loader.next_batch()
+                        xs.append(x.reshape(batch_size, block_size))
+                        ys.append(y.reshape(batch_size, block_size))
+                    last_batch = (xs[-1], ys[-1])
+                    xs = torch.from_numpy(np.stack(xs)).to(self.device,
+                                                           torch.int64)
+                    ys = torch.from_numpy(np.stack(ys)).to(self.device,
+                                                           torch.int64)
                 sampled = epoch % sample_every == 0
-                cost, ratios = self.arch.train_epoch(
-                    optimizer, xs, ys, compute_dtype=compute_dtype,
-                    generator=generator, with_ratios=sampled)
-                cost = float(cost)
+                with profiling.span("penroz/train_epoch"):
+                    cost, ratios = self.arch.train_epoch(
+                        optimizer, xs, ys, compute_dtype=compute_dtype,
+                        generator=generator, with_ratios=sampled)
+                    cost = float(cost)
                 duration = time.monotonic() - t0
                 if sampled:
                     self.progress.append({

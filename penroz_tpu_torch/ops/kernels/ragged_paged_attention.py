@@ -30,7 +30,9 @@ runs 64-row prefill tiles on tensor cores (bf16) or register-tiled FMAs
 (fp32).
 
 :func:`ragged_paged_attention` launches the kernel for CUDA tensors and
-raises on anything it cannot take; for CPU tensors it runs
+raises on anything it cannot take; ``ragged_paged_attention.launches``
+counts what it launched, ``ragged_paged_attention.runs`` (a device
+counter the kernel adds to) what ran; for CPU tensors it runs
 :func:`ragged_paged_attention_reference`, the JAX package's sequential
 oracle (penroz_tpu/ops/attention.py).
 :func:`ragged_paged_attention_split_reference` runs the kernel's split and
@@ -61,7 +63,7 @@ _TICKETS: dict = {}  # device index -> int32 zeros the kernel leaves zero
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p] * 3)
+             + [ctypes.c_void_p] * 4)
 
 
 def default_block_q() -> int:
@@ -243,6 +245,7 @@ def ragged_paged_attention(q, flat_k, flat_v, block_table, page_size: int,
                  win, sm_scale, cap, plan.tile_rows, plan.n_split,
                  plan.granule, part.data_ptr() if part is not None else None,
                  tickets.data_ptr() if tickets is not None else None,
+                 ragged_paged_attention.runs.pointer(q.device),
                  build.stream(q))
     build.check(lib, err, name)
     with _COUNT_LOCK:
@@ -251,3 +254,4 @@ def ragged_paged_attention(q, flat_k, flat_v, block_table, page_size: int,
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.runs = build.RunCounter()

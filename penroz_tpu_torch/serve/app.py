@@ -10,8 +10,13 @@ a dataset), ``POST /decode/``, ``POST /tokenize/``, ``PUT /train/``,
 ``GET /progress/?model_id=…``, ``GET /stats/?model_id=…`` (the training
 diagnostics, ``null`` before any training; an MoE model's routing
 fractions beside them), ``GET /serving_stats/``,
-``DELETE /model/?model_id=…``, ``GET``/``POST``/``DELETE /dataset/`` and
-``GET /healthz``.  Errors map as in the JAX service: unknown model 404,
+``DELETE /model/?model_id=…``, ``GET``/``POST``/``DELETE /dataset/``,
+``POST /profile/`` and its alias ``POST /profiler/trace/`` (start or stop
+a ``torch.profiler`` capture, utils/profiling.py), ``GET /openapi.json``
+and ``GET /docs`` (serve/openapi.py), ``GET /healthz`` (liveness, always
+200) and ``GET /readyz`` (503 while an engine's circuit breaker is open,
+a tick is stuck past ``PENROZ_TICK_WATCHDOG_MS`` or the server drains).
+Errors map as in the JAX service: unknown model 404,
 missing or mistyped field 422, bad value 400 (a hub id on ``/import/``, a
 ``block_size`` or an input past the model's learned position table,
 refused before any token), a model already training or importing, or a
@@ -24,8 +29,15 @@ With ``PENROZ_CONTINUOUS_BATCHING=1`` (and ``PAGED_KV_CACHE=1``) eligible
 ``/generate/`` requests and every ``/generate_batch/`` row go to the
 continuous-batching scheduler instead (serve/decode_scheduler.py), whose
 engines keep their model loaded; the others take the single-sequence
-path.  Scheduler features and request fields that are not ported are
-refused with a 400 naming them.
+path.  A scheduler request sheds as in the JAX service: a full queue 429
+and an open breaker 503, both with ``Retry-After``, an expired deadline
+(``timeout_ms``, ``PENROZ_REQ_TIMEOUT_MS``) 504, or on a stream the line
+``timeout`` after the tokens so far; under ``PENROZ_SCHED_FALLBACK=1`` an
+open breaker sends ``/generate/`` to the single-sequence path.  Scheduler
+features and request fields that are not ported are refused with a 400
+naming them.  ``shutdown()`` drains: admission stops, the rows in flight
+get ``PENROZ_DRAIN_S`` (default 5 s) to finish, and every engine's worker
+thread is joined.
 ``PUT /train/`` answers 202 and trains on a background thread, holding one
 lock per model; ``/progress/`` reads the checkpoint's metadata, which
 training rewrites at its start, every 10 s and at its end.
@@ -60,8 +72,8 @@ from penroz_tpu_torch.models.model import (NeuralNetworkModel,
                                            unported_training_options,
                                            validate_batch_generation)
 from penroz_tpu_torch.serve import decode_scheduler as DS
-from penroz_tpu_torch.serve import schemas
-from penroz_tpu_torch.utils import checkpoint
+from penroz_tpu_torch.serve import openapi, schemas
+from penroz_tpu_torch.utils import checkpoint, profiling
 
 log = logging.getLogger(__name__)
 
@@ -75,7 +87,6 @@ class _HTTPError(Exception):
 
 # Request fields of JAX-package serving features the port does not have.
 _UNPORTED_FIELDS = {
-    "timeout_ms": "request deadlines",
     "adapter_id": "LoRA adapters",
     "adapter_ids": "LoRA adapters",
     "priority": "QoS priority classes",
@@ -181,6 +192,14 @@ class PenrozServer(ThreadingHTTPServer):
             self.download_status[dataset_id] = {
                 **self.download_status[dataset_id], **fields}
 
+    def shutdown(self):
+        """Stop serving, then drain the scheduler (``PENROZ_DRAIN_S``) and
+        join every engine's worker thread; a thread that does not join is
+        logged."""
+        super().shutdown()
+        if not DS.drain_and_shutdown():
+            log.error("A decode engine's worker thread did not join")
+
     def join_training(self, timeout: float = None) -> bool:
         """Wait for the training and download threads; True when none is
         left."""
@@ -210,13 +229,34 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- plumbing -----------------------------------------------------------
 
-    def _send_json(self, status: int, content):
+    def _send_json(self, status: int, content, headers=None):
         body = json.dumps(content).encode()
+        self._send_body(status, "application/json", body, headers)
+
+    def _send_body(self, status: int, content_type: str, body: bytes,
+                   headers=None):
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
+
+    def _send_shed(self, exc):
+        """A scheduler shed as the JAX service answers it: a full queue
+        429 and an open breaker 503, both with ``Retry-After`` (the queue's
+        drain time, the remaining cooldown), an expired deadline 504."""
+        retry = {"Retry-After": str(int(getattr(exc, "retry_after", 1)
+                                        or 1))}
+        if isinstance(exc, DS.QueueFullError):
+            self._send_json(429, {"detail": f"Server overloaded: {exc}"},
+                            retry)
+        elif isinstance(exc, DS.DeadlineExceeded):
+            self._send_json(504, {"detail": f"Deadline exceeded: {exc}"})
+        else:
+            self._send_json(503, {"detail": f"Service unavailable: {exc}"},
+                            retry)
 
     def _body(self, request_cls):
         length = int(self.headers.get("Content-Length") or 0)
@@ -289,7 +329,9 @@ class _Handler(BaseHTTPRequestHandler):
     def _try_scheduler_generate(self, body) -> bool:
         """Serve /generate/ through the continuous-batching scheduler when
         it is on and the request is eligible; False sends the request to
-        the single-sequence path."""
+        the single-sequence path (also an open breaker's request under
+        ``PENROZ_SCHED_FALLBACK=1``).  A shed answers with its own status
+        line, a stream's too: the request is queued before the 200."""
         if not DS.enabled():
             return False
         prompt = NeuralNetworkModel._prompt_tokens(body.input)
@@ -300,15 +342,30 @@ class _Handler(BaseHTTPRequestHandler):
                                device=self.server.device)
         if engine is None:  # registry at capacity with nothing evictable
             return False
-        if not body.stream:
-            tokens = DS.run_request(engine, prompt, body.max_new_tokens,
-                                    body.stop_token)
-            self._send_json(200, {"tokens": tokens})
+        try:
+            if not body.stream:
+                tokens = DS.run_request(engine, prompt, body.max_new_tokens,
+                                        body.stop_token,
+                                        timeout_ms=body.timeout_ms)
+                self._send_json(200, {"tokens": tokens})
+                return True
+            log.info("Streaming token generation for model %s via the "
+                     "continuous-batching scheduler", body.model_id)
+            req, events = DS.start_stream(engine, prompt,
+                                          body.max_new_tokens,
+                                          body.stop_token,
+                                          timeout_ms=body.timeout_ms)
+        except DS.CircuitOpenError as exc:
+            if DS.fallback_enabled():
+                log.warning("Scheduler circuit open for model %s; falling "
+                            "back to the single-sequence path",
+                            body.model_id)
+                return False
+            self._send_shed(exc)
             return True
-        log.info("Streaming token generation for model %s via the "
-                 "continuous-batching scheduler", body.model_id)
-        req, events = DS.start_stream(engine, prompt, body.max_new_tokens,
-                                      body.stop_token)
+        except (DS.QueueFullError, DS.DeadlineExceeded) as exc:
+            self._send_shed(exc)
+            return True
         self._start_stream_response()
         try:
             while True:
@@ -317,6 +374,12 @@ class _Handler(BaseHTTPRequestHandler):
                     self.wfile.write(f"{value}\n".encode())
                     self.wfile.flush()
                 elif kind == "done":
+                    break
+                elif kind == "timeout":
+                    # the deadline passed mid-stream: the tokens so far went
+                    # out; a last non-numeric line ends the stream honestly
+                    self.wfile.write(b"timeout\n")
+                    self.wfile.flush()
                     break
                 else:
                     log.error("Scheduler stream for model %s failed: %r",
@@ -376,15 +439,32 @@ class _Handler(BaseHTTPRequestHandler):
                                device=self.server.device)
         if engine is None:
             raise _HTTPError(503, "every decode engine is busy; retry")
-        handles = [DS.start_stream(engine, p, body.max_new_tokens,
-                                   body.stop_token) for p in prompts]
-        try:
-            sequences = [DS.collect(req, events) for req, events in handles]
-        except Exception:
-            for req, _ in handles:  # the batch answers as one: free the rows
-                req.cancelled = True
-            raise
-        self._send_json(200, {"sequences": sequences})
+        # every row settles, then the batch answers as one: a shed row
+        # (429 / 503 / 504) sheds the batch, as in the JAX service
+        results = []
+        for p in prompts:
+            try:
+                results.append(DS.start_stream(
+                    engine, p, body.max_new_tokens, body.stop_token,
+                    timeout_ms=body.timeout_ms))
+            except (DS.QueueFullError, DS.CircuitOpenError) as exc:
+                results.append(exc)
+        for i, handle in enumerate(results):
+            if not isinstance(handle, Exception):
+                try:
+                    results[i] = DS.collect(*handle)
+                except Exception as exc:  # noqa: BLE001 — answered below
+                    results[i] = exc
+        errors = [r for r in results if isinstance(r, Exception)]
+        if not errors:
+            self._send_json(200, {"sequences": results})
+            return
+        shed = next((e for e in errors if isinstance(e, _SHED)), None)
+        if shed is None:
+            raise errors[0]
+        # an open breaker sheds the batch under PENROZ_SCHED_FALLBACK=1
+        # too: the legacy batched path it would take is not ported
+        self._send_shed(shed)
 
     def output(self, query):
         body = self._body(schemas.OutputRequest)
@@ -536,10 +616,52 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
 
     def healthz(self, query):
+        """Liveness: always 200; an open breaker is a readiness matter."""
         self._send_json(200, {"status": "ok"})
 
+    def readyz(self, query):
+        """Readiness: 503 while an engine's breaker is open, a tick is
+        stuck past the watchdog, or the server drains."""
+        breaker_open = DS.breaker_open_engines()
+        stuck = DS.stuck_engines()
+        draining = DS.draining()
+        ready = not breaker_open and not stuck and not draining
+        self._send_json(200 if ready else 503, {
+            "ready": ready, "draining": draining,
+            "breaker_open_engines": breaker_open, "stuck_engines": stuck})
 
-_GET = {"/healthz": _Handler.healthz, "/progress/": _Handler.progress,
+    def profile(self, query):
+        """Start or stop a ``torch.profiler`` capture; 409 on a second
+        start or an idle stop."""
+        body = self._body(schemas.ProfileRequest)
+        if body.action == "start":
+            if not profiling.start(body.log_dir):
+                raise _HTTPError(409, "A profile capture is already "
+                                      "running.")
+            self._send_json(200, {"message": f"Profiling started into "
+                                             f"{body.log_dir}"})
+        elif body.action == "stop":
+            log_dir = profiling.stop()
+            if log_dir is None:
+                raise _HTTPError(409, "No profile capture is running.")
+            self._send_json(200, {"message": f"Profiling stopped; trace in "
+                                             f"{log_dir}"})
+        else:
+            raise ValueError(f"Unknown profile action {body.action!r}")
+
+    def openapi_json(self, query):
+        self._send_body(200, "application/json", openapi.spec_json().encode())
+
+    def docs(self, query):
+        self._send_body(200, "text/html; charset=utf-8",
+                        openapi.docs_html().encode())
+
+
+_SHED = (DS.QueueFullError, DS.CircuitOpenError, DS.DeadlineExceeded)
+
+_GET = {"/healthz": _Handler.healthz, "/readyz": _Handler.readyz,
+        "/openapi.json": _Handler.openapi_json, "/docs": _Handler.docs,
+        "/progress/": _Handler.progress,
         "/stats/": _Handler.model_stats,
         "/serving_stats/": _Handler.serving_stats,
         "/dataset/": _Handler.list_dataset}
@@ -548,7 +670,9 @@ _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/output/": _Handler.output, "/evaluate/": _Handler.evaluate,
          "/import/": _Handler.import_model,
          "/dataset/": _Handler.download_dataset,
-         "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize}
+         "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize,
+         "/profile/": _Handler.profile,
+         "/profiler/trace/": _Handler.profile}
 _PUT = {"/train/": _Handler.train}
 _DELETE = {"/model/": _Handler.delete_model,
            "/dataset/": _Handler.delete_dataset}
@@ -558,7 +682,10 @@ def create_app(device=None, host: str = "127.0.0.1",
                port: int = 0) -> PenrozServer:
     """A bound, not yet serving, server on ``device`` (``cuda`` unless
     ``"cpu"``); ``port=0`` picks a free port (``server.server_address``).
-    Call ``serve_forever()`` (e.g. in a thread) and ``shutdown()``."""
+    Call ``serve_forever()`` (e.g. in a thread) and ``shutdown()``.
+    ``PENROZ_PROFILER_PORT`` (the JAX package's live profiler server) is a
+    ValueError."""
+    profiling.unported_options()
     return PenrozServer((host, port), device=device)
 
 
@@ -576,8 +703,8 @@ def main(argv=None):  # pragma: no cover
     try:
         server.serve_forever()
     finally:
+        server.shutdown()   # returns at once: serve_forever has ended
         server.server_close()
-        DS.reset()
         server.join_training()
 
 

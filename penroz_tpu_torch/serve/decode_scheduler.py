@@ -47,15 +47,48 @@ carries a callback that the worker calls with ``("token", id)``, then
 ``ThreadingHTTPServer`` handlers.  Only the worker thread touches the
 engine's tensors.
 
+Fault tolerance (the JAX package's contract, with its defaults):
+
+- **Deadlines**: a request's ``timeout_ms``, capped by
+  ``PENROZ_REQ_TIMEOUT_MS`` (which also gives a deadline to requests that
+  set none; both off by default).  A queued request past it is shed
+  before any prefill; an admitted one retires at the next block boundary
+  after it (a prefill chunk's or a token's), and its stream ends with a
+  ``("timeout", DeadlineExceeded)`` event (HTTP 504, or a ``timeout``
+  line after the tokens already streamed).
+- **Bounded queue**: ``PENROZ_SCHED_MAX_QUEUE`` waiting requests (0, the
+  default, is unbounded); ``submit`` refuses the next with
+  :class:`QueueFullError` (429) and a Retry-After of the queue's rough
+  drain time.
+- **Circuit breaker**: ``PENROZ_ENGINE_MAX_CRASHES`` (default 3)
+  consecutive crashed ticks open it; while open, ``submit`` refuses with
+  :class:`CircuitOpenError` (503, Retry-After the remaining cooldown)
+  until ``PENROZ_BREAKER_COOLDOWN_MS`` (default 1000) has passed, then
+  admits exactly one probe.  A request that completes resets the count
+  and closes the breaker; a probe that fails, times out or is cancelled
+  re-arms the cooldown.  ``PENROZ_SCHED_FALLBACK=1`` lets the HTTP layer
+  serve ``/generate/`` on the single-sequence path instead of the 503.
+- **Drain**: ``shutdown(drain_s=...)`` (``PENROZ_DRAIN_S``, default 5 s,
+  for :func:`drain_and_shutdown`) stops admission and lets the rows in
+  flight finish before the worker stops.
+- **Watchdog**: :meth:`DecodeEngine.stuck` is True while one tick has
+  run longer than ``PENROZ_TICK_WATCHDOG_MS`` (0, the default, is off).
+- **Admission window**: ``PENROZ_SCHED_ADMIT_MS`` (default 0) holds an
+  idle engine's first admission that long, so that a burst shares its
+  first block.
+
+:func:`breaker_open_engines`, :func:`stuck_engines` and :func:`draining`
+back ``GET /readyz``.  The fault sites ``decode.step``,
+``decode.prefill_chunk`` and ``decode.verify`` (utils/faults.py) fire
+before each block's dispatch, as in the JAX package.
+
 Models with ``ssm`` layers are refused (HTTP 400): their rows need the
 packed recurrent update (``SSMState.update_packed``), not ported yet.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
 the contiguous cache, replicas, disaggregated prefill, serving meshes and
-pipeline stages, and the overload knobs (server deadlines, the bounded
-queue, the circuit breaker and its fallback, the admission window, the tick
-watchdog, the graceful drain); deadlines, QoS classes, tenants, sessions
-and LoRA adapters on requests are refused by the HTTP layer.
+pipeline stages; QoS classes, tenants, sessions and LoRA adapters on
+requests are refused by the HTTP layer.
 
 Observability: :func:`serving_stats` backs ``GET /serving_stats/`` under
 the JAX package's key names.
@@ -65,6 +98,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import math
 import os
 import queue
 import threading
@@ -76,7 +110,7 @@ from penroz_tpu_torch.models.model import NeuralNetworkModel
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
 from penroz_tpu_torch.serve import spec_decode
-from penroz_tpu_torch.utils import bucketing, checkpoint
+from penroz_tpu_torch.utils import bucketing, checkpoint, faults, profiling
 
 log = logging.getLogger(__name__)
 
@@ -86,6 +120,14 @@ MAX_ENGINES_ENV = "PENROZ_SCHED_MAX_ENGINES"
 PREFILL_CHUNK_ENV = "PENROZ_PREFILL_CHUNK"
 SUPERSTEP_ENV = "PENROZ_SCHED_SUPERSTEP"
 RAGGED_ENV = "PENROZ_RAGGED_ATTENTION"
+REQ_TIMEOUT_ENV = "PENROZ_REQ_TIMEOUT_MS"
+MAX_QUEUE_ENV = "PENROZ_SCHED_MAX_QUEUE"
+MAX_CRASHES_ENV = "PENROZ_ENGINE_MAX_CRASHES"
+BREAKER_COOLDOWN_ENV = "PENROZ_BREAKER_COOLDOWN_MS"
+FALLBACK_ENV = "PENROZ_SCHED_FALLBACK"
+ADMIT_MS_ENV = "PENROZ_SCHED_ADMIT_MS"
+TICK_WATCHDOG_ENV = "PENROZ_TICK_WATCHDOG_MS"
+DRAIN_S_ENV = "PENROZ_DRAIN_S"
 
 # Scheduler features of the JAX package this port does not have yet:
 # (variable, predicate on its value that selects the feature, what).
@@ -97,18 +139,6 @@ _UNPORTED_SERVING_ENV = (
     ("PENROZ_SERVE_MESH", lambda v: v == "1", "a serving mesh"),
     ("PENROZ_SERVE_PIPE_STAGES", lambda v: _int(v) > 1,
      "pipeline-parallel serving"),
-    ("PENROZ_REQ_TIMEOUT_MS", lambda v: _float(v) > 0, "request deadlines"),
-    ("PENROZ_SCHED_MAX_QUEUE", lambda v: _int(v) > 0,
-     "a bounded admission queue"),
-    ("PENROZ_ENGINE_MAX_CRASHES", lambda v: True, "the engine circuit breaker"),
-    ("PENROZ_BREAKER_COOLDOWN_MS", lambda v: True,
-     "the engine circuit breaker"),
-    ("PENROZ_SCHED_FALLBACK", lambda v: v == "1",
-     "the circuit breaker's single-sequence fallback"),
-    ("PENROZ_SCHED_ADMIT_MS", lambda v: _float(v) > 0,
-     "the admission coalescing window"),
-    ("PENROZ_TICK_WATCHDOG_MS", lambda v: _float(v) > 0, "the tick watchdog"),
-    ("PENROZ_DRAIN_S", lambda v: True, "the graceful drain"),
 )
 
 # Tick-timeline entries kept per engine, and served per /serving_stats/
@@ -121,6 +151,36 @@ def _rate(num, den):
     return (num / den) if den else None
 
 
+class QueueFullError(RuntimeError):
+    """The admission queue is at ``PENROZ_SCHED_MAX_QUEUE``: the request is
+    shed (429).  ``retry_after`` (seconds) is the queue's rough drain
+    time: its depth times the recent tick median, in [1, 30]."""
+
+    def __init__(self, msg: str, retry_after: int = 1):
+        super().__init__(msg)
+        self.retry_after = int(retry_after)
+
+
+class CircuitOpenError(RuntimeError):
+    """The engine's circuit breaker is open after repeated crashes (503, or
+    the single-sequence path under ``PENROZ_SCHED_FALLBACK=1``).
+    ``retry_after`` is the remaining cooldown, rounded up (seconds)."""
+
+    def __init__(self, msg: str, retry_after: int = 1):
+        super().__init__(msg)
+        self.retry_after = int(retry_after)
+
+
+class DeadlineExceeded(RuntimeError):
+    """A request's deadline expired (504).  ``phase`` is ``"queued"`` (shed
+    before its prefill started) or ``"inflight"`` (its row retired at a
+    block boundary)."""
+
+    def __init__(self, phase: str, detail: str):
+        super().__init__(detail)
+        self.phase = phase
+
+
 def _int(v: str) -> int:
     try:
         return int(v)
@@ -128,15 +188,12 @@ def _int(v: str) -> int:
         return 0
 
 
-def _float(v: str) -> float:
-    try:
-        return float(v)
-    except ValueError:
-        return 0.0
-
-
 def enabled() -> bool:
     return os.environ.get(ENABLE_ENV, "0") == "1"
+
+
+def fallback_enabled() -> bool:
+    return os.environ.get(FALLBACK_ENV, "0") == "1"
 
 
 def _env_int(name: str, default: int, lo: int = 1) -> int:
@@ -148,8 +205,53 @@ def _env_int(name: str, default: int, lo: int = 1) -> int:
         return default
 
 
+def _env_float(name: str, default: float) -> float:
+    try:
+        return max(0.0, float(os.environ.get(name, str(default))))
+    except ValueError:
+        log.warning("Unparseable %s=%r; using %s", name,
+                    os.environ.get(name), default)
+        return default
+
+
 def _max_rows() -> int:
     return _env_int(MAX_ROWS_ENV, 8)
+
+
+def _max_queue() -> int:
+    """Admission queue bound (0: unbounded)."""
+    return _env_int(MAX_QUEUE_ENV, 0, lo=0)
+
+
+def _max_crashes() -> int:
+    return _env_int(MAX_CRASHES_ENV, 3)
+
+
+def _breaker_cooldown_ms() -> float:
+    return _env_float(BREAKER_COOLDOWN_ENV, 1000.0)
+
+
+def _drain_s() -> float:
+    return _env_float(DRAIN_S_ENV, 5.0)
+
+
+def _admit_ms() -> float:
+    return _env_float(ADMIT_MS_ENV, 0.0)
+
+
+def _watchdog_ms() -> float:
+    return _env_float(TICK_WATCHDOG_ENV, 0.0)
+
+
+def _effective_timeout_ms(timeout_ms) -> float | None:
+    """A request's deadline budget: its ``timeout_ms`` capped by the
+    server-wide ``PENROZ_REQ_TIMEOUT_MS``, which also applies to requests
+    that set none.  None: no deadline (both off, the default)."""
+    cap = _env_float(REQ_TIMEOUT_ENV, 0.0)
+    t = float(timeout_ms) if timeout_ms else 0.0
+    if cap > 0:
+        t = min(t, cap) if t > 0 else cap
+    return t if t > 0 else None
 
 
 def _max_engines() -> int:
@@ -195,18 +297,28 @@ class Request:
 
     ``on_event(kind, value)`` is called FROM THE WORKER THREAD with
     ``("token", int)`` per generated token (the stop token included), then
-    ``("done", None)`` or ``("error", exc)``.  Setting ``cancelled``
-    retires the row at the next block boundary."""
+    ``("done", None)``, ``("error", exc)`` or ``("timeout",
+    DeadlineExceeded)``.  Setting ``cancelled`` retires the row at the
+    next block boundary."""
 
     __slots__ = ("prompt", "max_new_tokens", "stop_token", "on_event",
-                 "cancelled")
+                 "cancelled", "enqueue_t", "deadline")
 
-    def __init__(self, prompt, max_new_tokens, stop_token, on_event):
+    def __init__(self, prompt, max_new_tokens, stop_token, on_event,
+                 timeout_ms=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.stop_token = stop_token
         self.on_event = on_event
         self.cancelled = False
+        self.enqueue_t = time.monotonic()
+        budget = _effective_timeout_ms(timeout_ms)
+        self.deadline = (self.enqueue_t + budget / 1000.0
+                         if budget is not None else None)
+
+    def expired(self, now: float | None = None) -> bool:
+        return (self.deadline is not None
+                and (now or time.monotonic()) >= self.deadline)
 
 
 class _Row:
@@ -265,6 +377,18 @@ class DecodeEngine:
         self._pending: collections.deque = collections.deque()
         self._cond = threading.Condition()
         self._shutdown = False
+        self._draining = False
+
+        # circuit breaker (under _cond: submit runs on handler threads,
+        # crashes and retirements on the worker)
+        self._breaker_open = False
+        self._breaker_open_t = 0.0
+        self._probe_inflight = False
+        self._crashes = 0          # consecutive, since the last completion
+        # the tick watchdog: when the running tick started (None between
+        # ticks) and whether this stuck episode was logged
+        self._dispatch_t0 = None
+        self._watchdog_fired = False
         # Positional sampling keys (temperature > 0) derive from this seed.
         self._seed = 0
 
@@ -283,6 +407,9 @@ class DecodeEngine:
         self._spec_accepted_tokens = 0
         self._crashes_total = 0
         self._engine_resets = 0
+        self._queue_rejections = 0
+        self._breaker_rejections = 0
+        self._deadline_timeouts = 0
         self._tick_timeline: collections.deque = collections.deque(
             maxlen=_TIMELINE_LEN)
 
@@ -315,16 +442,63 @@ class DecodeEngine:
 
     # -- public surface -----------------------------------------------------
 
+    def _queue_retry_after(self) -> int:
+        """Retry-After of a queue shed: the queued work's rough drain time
+        (depth x the recent tick median, 50 ms before any tick), in
+        [1, 30] s.  Callers hold _cond."""
+        # list() copies in one step: the worker appends without the lock
+        ticks = sorted(e["dispatch_ms"] for e in list(self._tick_timeline))
+        tick_ms = ticks[len(ticks) // 2] if ticks else 50.0
+        return int(min(30, max(1, math.ceil(
+            len(self._pending) * tick_ms / 1000.0))))
+
     def submit(self, req: Request):
+        """Queue ``req`` or refuse it now (a bounded queue, an open breaker,
+        a draining engine), so that the client gets a typed answer at
+        once instead of a stalled connection."""
         with self._cond:
-            if self._shutdown:
+            if self._shutdown or self._draining:
                 raise RuntimeError("decode engine is shut down")
+            if self._breaker_open:
+                cooldown_s = _breaker_cooldown_ms() / 1000.0
+                now = time.monotonic()
+                remaining_s = self._breaker_open_t + cooldown_s - now
+                if self._probe_inflight or remaining_s > 0:
+                    self._breaker_rejections += 1
+                    raise CircuitOpenError(
+                        f"engine {self.model_id}: circuit breaker open "
+                        f"after {self._crashes} consecutive crashes",
+                        retry_after=min(30, max(1, math.ceil(
+                            max(0.0, remaining_s)))))
+                # half-open: this request is the one probe; its completion
+                # closes the breaker (_retire), its failure re-arms the
+                # cooldown (_probe_failed)
+                self._probe_inflight = True
+            max_queue = _max_queue()
+            if max_queue and len(self._pending) >= max_queue:
+                self._queue_rejections += 1
+                raise QueueFullError(
+                    f"engine {self.model_id}: admission queue full "
+                    f"({max_queue} waiting)",
+                    retry_after=self._queue_retry_after())
             self._pending.append(req)
             self._cond.notify_all()
 
-    def shutdown(self, timeout: float = 10.0) -> bool:
-        """Stop the engine, failing what is in flight; True iff the worker
-        thread joined."""
+    def shutdown(self, timeout: float = 10.0, drain_s: float = 0.0) -> bool:
+        """Stop the engine; True iff the worker thread joined.  With
+        ``drain_s > 0`` admission stops first and the rows in flight get
+        that long to finish; what is still in flight then fails."""
+        if drain_s > 0:
+            with self._cond:
+                self._draining = True
+                self._cond.notify_all()
+            deadline = time.monotonic() + drain_s
+            while self.active_rows and time.monotonic() < deadline:
+                time.sleep(0.01)
+            if self.active_rows:
+                log.warning("Decode engine %s: %d row(s) still in flight "
+                            "after a %.1f s drain; failing them",
+                            self.model_id, self.active_rows, drain_s)
         with self._cond:
             self._shutdown = True
             self._cond.notify_all()
@@ -345,6 +519,25 @@ class DecodeEngine:
 
     def idle(self) -> bool:
         return self.active_rows == 0 and not self._pending
+
+    def stuck(self) -> bool:
+        """The watchdog's verdict, computed when read: True while the
+        worker has been inside one tick longer than
+        ``PENROZ_TICK_WATCHDOG_MS`` (0: off).  The first read of a stuck
+        episode logs it."""
+        limit = _watchdog_ms()
+        t0 = self._dispatch_t0
+        if limit <= 0 or t0 is None:
+            return False
+        elapsed_ms = (time.monotonic() - t0) * 1000.0
+        if elapsed_ms < limit:
+            return False
+        if not self._watchdog_fired:
+            self._watchdog_fired = True
+            log.warning("Decode engine %s watchdog: a tick has run for "
+                        "%.0f ms (limit %.0f ms)", self.model_id,
+                        elapsed_ms, limit)
+        return True
 
     def stats(self) -> dict:
         now = time.monotonic()
@@ -378,6 +571,12 @@ class DecodeEngine:
             "kv_pool_capacity_drops": self._pool_drops,
             "crashes_total": self._crashes_total,
             "engine_resets": self._engine_resets,
+            "consecutive_crashes": self._crashes,
+            "breaker_open": self._breaker_open,
+            "stuck": self.stuck(),
+            "queue_rejections": self._queue_rejections,
+            "deadline_timeouts": self._deadline_timeouts,
+            "breaker_rejections": self._breaker_rejections,
             "prefix_cache": (self._prefix_cache.stats()
                              if self._prefix_cache is not None else None),
             "spec_decode": self._spec_on(),
@@ -397,28 +596,102 @@ class DecodeEngine:
     def _run(self):
         while True:
             with self._cond:
-                while (not self._shutdown and not self._pending
+                # a draining engine admits nothing: its queue waits for
+                # the shutdown, which fails it
+                while (not self._shutdown
+                       and (not self._pending or self._draining)
                        and self.active_rows == 0):
                     self._cond.wait()
                 if self._shutdown:
                     break
             try:
+                self._purge_expired()
+                self._coalesce_burst()
                 self._admit()
                 self._tick_unified()
             except Exception as exc:  # noqa: BLE001 — fail requests, not thread
                 log.exception("Decode engine %s failed a tick", self.model_id)
-                self._crashes_total += 1
+                self._record_crash()
                 self._fail_all(exc)
                 try:
+                    # the KV and prefix state are presumed corrupt: the next
+                    # request runs on a pool and a radix tree built anew
                     self._engine_resets += 1
                     self._alloc_state()
+                    log.warning("Decode engine %s reset after crash %d "
+                                "(consecutive %d)", self.model_id,
+                                self._crashes_total, self._crashes)
                 except Exception:  # noqa: BLE001 — the engine is unusable
                     log.exception("Decode engine %s reset failed; shutting "
                                   "it down", self.model_id)
                     with self._cond:
+                        self._breaker_open = True
+                        self._breaker_open_t = time.monotonic()
                         self._shutdown = True
                     break
         self._fail_all(RuntimeError("decode engine shut down"))
+
+    def _record_crash(self):
+        with self._cond:
+            self._crashes += 1
+            self._crashes_total += 1
+            if self._crashes >= _max_crashes() and not self._breaker_open:
+                self._breaker_open = True
+                self._breaker_open_t = time.monotonic()
+                log.error("Decode engine %s: circuit breaker OPEN after %d "
+                          "consecutive crashes (next probe in %.0f ms)",
+                          self.model_id, self._crashes,
+                          _breaker_cooldown_ms())
+
+    def _probe_failed(self):
+        """The probe ended without completing (crash, deadline, cancel):
+        the breaker stays open and its cooldown starts again.  Callers
+        hold _cond."""
+        if self._probe_inflight:
+            self._probe_inflight = False
+            self._breaker_open_t = time.monotonic()
+
+    def _purge_expired(self):
+        """Shed queued requests whose deadline passed (504 before any
+        prefill) and drop cancelled ones (a client that went away must not
+        cost a prefill)."""
+        now = time.monotonic()
+        removed, kept = [], collections.deque()
+        with self._cond:
+            for r in self._pending:
+                (removed if r.cancelled or r.expired(now) else kept).append(r)
+            if removed:
+                self._pending = kept
+        for req in removed:
+            self._drop_queued(req)
+
+    def _drop_queued(self, req: Request):
+        """A cancelled or expired request that never reached a row."""
+        with self._cond:
+            if self._breaker_open:
+                self._probe_failed()
+        if not req.cancelled:
+            self._deadline_timeouts += 1
+            self._deliver(req, "timeout", DeadlineExceeded(
+                "queued", "request deadline expired while queued "
+                "(before prefill started)"))
+
+    def _coalesce_burst(self):
+        """With ``PENROZ_SCHED_ADMIT_MS`` > 0 and no row in flight, wait up
+        to that long after the first arrival, so that a burst shares its
+        first block instead of trickling in."""
+        admit_ms = _admit_ms()
+        if admit_ms <= 0 or self.active_rows:
+            return
+        with self._cond:
+            if not self._pending:
+                return
+            deadline = self._pending[0].enqueue_t + admit_ms / 1000.0
+            while (len(self._pending) < self.capacity
+                   and not self._shutdown
+                   and time.monotonic() < deadline):
+                self._cond.wait(timeout=max(deadline - time.monotonic(),
+                                            0.001))
 
     def _free_row(self):
         for i, r in enumerate(self._rows):
@@ -432,10 +705,11 @@ class DecodeEngine:
             if row is None:
                 return
             with self._cond:
-                if not self._pending:
+                if self._draining or not self._pending:
                     return
                 req = self._pending.popleft()
-            if req.cancelled:
+            if req.cancelled or req.expired():
+                self._drop_queued(req)
                 continue
             if self.active_rows == 0:
                 self._maybe_reload()
@@ -467,12 +741,20 @@ class DecodeEngine:
 
     def _tick_unified(self):
         """One unified tick: plan an n-step mixed block, run it as ONE
-        ``decode_mixed_step`` round trip, replay the samples."""
+        ``decode_mixed_step`` round trip, replay the samples.  Host-only
+        terminal conditions (deadline, cancel) are seen at the block
+        boundary."""
         t0 = time.monotonic()
-        plan = self._plan_mixed()
-        if plan is None:
-            return
-        comp = self._mixed_dispatch(plan)
+        self._dispatch_t0 = t0
+        try:
+            with profiling.span("penroz/sched_tick"):
+                plan = self._plan_mixed()
+                if plan is None:
+                    return
+                comp = self._mixed_dispatch(plan)
+        finally:
+            self._dispatch_t0 = None
+            self._watchdog_fired = False
         dur_ms = (time.monotonic() - t0) * 1000.0
         self._tick_timeline.append({
             "t": t0,
@@ -601,13 +883,24 @@ class DecodeEngine:
 
     def _mixed_dispatch(self, plan) -> dict:
         """Run the planned block as ONE ``decode_mixed_step`` and replay its
-        (n, Tp) samples."""
+        (n, Tp) samples.  The fault sites fire first, as in the JAX
+        package: ``decode.step`` on every block, ``decode.prefill_chunk``
+        on a block with a chunk, ``decode.verify`` on one with a verify
+        span."""
+        faults.check("decode.step")
+        kinds = {op[0] for ops in plan["replay"] for op in ops}
+        if "chunk" in kinds:
+            faults.check("decode.prefill_chunk")
+        if "verify" in kinds:
+            faults.check("decode.verify")
         t0 = time.monotonic()
-        arr, self._kv = self._model.decode_mixed_step(
-            self._kv, plan["descs"], plan["tok_lit"], plan["tok_src"],
-            plan["positions"], plan["sample_slot"], self._last_tok,
-            seed=self._seed, temperature=self.temperature, top_k=self.top_k,
-            row_ids=plan["row_ids"], verify_slots=plan["verify_slots"])
+        with profiling.span("penroz/sched_mixed"):
+            arr, self._kv = self._model.decode_mixed_step(
+                self._kv, plan["descs"], plan["tok_lit"], plan["tok_src"],
+                plan["positions"], plan["sample_slot"], self._last_tok,
+                seed=self._seed, temperature=self.temperature,
+                top_k=self.top_k, row_ids=plan["row_ids"],
+                verify_slots=plan["verify_slots"])
         return self._replay_block(plan, arr, t0)
 
     def _replay_block(self, plan, arr, t0) -> dict:
@@ -638,6 +931,9 @@ class DecodeEngine:
                     size, final_slot = op[3], op[4]
                     if state.req.cancelled:
                         self._retire(i, notify=False)
+                        continue
+                    if state.req.expired():
+                        self._timeout_row(i, state, "during prefill")
                         continue
                     state.prefilled += size
                     state.chunk_idx += 1
@@ -754,6 +1050,9 @@ class DecodeEngine:
             self._retire(row)
         elif state.produced >= req.max_new_tokens:
             self._retire(row)
+        elif req.expired():
+            self._timeout_row(row, state, f"after {state.produced} "
+                                          f"generated token(s)")
         elif self._lengths[row] >= self.block_size:
             # Defensive: eligibility admits only prompt + max_new <= block,
             # so this is a real pool-capacity truncation — count it.
@@ -764,6 +1063,14 @@ class DecodeEngine:
             self._pool_drops += dropped
             self._retire(row)
 
+    def _timeout_row(self, row: int, state: _Row, when: str):
+        """Retire a row whose deadline passed; the tokens so far were
+        delivered, and the request ends with a timeout event."""
+        self._deadline_timeouts += 1
+        self._retire(row, notify=False)
+        self._deliver(state.req, "timeout", DeadlineExceeded(
+            "inflight", f"request deadline expired {when}"))
+
     def _retire(self, row: int, notify: bool = True):
         state = self._rows[row]
         self._rows[row] = None
@@ -772,6 +1079,19 @@ class DecodeEngine:
         self._release_prefix(row, state)
         self._kv.reset_row(row)
         self._completed += 1
+        with self._cond:
+            if notify:
+                # a completed request is the engine's health signal: it
+                # zeroes the crash count and closes an open breaker (while
+                # open, only the probe runs)
+                self._crashes = 0
+                self._probe_inflight = False
+                if self._breaker_open:
+                    self._breaker_open = False
+                    log.info("Decode engine %s: circuit breaker closed "
+                             "(probe request completed)", self.model_id)
+            elif self._breaker_open:
+                self._probe_failed()
         if notify and state is not None:
             self._deliver(state.req, "done", None)
 
@@ -798,6 +1118,7 @@ class DecodeEngine:
         with self._cond:
             pending = list(self._pending)
             self._pending.clear()
+            self._probe_failed()
         for req in pending:
             self._deliver(req, "error", exc)
 
@@ -836,6 +1157,7 @@ class DecodeEngine:
 
 _ENGINES: dict = {}
 _REG_LOCK = threading.Lock()
+_DRAINING = False
 
 
 def _engine_key(model_id, block_size, temperature, top_k, device):
@@ -846,9 +1168,12 @@ def _engine_key(model_id, block_size, temperature, top_k, device):
 
 def get_engine(model_id, block_size, temperature, top_k, device=None):
     """Engine lookup/creation (deserializes the model on a miss).  Returns
-    None when the registry is at capacity with no idle engine (the caller
-    takes the single-sequence path).  Raises KeyError for an unknown model
+    None when the registry is at capacity with no idle engine, or while
+    the server drains (a shutdown must not start engines); the caller
+    takes the single-sequence path.  Raises KeyError for an unknown model
     (HTTP 404)."""
+    if _DRAINING:
+        return None
     key = _engine_key(model_id, block_size, temperature, top_k, device)
     with _REG_LOCK:
         engine = _ENGINES.get(key)
@@ -871,20 +1196,64 @@ def get_engine(model_id, block_size, temperature, top_k, device=None):
 
 
 def reset():
-    """Shut every engine down and clear the registry (tests, shutdown)."""
+    """Shut every engine down and clear the registry (tests)."""
+    global _DRAINING
     with _REG_LOCK:
         engines = list(_ENGINES.values())
         _ENGINES.clear()
+    _DRAINING = False
     for engine in engines:
         engine.shutdown(timeout=5.0)
+
+
+def draining() -> bool:
+    return _DRAINING
+
+
+def _live_engines() -> list:
+    with _REG_LOCK:
+        return [e for e in _ENGINES.values() if not e._shutdown]
+
+
+def breaker_open_engines() -> list[str]:
+    """The models whose engine has its breaker open: the scheduler path
+    cannot serve them (``/readyz`` answers 503)."""
+    return sorted({e.model_id for e in _live_engines() if e._breaker_open})
+
+
+def stuck_engines() -> list[str]:
+    """The models whose engine's worker has been inside one tick longer
+    than ``PENROZ_TICK_WATCHDOG_MS`` (``/readyz`` answers 503)."""
+    return sorted({e.model_id for e in _live_engines() if e.stuck()})
+
+
+def drain_and_shutdown(drain_s: float | None = None) -> bool:
+    """Graceful shutdown: mark the registry draining (``/readyz`` turns not
+    ready, engines stop admitting), give the rows in flight up to
+    ``drain_s`` (default ``PENROZ_DRAIN_S``) to finish, then join every
+    worker thread.  True iff every thread joined."""
+    global _DRAINING
+    _DRAINING = True
+    if drain_s is None:
+        drain_s = _drain_s()
+    with _REG_LOCK:
+        engines = list(_ENGINES.values())
+        _ENGINES.clear()
+    ok = True
+    try:
+        for engine in engines:
+            ok = engine.shutdown(timeout=10.0, drain_s=drain_s) and ok
+    finally:
+        # the registry is empty: a server created later in this process
+        # serves again
+        _DRAINING = False
+    return ok
 
 
 def serving_stats() -> dict:
     """Scheduler observability — the /serving_stats/ payload, the JAX
     package's key names for what this scheduler does."""
-    with _REG_LOCK:
-        engines = [e for e in _ENGINES.values() if not e._shutdown]
-    per = [e.stats() for e in engines]
+    per = [e.stats() for e in _live_engines()]
     capacity = sum(p["capacity"] for p in per)
     active = sum(p["active_rows"] for p in per)
     decode_steps = sum(p["decode_steps"] for p in per)
@@ -924,6 +1293,10 @@ def serving_stats() -> dict:
         "spec_accept_rate": _rate(spec_accepted, spec_drafted),
         "crashes_total": sum(p["crashes_total"] for p in per),
         "engine_resets": sum(p["engine_resets"] for p in per),
+        "breaker_open": any(p["breaker_open"] for p in per),
+        "queue_rejections": sum(p["queue_rejections"] for p in per),
+        "deadline_timeouts": sum(p["deadline_timeouts"] for p in per),
+        "draining": _DRAINING,
         "kv_pool_capacity_drops": KV.pool_drop_count(),
     }
 
@@ -932,10 +1305,11 @@ def serving_stats() -> dict:
 # Thread request surface (serve/app.py)
 # ---------------------------------------------------------------------------
 
-def _queued_request(prompt, max_new_tokens, stop_token):
+def _queued_request(prompt, max_new_tokens, stop_token, timeout_ms=None):
     events: queue.Queue = queue.Queue()
     req = Request(prompt, max_new_tokens, stop_token,
-                  lambda kind, value: events.put((kind, value)))
+                  lambda kind, value: events.put((kind, value)),
+                  timeout_ms=timeout_ms)
     return req, events
 
 
@@ -951,8 +1325,9 @@ def next_event(req: Request, events: queue.Queue, timeout=None):
 
 def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
     """Wait for ``req``'s full sequence (prompt + generated, the
-    ``generate_tokens`` contract); re-raise its error.  ``timeout`` bounds
-    each wait for the next event (None: no bound)."""
+    ``generate_tokens`` contract); re-raise its error or its
+    DeadlineExceeded.  ``timeout`` bounds each wait for the next event
+    (None: no bound)."""
     tokens = list(req.prompt)
     while True:
         kind, value = next_event(req, events, timeout)
@@ -965,17 +1340,22 @@ def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
 
 
 def run_request(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
-                timeout=None) -> list[int]:
-    """Submit one request and wait for its full sequence (:func:`collect`)."""
-    req, events = _queued_request(prompt, max_new_tokens, stop_token)
+                timeout=None, timeout_ms=None) -> list[int]:
+    """Submit one request (deadline ``timeout_ms``) and wait for its full
+    sequence (:func:`collect`).  A shed request raises at once."""
+    req, events = _queued_request(prompt, max_new_tokens, stop_token,
+                                  timeout_ms)
     engine.submit(req)
     return collect(req, events, timeout)
 
 
-def start_stream(engine: DecodeEngine, prompt, max_new_tokens, stop_token):
+def start_stream(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
+                 timeout_ms=None):
     """Submit a streaming request; returns ``(req, events)``: the caller
     reads events with :func:`next_event` and sets ``req.cancelled`` when
-    its client goes away."""
-    req, events = _queued_request(prompt, max_new_tokens, stop_token)
+    its client goes away.  A shed request raises here, before any
+    event."""
+    req, events = _queued_request(prompt, max_new_tokens, stop_token,
+                                  timeout_ms)
     engine.submit(req)
     return req, events

@@ -1,0 +1,296 @@
+"""OpenAPI 3.1 spec and self-contained docs page for the REST API
+(counterpart of penroz_tpu/serve/openapi.py).
+
+The JAX package builds its component schemas with pydantic, which the
+machine with the card does not have; here they are built from the port's
+own request schemas' ``FIELDS`` tables (serve/schemas.py): a field
+without a default is required, a nullable one also takes ``null``.  The
+route table lists exactly the routes the port serves (serve/app.py), and
+the ``/model/`` request example is the GPT-2-124M layer DSL.  ``/docs``
+fetches ``/openapi.json`` and renders it in the browser, with no CDN.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+from penroz_tpu_torch.serve import schemas
+
+
+def gpt2_124m_example() -> dict:
+    """The ``/model/`` example request: a GPT-2-124M layer DSL (the JAX
+    package's example, the same DSL)."""
+    vocab, d, heads, block, depth = 50257, 768, 12, 1024, 12
+    attn_block = {"sequential": [
+        {"layernorm": {"normalized_shape": d}},
+        {"linear": {"in_features": d, "out_features": 3 * d},
+         "normal": {"mean": 0.0, "std": 0.02}, "zeros": {}},
+        {"attention": {"num_heads": heads, "dropout": 0.1}},
+        {"linear": {"in_features": d, "out_features": d},
+         "normal": {"mean": 0.0, "std": 0.02 / (2 * depth) ** 0.5},
+         "zeros": {}},
+        {"dropout": {"p": 0.1}}]}
+    mlp_block = {"sequential": [
+        {"layernorm": {"normalized_shape": d}},
+        {"linear": {"in_features": d, "out_features": 4 * d},
+         "normal": {"mean": 0.0, "std": 0.02}, "zeros": {}},
+        {"gelu": {"approximate": "tanh"}},
+        {"linear": {"in_features": 4 * d, "out_features": d},
+         "normal": {"mean": 0.0, "std": 0.02 / (2 * depth) ** 0.5},
+         "zeros": {}},
+        {"dropout": {"p": 0.1}}]}
+    layers = ([{"summation": [
+                  {"embedding": {"num_embeddings": vocab, "embedding_dim": d},
+                   "normal": {"mean": 0.0, "std": 0.02}},
+                  {"position": {"num_embeddings": block, "embedding_dim": d},
+                   "normal": {"mean": 0.0, "std": 0.02}}]},
+               {"dropout": {"p": 0.1}}]
+              + [{"residual": [attn_block, mlp_block]} for _ in range(depth)]
+              + [{"layernorm": {"normalized_shape": d}},
+                 {"linear": {"in_features": d, "out_features": vocab,
+                             "bias": False},
+                  "normal": {"mean": 0.0, "std": 0.02}},
+                 {"softmaxlast": {"dim": -1}}])
+    return {
+        "model_id": "gpt2-124M",
+        "layers": layers,
+        "optimizer": {"adamw": {"lr": 6e-4, "betas": [0.9, 0.95],
+                                "eps": 1e-8, "weight_decay": 0.1}},
+    }
+
+
+_KINDS = {str: {"type": "string"}, int: {"type": "integer"},
+          float: {"type": "number"}, bool: {"type": "boolean"},
+          list: {"type": "array"}, dict: {"type": "object"},
+          "int_list": {"type": "array", "items": {"type": "integer"}},
+          "int_lists": {"type": "array", "items": {
+              "type": "array", "items": {"type": "integer"}}}}
+
+
+def _kind_schema(kind) -> dict:
+    if isinstance(kind, tuple):
+        return {"anyOf": [_kind_schema(k) for k in kind]}
+    return dict(_KINDS[kind])
+
+
+def request_schema(cls) -> dict:
+    """The JSON schema of one request body, from its ``FIELDS``."""
+    props, required = {}, []
+    for name, kind, default, nullable in cls.FIELDS:
+        prop = _kind_schema(kind)
+        if nullable:
+            prop = {"anyOf": [prop, {"type": "null"}]}
+        if default is schemas._REQUIRED:
+            required.append(name)
+        else:
+            prop["default"] = default
+        props[name] = prop
+    doc = (cls.__doc__ or "").strip()
+    out = {"title": cls.__name__, "type": "object", "properties": props,
+           "required": required}
+    if doc and not doc.startswith(cls.__name__ + "("):  # not dataclass's
+        out["description"] = " ".join(doc.split())
+    return out
+
+
+def _query_params(*names: str) -> list[dict]:
+    return [{"name": n, "in": "query", "required": True,
+             "schema": {"type": "string"}} for n in names]
+
+
+def _body(model_name: str, example: Optional[dict] = None) -> dict:
+    media: dict = {"schema": {"$ref": f"#/components/schemas/{model_name}"}}
+    if example is not None:
+        media["example"] = example
+    return {"required": True, "content": {"application/json": media}}
+
+
+def _resp(status: int, description: str) -> tuple[str, dict]:
+    return str(status), {"description": description}
+
+
+def _routes() -> list[dict]:
+    """(method, path, summary, body or query params, responses) of every
+    route the port serves."""
+    ok = _resp(200, "Success")
+    shed = [_resp(429, "Admission queue full (PENROZ_SCHED_MAX_QUEUE): "
+                       "retry after the Retry-After seconds"),
+            _resp(503, "Engine circuit breaker open "
+                       "(PENROZ_ENGINE_MAX_CRASHES consecutive crashes): "
+                       "retry after the Retry-After seconds"),
+            _resp(504, "Request deadline exceeded (timeout_ms / "
+                       "PENROZ_REQ_TIMEOUT_MS)")]
+    profile = dict(
+        summary="Start/stop a torch.profiler capture (host and device "
+                "activity, with the penroz/sched_* and penroz/train_* "
+                "ranges); stop writes a Chrome trace JSON into log_dir",
+        body=_body("ProfileRequest"),
+        responses=dict([ok, _resp(409, "Capture state conflict")]))
+    return [
+        dict(method="get", path="/healthz",
+             summary="Liveness probe (always 200 while the server answers)",
+             responses=dict([_resp(200, "Alive")])),
+        dict(method="get", path="/readyz",
+             summary="Readiness probe: 503 while an engine circuit "
+                     "breaker is open, a tick is stuck past "
+                     "PENROZ_TICK_WATCHDOG_MS, or shutdown drains",
+             responses=dict([_resp(200, "Ready to serve"),
+                             _resp(503, "Breaker open, stuck or "
+                                        "draining")])),
+        dict(method="get", path="/openapi.json", summary="This document",
+             responses=dict([_resp(200, "OpenAPI 3.1 JSON")])),
+        dict(method="get", path="/docs", summary="API docs page",
+             responses=dict([_resp(200, "HTML")])),
+        dict(method="post", path="/model/",
+             summary="Create a model from the layer/optimizer DSL",
+             body=_body("CreateModelRequest", gpt2_124m_example()),
+             responses=dict([ok, _resp(400, "Invalid DSL"),
+                             _resp(422, "Validation error")])),
+        dict(method="post", path="/import/",
+             summary="Import a HuggingFace checkpoint from a local "
+                     "directory",
+             body=_body("ImportModelRequest"),
+             responses=dict([ok, _resp(400, "A hub id or an unsupported "
+                                            "family"),
+                             _resp(409, "Import already in progress")])),
+        dict(method="get", path="/dataset/",
+             summary="List dataset shards and the last download's state",
+             params=_query_params("dataset_id"), responses=dict([ok])),
+        dict(method="post", path="/dataset/",
+             summary="Download + tokenize + shard a HuggingFace dataset",
+             body=_body("DownloadDatasetRequest"),
+             responses=dict([_resp(202, "Download started"),
+                             _resp(409, "Download already in progress")])),
+        dict(method="delete", path="/dataset/", summary="Delete all shards",
+             params=_query_params("dataset_id"),
+             responses=dict([_resp(204, "Deleted")])),
+        dict(method="post", path="/tokenize/",
+             summary="Tokenize text ('byte' or 'bpe:<model file>')",
+             body=_body("TokenizeTextRequest"), responses=dict([ok])),
+        dict(method="post", path="/output/",
+             summary="Raw forward pass (+ optional cost)",
+             body=_body("OutputRequest"),
+             responses=dict([ok, _resp(404, "Unknown model")])),
+        dict(method="post", path="/evaluate/", summary="Evaluate model cost",
+             body=_body("EvaluateRequest"),
+             responses=dict([ok, _resp(404, "Unknown model")])),
+        dict(method="post", path="/generate/",
+             summary="Generate tokens (set stream:true for one per line)",
+             body=_body("GenerateRequest"),
+             responses=dict([ok, _resp(404, "Unknown model")] + shed)),
+        dict(method="post", path="/generate_batch/",
+             summary="N prompts of different lengths through the "
+                     "continuous-batching scheduler",
+             body=_body("GenerateBatchRequest"),
+             responses=dict([ok, _resp(404, "Unknown model"),
+                             _resp(400, "Prompt + max_new_tokens exceeds "
+                                        "block_size, or an empty prompt")]
+                            + shed)),
+        dict(method="post", path="/decode/", summary="Decode token ids",
+             body=_body("DecodeTokensRequest"), responses=dict([ok])),
+        dict(method="put", path="/train/",
+             summary="Train asynchronously (poll /progress/)",
+             body=_body("TrainingRequest"),
+             responses=dict([_resp(202, "Training started"),
+                             _resp(404, "Unknown model"),
+                             _resp(400, "Invalid device"),
+                             _resp(409, "Training already in progress")])),
+        dict(method="post", path="/profile/", **profile),
+        dict(method="post", path="/profiler/trace/", **profile),
+        dict(method="get", path="/progress/",
+             summary="Training progress, average cost history, status",
+             params=_query_params("model_id"),
+             responses=dict([ok, _resp(404, "Unknown model")])),
+        dict(method="get", path="/stats/",
+             summary="Activation/gradient/weight histograms",
+             params=_query_params("model_id"),
+             responses=dict([ok, _resp(404, "Unknown model")])),
+        dict(method="get", path="/serving_stats/",
+             summary="Continuous-batching scheduler stats: queue depth, "
+                     "occupancy, tick timeline, prefix cache, speculation, "
+                     "crashes, breaker and shed counters",
+             responses=dict([ok])),
+        dict(method="delete", path="/model/", summary="Delete a model",
+             params=_query_params("model_id"),
+             responses=dict([_resp(204, "Deleted")])),
+    ]
+
+
+def build_spec() -> dict:
+    paths: dict = {}
+    for route in _routes():
+        op: dict = {"summary": route["summary"],
+                    "responses": route["responses"]}
+        if "body" in route:
+            op["requestBody"] = route["body"]
+        if "params" in route:
+            op["parameters"] = route["params"]
+        paths.setdefault(route["path"], {})[route["method"]] = op
+    return {
+        "openapi": "3.1.0",
+        "info": {
+            "title": "penroz_tpu_torch",
+            "version": "1.0.0",
+            "description": "The PyTorch port of the penroz_tpu service: "
+                           "model lifecycle, datasets, training, "
+                           "generation.",
+        },
+        "paths": paths,
+        "components": {"schemas": {cls.__name__: request_schema(cls)
+                                   for cls in schemas.REQUESTS}},
+    }
+
+
+_DOCS_HTML = """<!DOCTYPE html>
+<html><head><meta charset="utf-8"><title>penroz_tpu_torch API docs</title>
+<style>
+body{font-family:system-ui,sans-serif;margin:2em auto;max-width:960px;color:#222}
+h1{font-size:1.5em} .op{border:1px solid #ddd;border-radius:6px;margin:.8em 0}
+.hd{display:flex;gap:.8em;align-items:center;padding:.5em .8em;cursor:pointer;background:#fafafa}
+.m{font-weight:700;text-transform:uppercase;min-width:4.5em;text-align:center;
+   border-radius:4px;padding:.15em .4em;color:#fff;font-size:.85em}
+.get{background:#2b7de9}.post{background:#2fa44f}.put{background:#c77d0a}.delete{background:#c0392b}
+.body{display:none;padding:.8em;border-top:1px solid #eee}
+.op.open .body{display:block}
+pre{background:#f6f8fa;padding:.8em;border-radius:6px;overflow:auto;font-size:.85em}
+code{background:#f2f2f2;padding:.1em .3em;border-radius:3px}
+.resp{margin:.15em 0}
+</style></head><body>
+<h1>penroz_tpu_torch API</h1>
+<p>Spec: <a href="/openapi.json">openapi.json</a></p>
+<div id="ops">loading…</div>
+<script>
+fetch('/openapi.json').then(r=>r.json()).then(spec=>{
+  const root=document.getElementById('ops'); root.textContent='';
+  for(const [path,methods] of Object.entries(spec.paths)){
+    for(const [method,op] of Object.entries(methods)){
+      const div=document.createElement('div'); div.className='op';
+      const hd=document.createElement('div'); hd.className='hd';
+      hd.innerHTML=`<span class="m ${method}">${method}</span>`+
+        `<code>${path}</code><span>${op.summary||''}</span>`;
+      hd.onclick=()=>div.classList.toggle('open');
+      const body=document.createElement('div'); body.className='body';
+      let html='';
+      if(op.parameters) html+='<p>Query: '+op.parameters.map(p=>
+        `<code>${p.name}</code>`).join(' ')+'</p>';
+      const ex=op.requestBody?.content?.['application/json']?.example;
+      const ref=op.requestBody?.content?.['application/json']?.schema?.$ref;
+      if(ref) html+=`<p>Body schema: <code>${ref.split('/').pop()}</code></p>`;
+      if(ex) html+='<p>Example:</p><pre>'+
+        JSON.stringify(ex,null,1).slice(0,4000)+'</pre>';
+      html+='<p>Responses:</p>'+Object.entries(op.responses).map(([c,r])=>
+        `<div class="resp"><code>${c}</code> ${r.description||''}</div>`).join('');
+      body.innerHTML=html; div.append(hd,body); root.append(div);
+    }
+  }
+});
+</script></body></html>"""
+
+
+def docs_html() -> str:
+    return _DOCS_HTML
+
+
+def spec_json() -> str:
+    return json.dumps(build_spec())

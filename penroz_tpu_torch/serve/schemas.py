@@ -116,10 +116,11 @@ class CreateModelRequest(_Request):
 
 @dataclass
 class GenerateRequest(_Request):
-    """``POST /generate/``.  ``timeout_ms``, ``priority``, ``tenant``,
-    ``session_id`` and ``adapter_id`` (deadlines, QoS, sessions, LoRA) are
-    accepted as fields so that they can be refused with a 400: they are
-    not ported."""
+    """``POST /generate/``.  ``timeout_ms`` is the request's deadline on
+    the scheduler path (capped by ``PENROZ_REQ_TIMEOUT_MS``; none when
+    absent or not positive).  ``priority``, ``tenant``, ``session_id`` and
+    ``adapter_id`` (QoS, sessions, LoRA) are accepted as fields so that
+    they can be refused with a 400: they are not ported."""
     model_id: str
     input: list
     block_size: int
@@ -148,14 +149,14 @@ class GenerateRequest(_Request):
               ("tenant", str, None, True),
               ("session_id", str, None, True))
 
-    UNPORTED = ("timeout_ms", "adapter_id", "priority", "tenant",
-                "session_id")
+    UNPORTED = ("adapter_id", "priority", "tenant", "session_id")
 
 
 @dataclass
 class GenerateBatchRequest(_Request):
     """``POST /generate_batch/``: N prompts (ragged lengths) through the
-    continuous-batching scheduler.  As for /generate/, the fields of
+    continuous-batching scheduler; ``timeout_ms`` is each row's deadline,
+    and a shed row sheds the batch.  As for /generate/, the fields of
     features that are not ported are accepted only to be refused."""
     model_id: str
     inputs: list
@@ -185,8 +186,8 @@ class GenerateBatchRequest(_Request):
               ("tenant", str, None, True),
               ("session_ids", list, None, True))
 
-    UNPORTED = ("timeout_ms", "adapter_id", "adapter_ids", "priority",
-                "tenant", "session_ids")
+    UNPORTED = ("adapter_id", "adapter_ids", "priority", "tenant",
+                "session_ids")
 
 
 @dataclass
@@ -294,3 +295,22 @@ class DownloadDatasetRequest(_Request):
               ("split", str, _REQUIRED, False),
               ("shard_size", int, _REQUIRED, False),
               ("name", str, None, True))
+
+
+@dataclass
+class ProfileRequest(_Request):
+    """``POST /profile/`` and ``/profiler/trace/``: ``"start"`` or
+    ``"stop"`` a ``torch.profiler`` capture whose Chrome trace goes into
+    ``log_dir`` (start only)."""
+    action: str
+    log_dir: str = "profiles"
+
+    FIELDS = (("action", str, _REQUIRED, False),
+              ("log_dir", str, "profiles", False))
+
+
+# The request bodies of the routes, by schema name (serve/openapi.py).
+REQUESTS = (CreateModelRequest, ImportModelRequest, DownloadDatasetRequest,
+            TokenizeTextRequest, OutputRequest, EvaluateRequest,
+            GenerateRequest, GenerateBatchRequest, DecodeTokensRequest,
+            TrainingRequest, ProfileRequest)

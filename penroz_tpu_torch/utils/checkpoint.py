@@ -18,7 +18,9 @@ byte-compatible with the JAX package's in both directions.
 
 Write path: atomically into the shared-memory dir (``PENROZ_SHM_PATH``, else
 /dev/shm, else the temp dir), then a background flush to the durable
-``models/`` dir relative to the working directory.
+``models/`` dir relative to the working directory.  A failed write (an
+armed ``ckpt.write`` fault of utils/faults.py too) removes its temporary
+file and leaves the previous checkpoint in place.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from penroz_tpu_torch.utils import faults
 
 log = logging.getLogger(__name__)
 
@@ -270,6 +274,7 @@ def _atomic_write(path: str, data: dict):
     fd, tmp_path = _mkstemp_for(path)
     try:
         with os.fdopen(fd, "wb") as f:
+            faults.check("ckpt.write")
             _write_stream(f, data)
         os.replace(tmp_path, path)
     except BaseException:

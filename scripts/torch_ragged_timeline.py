@@ -202,7 +202,7 @@ def main(argv=None) -> int:
                      build.DTYPE_CODES[dtype], case.get("window") or 0,
                      D ** -0.5, float(case.get("softcap") or 0.0),
                      plan.tile_rows, ns, granule, part.data_ptr(),
-                     tickets.data_ptr(), build.stream(q))
+                     tickets.data_ptr(), None, build.stream(q))
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
 

@@ -343,28 +343,26 @@ def test_continuous_batching_matches_single_sequence(
     ({"PENROZ_DISAGG_PREFILL": "1"}, None),
     ({"PENROZ_SERVE_MESH": "1"}, None),
     ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
-    ({"PENROZ_REQ_TIMEOUT_MS": "500"}, None),
-    ({"PENROZ_SCHED_MAX_QUEUE": "4"}, None),
-    ({"PENROZ_ENGINE_MAX_CRASHES": "3"}, None),
-    ({"PENROZ_BREAKER_COOLDOWN_MS": "1000"}, None),
-    ({"PENROZ_SCHED_FALLBACK": "1"}, None),
-    ({"PENROZ_SCHED_ADMIT_MS": "5"}, None),
-    ({"PENROZ_TICK_WATCHDOG_MS": "100"}, None),
-    ({"PENROZ_DRAIN_S": "5"}, None),
-    ({}, ("timeout_ms", 100)),
     ({}, ("priority", "interactive")),
     ({}, ("tenant", "t1")),
     ({}, ("session_id", "s1")),
     ({}, ("adapter_id", "a1")),
     ({"PENROZ_CONTINUOUS_BATCHING": "0"}, "batch"),
+    ({"PENROZ_PROFILER_PORT": "9012"}, "create_app"),
 ])
 def test_unported_serving_options_400(server, paged, monkeypatch, env,
                                       field, toy_gpt_layers, toy_optimizer):
     """Each scheduler knob and request field of a feature that is not
-    ported is a 400 that names it, on /generate/ and /generate_batch/."""
+    ported is a 400 that names it, on /generate/ and /generate_batch/;
+    ``PENROZ_PROFILER_PORT`` (jax.profiler's live server) is a ValueError
+    (400) when the server is created."""
     monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
     for name, value in env.items():
         monkeypatch.setenv(name, value)
+    if field == "create_app":
+        with pytest.raises(ValueError, match="PENROZ_PROFILER_PORT"):
+            create_app(device="cpu")
+        return
     jm = JModel("ref", JMapper(toy_gpt_layers, toy_optimizer))
     jm.serialize(sync_flush=True)
     body = _gen("ref", max_new_tokens=3)

@@ -133,6 +133,27 @@ prints no result:
                flash and cross-entropy kernels counted.  Last, on a server
                of its own, shutdown under PENROZ_DRAIN_S=5 with 4 rows in
                flight: all 200, no worker thread left.
+4h. qos      — GPT-2 124M, 4 rows, pages of 128, 64 prefix-cache pages,
+               PENROZ_MEMLEDGER_STRICT=1 (phase 4g's checkpoint): each of
+               12 prompts' greedy tokens with QoS idle (T0), one also
+               through the single-sequence paged path; under
+               decode.step:sleep@20, 8 batch streams of tenant "flood",
+               then, once every row has emitted, 4 interactive streams of
+               tenant "ui" that preempt them: every stream = T0, >= 1
+               preemption, the resumes' cached tokens a positive multiple
+               of 128, no pin left, a clean strict audit, every /memory/
+               read during the wave partitioning the pool, interactive
+               TTFT p99 below batch's, ragged runs = 12 x mixed steps,
+               each X-Request-Id echoed; a preempted request's
+               /trace/{id} tree and its Chrome JSON, /trace/ listing the
+               wave; /metrics parsed as 0.0.4 and equal to
+               /serving_stats/ (requests, preemptions, resumed tokens,
+               prefix hits and misses), its TTFT _count the requests that
+               emitted; a tenant quota (429 with Retry-After for flood,
+               200 = T0 for ui, cleared, tier_mb 400); the wave again at
+               PENROZ_TRACE_SAMPLE=0 (same tokens; both rates printed); a
+               crash in a second engine (block 512) and its /debug/dump
+               entry; / 302, /dashboard and /static/dashboard.js 200.
 4c. hybrid   — a server with the hybrid attention/SSM model
                (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
                ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
@@ -235,6 +256,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4494,6 +4516,485 @@ def phase_resilience(torch, layers, optimizer, block, vocab, card,
     return stats, totals
 
 
+# -- phase 4h: observability, multi-tenant QoS with preemption, the ledger ----
+
+# GPT-2 124M under continuous batching over 4 rows of the paged pool (pages
+# of 128), the prefix cache's 64 pages holding what preemption evicts, the
+# ledger's strict audit at every retirement, preemption and recovery.
+QOS_ENV = dict(CB_ENV, PENROZ_SCHED_MAX_ROWS="4", PENROZ_KV_PAGE_SIZE="128",
+               PENROZ_PREFIX_CACHE="1", PENROZ_PREFIX_CACHE_PAGES="64",
+               PENROZ_MEMLEDGER_STRICT="1")
+QOS_PAGE = 128
+# 8 batch prompts of tenant "flood", the longest first (the earliest
+# admitted are the victims, and each holds at least one full page), and 4
+# interactive prompts of tenant "ui".
+QOS_BATCH_LENS = (300, 260, 220, 180, 140, 100, 64, 200)
+QOS_UI_LENS = (16, 32, 48, 64)
+QOS_BATCH_NEW, QOS_UI_NEW = 128, 32
+QOS_SLEEP_MS = 20           # a block's stall: rows still decode when ui comes
+QOS_CRASH_BLOCK = 512       # the second engine's block size
+# one 0.0.4 exposition line
+_EXPOSITION = re.compile(
+    r'^(# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+'
+    r'|[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*)?\})? '
+    r'(-?[0-9.e+-]+|\+Inf|NaN))$')
+
+
+class _NoRedirect(urllib.request.HTTPRedirectHandler):
+    def redirect_request(self, *args, **kwargs):
+        return None
+
+
+def _qos_call(base, path, body=None, method=None, rid=None, timeout=900):
+    """(status, headers, text) of one request, redirects not followed."""
+    headers = {"Content-Type": "application/json"}
+    if rid is not None:
+        headers["X-Request-Id"] = rid
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode() if body is not None
+        else None, method=method or ("POST" if body is not None else "GET"),
+        headers=headers)
+    try:
+        with urllib.request.build_opener(_NoRedirect).open(
+                req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _qos_stream(base, body, rid, started=None):
+    """A streamed /generate/ with its own X-Request-Id: (tokens, echoed
+    id, seconds to the first token).  ``started`` is set at the first."""
+    req = urllib.request.Request(
+        base + "/generate/", data=json.dumps(dict(body, stream=True)).encode(),
+        method="POST", headers={"Content-Type": "application/json",
+                                "X-Request-Id": rid})
+    t0 = time.monotonic()
+    first, tokens = None, []
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        check(resp.status == 200, f"stream {rid}: status {resp.status}")
+        echoed = resp.headers.get("X-Request-Id")
+        for line in resp:
+            if first is None:
+                first = time.monotonic() - t0
+                if started is not None:
+                    started.set()
+            tokens.append(int(line))
+    return tokens, echoed, first
+
+
+def _pct(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))]
+
+
+def phase_qos(torch, layers, optimizer, block, vocab, card, device="cuda",
+              model_id="smoke_res"):
+    """GPT-2 124M (fp32, paged, 4 rows, prefix cache on, strict ledger):
+    reference tokens with QoS idle; a wave of 8 batch streams of tenant
+    ``flood`` into which 4 interactive streams of tenant ``ui`` arrive
+    once every row has emitted, and preempt (every token equal to the
+    reference, the resumes from whole cached pages, no pin left, the
+    ledger polled whole throughout, interactive TTFT p99 below batch's);
+    the same wave untraced; a tenant quota's 429; the traces, ``/metrics``
+    against ``/serving_stats/``, a crash's flight record, the dashboard's
+    routes.  Reuses phase 4g's checkpoint when it is there.  Returns
+    (stats, counts of the phase: the ragged and paged decode kernels'
+    device runs)."""
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import CompiledArch
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import app as app_mod
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve import memledger, qos
+    from penroz_tpu_torch.serve import metrics as serve_metrics
+    from penroz_tpu_torch.utils import checkpoint, faults, tracing
+
+    t_phase = time.monotonic()
+    on_card = device != "cpu"
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(14)
+    batch = [rng.integers(0, vocab, n).tolist() for n in QOS_BATCH_LENS]
+    ui = [rng.integers(0, vocab, n).tolist() for n in QOS_UI_LENS]
+    stats = {}
+
+    def body(prompt, new, **kw):
+        return dict({"model_id": model_id, "block_size": block,
+                     "temperature": 0, "input": [prompt],
+                     "max_new_tokens": new}, **kw)
+
+    def ok_tokens(result, what):
+        status, headers, text = result
+        check(status == 200, f"{what} -> {status}: {text[:300]}")
+        return json.loads(text)["tokens"]
+
+    def serving():
+        return json.loads(_qos_call(base, "/serving_stats/")[2])
+
+    def arm(spec):
+        faults.reset()
+        if spec:
+            os.environ[faults.ENV] = spec
+        else:
+            os.environ.pop(faults.ENV, None)
+
+    for fn in (RPA.ragged_paged_attention, PA.paged_decode_attention):
+        fn.runs.reset()
+        fn.launches = 0
+    totals = {"ragged_paged_attention": 0, "paged_decode_attention": 0}
+    DS.reset()
+    serve_metrics.reset()
+    tracing.reset()
+    qos.reset()
+    memledger.reset()
+    server = app_mod.create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    try:
+        with _env(QOS_ENV):
+            if _qos_call(base, f"/progress/?model_id={model_id}")[0] != 200:
+                status, _, text = _qos_call(base, "/model/", {
+                    "model_id": model_id, "layers": layers,
+                    "optimizer": optimizer})
+                check(status == 200, f"POST /model/ -> {status}: {text}")
+
+            # -- reference tokens, QoS idle, one request at a time -----------
+            t0 = time.monotonic()
+            ref = {("b", i): ok_tokens(_qos_call(base, "/generate/", body(
+                p, QOS_BATCH_NEW)), "T0") for i, p in enumerate(batch)}
+            ref.update({("u", i): ok_tokens(_qos_call(base, "/generate/", body(
+                p, QOS_UI_NEW)), "T0") for i, p in enumerate(ui)})
+            with _env({"PENROZ_CONTINUOUS_BATCHING": "0"}):
+                single = ok_tokens(_qos_call(base, "/generate/", body(
+                    ui[0], QOS_UI_NEW)), "single-sequence /generate/")
+            check(single == ref[("u", 0)], "the single-sequence paged "
+                  "/generate/ differs from the engine's T0")
+            totals["paged_decode_attention"] += (
+                PA.paged_decode_attention.runs.read())
+            check(not on_card or totals["paged_decode_attention"]
+                  >= n_attn * QOS_UI_NEW,
+                  f"the paged decode kernel ran "
+                  f"{totals['paged_decode_attention']} times")
+            stats["reference_s"] = time.monotonic() - t0
+
+            def wave(tag):
+                """8 batch streams; 4 interactive ones once every row has
+                emitted; the ledger polled throughout.  Returns (tokens by
+                key, client TTFT by class, wall s, ledger snapshots,
+                mixed steps, ragged device runs)."""
+                out, ttft = {}, {"batch": [], "interactive": []}
+                firsts = [threading.Event() for _ in batch]
+                errors, snaps, stop = [], [], threading.Event()
+
+                def fire(key, prompt, new, extra, started):
+                    rid = f"{tag}-{key[0]}{key[1]}"
+                    try:
+                        toks, echoed, first = _qos_stream(
+                            base, body(prompt, new, **extra), rid, started)
+                        check(echoed == rid, f"{rid}: X-Request-Id {echoed}")
+                        out[key] = prompt + toks
+                        ttft["interactive" if key[0] == "u"
+                             else "batch"].append(first)
+                    except Exception as e:  # noqa: BLE001 — checked below
+                        errors.append(f"{rid}: {e!r}")
+
+                def poll():
+                    while not stop.is_set():
+                        status, _, text = _qos_call(base, "/memory/")
+                        snaps.append(json.loads(text) if status == 200
+                                     else {"status": status})
+                        time.sleep(0.01)
+
+                arm(f"decode.step:sleep@{QOS_SLEEP_MS}")
+                RPA.ragged_paged_attention.runs.reset()
+                poller = threading.Thread(target=poll)
+                t0 = time.monotonic()
+                with _mixed_steps() as count:
+                    poller.start()
+                    threads = [threading.Thread(target=fire, args=(
+                        ("b", i), p, QOS_BATCH_NEW,
+                        {"priority": "batch", "tenant": "flood"}, firsts[i]))
+                        for i, p in enumerate(batch)]
+                    for th in threads:
+                        th.start()
+                    rows = int(QOS_ENV["PENROZ_SCHED_MAX_ROWS"])
+                    deadline = time.monotonic() + 600
+                    while (sum(e.is_set() for e in firsts) < rows
+                           and time.monotonic() < deadline):
+                        time.sleep(0.002)
+                    check(sum(e.is_set() for e in firsts) >= rows,
+                          f"{tag}: {rows} batch rows never emitted")
+                    ui_threads = [threading.Thread(target=fire, args=(
+                        ("u", i), p, QOS_UI_NEW,
+                        {"priority": "interactive", "tenant": "ui"}, None))
+                        for i, p in enumerate(ui)]
+                    for th in ui_threads:
+                        th.start()
+                    for th in threads + ui_threads:
+                        th.join(timeout=600)
+                    wall = time.monotonic() - t0
+                    stop.set()
+                    poller.join(timeout=60)
+                arm(None)
+                runs = RPA.ragged_paged_attention.runs.read()
+                check(not errors, f"{tag}: {errors}")
+                return out, ttft, wall, snaps, count["steps"], runs
+
+            # -- the traced wave ---------------------------------------------
+            out, ttft, wall, snaps, steps, runs = wave("w1")
+            totals["ragged_paged_attention"] += runs
+            bad = [k for k in ref if out.get(k) != ref[k]]
+            check(not bad, f"wave 1: tokens differ from T0 for {bad}")
+            check(not on_card or runs == n_attn * steps > 0,
+                  f"wave 1: the ragged kernel ran {runs} times for {steps} "
+                  f"mixed steps x {n_attn} layers")
+            s1 = serving()
+            (eng,) = s1["engines"]
+            check(s1["preemptions_total"] >= 1, "no preemption in wave 1")
+            cached = s1["preempted_resume_cached_tokens"]
+            check(cached >= QOS_PAGE and cached % QOS_PAGE == 0,
+                  f"resumed cached tokens {cached}")
+            engine = DS._live_engines()[0]
+            check(all(nd.refs == 0 for nd in
+                      engine._prefix_cache.iter_nodes()),
+                  "a radix pin outlived the wave")
+            check(engine._ledger.audit("phase 4h") == []
+                  and eng["memory"]["audit_failures"] == 0
+                  and not s1["breaker_open"] and s1["crashes_total"] == 0,
+                  "the strict audit or the engine failed")
+            check(len(snaps) >= 5 and all(
+                "engines" in m and all(
+                    sum(e["pool_pages"].values()) == e["pool_pages_total"]
+                    and min(e["pool_pages"].values()) >= 0
+                    for e in m["engines"]) for m in snaps),
+                f"a /memory/ snapshot does not partition the pool "
+                f"({len(snaps)} read)")
+            check(any(e["pool_pages"]["row"] for m in snaps
+                      for e in m["engines"]), "the poller saw no row pages")
+            p99 = s1["ttft_ms_p99_by_class"]
+            check(p99["interactive"] < p99["batch"],
+                  f"interactive TTFT p99 {p99['interactive']} ms is not "
+                  f"below batch's {p99['batch']} ms")
+            produced = sum(len(out[k]) - len(p) for k, p in
+                           [(("b", i), p) for i, p in enumerate(batch)]
+                           + [(("u", i), p) for i, p in enumerate(ui)])
+            stats["wave_traced"] = {
+                "s": wall, "tokens": produced, "rate": produced / wall,
+                "mixed_steps": steps, "ragged_runs": runs,
+                "preemptions": s1["preemptions_total"],
+                "resume_cached_tokens": cached,
+                "ttft_ms_p99_by_class": p99,
+                "itl_ms_p50": s1["itl_ms_p50"], "itl_ms_p99": s1["itl_ms_p99"],
+                "client_ttft_s": {c: {"p50": _pct(v, 0.5), "max": max(v)}
+                                  for c, v in ttft.items()},
+                "ledger_snapshots": len(snaps),
+                "peak_preempted_pages": max(
+                    e["pool_pages"]["preempted"] for m in snaps
+                    for e in m["engines"])}
+            say("qos", f"wave 1 (traced): {produced} tokens in {wall:.3f} s "
+                f"= {produced / wall:.1f} tokens/s, every stream = T0; "
+                f"{s1['preemptions_total']} preemptions resumed {cached} "
+                f"cached tokens; TTFT p99 interactive {p99['interactive']} "
+                f"ms < batch {p99['batch']} ms; ITL p50/p99 "
+                f"{s1['itl_ms_p50']}/{s1['itl_ms_p99']} ms; {len(snaps)} "
+                f"/memory/ reads whole; ragged {runs} runs = {n_attn} x "
+                f"{steps} mixed steps")
+
+            # -- traces of the wave ------------------------------------------
+            listed = json.loads(_qos_call(base, "/trace/?limit=50")[2])
+            ids = {t["request_id"] for t in listed["traces"]}
+            check({f"w1-{k[0]}{k[1]}" for k in ref} <= ids,
+                  "/trace/ does not list the wave")
+            preempted = [t["request_id"] for t in listed["traces"]
+                         if t["request_id"].startswith("w1-b")
+                         and t["retire_reason"] == "max_new_tokens"]
+            tree = None
+            for rid in preempted:
+                doc = json.loads(_qos_call(base, f"/trace/{rid}")[2])
+                names = [c["name"] for c in doc["root"]["children"]]
+                if "preempt" in names:
+                    tree = (rid, doc, names)
+                    break
+            check(tree is not None, "no trace holds a preempt span")
+            rid, doc, names = tree
+            k = names.index("preempt")
+            after = names[k + 1:]
+            kids = doc["root"]["children"]
+            check(names[:k][:1] == ["queue"] and "prefill" in names[:k]
+                  and "decode" in names[:k]
+                  and any(c["name"] == "prefill_chunk"
+                          for c in kids[names.index("prefill")]["children"])
+                  and after[:2] == ["capacity_pressure", "queue"]
+                  and "prefill" in after and "decode" in after,
+                  f"{rid}'s span tree: {names}")
+            match = [c for c in kids[k + 1:] if c["name"] == "prefix_match"]
+            check(match and match[0]["meta"]["matched_tokens"] >= QOS_PAGE,
+                  f"{rid}: the resume's prefix match {match}")
+            check(doc["meta"]["retire_reason"] == "max_new_tokens",
+                  f"{rid}: {doc['meta']}")
+            chrome = json.loads(_qos_call(
+                base, f"/trace/{rid}?format=chrome")[2])["traceEvents"]
+            check(chrome and all(e["ph"] == "X" and e["pid"] == rid
+                                 for e in chrome), "chrome trace events")
+            stats["preempted_trace"] = {"request_id": rid, "spans": names,
+                                        "chrome_events": len(chrome)}
+            say("qos", f"trace of {rid}: {' > '.join(names)}; "
+                f"{len(chrome)} Chrome events")
+
+            # -- /metrics against /serving_stats/ ----------------------------
+            def scrape():
+                """/metrics parsed line by line as 0.0.4: {series: value}
+                and the line count."""
+                status, headers, text = _qos_call(base, "/metrics")
+                check(status == 200 and "version=0.0.4" in headers.get(
+                    "Content-Type", ""), f"/metrics -> {status}")
+                lines = text.rstrip("\n").split("\n")
+                bad = [ln for ln in lines if not _EXPOSITION.match(ln)]
+                check(not bad, f"/metrics lines that do not parse: "
+                               f"{bad[:3]}")
+                return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                        for ln in lines if not ln.startswith("#")}, len(lines)
+
+            series, stats["metrics_lines"] = scrape()
+            s1 = serving()
+            (eng,) = s1["engines"]
+            pc = eng["prefix_cache"]
+            pairs = {
+                'penroz_requests_total{outcome="completed"}':
+                    eng["completed"],
+                "penroz_preemptions_total": s1["preemptions_total"],
+                "penroz_preempted_resume_cached_tokens_total":
+                    s1["preempted_resume_cached_tokens"],
+                "penroz_prefix_cache_hits_total": pc["hits"],
+                "penroz_prefix_cache_misses_total": pc["misses"],
+                "penroz_decode_tokens_total": s1["decode_tokens"],
+                "penroz_dispatches_total": s1["dispatches_total"],
+                'penroz_class_admissions_total{priority="interactive"}':
+                    eng["admissions_by_class"]["interactive"]}
+            diff = {k: (series.get(k), v) for k, v in pairs.items()
+                    if series.get(k) != v}
+            check(not diff, f"/metrics differs from /serving_stats/: {diff}")
+            emitted = eng["admissions"] - s1["preemptions_total"]
+            check(series["penroz_ttft_ms_count"] == emitted
+                  == series['penroz_ttft_ms_bucket{le="+Inf"}'],
+                  f"TTFT count {series['penroz_ttft_ms_count']}, requests "
+                  f"that emitted {emitted}")
+
+            # -- the quota ---------------------------------------------------
+            t0 = time.monotonic()
+            check(_qos_call(base, "/tenants/flood/quota",
+                            {"tokens_per_s": 1}, "PUT")[0] == 200,
+                  "PUT /tenants/flood/quota")
+            first = ok_tokens(_qos_call(base, "/generate/", body(
+                batch[6], QOS_BATCH_NEW, tenant="flood")), "flood in quota")
+            check(first == ref[("b", 6)], "the in-quota flood request's "
+                  "tokens")
+            status, headers, text = _qos_call(base, "/generate/", body(
+                batch[6], QOS_BATCH_NEW, tenant="flood"), rid="over-quota")
+            retry = int(headers.get("Retry-After", 0))
+            check(status == 429 and retry >= 1
+                  and headers.get("X-Request-Id") == "over-quota",
+                  f"the over-quota request: {status}, Retry-After {retry}")
+            check(ok_tokens(_qos_call(base, "/generate/", body(
+                ui[1], QOS_UI_NEW, tenant="ui")), "ui under flood's quota")
+                  == ref[("u", 1)], "the ui request's tokens")
+            tenants = json.loads(_qos_call(base, "/tenants/")[2])["tenants"]
+            check(tenants["rejections"] == {"flood": 1}
+                  and tenants["overrides"] == {"flood": 1.0},
+                  f"/tenants/: {tenants}")
+            series, _ = scrape()
+            shed = (series.get(
+                'penroz_quota_rejections_total{tenant="flood"}'),
+                series.get('penroz_requests_total{outcome="quota"}'))
+            check(shed == (1, 1) and serving()["quota_rejections"] == 1,
+                  f"the quota shed in /metrics {shed} and /serving_stats/")
+            check(_qos_call(base, "/tenants/flood/quota",
+                            {"tokens_per_s": None}, "PUT")[0] == 200,
+                  "clearing the override")
+            check(ok_tokens(_qos_call(base, "/generate/", body(
+                batch[6], QOS_BATCH_NEW, tenant="flood")), "flood cleared")
+                  == ref[("b", 6)], "flood after the override cleared")
+            check(_qos_call(base, "/tenants/flood/quota",
+                            {"tokens_per_s": 1, "tier_mb": 8}, "PUT")[0]
+                  == 400, "tier_mb was not refused")
+            stats["quota"] = {"retry_after": retry,
+                              "s": time.monotonic() - t0}
+            say("qos", f"quota: flood 200, then 429 Retry-After {retry}; "
+                f"ui 200 = T0; cleared: flood 200 = T0")
+
+            # -- the same wave untraced --------------------------------------
+            with _env({"PENROZ_TRACE_SAMPLE": "0"}):
+                tracing.reset()
+                out2, _, wall2, _, steps2, runs2 = wave("w2")
+                check(tracing.completed(10) == [] and tracing.live() == [],
+                      "a trace was made at PENROZ_TRACE_SAMPLE=0")
+            totals["ragged_paged_attention"] += runs2
+            bad = [k for k in ref if out2.get(k) != ref[k]]
+            check(not bad, f"wave 2 (untraced): tokens differ for {bad}")
+            check(not on_card or runs2 == n_attn * steps2 > 0,
+                  f"wave 2: ragged runs {runs2}, mixed steps {steps2}")
+            stats["wave_untraced"] = {"s": wall2, "tokens": produced,
+                                      "rate": produced / wall2,
+                                      "mixed_steps": steps2,
+                                      "ragged_runs": runs2}
+            say("qos", f"wave 2 (PENROZ_TRACE_SAMPLE=0): {produced} tokens "
+                f"in {wall2:.3f} s = {produced / wall2:.1f} tokens/s "
+                f"(traced {produced / wall:.1f}), every stream = T0")
+
+            # -- a crash in a second engine, and its flight record -----------
+            # the second block raises: the first (the prefill) leaves the
+            # row pages for the recorder to see
+            arm("decode.step:raise@2")
+            status, headers, text = _qos_call(base, "/generate/", dict(
+                body(ui[2], QOS_UI_NEW), block_size=QOS_CRASH_BLOCK),
+                rid="doomed")
+            arm(None)
+            check(status == 500 and json.loads(text)["request_id"]
+                  == "doomed", f"the crashed request: {status} {text[:200]}")
+            dump = json.loads(_qos_call(base, "/debug/dump")[2])
+            entry = dump["entries"][-1]
+            check(dump["recorded"] == 1 and entry["reason"] == "engine_crash"
+                  and entry["block_size"] == QOS_CRASH_BLOCK
+                  and entry["ledger"]["pool_pages"]["row"] >= 1
+                  and "doomed" in entry["recent_traces"]["live"],
+                  f"/debug/dump: {json.dumps(dump)[:600]}")
+            mem = json.loads(_qos_call(base, "/memory/")[2])
+            check(mem["flight_records"] == 1 and len(mem["engines"]) == 2,
+                  f"/memory/ after the crash: {mem['flight_records']}")
+            if on_card:
+                used = sum(mem["hbm_bytes"].values())
+                check(used <= torch.cuda.memory_allocated(),
+                      f"the ledger's {used} bytes exceed the "
+                      f"{torch.cuda.memory_allocated()} allocated")
+                stats["ledger_bytes"] = used
+                stats["memory_allocated"] = torch.cuda.memory_allocated()
+
+            # -- the dashboard -----------------------------------------------
+            status, headers, _ = _qos_call(base, "/")
+            check(status == 302 and headers.get("Location") == "/dashboard",
+                  f"/ -> {status}")
+            for path in ("/dashboard", "/static/dashboard.js"):
+                check(_qos_call(base, path)[0] == 200, f"{path}")
+            DS.reset()
+    finally:
+        arm(None)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    for name, n in totals.items():
+        check(not on_card or n > 0, f"{name} ran no time in the phase")
+    stats["seconds"] = time.monotonic() - t_phase
+    say("qos", f"{stats['seconds']:.1f} s; device runs {totals} on {card}")
+    return stats, totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="penroz_tpu_torch chip smoke")
     parser.add_argument("--out", help="also write every measurement here "
@@ -4539,6 +5040,9 @@ def main(argv=None) -> int:
         res_stats, res_launches = phase_resilience(
             torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
             card=card)
+        qos_stats, qos_launches = phase_qos(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -4561,9 +5065,10 @@ def main(argv=None) -> int:
                                           pf_launches},
                           "qwen3": qwen3_launches, "qmoe": qmoe_launches,
                           "moe_training": moe_launches,
-                          "resilience": res_launches}
+                          "resilience": res_launches,
+                          "qos": qos_launches}
         for extra in (qwen3_launches, qmoe_launches, moe_launches,
-                      res_launches):
+                      res_launches, qos_launches):
             for name_, n in extra.items():
                 launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
@@ -4591,6 +5096,7 @@ def main(argv=None) -> int:
                        "continuous_batching": cb_stats,
                        "prefix_spec": pf_stats,
                        "resilience": res_stats,
+                       "qos": qos_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

@@ -121,15 +121,18 @@ class RunCounter:
 
     def pointer(self, device) -> int:
         """The counter's address on ``device``, made (zero) at first use,
-        which must not be under a graph capture."""
+        which must not be under a graph capture.  It is made outside
+        inference mode even when the first launch runs in it, so that
+        :meth:`reset` may zero it anywhere."""
         with self._lock:
             t = self._counts.get(device)
             if t is None:
                 if torch.cuda.is_current_stream_capturing():
                     raise RuntimeError("a run counter's first use is under "
                                        "a graph capture")
-                t = self._counts[device] = torch.zeros(
-                    (), dtype=torch.int64, device=device)
+                with torch.inference_mode(False):
+                    t = self._counts[device] = torch.zeros(
+                        (), dtype=torch.int64, device=device)
         return t.data_ptr()
 
     def read(self) -> int:

@@ -106,6 +106,40 @@ def reset_pool_drop_count():
         _POOL_DROP_WARNED = False
 
 
+# Radix unpin underflows, process-wide (``penroz_prefix_cache_unpin_underflow``
+# on /metrics; each cache also counts its own): any nonzero value is a
+# pin/unpin pairing bug.  Warned once per node key.
+_UNPIN_UNDERFLOW_LOCK = threading.Lock()
+_UNPIN_UNDERFLOWS = 0
+_UNPIN_UNDERFLOW_WARNED: set = set()
+
+
+def record_unpin_underflow(key):
+    """Count one negative-refcount unpin on the radix node labelled ``key``;
+    warn the first time each distinct key underflows."""
+    global _UNPIN_UNDERFLOWS
+    with _UNPIN_UNDERFLOW_LOCK:
+        _UNPIN_UNDERFLOWS += 1
+        first = key not in _UNPIN_UNDERFLOW_WARNED
+        _UNPIN_UNDERFLOW_WARNED.add(key)
+    if first:
+        log.warning("RadixPrefixCache.unpin underflow on node key %r: "
+                    "refcount went negative (an unpaired unpin), clamped "
+                    "to 0", key)
+
+
+def unpin_underflow_count() -> int:
+    return _UNPIN_UNDERFLOWS
+
+
+def reset_unpin_underflow_count():
+    """Test hook: zero the counter and re-arm the per-key warnings."""
+    global _UNPIN_UNDERFLOWS
+    with _UNPIN_UNDERFLOW_LOCK:
+        _UNPIN_UNDERFLOWS = 0
+        _UNPIN_UNDERFLOW_WARNED.clear()
+
+
 def turbo_quant_enabled() -> bool:
     return os.environ.get(TURBO_QUANT_ENV, "0") == "1"
 
@@ -721,6 +755,17 @@ class PagedKVState(KVState):
         return sum(a.shape[0] * a.shape[2] * a.element_size()
                    for a in (*self.k, *self.v))
 
+    def hbm_components(self) -> dict:
+        """Device bytes by component for the capacity ledger
+        (serve/memledger.py): the K/V page pools, their int8 scales and
+        the device block table."""
+        nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+        return {"kv_values": nbytes((*self.k, *self.v)),
+                "kv_scales": nbytes((*getattr(self, "k_scale", ()),
+                                     *getattr(self, "v_scale", ()))),
+                "kv_block_table": nbytes((self.block_table,))}
+
     def assigned_bytes(self) -> int:
         """Bytes of the pages handed out (what live sequences hold)."""
         live = min(self.next_free, self.num_pool_pages)
@@ -895,6 +940,10 @@ class RadixPrefixCache:
         return len(self._pages)
 
     @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
     def cached_pages(self) -> int:
         return len(self._pages) - len(self._free)
 
@@ -972,9 +1021,7 @@ class RadixPrefixCache:
             if nd.refs < 0:  # an unpaired unpin must not become a pin
                 nd.refs = 0
                 self.unpin_underflows += 1
-                log.warning("RadixPrefixCache.unpin underflow on node key "
-                            "%r: refcount went negative, clamped to 0",
-                            nd.key)
+                record_unpin_underflow(nd.key)
 
     def iter_nodes(self):
         """Every cached node of every namespace (roots excluded), depth

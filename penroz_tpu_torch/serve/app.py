@@ -16,6 +16,18 @@ a ``torch.profiler`` capture, utils/profiling.py), ``GET /openapi.json``
 and ``GET /docs`` (serve/openapi.py), ``GET /healthz`` (liveness, always
 200) and ``GET /readyz`` (503 while an engine's circuit breaker is open,
 a tick is stuck past ``PENROZ_TICK_WATCHDOG_MS`` or the server drains).
+
+Observability (the JAX service's routes): ``GET /metrics`` (Prometheus
+text, serve/metrics.py), ``GET /trace/`` (recent request traces,
+``limit``) and ``GET /trace/{request_id}`` (one request's span tree,
+``?format=chrome`` for trace-event JSON; utils/tracing.py),
+``GET /memory/`` (the capacity ledger) and ``GET /debug/dump`` (the
+flight recorder, serve/memledger.py), ``GET /tenants/`` and
+``PUT /tenants/{tenant_id}/quota`` (token-rate quotas, serve/qos.py),
+``GET /dashboard`` (``GET /`` redirects there) and ``GET /static/...``.
+Every response carries ``X-Request-Id`` (the client's own when it sent a
+sane one), error bodies carry it as ``request_id``, and log records carry
+it through :class:`~penroz_tpu_torch.utils.tracing.RequestIdFilter`.
 Errors map as in the JAX service: unknown model 404,
 missing or mistyped field 422, bad value 400 (a hub id on ``/import/``, a
 ``block_size`` or an input past the model's learned position table,
@@ -55,13 +67,16 @@ Run: ``python -m penroz_tpu_torch.serve.app [--device cpu] [--port 8000]``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
+import mimetypes
 import os
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, unquote, urlsplit
 
 from penroz_tpu_torch.data.loaders import Downloader, Loader
 from penroz_tpu_torch.data.tokenizers import Tokenizer
@@ -72,10 +87,15 @@ from penroz_tpu_torch.models.model import (NeuralNetworkModel,
                                            unported_training_options,
                                            validate_batch_generation)
 from penroz_tpu_torch.serve import decode_scheduler as DS
-from penroz_tpu_torch.serve import openapi, schemas
-from penroz_tpu_torch.utils import checkpoint, profiling
+from penroz_tpu_torch.serve import memledger, openapi, qos, schemas
+from penroz_tpu_torch.serve import metrics as serve_metrics
+from penroz_tpu_torch.utils import checkpoint, profiling, tracing
 
 log = logging.getLogger(__name__)
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+STATIC_DIR = os.path.join(_HERE, "static")
+TEMPLATES_DIR = os.path.join(_HERE, "templates")
 
 
 class _HTTPError(Exception):
@@ -89,8 +109,6 @@ class _HTTPError(Exception):
 _UNPORTED_FIELDS = {
     "adapter_id": "LoRA adapters",
     "adapter_ids": "LoRA adapters",
-    "priority": "QoS priority classes",
-    "tenant": "tenant quotas",
     "session_id": "KV session hibernation",
     "session_ids": "KV session hibernation",
 }
@@ -223,11 +241,20 @@ def _train_job(lock: threading.Lock, model_id: str, args: tuple):
 
 class _Handler(BaseHTTPRequestHandler):
     server: PenrozServer
+    request_id = None
+    path_params: dict = {}
 
     def log_message(self, fmt, *args):
         log.info("%s - %s", self.address_string(), fmt % args)
 
     # -- plumbing -----------------------------------------------------------
+
+    def send_response(self, code, message=None):
+        """Every response, errors, sheds and streams included, carries the
+        request's ``X-Request-Id``."""
+        super().send_response(code, message)
+        if self.request_id is not None:
+            self.send_header("X-Request-Id", self.request_id)
 
     def _send_json(self, status: int, content, headers=None):
         body = json.dumps(content).encode()
@@ -252,6 +279,9 @@ class _Handler(BaseHTTPRequestHandler):
         if isinstance(exc, DS.QueueFullError):
             self._send_json(429, {"detail": f"Server overloaded: {exc}"},
                             retry)
+        elif isinstance(exc, DS.TenantQuotaExceeded):
+            self._send_json(429, {"detail": f"Tenant quota exceeded: {exc}"},
+                            retry)
         elif isinstance(exc, DS.DeadlineExceeded):
             self._send_json(504, {"detail": f"Deadline exceeded: {exc}"})
         else:
@@ -267,24 +297,37 @@ class _Handler(BaseHTTPRequestHandler):
         return request_cls.model_validate(payload)
 
     def _dispatch(self, routes: dict):
+        """Route one request: an exact path first, then the templated
+        ones (``{name}`` matches one path segment, bound into
+        ``path_params``).  The request's id is bound into log records for
+        the handler's duration; error bodies name it."""
         url = urlsplit(self.path)
-        handler = routes.get(url.path)
+        self.request_id = tracing.new_request_id(
+            self.headers.get("X-Request-Id"))
+        token = tracing.bind(self.request_id)
+        rid = self.request_id
         try:
+            handler, self.path_params = _match(routes, url.path)
             if handler is None:
                 raise _HTTPError(404, f"No route {self.command} {url.path}")
             handler(self, parse_qs(url.query))
         except _HTTPError as e:
-            self._send_json(e.status, {"detail": e.detail})
+            self._send_json(e.status, {"detail": e.detail, "request_id": rid})
         except schemas.ValidationError as e:
-            self._send_json(422, {"detail": e.errors})
+            self._send_json(422, {"detail": e.errors, "request_id": rid})
         except KeyError as e:
-            self._send_json(404, {"detail": f"Not found error occurred: {e}"})
+            self._send_json(404, {"detail": f"Not found error occurred: {e}",
+                                  "request_id": rid})
         except ValueError as e:
-            self._send_json(400, {"detail": f"Value error occurred: {e}"})
+            self._send_json(400, {"detail": f"Value error occurred: {e}",
+                                  "request_id": rid})
         except Exception:  # noqa: BLE001 — the server keeps serving
             log.exception("An error occurred on %s %s", self.command,
                           url.path)
-            self._send_json(500, {"detail": "Please refer to server logs"})
+            self._send_json(500, {"detail": "Please refer to server logs",
+                                  "request_id": rid})
+        finally:
+            tracing.unbind(token)
 
     def do_GET(self):
         self._dispatch(_GET)
@@ -331,7 +374,9 @@ class _Handler(BaseHTTPRequestHandler):
         it is on and the request is eligible; False sends the request to
         the single-sequence path (also an open breaker's request under
         ``PENROZ_SCHED_FALLBACK=1``).  A shed answers with its own status
-        line, a stream's too: the request is queued before the 200."""
+        line, a stream's too: the request is queued before the 200.  The
+        request's trace (utils/tracing.py) is finished by the engine once
+        queued, here on a shed."""
         if not DS.enabled():
             return False
         prompt = NeuralNetworkModel._prompt_tokens(body.input)
@@ -342,11 +387,18 @@ class _Handler(BaseHTTPRequestHandler):
                                device=self.server.device)
         if engine is None:  # registry at capacity with nothing evictable
             return False
+        rid = self.request_id
+        trace = tracing.maybe_trace(rid, route="/generate/",
+                                    model_id=body.model_id,
+                                    stream=bool(body.stream))
+        fields = dict(request_id=rid, trace=trace, priority=body.priority,
+                      tenant=body.tenant)
         try:
             if not body.stream:
                 tokens = DS.run_request(engine, prompt, body.max_new_tokens,
                                         body.stop_token,
-                                        timeout_ms=body.timeout_ms)
+                                        timeout_ms=body.timeout_ms,
+                                        **fields)
                 self._send_json(200, {"tokens": tokens})
                 return True
             log.info("Streaming token generation for model %s via the "
@@ -354,18 +406,25 @@ class _Handler(BaseHTTPRequestHandler):
             req, events = DS.start_stream(engine, prompt,
                                           body.max_new_tokens,
                                           body.stop_token,
-                                          timeout_ms=body.timeout_ms)
-        except DS.CircuitOpenError as exc:
-            if DS.fallback_enabled():
+                                          timeout_ms=body.timeout_ms,
+                                          **fields)
+        except _SHED as exc:
+            if trace is not None:
+                trace.finish(_SHED_REASON[type(exc)])
+            if (isinstance(exc, DS.CircuitOpenError)
+                    and DS.fallback_enabled()):
                 log.warning("Scheduler circuit open for model %s; falling "
                             "back to the single-sequence path",
                             body.model_id)
                 return False
             self._send_shed(exc)
             return True
-        except (DS.QueueFullError, DS.DeadlineExceeded) as exc:
-            self._send_shed(exc)
-            return True
+        except Exception:
+            # a trace the engine never accepted is finished here; an
+            # accepted one by the engine's own terminal path
+            if trace is not None and not trace.owned:
+                trace.finish("error")
+            raise
         self._start_stream_response()
         try:
             while True:
@@ -395,6 +454,24 @@ class _Handler(BaseHTTPRequestHandler):
         _refuse_unported(body)
         if self._try_scheduler_generate(body):
             return
+        # the single-sequence path: a one-span trace, so that /trace/
+        # answers for requests the scheduler did not serve
+        trace = tracing.maybe_trace(self.request_id, route="/generate/",
+                                    model_id=body.model_id, engine="legacy",
+                                    stream=bool(body.stream))
+        sp = trace.span("legacy_generate") if trace is not None else None
+        try:
+            self._generate_single(body)
+        except Exception:
+            if trace is not None:
+                trace.end(sp)
+                trace.finish("error")
+            raise
+        if trace is not None:
+            trace.end(sp)
+            trace.finish("completed")
+
+    def _generate_single(self, body):
         log.info("Generating tokens using model %s", body.model_id)
         model = NeuralNetworkModel.deserialize(body.model_id,
                                                device=self.server.device,
@@ -440,14 +517,21 @@ class _Handler(BaseHTTPRequestHandler):
         if engine is None:
             raise _HTTPError(503, "every decode engine is busy; retry")
         # every row settles, then the batch answers as one: a shed row
-        # (429 / 503 / 504) sheds the batch, as in the JAX service
+        # (429 / 503 / 504) sheds the batch, as in the JAX service.  Each
+        # row has a trace of its own, under the id ``<request id>-r<i>``.
+        rid = self.request_id
+        traces = [tracing.maybe_trace(f"{rid}-r{i}", route="/generate_batch/",
+                                      model_id=body.model_id, row=i)
+                  for i in range(len(prompts))]
         results = []
-        for p in prompts:
+        for i, p in enumerate(prompts):
             try:
                 results.append(DS.start_stream(
                     engine, p, body.max_new_tokens, body.stop_token,
-                    timeout_ms=body.timeout_ms))
-            except (DS.QueueFullError, DS.CircuitOpenError) as exc:
+                    timeout_ms=body.timeout_ms, request_id=f"{rid}-r{i}",
+                    trace=traces[i], priority=body.priority,
+                    tenant=body.tenant))
+            except _SHED as exc:
                 results.append(exc)
         for i, handle in enumerate(results):
             if not isinstance(handle, Exception):
@@ -455,6 +539,10 @@ class _Handler(BaseHTTPRequestHandler):
                     results[i] = DS.collect(*handle)
                 except Exception as exc:  # noqa: BLE001 — answered below
                     results[i] = exc
+        for trace, res in zip(traces, results):
+            if trace is not None and not trace.finished and not trace.owned:
+                trace.finish(_SHED_REASON.get(type(res), "error")
+                             if isinstance(res, Exception) else "completed")
         errors = [r for r in results if isinstance(r, Exception)]
         if not errors:
             self._send_json(200, {"sequences": results})
@@ -489,7 +577,111 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, {"cost": cost})
 
     def serving_stats(self, query):
-        self._send_json(200, DS.serving_stats())
+        stats = DS.serving_stats()
+        # the engines' raw bucket snapshots stay server-side, as the JAX
+        # service's response schema drops them
+        for engine in stats["engines"]:
+            engine.pop("histograms", None)
+        self._send_json(200, stats)
+
+    def metrics(self, query):
+        """Prometheus text exposition (format 0.0.4)."""
+        self._send_body(200, serve_metrics.CONTENT_TYPE,
+                        serve_metrics.render().encode())
+
+    def trace_list(self, query):
+        """Summaries of the completed ring (most recent first, ``limit``
+        of them, clamped to 1-1000) and of the traces in flight."""
+        try:
+            limit = max(1, min(1000, int(query.get("limit", ["50"])[0])))
+        except ValueError:
+            raise _HTTPError(422, "limit must be an integer")
+        self._send_json(200, {
+            "traces": [t.summary() for t in tracing.completed(limit)],
+            "live": [t.summary() for t in tracing.live()]})
+
+    def trace_detail(self, query):
+        """One request's span tree (in flight too); ``?format=chrome``
+        gives Chrome trace-event JSON."""
+        rid = self.path_params["request_id"]
+        trace = tracing.get(rid)
+        if trace is None:
+            raise KeyError(f"no trace for request id {rid!r} (ring holds "
+                           f"PENROZ_TRACE_BUFFER most recent)")
+        fmt = query.get("format", ["json"])[0]
+        if fmt == "chrome":
+            self._send_json(200, trace.to_chrome())
+        elif fmt == "json":
+            self._send_json(200, trace.to_dict())
+        else:
+            raise _HTTPError(422, f"unknown format {fmt!r} (expected "
+                                  f"'json' or 'chrome')")
+
+    def memory(self, query):
+        """The capacity ledger (serve/memledger.py)."""
+        self._send_json(200, memledger.memory_stats())
+
+    def debug_dump(self, query):
+        """The flight recorder's ring of pre-crash snapshots.  The JAX
+        service's ``restart_recovery`` (journal replay) is not ported and
+        stays empty."""
+        self._send_json(200, dict(memledger.FLIGHT_RECORDER.dump(),
+                                  restart_recovery={}))
+
+    def list_tenants(self, query):
+        """Quota state: overrides, tokens charged and sheds per tenant."""
+        self._send_json(200, {"tenants": qos.QUOTAS.stats(),
+                              "default_tokens_per_s": qos.QUOTAS.rate_for(
+                                  None)})
+
+    def put_tenant_quota(self, query):
+        """A tenant's token-rate override (``tokens_per_s: null`` clears
+        it, 0 blocks its new admissions).  ``tier_mb`` (the KV-tier
+        quota) is a 400: the tiers are not ported; so no override is
+        journaled either (the journal is not ported)."""
+        tenant_id = unquote(self.path_params["tenant_id"])
+        body = self._body(schemas.TenantQuotaRequest)
+        if body.tier_mb is not None:
+            raise ValueError("the request field 'tier_mb' selects the "
+                             "KV-tier residency quota of hibernated "
+                             "sessions, which penroz_tpu_torch does not "
+                             "support yet")
+        if body.tokens_per_s is not None and body.tokens_per_s < 0:
+            raise ValueError("tokens_per_s must be >= 0 (or null to clear "
+                             "the override)")
+        qos.QUOTAS.set_rate(tenant_id, body.tokens_per_s)
+        log.info("Tenant %s quota %s", tenant_id,
+                 "cleared (env default)" if body.tokens_per_s is None
+                 else f"set to {body.tokens_per_s} tokens/s")
+        self._send_json(200, {
+            "tenant": tenant_id,
+            "tokens_per_s": qos.QUOTAS.rate_for(tenant_id),
+            "override": body.tokens_per_s is not None,
+            # the KV-tier cap (not ported): 0, unlimited, in the JAX shape
+            "tier_bytes": 0.0})
+
+    def redirect_to_dashboard(self, query):
+        self.send_response(302)
+        self.send_header("Location", "/dashboard")
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def dashboard(self, query):
+        with open(os.path.join(TEMPLATES_DIR, "dashboard.html"), "rb") as f:
+            self._send_body(200, "text/html; charset=utf-8", f.read())
+
+    def static(self, query):
+        """A file of serve/static/ (the dashboard's script and style)."""
+        name = unquote(self.path_params["path"])
+        path = os.path.join(STATIC_DIR, name)
+        if (os.path.dirname(os.path.abspath(path)) != STATIC_DIR
+                or not os.path.isfile(path)):
+            raise _HTTPError(404, f"No static file {name!r}")
+        ctype = mimetypes.guess_type(path)[0] or "application/octet-stream"
+        if ctype.startswith("text/") or ctype.endswith("javascript"):
+            ctype += "; charset=utf-8"
+        with open(path, "rb") as f:
+            self._send_body(200, ctype, f.read())
 
     def decode(self, query):
         body = self._body(schemas.DecodeTokensRequest)
@@ -657,13 +849,29 @@ class _Handler(BaseHTTPRequestHandler):
                         openapi.docs_html().encode())
 
 
-_SHED = (DS.QueueFullError, DS.CircuitOpenError, DS.DeadlineExceeded)
+# the scheduler's sheds, and the retire_reason each gives a trace
+_SHED_REASON = {DS.QueueFullError: "queue_full",
+                DS.CircuitOpenError: "breaker_open",
+                DS.DeadlineExceeded: "timeout",
+                DS.TenantQuotaExceeded: "quota"}
+_SHED = tuple(_SHED_REASON)
 
-_GET = {"/healthz": _Handler.healthz, "/readyz": _Handler.readyz,
+# Route tables by method: a key is an exact path or a template whose
+# ``{name}`` parts match one path segment each (:func:`_match`).
+_GET = {"/": _Handler.redirect_to_dashboard,
+        "/dashboard": _Handler.dashboard,
+        "/static/{path}": _Handler.static,
+        "/healthz": _Handler.healthz, "/readyz": _Handler.readyz,
+        "/metrics": _Handler.metrics,
+        "/trace/": _Handler.trace_list,
+        "/trace/{request_id}": _Handler.trace_detail,
         "/openapi.json": _Handler.openapi_json, "/docs": _Handler.docs,
         "/progress/": _Handler.progress,
         "/stats/": _Handler.model_stats,
         "/serving_stats/": _Handler.serving_stats,
+        "/memory/": _Handler.memory,
+        "/debug/dump": _Handler.debug_dump,
+        "/tenants/": _Handler.list_tenants,
         "/dataset/": _Handler.list_dataset}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/generate_batch/": _Handler.generate_batch,
@@ -673,9 +881,29 @@ _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize,
          "/profile/": _Handler.profile,
          "/profiler/trace/": _Handler.profile}
-_PUT = {"/train/": _Handler.train}
+_PUT = {"/train/": _Handler.train,
+        "/tenants/{tenant_id}/quota": _Handler.put_tenant_quota}
 _DELETE = {"/model/": _Handler.delete_model,
            "/dataset/": _Handler.delete_dataset}
+
+
+@functools.lru_cache(maxsize=None)
+def _template_re(template: str):
+    return re.compile("^" + re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)",
+                                   re.escape(template)) + "$")
+
+
+def _match(routes: dict, path: str):
+    """``(handler, path parameters)`` of ``path`` in ``routes``, or
+    ``(None, {})``."""
+    handler = routes.get(path)
+    if handler is not None:
+        return handler, {}
+    for template, fn in routes.items():
+        m = "{" in template and _template_re(template).match(path)
+        if m:
+            return fn, m.groupdict()
+    return None, {}
 
 
 def create_app(device=None, host: str = "127.0.0.1",
@@ -696,7 +924,12 @@ def main(argv=None):  # pragma: no cover
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    handler = logging.StreamHandler()
+    handler.addFilter(tracing.RequestIdFilter())
+    logging.basicConfig(
+        level=logging.INFO, handlers=[handler],
+        format="%(asctime)s %(levelname)s [%(request_id)s] %(name)s: "
+               "%(message)s")
     server = create_app(args.device, args.host, args.port)
     log.info("Serving on %s:%d (%s)", *server.server_address[:2],
              server.device)

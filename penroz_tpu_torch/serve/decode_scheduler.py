@@ -82,16 +82,41 @@ back ``GET /readyz``.  The fault sites ``decode.step``,
 ``decode.prefill_chunk`` and ``decode.verify`` (utils/faults.py) fire
 before each block's dispatch, as in the JAX package.
 
+Multi-tenant QoS (serve/qos.py): a request carries a ``priority``
+(``interactive``, ``standard`` or ``batch``) and a ``tenant``.  The
+admission queue is a :class:`~penroz_tpu_torch.serve.qos.WFQueue`
+(deficit-weighted round robin over ``(tenant, class)`` sub-queues); a
+tenant whose token bucket is empty is refused at ``submit`` with
+:class:`TenantQuotaExceeded` (429 + Retry-After), and
+``PENROZ_QOS_MAX_QUEUE_<CLASS>`` bounds one class's queue.  With the
+prefix cache on and the batch full, a queued ``interactive`` request
+preempts the lowest-class, longest-running decode row
+(``PENROZ_QOS_PREEMPT``, default 1): the victim's history goes into the
+radix cache (its uncached pages copied, the chain pinned), its row frees
+with no terminal event, and it requeues at the head of its sub-queue;
+its resume admission aliases the pinned pages back and prefills only the
+rest, so greedy tokens equal an unpreempted run's.  The fault site
+``qos.preempt`` fires before any mutation.
+
+Observability: fixed-bucket histograms (utils/metrics.py: TTFT, ITL,
+queue wait, chunk stall, tick time, tokens per dispatch, TTFT and queue
+wait per class) per engine and mirrored process-wide into
+serve/metrics.py (``GET /metrics``); a per-request span tree
+(utils/tracing.py: queue, prefill, prefix_match, prefill_chunk, decode,
+decode_step, preempt, resume, recovery, ``retire_reason``) when the
+request carries a trace; the capacity ledger and flight recorder
+(serve/memledger.py, ``GET /memory/``, ``GET /debug/dump``; with
+``PENROZ_MEMLEDGER_STRICT=1`` every retirement, preemption and crash
+recovery audits the page partition).  :func:`serving_stats` backs
+``GET /serving_stats/`` under the JAX package's key names.
+
 Models with ``ssm`` layers are refused (HTTP 400): their rows need the
 packed recurrent update (``SSMState.update_packed``), not ported yet.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
-the contiguous cache, replicas, disaggregated prefill, serving meshes and
-pipeline stages; QoS classes, tenants, sessions and LoRA adapters on
-requests are refused by the HTTP layer.
-
-Observability: :func:`serving_stats` backs ``GET /serving_stats/`` under
-the JAX package's key names.
+the contiguous cache, replicas, disaggregated prefill, serving meshes,
+pipeline stages and the KV-tier quota (``PENROZ_QOS_TENANT_TIER_MB``);
+sessions and LoRA adapters on requests are refused by the HTTP layer.
 """
 
 from __future__ import annotations
@@ -109,8 +134,12 @@ import numpy as np
 from penroz_tpu_torch.models.model import NeuralNetworkModel
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
-from penroz_tpu_torch.serve import spec_decode
-from penroz_tpu_torch.utils import bucketing, checkpoint, faults, profiling
+from penroz_tpu_torch.serve import memledger, qos, spec_decode
+from penroz_tpu_torch.serve import metrics as serve_metrics
+from penroz_tpu_torch.serve.qos import TenantQuotaExceeded
+from penroz_tpu_torch.utils import (bucketing, checkpoint, faults,
+                                    profiling)
+from penroz_tpu_torch.utils import metrics as metrics_util
 
 log = logging.getLogger(__name__)
 
@@ -145,6 +174,8 @@ _UNPORTED_SERVING_ENV = (
 # payload (the JAX package's defaults).
 _TIMELINE_LEN = 256
 _TIMELINE_SERVE = 120
+# Window of the recent tokens/s rate (and the ledger's burn rate), seconds.
+_TPS_WINDOW_S = 30.0
 
 
 def _rate(num, den):
@@ -282,6 +313,7 @@ def unported_serving_options() -> None:
         if value is not None and selects(value):
             raise ValueError(f"{name}={value!r} selects {what}, which "
                              f"penroz_tpu_torch does not support yet")
+    qos.unported_tier_quota()
 
 
 def eligible(prompt: list[int], block_size: int, max_new_tokens: int) -> bool:
@@ -299,19 +331,41 @@ class Request:
     ``("token", int)`` per generated token (the stop token included), then
     ``("done", None)``, ``("error", exc)`` or ``("timeout",
     DeadlineExceeded)``.  Setting ``cancelled`` retires the row at the
-    next block boundary."""
+    next block boundary.
+
+    ``priority`` (an SLO class, serve/qos.py; ``standard`` when None, a
+    ValueError for an unknown one) and ``tenant`` (``default`` when None)
+    route it through the fair queue and the quota buckets.
+    ``request_id`` is its ``X-Request-Id``; ``trace`` (utils/tracing.py)
+    its span tree, or None when sampled out — every recording site is
+    None-guarded."""
 
     __slots__ = ("prompt", "max_new_tokens", "stop_token", "on_event",
-                 "cancelled", "enqueue_t", "deadline")
+                 "cancelled", "enqueue_t", "deadline", "request_id",
+                 "trace", "priority", "tenant", "resume_history",
+                 "resume_produced", "resume_nodes", "preempted")
 
     def __init__(self, prompt, max_new_tokens, stop_token, on_event,
-                 timeout_ms=None):
+                 timeout_ms=None, request_id=None, trace=None,
+                 priority=None, tenant=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.stop_token = stop_token
         self.on_event = on_event
         self.cancelled = False
         self.enqueue_t = time.monotonic()
+        self.priority = qos.validate_priority(priority)
+        self.tenant = qos.tenant_of(tenant)
+        # Preempt-to-prefix-cache resume state: the full history (prompt +
+        # emitted tokens) is the resume admission's effective prompt, and
+        # ``resume_nodes`` pin the cached pages until its prefix match
+        # re-pins them.
+        self.resume_history = None
+        self.resume_produced = 0
+        self.resume_nodes: list = []
+        self.preempted = 0
+        self.request_id = request_id
+        self.trace = trace
         budget = _effective_timeout_ms(timeout_ms)
         self.deadline = (self.enqueue_t + budget / 1000.0
                          if budget is not None else None)
@@ -323,11 +377,21 @@ class Request:
 
 class _Row:
     __slots__ = ("req", "produced", "prefilling", "prefilled", "chunks",
-                 "chunk_idx", "history", "prefix_nodes")
+                 "chunk_idx", "history", "prefix_nodes", "admit_t",
+                 "resumed", "last_emit_t", "sp_prefill", "sp_decode")
 
     def __init__(self, req: Request):
         self.req = req
         self.produced = 0
+        # admission time ranks preemption victims (longest-running first);
+        # a resumed row skips TTFT (its first token shipped before the
+        # preempt)
+        self.admit_t = time.monotonic()
+        self.resumed = False
+        # inter-token latency anchor, and the row's open trace spans
+        self.last_emit_t = None
+        self.sp_prefill = None
+        self.sp_decode = None
         # PREFILLING phase: ``prefilled`` is the row's valid KV length so
         # far; ``chunks`` the pow-2-tailed plan over the prompt.
         self.prefilling = True
@@ -372,9 +436,14 @@ class DecodeEngine:
         self._lengths = np.zeros(self.capacity, np.int32)
         self._last_tok = np.zeros(self.capacity, np.int32)
         self._rows: list = [None] * self.capacity
+        # the capacity ledger (serve/memledger.py) derives page ownership
+        # from the structures below; it outlives state reallocations
+        self._ledger = memledger.MemoryLedger(self)
         self._alloc_state()
 
-        self._pending: collections.deque = collections.deque()
+        # the admission queue: deficit-weighted round robin over (tenant,
+        # class) sub-queues; every use holds _cond
+        self._pending = qos.WFQueue()
         self._cond = threading.Condition()
         self._shutdown = False
         self._draining = False
@@ -400,8 +469,9 @@ class DecodeEngine:
         self._decode_time_s = 0.0
         self._prefill_chunks = 0
         self._dispatches = 0
-        self._dispatch_tokens = 0
-        self._pool_drops = 0
+        self._occupancy_sum = 0.0
+        # (monotonic s, decode tokens) per block, the last _TPS_WINDOW_S
+        self._token_window: collections.deque = collections.deque()
         self._spec_verify_steps = 0
         self._spec_drafted_tokens = 0
         self._spec_accepted_tokens = 0
@@ -410,6 +480,30 @@ class DecodeEngine:
         self._queue_rejections = 0
         self._breaker_rejections = 0
         self._deadline_timeouts = 0
+        # QoS accounting: sheds by a tenant's quota, preemptions and the
+        # tokens their resumes restored from the cache, admissions per
+        # class, emitted tokens per tenant
+        self._quota_rejections = 0
+        self._preemptions = 0
+        self._resume_cached_tokens = 0
+        self._class_admissions = collections.Counter()
+        self._tenant_tokens: dict = {}
+        # Latency distributions (utils/metrics.py Hist, the JAX package's
+        # buckets), mirrored process-wide into serve/metrics.py:
+        # enqueue -> first token, enqueue -> admission, the decode batch's
+        # stall per block from prefill chunks (0 in a unified block, where
+        # chunks ride the decode dispatch), the per-row host emission gap,
+        # the tick's wall time, and TTFT / queue wait per class.
+        self._h_ttft = metrics_util.Hist()
+        self._h_queue_wait = metrics_util.Hist()
+        self._h_chunk_stall = metrics_util.Hist()
+        self._h_itl = metrics_util.Hist()
+        self._h_tick = metrics_util.Hist()
+        self._h_ttft_cls = {c: metrics_util.Hist() for c in qos.PRIORITIES}
+        self._h_queue_wait_cls = {c: metrics_util.Hist()
+                                  for c in qos.PRIORITIES}
+        self._h_tokens_per_dispatch = metrics_util.Hist(
+            metrics_util.TOKENS_PER_DISPATCH_BUCKETS)
         self._tick_timeline: collections.deque = collections.deque(
             maxlen=_TIMELINE_LEN)
 
@@ -424,6 +518,7 @@ class DecodeEngine:
         tail (pages ``[capacity * pages_per_seq, num_pool_pages)``, which the
         partition never touches) — at construction and after a failed
         tick, whose KV and prefix state are presumed corrupt."""
+        old_cache = self._prefix_cache
         self._kv = (KV.create_kv_state(self._model.arch.kv_specs,
                                        self.capacity, self.block_size,
                                        self._model.dtype, paged=True,
@@ -439,23 +534,32 @@ class DecodeEngine:
         self._lengths[:] = 0
         self._last_tok[:] = 0
         self._rows = [None] * self.capacity
+        # the dying cache's underflow count carries into the ledger's
+        self._ledger.on_realloc(old_cache)
 
     # -- public surface -----------------------------------------------------
 
     def _queue_retry_after(self) -> int:
         """Retry-After of a queue shed: the queued work's rough drain time
-        (depth x the recent tick median, 50 ms before any tick), in
-        [1, 30] s.  Callers hold _cond."""
-        # list() copies in one step: the worker appends without the lock
-        ticks = sorted(e["dispatch_ms"] for e in list(self._tick_timeline))
-        tick_ms = ticks[len(ticks) // 2] if ticks else 50.0
+        (depth x the recent tick p50, 50 ms before any tick), in [1, 30] s.
+        Callers hold _cond."""
+        tick_ms = self._h_tick.quantile(0.5) or 50.0
         return int(min(30, max(1, math.ceil(
             len(self._pending) * tick_ms / 1000.0))))
 
+    def _shed_span(self, req: Request, reason: str):
+        """A shed request never reaches a row; its trace still carries the
+        queue wait (enqueue -> shed) and the typed reason."""
+        if req.trace is not None:
+            sp = req.trace.span("queue", t0=req.enqueue_t)
+            req.trace.end(sp)
+            req.trace.event("shed", reason=reason)
+
     def submit(self, req: Request):
-        """Queue ``req`` or refuse it now (a bounded queue, an open breaker,
-        a draining engine), so that the client gets a typed answer at
-        once instead of a stalled connection."""
+        """Queue ``req`` or refuse it now (a bounded queue, an exhausted
+        tenant quota, an open breaker, a draining engine), so that the
+        client gets a typed answer at once instead of a stalled
+        connection."""
         with self._cond:
             if self._shutdown or self._draining:
                 raise RuntimeError("decode engine is shut down")
@@ -465,6 +569,10 @@ class DecodeEngine:
                 remaining_s = self._breaker_open_t + cooldown_s - now
                 if self._probe_inflight or remaining_s > 0:
                     self._breaker_rejections += 1
+                    serve_metrics.BREAKER_REJECTIONS.inc()
+                    serve_metrics.REQUESTS.inc(outcome="breaker_open")
+                    if req.trace is not None:
+                        req.trace.event("shed", reason="breaker_open")
                     raise CircuitOpenError(
                         f"engine {self.model_id}: circuit breaker open "
                         f"after {self._crashes} consecutive crashes",
@@ -474,14 +582,44 @@ class DecodeEngine:
                 # closes the breaker (_retire), its failure re-arms the
                 # cooldown (_probe_failed)
                 self._probe_inflight = True
-            max_queue = _max_queue()
-            if max_queue and len(self._pending) >= max_queue:
+            # an exhausted bucket sheds THIS tenant's new admissions; rows
+            # in flight, anyone's, are never touched
+            try:
+                qos.QUOTAS.admit(req.tenant)
+            except TenantQuotaExceeded:
+                self._quota_rejections += 1
+                serve_metrics.QUOTA_REJECTIONS.inc(tenant=req.tenant)
+                serve_metrics.REQUESTS.inc(outcome="quota")
+                self._shed_span(req, "quota")
+                self._probe_failed()
+                raise
+            # the class's bound when PENROZ_QOS_MAX_QUEUE_<CLASS> is set
+            # (0: unbounded), else the aggregate PENROZ_SCHED_MAX_QUEUE
+            cls_bound = qos.class_queue_bound(req.priority)
+            if cls_bound is not None:
+                full = (cls_bound and self._pending.class_depth(
+                    req.priority) >= cls_bound)
+                bound_desc = f"{cls_bound} {req.priority} waiting"
+            else:
+                max_queue = _max_queue()
+                full = max_queue and len(self._pending) >= max_queue
+                bound_desc = f"{max_queue} waiting"
+            if full:
                 self._queue_rejections += 1
+                serve_metrics.QUEUE_REJECTIONS.inc()
+                serve_metrics.REQUESTS.inc(outcome="queue_full")
+                self._shed_span(req, "queue_full")
+                self._probe_failed()
                 raise QueueFullError(
                     f"engine {self.model_id}: admission queue full "
-                    f"({max_queue} waiting)",
+                    f"({bound_desc})",
                     retry_after=self._queue_retry_after())
-            self._pending.append(req)
+            self._pending.push(req)
+            if req.trace is not None:
+                # from here every terminal path (retirement, purge, crash
+                # recovery, shutdown) runs through this engine, which
+                # finishes the trace
+                req.trace.owned = True
             self._cond.notify_all()
 
     def shutdown(self, timeout: float = 10.0, drain_s: float = 0.0) -> bool:
@@ -539,11 +677,43 @@ class DecodeEngine:
                         elapsed_ms, limit)
         return True
 
+    def _round_q(self, hist: metrics_util.Hist, q: float):
+        v = hist.quantile(q)
+        return round(v, 3) if v is not None else None
+
     def stats(self) -> dict:
+        """The engine's observability accessor (JAX key names): every
+        aggregate (``serving_stats()``) and scrape reads through here.  The
+        ``histograms`` key carries the raw bucket snapshots the aggregation
+        merges; the HTTP layer drops it from ``/serving_stats/``, as the
+        JAX service's response schema does."""
         now = time.monotonic()
+        window = [(t, n) for t, n in list(self._token_window)
+                  if now - t <= _TPS_WINDOW_S]
+        span = (now - window[0][0]) if window else 0.0
+        recent = sum(n for _, n in window)
+        tps = recent / span if span > 0.2 else (
+            self._decode_tokens / self._decode_time_s
+            if self._decode_time_s > 0 else 0.0)
         timeline = list(self._tick_timeline)[-_TIMELINE_SERVE:][::-1]
         active = self.active_rows
+        tpd = self._h_tokens_per_dispatch.snapshot()
+        with self._cond:
+            by_class = self._pending.class_depths()
         return {
+            "histograms": {
+                "ttft_ms": self._h_ttft.snapshot(),
+                "itl_ms": self._h_itl.snapshot(),
+                "queue_wait_ms": self._h_queue_wait.snapshot(),
+                "chunk_stall_ms": self._h_chunk_stall.snapshot(),
+                "tick_ms": self._h_tick.snapshot(),
+                "tokens_per_dispatch": tpd,
+                "ttft_ms_by_class": {
+                    c: h.snapshot() for c, h in self._h_ttft_cls.items()},
+                "queue_wait_ms_by_class": {
+                    c: h.snapshot()
+                    for c, h in self._h_queue_wait_cls.items()},
+            },
             "model_id": self.model_id,
             "block_size": self.block_size,
             "temperature": 0.0 if self.greedy else float(self.temperature),
@@ -552,23 +722,35 @@ class DecodeEngine:
             "active_rows": active,
             "queue_depth": self.queue_depth,
             "occupancy": active / self.capacity,
+            "occupancy_avg": (self._occupancy_sum / self._decode_steps
+                              if self._decode_steps else 0.0),
             "superstep": _superstep_max(),
             "dispatches_total": self._dispatches,
-            "tokens_per_dispatch_avg": (
-                round(self._dispatch_tokens / self._dispatches, 3)
-                if self._dispatches else None),
+            "tokens_per_dispatch_avg": (round(tpd["sum"] / tpd["count"], 3)
+                                        if tpd["count"] else None),
+            "tokens_per_dispatch_p50": self._round_q(
+                self._h_tokens_per_dispatch, 0.5),
+            "ttft_ms_p99": self._round_q(self._h_ttft, 0.99),
+            "itl_ms_p50": self._round_q(self._h_itl, 0.5),
+            "itl_ms_p99": self._round_q(self._h_itl, 0.99),
+            "tick_ms_p50": self._round_q(self._h_tick, 0.5),
+            "tick_ms_p99": self._round_q(self._h_tick, 0.99),
+            "admission_latency_ms_p50": self._round_q(self._h_ttft, 0.5),
+            "queue_wait_ms_p99": self._round_q(self._h_queue_wait, 0.99),
+            "prefill_chunk_stall_ms_p99": self._round_q(self._h_chunk_stall,
+                                                        0.99),
             "decode_steps": self._decode_steps,
             "decode_tokens": self._decode_tokens,
-            "decode_tokens_per_sec": round(
-                self._decode_tokens / self._decode_time_s, 2)
-            if self._decode_time_s > 0 else 0.0,
+            "decode_tokens_per_sec": round(tps, 2),
             "tokens_per_decode_step": round(
                 self._decode_tokens / self._decode_steps, 3)
             if self._decode_steps else 0.0,
             "admissions": self._admissions,
             "completed": self._completed,
             "prefill_chunks": self._prefill_chunks,
-            "kv_pool_capacity_drops": self._pool_drops,
+            "kv_pool_capacity_drops": self._ledger.pool_capacity_drops,
+            "unpin_underflows": self._ledger.unpin_underflows,
+            "memory": self._ledger.snapshot(),
             "crashes_total": self._crashes_total,
             "engine_resets": self._engine_resets,
             "consecutive_crashes": self._crashes,
@@ -577,6 +759,19 @@ class DecodeEngine:
             "queue_rejections": self._queue_rejections,
             "deadline_timeouts": self._deadline_timeouts,
             "breaker_rejections": self._breaker_rejections,
+            "quota_rejections": self._quota_rejections,
+            "preemptions": self._preemptions,
+            "preempted_resume_cached_tokens": self._resume_cached_tokens,
+            "queue_depth_by_class": by_class,
+            "admissions_by_class": {
+                c: self._class_admissions[c] for c in qos.PRIORITIES},
+            "tenant_tokens": dict(self._tenant_tokens),
+            "ttft_ms_p99_by_class": {
+                c: self._round_q(h, 0.99)
+                for c, h in self._h_ttft_cls.items()},
+            "queue_wait_ms_p99_by_class": {
+                c: self._round_q(h, 0.99)
+                for c, h in self._h_queue_wait_cls.items()},
             "prefix_cache": (self._prefix_cache.stats()
                              if self._prefix_cache is not None else None),
             "spec_decode": self._spec_on(),
@@ -590,6 +785,10 @@ class DecodeEngine:
                  **{k: v for k, v in e.items() if k != "t"}}
                 for e in timeline],
         }
+
+    def memory_snapshot(self) -> dict:
+        """The engine's capacity-ledger view (``GET /memory/``)."""
+        return self._ledger.snapshot()
 
     # -- worker -------------------------------------------------------------
 
@@ -605,25 +804,48 @@ class DecodeEngine:
                 if self._shutdown:
                     break
             try:
-                self._purge_expired()
-                self._coalesce_burst()
-                self._admit()
+                # admission and the block's replay mutate the rows and the
+                # radix tree under _cond, so a ledger snapshot (which takes
+                # it) sees a block boundary's state, never a torn one
+                with self._cond:
+                    self._purge_expired()
+                    self._coalesce_burst()
+                    self._admit()
                 self._tick_unified()
             except Exception as exc:  # noqa: BLE001 — fail requests, not thread
                 log.exception("Decode engine %s failed a tick", self.model_id)
+                # count the crash, then the postmortem, BEFORE the failure
+                # and the reset throw the pre-crash state away
                 self._record_crash()
-                self._fail_all(exc)
+                memledger.FLIGHT_RECORDER.record(self, "engine_crash",
+                                                 error=repr(exc))
+                with self._cond:
+                    crashed = self._fail_all(exc, crashed=True)
                 try:
                     # the KV and prefix state are presumed corrupt: the next
                     # request runs on a pool and a radix tree built anew
                     self._engine_resets += 1
-                    self._alloc_state()
+                    serve_metrics.ENGINE_RESETS.inc()
+                    t_crash = time.monotonic()
+                    with self._cond:
+                        self._alloc_state()
+                    # recovery must hand back a provably clean pool
+                    if memledger.strict():
+                        self._ledger.audit("crash_recovery")
+                    for trace in crashed:
+                        sp = trace.span("recovery", t0=t_crash,
+                                        resets=self._engine_resets)
+                        trace.end(sp)
+                        trace.finish("error")
                     log.warning("Decode engine %s reset after crash %d "
                                 "(consecutive %d)", self.model_id,
                                 self._crashes_total, self._crashes)
                 except Exception:  # noqa: BLE001 — the engine is unusable
                     log.exception("Decode engine %s reset failed; shutting "
                                   "it down", self.model_id)
+                    memledger.FLIGHT_RECORDER.record(self, "reset_failed")
+                    for trace in crashed:
+                        trace.finish("error")
                     with self._cond:
                         self._breaker_open = True
                         self._breaker_open_t = time.monotonic()
@@ -632,6 +854,7 @@ class DecodeEngine:
         self._fail_all(RuntimeError("decode engine shut down"))
 
     def _record_crash(self):
+        serve_metrics.ENGINE_CRASHES.inc()
         with self._cond:
             self._crashes += 1
             self._crashes_total += 1
@@ -642,11 +865,12 @@ class DecodeEngine:
                           "consecutive crashes (next probe in %.0f ms)",
                           self.model_id, self._crashes,
                           _breaker_cooldown_ms())
+                memledger.FLIGHT_RECORDER.record(self, "circuit_open")
 
     def _probe_failed(self):
-        """The probe ended without completing (crash, deadline, cancel):
-        the breaker stays open and its cooldown starts again.  Callers
-        hold _cond."""
+        """The probe ended without completing (crash, deadline, cancel,
+        shed): the breaker stays open and its cooldown starts again.
+        Callers hold _cond."""
         if self._probe_inflight:
             self._probe_inflight = False
             self._breaker_open_t = time.monotonic()
@@ -656,25 +880,40 @@ class DecodeEngine:
         prefill) and drop cancelled ones (a client that went away must not
         cost a prefill)."""
         now = time.monotonic()
-        removed, kept = [], collections.deque()
         with self._cond:
-            for r in self._pending:
-                (removed if r.cancelled or r.expired(now) else kept).append(r)
-            if removed:
-                self._pending = kept
+            if not self._pending:
+                return
+            removed = self._pending.purge(
+                lambda r: r.cancelled or r.expired(now))
         for req in removed:
             self._drop_queued(req)
 
     def _drop_queued(self, req: Request):
-        """A cancelled or expired request that never reached a row."""
+        """A cancelled or expired request that never reached a row: its
+        resume pins go, its trace ends, an expired one answers 504."""
+        self._release_resume(req)
         with self._cond:
             if self._breaker_open:
                 self._probe_failed()
-        if not req.cancelled:
-            self._deadline_timeouts += 1
-            self._deliver(req, "timeout", DeadlineExceeded(
-                "queued", "request deadline expired while queued "
-                "(before prefill started)"))
+        if req.cancelled:
+            serve_metrics.REQUESTS.inc(outcome="cancelled")
+            self._finish_trace(req, "cancelled")
+            return
+        self._deadline_timeouts += 1
+        serve_metrics.DEADLINE_TIMEOUTS.inc()
+        serve_metrics.REQUESTS.inc(outcome="timeout")
+        if req.trace is not None:
+            sp = req.trace.span("queue", t0=req.enqueue_t)
+            req.trace.end(sp)
+        self._finish_trace(req, "timeout")
+        self._deliver(req, "timeout", DeadlineExceeded(
+            "queued", "request deadline expired while queued "
+            "(before prefill started)"))
+
+    @staticmethod
+    def _finish_trace(req: Request, reason: str):
+        if req.trace is not None:
+            req.trace.finish(reason)
 
     def _coalesce_burst(self):
         """With ``PENROZ_SCHED_ADMIT_MS`` > 0 and no row in flight, wait up
@@ -684,9 +923,10 @@ class DecodeEngine:
         if admit_ms <= 0 or self.active_rows:
             return
         with self._cond:
-            if not self._pending:
+            first_t = self._pending.oldest_enqueue_t()
+            if first_t is None:
                 return
-            deadline = self._pending[0].enqueue_t + admit_ms / 1000.0
+            deadline = first_t + admit_ms / 1000.0
             while (len(self._pending) < self.capacity
                    and not self._shutdown
                    and time.monotonic() < deadline):
@@ -702,12 +942,18 @@ class DecodeEngine:
     def _admit(self):
         while True:
             row = self._free_row()
+            req = None
             if row is None:
-                return
-            with self._cond:
-                if self._draining or not self._pending:
+                row, req = self._try_preempt()
+                if row is None:
                     return
-                req = self._pending.popleft()
+            if req is None:
+                with self._cond:
+                    if self._draining or not self._pending:
+                        return
+                    req = self._pending.pop()
+                if req is None:
+                    return
             if req.cancelled or req.expired():
                 self._drop_queued(req)
                 continue
@@ -715,29 +961,186 @@ class DecodeEngine:
                 self._maybe_reload()
             self._begin_prefill(row, req)
 
+    # -- preemption (to the prefix cache; the resume recomputes nothing) ----
+
+    def _try_preempt(self):
+        """With the batch full and an ``interactive`` request queued, evict
+        the lowest-class longest-running decode row into the radix prefix
+        cache and hand its row to the interactive request specifically
+        (fair-queue order would hand it back to the flood).  Returns
+        ``(row, request)`` or ``(None, None)``."""
+        if not qos.preempt_enabled() or self._prefix_cache is None:
+            return None, None
+        with self._cond:
+            if (self._draining
+                    or self._pending.class_depth("interactive") == 0):
+                return None, None
+        victim = self._preempt_victim()
+        if victim is None:
+            return None, None
+        self._preempt_row(victim)
+        with self._cond:
+            req = self._pending.pop_class("interactive")
+        return victim, req
+
+    def _preempt_victim(self):
+        """The victim row: a class below ``interactive`` (an interactive
+        row is never preempted), decode phase only (a prefilling row has
+        produced nothing a client waits on), ``batch`` before
+        ``standard``, then the earliest admission."""
+        best = best_rank = None
+        for i, state in enumerate(self._rows):
+            if state is None or state.prefilling:
+                continue
+            pri = state.req.priority
+            if pri == "interactive":
+                continue
+            rank = (0 if pri == "batch" else 1, state.admit_t)
+            if best_rank is None or rank < best_rank:
+                best, best_rank = i, rank
+        return best
+
+    def _preempt_row(self, row: int):
+        """Evict one decode row into the radix prefix cache: its pages are
+        already pool-resident, so eviction inserts its history into the
+        tree, copies the pages the tree lacks and frees the row.  The
+        request requeues at the head of its sub-queue holding the pinned
+        chain; the resume admission's prefix match aliases it back.  The
+        ``qos.preempt`` fault site fires before any mutation, and a crash
+        anywhere here fails the tick, whose reset rebuilds the pool and
+        the cache, so no pin outlives the state it guards."""
+        faults.check("qos.preempt")
+        state = self._rows[row]
+        req = state.req
+        t0 = time.monotonic()
+        # a decode row holds KV for len(history) - 1 tokens (the newest
+        # token's KV is written by the step that feeds it): insert the
+        # full pages below that
+        kv_len = int(self._lengths[row])
+        created = self._prefix_cache.insert(state.history, limit=kv_len)
+        if created:
+            S = self._kv.pages_per_seq
+            self._kv.copy_pages([row * S + b for b, _ in created],
+                                [page for _, page in created])
+        # pin the whole cached chain until the resume re-pins it: LRU
+        # eviction must not recycle these pages while the request waits
+        nodes = self._prefix_cache.chain(state.history, limit=kv_len)
+        self._prefix_cache.pin(nodes)
+        cached = len(nodes) * self._prefix_cache.page_size
+        # free the row without a terminal event: the stream stays open
+        self._rows[row] = None
+        self._lengths[row] = 0
+        self._last_tok[row] = 0
+        self._release_prefix(row, state)
+        self._kv.reset_row(row)
+        req.resume_history = list(state.history)
+        req.resume_produced = state.produced
+        req.resume_nodes = nodes
+        req.preempted += 1
+        # the resume's queue wait starts at the preempt (the deadline stays
+        # anchored at the original enqueue)
+        req.enqueue_t = t0
+        self._preemptions += 1
+        serve_metrics.PREEMPTIONS.inc()
+        self._ledger.note_pressure()
+        if req.trace is not None:
+            req.trace.end(state.sp_prefill)
+            req.trace.end(state.sp_decode, produced=state.produced)
+            sp = req.trace.span("preempt", t0=t0, cached_tokens=cached,
+                                produced=state.produced)
+            req.trace.end(sp)
+            req.trace.event("capacity_pressure", reason="preempted",
+                            cached_tokens=cached)
+        with self._cond:
+            self._pending.push_front(req)
+        log.info("Decode engine %s: preempted row %d (%s/%s, %d produced, "
+                 "%d tokens cached) for a queued interactive request",
+                 self.model_id, row, req.tenant, req.priority,
+                 state.produced, cached)
+        if memledger.strict():
+            self._ledger.audit("preempt")
+
+    def _release_resume(self, req: Request):
+        """Drop a preempted request's resume pins (its resume admission, a
+        deadline purge, a cancellation, an engine failure)."""
+        if req.resume_nodes:
+            if self._prefix_cache is not None:
+                self._prefix_cache.unpin(req.resume_nodes)
+            req.resume_nodes = []
+
     def _begin_prefill(self, row: int, req: Request):
         """Claim ``row`` for ``req`` in the PREFILLING phase: match the
         radix prefix cache, alias the matched pages into the row's block
         table (pinned), and plan chunks over the rest of the prompt; the
-        device work runs in the unified ticks."""
+        device work runs in the unified ticks.
+
+        A preempted request resumes through this path: its effective
+        prompt is its full history, whose KV the preempt pinned into the
+        tree; the match aliases those pages back, and the final chunk
+        samples at the position the unpreempted step would have."""
         state = _Row(req)
+        resumed = req.resume_history is not None
+        if resumed:
+            state.resumed = True
+            state.history = list(req.resume_history)
+            state.produced = req.resume_produced
+        eff_prompt = state.history   # == req.prompt for a fresh admission
+        trace = req.trace
+        if trace is not None:
+            # the queue span (enqueue -> now) is the queue wait observed
+            # below
+            sp = trace.span("queue", t0=req.enqueue_t)
+            trace.end(sp)
         if self._prefix_cache is not None:
             # at most len - 1 tokens: the final chunk must feed one real
             # token to produce the first sample
-            nodes = self._prefix_cache.match(req.prompt,
-                                             limit=len(req.prompt) - 1)
+            nodes = self._prefix_cache.match(eff_prompt,
+                                             limit=len(eff_prompt) - 1)
             if nodes:
                 self._prefix_cache.pin(nodes)
                 state.prefix_nodes = nodes
                 state.prefilled = len(nodes) * self._prefix_cache.page_size
+                serve_metrics.PREFIX_HITS.inc()
+            else:
+                serve_metrics.PREFIX_MISSES.inc()
+            if trace is not None:
+                trace.event("prefix_match", matched_tokens=state.prefilled,
+                            pages=len(nodes))
             # rebuilt on a miss too: no stale alias survives
             self._kv.with_row_prefix(row, [nd.page for nd in nodes])
-        state.chunks = bucketing.chunk_plan(len(req.prompt) - state.prefilled,
+        if resumed:
+            # the row's own pins now hold the pages: drop the preempt's
+            # hold and credit the tokens the resume did not recompute
+            self._resume_cached_tokens += state.prefilled
+            serve_metrics.RESUME_CACHED_TOKENS.inc(state.prefilled)
+            self._release_resume(req)
+            req.resume_history = None
+            req.resume_produced = 0
+            if trace is not None:
+                sp = trace.span("resume", cached_tokens=state.prefilled,
+                                produced=state.produced)
+                trace.end(sp)
+        state.chunks = bucketing.chunk_plan(len(eff_prompt) - state.prefilled,
                                             _prefill_chunk())
         self._rows[row] = state
+        # a quota bills the compute this admission runs (a matched prefix
+        # costs nothing)
+        qos.QUOTAS.charge(req.tenant, len(eff_prompt) - state.prefilled)
+        self._class_admissions[req.priority] += 1
+        serve_metrics.CLASS_ADMISSIONS.inc(priority=req.priority)
         self._lengths[row] = state.prefilled
         self._last_tok[row] = 0
         self._admissions += 1
+        wait_ms = (time.monotonic() - req.enqueue_t) * 1000.0
+        self._h_queue_wait.observe(wait_ms)
+        self._h_queue_wait_cls[req.priority].observe(wait_ms)
+        serve_metrics.QUEUE_WAIT_MS.observe(wait_ms)
+        serve_metrics.QUEUE_WAIT_BY_CLASS.observe(wait_ms,
+                                                  priority=req.priority)
+        if trace is not None:
+            state.sp_prefill = trace.span(
+                "prefill", prompt_tokens=len(eff_prompt),
+                cached_tokens=state.prefilled, chunks=len(state.chunks))
 
     def _tick_unified(self):
         """One unified tick: plan an n-step mixed block, run it as ONE
@@ -756,6 +1159,8 @@ class DecodeEngine:
             self._dispatch_t0 = None
             self._watchdog_fired = False
         dur_ms = (time.monotonic() - t0) * 1000.0
+        self._h_tick.observe(dur_ms)
+        serve_metrics.TICK_MS.observe(dur_ms)
         self._tick_timeline.append({
             "t": t0,
             "dispatch_ms": round(dur_ms, 3),
@@ -901,9 +1306,11 @@ class DecodeEngine:
                 seed=self._seed, temperature=self.temperature,
                 top_k=self.top_k, row_ids=plan["row_ids"],
                 verify_slots=plan["verify_slots"])
-        return self._replay_block(plan, arr, t0)
+        t1 = time.monotonic()
+        with self._cond:    # the replay's mutations, as one to the ledger
+            return self._replay_block(plan, arr, t0, t1)
 
-    def _replay_block(self, plan, arr, t0) -> dict:
+    def _replay_block(self, plan, arr, t0, t1) -> dict:
         """Replay the block's samples step-major through the per-token
         retirement path; rows retired mid-block (stop token, budget) are
         skipped for the rest of it.  A verify span emits its accepted
@@ -911,11 +1318,18 @@ class DecodeEngine:
         retirement.  Host lengths stay authoritative: a verify row's length
         moves past the accepted run only, so its rejected positions are
         never attended and the next span overwrites them."""
-        replay = plan["replay"]
-        rows_of = lambda kind: {op[1] for ops in replay for op in ops
+        n, replay = plan["n"], plan["replay"]
+        rows_of = lambda kind: {op[1] for ops in replay for op in ops  # noqa: E731
                                 if op[0] == kind}
         prefill_rows, decode_rows = rows_of("chunk"), rows_of("decode")
         verify_rows = rows_of("verify")
+        for i in decode_rows | verify_rows:
+            state = self._rows[i]
+            if state is not None and state.req.trace is not None:
+                sp = state.req.trace.span("decode_step", t0=t0,
+                                          parent=state.sp_decode,
+                                          superstep=n)
+                state.req.trace.end(sp, t1=t1)
         emitted = 0         # decode-path tokens
         emitted_total = 0   # every token out of this dispatch
         chunks_run = 0
@@ -929,15 +1343,22 @@ class DecodeEngine:
                     continue    # retired mid-block
                 if kind == "chunk":
                     size, final_slot = op[3], op[4]
-                    if state.req.cancelled:
-                        self._retire(i, notify=False)
+                    req = state.req
+                    if req.cancelled:
+                        self._retire(i, notify=False, reason="cancelled")
                         continue
-                    if state.req.expired():
+                    if req.expired():
                         self._timeout_row(i, state, "during prefill")
                         continue
+                    if req.trace is not None:
+                        sp = req.trace.span(
+                            "prefill_chunk", t0=t0, parent=state.sp_prefill,
+                            size=size, start=state.prefilled)
+                        req.trace.end(sp, t1=t1)
                     state.prefilled += size
                     state.chunk_idx += 1
                     self._prefill_chunks += 1
+                    serve_metrics.PREFILL_CHUNKS.inc()
                     self._lengths[i] = state.prefilled
                     chunks_run += 1
                     if final_slot is not None:
@@ -959,6 +1380,8 @@ class DecodeEngine:
                     self._spec_verify_steps += 1
                     self._spec_drafted_tokens += len(draft)
                     self._spec_accepted_tokens += accepted
+                    serve_metrics.SPEC_DRAFTED.inc(len(draft))
+                    serve_metrics.SPEC_ACCEPTED.inc(accepted)
                     self._lengths[i] += accepted + 1
                     for tok in out[:accepted + 1]:
                         self._last_tok[i] = tok
@@ -967,11 +1390,26 @@ class DecodeEngine:
                         self._emit_token(i, state, tok)
                         if self._rows[i] is not state:
                             break
+        now = time.monotonic()
         self._decode_steps += steps_decode
         self._decode_tokens += emitted
-        self._decode_time_s += time.monotonic() - t0
+        serve_metrics.DECODE_TOKENS.inc(emitted)
+        self._decode_time_s += now - t0
+        self._occupancy_sum += (steps_decode * len(decode_rows | verify_rows)
+                                / self.capacity)
+        self._token_window.append((now, emitted))
+        while (self._token_window
+               and now - self._token_window[0][0] > _TPS_WINDOW_S):
+            self._token_window.popleft()
+        if chunks_run and steps_decode:
+            # the chunks rode the decode dispatch: the decode batch stalled
+            # 0 ms for them
+            self._h_chunk_stall.observe(0.0)
+            serve_metrics.CHUNK_STALL_MS.observe(0.0)
         self._dispatches += 1
-        self._dispatch_tokens += emitted_total
+        self._h_tokens_per_dispatch.observe(float(emitted_total))
+        serve_metrics.DISPATCHES.inc()
+        serve_metrics.TOKENS_PER_DISPATCH.observe(float(emitted_total))
         return {"prefill_chunks": chunks_run,
                 "prefill_rows": len(prefill_rows),
                 "decode_rows": len(decode_rows),
@@ -979,11 +1417,26 @@ class DecodeEngine:
                 "emitted": emitted_total}
 
     def _finish_prefill(self, row: int, state: _Row, first: int):
-        """Final chunk done: its sample is the request's first token; the
-        row joins the decode batch (JAX ``_finish_prefill_local``)."""
+        """Final chunk done: its sample is the request's next token (its
+        first, or a resumed request's next); the row joins the decode
+        batch (JAX ``_finish_prefill_local``)."""
         state.prefilling = False
-        self._lengths[row] = state.prefilled  # == len(prompt)
+        self._lengths[row] = state.prefilled  # == len(effective prompt)
         self._last_tok[row] = first
+        req = state.req
+        ttft_ms = (time.monotonic() - req.enqueue_t) * 1000.0
+        if not state.resumed:
+            # a resumed row's first token shipped before the preempt
+            self._h_ttft.observe(ttft_ms)
+            self._h_ttft_cls[req.priority].observe(ttft_ms)
+            serve_metrics.TTFT_MS.observe(ttft_ms)
+            serve_metrics.TTFT_BY_CLASS.observe(ttft_ms,
+                                                priority=req.priority)
+        if req.trace is not None:
+            req.trace.end(state.sp_prefill)
+            state.sp_prefill = None
+            state.sp_decode = req.trace.span("decode",
+                                             ttft_ms=round(ttft_ms, 3))
         self._register_prefix(row, state)
         self._emit_token(row, state, first)
 
@@ -1042,14 +1495,26 @@ class DecodeEngine:
     def _emit_token(self, row: int, state: _Row, tok: int):
         state.produced += 1
         state.history.append(tok)
+        # the row's host emission gap: inside a multi-step block the block's
+        # tokens leave together, so ITL is bursty (the JAX definition)
+        now = time.monotonic()
+        if state.last_emit_t is not None:
+            itl_ms = (now - state.last_emit_t) * 1000.0
+            self._h_itl.observe(itl_ms)
+            serve_metrics.ITL_MS.observe(itl_ms)
+        state.last_emit_t = now
         req = state.req
+        tenant = req.tenant
+        self._tenant_tokens[tenant] = self._tenant_tokens.get(tenant, 0) + 1
+        serve_metrics.TENANT_TOKENS.inc(tenant=tenant)
+        qos.QUOTAS.charge(tenant, 1)
         self._deliver(req, "token", tok)
         if req.cancelled:
-            self._retire(row, notify=False)
+            self._retire(row, notify=False, reason="cancelled")
         elif req.stop_token is not None and tok == req.stop_token:
-            self._retire(row)
+            self._retire(row, reason="stop_token")
         elif state.produced >= req.max_new_tokens:
-            self._retire(row)
+            self._retire(row, reason="max_new_tokens")
         elif req.expired():
             self._timeout_row(row, state, f"after {state.produced} "
                                           f"generated token(s)")
@@ -1060,18 +1525,23 @@ class DecodeEngine:
             KV.record_pool_drop(dropped, context=f"scheduler row hit "
                                                  f"block_size="
                                                  f"{self.block_size}")
-            self._pool_drops += dropped
-            self._retire(row)
+            self._ledger.note_pool_drop(dropped)
+            if req.trace is not None:
+                req.trace.event("capacity_pressure", reason="pool_capacity",
+                                dropped_tokens=dropped)
+            self._retire(row, reason="pool_capacity")
 
     def _timeout_row(self, row: int, state: _Row, when: str):
         """Retire a row whose deadline passed; the tokens so far were
         delivered, and the request ends with a timeout event."""
         self._deadline_timeouts += 1
-        self._retire(row, notify=False)
+        serve_metrics.DEADLINE_TIMEOUTS.inc()
+        self._retire(row, notify=False, reason="timeout")
         self._deliver(state.req, "timeout", DeadlineExceeded(
             "inflight", f"request deadline expired {when}"))
 
-    def _retire(self, row: int, notify: bool = True):
+    def _retire(self, row: int, notify: bool = True,
+                reason: str = "completed"):
         state = self._rows[row]
         self._rows[row] = None
         self._lengths[row] = 0
@@ -1079,6 +1549,16 @@ class DecodeEngine:
         self._release_prefix(row, state)
         self._kv.reset_row(row)
         self._completed += 1
+        if state is not None and state.req.trace is not None:
+            trace = state.req.trace
+            trace.end(state.sp_prefill)
+            trace.end(state.sp_decode, produced=state.produced)
+            trace.finish(reason)
+        serve_metrics.REQUESTS.inc(
+            outcome=("completed" if reason in ("stop_token",
+                                               "max_new_tokens",
+                                               "pool_capacity")
+                     else reason))
         with self._cond:
             if notify:
                 # a completed request is the engine's health signal: it
@@ -1094,6 +1574,10 @@ class DecodeEngine:
                 self._probe_failed()
         if notify and state is not None:
             self._deliver(state.req, "done", None)
+        # every page handed back here must balance; after the delivery, so
+        # that a failed audit crashes the tick instead of hanging a client
+        if memledger.strict():
+            self._ledger.audit("retire")
 
     def _deliver(self, req: Request, kind: str, value):
         try:
@@ -1102,8 +1586,11 @@ class DecodeEngine:
             log.exception("Decode scheduler consumer callback failed")
             req.cancelled = True
 
-    def _fail_all(self, exc: Exception):
-        """Fail every in-flight and queued request."""
+    def _fail_all(self, exc: Exception, crashed: bool = False) -> list:
+        """Fail every in-flight and queued request.  Returns the rows'
+        traces: with ``crashed`` they carry an ``engine_crash`` event and
+        stay open for the caller's recovery span (else finished here)."""
+        open_traces = []
         for i, state in enumerate(self._rows):
             if state is not None:
                 self._rows[i] = None
@@ -1114,13 +1601,26 @@ class DecodeEngine:
                 except Exception:  # noqa: BLE001 — the device may be what
                     # failed; the reset rebuilds the pool and the cache
                     log.exception("Failed to restore row %d block table", i)
+                serve_metrics.REQUESTS.inc(outcome="error")
+                trace = state.req.trace
+                if trace is not None:
+                    trace.end(state.sp_prefill)
+                    trace.end(state.sp_decode, produced=state.produced)
+                    if crashed:
+                        trace.event("engine_crash", error=str(exc))
+                        open_traces.append(trace)
+                    else:
+                        trace.finish("error")
                 self._deliver(state.req, "error", exc)
         with self._cond:
-            pending = list(self._pending)
-            self._pending.clear()
+            pending = self._pending.drain()
             self._probe_failed()
         for req in pending:
+            self._release_resume(req)
+            serve_metrics.REQUESTS.inc(outcome="error")
+            self._finish_trace(req, "error")
             self._deliver(req, "error", exc)
+        return open_traces
 
     # -- model staleness ----------------------------------------------------
 
@@ -1141,8 +1641,12 @@ class DecodeEngine:
                 self.model_id, device=self._device, optimizer=False)
             self._ckpt_stamp_v = stamp
             if self._prefix_cache is not None:
-                # cached K/V of the old weights must not serve the new ones
-                # (no row is in flight, so nothing is pinned)
+                # cached K/V of the old weights must not serve the new
+                # ones; no row is in flight, and a queued preempted
+                # request gives up its hold (its resume prefills anew)
+                with self._cond:
+                    for req in self._pending:
+                        req.resume_nodes = []
                 self._prefix_cache.clear()
             log.info("Decode engine reloaded model %s (checkpoint changed)",
                      self.model_id)
@@ -1250,40 +1754,75 @@ def drain_and_shutdown(drain_s: float | None = None) -> bool:
     return ok
 
 
+def _merged_q(per: list[dict], name: str, q: float, cls=None):
+    """Quantile over the engines' merged histogram snapshots (a class's,
+    when ``cls`` is given)."""
+    snaps = [p["histograms"][name] if cls is None
+             else p["histograms"][name][cls] for p in per]
+    v = metrics_util.quantile_of(metrics_util.merge_snapshots(snaps), q)
+    return round(v, 3) if v is not None else None
+
+
 def serving_stats() -> dict:
     """Scheduler observability — the /serving_stats/ payload, the JAX
-    package's key names for what this scheduler does."""
+    package's key names for what this scheduler does.  Percentiles merge
+    the engines' bucket snapshots, never raw samples."""
     per = [e.stats() for e in _live_engines()]
     capacity = sum(p["capacity"] for p in per)
     active = sum(p["active_rows"] for p in per)
     decode_steps = sum(p["decode_steps"] for p in per)
     decode_tokens = sum(p["decode_tokens"] for p in per)
-    dispatches = sum(p["dispatches_total"] for p in per)
     timeline = sorted((t for p in per for t in p["tick_timeline"]),
                       key=lambda e: e["age_s"])[:_TIMELINE_SERVE]
     pc = [p["prefix_cache"] for p in per if p["prefix_cache"] is not None]
     pc_lookups = sum(c["hits"] + c["misses"] for c in pc)
     spec_drafted = sum(p["spec_drafted_tokens"] for p in per)
     spec_accepted = sum(p["spec_accepted_tokens"] for p in per)
+    tpd = metrics_util.merge_snapshots(
+        [p["histograms"]["tokens_per_dispatch"] for p in per])
+    tenant_tokens: dict = {}
+    for p in per:
+        for tenant, n in p["tenant_tokens"].items():
+            tenant_tokens[tenant] = tenant_tokens.get(tenant, 0) + n
     return {
         "continuous_batching_enabled": enabled(),
         "engines": per,
         "capacity": capacity,
         "active_rows": active,
         "queue_depth": sum(p["queue_depth"] for p in per),
+        "queue_rejections": sum(p["queue_rejections"] for p in per),
+        "deadline_timeouts": sum(p["deadline_timeouts"] for p in per),
+        "quota_rejections": sum(p["quota_rejections"] for p in per),
+        "preemptions_total": sum(p["preemptions"] for p in per),
+        "preempted_resume_cached_tokens": sum(
+            p["preempted_resume_cached_tokens"] for p in per),
+        "queue_depth_by_class": {
+            c: sum(p["queue_depth_by_class"][c] for p in per)
+            for c in qos.PRIORITIES},
+        "tenant_tokens": tenant_tokens,
+        "ttft_ms_p99_by_class": {
+            c: _merged_q(per, "ttft_ms_by_class", 0.99, c)
+            for c in qos.PRIORITIES},
+        "queue_wait_ms_p99_by_class": {
+            c: _merged_q(per, "queue_wait_ms_by_class", 0.99, c)
+            for c in qos.PRIORITIES},
+        "queue_wait_ms_p99": _merged_q(per, "queue_wait_ms", 0.99),
+        "breaker_open": any(p["breaker_open"] for p in per),
+        "crashes_total": sum(p["crashes_total"] for p in per),
+        "engine_resets": sum(p["engine_resets"] for p in per),
+        "draining": _DRAINING,
         "batch_occupancy": (active / capacity) if capacity else 0.0,
-        "decode_steps": decode_steps,
-        "decode_tokens": decode_tokens,
         "decode_tokens_per_sec": round(
             sum(p["decode_tokens_per_sec"] for p in per), 2),
-        "tokens_per_decode_step": round(
-            decode_tokens / decode_steps, 3) if decode_steps else 0.0,
-        "dispatches_total": dispatches,
-        "tokens_per_dispatch_avg": (
-            round(sum(p["tokens_per_dispatch_avg"] * p["dispatches_total"]
-                      for p in per if p["dispatches_total"]) / dispatches, 3)
-            if dispatches else None),
+        "admission_latency_ms_p50": _merged_q(per, "ttft_ms", 0.5),
+        "ttft_ms_p99": _merged_q(per, "ttft_ms", 0.99),
+        "itl_ms_p50": _merged_q(per, "itl_ms", 0.5),
+        "itl_ms_p99": _merged_q(per, "itl_ms", 0.99),
+        "tick_ms_p50": _merged_q(per, "tick_ms", 0.5),
+        "tick_ms_p99": _merged_q(per, "tick_ms", 0.99),
         "tick_timeline": timeline,
+        "prefill_chunk_stall_ms_p99": _merged_q(per, "chunk_stall_ms",
+                                                0.99),
         "prefix_cache_hit_rate": _rate(sum(c["hits"] for c in pc),
                                        pc_lookups),
         "prefix_cache_evicted_pages": sum(c["evicted_pages"] for c in pc),
@@ -1291,13 +1830,18 @@ def serving_stats() -> dict:
         "spec_drafted_tokens": spec_drafted,
         "spec_accepted_tokens": spec_accepted,
         "spec_accept_rate": _rate(spec_accepted, spec_drafted),
-        "crashes_total": sum(p["crashes_total"] for p in per),
-        "engine_resets": sum(p["engine_resets"] for p in per),
-        "breaker_open": any(p["breaker_open"] for p in per),
-        "queue_rejections": sum(p["queue_rejections"] for p in per),
-        "deadline_timeouts": sum(p["deadline_timeouts"] for p in per),
-        "draining": _DRAINING,
+        "tokens_per_decode_step": round(
+            decode_tokens / decode_steps, 3) if decode_steps else 0.0,
+        "decode_steps": decode_steps,
+        "decode_tokens": decode_tokens,
+        "dispatches_total": sum(p["dispatches_total"] for p in per),
+        "tokens_per_dispatch_avg": (round(tpd["sum"] / tpd["count"], 3)
+                                    if tpd["count"] else None),
+        "tokens_per_dispatch_p50": _merged_q(per, "tokens_per_dispatch",
+                                             0.5),
         "kv_pool_capacity_drops": KV.pool_drop_count(),
+        "unpin_underflows": KV.unpin_underflow_count(),
+        "engines_stuck": len(stuck_engines()),
     }
 
 
@@ -1305,11 +1849,14 @@ def serving_stats() -> dict:
 # Thread request surface (serve/app.py)
 # ---------------------------------------------------------------------------
 
-def _queued_request(prompt, max_new_tokens, stop_token, timeout_ms=None):
+def _queued_request(prompt, max_new_tokens, stop_token, timeout_ms=None,
+                    request_id=None, trace=None, priority=None,
+                    tenant=None):
     events: queue.Queue = queue.Queue()
     req = Request(prompt, max_new_tokens, stop_token,
                   lambda kind, value: events.put((kind, value)),
-                  timeout_ms=timeout_ms)
+                  timeout_ms=timeout_ms, request_id=request_id, trace=trace,
+                  priority=priority, tenant=tenant)
     return req, events
 
 
@@ -1340,22 +1887,23 @@ def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
 
 
 def run_request(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
-                timeout=None, timeout_ms=None) -> list[int]:
-    """Submit one request (deadline ``timeout_ms``) and wait for its full
-    sequence (:func:`collect`).  A shed request raises at once."""
+                timeout=None, timeout_ms=None, **fields) -> list[int]:
+    """Submit one request (deadline ``timeout_ms``; ``fields``:
+    ``request_id``, ``trace``, ``priority``, ``tenant``) and wait for its
+    full sequence (:func:`collect`).  A shed request raises at once."""
     req, events = _queued_request(prompt, max_new_tokens, stop_token,
-                                  timeout_ms)
+                                  timeout_ms, **fields)
     engine.submit(req)
     return collect(req, events, timeout)
 
 
 def start_stream(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
-                 timeout_ms=None):
-    """Submit a streaming request; returns ``(req, events)``: the caller
-    reads events with :func:`next_event` and sets ``req.cancelled`` when
-    its client goes away.  A shed request raises here, before any
-    event."""
+                 timeout_ms=None, **fields):
+    """Submit a streaming request (``fields`` as for :func:`run_request`);
+    returns ``(req, events)``: the caller reads events with
+    :func:`next_event` and sets ``req.cancelled`` when its client goes
+    away.  A shed request raises here, before any event."""
     req, events = _queued_request(prompt, max_new_tokens, stop_token,
-                                  timeout_ms)
+                                  timeout_ms, **fields)
     engine.submit(req)
     return req, events

@@ -1,0 +1,246 @@
+"""Serving metrics: the ``GET /metrics`` Prometheus exposition (counterpart
+of penroz_tpu/serve/metrics.py, the same names, types, labels and HELP
+text for every series whose feature the port has).
+
+Process-wide, monotonic counters and histograms that the decode scheduler
+writes at event time (engines come and go with the registry, so lifetime
+totals live here, not on the engine), and scrape-time gauges that read the
+live engine registry.  ``/serving_stats/`` keeps its JSON shape for humans
+and the dashboard; ``/metrics`` is the machine-scrape surface over the
+same events.  Everything renders through utils/metrics.py.  Series (all
+prefixed ``penroz_``):
+
+counters   requests_total{outcome}, decode_tokens_total,
+           prefill_chunks_total, queue_rejections_total,
+           deadline_timeouts_total, breaker_rejections_total,
+           engine_crashes_total, engine_resets_total,
+           spec_drafted_tokens_total, spec_accepted_tokens_total,
+           prefix_cache_hits_total, prefix_cache_misses_total,
+           traces_completed_total, dispatches_total,
+           quota_rejections_total{tenant}, class_admissions_total{priority},
+           tenant_tokens_total{tenant}, preemptions_total,
+           preempted_resume_cached_tokens_total
+gauges     engines, active_rows, queue_depth, batch_occupancy,
+           breaker_open, draining, engine_stuck, kv_pool_capacity_drops,
+           prefix_cache_unpin_underflow (both monotonic in practice,
+           exposed as gauges because their counters live in
+           ops/kv_cache.py), the capacity ledger's pool_pages{state},
+           pool_pages_hwm{state}, tenant_kv_pages{tenant},
+           hbm_bytes{component} and kv_time_to_exhaustion_s
+           (serve/memledger.py)
+histograms ttft_ms, itl_ms, queue_wait_ms, chunk_stall_ms, tick_ms
+           (LATENCY_BUCKETS_MS), tokens_per_dispatch (token-count
+           buckets), and the per-class pair ttft_ms_by_class{priority} /
+           queue_wait_ms_by_class{priority}
+
+Left out, with the features they describe (not ported): the LoRA series
+(lora_adapter_tokens_total, lora_live_adapters), the replica router's
+(router_affinity_total, router_failovers_total), disaggregated prefill's
+(disagg_*), the session tiers' and the journal's (tier_*, sessions_*,
+session_resume_ttft_ms, journal_*), resumable streams'
+(stream_*, streams_detached), pipeline serving's (pipe_*), and
+jit_programs{function}, which counts XLA programs.  The ledger states and
+byte components of those features (transit, hibernating; lora_pack,
+ssm_state, adapter_host_cache, host_tier, disk_tier) are absent from the
+labelled gauges for the same reason; ``GET /memory/`` keeps them at 0.
+"""
+
+from __future__ import annotations
+
+from penroz_tpu_torch.utils import metrics as m
+
+REGISTRY = m.Registry()
+
+# -- counters (event-time writes from the scheduler) ------------------------
+
+REQUESTS = REGISTRY.register(m.Counter(
+    "penroz_requests_total",
+    "Scheduler requests by terminal outcome (completed|error|timeout|"
+    "cancelled|queue_full|breaker_open|pool_capacity)", ("outcome",)))
+DECODE_TOKENS = REGISTRY.register(m.Counter(
+    "penroz_decode_tokens_total",
+    "Tokens emitted by the shared decode batch"))
+PREFILL_CHUNKS = REGISTRY.register(m.Counter(
+    "penroz_prefill_chunks_total", "Chunked-prefill dispatches"))
+QUEUE_REJECTIONS = REGISTRY.register(m.Counter(
+    "penroz_queue_rejections_total",
+    "Requests shed 429 at a full admission queue"))
+DEADLINE_TIMEOUTS = REGISTRY.register(m.Counter(
+    "penroz_deadline_timeouts_total",
+    "Requests expired on their deadline (queued or in flight)"))
+BREAKER_REJECTIONS = REGISTRY.register(m.Counter(
+    "penroz_breaker_rejections_total",
+    "Submits refused while an engine circuit breaker was open"))
+ENGINE_CRASHES = REGISTRY.register(m.Counter(
+    "penroz_engine_crashes_total", "Scheduler tick crashes"))
+ENGINE_RESETS = REGISTRY.register(m.Counter(
+    "penroz_engine_resets_total",
+    "Full engine state reallocations after crashes"))
+SPEC_DRAFTED = REGISTRY.register(m.Counter(
+    "penroz_spec_drafted_tokens_total",
+    "Speculative-decoding draft tokens proposed"))
+SPEC_ACCEPTED = REGISTRY.register(m.Counter(
+    "penroz_spec_accepted_tokens_total",
+    "Speculative-decoding draft tokens accepted"))
+PREFIX_HITS = REGISTRY.register(m.Counter(
+    "penroz_prefix_cache_hits_total",
+    "Admissions matching at least one cached prefix page"))
+PREFIX_MISSES = REGISTRY.register(m.Counter(
+    "penroz_prefix_cache_misses_total",
+    "Admissions matching no cached prefix page"))
+TRACES_COMPLETED = REGISTRY.register(m.Counter(
+    "penroz_traces_completed_total",
+    "Request traces finished into the /trace/ ring"))
+DISPATCHES = REGISTRY.register(m.Counter(
+    "penroz_dispatches_total",
+    "Decode dispatches (shared steps, spec-decode verify steps, fused "
+    "supersteps) — the host round-trip count the multi-step decode path "
+    "exists to shrink"))
+QUOTA_REJECTIONS = REGISTRY.register(m.Counter(
+    "penroz_quota_rejections_total",
+    "Admissions shed 429 by a tenant's exhausted token bucket", ("tenant",)))
+CLASS_ADMISSIONS = REGISTRY.register(m.Counter(
+    "penroz_class_admissions_total",
+    "Requests admitted to a decode row per SLO class", ("priority",)))
+TENANT_TOKENS = REGISTRY.register(m.Counter(
+    "penroz_tenant_tokens_total",
+    "Tokens emitted per tenant (quota accounting view)", ("tenant",)))
+PREEMPTIONS = REGISTRY.register(m.Counter(
+    "penroz_preemptions_total",
+    "Decode rows evicted mid-generation for a higher-priority admission"))
+RESUME_CACHED_TOKENS = REGISTRY.register(m.Counter(
+    "penroz_preempted_resume_cached_tokens_total",
+    "Prompt+generated tokens restored from the prefix cache (zero "
+    "recompute) when preempted requests resumed"))
+
+# -- histograms (the engine observes these alongside its own) ---------------
+
+TTFT_MS = REGISTRY.register(m.Histogram(
+    "penroz_ttft_ms", "Enqueue to first token (admission latency), ms"))
+ITL_MS = REGISTRY.register(m.Histogram(
+    "penroz_itl_ms", "Inter-token latency per decoding row, ms"))
+QUEUE_WAIT_MS = REGISTRY.register(m.Histogram(
+    "penroz_queue_wait_ms", "Enqueue to admission (prefill start), ms"))
+CHUNK_STALL_MS = REGISTRY.register(m.Histogram(
+    "penroz_chunk_stall_ms",
+    "Decode-batch stall injected per step boundary by prefill chunks, ms"))
+TICK_MS = REGISTRY.register(m.Histogram(
+    "penroz_tick_ms", "Scheduler tick dispatch wall time, ms"))
+TOKENS_PER_DISPATCH = REGISTRY.register(m.Histogram(
+    "penroz_tokens_per_dispatch",
+    "Tokens emitted per decode dispatch (≈ PENROZ_SCHED_SUPERSTEP for "
+    "unconstrained fused decode, 1 on the per-token path; distinct from "
+    "tokens_per_decode_step, which measures speculation not fusing)",
+    buckets=m.TOKENS_PER_DISPATCH_BUCKETS))
+TTFT_BY_CLASS = REGISTRY.register(m.Histogram(
+    "penroz_ttft_ms_by_class",
+    "Enqueue to first token per SLO class, ms", labelnames=("priority",)))
+QUEUE_WAIT_BY_CLASS = REGISTRY.register(m.Histogram(
+    "penroz_queue_wait_ms_by_class",
+    "Enqueue to admission per SLO class, ms", labelnames=("priority",)))
+
+# -- gauges (scrape-time reads of live state) -------------------------------
+
+ENGINES_GAUGE = REGISTRY.register(m.Gauge(
+    "penroz_engines", "Live decode engines in the registry"))
+ACTIVE_ROWS = REGISTRY.register(m.Gauge(
+    "penroz_active_rows", "In-flight decode rows across engines"))
+QUEUE_DEPTH = REGISTRY.register(m.Gauge(
+    "penroz_queue_depth", "Requests waiting for admission"))
+OCCUPANCY = REGISTRY.register(m.Gauge(
+    "penroz_batch_occupancy", "active_rows / capacity across engines"))
+BREAKER_OPEN = REGISTRY.register(m.Gauge(
+    "penroz_breaker_open", "1 if any engine circuit breaker is open"))
+DRAINING = REGISTRY.register(m.Gauge(
+    "penroz_draining", "1 while graceful shutdown drains admission"))
+POOL_DROPS = REGISTRY.register(m.Gauge(
+    "penroz_kv_pool_capacity_drops",
+    "KV writes dropped at pool capacity (process-wide counter in "
+    "ops/kv_cache.py, exposed at scrape)"))
+UNPIN_UNDERFLOW = REGISTRY.register(m.Gauge(
+    "penroz_prefix_cache_unpin_underflow",
+    "RadixPrefixCache unpins that drove a refcount negative — any "
+    "nonzero value is a pin/unpin pairing bug (process-wide counter in "
+    "ops/kv_cache.py, exposed at scrape)"))
+POOL_PAGES = REGISTRY.register(m.Gauge(
+    "penroz_pool_pages",
+    "Paged KV pool pages by owner state across engines (capacity ledger, "
+    "serve/memledger.py) — the states partition the pool, so the series "
+    "sum to total pool capacity", labelnames=("state",)))
+POOL_PAGES_HWM = REGISTRY.register(m.Gauge(
+    "penroz_pool_pages_hwm",
+    "High-water mark of pool pages per ledger state since engine start "
+    "('used' = total minus free — the capacity-planning peak)",
+    labelnames=("state",)))
+TENANT_KV_PAGES = REGISTRY.register(m.Gauge(
+    "penroz_tenant_kv_pages",
+    "Pool pages owned by live rows per tenant (page-granular HBM "
+    "attribution; prefix/preempted pages are shared, not tenant-owned)",
+    labelnames=("tenant",)))
+HBM_BYTES = REGISTRY.register(m.Gauge(
+    "penroz_hbm_bytes",
+    "Serving memory bytes by component: kv_values/kv_scales/"
+    "kv_block_table (device), lora_pack (device), params (device), "
+    "ssm_state (device, constant per row), adapter_host_cache (host RAM)",
+    labelnames=("component",)))
+KV_TTE = REGISTRY.register(m.Gauge(
+    "penroz_kv_time_to_exhaustion_s",
+    "Most-pressed engine's free-pool runway at the current token burn "
+    "rate, seconds — series ABSENT (not 0) when no engine has a recent "
+    "burn rate"))
+ENGINE_STUCK = REGISTRY.register(m.Gauge(
+    "penroz_engine_stuck",
+    "Engines whose in-flight tick dispatch has exceeded "
+    "PENROZ_TICK_WATCHDOG_MS (watchdog; 0 when the knob is off)"))
+
+
+def _wire_gauges():
+    from penroz_tpu_torch.ops import kv_cache as KV
+    from penroz_tpu_torch.serve import decode_scheduler as ds
+    from penroz_tpu_torch.serve import memledger
+
+    engines = ds._live_engines
+    ENGINES_GAUGE.set_function(lambda: len(engines()))
+    ACTIVE_ROWS.set_function(lambda: sum(e.active_rows for e in engines()))
+    QUEUE_DEPTH.set_function(lambda: sum(e.queue_depth for e in engines()))
+
+    def occupancy():
+        es = engines()
+        cap = sum(e.capacity for e in es)
+        return (sum(e.active_rows for e in es) / cap) if cap else 0.0
+
+    OCCUPANCY.set_function(occupancy)
+    BREAKER_OPEN.set_function(lambda: 1 if ds.breaker_open_engines() else 0)
+    DRAINING.set_function(lambda: 1 if ds.draining() else 0)
+    POOL_DROPS.set_function(KV.pool_drop_count)
+    UNPIN_UNDERFLOW.set_function(KV.unpin_underflow_count)
+    POOL_PAGES.set_function(lambda: memledger.ported(
+        memledger.pool_page_totals(), memledger.PORTED_STATES))
+    POOL_PAGES_HWM.set_function(lambda: memledger.ported(
+        memledger.pool_page_hwm_totals(),
+        memledger.PORTED_STATES[1:] + ("used",)))
+    TENANT_KV_PAGES.set_function(memledger.tenant_page_totals)
+    HBM_BYTES.set_function(lambda: memledger.ported(
+        memledger.hbm_byte_totals(), memledger.PORTED_COMPONENTS))
+    KV_TTE.set_function(memledger.min_time_to_exhaustion)
+    ENGINE_STUCK.set_function(lambda: len(ds.stuck_engines()))
+
+
+_WIRED = False
+
+
+def render() -> str:
+    """The /metrics response body (text exposition format 0.0.4)."""
+    global _WIRED
+    if not _WIRED:
+        _wire_gauges()
+        _WIRED = True
+    return REGISTRY.render()
+
+
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def reset() -> None:
+    """Zero counters/histograms (tests and phase isolation)."""
+    REGISTRY.reset()

@@ -5,8 +5,9 @@ The JAX package builds its component schemas with pydantic, which the
 machine with the card does not have; here they are built from the port's
 own request schemas' ``FIELDS`` tables (serve/schemas.py): a field
 without a default is required, a nullable one also takes ``null``.  The
-route table lists exactly the routes the port serves (serve/app.py), and
-the ``/model/`` request example is the GPT-2-124M layer DSL.  ``/docs``
+route table lists exactly the routes the port serves (serve/app.py),
+templated paths as templates (``/trace/{request_id}``), and the
+``/model/`` request example is the GPT-2-124M layer DSL.  ``/docs``
 fetches ``/openapi.json`` and renders it in the browser, with no CDN.
 """
 
@@ -99,6 +100,11 @@ def _query_params(*names: str) -> list[dict]:
              "schema": {"type": "string"}} for n in names]
 
 
+def _path_params(*names: str) -> list[dict]:
+    return [{"name": n, "in": "path", "required": True,
+             "schema": {"type": "string"}} for n in names]
+
+
 def _body(model_name: str, example: Optional[dict] = None) -> dict:
     media: dict = {"schema": {"$ref": f"#/components/schemas/{model_name}"}}
     if example is not None:
@@ -114,8 +120,10 @@ def _routes() -> list[dict]:
     """(method, path, summary, body or query params, responses) of every
     route the port serves."""
     ok = _resp(200, "Success")
-    shed = [_resp(429, "Admission queue full (PENROZ_SCHED_MAX_QUEUE): "
-                       "retry after the Retry-After seconds"),
+    shed = [_resp(429, "Admission queue full (PENROZ_SCHED_MAX_QUEUE or "
+                       "PENROZ_QOS_MAX_QUEUE_<CLASS>) or the tenant's "
+                       "token quota exhausted: retry after the "
+                       "Retry-After seconds"),
             _resp(503, "Engine circuit breaker open "
                        "(PENROZ_ENGINE_MAX_CRASHES consecutive crashes): "
                        "retry after the Retry-After seconds"),
@@ -128,6 +136,73 @@ def _routes() -> list[dict]:
         body=_body("ProfileRequest"),
         responses=dict([ok, _resp(409, "Capture state conflict")]))
     return [
+        dict(method="get", path="/",
+             summary="Redirect to /dashboard",
+             responses=dict([_resp(302, "Found")])),
+        dict(method="get", path="/dashboard",
+             summary="Dashboard: training curves, serving, scheduler "
+                     "ticks, the page ledger and request traces",
+             responses=dict([_resp(200, "HTML dashboard")])),
+        dict(method="get", path="/static/{path}",
+             summary="The dashboard's script and style",
+             params=_path_params("path"),
+             responses=dict([_resp(200, "File"),
+                             _resp(404, "No such file")])),
+        dict(method="get", path="/metrics",
+             summary="Prometheus text exposition (format 0.0.4): request/"
+                     "token/shed/crash/QoS counters, engine and capacity-"
+                     "ledger gauges, and fixed-bucket TTFT / ITL / "
+                     "queue-wait / chunk-stall / tick histograms (per "
+                     "class too)",
+             responses=dict([_resp(200, "text/plain exposition")])),
+        dict(method="get", path="/trace/",
+             summary="Recent per-request trace summaries (completed ring "
+                     "of PENROZ_TRACE_BUFFER + in flight), sampled via "
+                     "PENROZ_TRACE_SAMPLE",
+             params=[{"name": "limit", "in": "query", "required": False,
+                      "schema": {"type": "integer", "minimum": 1,
+                                 "maximum": 1000, "default": 50}}],
+             responses=dict([_resp(200, "Trace summaries"),
+                             _resp(422, "limit is not an integer")])),
+        dict(method="get", path="/trace/{request_id}",
+             summary="One request's lifecycle span tree (queue, prefill, "
+                     "prefix match, chunks, decode steps, preemption, "
+                     "recovery, retire_reason; ids from the X-Request-Id "
+                     "header); ?format=chrome gives Chrome trace-event "
+                     "JSON",
+             params=_path_params("request_id") + [
+                 {"name": "format", "in": "query", "required": False,
+                  "schema": {"type": "string", "enum": ["json", "chrome"],
+                             "default": "json"}}],
+             responses=dict([_resp(200, "Span tree (or Chrome "
+                                        "trace-event JSON)"),
+                             _resp(404, "Unknown or evicted request id"),
+                             _resp(422, "Unknown format")])),
+        dict(method="get", path="/memory/",
+             summary="Capacity ledger: every pool page attributed to an "
+                     "owner (free / row / prefix pinned or evictable / "
+                     "preempted hold / reserved), pages per tenant, "
+                     "device bytes per component, high-water marks and a "
+                     "time-to-exhaustion estimate",
+             responses=dict([ok])),
+        dict(method="get", path="/debug/dump",
+             summary="Crash flight recorder: the last "
+                     "PENROZ_DEBUG_DUMP_RING engine_crash / circuit_open "
+                     "snapshots (ledger, tick tail, queue depths by class "
+                     "and tenant, recent trace ids)",
+             responses=dict([ok])),
+        dict(method="get", path="/tenants/",
+             summary="Tenant quota state: rate overrides, tokens charged "
+                     "and quota sheds per tenant",
+             responses=dict([ok])),
+        dict(method="put", path="/tenants/{tenant_id}/quota",
+             summary="Set (or clear with null) a tenant's token-rate "
+                     "override of PENROZ_QOS_TENANT_TOKENS_PER_S",
+             params=_path_params("tenant_id"),
+             body=_body("TenantQuotaRequest"),
+             responses=dict([ok, _resp(400, "Negative tokens_per_s, or "
+                                            "tier_mb (not ported)"),
+                             _resp(422, "Validation error")])),
         dict(method="get", path="/healthz",
              summary="Liveness probe (always 200 while the server answers)",
              responses=dict([_resp(200, "Alive")])),

@@ -118,9 +118,12 @@ class CreateModelRequest(_Request):
 class GenerateRequest(_Request):
     """``POST /generate/``.  ``timeout_ms`` is the request's deadline on
     the scheduler path (capped by ``PENROZ_REQ_TIMEOUT_MS``; none when
-    absent or not positive).  ``priority``, ``tenant``, ``session_id`` and
-    ``adapter_id`` (QoS, sessions, LoRA) are accepted as fields so that
-    they can be refused with a 400: they are not ported."""
+    absent or not positive).  ``priority`` (``interactive``, ``standard``
+    or ``batch``; an unknown class is a 400) and ``tenant`` (quota
+    bucket, ``default`` when absent) route a scheduler request through
+    the fair queue (serve/qos.py).  ``session_id`` and ``adapter_id``
+    (sessions, LoRA) are accepted as fields so that they can be refused
+    with a 400: they are not ported."""
     model_id: str
     input: list
     block_size: int
@@ -149,15 +152,16 @@ class GenerateRequest(_Request):
               ("tenant", str, None, True),
               ("session_id", str, None, True))
 
-    UNPORTED = ("adapter_id", "priority", "tenant", "session_id")
+    UNPORTED = ("adapter_id", "session_id")
 
 
 @dataclass
 class GenerateBatchRequest(_Request):
     """``POST /generate_batch/``: N prompts (ragged lengths) through the
     continuous-batching scheduler; ``timeout_ms`` is each row's deadline,
-    and a shed row sheds the batch.  As for /generate/, the fields of
-    features that are not ported are accepted only to be refused."""
+    and a shed row sheds the batch.  ``priority`` and ``tenant`` apply to
+    every row, as on /generate/.  The fields of features that are not
+    ported are accepted only to be refused."""
     model_id: str
     inputs: list
     block_size: int
@@ -186,8 +190,7 @@ class GenerateBatchRequest(_Request):
               ("tenant", str, None, True),
               ("session_ids", list, None, True))
 
-    UNPORTED = ("adapter_id", "adapter_ids", "priority", "tenant",
-                "session_ids")
+    UNPORTED = ("adapter_id", "adapter_ids", "session_ids")
 
 
 @dataclass
@@ -298,6 +301,22 @@ class DownloadDatasetRequest(_Request):
 
 
 @dataclass
+class TenantQuotaRequest(_Request):
+    """``PUT /tenants/{tenant_id}/quota``: the tenant's sustained token
+    budget per second over emitted + prefilled tokens (burst: one second
+    of rate, at least 1 token), overriding
+    ``PENROZ_QOS_TENANT_TOKENS_PER_S``; 0 blocks the tenant's new
+    admissions, null clears the override.  ``tier_mb`` (the KV-tier
+    residency quota) is accepted as a field so that it can be refused
+    with a 400: the tiers are not ported."""
+    tokens_per_s: Optional[float]
+    tier_mb: Optional[float] = None
+
+    FIELDS = (("tokens_per_s", float, _REQUIRED, True),
+              ("tier_mb", float, None, True))
+
+
+@dataclass
 class ProfileRequest(_Request):
     """``POST /profile/`` and ``/profiler/trace/``: ``"start"`` or
     ``"stop"`` a ``torch.profiler`` capture whose Chrome trace goes into
@@ -313,4 +332,4 @@ class ProfileRequest(_Request):
 REQUESTS = (CreateModelRequest, ImportModelRequest, DownloadDatasetRequest,
             TokenizeTextRequest, OutputRequest, EvaluateRequest,
             GenerateRequest, GenerateBatchRequest, DecodeTokensRequest,
-            TrainingRequest, ProfileRequest)
+            TrainingRequest, TenantQuotaRequest, ProfileRequest)

@@ -24,7 +24,8 @@ An unparseable rule is logged and ignored.  Sites in the port:
 ``decode.step`` (every unified block of the continuous-batching engine),
 ``decode.prefill_chunk`` (a block that carries a prefill chunk),
 ``decode.verify`` (a block that carries a speculative verify span), all
-three before the block's dispatch (serve/decode_scheduler.py);
+three before the block's dispatch, and ``qos.preempt`` (a preemption,
+before it mutates anything) (serve/decode_scheduler.py);
 ``ckpt.write`` (the checkpoint container write, whose temporary file is
 removed, utils/checkpoint.py); ``data.download`` (one dataset download
 attempt, data/loaders.py).  None sits inside a captured CUDA graph.

@@ -343,8 +343,10 @@ def test_continuous_batching_matches_single_sequence(
     ({"PENROZ_DISAGG_PREFILL": "1"}, None),
     ({"PENROZ_SERVE_MESH": "1"}, None),
     ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
-    ({}, ("priority", "interactive")),
-    ({}, ("tenant", "t1")),
+    # priority and tenant are ported: an unknown class is a 400 naming the
+    # field, and a tenant serves while the KV-tier quota knob is refused
+    ({}, ("priority", "urgent")),
+    ({"PENROZ_QOS_TENANT_TIER_MB": "64"}, ("tenant", "t1")),
     ({}, ("session_id", "s1")),
     ({}, ("adapter_id", "a1")),
     ({"PENROZ_CONTINUOUS_BATCHING": "0"}, "batch"),
@@ -353,7 +355,8 @@ def test_continuous_batching_matches_single_sequence(
 def test_unported_serving_options_400(server, paged, monkeypatch, env,
                                       field, toy_gpt_layers, toy_optimizer):
     """Each scheduler knob and request field of a feature that is not
-    ported is a 400 that names it, on /generate/ and /generate_batch/;
+    ported is a 400 that names it, on /generate/ and /generate_batch/ (an
+    unknown ``priority`` class too, and the knob when a case sets both);
     ``PENROZ_PROFILER_PORT`` (jax.profiler's live server) is a ValueError
     (400) when the server is created."""
     monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
@@ -378,7 +381,7 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
         batch_name = {"session_id": "session_ids"}.get(name, name)
         batch[batch_name] = ([value] if batch_name == "session_ids"
                              else value)
-        names = [name, batch_name]
+        names = [next(iter(env))] if env else [name, batch_name]
     else:
         names = [next(iter(env))]
         if names[0] == "PAGED_KV_CACHE":

@@ -1,6 +1,7 @@
 """The port's OpenAPI document (penroz_tpu_torch/serve/openapi.py), docs
 page and ``/profile/`` route on the CPU: the spec's paths and methods are
-exactly the server's route tables; every request schema's required fields
+exactly the server's route tables (templated routes as templates, their
+parameters declared in the path); every request schema's required fields
 and properties are its ``FIELDS``; ``/openapi.json`` and ``/docs`` answer
 over HTTP; a ``torch.profiler`` capture starts, stops into a Chrome trace
 that holds the scheduler worker's ranges, and a second start or an idle
@@ -9,6 +10,7 @@ stop answers 409."""
 import glob
 import json
 import os
+import re
 import threading
 import urllib.error
 import urllib.request
@@ -56,6 +58,22 @@ def test_spec_paths_equal_the_route_tables():
     assert spec["openapi"] == "3.1.0"
     got = {(m, p) for p, ops in spec["paths"].items() for m in ops}
     assert got == _routes()
+    templated = {p for _, p in got if "{" in p}
+    assert templated == {"/trace/{request_id}", "/tenants/{tenant_id}/quota",
+                         "/static/{path}"}
+    for path in templated:
+        for op in spec["paths"][path].values():
+            declared = {p["name"] for p in op["parameters"]
+                        if p["in"] == "path"}
+            assert declared == set(re.findall(r"{(\w+)}", path)), path
+    # the JAX service's observability and QoS routes, as it spells them
+    for route in (("get", "/metrics"), ("get", "/trace/"),
+                  ("get", "/trace/{request_id}"), ("get", "/memory/"),
+                  ("get", "/debug/dump"), ("get", "/tenants/"),
+                  ("put", "/tenants/{tenant_id}/quota"),
+                  ("get", "/dashboard")):
+        assert route[1] in jopenapi.build_spec()["paths"], route
+        assert route in got, route
 
 
 @pytest.mark.parametrize("cls", schemas.REQUESTS, ids=lambda c: c.__name__)

@@ -278,7 +278,7 @@ def test_prefix_hits_share_pages_concurrently(jmodel, prefix_env,
     with engine._cond:
         for prompt, n in ((px, 5), (py, 6)):
             req, events = DS._queued_request(prompt, n, None)
-            engine._pending.append(req)
+            engine._pending.push(req)
             handles.append((req, events))
         engine._cond.notify_all()
     got = [DS.collect(req, events, WAIT_S) for req, events in handles]

@@ -61,7 +61,7 @@ def _overlapping(engine, prompts, new_tokens):
     with engine._cond:
         for prompt, n in zip(prompts, new_tokens):
             req, events = DS._queued_request(prompt, n, None)
-            engine._pending.append(req)
+            engine._pending.push(req)
             handles.append((req, events))
         engine._cond.notify_all()
     return [DS.collect(req, events, WAIT_S) for req, events in handles]

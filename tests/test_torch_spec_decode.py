@@ -85,7 +85,7 @@ def _overlapping(engine, prompts, new_tokens, stop=None):
     with engine._cond:
         for prompt, n in zip(prompts, new_tokens):
             req, events = DS._queued_request(prompt, n, stop)
-            engine._pending.append(req)
+            engine._pending.push(req)
             handles.append((req, events))
         engine._cond.notify_all()
     return [DS.collect(req, events, WAIT_S) for req, events in handles]

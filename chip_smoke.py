@@ -3590,18 +3590,13 @@ def phase_training(torch, layers, optimizer, vocab, card,
     """Train ``layers`` (GPT-2 124M; phase 5b's MoE model) over HTTP, then
     ``then(base, model_id, outs)`` while the server runs, with the trained
     model's greedy tokens; returns (stats, launch counts)."""
-    import numpy as np
-
     from penroz_tpu_torch.models.model import CompiledArch
     from penroz_tpu_torch.serve.app import create_app
     from penroz_tpu_torch.utils import checkpoint
 
     with torch.device("meta"):
         n_attn = len(CompiledArch(layers).attn_layers)
-    os.makedirs("data", exist_ok=True)
-    tokens = np.random.default_rng(0).integers(
-        0, TRAIN_VOCAB_USED, TRAIN_TOKENS).astype(np.uint16)
-    np.save(os.path.join("data", "smoke_000000.npy"), tokens)
+    _write_train_shard()
     num_steps = TRAIN_BATCH // TRAIN_STEP
     micro_steps = TRAIN_EPOCHS * num_steps
     buffer = TRAIN_BATCH * TRAIN_BLOCK
@@ -4967,7 +4962,8 @@ def phase_qos(torch, layers, optimizer, block, vocab, card, device="cuda",
             check(mem["flight_records"] == 1 and len(mem["engines"]) == 2,
                   f"/memory/ after the crash: {mem['flight_records']}")
             if on_card:
-                used = sum(mem["hbm_bytes"].values())
+                used = sum(v for k, v in mem["hbm_bytes"].items()
+                           if k != "adapter_host_cache")
                 check(used <= torch.cuda.memory_allocated(),
                       f"the ledger's {used} bytes exceed the "
                       f"{torch.cuda.memory_allocated()} allocated")
@@ -4992,6 +4988,518 @@ def phase_qos(torch, layers, optimizer, block, vocab, card, device="cuda",
         check(not on_card or n > 0, f"{name} ran no time in the phase")
     stats["seconds"] = time.monotonic() - t_phase
     say("qos", f"{stats['seconds']:.1f} s; device runs {totals} on {card}")
+    return stats, totals
+
+
+# ---------------------------------------------------------------------------
+# 4i: multi-tenant LoRA adapters
+# ---------------------------------------------------------------------------
+
+# GPT-2 124M under continuous batching over the paged pool (pages of 128)
+# with the prefix cache on, 8 rows; three adapters: a1 every projection
+# at rank 16, a2 the first six blocks' projections at rank 4 (both B
+# random, from seeds 1 and 2), a3 every projection at rank 8 with B zero
+# (the base model exactly).
+LORA_ENV = dict(CB_ENV, PENROZ_KV_PAGE_SIZE="128", PENROZ_PREFIX_CACHE="1",
+                PENROZ_PREFIX_CACHE_PAGES="64")
+LORA_ADAPTERS = {"a1": dict(rank=16, init="random", seed=1),
+                 "a2": dict(rank=4, init="random", seed=2, blocks=6),
+                 "a3": dict(rank=8, init="zeros", seed=3)}
+# The wave: 12 streams, 3 each for a1, a2, a3 and the base model, each a
+# shared 256-token prefix and its own 64-300 tokens, 64 new tokens.
+LORA_PREFIX_LEN = 256
+LORA_SUFFIX_LENS = (64, 300, 120, 240, 80, 280, 160, 200, 100, 260, 140,
+                    220)
+LORA_WAVE_NEW = 64
+# Adapter training: rank 8 at 4 x 1024, step 4 (one micro-step an
+# epoch), 2 epochs, on phase 5's synthetic shard.
+LORA_TRAIN = dict(epochs=2, batch_size=4, block_size=1024, step_size=4)
+
+
+def _write_train_shard():
+    """Phase 5's synthetic uint16 shard, ``data/smoke_000000.npy`` (numpy
+    seed 0): the same bytes whichever phase writes it."""
+    import numpy as np
+    os.makedirs("data", exist_ok=True)
+    tokens = np.random.default_rng(0).integers(
+        0, TRAIN_VOCAB_USED, TRAIN_TOKENS).astype(np.uint16)
+    np.save(os.path.join("data", "smoke_000000.npy"), tokens)
+
+
+def _file_digest(path):
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def phase_lora(torch, layers, optimizer, block, vocab, card, device="cuda",
+               model_id="smoke_res"):
+    """GPT-2 124M fp32 (phase 4g's checkpoint, created when absent) with
+    three LoRA adapters: ``/adapters/`` (create, list, detail, a duplicate
+    409); single-sequence greedy /generate/ of PROMPT_LEN + NEW_TOKENS with
+    each adapter on the contiguous cache and the paged pool, the decode
+    kernels' device runs 12 a dispatched step, graph == eager in process,
+    a3 (B zero) = the base tokens T0, a1 the argmax (within ARGMAX_ATOL) of
+    the card's no-cache forward with the weights merged, a base request
+    after a1 = T0; one engine serving the 12-stream wave of a1, a2, a3
+    and base rows (each stream = its adapter's single-sequence tokens, the
+    ragged kernel 12 a mixed step, prefix hits only inside a namespace,
+    3 live adapters, the ``lora_*`` series of ``/metrics`` = those of
+    ``/serving_stats/``, ``/memory/``'s ``lora_pack`` = the pack's bytes),
+    the same prompts as base rows (the rate without adapters), the wave
+    again under PENROZ_LORA_MAX_LIVE=2; ``PUT /train/`` of adapter t1
+    (flash and cross-entropy launches a micro-step, the base checkpoint
+    unchanged, finite costs, t1 served); one fp32 micro-step's factor
+    gradients through the kernels against the plain versions.  Returns
+    (stats, counts of the phase: the decode and ragged kernels' device
+    runs, the training kernels' launches).  ``device="cpu"`` rehearses it
+    at a toy size through the plain versions (no kernel counts)."""
+    import numpy as np
+
+    from penroz_tpu_torch.models import lora
+    from penroz_tpu_torch.models.model import CompiledArch, NeuralNetworkModel
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import adapters
+    from penroz_tpu_torch.serve import app as app_mod
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve import memledger
+    from penroz_tpu_torch.serve import metrics as serve_metrics
+    from penroz_tpu_torch.utils import checkpoint
+
+    t_phase = time.monotonic()
+    on_card = device != "cpu"
+    with torch.device("meta"):
+        arch = CompiledArch(layers)
+    n_attn = len(arch.attn_layers)
+    blocks = [i for i, entry in enumerate(layers) if "residual" in entry]
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(0, vocab, PROMPT_LEN).tolist()
+    prefix = rng.integers(0, vocab, LORA_PREFIX_LEN).tolist()
+    wave_prompts = [prefix + rng.integers(0, vocab, n).tolist()
+                    for n in LORA_SUFFIX_LENS]
+    wave_ids = [("a1", "a2", "a3", None)[i % 4]
+                for i in range(len(wave_prompts))]
+    counters = _kernel_counters()
+    device_counted = dict(_decode_counters(),
+                          ragged_paged_attention=RPA.ragged_paged_attention)
+    totals = dict.fromkeys(counters, 0)
+    stats = {}
+
+    def harvest():
+        """Add the counts since the last harvest to the phase's totals and
+        zero them: device runs of the decode and ragged kernels, launches
+        of the others."""
+        for name, fn in counters.items():
+            if name in device_counted:
+                totals[name] += fn.runs.read()
+                fn.runs.reset()
+            else:
+                totals[name] += fn.launches
+            fn.launches = 0
+
+    def call(path, body=None, method=None):
+        status, _, text = _qos_call(base, path, body, method)
+        return status, (json.loads(text) if text else None)
+
+    def gen(p, new, aid=None):
+        body = {"model_id": model_id, "input": [p], "block_size": block,
+                "max_new_tokens": new, "temperature": 0}
+        if aid is not None:
+            body["adapter_id"] = aid
+        status, out = call("/generate/", body)
+        check(status == 200, f"/generate/ ({aid}) -> {status}: {out}")
+        return out["tokens"]
+
+    DS.reset()
+    adapters.REGISTRY.reset()
+    serve_metrics.reset()
+    harvest()
+    for name in totals:
+        totals[name] = 0
+    server = app_mod.create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    try:
+        if call(f"/progress/?model_id={model_id}")[0] != 200:
+            status, out = call("/model/", {"model_id": model_id,
+                                           "layers": layers,
+                                           "optimizer": optimizer})
+            check(status == 200, f"POST /model/ -> {status}: {out}")
+        for aid in list(LORA_ADAPTERS) + ["t1"]:
+            call(f"/adapters/?adapter_id={aid}", method="DELETE")
+
+        # -- the lifecycle ------------------------------------------------
+        t0 = time.monotonic()
+        for aid, spec in LORA_ADAPTERS.items():
+            body = {"model_id": model_id, "adapter_id": aid,
+                    "rank": spec["rank"], "init": spec["init"],
+                    "seed": spec["seed"]}
+            if "blocks" in spec:
+                body["targets"] = [f"layers.{i}."
+                                   for i in blocks[:spec["blocks"]]]
+            status, out = call("/adapters/", body)
+            check(status == 200 and out["config"]["rank"] == spec["rank"],
+                  f"POST /adapters/ {aid} -> {status}: {out}")
+        status, out = call("/adapters/", {"model_id": model_id,
+                                          "adapter_id": "a1"})
+        check(status == 409, f"a duplicate POST /adapters/ -> {status}")
+        status, out = call("/adapters/")
+        listed = {a["adapter_id"]: a for a in out["adapters"]}
+        check(status == 200 and set(LORA_ADAPTERS) <= set(listed),
+              f"GET /adapters/ -> {status}: {sorted(listed)}")
+        status, out = call("/adapters/?adapter_id=a1")
+        check(status == 200 and out["rank"] == 16 and out["alpha"] == 32.0
+              and out["status"]["code"] == "Created",
+              f"GET /adapters/?adapter_id=a1 -> {status}: {out}")
+        trees = {}
+        for aid in LORA_ADAPTERS:
+            entry = adapters.REGISTRY.acquire(aid, model_id)
+            trees[aid] = (entry.params, entry.config)
+            adapters.REGISTRY.release(entry)
+        stats["targets"] = {aid: len([k for k in t[0] if k.endswith("A")])
+                            for aid, t in trees.items()}
+        stats["lifecycle_s"] = time.monotonic() - t0
+        say("lora", f"/adapters/: a1, a2, a3 created ({stats['targets']} "
+            f"targeted projections), listed, a1's detail, a duplicate 409; "
+            f"{stats['lifecycle_s']:.1f} s")
+
+        # -- single-sequence /generate/, both caches ------------------------
+        model = NeuralNetworkModel.deserialize(model_id, device=device,
+                                               optimizer=False)
+        single = {}
+        for cache, env in (("contiguous", {"PAGED_KV_CACHE": "0"}),
+                           ("paged", {"PAGED_KV_CACHE": "1",
+                                      "PENROZ_KV_PAGE_SIZE": "128"})):
+            with _env(dict(env, PENROZ_CONTINUOUS_BATCHING="0")):
+                harvest()
+                _zero_decode_counts()
+                ledger = _StepLedger()
+                out = {}
+                with ledger.request():
+                    out[None] = gen(prompt, NEW_TOKENS)
+                for aid in ("a1", "a2", "a3"):
+                    with ledger.request():
+                        out[aid] = gen(prompt, NEW_TOKENS, aid)
+                with ledger.request():
+                    after = gen(prompt, NEW_TOKENS)
+                if on_card:
+                    _check_launches(n_attn, ledger, f"lora {cache}")
+                harvest()
+                check(after == out[None], f"{cache}: a base request after "
+                      f"a1 differs from T0")
+                check(out["a3"] == out[None], f"{cache}: a3 (B zero) "
+                      f"differs from T0")
+                check(out["a1"] != out[None] and out["a2"] != out[None],
+                      f"{cache}: a random adapter served the base tokens")
+                # in process: the eager step loop gives the graphs' tokens
+                with _graphs(False):
+                    for aid in ("a1", "a2", "a3"):
+                        eager = lora.bind_model(model, *trees[aid]) \
+                            .generate_tokens([prompt], block, NEW_TOKENS,
+                                             temperature=0)
+                        check(eager == out[aid], f"{cache}: {aid}'s graph "
+                              f"tokens differ from the eager step loop's")
+                harvest()
+                single[cache] = out
+                say("lora", f"{cache}: T0, a1, a2, a3 (= T0), base after "
+                    f"a1 (= T0) over HTTP, graph == eager in process; "
+                    f"decode kernel runs "
+                    f"{n_attn} a dispatched step ({ledger.steps})")
+        # a1 against the card's no-cache forward of the merged weights
+        merged = lora.merge_weights(dict(model.arch.named_parameters()),
+                                    *trees["a1"])
+        merged = {k: v.to(device) for k, v in merged.items()}
+        worst = 0.0
+        with torch.inference_mode():
+            for cache, out in single.items():
+                seq = out["a1"]
+                x = torch.tensor([seq[:-1]], device=device)
+                acts, _, _ = torch.func.functional_call(
+                    model.arch, merged, (x,), {"skip_softmax": True})
+                logits = acts[-1][0, PROMPT_LEN - 1:].float()
+                picked = torch.tensor(seq[PROMPT_LEN:], device=device)
+                gap = logits.max(-1).values - logits.gather(
+                    -1, picked[:, None])[:, 0]
+                worst = max(worst, float(gap.max()))
+        harvest()
+        stats["a1_argmax_worst_gap"] = worst
+        stats["single_caches_agree"] = {
+            aid: single["contiguous"][aid] == single["paged"][aid]
+            for aid in (None, "a1", "a2", "a3")}
+        say("lora", f"a1's tokens are the argmax of the merged weights' "
+            f"forward: worst gap {worst:.2e} (<= {ARGMAX_ATOL}); caches "
+            f"agree {stats['single_caches_agree']}")
+        check(worst <= ARGMAX_ATOL, f"an a1 token is {worst:.3e} below the "
+              f"top logit of the merged weights' forward")
+        if on_card:
+            timing = {}
+            for aid in (None, "a1"):
+                bound = (model if aid is None
+                         else lora.bind_model(model, *trees[aid]))
+                _, timing[aid or "base"] = _decode_timing(
+                    torch, bound, prompt, block, True)
+            harvest()
+            stats["decode"] = timing
+            say("lora", f"graph decode, contiguous cache: base "
+                f"{timing['base']['tokens_per_s']:.1f} tokens/s, a1 "
+                f"{timing['a1']['tokens_per_s']:.1f} (rank 16, every "
+                f"projection); a1 {_trace_text(timing['a1'])} on {card}")
+
+        # -- the mixed engine ---------------------------------------------
+        with _env(LORA_ENV):
+            refs = []
+            for p, aid in zip(wave_prompts, wave_ids):
+                bound = (model if aid is None
+                         else lora.bind_model(model, *trees[aid]))
+                refs.append(bound.generate_tokens([p], block, LORA_WAVE_NEW,
+                                                  temperature=0))
+            harvest()
+
+            def wave(ids, tag):
+                """The 12 streams at once on a fresh engine: (tokens, wall
+                s, mixed steps, ragged device runs, engine)."""
+                DS.reset()
+                serve_metrics.reset()
+                engine = DS.get_engine(model_id, block, 0, None,
+                                       device=server.device)
+                seen = []
+                cache = engine._prefix_cache
+                real_match, real_insert = cache.match, cache.insert
+                page_ns = {}
+
+                def match(tokens, limit=None, namespace=None):
+                    nodes = real_match(tokens, limit, namespace)
+                    seen.append((namespace, [page_ns.get(nd.page)
+                                             for nd in nodes]))
+                    return nodes
+
+                def insert(tokens, limit=None, namespace=None):
+                    created = real_insert(tokens, limit, namespace)
+                    for _, page in created:
+                        page_ns[page] = namespace
+                    return created
+
+                cache.match, cache.insert = match, insert
+                harvest()
+                results, errors = [None] * len(ids), []
+
+                def fire(i):
+                    try:
+                        results[i] = gen(wave_prompts[i], LORA_WAVE_NEW,
+                                         ids[i])
+                    except BaseException as e:  # noqa: BLE001
+                        errors.append(e)
+
+                with _mixed_steps() as steps:
+                    threads = [threading.Thread(target=fire, args=(i,))
+                               for i in range(len(ids))]
+                    t0 = time.monotonic()
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(900)
+                    wall = time.monotonic() - t0
+                check(not errors, f"{tag}: {errors[:1]}")
+                runs = RPA.ragged_paged_attention.runs.read()
+                harvest()
+                check(not on_card or runs == n_attn * steps["steps"],
+                      f"{tag}: the ragged kernel ran {runs} times, expected "
+                      f"{n_attn} x {steps['steps']} mixed steps")
+                crossed = [(ns, pages) for ns, pages in seen
+                           if any(p != ns for p in pages)]
+                check(not crossed, f"{tag}: prefix pages matched across "
+                      f"namespaces: {crossed[:2]}")
+                hits = sum(1 for _, pages in seen if pages)
+                return results, wall, steps["steps"], runs, engine, hits
+
+            # the same prompts, every row base: the rate without adapters
+            base_out, base_wall, base_steps, _, _, _ = wave(
+                [None] * len(wave_prompts), "base wave")
+            out, wall, n_steps, runs, engine, hits = wave(wave_ids,
+                                                          "lora wave")
+            for i, (got, want, p) in enumerate(zip(out, refs,
+                                                   wave_prompts)):
+                check(got == want, f"stream {i} ({wave_ids[i]}): the "
+                      f"engine's tokens differ from the single-sequence "
+                      f"path's")
+                if wave_ids[i] is None:
+                    check(base_out[i] == want, f"base wave stream {i}")
+            s = json.loads(_qos_call(base, "/serving_stats/")[2])
+            (eng,) = s["engines"]
+            check(eng["lora_active_adapters"] == 3 and s[
+                "lora_active_adapters"] == 3, f"lora_active_adapters "
+                f"{eng['lora_active_adapters']}")
+            want_tokens = {aid: 3 * LORA_WAVE_NEW for aid in LORA_ADAPTERS}
+            check(s["lora_adapter_tokens"] == want_tokens, f"lora_adapter_"
+                  f"tokens {s['lora_adapter_tokens']}")
+            status, headers, text = _qos_call(base, "/metrics")
+            lines = text.rstrip("\n").split("\n")
+            check(status == 200 and all(_EXPOSITION.match(ln)
+                                        for ln in lines), "/metrics")
+            series = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                      for ln in lines if not ln.startswith("#")}
+            pairs = {"penroz_lora_live_adapters": s["lora_active_adapters"]}
+            pairs.update({f'penroz_lora_adapter_tokens_total{{adapter_id='
+                          f'"{aid}"}}': n
+                          for aid, n in s["lora_adapter_tokens"].items()})
+            diff = {k: (series.get(k), v) for k, v in pairs.items()
+                    if series.get(k) != v}
+            check(not diff, f"/metrics' lora series differ from "
+                  f"/serving_stats/: {diff}")
+            mem = json.loads(_qos_call(base, "/memory/")[2])
+            pack_bytes = sum(t.numel() * t.element_size()
+                             for ent in engine._lora_pack.values()
+                             for t in ent.values())
+            check(mem["engines"][0]["hbm_bytes"]["lora_pack"] == pack_bytes
+                  == mem["hbm_bytes"]["lora_pack"] > 0,
+                  f"/memory/ lora_pack {mem['hbm_bytes']['lora_pack']} != "
+                  f"the pack's {pack_bytes} bytes")
+            check(mem["hbm_bytes"]["adapter_host_cache"]
+                  == adapters.REGISTRY.cache_bytes() > 0,
+                  "/memory/ adapter_host_cache")
+            new = LORA_WAVE_NEW * len(wave_prompts)
+            stats["wave"] = {
+                "s": wall, "tokens_per_s": new / wall, "mixed_steps":
+                    n_steps, "ragged_runs": runs, "prefix_hits": hits,
+                "base_s": base_wall, "base_tokens_per_s": new / base_wall,
+                "base_mixed_steps": base_steps, "lora_pack_bytes":
+                    pack_bytes, "adapter_host_cache_bytes":
+                    mem["hbm_bytes"]["adapter_host_cache"]}
+            say("lora", f"wave of 12 (a1, a2, a3, base x 3; 256-token "
+                f"prefix + 64-300, 64 new): every stream = its adapter's "
+                f"single-sequence tokens; {new / wall:.1f} tokens/s with "
+                f"adapters against {new / base_wall:.1f} on the same "
+                f"prompts without ({wall:.3f} / {base_wall:.3f} s, "
+                f"{n_steps} / {base_steps} mixed steps); ragged runs "
+                f"{runs} = {n_attn} x {n_steps}; {hits} prefix hits, none "
+                f"across namespaces; 3 live adapters; /metrics = "
+                f"/serving_stats/; lora_pack {pack_bytes} bytes on {card}")
+            with _env({lora.MAX_LIVE_ENV: "2"}):
+                out2, wall2, steps2, _, engine2, _ = wave(
+                    wave_ids, "lora wave, 2 live slots")
+            check(out2 == refs, "under PENROZ_LORA_MAX_LIVE=2 a stream "
+                  "differs from the single-sequence tokens")
+            check(engine2.live_adapters == 2, "2 live slots")
+            stats["wave_max_live_2"] = {"s": wall2, "mixed_steps": steps2,
+                                        "tokens_per_s": new / wall2}
+            say("lora", f"the wave under PENROZ_LORA_MAX_LIVE=2: every "
+                f"stream complete and equal, {new / wall2:.1f} tokens/s, "
+                f"{steps2} mixed steps")
+            DS.reset()
+
+        # -- adapter training ---------------------------------------------
+        _write_train_shard()
+        src = checkpoint.source_path(model_id)
+        before = _file_digest(src)
+        train = dict({"model_id": model_id, "dataset_id": "smoke",
+                      "shard": 0, "adapter": {"adapter_id": "t1",
+                                              "rank": 8}}, **LORA_TRAIN)
+        micro_steps = LORA_TRAIN["epochs"] * (
+            LORA_TRAIN["batch_size"] // LORA_TRAIN["step_size"])
+        harvest()
+        t0 = time.monotonic()
+        status, out = call("/train/", train, "PUT")
+        check(status == 202, f"PUT /train/ with an adapter -> {status}: "
+              f"{out}")
+        detail = None
+        while time.monotonic() - t0 < 600:
+            status, detail = call("/adapters/?adapter_id=t1")
+            if status == 200 and detail["status"]["code"] in ("Trained",
+                                                              "Error"):
+                break
+            time.sleep(0.2)
+        check(server.join_training(timeout=300), "training still running")
+        launches = {name: counters[name].launches for name in
+                    _training_counters()}
+        harvest()
+        check(detail["status"]["code"] == "Trained",
+              f"adapter training ended {detail['status']}")
+        costs = [p["cost"] for p in detail["progress"]]
+        check(len(costs) == LORA_TRAIN["epochs"]
+              and all(math.isfinite(c) for c in costs),
+              f"adapter training costs {costs}")
+        if on_card:
+            for name, per in (("flash_attention_fwd", n_attn),
+                              ("flash_attention_bwd", n_attn),
+                              ("ce_forward", 1), ("ce_backward", 1)):
+                check(launches[name] == per * micro_steps,
+                      f"adapter training: {name} launched "
+                      f"{launches[name]} times, expected {per} x "
+                      f"{micro_steps} micro-steps")
+        check(_file_digest(checkpoint.source_path(model_id)) == before,
+              "the base checkpoint changed under adapter training")
+        epoch_s = [p["durationInSecs"] for p in detail["progress"]]
+        tokens = LORA_TRAIN["batch_size"] * LORA_TRAIN["block_size"]
+        stats["training"] = {"costs": costs, "epoch_s": epoch_s,
+                             "launches": launches,
+                             "request_s": time.monotonic() - t0,
+                             "tokens_per_s": tokens / epoch_s[-1]}
+        served_t1 = gen(prompt[:16], 16, "t1")
+        check(len(served_t1) == len(prompt[:16]) + 16, "t1 served")
+        say("lora", f"PUT /train/ adapter t1 (rank 8, every projection) "
+            f"at {LORA_TRAIN['batch_size']} x {LORA_TRAIN['block_size']}, "
+            f"{micro_steps} micro-steps: costs "
+            f"{[round(c, 4) for c in costs]}, launches {launches}, the "
+            f"base checkpoint unchanged, t1 served; epoch 2 "
+            f"{epoch_s[-1]:.4f} s = {tokens / epoch_s[-1]:.0f} tokens/s "
+            f"on {card}")
+
+        # -- one fp32 micro-step's factor gradients: kernels vs plain ------
+        g = torch.Generator().manual_seed(3)
+        x = torch.randint(0, vocab, (1, block), generator=g).to(device)
+        y = torch.randint(0, vocab, (1, block), generator=g).to(device)
+        leaves = {k: lora.as_tensor(v).to(device).requires_grad_(True)
+                  for k, v in trees["a1"][0].items()}
+        binding = lora.bind(leaves, trees["a1"][1], device)
+        base_params = {k: p.detach()
+                       for k, p in model.arch.named_parameters()}
+
+        def step():
+            with torch.enable_grad():
+                _, cost, _ = torch.func.functional_call(
+                    model.arch, base_params, (x, y),
+                    {"skip_softmax": True, "training": True,
+                     "generator": torch.Generator(device=device),
+                     "adapter": binding})
+                return cost.detach(), torch.autograd.grad(
+                    cost, list(leaves.values()))
+
+        cost, grads = step()
+        with plain_kernels():
+            ref_cost, ref_grads = step()
+        harvest()
+        loss_err = abs(float(cost) - float(ref_cost))
+        worst = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                    for a, b in zip(grads, ref_grads))
+        stats["micro_step"] = {"loss": float(cost),
+                               "plain_loss": float(ref_cost),
+                               "loss_abs_err": loss_err,
+                               "grad_worst_rel_err": worst}
+        say("lora", f"fp32 adapter micro-step B1 T{block}: loss "
+            f"{float(cost):.6f} vs plain {float(ref_cost):.6f}; worst "
+            f"factor gradient max|diff|/max|g| {worst:.2e} (<= "
+            f"{STEP_GRAD_RTOL}) over {len(leaves)} factors")
+        check(loss_err <= STEP_LOSS_RTOL * abs(float(ref_cost)),
+              f"adapter micro-step loss differs by {loss_err:.3e}")
+        check(worst <= STEP_GRAD_RTOL, f"adapter micro-step factor "
+              f"gradients differ: {worst:.3e} x max |g|")
+        del model, merged, leaves, grads, ref_grads
+        for aid in list(LORA_ADAPTERS) + ["t1"]:
+            call(f"/adapters/?adapter_id={aid}", method="DELETE")
+        DS.reset()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        server.join_training(timeout=60)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    for name, n in totals.items():
+        check(not on_card or n > 0, f"{name} ran no time in the phase")
+    stats["seconds"] = time.monotonic() - t_phase
+    say("lora", f"{stats['seconds']:.1f} s; device runs and launches "
+        f"{totals} on {card}")
     return stats, totals
 
 
@@ -5043,6 +5551,9 @@ def main(argv=None) -> int:
         qos_stats, qos_launches = phase_qos(
             torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
             card=card)
+        lora_stats, lora_launches = phase_lora(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -5066,9 +5577,9 @@ def main(argv=None) -> int:
                           "qwen3": qwen3_launches, "qmoe": qmoe_launches,
                           "moe_training": moe_launches,
                           "resilience": res_launches,
-                          "qos": qos_launches}
+                          "qos": qos_launches, "lora": lora_launches}
         for extra in (qwen3_launches, qmoe_launches, moe_launches,
-                      res_launches, qos_launches):
+                      res_launches, qos_launches, lora_launches):
             for name_, n in extra.items():
                 launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
@@ -5096,7 +5607,7 @@ def main(argv=None) -> int:
                        "continuous_batching": cb_stats,
                        "prefix_spec": pf_stats,
                        "resilience": res_stats,
-                       "qos": qos_stats,
+                       "qos": qos_stats, "lora": lora_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

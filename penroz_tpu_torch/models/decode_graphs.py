@@ -24,10 +24,17 @@ draw of ``CompiledArch._sample_packed``, keyed by the request's seed, row
 0 and the sampled token's index in the whole context, so the tokens do
 not depend on the chunk size or on capture.
 
+A runner for a LoRA adapter (models/lora.py ``bind_model``) also owns fp32
+factor buffers for the adapter's targeted projections, rank-padded to
+``PENROZ_LORA_MAX_RANK``, which each request fills before its prefill; its
+steps apply them as the bound delta (``Ctx.adapter``).
+
 Runners are process-wide, keyed by the model's layers and parameter
 dtypes, the device, the cache class (int8, paged and its page size, the
 SSM checkpoint ring), the block size, the sampling mode (greedy, top-k
-with its k, or full) and graphs on or off: capture is paid once per key
+with its k, or full), graphs on or off, and the adapter's targeted
+projections and padded rank (none for a base request, whose runner never
+carries factors): capture is paid once per key
 and process, not per request (the counterpart of the JAX package's
 process-wide jit cache).  A request holds its runner for its whole
 generation; up to :data:`RUNNERS_PER_KEY` concurrent requests on one key
@@ -53,6 +60,7 @@ import time
 
 import torch
 
+from penroz_tpu_torch.models import lora
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops import ssm as ssm_ops
 
@@ -108,9 +116,22 @@ class DecodeRunner:
     note); ``graph`` is the captured step on ``cuda``, else None."""
 
     def __init__(self, arch, dtype, block_size: int, greedy: bool, top_k,
-                 device, graphs: bool):
+                 device, graphs: bool, lora_shape=None):
         self.device = torch.device(device)
         self.arch = copy.deepcopy(arch).requires_grad_(False)
+        # LoRA: fp32 factor buffers {prefix: (A (R, in), B (out, R), scale)}
+        # that every step reads, filled by each request (zero past its
+        # rank); None for a base runner
+        self.adapter = None
+        if lora_shape is not None:
+            prefixes, R = lora_shape
+            dims = {p: (m.in_features, m.out_features)
+                    for p, m in self.arch.named_modules() if p in prefixes}
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self.adapter = {p: (torch.zeros(R, dims[p][0], **f32),
+                                torch.zeros(dims[p][1], R, **f32),
+                                torch.zeros((), **f32))
+                            for p in prefixes}
         self.kv = KV.create_kv_state(arch.kv_specs, 1, block_size, dtype,
                                      device=self.device,
                                      ssm_specs=arch.ssm_specs)
@@ -132,7 +153,9 @@ class DecodeRunner:
         self.nbytes = _held_bytes(self, self.kv, *(
             [self.kv.ssm] if self.kv.ssm is not None else [])) + sum(
             t.numel() * t.element_size()
-            for t in self.arch.state_dict().values())
+            for t in self.arch.state_dict().values()) + sum(
+            t.numel() * t.element_size()
+            for ent in (self.adapter or {}).values() for t in ent)
 
     # -- the step -----------------------------------------------------------
 
@@ -152,7 +175,8 @@ class DecodeRunner:
         self.kv.at_positions(positions)
         try:
             acts, _, _ = self.arch(self.tok, kv=self.kv, skip_softmax=True,
-                                   pos_offset=positions.index.view(1, 1))
+                                   pos_offset=positions.index.view(1, 1),
+                                   adapter=self.adapter)
         finally:
             self.kv.at_positions(None)
         logits = acts[-1]
@@ -192,13 +216,26 @@ class DecodeRunner:
 
     # -- a request ----------------------------------------------------------
 
-    def start(self, arch, seed, temp: float):
+    def start(self, arch, seed, temp: float, adapter=None):
         """Take a request: copy its weights in (device to device), its
-        sampling seed (a device scalar, or None when greedy) and its
-        temperature."""
+        adapter's factors (``(params, config)``, models/lora.py: rank
+        zero-padded to the buffers'), its sampling seed (a device scalar,
+        or None when greedy) and its temperature."""
         dst = self.arch.state_dict()
         for key, src in arch.state_dict().items():
             dst[key].copy_(src)
+        if self.adapter is not None:
+            params, config = adapter
+            s = lora.scale(config)
+            for prefix, (a, b, scale) in self.adapter.items():
+                src_a = lora.as_tensor(params[f"{prefix}.lora_A"])
+                src_b = lora.as_tensor(params[f"{prefix}.lora_B"])
+                r = src_a.shape[0]
+                a.zero_()
+                b.zero_()
+                a[:r].copy_(src_a)
+                b[:, :r].copy_(src_b)
+                scale.fill_(s)
         if seed is not None:
             self.seed.copy_(seed)
         self.temp.fill_(float(temp))
@@ -209,7 +246,8 @@ class DecodeRunner:
         ``key_base``: the context index of ``feed[0]``.  Returns ``tok``."""
         self.kv.reset()
         x = torch.tensor([feed], dtype=torch.int64, device=self.device)
-        acts, _, _ = self.arch(x, kv=self.kv, skip_softmax=True)
+        acts, _, _ = self.arch(x, kv=self.kv, skip_softmax=True,
+                               adapter=self.adapter)
         logits = acts[-1]
         if logits.ndim == 3:
             logits = logits[:, -1, :]
@@ -253,8 +291,24 @@ class DecodeRunner:
         return host, event
 
 
-def runner_key(arch, block_size: int, greedy: bool, top_k, device) -> tuple:
-    """What a runner's buffers and captured step depend on."""
+def lora_shape(adapter):
+    """``(targeted prefixes, padded rank)`` of an adapter ``(params,
+    config)`` (None without one): what an adapter runner's factor buffers
+    and captured step depend on.  Ranks pad to ``PENROZ_LORA_MAX_RANK``,
+    so adapters that target the same projections share runners."""
+    if adapter is None:
+        return None
+    params, config = adapter
+    prefixes = tuple(k[:-len(".lora_A")] for k in params
+                     if k.endswith(".lora_A"))
+    return prefixes, max(lora.max_rank(), int(config["rank"]))
+
+
+def runner_key(arch, block_size: int, greedy: bool, top_k, device,
+               adapter=None) -> tuple:
+    """What a runner's buffers and captured step depend on: a runner
+    captured without factors never replays for an adapter, nor one with
+    them for a base request."""
     paged = KV.paged_enabled()
     return (json.dumps(arch.layers_dsl, sort_keys=True),
             tuple(str(t.dtype) for t in arch.state_dict().values()),
@@ -262,18 +316,21 @@ def runner_key(arch, block_size: int, greedy: bool, top_k, device) -> tuple:
             KV.turbo_quant_enabled(), paged,
             KV.default_page_size() if paged else None,
             ssm_ops.ckpt_slots_default() if arch.ssm_specs else None,
+            lora_shape(adapter),
             "greedy" if greedy else ("top_k", int(top_k))
             if top_k is not None else "full",
             graphs_enabled(device))
 
 
 @contextlib.contextmanager
-def runner(arch, dtype, block_size: int, greedy: bool, top_k, device):
+def runner(arch, dtype, block_size: int, greedy: bool, top_k, device,
+           adapter=None):
     """Hold a runner for ``arch``'s key for the duration (built, and on
     ``cuda`` captured, when none is idle and fewer than
     :data:`RUNNERS_PER_KEY` are alive; else wait for one); ``dtype``: the
-    cache's, the parameters'."""
-    key = runner_key(arch, block_size, greedy, top_k, device)
+    cache's, the parameters'; ``adapter``: the request's ``(params,
+    config)`` or None."""
+    key = runner_key(arch, block_size, greedy, top_k, device, adapter)
     with _COND:
         while True:
             held = _IDLE.pop(key, None)
@@ -289,7 +346,8 @@ def runner(arch, dtype, block_size: int, greedy: bool, top_k, device):
             # plain tensors (not inference tensors), usable in any mode
             with torch.inference_mode(False), torch.no_grad():
                 held = DecodeRunner(arch, dtype, block_size, greedy, top_k,
-                                    device, graphs=graphs_enabled(device))
+                                    device, graphs=graphs_enabled(device),
+                                    lora_shape=lora_shape(adapter))
         except BaseException:
             _drop(key)
             raise

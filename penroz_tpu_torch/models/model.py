@@ -19,9 +19,10 @@ facade (counterpart of penroz_tpu/models/model.py: serving and training).
   the continuous-batching scheduler's unified block
   (``decode_mixed_step``).
 
-Training runs on one device.  Out of this slice, and refused with a
-ValueError (HTTP 400) rather than ignored: LoRA adapters, the training
-worker process (``PENROZ_TRAIN_WORKER``), rematerialization
+Training runs on one device; with an ``adapter`` it trains a LoRA
+adapter's factors alone (models/lora.py ``train_adapter``).  Out of this
+slice, and refused with a ValueError (HTTP 400) rather than ignored: the
+training worker process (``PENROZ_TRAIN_WORKER``), rematerialization
 (``PENROZ_REMAT``), meshes (``PENROZ_MESH_*``, ``PENROZ_FSDP``,
 ``PENROZ_WUS``, ``PENROZ_SP_MODE``, ``PENROZ_PIPE_REMAT``) and
 decode-priority micro-stepping (``PENROZ_DECODE_PRIORITY_MS``): see
@@ -209,6 +210,9 @@ class CompiledArch(nn.Module):
         self.attn_layers: list[M.CausalSelfAttention] = []
         self.ssm_layers: list[M.GatedSSM] = []
         self._index_attention()
+        for prefix, mod in self.named_modules():
+            if isinstance(mod, M.Linear):
+                mod.prefix = prefix     # the key LoRA factors bind to
 
     @property
     def param_order(self) -> list[str]:
@@ -284,7 +288,8 @@ class CompiledArch(nn.Module):
 
     def forward(self, tokens, targets=None, *, kv=None, skip_softmax=False,
                 training=False, generator=None, pos_offset=None,
-                ragged_descs=None, ragged_rows=None):
+                ragged_descs=None, ragged_rows=None, adapter=None,
+                lora=None, lora_idx=None):
         """Full forward collecting every top-level activation; returns
         ``(activations, cost, new_kv)``: ``cost`` is None without
         ``targets``, and the cache is advanced by the tokens fed (in
@@ -295,10 +300,14 @@ class CompiledArch(nn.Module):
         drawing from ``generator``.  The cost reads the logits, the input
         of the first top-level softmax (or the last activation), plus the
         auxiliary losses a training forward collects (the MoE load
-        balance), as the JAX package's ``forward`` adds them."""
+        balance), as the JAX package's ``forward`` adds them.  LoRA
+        (models/lora.py): ``adapter`` binds one adapter to the whole
+        forward; ``lora`` (a pack) with ``lora_idx`` (each row's or
+        packed token's slot) mixes adapters in one batch."""
         ctx = M.Ctx(kv=kv, training=training, generator=generator,
                     pos_offset=pos_offset, ragged_descs=ragged_descs,
-                    ragged_rows=ragged_rows)
+                    ragged_rows=ragged_rows, adapter=adapter, lora=lora,
+                    lora_idx=lora_idx)
         acts = []
         h = tokens
         logits = None
@@ -498,6 +507,9 @@ class NeuralNetworkModel:
         self.avg_cost_history: list[float] = []
         self.stats: Optional[dict] = None
         self.status = {"code": "Created", "message": "Model created"}
+        # (adapter params, config) that generation applies, or None: set
+        # on a shallow copy by models/lora.py ``bind_model``
+        self.adapter = None
         self._generator = self._new_generator()
         # torch.optim optimizer, built at first use; until then the
         # checkpoint's optimizer leaves wait here (None: a fresh state;
@@ -777,11 +789,17 @@ class NeuralNetworkModel:
                               adapter=None):
         """Load the checkpoint onto ``device`` (``cuda`` unless ``"cpu"``)
         and train it (JAX ``train_model_on_device``, single process)."""
-        if adapter is not None:
-            raise ValueError("LoRA adapter training is not ported to "
-                             "penroz_tpu_torch yet")
         unported_training_options()
         model = cls.deserialize(model_id, device=device)
+        if adapter is not None:
+            # the base stays frozen; the checkpoint written is the
+            # adapter's alone (models/lora.py)
+            from penroz_tpu_torch.models import lora
+            lora.train_adapter(model, adapter["adapter_id"], adapter,
+                               dataset_id, shard=shard, epochs=epochs,
+                               batch_size=batch_size, block_size=block_size,
+                               step_size=step_size)
+            return model
         model.train_model(dataset_id, shard=shard, epochs=epochs,
                           batch_size=batch_size, block_size=block_size,
                           step_size=step_size)
@@ -832,8 +850,9 @@ class NeuralNetworkModel:
             0, 2 ** 31 - 1, (), generator=self._generator,
             device=self.device)
         with decode_graphs.runner(self.arch, self.dtype, block_size, greedy,
-                                  top_k, self.device) as runner:
-            runner.start(self.arch, seed, temp)
+                                  top_k, self.device,
+                                  adapter=self.adapter) as runner:
+            runner.start(self.arch, seed, temp, adapter=self.adapter)
             cache_len = 0
             produced = 0    # tokens yielded to the caller
             dispatched = 0  # tokens sampled on the device (a chunk ahead)
@@ -932,7 +951,7 @@ class NeuralNetworkModel:
     def decode_mixed_step(self, kv, descs, tok_lit, tok_src, positions,
                           sample_slot, last_tokens, seed: int = 0,
                           temperature=1.0, top_k=None, row_ids=None,
-                          verify_slots=None):
+                          verify_slots=None, lora=None, lora_slots=None):
         """Run ``n`` unified RAGGED steps over the paged pool ``kv`` — the
         continuous-batching scheduler's block (JAX ``decode_mixed_step``):
         every step is one packed mixed batch in which prefill chunks and
@@ -955,7 +974,10 @@ class NeuralNetworkModel:
           and carried nowhere — the host compares them with the draft;
         - ``row_ids`` (n, Tp): row per slot (-1 padding), the positional
           sampling keys of temperature > 0: a slot at (row, position)
-          draws what a plain decode step at that position would.
+          draws what a plain decode step at that position would;
+        - ``lora`` (models/lora.py ``build_pack``, on the device) and
+          ``lora_slots`` (n, Tp): each packed token's adapter slot (the
+          pack's last, all-zero slot for base rows and padding).
 
         Only the ``sample_slot`` and ``verify_slots`` slots are sampled.
 
@@ -987,6 +1009,9 @@ class NeuralNetworkModel:
                  last_tokens]
         if V:
             parts.append(verify_slots)
+        L = int(lora is not None)
+        if L:
+            parts.append(lora_slots)
         for s in range(n):  # scatter index of every step, from the host table
             parts += kv.packed_index(kv.packed_rows(descs[s], block_q))
         sizes = [int(np.size(a)) for a in parts]
@@ -1002,7 +1027,8 @@ class NeuralNetworkModel:
         d_sslot = views[4].view(n, B)
         last = views[6]
         d_vslot = views[7].view(n, V) if V else None
-        d_scatter = views[7 + bool(V):]
+        d_lslot = views[7 + bool(V)].view(n, Tp) if L else None
+        d_scatter = views[7 + bool(V) + L:]
         outs = []
         for s in range(n):
             src = d_src[s]
@@ -1011,7 +1037,8 @@ class NeuralNetworkModel:
             acts, _, _ = self.arch(
                 toks[None, :], kv=kv, skip_softmax=True,
                 pos_offset=d_pos[s][None, :], ragged_descs=d_descs[s],
-                ragged_rows=(d_scatter[2 * s], d_scatter[2 * s + 1]))
+                ragged_rows=(d_scatter[2 * s], d_scatter[2 * s + 1]),
+                lora=lora, lora_idx=d_lslot[s][None, :] if L else None)
             sslot = d_sslot[s]
             slots = sslot if not V else torch.cat([sslot, d_vslot[s]])
             at = torch.clamp(slots, min=0)

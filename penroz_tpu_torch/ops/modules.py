@@ -15,6 +15,9 @@ BatchNorm1d's running statistics are registered buffers
 a training-mode forward updates in place, as the JAX package's
 ``ctx.buffer_updates`` do; so is ``MixtureOfExperts``' ``router_fraction``,
 whose load-balance loss a training forward appends to ``ctx.aux_losses``.
+``Linear`` adds a LoRA adapter's low-rank delta when the Ctx carries
+factors for its prefix (models/lora.py): one bound adapter, or a
+mixed-batch pack with each row's or packed token's slot.
 ``MixtureOfExperts`` runs on one device: its expert-parallel dispatch
 goes with the meshes, which are not ported.  ``CausalSelfAttention`` has
 the no-cache (flash), contiguous-cache, paged and ragged (packed mixed
@@ -54,18 +57,45 @@ class Ctx:
     on the device.
 
     ``aux_losses`` collects the auxiliary training losses (the MoE load
-    balance) that the model adds to its cost."""
+    balance) that the model adds to its cost.
+
+    LoRA (models/lora.py), read by every :class:`Linear`: ``adapter`` binds
+    one adapter to the whole forward, ``{prefix: (A, B, scale)}``;
+    ``lora`` is the mixed-batch pack ``{prefix: {a: (L+1, R, in), b: (L+1,
+    out, R), scale: (L+1,)}}`` and ``lora_idx`` each row's slot ``(B,)``
+    or each packed token's ``(B, T)`` (the last slot is all zero: a base
+    row)."""
 
     def __init__(self, *, kv=None, training: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 pos_offset=None, ragged_descs=None, ragged_rows=None):
+                 pos_offset=None, ragged_descs=None, ragged_rows=None,
+                 adapter=None, lora=None, lora_idx=None):
         self.kv = kv  # ops.kv_cache.KVState or None
         self.training = training
         self.generator = generator
         self.pos_offset = pos_offset
         self.ragged_descs = ragged_descs
         self.ragged_rows = ragged_rows
+        self.adapter = adapter
+        self.lora = lora
+        self.lora_idx = lora_idx
+        self._lora_onehot: dict = {}
         self.aux_losses: list[torch.Tensor] = []
+
+    def lora_onehot(self, n_slots: int, lead) -> torch.Tensor:
+        """``lead + (n_slots,)`` fp32 one-hot of each row's or token's
+        slot (``lora_idx``, a row's broadcast over its tokens), built once
+        a forward and shared by every projection; no host read."""
+        key = (n_slots, tuple(lead))
+        onehot = self._lora_onehot.get(key)
+        if onehot is None:
+            idx = self.lora_idx
+            if idx.ndim == 1 and len(lead) == 2:
+                idx = idx[:, None].expand(tuple(lead))
+            onehot = (idx[..., None] == torch.arange(
+                n_slots, device=idx.device)).to(torch.float32)
+            self._lora_onehot[key] = onehot
+        return onehot
 
     def offset(self):
         """Position offset of the tokens fed: the (1, Tp) per-token
@@ -169,7 +199,9 @@ class PositionEmbedding(Embedding):
 
 
 class Linear(Module):
-    """Dense layer storing weight as (out, in) for state-dict parity."""
+    """Dense layer storing weight as (out, in) for state-dict parity.
+    ``prefix`` is its flat parameter key (``layers.2.0.1``), assigned by
+    ``CompiledArch``: the LoRA factors of the Ctx are keyed by it."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
@@ -177,6 +209,7 @@ class Linear(Module):
         self.in_features = int(in_features)
         self.out_features = int(out_features)
         self.use_bias = bool(bias)
+        self.prefix = ""
         self.weight = nn.Parameter(torch.empty(self.out_features,
                                                self.in_features))
         self.bias = (nn.Parameter(torch.empty(self.out_features))
@@ -189,7 +222,41 @@ class Linear(Module):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x, ctx):
-        return F.linear(x, self.weight, self.bias)
+        out = F.linear(x, self.weight, self.bias)
+        if ctx.adapter is None and ctx.lora is None:
+            return out
+        return self._lora_delta(out, x, ctx)
+
+    def _lora_delta(self, out, x, ctx):
+        """``out + scale · (x Aᵀ) Bᵀ`` for this projection's factors (JAX
+        ``Linear._maybe_lora``; the factors cast to ``x``'s dtype, the
+        scale to ``out``'s).  Stacked factors are not gathered per row or
+        token (the JAX package's per-token gather is ``(B, T, out, R)``,
+        0.8 GB for a 256-token chunk through GPT-2's head): one product
+        against every slot's A, each token's slot kept and scaled by its
+        one-hot row times the slots' scales (the other slots' columns
+        zeroed), one product against every slot's B (the pack holds B as a
+        view of its ``(L+1, R, out)`` storage, so this is a view too);
+        five launches a projection, static shapes, no host read."""
+        if ctx.adapter is not None:
+            ent = ctx.adapter.get(self.prefix)
+            if ent is None:
+                return out
+            a, b, s = ent
+            t = torch.matmul(x, a.to(x.dtype).t())
+            return out + torch.matmul(t, b.to(x.dtype).t()) * s.to(out.dtype)
+        ent = ctx.lora.get(self.prefix)
+        if ent is None:
+            return out
+        a, b, s = ent["a"], ent["b"], ent["scale"]
+        n_slots, R = a.shape[0], a.shape[1]
+        lead = x.shape[:-1]
+        t = torch.matmul(x, a.reshape(n_slots * R, -1).to(x.dtype).t())
+        keep = (ctx.lora_onehot(n_slots, lead) * s).to(x.dtype)
+        t = (t.reshape(*lead, n_slots, R) * keep[..., None]).reshape(
+            *lead, n_slots * R)
+        b_all = b.permute(0, 2, 1).reshape(n_slots * R, -1).to(x.dtype)
+        return out + torch.matmul(t, b_all).to(out.dtype)
 
 
 class LayerNorm(Module):

@@ -12,7 +12,9 @@ diagnostics, ``null`` before any training; an MoE model's routing
 fractions beside them), ``GET /serving_stats/``,
 ``DELETE /model/?model_id=…``, ``GET``/``POST``/``DELETE /dataset/``,
 ``POST /profile/`` and its alias ``POST /profiler/trace/`` (start or stop
-a ``torch.profiler`` capture, utils/profiling.py), ``GET /openapi.json``
+a ``torch.profiler`` capture, utils/profiling.py), ``POST``/``GET``/
+``DELETE /adapters/`` (LoRA adapters: create from a seed, list, one with
+its training progress, delete; serve/adapters.py), ``GET /openapi.json``
 and ``GET /docs`` (serve/openapi.py), ``GET /healthz`` (liveness, always
 200) and ``GET /readyz`` (503 while an engine's circuit breaker is open,
 a tick is stuck past ``PENROZ_TICK_WATCHDOG_MS`` or the server drains).
@@ -45,14 +47,24 @@ path.  A scheduler request sheds as in the JAX service: a full queue 429
 and an open breaker 503, both with ``Retry-After``, an expired deadline
 (``timeout_ms``, ``PENROZ_REQ_TIMEOUT_MS``) 504, or on a stream the line
 ``timeout`` after the tokens so far; under ``PENROZ_SCHED_FALLBACK=1`` an
-open breaker sends ``/generate/`` to the single-sequence path.  Scheduler
-features and request fields that are not ported are refused with a 400
-naming them.  ``shutdown()`` drains: admission stops, the rows in flight
+open breaker sends ``/generate/`` to the single-sequence path.  An
+``adapter_id`` on ``/generate/`` (``adapter_ids`` per row, or
+``adapter_id``, on ``/generate_batch/``) pins the adapter in the registry
+for the request: the scheduler mixes it with other adapters and base rows
+in one batch, the single-sequence path serves a bound copy of the model
+through its decode runner; an unknown adapter is a 400 naming it (every
+bad one with its rows on ``/generate_batch/``), one still loading for
+another request a 409.  ``DELETE /model/`` deletes the model's adapters
+too.  Scheduler features and request fields that are not ported are
+refused with a 400 naming them.  ``shutdown()`` drains: admission stops, the rows in flight
 get ``PENROZ_DRAIN_S`` (default 5 s) to finish, and every engine's worker
 thread is joined.
 ``PUT /train/`` answers 202 and trains on a background thread, holding one
 lock per model; ``/progress/`` reads the checkpoint's metadata, which
-training rewrites at its start, every 10 s and at its end.
+training rewrites at its start, every 10 s and at its end.  With an
+``adapter`` (validated before the 202) it trains that LoRA adapter's
+factors against the frozen model, under the model's lock, and the
+adapter's status and progress are ``GET /adapters/?adapter_id=``'s.
 ``POST /dataset/`` answers 202 and downloads on a background thread, one
 per dataset, retrying ``PENROZ_DOWNLOAD_RETRIES`` times (default 3) with
 a backoff of ``PENROZ_DOWNLOAD_BACKOFF_S`` (default 1.0) doubling; its
@@ -75,8 +87,11 @@ import os
 import re
 import threading
 import time
+import types
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, unquote, urlsplit
+
+import torch
 
 from penroz_tpu_torch.data.loaders import Downloader, Loader
 from penroz_tpu_torch.data.tokenizers import Tokenizer
@@ -86,6 +101,9 @@ from penroz_tpu_torch.models.model import (NeuralNetworkModel,
                                            unported_attention_options,
                                            unported_training_options,
                                            validate_batch_generation)
+from penroz_tpu_torch.models import lora
+from penroz_tpu_torch.models.model import CompiledArch
+from penroz_tpu_torch.serve import adapters
 from penroz_tpu_torch.serve import decode_scheduler as DS
 from penroz_tpu_torch.serve import memledger, openapi, qos, schemas
 from penroz_tpu_torch.serve import metrics as serve_metrics
@@ -107,8 +125,6 @@ class _HTTPError(Exception):
 
 # Request fields of JAX-package serving features the port does not have.
 _UNPORTED_FIELDS = {
-    "adapter_id": "LoRA adapters",
-    "adapter_ids": "LoRA adapters",
     "session_id": "KV session hibernation",
     "session_ids": "KV session hibernation",
 }
@@ -229,6 +245,7 @@ class PenrozServer(ThreadingHTTPServer):
 
 
 def _train_job(lock: threading.Lock, model_id: str, args: tuple):
+    adapter = args[-1]
     try:
         NeuralNetworkModel.train_model_on_device(model_id, *args)
     except Exception:  # noqa: BLE001 — recorded in the checkpoint status
@@ -236,6 +253,11 @@ def _train_job(lock: threading.Lock, model_id: str, args: tuple):
     else:
         log.info("Training completed for model %s", model_id)
     finally:
+        if adapter is not None:
+            # the registry's entry holds the factors from before the run:
+            # the next request reloads them under a new uid (and prefix
+            # namespace)
+            adapters.REGISTRY.invalidate(adapter["adapter_id"])
         lock.release()
 
 
@@ -369,7 +391,60 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Connection", "close")
         self.end_headers()
 
-    def _try_scheduler_generate(self, body) -> bool:
+    def _acquire_adapter(self, adapter_id: str, model_id: str):
+        """Pin the adapter's registry entry (a load on a miss); 409 while
+        another request loads it, 400 naming an unknown one."""
+        try:
+            return adapters.REGISTRY.acquire(adapter_id, model_id)
+        except adapters.AdapterLoadingError as exc:
+            raise _HTTPError(409, f"Conflict: {exc}")
+
+    def _batch_adapters(self, body) -> list:
+        """Per-row adapter entries of /generate_batch/ (``adapter_ids``
+        over ``adapter_id``; None: the base model), all pinned, or one
+        error naming every bad adapter and its rows (400 unknown, 409
+        loading), with nothing left pinned."""
+        n = len(body.inputs)
+        if body.adapter_ids is not None:
+            if len(body.adapter_ids) != n:
+                raise ValueError(
+                    f"adapter_ids has {len(body.adapter_ids)} entries for "
+                    f"{n} input row(s); pass one per row (null = base "
+                    f"model)")
+            row_ids = list(body.adapter_ids)
+        else:
+            row_ids = [body.adapter_id] * n
+        entries: dict = {}
+        unknown, loading = [], []
+        for aid in row_ids:
+            if aid is None or aid in entries:
+                continue
+            try:
+                entries[aid] = adapters.REGISTRY.acquire(aid, body.model_id)
+            except adapters.AdapterLoadingError:
+                loading.append(aid)
+            except ValueError as exc:
+                unknown.append((aid, str(exc)))
+
+        def rows_for(aid):
+            rows = [i for i, r in enumerate(row_ids) if r == aid]
+            return ", ".join(f"row {i}" for i in rows[:8]) + (
+                f" and {len(rows) - 8} more" if len(rows) > 8 else "")
+
+        if unknown or loading:
+            for entry in entries.values():
+                adapters.REGISTRY.release(entry)
+        if unknown:
+            detail = "; ".join(f"adapter {aid!r} ({rows_for(aid)}): {msg}"
+                               for aid, msg in unknown)
+            raise ValueError(f"batched generation rejected: {detail}")
+        if loading:
+            detail = "; ".join(f"adapter {aid!r} ({rows_for(aid)}) is "
+                               f"still loading" for aid in loading)
+            raise _HTTPError(409, f"Conflict: {detail}; retry shortly")
+        return [entries.get(aid) for aid in row_ids]
+
+    def _try_scheduler_generate(self, body, adapter=None) -> bool:
         """Serve /generate/ through the continuous-batching scheduler when
         it is on and the request is eligible; False sends the request to
         the single-sequence path (also an open breaker's request under
@@ -392,7 +467,7 @@ class _Handler(BaseHTTPRequestHandler):
                                     model_id=body.model_id,
                                     stream=bool(body.stream))
         fields = dict(request_id=rid, trace=trace, priority=body.priority,
-                      tenant=body.tenant)
+                      tenant=body.tenant, adapter=adapter)
         try:
             if not body.stream:
                 tokens = DS.run_request(engine, prompt, body.max_new_tokens,
@@ -452,7 +527,17 @@ class _Handler(BaseHTTPRequestHandler):
     def generate(self, query):
         body = self._body(schemas.GenerateRequest)
         _refuse_unported(body)
-        if self._try_scheduler_generate(body):
+        entry = None
+        if body.adapter_id:
+            entry = self._acquire_adapter(body.adapter_id, body.model_id)
+        try:
+            self._generate_pinned(body, entry)
+        finally:
+            if entry is not None:
+                adapters.REGISTRY.release(entry)
+
+    def _generate_pinned(self, body, entry):
+        if self._try_scheduler_generate(body, entry):
             return
         # the single-sequence path: a one-span trace, so that /trace/
         # answers for requests the scheduler did not serve
@@ -461,7 +546,7 @@ class _Handler(BaseHTTPRequestHandler):
                                     stream=bool(body.stream))
         sp = trace.span("legacy_generate") if trace is not None else None
         try:
-            self._generate_single(body)
+            self._generate_single(body, entry)
         except Exception:
             if trace is not None:
                 trace.end(sp)
@@ -471,11 +556,16 @@ class _Handler(BaseHTTPRequestHandler):
             trace.end(sp)
             trace.finish("completed")
 
-    def _generate_single(self, body):
-        log.info("Generating tokens using model %s", body.model_id)
+    def _generate_single(self, body, entry=None):
+        log.info("Generating tokens using model %s%s", body.model_id,
+                 f" (adapter {entry.adapter_id})" if entry else "")
         model = NeuralNetworkModel.deserialize(body.model_id,
                                                device=self.server.device,
                                                optimizer=False)
+        if entry is not None:
+            # the single-sequence path serves a bound copy: its decode
+            # runner applies the factors (models/lora.py)
+            model = lora.bind_model(model, entry.params, entry.config)
         args = (body.input, body.block_size, body.max_new_tokens,
                 body.temperature, body.top_k, body.stop_token)
         if not body.stream:
@@ -498,6 +588,15 @@ class _Handler(BaseHTTPRequestHandler):
         traffic) and the batch answers once every row is done."""
         body = self._body(schemas.GenerateBatchRequest)
         _refuse_unported(body)
+        row_entries = self._batch_adapters(body)
+        try:
+            self._generate_batch_pinned(body, row_entries)
+        finally:
+            for entry in {id(e): e for e in row_entries
+                          if e is not None}.values():
+                adapters.REGISTRY.release(entry)
+
+    def _generate_batch_pinned(self, body, row_entries):
         if not DS.enabled():
             raise ValueError(
                 f"/generate_batch/ without {DS.ENABLE_ENV}=1 selects the "
@@ -530,7 +629,7 @@ class _Handler(BaseHTTPRequestHandler):
                     engine, p, body.max_new_tokens, body.stop_token,
                     timeout_ms=body.timeout_ms, request_id=f"{rid}-r{i}",
                     trace=traces[i], priority=body.priority,
-                    tenant=body.tenant))
+                    tenant=body.tenant, adapter=row_entries[i]))
             except _SHED as exc:
                 results.append(exc)
         for i, handle in enumerate(results):
@@ -726,20 +825,30 @@ class _Handler(BaseHTTPRequestHandler):
         body = self._body(schemas.TrainingRequest)
         log.info("Requesting training for model %s on device %s",
                  body.model_id, body.device or self.server.device)
-        if body.adapter is not None:
-            raise ValueError("LoRA adapter training is not ported to "
-                             "penroz_tpu_torch yet")
         device = self._device(body.device)
         unported_training_options()
         unported_attention_options()
         checkpoint.load(body.model_id, arrays=())  # unknown model: 404
+        adapter_cfg = None
+        if body.adapter is not None:
+            # a bad adapter config is a 400 now, not an Error status later
+            cfg = body.adapter
+            adapter_cfg = lora.validate_config({
+                "rank": cfg.rank, "alpha": cfg.alpha,
+                "targets": cfg.targets})
+            adapter_cfg["adapter_id"] = cfg.adapter_id
+        # one lock a base model, for its adapters' runs too: an adapter
+        # trains against the base weights a base run rewrites
         if not self.server.start_training(body.model_id, (
                 device, body.dataset_id, body.shard, body.epochs,
-                body.batch_size, body.block_size, body.step_size)):
+                body.batch_size, body.block_size, body.step_size,
+                adapter_cfg)):
             raise _HTTPError(409, f"Training already in progress for model "
                                   f"{body.model_id}.")
-        self._send_json(202, {"message": f"Training for model "
-                                         f"{body.model_id} started "
+        what = (f"adapter {adapter_cfg['adapter_id']} on model "
+                f"{body.model_id}" if adapter_cfg is not None
+                else f"model {body.model_id}")
+        self._send_json(202, {"message": f"Training for {what} started "
                                          f"asynchronously."})
 
     def progress(self, query):
@@ -803,7 +912,62 @@ class _Handler(BaseHTTPRequestHandler):
     def delete_model(self, query):
         model_id = self._model_id(query)
         log.info("Requesting deletion of model %s", model_id)
+        # its adapters go first, cached and on disk: one never serves
+        # without its base, and a blob left behind would come back under a
+        # recreated model of the same id
+        deleted = adapters.delete_model_adapters(model_id)
+        if deleted:
+            log.info("Deleted %d adapter(s) of model %s: %s", len(deleted),
+                     model_id, ", ".join(deleted))
         NeuralNetworkModel.delete(model_id)
+        self.send_response(204)
+        self.end_headers()
+
+    # -- LoRA adapters (serve/adapters.py, models/lora.py) -----------------
+
+    def create_adapter(self, query):
+        body = self._body(schemas.CreateAdapterRequest)
+        log.info("Requesting creation of adapter %s for model %s",
+                 body.adapter_id, body.model_id)
+        if body.init not in ("zeros", "random"):
+            raise ValueError(f"init must be 'zeros' or 'random', "
+                             f"got {body.init!r}")
+        try:
+            checkpoint.peek_adapter_tree(body.adapter_id)
+            raise _HTTPError(409, f"Adapter {body.adapter_id} already "
+                                  f"exists.")
+        except KeyError:
+            pass
+        # the factors' shapes come from the model's layers: no weights read
+        layers = checkpoint.load(body.model_id, arrays=())["layers"]
+        with torch.device("meta"):
+            arch = CompiledArch(layers)
+        model = types.SimpleNamespace(arch=arch, model_id=body.model_id)
+        blob = lora.create_adapter(
+            body.adapter_id, model,
+            {"rank": body.rank, "alpha": body.alpha,
+             "targets": body.targets}, seed=body.seed, init=body.init)
+        self._send_json(200, {
+            "adapter_id": body.adapter_id, "model_id": body.model_id,
+            "config": blob["config"],
+            "message": f"Adapter {body.adapter_id} created for model "
+                       f"{body.model_id}"})
+
+    def list_adapters(self, query):
+        """Every adapter (``{"adapters": [...]}``), or one with its
+        training progress when ``adapter_id`` is given (404 unknown)."""
+        adapter_id = query.get("adapter_id", [None])[0]
+        if adapter_id is not None:
+            self._send_json(200, adapters.adapter_detail(adapter_id))
+            return
+        self._send_json(200, {"adapters": adapters.list_adapters()})
+
+    def delete_adapter(self, query):
+        adapter_id = self._query(query, "adapter_id")
+        log.info("Requesting deletion of adapter %s", adapter_id)
+        checkpoint.peek_adapter_tree(adapter_id)   # unknown: 404
+        adapters.REGISTRY.invalidate(adapter_id)
+        checkpoint.delete_adapter(adapter_id)
         self.send_response(204)
         self.end_headers()
 
@@ -872,7 +1036,8 @@ _GET = {"/": _Handler.redirect_to_dashboard,
         "/memory/": _Handler.memory,
         "/debug/dump": _Handler.debug_dump,
         "/tenants/": _Handler.list_tenants,
-        "/dataset/": _Handler.list_dataset}
+        "/dataset/": _Handler.list_dataset,
+        "/adapters/": _Handler.list_adapters}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/generate_batch/": _Handler.generate_batch,
          "/output/": _Handler.output, "/evaluate/": _Handler.evaluate,
@@ -880,11 +1045,13 @@ _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
          "/dataset/": _Handler.download_dataset,
          "/decode/": _Handler.decode, "/tokenize/": _Handler.tokenize,
          "/profile/": _Handler.profile,
-         "/profiler/trace/": _Handler.profile}
+         "/profiler/trace/": _Handler.profile,
+         "/adapters/": _Handler.create_adapter}
 _PUT = {"/train/": _Handler.train,
         "/tenants/{tenant_id}/quota": _Handler.put_tenant_quota}
 _DELETE = {"/model/": _Handler.delete_model,
-           "/dataset/": _Handler.delete_dataset}
+           "/dataset/": _Handler.delete_dataset,
+           "/adapters/": _Handler.delete_adapter}
 
 
 @functools.lru_cache(maxsize=None)

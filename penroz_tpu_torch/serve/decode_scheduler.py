@@ -116,7 +116,20 @@ Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
 the contiguous cache, replicas, disaggregated prefill, serving meshes,
 pipeline stages and the KV-tier quota (``PENROZ_QOS_TENANT_TIER_MB``);
-sessions and LoRA adapters on requests are refused by the HTTP layer.
+sessions on requests are refused by the HTTP layer.
+
+LoRA adapters (models/lora.py, serve/adapters.py): a request's
+``adapter`` takes one of ``PENROZ_LORA_MAX_LIVE`` live slots (a slot
+holding the same adapter generation is shared), whose factors stack into
+one pack on the device, rebuilt when the slot set changes; every packed
+token of a block carries its row's slot (``lora_slots``), so prefill
+chunks, decode steps and verify spans of different adapters, and base
+rows, share one mixed step.  When every slot holds another adapter with
+rows in flight, the request requeues at the head until one frees.  The
+radix cache namespaces pages by adapter generation (a preempted row
+resumes in its own), crash recovery rebuilds the slot tables with the
+pool, and a model reload flushes them and the registry's entries of the
+model.
 """
 
 from __future__ import annotations
@@ -131,9 +144,11 @@ import time
 
 import numpy as np
 
+from penroz_tpu_torch.models import lora as lora_mod
 from penroz_tpu_torch.models.model import NeuralNetworkModel
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+from penroz_tpu_torch.serve import adapters as adapters_mod
 from penroz_tpu_torch.serve import memledger, qos, spec_decode
 from penroz_tpu_torch.serve import metrics as serve_metrics
 from penroz_tpu_torch.serve.qos import TenantQuotaExceeded
@@ -338,16 +353,19 @@ class Request:
     route it through the fair queue and the quota buckets.
     ``request_id`` is its ``X-Request-Id``; ``trace`` (utils/tracing.py)
     its span tree, or None when sampled out — every recording site is
-    None-guarded."""
+    None-guarded.  ``adapter`` (serve/adapters.py ``AdapterEntry``, pinned
+    by the caller until the request's last event) routes the row through
+    that adapter's live slot; its id is the tenant when ``tenant`` is
+    None."""
 
     __slots__ = ("prompt", "max_new_tokens", "stop_token", "on_event",
                  "cancelled", "enqueue_t", "deadline", "request_id",
                  "trace", "priority", "tenant", "resume_history",
-                 "resume_produced", "resume_nodes", "preempted")
+                 "resume_produced", "resume_nodes", "preempted", "adapter")
 
     def __init__(self, prompt, max_new_tokens, stop_token, on_event,
                  timeout_ms=None, request_id=None, trace=None,
-                 priority=None, tenant=None):
+                 priority=None, tenant=None, adapter=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.stop_token = stop_token
@@ -355,7 +373,9 @@ class Request:
         self.cancelled = False
         self.enqueue_t = time.monotonic()
         self.priority = qos.validate_priority(priority)
-        self.tenant = qos.tenant_of(tenant)
+        self.adapter = adapter
+        self.tenant = qos.tenant_of(
+            tenant, adapter.adapter_id if adapter is not None else None)
         # Preempt-to-prefix-cache resume state: the full history (prompt +
         # emitted tokens) is the resume admission's effective prompt, and
         # ``resume_nodes`` pin the cached pages until its prefix match
@@ -436,6 +456,11 @@ class DecodeEngine:
         self._lengths = np.zeros(self.capacity, np.int32)
         self._last_tok = np.zeros(self.capacity, np.int32)
         self._rows: list = [None] * self.capacity
+        # mixed-adapter serving (models/lora.py): up to PENROZ_LORA_MAX_LIVE
+        # adapters hold live slots stacked into one pack; slot _max_live is
+        # the all-zero base slot
+        self._max_live = lora_mod.max_live()
+        self._adapter_tokens: dict = {}
         # the capacity ledger (serve/memledger.py) derives page ownership
         # from the structures below; it outlives state reallocations
         self._ledger = memledger.MemoryLedger(self)
@@ -534,6 +559,12 @@ class DecodeEngine:
         self._lengths[:] = 0
         self._last_tok[:] = 0
         self._rows = [None] * self.capacity
+        # the adapter tables too: every row re-parks on the base slot and
+        # the pack drops (admission binds live adapters again from their
+        # pinned entries)
+        self._slot_entries: list = [None] * self._max_live
+        self._row_adapter = np.full(self.capacity, self._max_live, np.int32)
+        self._lora_pack = None
         # the dying cache's underflow count carries into the ledger's
         self._ledger.on_realloc(old_cache)
 
@@ -655,6 +686,10 @@ class DecodeEngine:
     def queue_depth(self) -> int:
         return len(self._pending)
 
+    @property
+    def live_adapters(self) -> int:
+        return sum(1 for e in self._slot_entries if e is not None)
+
     def idle(self) -> bool:
         return self.active_rows == 0 and not self._pending
 
@@ -774,6 +809,12 @@ class DecodeEngine:
                 for c, h in self._h_queue_wait_cls.items()},
             "prefix_cache": (self._prefix_cache.stats()
                              if self._prefix_cache is not None else None),
+            "lora_active_adapters": self.live_adapters,
+            "lora_rows": sum(
+                1 for i, r in enumerate(self._rows)
+                if r is not None
+                and int(self._row_adapter[i]) != self._max_live),
+            "lora_adapter_tokens": dict(self._adapter_tokens),
             "spec_decode": self._spec_on(),
             "spec_verify_steps": self._spec_verify_steps,
             "spec_drafted_tokens": self._spec_drafted_tokens,
@@ -959,7 +1000,15 @@ class DecodeEngine:
                 continue
             if self.active_rows == 0:
                 self._maybe_reload()
-            self._begin_prefill(row, req)
+            slot = self._adapter_slot(req)
+            if slot is None:
+                # every live slot holds another adapter with rows in
+                # flight: requeue at the head (FIFO kept) and admit no more
+                # this tick; a slot frees when its last row retires
+                with self._cond:
+                    self._pending.push_front(req)
+                return
+            self._begin_prefill(row, req, slot)
 
     # -- preemption (to the prefix cache; the resume recomputes nothing) ----
 
@@ -1017,20 +1066,24 @@ class DecodeEngine:
         # token's KV is written by the step that feeds it): insert the
         # full pages below that
         kv_len = int(self._lengths[row])
-        created = self._prefix_cache.insert(state.history, limit=kv_len)
+        ns = self._prefix_ns(req)   # a resume matches in its own namespace
+        created = self._prefix_cache.insert(state.history, limit=kv_len,
+                                            namespace=ns)
         if created:
             S = self._kv.pages_per_seq
             self._kv.copy_pages([row * S + b for b, _ in created],
                                 [page for _, page in created])
         # pin the whole cached chain until the resume re-pins it: LRU
         # eviction must not recycle these pages while the request waits
-        nodes = self._prefix_cache.chain(state.history, limit=kv_len)
+        nodes = self._prefix_cache.chain(state.history, limit=kv_len,
+                                         namespace=ns)
         self._prefix_cache.pin(nodes)
         cached = len(nodes) * self._prefix_cache.page_size
         # free the row without a terminal event: the stream stays open
         self._rows[row] = None
         self._lengths[row] = 0
         self._last_tok[row] = 0
+        self._row_adapter[row] = self._max_live
         self._release_prefix(row, state)
         self._kv.reset_row(row)
         req.resume_history = list(state.history)
@@ -1068,7 +1121,43 @@ class DecodeEngine:
                 self._prefix_cache.unpin(req.resume_nodes)
             req.resume_nodes = []
 
-    def _begin_prefill(self, row: int, req: Request):
+    # -- adapter slots (mixed-adapter batches, models/lora.py) ---------------
+
+    def _adapter_slot(self, req: Request):
+        """``req``'s slot: the base slot for a plain row, a live slot
+        holding the same adapter generation (uid), else a free or
+        reclaimable one (the pack rebuilt on the device once, here); None
+        when every slot holds another adapter with rows in flight."""
+        if req.adapter is None:
+            return self._max_live
+        for s, e in enumerate(self._slot_entries):
+            if e is not None and e.uid == req.adapter.uid:
+                return s
+        in_flight = {int(self._row_adapter[i])
+                     for i, r in enumerate(self._rows) if r is not None}
+        for s in range(self._max_live):
+            if self._slot_entries[s] is None or s not in in_flight:
+                self._slot_entries[s] = req.adapter
+                self._rebuild_pack()
+                return s
+        return None
+
+    def _rebuild_pack(self):
+        self._lora_pack = lora_mod.build_pack(
+            [e.params if e is not None else None
+             for e in self._slot_entries],
+            [e.config if e is not None else None
+             for e in self._slot_entries],
+            self._max_live, device=self._model.device)
+
+    @staticmethod
+    def _prefix_ns(req: Request):
+        """The row's radix namespace: its adapter's load generation (a
+        retrained or recreated adapter never aliases its predecessor's
+        pages); None, shared, for base rows."""
+        return req.adapter.uid if req.adapter is not None else None
+
+    def _begin_prefill(self, row: int, req: Request, slot: int | None = None):
         """Claim ``row`` for ``req`` in the PREFILLING phase: match the
         radix prefix cache, alias the matched pages into the row's block
         table (pinned), and plan chunks over the rest of the prompt; the
@@ -1085,17 +1174,25 @@ class DecodeEngine:
             state.history = list(req.resume_history)
             state.produced = req.resume_produced
         eff_prompt = state.history   # == req.prompt for a fresh admission
+        self._row_adapter[row] = (slot if slot is not None
+                                  else self._max_live)
         trace = req.trace
         if trace is not None:
             # the queue span (enqueue -> now) is the queue wait observed
             # below
             sp = trace.span("queue", t0=req.enqueue_t)
             trace.end(sp)
+            if req.adapter is not None:
+                trace.event("adapter_slot", adapter_id=req.adapter.adapter_id,
+                            slot=int(self._row_adapter[row]))
         if self._prefix_cache is not None:
             # at most len - 1 tokens: the final chunk must feed one real
-            # token to produce the first sample
+            # token to produce the first sample; pages hold K/V of one
+            # adapter generation's weights, so the match stays in the
+            # row's namespace
             nodes = self._prefix_cache.match(eff_prompt,
-                                             limit=len(eff_prompt) - 1)
+                                             limit=len(eff_prompt) - 1,
+                                             namespace=self._prefix_ns(req))
             if nodes:
                 self._prefix_cache.pin(nodes)
                 state.prefix_nodes = nodes
@@ -1244,6 +1341,7 @@ class DecodeEngine:
         positions = np.zeros((n, Tp), np.int32)
         sample_slot = np.full((n, self.capacity), -1, np.int32)
         row_ids = np.full((n, Tp), -1, np.int32)
+        lora_slots = np.full((n, Tp), self._max_live, np.int32)
         verify = [[] for _ in range(n)]
         replay = []
         for s, (spans, ops) in enumerate(steps):
@@ -1256,6 +1354,7 @@ class DecodeEngine:
                 slots = KV.packed_slots(offsets[span_idx], q_len, block_q)
                 positions[s, slots] = q_start + np.arange(q_len)
                 row_ids[s, slots] = i
+                lora_slots[s, slots] = int(self._row_adapter[i])
                 if kind == "chunk":
                     _, _, _, start, size, final, _ = op
                     tok_lit[s, slots] = state.history[start:start + size]
@@ -1284,7 +1383,8 @@ class DecodeEngine:
         return {"n": n, "descs": descs, "tok_lit": tok_lit,
                 "tok_src": tok_src, "positions": positions,
                 "sample_slot": sample_slot, "row_ids": row_ids,
-                "verify_slots": verify_slots, "replay": replay}
+                "lora_slots": lora_slots, "verify_slots": verify_slots,
+                "replay": replay}
 
     def _mixed_dispatch(self, plan) -> dict:
         """Run the planned block as ONE ``decode_mixed_step`` and replay its
@@ -1305,7 +1405,8 @@ class DecodeEngine:
                 plan["positions"], plan["sample_slot"], self._last_tok,
                 seed=self._seed, temperature=self.temperature,
                 top_k=self.top_k, row_ids=plan["row_ids"],
-                verify_slots=plan["verify_slots"])
+                verify_slots=plan["verify_slots"], lora=self._lora_pack,
+                lora_slots=plan["lora_slots"])
         t1 = time.monotonic()
         with self._cond:    # the replay's mutations, as one to the ledger
             return self._replay_block(plan, arr, t0, t1)
@@ -1447,7 +1548,8 @@ class DecodeEngine:
         prefilled are copied."""
         if self._prefix_cache is None:
             return
-        created = self._prefix_cache.insert(state.req.prompt)
+        created = self._prefix_cache.insert(
+            state.req.prompt, namespace=self._prefix_ns(state.req))
         if created:
             S = self._kv.pages_per_seq
             self._kv.copy_pages([row * S + b for b, _ in created],
@@ -1504,6 +1606,10 @@ class DecodeEngine:
             serve_metrics.ITL_MS.observe(itl_ms)
         state.last_emit_t = now
         req = state.req
+        if req.adapter is not None:
+            aid = req.adapter.adapter_id
+            self._adapter_tokens[aid] = self._adapter_tokens.get(aid, 0) + 1
+            serve_metrics.LORA_TOKENS.inc(adapter_id=aid)
         tenant = req.tenant
         self._tenant_tokens[tenant] = self._tenant_tokens.get(tenant, 0) + 1
         serve_metrics.TENANT_TOKENS.inc(tenant=tenant)
@@ -1546,6 +1652,7 @@ class DecodeEngine:
         self._rows[row] = None
         self._lengths[row] = 0
         self._last_tok[row] = 0
+        self._row_adapter[row] = self._max_live
         self._release_prefix(row, state)
         self._kv.reset_row(row)
         self._completed += 1
@@ -1596,6 +1703,7 @@ class DecodeEngine:
                 self._rows[i] = None
                 self._lengths[i] = 0
                 self._last_tok[i] = 0
+                self._row_adapter[i] = self._max_live
                 try:
                     self._release_prefix(i, state)
                 except Exception:  # noqa: BLE001 — the device may be what
@@ -1648,7 +1756,14 @@ class DecodeEngine:
                     for req in self._pending:
                         req.resume_nodes = []
                 self._prefix_cache.clear()
-            log.info("Decode engine reloaded model %s (checkpoint changed)",
+            # the same for adapters: the live slots and the registry hold
+            # factors whose base just changed; a reloaded entry gets a new
+            # uid, which retires its prefix namespace too
+            self._slot_entries = [None] * self._max_live
+            self._lora_pack = None
+            adapters_mod.REGISTRY.invalidate_model(self.model_id)
+            log.info("Decode engine reloaded model %s (checkpoint changed; "
+                     "prefix cache and adapter slots flushed)",
                      self.model_id)
         except KeyError:
             log.warning("Decode engine %s: checkpoint vanished; serving "
@@ -1781,9 +1896,12 @@ def serving_stats() -> dict:
     tpd = metrics_util.merge_snapshots(
         [p["histograms"]["tokens_per_dispatch"] for p in per])
     tenant_tokens: dict = {}
+    adapter_tokens: dict = {}
     for p in per:
         for tenant, n in p["tenant_tokens"].items():
             tenant_tokens[tenant] = tenant_tokens.get(tenant, 0) + n
+        for aid, n in p["lora_adapter_tokens"].items():
+            adapter_tokens[aid] = adapter_tokens.get(aid, 0) + n
     return {
         "continuous_batching_enabled": enabled(),
         "engines": per,
@@ -1826,6 +1944,9 @@ def serving_stats() -> dict:
         "prefix_cache_hit_rate": _rate(sum(c["hits"] for c in pc),
                                        pc_lookups),
         "prefix_cache_evicted_pages": sum(c["evicted_pages"] for c in pc),
+        "lora_active_adapters": sum(p["lora_active_adapters"] for p in per),
+        "lora_rows": sum(p["lora_rows"] for p in per),
+        "lora_adapter_tokens": adapter_tokens,
         "spec_decode_enabled": spec_decode.enabled(),
         "spec_drafted_tokens": spec_drafted,
         "spec_accepted_tokens": spec_accepted,
@@ -1851,12 +1972,12 @@ def serving_stats() -> dict:
 
 def _queued_request(prompt, max_new_tokens, stop_token, timeout_ms=None,
                     request_id=None, trace=None, priority=None,
-                    tenant=None):
+                    tenant=None, adapter=None):
     events: queue.Queue = queue.Queue()
     req = Request(prompt, max_new_tokens, stop_token,
                   lambda kind, value: events.put((kind, value)),
                   timeout_ms=timeout_ms, request_id=request_id, trace=trace,
-                  priority=priority, tenant=tenant)
+                  priority=priority, tenant=tenant, adapter=adapter)
     return req, events
 
 
@@ -1889,7 +2010,8 @@ def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
 def run_request(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
                 timeout=None, timeout_ms=None, **fields) -> list[int]:
     """Submit one request (deadline ``timeout_ms``; ``fields``:
-    ``request_id``, ``trace``, ``priority``, ``tenant``) and wait for its
+    ``request_id``, ``trace``, ``priority``, ``tenant``, ``adapter``, whose
+    registry pin the caller holds) and wait for its
     full sequence (:func:`collect`).  A shed request raises at once."""
     req, events = _queued_request(prompt, max_new_tokens, stop_token,
                                   timeout_ms, **fields)

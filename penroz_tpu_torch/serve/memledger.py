@@ -22,9 +22,12 @@ and ``hibernating`` (a session awaiting tier demotion) belong to features
 that are not ported: they stay in the response at 0, so the dashboard and
 clients read one shape.  A byte ledger covers the rest of the engine's
 device memory (the K/V pools, their int8 scales, the block table, the
-model's parameters and buffers), read from the port's own tensors; the
-JAX package's ``lora_pack``, ``ssm_state``, ``adapter_host_cache``,
-``host_tier`` and ``disk_tier`` stay 0 for the same reason.
+LoRA pack, the model's parameters and buffers), read from the port's own
+tensors, and the host bytes of the adapter registry's cache
+(``adapter_host_cache``); live rows' pages are attributed to their tenant
+and, for adapter rows, to their adapter (``adapter_pages``).  The JAX
+package's ``ssm_state``, ``host_tier`` and ``disk_tier`` stay 0, their
+features not ported.
 
 The ledger does NOT shadow-count at mutation sites:
 :meth:`MemoryLedger.snapshot` *derives* ownership from the authoritative
@@ -81,7 +84,8 @@ PORTED_STATES = PAGE_STATES[:6]
 BYTE_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table",
                    "lora_pack", "params", "ssm_state")
 _HOST_COMPONENTS = ("adapter_host_cache", "host_tier", "disk_tier")
-PORTED_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table", "params")
+PORTED_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table",
+                     "lora_pack", "params", "adapter_host_cache")
 
 #: Sliding window of the token-burn-rate estimate (the scheduler's
 #: tokens/s window).
@@ -185,6 +189,7 @@ class MemoryLedger:
         kv = e._kv
         states = dict.fromkeys(PAGE_STATES, 0)
         tenant_pages: dict = {}
+        adapter_pages: dict = {}
         page_size = total = 0
         hbm = dict.fromkeys(BYTE_COMPONENTS, 0)
         if enabled():
@@ -200,6 +205,9 @@ class MemoryLedger:
                 row_pages += owned
                 tenant = state.req.tenant
                 tenant_pages[tenant] = tenant_pages.get(tenant, 0) + owned
+                if state.req.adapter is not None:
+                    aid = state.req.adapter.adapter_id
+                    adapter_pages[aid] = adapter_pages.get(aid, 0) + owned
             cache = e._prefix_cache
             pinned = evictable = preempted = reserved = cache_pages = 0
             if cache is not None:
@@ -221,6 +229,7 @@ class MemoryLedger:
                 "reserved": reserved,
             })
             hbm.update(kv.hbm_components())
+            hbm["lora_pack"] = lora_pack_bytes(e._lora_pack)
             hbm["params"] = _module_bytes(e._model.arch)
         # High-water marks: per-state peaks and the pages in use.
         for key, v in [*states.items(), ("used", total - states["free"])]:
@@ -232,7 +241,7 @@ class MemoryLedger:
             "pool_pages_total": total,
             "pool_pages": states,
             "tenant_pages": tenant_pages,
-            "adapter_pages": {},
+            "adapter_pages": adapter_pages,
             "stage_pools": [],
             "hbm_bytes": hbm,
             "high_water_pages": dict(self.high_water),
@@ -418,10 +427,20 @@ def _engine_snapshots() -> list[tuple]:
     return [(e, e.memory_snapshot()) for e in ds._live_engines()]
 
 
+def lora_pack_bytes(pack) -> int:
+    """Device bytes of an engine's LoRA pack (models/lora.py)."""
+    if not pack:
+        return 0
+    return sum(t.numel() * t.element_size()
+               for ent in pack.values() for t in ent.values())
+
+
 def _byte_totals(per: list[dict]) -> dict:
+    from penroz_tpu_torch.serve import adapters as adapters_mod
     out = {k: sum(p["hbm_bytes"].get(k, 0) for p in per)
            for k in BYTE_COMPONENTS}
     out.update(dict.fromkeys(_HOST_COMPONENTS, 0))
+    out["adapter_host_cache"] = adapters_mod.REGISTRY.cache_bytes()
     return out
 
 

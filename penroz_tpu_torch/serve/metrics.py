@@ -19,9 +19,11 @@ counters   requests_total{outcome}, decode_tokens_total,
            traces_completed_total, dispatches_total,
            quota_rejections_total{tenant}, class_admissions_total{priority},
            tenant_tokens_total{tenant}, preemptions_total,
-           preempted_resume_cached_tokens_total
+           preempted_resume_cached_tokens_total,
+           lora_adapter_tokens_total{adapter_id}
 gauges     engines, active_rows, queue_depth, batch_occupancy,
-           breaker_open, draining, engine_stuck, kv_pool_capacity_drops,
+           breaker_open, draining, lora_live_adapters, engine_stuck,
+           kv_pool_capacity_drops,
            prefix_cache_unpin_underflow (both monotonic in practice,
            exposed as gauges because their counters live in
            ops/kv_cache.py), the capacity ledger's pool_pages{state},
@@ -33,16 +35,16 @@ histograms ttft_ms, itl_ms, queue_wait_ms, chunk_stall_ms, tick_ms
            buckets), and the per-class pair ttft_ms_by_class{priority} /
            queue_wait_ms_by_class{priority}
 
-Left out, with the features they describe (not ported): the LoRA series
-(lora_adapter_tokens_total, lora_live_adapters), the replica router's
+Left out, with the features they describe (not ported): the replica
+router's
 (router_affinity_total, router_failovers_total), disaggregated prefill's
 (disagg_*), the session tiers' and the journal's (tier_*, sessions_*,
 session_resume_ttft_ms, journal_*), resumable streams'
 (stream_*, streams_detached), pipeline serving's (pipe_*), and
 jit_programs{function}, which counts XLA programs.  The ledger states and
-byte components of those features (transit, hibernating; lora_pack,
-ssm_state, adapter_host_cache, host_tier, disk_tier) are absent from the
-labelled gauges for the same reason; ``GET /memory/`` keeps them at 0.
+byte components of those features (transit, hibernating; ssm_state,
+host_tier, disk_tier) are absent from the labelled gauges for the same
+reason; ``GET /memory/`` keeps them at 0.
 """
 
 from __future__ import annotations
@@ -88,6 +90,9 @@ PREFIX_HITS = REGISTRY.register(m.Counter(
 PREFIX_MISSES = REGISTRY.register(m.Counter(
     "penroz_prefix_cache_misses_total",
     "Admissions matching no cached prefix page"))
+LORA_TOKENS = REGISTRY.register(m.Counter(
+    "penroz_lora_adapter_tokens_total",
+    "Tokens emitted per LoRA adapter", ("adapter_id",)))
 TRACES_COMPLETED = REGISTRY.register(m.Counter(
     "penroz_traces_completed_total",
     "Request traces finished into the /trace/ ring"))
@@ -153,6 +158,8 @@ BREAKER_OPEN = REGISTRY.register(m.Gauge(
     "penroz_breaker_open", "1 if any engine circuit breaker is open"))
 DRAINING = REGISTRY.register(m.Gauge(
     "penroz_draining", "1 while graceful shutdown drains admission"))
+LORA_LIVE = REGISTRY.register(m.Gauge(
+    "penroz_lora_live_adapters", "Adapters occupying live engine slots"))
 POOL_DROPS = REGISTRY.register(m.Gauge(
     "penroz_kv_pool_capacity_drops",
     "KV writes dropped at pool capacity (process-wide counter in "
@@ -212,6 +219,8 @@ def _wire_gauges():
     OCCUPANCY.set_function(occupancy)
     BREAKER_OPEN.set_function(lambda: 1 if ds.breaker_open_engines() else 0)
     DRAINING.set_function(lambda: 1 if ds.draining() else 0)
+    LORA_LIVE.set_function(lambda: sum(
+        e.live_adapters for e in engines()))
     POOL_DROPS.set_function(KV.pool_drop_count)
     UNPIN_UNDERFLOW.set_function(KV.unpin_underflow_count)
     POOL_PAGES.set_function(lambda: memledger.ported(

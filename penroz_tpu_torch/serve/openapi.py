@@ -65,6 +65,7 @@ _KINDS = {str: {"type": "string"}, int: {"type": "integer"},
           float: {"type": "number"}, bool: {"type": "boolean"},
           list: {"type": "array"}, dict: {"type": "object"},
           "int_list": {"type": "array", "items": {"type": "integer"}},
+          "str_list": {"type": "array", "items": {"type": "string"}},
           "int_lists": {"type": "array", "items": {
               "type": "array", "items": {"type": "integer"}}}}
 
@@ -269,7 +270,8 @@ def _routes() -> list[dict]:
              body=_body("TrainingRequest"),
              responses=dict([_resp(202, "Training started"),
                              _resp(404, "Unknown model"),
-                             _resp(400, "Invalid device"),
+                             _resp(400, "Invalid device or adapter "
+                                        "config"),
                              _resp(409, "Training already in progress")])),
         dict(method="post", path="/profile/", **profile),
         dict(method="post", path="/profiler/trace/", **profile),
@@ -286,9 +288,30 @@ def _routes() -> list[dict]:
                      "occupancy, tick timeline, prefix cache, speculation, "
                      "crashes, breaker and shed counters",
              responses=dict([ok])),
-        dict(method="delete", path="/model/", summary="Delete a model",
+        dict(method="delete", path="/model/",
+             summary="Delete a model and its LoRA adapters",
              params=_query_params("model_id"),
              responses=dict([_resp(204, "Deleted")])),
+        dict(method="post", path="/adapters/",
+             summary="Create a LoRA adapter of a model",
+             body=_body("CreateAdapterRequest"),
+             responses=dict([ok, _resp(404, "Unknown model"),
+                             _resp(400, "Rank outside [1, "
+                                        "PENROZ_LORA_MAX_RANK], unknown "
+                                        "init, or targets matching no "
+                                        "Linear"),
+                             _resp(409, "Adapter already exists")])),
+        dict(method="get", path="/adapters/",
+             summary="Every adapter, or one (adapter_id) with its training "
+                     "progress",
+             params=[{"name": "adapter_id", "in": "query",
+                      "required": False, "schema": {"type": "string"}}],
+             responses=dict([ok, _resp(404, "Unknown adapter")])),
+        dict(method="delete", path="/adapters/",
+             summary="Delete a LoRA adapter",
+             params=_query_params("adapter_id"),
+             responses=dict([_resp(204, "Deleted"),
+                             _resp(404, "Unknown adapter")])),
     ]
 
 

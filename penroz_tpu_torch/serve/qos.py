@@ -27,8 +27,8 @@ Knobs::
 
 Per-tenant rate overrides arrive via ``PUT /tenants/{id}/quota`` and live
 only in :data:`QUOTAS` (process state, not env).  Tenant identity is the
-explicit ``tenant`` field when given, else ``"default"`` (the JAX package
-falls back to the LoRA adapter id, and LoRA is not ported).  The KV-tier
+explicit ``tenant`` field when given, else the request's LoRA adapter id,
+else ``"default"``.  The KV-tier
 residency quota (``PENROZ_QOS_TENANT_TIER_MB``, the ``tier_mb`` field)
 belongs to the session tiers, which are not ported: both are refused with
 a 400 naming them (:func:`unported_tier_quota`).
@@ -64,10 +64,13 @@ def validate_priority(priority) -> str:
     return priority
 
 
-def tenant_of(tenant) -> str:
-    """Tenant identity: the explicit field, else the shared default."""
+def tenant_of(tenant, adapter=None) -> str:
+    """Tenant identity: the explicit field, else the adapter id, else the
+    shared default."""
     if tenant:
         return str(tenant)
+    if adapter:
+        return str(adapter)
     return DEFAULT_TENANT
 
 

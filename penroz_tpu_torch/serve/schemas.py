@@ -57,6 +57,8 @@ def _check(kind, v) -> tuple[bool, Any]:
     if kind == "int_list":
         ok = isinstance(v, list) and all(_check(int, x)[0] for x in v)
         return ok, [_check(int, x)[1] for x in v] if ok else v
+    if kind == "str_list":
+        return isinstance(v, list) and all(isinstance(x, str) for x in v), v
     if kind == "int_lists":
         ok = isinstance(v, list) and all(_check("int_list", x)[0] for x in v)
         return ok, [_check("int_list", x)[1] for x in v] if ok else v
@@ -121,9 +123,10 @@ class GenerateRequest(_Request):
     absent or not positive).  ``priority`` (``interactive``, ``standard``
     or ``batch``; an unknown class is a 400) and ``tenant`` (quota
     bucket, ``default`` when absent) route a scheduler request through
-    the fair queue (serve/qos.py).  ``session_id`` and ``adapter_id``
-    (sessions, LoRA) are accepted as fields so that they can be refused
-    with a 400: they are not ported."""
+    the fair queue (serve/qos.py); ``tenant`` absent, an ``adapter_id``
+    (a LoRA adapter of the model, serve/adapters.py) is the tenant.
+    ``session_id`` (sessions) is accepted as a field so that it can be
+    refused with a 400: it is not ported."""
     model_id: str
     input: list
     block_size: int
@@ -152,7 +155,7 @@ class GenerateRequest(_Request):
               ("tenant", str, None, True),
               ("session_id", str, None, True))
 
-    UNPORTED = ("adapter_id", "session_id")
+    UNPORTED = ("session_id",)
 
 
 @dataclass
@@ -160,8 +163,10 @@ class GenerateBatchRequest(_Request):
     """``POST /generate_batch/``: N prompts (ragged lengths) through the
     continuous-batching scheduler; ``timeout_ms`` is each row's deadline,
     and a shed row sheds the batch.  ``priority`` and ``tenant`` apply to
-    every row, as on /generate/.  The fields of features that are not
-    ported are accepted only to be refused."""
+    every row, as on /generate/.  ``adapter_ids`` (one per row, null for
+    the base model) overrides the batch-wide ``adapter_id``.
+    ``session_ids`` (sessions, not ported) is accepted only to be
+    refused."""
     model_id: str
     inputs: list
     block_size: int
@@ -190,7 +195,7 @@ class GenerateBatchRequest(_Request):
               ("tenant", str, None, True),
               ("session_ids", list, None, True))
 
-    UNPORTED = ("adapter_id", "adapter_ids", "session_ids")
+    UNPORTED = ("session_ids",)
 
 
 @dataclass
@@ -226,11 +231,53 @@ class OutputRequest(_Request):
 
 
 @dataclass
+class AdapterTrainConfig(_Request):
+    """``PUT /train/``'s ``adapter``: train this LoRA adapter (created on
+    its first training) against the frozen base model.  ``rank`` (1 to
+    ``PENROZ_LORA_MAX_RANK``, a 400 outside), ``alpha`` (default 2 ×
+    rank: the delta is alpha/r · B·A·x), ``targets`` (substrings of the
+    Linear projections' parameter prefixes; null: every one)."""
+    adapter_id: str
+    rank: int = 8
+    alpha: Optional[float] = None
+    targets: Optional[list] = None
+
+    FIELDS = (("adapter_id", str, _REQUIRED, False),
+              ("rank", int, 8, False),
+              ("alpha", float, None, True),
+              ("targets", "str_list", None, True))
+
+
+@dataclass
+class CreateAdapterRequest(_Request):
+    """``POST /adapters/``: register a fresh LoRA adapter of a model.  B
+    starts at zero (the base model exactly, until trained) unless
+    ``init`` is ``"random"``; ``seed`` seeds the draws; ``rank``,
+    ``alpha``, ``targets`` as on ``PUT /train/``'s ``adapter``."""
+    model_id: str
+    adapter_id: str
+    rank: int = 8
+    alpha: Optional[float] = None
+    targets: Optional[list] = None
+    seed: int = 0
+    init: str = "zeros"
+
+    FIELDS = (("model_id", str, _REQUIRED, False),
+              ("adapter_id", str, _REQUIRED, False),
+              ("rank", int, 8, False),
+              ("alpha", float, None, True),
+              ("targets", "str_list", None, True),
+              ("seed", int, 0, False),
+              ("init", str, "zeros", False))
+
+
+@dataclass
 class TrainingRequest(_Request):
     """``PUT /train/``.  ``device`` absent means the server's device (the
     port runs on the card unless told ``"cpu"``; the JAX package's default
-    is ``"cpu"``).  ``adapter`` (LoRA) is accepted as a field so that it
-    can be refused with a 400: it is not ported."""
+    is ``"cpu"``).  ``adapter`` (an :class:`AdapterTrainConfig`,
+    validated with the body: 422 on a missing or mistyped field) trains a
+    LoRA adapter instead of the model."""
     model_id: str
     dataset_id: str
     shard: int
@@ -250,6 +297,17 @@ class TrainingRequest(_Request):
               ("step_size", int, _REQUIRED, False),
               ("device", str, None, True),
               ("adapter", dict, None, True))
+
+    @classmethod
+    def model_validate(cls, payload):
+        body = super().model_validate(payload)
+        if body.adapter is not None:
+            try:
+                body.adapter = AdapterTrainConfig.model_validate(body.adapter)
+            except ValidationError as e:
+                raise ValidationError([dict(err, loc=["adapter", *err["loc"]])
+                                       for err in e.errors])
+        return body
 
 
 @dataclass
@@ -332,4 +390,5 @@ class ProfileRequest(_Request):
 REQUESTS = (CreateModelRequest, ImportModelRequest, DownloadDatasetRequest,
             TokenizeTextRequest, OutputRequest, EvaluateRequest,
             GenerateRequest, GenerateBatchRequest, DecodeTokensRequest,
-            TrainingRequest, TenantQuotaRequest, ProfileRequest)
+            TrainingRequest, TenantQuotaRequest, ProfileRequest,
+            CreateAdapterRequest, AdapterTrainConfig)

@@ -365,3 +365,78 @@ def delete(model_id: str):
     """Remove the shm copy and the durable checkpoint, each independently."""
     _remove_quietly(shm_model_path(model_id))
     _remove_quietly(model_path(model_id))
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapter checkpoints (models/lora.py, serve/adapters.py)
+# ---------------------------------------------------------------------------
+#
+# The same container under the JAX package's ``adapter_<id>.ckpt`` name, so
+# an adapter written by either package loads in the other; the family never
+# matches a ``model_*`` name.
+
+def adapter_path(adapter_id: str) -> str:
+    return os.path.join(MODELS_FOLDER, f"adapter_{adapter_id}.ckpt")
+
+
+def shm_adapter_path(adapter_id: str) -> str:
+    return os.path.join(SHM_PATH, adapter_path(adapter_id))
+
+
+def list_adapter_ids() -> list[str]:
+    """Adapter ids with a checkpoint (durable or shm copy), sorted."""
+    ids = set()
+    for base in (MODELS_FOLDER, os.path.join(SHM_PATH, MODELS_FOLDER)):
+        try:
+            names = os.listdir(base)
+        except FileNotFoundError:
+            continue
+        for name in names:
+            if name.startswith("adapter_") and name.endswith(".ckpt"):
+                ids.add(name[len("adapter_"):-len(".ckpt")])
+    return sorted(ids)
+
+
+def save_adapter(adapter_id: str, data: dict, sync_flush: bool = False):
+    """Write one adapter checkpoint to shm and flush it to ``models/`` (in
+    the background unless ``sync_flush``)."""
+    os.makedirs(MODELS_FOLDER, exist_ok=True)
+    os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
+    shm_path = shm_adapter_path(adapter_id)
+    _atomic_write(shm_path, data)
+    if sync_flush:
+        _flush(shm_path, adapter_path(adapter_id))
+    else:
+        _spawn_flush(shm_path, adapter_path(adapter_id))
+
+
+def load_adapter(adapter_id: str) -> dict:
+    """Read an adapter checkpoint (CRC-verified), repopulating the shm copy
+    on a miss.  :raises KeyError: the adapter was never created."""
+    shm_path = shm_adapter_path(adapter_id)
+    try:
+        if not os.path.exists(shm_path):
+            os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
+            shutil.copyfile(adapter_path(adapter_id), shm_path)
+        return _read(shm_path)
+    except FileNotFoundError:
+        raise KeyError(f"Adapter {adapter_id} not created yet.")
+
+
+def peek_adapter_tree(adapter_id: str) -> dict:
+    """An adapter checkpoint's metadata (status, config, model id) with
+    every array leaf None, read from the header alone.  :raises KeyError:
+    unknown adapter."""
+    path = shm_adapter_path(adapter_id)
+    if not os.path.exists(path):
+        path = adapter_path(adapter_id)
+    try:
+        return _read(path, sections=())
+    except FileNotFoundError:
+        raise KeyError(f"Adapter {adapter_id} not created yet.")
+
+
+def delete_adapter(adapter_id: str):
+    """Remove both adapter copies (shm and durable), each independently."""
+    _remove_quietly(shm_adapter_path(adapter_id))
+    _remove_quietly(adapter_path(adapter_id))

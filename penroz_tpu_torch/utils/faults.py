@@ -28,7 +28,8 @@ three before the block's dispatch, and ``qos.preempt`` (a preemption,
 before it mutates anything) (serve/decode_scheduler.py);
 ``ckpt.write`` (the checkpoint container write, whose temporary file is
 removed, utils/checkpoint.py); ``data.download`` (one dataset download
-attempt, data/loaders.py).  None sits inside a captured CUDA graph.
+attempt, data/loaders.py); ``lora.load`` (an adapter checkpoint's load
+into the serving registry, serve/adapters.py).  None sits inside a captured CUDA graph.
 Call counters are per site and process-wide; :func:`reset` clears them
 and the parsed-spec cache.
 """

@@ -214,9 +214,14 @@ def test_train_errors(server, toy_gpt_layers, toy_optimizer, monkeypatch):
                  {"model_id": "e", "layers": toy_gpt_layers,
                   "optimizer": toy_optimizer})[0] == 200
     assert _call(server, "PUT", "/train/", _train_body("nope"))[0] == 404
+    # an adapter config is validated before the 202: a rank past
+    # PENROZ_LORA_MAX_RANK is a 400 naming it, a missing adapter_id a 422
     status, text = _call(server, "PUT", "/train/", _train_body(
-        "e", adapter={"adapter_id": "a", "rank": 4}))
-    assert status == 400 and "LoRA" in text
+        "e", adapter={"adapter_id": "a", "rank": 4096}))
+    assert status == 400 and "rank 4096" in text
+    status, text = _call(server, "PUT", "/train/", _train_body(
+        "e", adapter={"rank": 4}))
+    assert status == 422 and "adapter_id" in text
     assert _call(server, "PUT", "/train/",
                  _train_body("e", device="tpuu"))[0] == 400
     import torch
@@ -382,6 +387,10 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
         batch[batch_name] = ([value] if batch_name == "session_ids"
                              else value)
         names = [next(iter(env))] if env else [name, batch_name]
+        if name == "adapter_id":
+            # ported: an unknown adapter is a 400 naming the adapter, on
+            # both routes, as in the JAX service
+            names = [f"unknown adapter {value!r}"]
     else:
         names = [next(iter(env))]
         if names[0] == "PAGED_KV_CACHE":

@@ -108,3 +108,38 @@ print(m.status["code"], len(tokens))
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split()[-2:] == ["Imported", "6"]
+
+
+def test_lora_slice_modules_run_without_jax(tmp_path):
+    """``models/lora.py`` and ``serve/adapters.py`` in a process where JAX
+    and ``penroz_tpu`` cannot be imported: create an adapter of a toy
+    model, load it through the registry and generate with it."""
+    blocked = sorted({"jax", "jaxlib", "optax", "penroz_tpu"})
+    script = f"""
+import os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(ROOT)!r})
+os.chdir({str(tmp_path)!r})
+from penroz_tpu_torch.utils import checkpoint
+checkpoint.SHM_PATH = {str(tmp_path / "shm")!r}
+os.makedirs(checkpoint.SHM_PATH)
+from penroz_tpu_torch.models import lora, presets
+from penroz_tpu_torch.models.dsl import Mapper
+from penroz_tpu_torch.models.model import NeuralNetworkModel
+from penroz_tpu_torch.serve import adapters
+m = NeuralNetworkModel("m", Mapper(presets.gpt2_custom(
+    d=16, heads=2, depth=1, vocab=32, block=8), presets.ADAMW),
+    device="cpu")
+lora.create_adapter("a", m, {{"rank": 2}}, seed=1, init="random")
+entry = adapters.REGISTRY.acquire("a", "m")
+tokens = lora.bind_model(m, entry.params, entry.config).generate_tokens(
+    [1, 2, 3], 8, 3, temperature=0)
+checkpoint.join_flushes()
+print(sorted(adapters.list_adapters()[0]), len(tokens))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[-2].endswith(" 6")
+    assert "'adapter_id'" in out.stdout

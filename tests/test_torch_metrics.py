@@ -169,6 +169,10 @@ def test_scrape_after_traffic_parses(workdir, monkeypatch, toy_gpt_layers,
         body = labels[1:-1] + "," if labels else ""
         inf = f'{name}_bucket{{{body}le="+Inf"}}'
         assert got[inf] == got[f"{name}_count{labels}"], fam
-    assert not any(s.startswith(("penroz_lora", "penroz_router",
-                                 "penroz_jit", "penroz_tier", "penroz_pipe"))
+    # LoRA is ported: its gauge reads 0 live adapters and no adapter
+    # emitted a token; the other features' series stay absent
+    assert got["penroz_lora_live_adapters"] == 0
+    assert not any(s.startswith(("penroz_lora_adapter_tokens",
+                                 "penroz_router", "penroz_jit",
+                                 "penroz_tier", "penroz_pipe"))
                    for s in got)

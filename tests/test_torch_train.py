@@ -155,9 +155,11 @@ def test_unported_options_are_refused(port_dir, toy_gpt_layers,
     tm = NeuralNetworkModel("opt", Mapper(toy_gpt_layers, toy_optimizer),
                             device="cpu")
     tm.serialize(sync_flush=True)
-    with pytest.raises(ValueError, match="LoRA"):
+    # adapter training is ported: a bad adapter config still refuses
+    with pytest.raises(ValueError, match="rank 4096"):
         NeuralNetworkModel.train_model_on_device(
-            "opt", "cpu", "toy", 0, 1, 2, 16, 1, adapter={"adapter_id": "a"})
+            "opt", "cpu", "toy", 0, 1, 2, 16, 1,
+            adapter={"adapter_id": "a", "rank": 4096})
     monkeypatch.setenv("PENROZ_REMAT", "1")
     with pytest.raises(ValueError, match="PENROZ_REMAT"):
         NeuralNetworkModel.train_model_on_device(

@@ -154,6 +154,25 @@ prints no result:
                PENROZ_TRACE_SAMPLE=0 (same tokens; both rates printed); a
                crash in a second engine (block 512) and its /debug/dump
                entry; / 302, /dashboard and /static/dashboard.js 200.
+4j. router   — phase_router: GPT-2 124M fp32 (4g's checkpoint), pages of
+               128, 64 prefix-cache pages, 8 rows a replica, strict
+               ledger.  A 12-stream wave (3 families of a 256-token shared
+               prefix + 16-200, 64 new, opened one after another, read
+               after) on one engine gives the reference tokens T and the
+               rate; then through PENROZ_SCHED_REPLICAS=3 (= T, affinity 9
+               hits / 3 misses, /metrics router_* = /serving_stats/,
+               audits clean, rate and device busy share against one
+               engine); crashes open replica 0 (failover = T, /readyz
+               200, the half-open probe readmits it), every replica open
+               (503 with Retry-After, /readyz 503, failovers counted, the
+               fallback = T through the paged kernel); disaggregated
+               prefill with one prefill replica over the d2d and host
+               transports, fp32 and int8 (= T, exports = imports = 12, no
+               failure, every /memory/ read partitioning each pool, no
+               blob or parked page left, hand-off ms and bytes), a
+               disagg.d2d and a disagg.handoff fault (= T); one elastic
+               prefill -> decode flip (a stream of each family = T).
+               Ragged device runs = 12 x every replica's mixed steps.
 4c. hybrid   — a server with the hybrid attention/SSM model
                (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
                ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
@@ -180,21 +199,21 @@ prints no result:
 4d. qwen3    — the slice's main path: a checkpoint of the published
                Qwen/Qwen3-0.6B config.json (d 1024, GQA 16/8, head_dim
                128, vocab 151936, tied embeddings; its 28 layers cut to
-               QWEN3_LAYERS = 14 to keep the script's time; random bf16
+               QWEN3_LAYERS = 4 to keep the script's time; random bf16
                weights from seed 0, N(0, 0.02), norms 1 + N(0, 0.1))
                written here in the HF layout, two safetensors shards and
                an index; POST /import/ (timed); greedy /generate/ 128 +
                128 twice (the second captures nothing), streamed, a
                1000-token prompt, on the contiguous cache and under
                PAGED_KV_CACHE=1 (the same tokens), the decode kernels' run
-               counters 14 a dispatched step; in process, graph == eager
+               counters 4 a dispatched step; in process, graph == eager
                on both caches, tokens/s and device busy share (graph,
                paged graph, eager), the checkpoint load timed; /output/ at
-               1 x 1024 (14 flash-forward launches); the card's logits at
+               1 x 1024 (4 flash-forward launches); the card's logits at
                8 positions against the port's CPU forward of the same
                bf16 weights (QWEN3_LOGIT_FACTOR); 4 concurrent requests
                under PENROZ_CONTINUOUS_BATCHING=1 PAGED_KV_CACHE=1 (the
-               ragged kernel 14 a mixed step, each token the plain
+               ragged kernel 4 a mixed step, each token the plain
                forward's argmax, near ties excepted as stated at
                _hf_continuous); DELETE /model/.
 4e. qmoe     — the same path (phase_import) for the MoE slice: the
@@ -3036,7 +3055,8 @@ def _profile_hybrid(torch, model, vocab, device):
 # ---------------------------------------------------------------------------
 
 # The published Qwen/Qwen3-0.6B config.json (its architecture keys), its
-# 28 layers cut to QWEN3_LAYERS so the whole script stays within 900 s;
+# 28 layers cut to QWEN3_LAYERS (14 in PRs 12-15, 4 since phase 4j) so
+# the whole script stays within 950 s;
 # every width is the published one.
 QWEN3_CONFIG = {
     "architectures": ["Qwen3ForCausalLM"], "attention_bias": False,
@@ -3068,7 +3088,7 @@ QMOE_CONFIG = {
     "sliding_window": 32768, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "use_cache": True,
     "use_sliding_window": False, "vocab_size": 151936}
-QWEN3_LAYERS = 14
+QWEN3_LAYERS = 4
 QMOE_LAYERS = 2
 # The imported checkpoints: phase name, model id, config as written, title.
 HF_MODELS = {
@@ -5503,6 +5523,576 @@ def phase_lora(torch, layers, optimizer, block, vocab, card, device="cuda",
     return stats, totals
 
 
+# ---------------------------------------------------------------------------
+# 4j: the replica router and disaggregated prefill
+# ---------------------------------------------------------------------------
+
+ROUTER_ENV = dict(CB_ENV, PENROZ_PREFIX_CACHE="1",
+                  PENROZ_PREFIX_CACHE_PAGES="64", PENROZ_MEMLEDGER_STRICT="1",
+                  TURBO_QUANT_KV_CACHE="0")
+ROUTER_PAGE = 128
+# The wave: 3 prompt families of 4 streams, each a shared 256-token prefix
+# and its own 16-200 tokens, 64 new tokens, submitted one after another
+# from one thread (the family order A B C A B C ...) and read afterwards.
+ROUTER_PREFIX_LEN = 256
+ROUTER_SUFFIX_LENS = (16, 200, 48, 120, 64, 180, 96, 32, 150, 80, 24, 110)
+ROUTER_NEW = 64
+ROUTER_FAMILIES = 3
+ROUTER_REPLICAS = 3
+ROUTER_SHORT = 16        # a crash request's prompt: no whole page, no
+#                          fingerprint, so placement goes by load alone
+# The device's busy share: a torch.profiler trace of this window of a wave,
+# this long after its last submission (a whole wave's trace takes longer
+# to process than the wave itself)
+ROUTER_BUSY_DELAY_S = 0.2
+ROUTER_BUSY_WINDOW_S = 1.0
+
+
+def _rates(tokens_per_s, wall, steps, load_s, busy):
+    """A profiled wave's figures: its rate, and the device's busy ms and
+    share of the traced window (None off the card)."""
+    busy_ms, window_ms = busy or (None, None)
+    return {"tokens_per_s": tokens_per_s, "wall_s": wall,
+            "mixed_steps": steps, "load_s": load_s, "busy_ms": busy_ms,
+            "window_ms": window_ms,
+            "busy_share": busy_ms / window_ms if busy else None}
+
+
+def _share(figures):
+    share = figures["busy_share"]
+    return "not measured" if share is None else f"{share:.1%}"
+
+
+def phase_router(torch, layers, optimizer, block, vocab, card, device="cuda",
+                 model_id="smoke_res"):
+    """GPT-2 124M fp32 (phase 4g's checkpoint, created when absent), pages
+    of 128, 64 prefix-cache pages, 8 rows a replica, strict ledger: (a) the
+    12-stream wave on ONE engine, its tokens T, rate and device busy share
+    (a torch.profiler window of a repeat) the yardstick; (b) the same wave,
+    measured the same way, through PENROZ_SCHED_REPLICAS=3 (every stream = T,
+    affinity 9 hits / 3 misses with each family on one replica, /metrics'
+    router_* = /serving_stats/, clean audits); (c) crashes open replica
+    0's breaker, the next requests fail over (= T), /readyz 200, a
+    half-open probe readmits replica 0 (= T), then every breaker open: a
+    503 with Retry-After in [1, 30], /readyz 503, failovers counted, and
+    PENROZ_SCHED_FALLBACK=1 serving the request through the paged decode
+    kernel (= T); (d) PENROZ_DISAGG_PREFILL=1 with one prefill replica,
+    affinity off so every request takes the hand-off: the wave over the
+    d2d and the host transport on fp32 and on int8 pages (= T, and = the
+    single-engine int8 wave), exports = imports = 12, no failure, every
+    /memory/ read during a wave partitioning each pool with its transit
+    pages, no blob in shm or page parked after; one disagg.d2d fault
+    (falls back to host) and one disagg.handoff fault (monolithic), each
+    = T; (e) PENROZ_DISAGG_ELASTIC=1 with two prefill replicas and bounds
+    that flip one to decode: one role change, a stream of each family = T
+    after it, clean audits.
+    Every wave's ragged device runs = the attention layers x the mixed
+    steps of every replica.  Returns (stats, the phase's counts: the
+    ragged and paged kernels' device runs).  ``device="cpu"`` rehearses
+    it at a toy size through the plain versions (no kernel counts)."""
+    import glob
+
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import CompiledArch
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import app as app_mod
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve import metrics as serve_metrics
+    from penroz_tpu_torch.serve import router as router_mod
+    from penroz_tpu_torch.utils import checkpoint, faults
+
+    t_phase = time.monotonic()
+    on_card = device != "cpu"
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(16)
+    prefixes = [rng.integers(0, vocab, ROUTER_PREFIX_LEN).tolist()
+                for _ in range(ROUTER_FAMILIES)]
+    prompts = [prefixes[i % ROUTER_FAMILIES]
+               + rng.integers(0, vocab, n).tolist()
+               for i, n in enumerate(ROUTER_SUFFIX_LENS)]
+    short = rng.integers(0, vocab, ROUTER_SHORT).tolist()
+    totals = {"ragged_paged_attention": 0, "paged_decode_attention": 0}
+    stats = {}
+    env_a = dict(ROUTER_ENV, PENROZ_KV_PAGE_SIZE=str(ROUTER_PAGE),
+                 PENROZ_SCHED_REPLICAS="1")
+    stats["marks"] = {}
+
+    def mark(part):
+        stats["marks"][part] = round(time.monotonic() - t_phase, 1)
+
+    def harvest():
+        totals["ragged_paged_attention"] += RPA.ragged_paged_attention.runs \
+            .read()
+        totals["paged_decode_attention"] += PA.paged_decode_attention.runs \
+            .read()
+        for fn in (RPA.ragged_paged_attention, PA.paged_decode_attention):
+            fn.runs.reset()
+            fn.launches = 0
+
+    def call(path, body=None, method=None):
+        status, headers, text = _qos_call(base, path, body, method)
+        try:
+            out = json.loads(text) if text else None
+        except ValueError:
+            out = text
+        return status, headers, out
+
+    def body(p):
+        return {"model_id": model_id, "input": [p], "block_size": block,
+                "max_new_tokens": ROUTER_NEW, "temperature": 0}
+
+    def arm(spec):
+        faults.reset()
+        if spec:
+            os.environ[faults.ENV] = spec
+        else:
+            os.environ.pop(faults.ENV, None)
+
+    def gen(p, what):
+        status, _, out = call("/generate/", body(p))
+        check(status == 200, f"{what}: /generate/ -> {status}: {out}")
+        return out["tokens"]
+
+    def sstats():
+        status, _, out = call("/serving_stats/")
+        check(status == 200, f"/serving_stats/ -> {status}")
+        return out
+
+    def wave(tag, profiled=False, poll_memory=False):
+        """The 12 streams, opened one after another from this thread (the
+        submissions in order), then read: (sequences, wall s, mixed steps,
+        (device busy ms, window ms) or None, /memory/ reads).  ``profiled``
+        traces the card's activity over ROUTER_BUSY_WINDOW_S from
+        ROUTER_BUSY_DELAY_S after the last submission: the busy share of
+        the wave's steady state, at a fraction of a whole trace's cost
+        (the trace's processing stalls the workers, so a traced wave's
+        own rate is not kept)."""
+        harvest()
+        mem_reads = []
+        stop = threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                status, _, out = call("/memory/")
+                if status == 200:
+                    mem_reads.append(out)
+                time.sleep(0.1)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        busy = None
+        with _mixed_steps() as steps:
+            if poll_memory:
+                poller.start()
+            t0 = time.monotonic()
+            resps = []
+            for p in prompts:
+                req = urllib.request.Request(
+                    base + "/generate/",
+                    data=json.dumps(dict(body(p), stream=True)).encode(),
+                    method="POST",
+                    headers={"Content-Type": "application/json"})
+                resps.append(urllib.request.urlopen(req, timeout=900))
+            if profiled and on_card:
+                from torch.profiler import ProfilerActivity, profile
+                time.sleep(ROUTER_BUSY_DELAY_S)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    tw = time.monotonic()
+                    time.sleep(ROUTER_BUSY_WINDOW_S)
+                    torch.cuda.synchronize()
+                    window_ms = (time.monotonic() - tw) * 1e3
+                busy = (sum(_device_kernel_ms(torch, prof).values()),
+                        window_ms)
+                check(busy[0] > 0, f"{tag}: the profiler saw no device "
+                      f"time")
+            outs = []
+            for p, resp in zip(prompts, resps):
+                with resp:
+                    check(resp.status == 200, f"{tag}: status {resp.status}")
+                    outs.append(p + [int(line) for line in resp])
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            stop.set()
+            if poll_memory:
+                poller.join(30)
+        runs = RPA.ragged_paged_attention.runs.read()
+        harvest()
+        check(not on_card or runs == n_attn * steps["steps"] > 0,
+              f"{tag}: the ragged kernel ran {runs} times for "
+              f"{steps['steps']} mixed steps x {n_attn} layers")
+        for i, seq in enumerate(outs):
+            check(len(seq) == len(prompts[i]) + ROUTER_NEW,
+                  f"{tag}: stream {i} came back short")
+        return outs, wall, steps["steps"], busy, mem_reads
+
+    def rate(wall):
+        return len(prompts) * ROUTER_NEW / wall
+
+    def group():
+        engine = DS.get_engine(model_id, block, 0, None,
+                               device=server.device)
+        check(isinstance(engine, router_mod.EngineRouter)
+              and len(engine.replicas) == ROUTER_REPLICAS,
+              f"PENROZ_SCHED_REPLICAS={ROUTER_REPLICAS} did not give a "
+              f"{ROUTER_REPLICAS}-replica router: {engine!r}")
+        return engine
+
+    def audit(router, what):
+        for e in router.replicas:
+            problems = e._ledger.audit(what)
+            check(not problems, f"{what}: replica {e.replica}'s audit: "
+                  f"{problems}")
+            check(not e._transit_rows, f"{what}: replica {e.replica} "
+                  f"still parks rows {sorted(e._transit_rows)}")
+        blobs = glob.glob(os.path.join(checkpoint.SHM_PATH, "**",
+                                       "pageblob_*"), recursive=True)
+        check(not blobs, f"{what}: page blobs left in shm: {blobs[:3]}")
+
+    def exposition(name, **labels):
+        text = _qos_call(base, "/metrics")[2]
+        want = name + ("{" + ",".join(f'{k}="{v}"' for k, v in
+                                      labels.items()) + "}" if labels
+                       else "")
+        for line in text.splitlines():
+            if line.startswith(want + " "):
+                return float(line.split()[-1])
+        return 0.0
+
+    server = app_mod.create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    DS.reset()
+    harvest()
+    for name in totals:
+        totals[name] = 0
+    try:
+        if call(f"/progress/?model_id={model_id}")[0] != 200:
+            status, _, out = call("/model/", {"model_id": model_id,
+                                              "layers": layers,
+                                              "optimizer": optimizer})
+            check(status == 200, f"POST /model/ -> {status}: {out}")
+
+        # -- (a) one engine: the reference tokens T -------------------------
+        with _env(env_a):
+            DS.reset()
+            t0 = time.monotonic()
+            engine = DS.get_engine(model_id, block, 0, None,
+                                   device=server.device)
+            load_s = time.monotonic() - t0
+            T, wall, steps, _, _ = wave("one engine")
+            again, _, _, busy, _ = wave("one engine, traced", profiled=True)
+            check(again == T, "(a): the traced repeat differs from T")
+            check(engine._ledger.audit("router (a)") == [],
+                  "(a): the audit failed")
+        stats["one_engine"] = _rates(rate(wall), wall, steps, load_s, busy)
+        mark("a")
+        say("router", f"(a) one engine: 12 streams x {ROUTER_NEW} new, "
+            f"{rate(wall):.1f} tokens/s ({wall:.3f} s, {steps} mixed "
+            f"steps); device busy {_share(stats['one_engine'])} of a "
+            f"{ROUTER_BUSY_WINDOW_S} s window traced in a repeat (prefixes "
+            f"cached); engine load "
+            f"{load_s:.2f} s, on {card}")
+
+        # -- (b) three replicas behind the router ---------------------------
+        env_b = dict(env_a, PENROZ_SCHED_REPLICAS=str(ROUTER_REPLICAS),
+                     PENROZ_ENGINE_MAX_CRASHES="2",
+                     PENROZ_BREAKER_COOLDOWN_MS="100000")
+        with _env(env_b):
+            DS.reset()
+            serve_metrics.reset()
+            t0 = time.monotonic()
+            router = group()
+            load_s = time.monotonic() - t0
+            out, wall, steps, _, _ = wave("three replicas")
+            for i, (got, want) in enumerate(zip(out, T)):
+                check(got == want, f"(b): stream {i} differs from T")
+            s = sstats()
+            per = [e.stats() for e in router.replicas]
+            fam_replicas = []
+            for f in range(ROUTER_FAMILIES):
+                fps = router._fingerprints(prefixes[f] + [0])
+                fam_replicas.append(router._affinity_target(fps))
+            check((s["router_affinity_hits"], s["router_affinity_misses"])
+                  == (9, 3) and s["router_replicas"] == ROUTER_REPLICAS,
+                  f"(b): affinity {s['router_affinity_hits']} hits / "
+                  f"{s['router_affinity_misses']} misses, expected 9 / 3")
+            admitted = sorted(p["admissions"] for p in per)
+            check(sum(admitted) == len(prompts)
+                  and all(n % 4 == 0 for n in admitted),
+                  f"(b): admissions by replica {admitted}: a family split")
+            metr = {"hit": exposition("penroz_router_affinity_total",
+                                      outcome="hit"),
+                    "miss": exposition("penroz_router_affinity_total",
+                                       outcome="miss"),
+                    "failovers": exposition("penroz_router_failovers_total")}
+            check(metr == {"hit": s["router_affinity_hits"],
+                           "miss": s["router_affinity_misses"],
+                           "failovers": s["router_failovers"]},
+                  f"(b): /metrics router_* {metr} != /serving_stats/")
+            audit(router, "router (b)")
+            again, _, _, busy, _ = wave("three replicas, traced",
+                                        profiled=True)
+            check(again == T, "(b): the traced repeat differs from T")
+            stats["replicas"] = dict(
+                _rates(rate(wall), wall, steps, load_s, busy),
+                admissions=[p["admissions"] for p in per],
+                dispatches_by_replica=[p["dispatches_total"] for p in per],
+                family_replicas=fam_replicas)
+            one = stats["one_engine"]
+            say("router", f"(b) {ROUTER_REPLICAS} replicas: every stream = "
+                f"T, affinity 9 hits / 3 misses (families on replicas "
+                f"{fam_replicas}), /metrics = /serving_stats/, audits "
+                f"clean; {rate(wall):.1f} tokens/s = "
+                f"{rate(wall) / one['tokens_per_s']:.2f} x (a) ({steps} "
+                f"mixed steps over the replicas), device busy "
+                f"{_share(stats['replicas'])} against (a)'s "
+                f"{_share(one)}; group load {load_s:.2f} s")
+            mark("b")
+
+            # -- (c) failover, the probe, every breaker open ----------------
+            t0 = time.monotonic()
+            r0 = router.replicas[0]
+            arm("decode.step:raise@1+")
+            crashed = [call("/generate/", body(short))[0] for _ in range(2)]
+            arm(None)
+            check(crashed == [500, 500] and r0._breaker_open,
+                  f"(c): crashes answered {crashed}, replica 0 breaker "
+                  f"{r0._breaker_open}")
+            fam = [i for i in range(len(prompts))
+                   if i % ROUTER_FAMILIES == fam_replicas.index(0)] \
+                if 0 in fam_replicas else [0, 3]
+            for i in fam:
+                check(gen(prompts[i], "(c) failover") == T[i],
+                      f"(c): stream {i} after replica 0 opened differs "
+                      f"from T")
+            status, _, ready = call("/readyz")
+            check(status == 200, f"(c): /readyz with one replica open: "
+                  f"{status} {ready}")
+            done0 = r0.stats()["completed"]
+            with _env({"PENROZ_BREAKER_COOLDOWN_MS": "0",
+                       router_mod.AFFINITY_ENV: "0"}):
+                check(gen(prompts[0], "(c) probe") == T[0],
+                      "(c): the probe's tokens differ from T")
+            check(not r0._breaker_open
+                  and r0.stats()["completed"] == done0 + 1,
+                  "(c): the probe did not readmit replica 0")
+            with _env({"PENROZ_ENGINE_MAX_CRASHES": "1",
+                       router_mod.AFFINITY_ENV: "0"}):
+                arm("decode.step:raise@1+")
+                crashed = [call("/generate/", body(short))[0]
+                           for _ in range(ROUTER_REPLICAS)]
+                status, headers, out = call("/generate/", body(prompts[0]))
+                retry = headers.get("Retry-After")
+                check(crashed == [500] * ROUTER_REPLICAS and status == 503
+                      and retry is not None and 1 <= int(retry) <= 30,
+                      f"(c): every replica open: crashes {crashed}, then "
+                      f"{status} Retry-After {retry}: {out}")
+                status, _, ready = call("/readyz")
+                check(status == 503
+                      and ready["breaker_open_engines"] == [model_id],
+                      f"(c): /readyz with every replica open: {status} "
+                      f"{ready}")
+                s = sstats()
+                check(s["router_failovers"] >= 1 and s[
+                    "router_failovers"] == exposition(
+                        "penroz_router_failovers_total"),
+                      f"(c): router_failovers {s['router_failovers']}")
+                harvest()
+                with _env({DS.FALLBACK_ENV: "1"}):
+                    fallback = gen(prompts[0], "(c) fallback")
+                arm(None)
+                paged_runs = PA.paged_decode_attention.runs.read()
+                harvest()
+            check(fallback == T[0], "(c): the fallback's tokens differ "
+                  "from T")
+            check(not on_card or paged_runs > 0,
+                  "(c): the fallback ran no paged decode kernel")
+            mark("c")
+            stats["failover"] = {"failovers": s["router_failovers"],
+                                 "retry_after": int(retry),
+                                 "fallback_paged_runs": paged_runs,
+                                 "s": time.monotonic() - t0}
+            say("router", f"(c) crashes opened replica 0; failover 200 = "
+                f"T, /readyz 200; the half-open probe readmitted it (= T); "
+                f"every replica open: 503 Retry-After {retry}, /readyz "
+                f"503, {s['router_failovers']} failovers (= /metrics); "
+                f"PENROZ_SCHED_FALLBACK=1 = T through the paged kernel "
+                f"({paged_runs} device runs); "
+                f"{stats['failover']['s']:.1f} s")
+
+        # -- (d) disaggregated prefill ----------------------------------------
+        env_d = dict(env_a, PENROZ_SCHED_REPLICAS=str(ROUTER_REPLICAS),
+                     PENROZ_DISAGG_PREFILL="1",
+                     PENROZ_DISAGG_PREFILL_REPLICAS="1",
+                     PENROZ_ROUTER_AFFINITY="0")
+        disagg = {}
+        refs = {"fp32": T}
+        refs_rate = {"fp32": stats["one_engine"]["tokens_per_s"]}
+        for pages in ("fp32", "int8"):
+            quant = {"TURBO_QUANT_KV_CACHE": "1" if pages == "int8" else "0"}
+            if pages == "int8":
+                with _env(dict(env_a, **quant)):
+                    DS.reset()
+                    DS.get_engine(model_id, block, 0, None,
+                                  device=server.device)
+                    refs["int8"], wall, _, _, _ = wave("one engine int8")
+                refs_rate["int8"] = rate(wall)
+                disagg["int8_one_engine_tokens_per_s"] = rate(wall)
+            with _env(dict(env_d, **quant)):
+                DS.reset()
+                serve_metrics.reset()
+                router = group()
+                check([e.role for e in router.replicas]
+                      == ["prefill"] + ["decode"] * (ROUTER_REPLICAS - 1),
+                      f"(d): roles {[e.role for e in router.replicas]}")
+                for transport in ("d2d", "host"):
+                    tag = f"{pages}/{transport}"
+                    before = [(e.stats()["disagg_exports"],
+                               e.stats()["disagg_imports"],
+                               e.stats()["disagg_handoff_failures"])
+                              for e in router.replicas]
+                    with _env({DS.DISAGG_TRANSPORT_ENV: transport}):
+                        out, wall, steps, _, mem = wave(
+                            f"disagg {tag}", poll_memory=True)
+                    for i, (got, want) in enumerate(zip(out, refs[pages])):
+                        check(got == want, f"(d) {tag}: stream {i} differs "
+                              f"from the one-engine {pages} wave")
+                    after = [(e.stats()["disagg_exports"],
+                              e.stats()["disagg_imports"],
+                              e.stats()["disagg_handoff_failures"])
+                             for e in router.replicas]
+                    exports, imports, failures = (
+                        sum(a[k] - b[k] for a, b in zip(after, before))
+                        for k in range(3))
+                    check(exports == imports == len(prompts)
+                          and failures == 0,
+                          f"(d) {tag}: {exports} exports, {imports} imports, "
+                          f"{failures} failures")
+                    check(router.replicas[0].stats()["completed"] == 0,
+                          f"(d) {tag}: the prefill replica decoded")
+                    transit_seen = 0
+                    for snap in mem:
+                        for entry in snap["engines"]:
+                            pools = entry["pool_pages"]
+                            check(sum(pools.values())
+                                  == entry["pool_pages_total"]
+                                  and min(pools.values()) >= 0,
+                                  f"(d) {tag}: a /memory/ read does not "
+                                  f"partition replica {entry['replica']}'s "
+                                  f"pool: {pools}")
+                            transit_seen = max(transit_seen,
+                                               pools["transit"])
+                    audit(router, f"router (d) {tag}")
+                    disagg[tag] = {"tokens_per_s": rate(wall),
+                                   "wall_s": wall, "mixed_steps": steps,
+                                   "memory_reads": len(mem),
+                                   "max_transit_pages": transit_seen}
+                    say("router", f"(d) disaggregated, {tag}: = T, "
+                        f"{exports} exports = imports, no failure, "
+                        f"{len(mem)} /memory/ reads partition every pool "
+                        f"(transit up to {transit_seen} pages), no blob or "
+                        f"parked page; {rate(wall):.1f} tokens/s = "
+                        f"{rate(wall) / refs_rate[pages]:.2f} x one "
+                        f"engine, {rate(wall) / stats['replicas']['tokens_per_s']:.2f}"
+                        f" x (b) ({steps} mixed steps, /memory/ polled "
+                        f"every 100 ms)")
+                s = sstats()
+                snap = serve_metrics.DISAGG_HANDOFF_BYTES.hist.snapshot()
+                nbytes = snap["sum"] / max(1, snap["count"])
+                disagg[f"{pages}_handoff_ms_p50"] = s["disagg_handoff_ms_p50"]
+                disagg[f"{pages}_handoff_ms_p99"] = s["disagg_handoff_ms_p99"]
+                disagg[f"{pages}_handoff_bytes_mean"] = nbytes
+                mark(f"d_{pages}")
+                say("router", f"(d) {pages}: hand-off p50 "
+                    f"{s['disagg_handoff_ms_p50']} ms, p99 "
+                    f"{s['disagg_handoff_ms_p99']} ms (both transports), "
+                    f"{nbytes:.0f} bytes a hand-off")
+                if pages == "fp32":
+                    for spec, what in (("disagg.d2d:raise@1", "d2d"),
+                                       ("disagg.handoff:raise@1",
+                                        "handoff")):
+                        before = sstats()
+                        arm(spec)
+                        got = gen(prompts[1], f"(d) {what} fault")
+                        arm(None)
+                        after = sstats()
+                        check(got == T[1], f"(d) a {what} fault: tokens "
+                              f"differ from T")
+                        moved = {k: after[k] - before[k] for k in (
+                            "disagg_exports", "disagg_imports",
+                            "disagg_handoff_failures")}
+                        want = {"disagg_exports": 1 if what == "d2d" else 0,
+                                "disagg_imports": 1 if what == "d2d" else 0,
+                                "disagg_handoff_failures": 1}
+                        check(moved == want, f"(d) a {what} fault moved "
+                              f"{moved}, expected {want}")
+                        audit(router, f"router (d) {what} fault")
+                    mark("d_faults")
+                    say("router", "(d) a disagg.d2d fault re-sent through "
+                        "the host blob (= T, 1 import); a disagg.handoff "
+                        "fault re-prefilled monolithically on a decode "
+                        "replica (= T, no import); audits clean")
+        stats["disagg"] = disagg
+
+        # -- (e) one elastic flip ---------------------------------------------
+        # shrink on any backlog, never grow: exactly one flip, down to
+        # the one-prefill floor
+        env_e = dict(env_d, PENROZ_DISAGG_PREFILL_REPLICAS="2",
+                     PENROZ_DISAGG_ELASTIC="1",
+                     PENROZ_DISAGG_REBALANCE_DOWN="1e12",
+                     PENROZ_DISAGG_REBALANCE_UP="1e13",
+                     PENROZ_DISAGG_REBALANCE_COOLDOWN_MS="0")
+        with _env(env_e):
+            DS.reset()
+            serve_metrics.reset()
+            router = group()
+            check([e.role for e in router.replicas]
+                  == ["prefill", "prefill", "decode"],
+                  f"(e): roles {[e.role for e in router.replicas]}")
+            check(gen(prompts[0], "(e) first") == T[0],
+                  "(e): the first request differs from T")
+            deadline = time.monotonic() + 60
+            while (sorted(e.role for e in router.replicas)
+                   != ["decode", "decode", "prefill"]):
+                check(time.monotonic() < deadline,
+                      f"(e): no flip: {[e.role for e in router.replicas]}")
+                time.sleep(0.005)
+            # one stream of each family after the flip
+            for i in range(ROUTER_FAMILIES):
+                check(gen(prompts[i], "(e)") == T[i],
+                      f"(e): stream {i} after the flip differs from T")
+            s = sstats()
+            check(s["disagg_role_changes"] == 1
+                  and router.role_changes_requested == 1
+                  and exposition("penroz_disagg_role_changes_total") == 1,
+                  f"(e): {s['disagg_role_changes']} role changes")
+            audit(router, "router (e)")
+            stats["elastic"] = {"roles": [e.role for e in router.replicas]}
+            mark("e")
+            say("router", f"(e) elastic: one prefill -> decode flip "
+                f"(roles {stats['elastic']['roles']}), a stream of each "
+                f"family after it = T, audits clean")
+        router = engine = None
+        DS.reset()
+    finally:
+        arm(None)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    for name, n in totals.items():
+        check(not on_card or n > 0, f"{name} ran no time in the phase")
+    stats["seconds"] = time.monotonic() - t_phase
+    say("router", f"{stats['seconds']:.1f} s (at the end of each part: "
+        f"{stats['marks']}); device runs {totals} on {card}")
+    return stats, totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="penroz_tpu_torch chip smoke")
     parser.add_argument("--out", help="also write every measurement here "
@@ -5554,6 +6144,9 @@ def main(argv=None) -> int:
         lora_stats, lora_launches = phase_lora(
             torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
             card=card)
+        router_stats, router_launches = phase_router(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -5577,9 +6170,11 @@ def main(argv=None) -> int:
                           "qwen3": qwen3_launches, "qmoe": qmoe_launches,
                           "moe_training": moe_launches,
                           "resilience": res_launches,
-                          "qos": qos_launches, "lora": lora_launches}
+                          "qos": qos_launches, "lora": lora_launches,
+                          "router": router_launches}
         for extra in (qwen3_launches, qmoe_launches, moe_launches,
-                      res_launches, qos_launches, lora_launches):
+                      res_launches, qos_launches, lora_launches,
+                      router_launches):
             for name_, n in extra.items():
                 launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
@@ -5608,6 +6203,7 @@ def main(argv=None) -> int:
                        "prefix_spec": pf_stats,
                        "resilience": res_stats,
                        "qos": qos_stats, "lora": lora_stats,
+                       "router": router_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

@@ -46,6 +46,15 @@ aliases them into a row's table (``with_row_prefix``) and copies a
 finished prompt's pages into them (``copy_pages``).  Every table rewrite
 goes through ``_upload_table``, in stream order, so it cannot race a step
 still in flight.
+
+Disaggregated prefill moves a finished prompt's pages between two engines'
+pools: ``export_row_pages`` gathers a row's logical pages through its block
+table into a blob of per-layer planes (on the card for the d2d transport,
+on the host for the page-blob codec of utils/checkpoint.py) and
+``import_row_pages`` scatters such a blob into another row's own pages.
+In the JAX package these are plain array indexing outside any Pallas
+kernel, so here they stay torch indexing (``index_select`` and
+``index_copy_`` on the pool's planes), with no kernel of their own.
 """
 
 from __future__ import annotations
@@ -750,6 +759,66 @@ class PagedKVState(KVState):
                 pool.index_copy_(1, dst, pool.index_select(1, src))
         return self
 
+    def _plane_names(self):
+        """The blob keys of :meth:`_pool_lists`, in the same order."""
+        return ("k", "v")
+
+    def _export_pool_rows(self, row: int, n_pages: int) -> np.ndarray:
+        """Flat pool rows of row ``row``'s first ``n_pages`` logical pages,
+        resolved through its block table (host arithmetic)."""
+        phys = self.table[int(row), :n_pages].astype(np.int64)
+        return (phys[:, None] * self.page_size
+                + np.arange(self.page_size)).reshape(-1)
+
+    def export_row_pages(self, row, length, device: bool = False) -> dict:
+        """Gather row ``row``'s first ``ceil(length / page_size)`` logical
+        pages through its block table (the disaggregated-prefill export):
+        prefix-aliased leading pages come out in position order like the
+        row's own.  ``device=True`` (the d2d transport) keeps the planes on
+        the pool's device; otherwise they come back as CPU tensors for the
+        page-blob codec.  A pool with a recurrent ``ssm`` child is refused:
+        its rows' hand-off is not ported."""
+        if self.ssm is not None:
+            raise ValueError("hand-off of rows with recurrent ssm state is "
+                             "not ported to penroz_tpu_torch")
+        P, S = self.page_size, self.pages_per_seq
+        n = -(-int(length) // P)
+        if n > S:
+            raise ValueError(f"export of {n} pages exceeds pages_per_seq={S}")
+        idx = torch.as_tensor(self._export_pool_rows(row, n),
+                              device=self.device)
+        blob = {"page_size": P, "pages": n, "length": int(length),
+                "quantized": self.quantized}
+        for key, pools in zip(self._plane_names(), self._pool_lists()):
+            planes = [a.index_select(1, idx) for a in pools]
+            blob[key] = planes if device else [t.cpu() for t in planes]
+        return blob
+
+    def import_row_pages(self, row, blob: dict):
+        """Scatter an :meth:`export_row_pages` blob (host or device planes,
+        or a loaded page blob) into row ``row``'s own static-partition pages
+        (in place).  The row's table is first restored to its own pages, so
+        a stale prefix alias is never written through.  A blob of another
+        page size or quantization is a ValueError."""
+        P, S = self.page_size, self.pages_per_seq
+        if int(blob["page_size"]) != P:
+            raise ValueError(f"page blob page_size {blob['page_size']} != "
+                             f"pool page_size {P}")
+        if bool(blob["quantized"]) != self.quantized:
+            raise ValueError("page blob quantization does not match pool")
+        n = int(blob["pages"])
+        if n > S:
+            raise ValueError(f"import of {n} pages exceeds pages_per_seq={S}")
+        self.with_row_prefix(row, ())
+        start = int(row) * S * P
+        dst = torch.arange(start, start + n * P, device=self.device)
+        for key, pools in zip(self._plane_names(), self._pool_lists()):
+            for a, plane in zip(pools, blob[key]):
+                if not isinstance(plane, torch.Tensor):   # a numpy plane
+                    plane = torch.from_numpy(np.array(plane))
+                a.index_copy_(1, dst, plane.to(self.device, a.dtype))
+        return self
+
     def _row_bytes(self) -> int:
         """Bytes per token row summed over every layer's K and V pool."""
         return sum(a.shape[0] * a.shape[2] * a.element_size()
@@ -828,6 +897,9 @@ class QuantPagedKVState(PagedKVState):
         """Values and their per-token scales: a copied page keeps its
         scales."""
         return (self.k, self.v, self.k_scale, self.v_scale)
+
+    def _plane_names(self):
+        return ("k", "v", "k_scale", "v_scale")
 
     def _row_bytes(self) -> int:
         """int8 value rows + fp32 scale rows per token, over every layer."""

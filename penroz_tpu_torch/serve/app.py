@@ -977,7 +977,10 @@ class _Handler(BaseHTTPRequestHandler):
 
     def readyz(self, query):
         """Readiness: 503 while an engine's breaker is open, a tick is
-        stuck past the watchdog, or the server drains."""
+        stuck past the watchdog, or the server drains.  A replica group
+        (``PENROZ_SCHED_REPLICAS`` > 1) is unready only when EVERY replica
+        is: one healthy replica keeps the model ready, as the router fails
+        admissions over to it."""
         breaker_open = DS.breaker_open_engines()
         stuck = DS.stuck_engines()
         draining = DS.draining()
@@ -1084,19 +1087,42 @@ def create_app(device=None, host: str = "127.0.0.1",
     return PenrozServer((host, port), device=device)
 
 
-def main(argv=None):  # pragma: no cover
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--device", default=None,
-                        help="'cuda' (default) or 'cpu'")
-    parser.add_argument("--host", default="127.0.0.1")
-    parser.add_argument("--port", type=int, default=8000)
-    args = parser.parse_args(argv)
+def _configure_logging():
+    """``logging.config.dictConfig`` from the JSON file
+    ``PENROZ_LOG_CONFIG`` names, as the JAX service does; without it, or
+    when the file is missing (a warning on stderr), a basicConfig whose
+    lines carry the request id."""
+    import logging.config
+    import sys
+    config_path = os.environ.get("PENROZ_LOG_CONFIG")
+    if config_path and os.path.exists(config_path):
+        with open(config_path) as f:
+            logging.config.dictConfig(json.load(f))
+        return
+    if config_path:
+        print(f"WARNING: PENROZ_LOG_CONFIG={config_path!r} does not exist; "
+              "falling back to basicConfig", file=sys.stderr)
     handler = logging.StreamHandler()
     handler.addFilter(tracing.RequestIdFilter())
     logging.basicConfig(
         level=logging.INFO, handlers=[handler],
         format="%(asctime)s %(levelname)s [%(request_id)s] %(name)s: "
                "%(message)s")
+
+
+def main(argv=None):
+    """Serve until interrupted.  ``HOST`` and ``PORT`` in the environment
+    are the defaults of ``--host`` and ``--port`` (127.0.0.1:8000 without
+    them), as for the JAX service."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--device", default=None,
+                        help="'cuda' (default) or 'cpu'")
+    parser.add_argument("--host", default=os.environ.get("HOST",
+                                                         "127.0.0.1"))
+    parser.add_argument("--port", type=int,
+                        default=int(os.environ.get("PORT", "8000")))
+    args = parser.parse_args(argv)
+    _configure_logging()
     server = create_app(args.device, args.host, args.port)
     log.info("Serving on %s:%d (%s)", *server.server_address[:2],
              server.device)

@@ -110,13 +110,33 @@ request carries a trace; the capacity ledger and flight recorder
 recovery audits the page partition).  :func:`serving_stats` backs
 ``GET /serving_stats/`` under the JAX package's key names.
 
+Replicas (serve/router.py): ``PENROZ_SCHED_REPLICAS=N`` (N > 1) makes
+:func:`get_engine` hand back an ``EngineRouter`` over N engines of one
+key, each with its own pool, radix cache, worker thread and breaker, all
+on the one device.  With ``PENROZ_DISAGG_PREFILL=1`` the first replicas
+take the ``prefill`` role: a finished prompt's row leaves through the
+hand-off seam (:meth:`DecodeEngine._export_handoff`) instead of emitting,
+its KV pages travel to a ``decode`` replica over the ``d2d`` transport
+(``PENROZ_DISAGG_TRANSPORT``, default; device planes, the source row
+parked under the ledger's ``transit`` state until the importer acks,
+``PENROZ_DISAGG_ACK_TIMEOUT_MS`` at most) or the ``host`` one (a CRC page
+blob in shm), and the decode replica imports them and emits the first
+token the prefill replica sampled.  Every failure of the seam falls back
+greedy-identically: a refused d2d import re-sends through the host blob,
+a failed export or import re-prefills monolithically on a decode replica.
+A cross-engine call never runs under the caller's own condition lock:
+the worker hands off after the block's replay releases it, and an
+importer's acks go out after its admission does, so two workers never
+wait on each other's locks.
+
 Models with ``ssm`` layers are refused (HTTP 400): their rows need the
 packed recurrent update (``SSMState.update_packed``), not ported yet.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
-the contiguous cache, replicas, disaggregated prefill, serving meshes,
-pipeline stages and the KV-tier quota (``PENROZ_QOS_TENANT_TIER_MB``);
-sessions on requests are refused by the HTTP layer.
+the contiguous cache, serving meshes, pipeline stages, resumable streams,
+the request journal, the KV session tiers and the KV-tier quota
+(``PENROZ_QOS_TENANT_TIER_MB``); sessions on requests are refused by the
+HTTP layer.
 
 LoRA adapters (models/lora.py, serve/adapters.py): a request's
 ``adapter`` takes one of ``PENROZ_LORA_MAX_LIVE`` live slots (a slot
@@ -172,22 +192,35 @@ FALLBACK_ENV = "PENROZ_SCHED_FALLBACK"
 ADMIT_MS_ENV = "PENROZ_SCHED_ADMIT_MS"
 TICK_WATCHDOG_ENV = "PENROZ_TICK_WATCHDOG_MS"
 DRAIN_S_ENV = "PENROZ_DRAIN_S"
+TICK_TIMELINE_ENV = "PENROZ_TICK_TIMELINE"
+REPLICAS_ENV = "PENROZ_SCHED_REPLICAS"
+# Disaggregated prefill's hand-off transport: "d2d" (device planes handed
+# over in process, the default: every replica of a group lives here) or
+# "host" (the CRC page-blob codec, also the fallback when d2d fails).
+DISAGG_TRANSPORT_ENV = "PENROZ_DISAGG_TRANSPORT"
+DISAGG_ACK_TIMEOUT_ENV = "PENROZ_DISAGG_ACK_TIMEOUT_MS"
 
 # Scheduler features of the JAX package this port does not have yet:
 # (variable, predicate on its value that selects the feature, what).
 _UNPORTED_SERVING_ENV = (
     (RAGGED_ENV, lambda v: v == "0", "the phased (non-unified) ticks"),
-    ("PENROZ_SCHED_REPLICAS", lambda v: _int(v) > 1, "engine replicas"),
-    ("PENROZ_DISAGG_PREFILL", lambda v: v == "1",
-     "disaggregated prefill"),
     ("PENROZ_SERVE_MESH", lambda v: v == "1", "a serving mesh"),
     ("PENROZ_SERVE_PIPE_STAGES", lambda v: _int(v) > 1,
      "pipeline-parallel serving"),
+    ("PENROZ_STREAM_DETACH_MS", lambda v: _float(v) > 0,
+     "resumable streams (decoding on past a client disconnect)"),
+    ("PENROZ_STREAM_REPLAY", lambda v: v.strip() != "",
+     "resumable streams (the reattach replay ring)"),
+    ("PENROZ_JOURNAL_PATH", lambda v: v.strip() != "",
+     "the crash-durability request journal"),
+    ("PENROZ_TIER_HOST_MB", lambda v: _float(v) > 0,
+     "the host tier of KV session hibernation"),
+    ("PENROZ_TIER_DISK_MB", lambda v: _float(v) > 0,
+     "the disk tier of KV session hibernation"),
 )
 
-# Tick-timeline entries kept per engine, and served per /serving_stats/
-# payload (the JAX package's defaults).
-_TIMELINE_LEN = 256
+# Tick-timeline entries served per /serving_stats/ payload (the ring
+# itself holds PENROZ_TICK_TIMELINE entries, default 256).
 _TIMELINE_SERVE = 120
 # Window of the recent tokens/s rate (and the ledger's burn rate), seconds.
 _TPS_WINDOW_S = 30.0
@@ -232,6 +265,13 @@ def _int(v: str) -> int:
         return int(v)
     except ValueError:
         return 0
+
+
+def _float(v: str) -> float:
+    try:
+        return float(v)
+    except ValueError:
+        return 0.0
 
 
 def enabled() -> bool:
@@ -313,6 +353,35 @@ def _superstep_max() -> int:
     return _env_int(SUPERSTEP_ENV, 8)
 
 
+def _timeline_len() -> int:
+    """Tick-timeline entries an engine keeps (its ring's length)."""
+    return _env_int(TICK_TIMELINE_ENV, 256)
+
+
+def _replicas() -> int:
+    """Engine replicas per (model, config) key: more than 1 routes
+    acquisition through serve/router.py; 1 (the default) is the
+    single-engine registry."""
+    return _env_int(REPLICAS_ENV, 1)
+
+
+def _disagg_transport() -> str:
+    """The hand-off transport of disaggregated prefill: ``d2d`` (the
+    default) or ``host``."""
+    v = os.environ.get(DISAGG_TRANSPORT_ENV, "d2d").strip().lower()
+    if v not in ("d2d", "host"):
+        log.warning("Unknown %s=%r; using d2d", DISAGG_TRANSPORT_ENV, v)
+        return "d2d"
+    return v
+
+
+def _ack_timeout_s() -> float:
+    """How long an exporter row stays parked awaiting the importer's d2d
+    ack before its pages are reaped (the importer owns the request's
+    stream by then, so a lost ack must not hold pages forever)."""
+    return _env_float(DISAGG_ACK_TIMEOUT_ENV, 10000.0) / 1000.0
+
+
 def unported_serving_options() -> None:
     """Raise ValueError (HTTP 400) naming the knob when continuous batching
     is on with a scheduler feature the port does not have, or without the
@@ -350,7 +419,10 @@ class Request:
 
     ``priority`` (an SLO class, serve/qos.py; ``standard`` when None, a
     ValueError for an unknown one) and ``tenant`` (``default`` when None)
-    route it through the fair queue and the quota buckets.
+    route it through the fair queue and the quota buckets.  ``handoff``
+    is set by a prefill replica after an export (the d2d planes or the
+    blob id, the KV length, the first token, the export's start, the
+    exporter's ack) and consumed by the decode replica's admission.
     ``request_id`` is its ``X-Request-Id``; ``trace`` (utils/tracing.py)
     its span tree, or None when sampled out — every recording site is
     None-guarded.  ``adapter`` (serve/adapters.py ``AdapterEntry``, pinned
@@ -361,7 +433,8 @@ class Request:
     __slots__ = ("prompt", "max_new_tokens", "stop_token", "on_event",
                  "cancelled", "enqueue_t", "deadline", "request_id",
                  "trace", "priority", "tenant", "resume_history",
-                 "resume_produced", "resume_nodes", "preempted", "adapter")
+                 "resume_produced", "resume_nodes", "preempted", "adapter",
+                 "handoff")
 
     def __init__(self, prompt, max_new_tokens, stop_token, on_event,
                  timeout_ms=None, request_id=None, trace=None,
@@ -384,6 +457,7 @@ class Request:
         self.resume_produced = 0
         self.resume_nodes: list = []
         self.preempted = 0
+        self.handoff = None
         self.request_id = request_id
         self.trace = trace
         budget = _effective_timeout_ms(timeout_ms)
@@ -398,7 +472,8 @@ class Request:
 class _Row:
     __slots__ = ("req", "produced", "prefilling", "prefilled", "chunks",
                  "chunk_idx", "history", "prefix_nodes", "admit_t",
-                 "resumed", "last_emit_t", "sp_prefill", "sp_decode")
+                 "resumed", "last_emit_t", "sp_prefill", "sp_decode",
+                 "transit")
 
     def __init__(self, req: Request):
         self.req = req
@@ -408,6 +483,10 @@ class _Row:
         # preempt)
         self.admit_t = time.monotonic()
         self.resumed = False
+        # a hand-off row whose pages are in flight (a parked exporter row
+        # awaiting its ack, an importer row mid-import): the ledger's
+        # ``transit`` state, never planned into a block
+        self.transit = False
         # inter-token latency anchor, and the row's open trace spans
         self.last_emit_t = None
         self.sp_prefill = None
@@ -428,10 +507,13 @@ class DecodeEngine:
     """Per-(model, block_size, sampling) continuous-batching engine over
     the paged pool.  The worker thread owns the KV state, the host-side
     per-row lengths (authoritative) and last tokens; ``submit`` only
-    queues."""
+    queues.  ``replica`` is its index in a serve/router.py group (0 alone)
+    and ``role`` its disaggregation role (``decode``, or ``prefill``: a
+    finished prompt leaves through ``_handoff_sink``)."""
 
     def __init__(self, model_id: str, block_size: int, temperature, top_k,
-                 capacity: int | None = None, device=None):
+                 capacity: int | None = None, device=None, replica: int = 0,
+                 role: str = "decode"):
         self.model_id = model_id
         self.block_size = int(block_size)
         self.temperature = temperature
@@ -439,6 +521,28 @@ class DecodeEngine:
         self.capacity = capacity or _max_rows()
         self.greedy = temperature is None or float(temperature) == 0.0
         self._device = device
+        # router-owned replicas are no eviction victims: the router owns
+        # their lifecycle
+        self.replica = int(replica)
+        self._router_owned = False
+        self.role = role
+        self._handoff_sink = None
+        # the d2d free-after-ack protocol: rows whose planes shipped park
+        # in _transit_rows until the importer's ack lands in _acks (from
+        # the importer's thread); _outbox holds the block's finished
+        # prefills until its replay releases the lock, _ack_out an
+        # importer's acks until its admission does; _requested_role is
+        # the elastic rebalancer's pending flip
+        self._transit_rows: dict = {}
+        self._acks: list = []
+        self._outbox: list = []
+        self._ack_out: list = []
+        self._requested_role = None
+        self._disagg_role_changes = 0
+        self._disagg_exports = 0
+        self._disagg_imports = 0
+        self._disagg_handoff_failures = 0
+        self._h_handoff = metrics_util.Hist()
         self._model = NeuralNetworkModel.deserialize(model_id, device=device,
                                                      optimizer=False)
         if self._model.arch.ssm_layers:
@@ -530,11 +634,11 @@ class DecodeEngine:
         self._h_tokens_per_dispatch = metrics_util.Hist(
             metrics_util.TOKENS_PER_DISPATCH_BUCKETS)
         self._tick_timeline: collections.deque = collections.deque(
-            maxlen=_TIMELINE_LEN)
+            maxlen=_timeline_len())
 
         self._thread = threading.Thread(
             target=self._run, daemon=True,
-            name=f"penroz-sched-{model_id}-{self.block_size}")
+            name=f"penroz-sched-{model_id}-{self.block_size}-{self.replica}")
         self._thread.start()
 
     def _alloc_state(self):
@@ -614,16 +718,18 @@ class DecodeEngine:
                 # cooldown (_probe_failed)
                 self._probe_inflight = True
             # an exhausted bucket sheds THIS tenant's new admissions; rows
-            # in flight, anyone's, are never touched
-            try:
-                qos.QUOTAS.admit(req.tenant)
-            except TenantQuotaExceeded:
-                self._quota_rejections += 1
-                serve_metrics.QUOTA_REJECTIONS.inc(tenant=req.tenant)
-                serve_metrics.REQUESTS.inc(outcome="quota")
-                self._shed_span(req, "quota")
-                self._probe_failed()
-                raise
+            # in flight, anyone's, are never touched (a hand-off arrival
+            # was admitted and charged on its prefill replica)
+            if req.handoff is None:
+                try:
+                    qos.QUOTAS.admit(req.tenant)
+                except TenantQuotaExceeded:
+                    self._quota_rejections += 1
+                    serve_metrics.QUOTA_REJECTIONS.inc(tenant=req.tenant)
+                    serve_metrics.REQUESTS.inc(outcome="quota")
+                    self._shed_span(req, "quota")
+                    self._probe_failed()
+                    raise
             # the class's bound when PENROZ_QOS_MAX_QUEUE_<CLASS> is set
             # (0: unbounded), else the aggregate PENROZ_SCHED_MAX_QUEUE
             cls_bound = qos.class_queue_bound(req.priority)
@@ -748,12 +854,23 @@ class DecodeEngine:
                 "queue_wait_ms_by_class": {
                     c: h.snapshot()
                     for c, h in self._h_queue_wait_cls.items()},
+                "handoff_ms": self._h_handoff.snapshot(),
             },
             "model_id": self.model_id,
             "block_size": self.block_size,
             "temperature": 0.0 if self.greedy else float(self.temperature),
             "top_k": self.top_k,
             "capacity": self.capacity,
+            "replica": self.replica,
+            "mesh_devices": 1,
+            "role": self.role,
+            "disagg_exports": self._disagg_exports,
+            "disagg_imports": self._disagg_imports,
+            "disagg_handoff_failures": self._disagg_handoff_failures,
+            "disagg_handoff_ms_p50": self._round_q(self._h_handoff, 0.5),
+            "disagg_handoff_ms_p99": self._round_q(self._h_handoff, 0.99),
+            "disagg_transport": _disagg_transport(),
+            "disagg_role_changes": self._disagg_role_changes,
             "active_rows": active,
             "queue_depth": self.queue_depth,
             "occupancy": active / self.capacity,
@@ -837,22 +954,38 @@ class DecodeEngine:
         while True:
             with self._cond:
                 # a draining engine admits nothing: its queue waits for
-                # the shutdown, which fails it
+                # the shutdown, which fails it.  Rows parked awaiting a d2d
+                # ack turn the wait timed, so an overdue ack is reaped.
                 while (not self._shutdown
                        and (not self._pending or self._draining)
-                       and self.active_rows == 0):
-                    self._cond.wait()
+                       and not self._acks and self._requested_role is None
+                       and self.active_rows == len(self._transit_rows)):
+                    if self._transit_rows:
+                        self._cond.wait(timeout=0.05)
+                        if self._ack_overdue():
+                            break
+                    else:
+                        self._cond.wait()
                 if self._shutdown:
                     break
             try:
+                self._drain_acks()
+                self._maybe_flip_role()
                 # admission and the block's replay mutate the rows and the
                 # radix tree under _cond, so a ledger snapshot (which takes
                 # it) sees a block boundary's state, never a torn one
-                with self._cond:
-                    self._purge_expired()
-                    self._coalesce_burst()
-                    self._admit()
-                self._tick_unified()
+                try:
+                    with self._cond:
+                        self._purge_expired()
+                        self._coalesce_burst()
+                        self._admit()
+                finally:
+                    self._send_acks()
+                if not self._tick_unified() and self._transit_rows:
+                    # every live row is parked: wait for an ack, not spin
+                    with self._cond:
+                        if not self._acks and not self._shutdown:
+                            self._cond.wait(timeout=0.05)
             except Exception as exc:  # noqa: BLE001 — fail requests, not thread
                 log.exception("Decode engine %s failed a tick", self.model_id)
                 # count the crash, then the postmortem, BEFORE the failure
@@ -862,6 +995,7 @@ class DecodeEngine:
                                                  error=repr(exc))
                 with self._cond:
                     crashed = self._fail_all(exc, crashed=True)
+                self._send_acks()
                 try:
                     # the KV and prefix state are presumed corrupt: the next
                     # request runs on a pool and a radix tree built anew
@@ -893,6 +1027,7 @@ class DecodeEngine:
                         self._shutdown = True
                     break
         self._fail_all(RuntimeError("decode engine shut down"))
+        self._send_acks()
 
     def _record_crash(self):
         serve_metrics.ENGINE_CRASHES.inc()
@@ -933,6 +1068,7 @@ class DecodeEngine:
         """A cancelled or expired request that never reached a row: its
         resume pins go, its trace ends, an expired one answers 504."""
         self._release_resume(req)
+        self._discard_handoff(req)
         with self._cond:
             if self._breaker_open:
                 self._probe_failed()
@@ -1008,6 +1144,9 @@ class DecodeEngine:
                 with self._cond:
                     self._pending.push_front(req)
                 return
+            if req.handoff is not None:
+                self._admit_handoff(row, req, slot)
+                continue
             self._begin_prefill(row, req, slot)
 
     # -- preemption (to the prefix cache; the resume recomputes nothing) ----
@@ -1125,9 +1264,10 @@ class DecodeEngine:
 
     def _adapter_slot(self, req: Request):
         """``req``'s slot: the base slot for a plain row, a live slot
-        holding the same adapter generation (uid), else a free or
-        reclaimable one (the pack rebuilt on the device once, here); None
-        when every slot holds another adapter with rows in flight."""
+        holding the same adapter generation (uid), else a free one, else
+        one whose adapter has no row in flight (the pack rebuilt on the
+        device once, here); None when every slot holds another adapter
+        with rows in flight."""
         if req.adapter is None:
             return self._max_live
         for s, e in enumerate(self._slot_entries):
@@ -1135,7 +1275,11 @@ class DecodeEngine:
                 return s
         in_flight = {int(self._row_adapter[i])
                      for i, r in enumerate(self._rows) if r is not None}
-        for s in range(self._max_live):
+        # a free slot before an idle one (the JAX engine takes the first
+        # of either): reclaiming an idle adapter's slot while another is
+        # empty would drop it from the pack for nothing
+        for s in sorted(range(self._max_live),
+                        key=lambda s: self._slot_entries[s] is not None):
             if self._slot_entries[s] is None or s not in in_flight:
                 self._slot_entries[s] = req.adapter
                 self._rebuild_pack()
@@ -1239,18 +1383,18 @@ class DecodeEngine:
                 "prefill", prompt_tokens=len(eff_prompt),
                 cached_tokens=state.prefilled, chunks=len(state.chunks))
 
-    def _tick_unified(self):
+    def _tick_unified(self) -> bool:
         """One unified tick: plan an n-step mixed block, run it as ONE
         ``decode_mixed_step`` round trip, replay the samples.  Host-only
         terminal conditions (deadline, cancel) are seen at the block
-        boundary."""
+        boundary.  False when there was nothing to plan."""
         t0 = time.monotonic()
         self._dispatch_t0 = t0
         try:
             with profiling.span("penroz/sched_tick"):
                 plan = self._plan_mixed()
                 if plan is None:
-                    return
+                    return False
                 comp = self._mixed_dispatch(plan)
         finally:
             self._dispatch_t0 = None
@@ -1271,6 +1415,7 @@ class DecodeEngine:
             "prefill_rows": comp["prefill_rows"],
             "decode_rows": comp["decode_rows"],
         })
+        return True
 
     def _plan_mixed(self):
         """Host-side plan of one unified block (JAX ``_plan_mixed``):
@@ -1283,7 +1428,8 @@ class DecodeEngine:
         spent — and pack each step's spans into descriptor arrays (the
         step count takes the pow-2 floor, the descriptor count the pow-2
         ceiling)."""
-        rows = [(i, r) for i, r in enumerate(self._rows) if r is not None]
+        rows = [(i, r) for i, r in enumerate(self._rows)
+                if r is not None and not r.transit]
         if not rows:
             return None
         block_q = RPA.default_block_q()
@@ -1409,7 +1555,11 @@ class DecodeEngine:
                 lora_slots=plan["lora_slots"])
         t1 = time.monotonic()
         with self._cond:    # the replay's mutations, as one to the ledger
-            return self._replay_block(plan, arr, t0, t1)
+            comp = self._replay_block(plan, arr, t0, t1)
+        # the block's finished prefills hand off with the lock released:
+        # placement takes the decode replicas' locks
+        self._flush_outbox()
+        return comp
 
     def _replay_block(self, plan, arr, t0, t1) -> dict:
         """Replay the block's samples step-major through the per-token
@@ -1519,8 +1669,26 @@ class DecodeEngine:
 
     def _finish_prefill(self, row: int, state: _Row, first: int):
         """Final chunk done: its sample is the request's next token (its
-        first, or a resumed request's next); the row joins the decode
-        batch (JAX ``_finish_prefill_local``)."""
+        first, or a resumed request's next).
+
+        On a disaggregated prefill replica this is the hand-off seam: the
+        row goes to the outbox, which ships its pages to a decode replica
+        once the replay releases the lock; the first token travels inside
+        the hand-off and is emitted after the import, once.  Rows that
+        cannot hand off (one new token, a resumed row, a cancelled one)
+        join this engine's decode batch."""
+        req = state.req
+        if (self.role == "prefill" and self._handoff_sink is not None
+                and req.handoff is None and req.max_new_tokens > 1
+                and not state.resumed and not req.cancelled):
+            self._outbox.append((row, state, first))
+            return
+        self._finish_prefill_local(row, state, first)
+
+    def _finish_prefill_local(self, row: int, state: _Row, first: int):
+        """Emit the first token and join the decode batch on THIS engine
+        (JAX ``_finish_prefill_local``); also the last resort of a hand-off
+        that cannot leave it.  Callers hold _cond."""
         state.prefilling = False
         self._lengths[row] = state.prefilled  # == len(effective prompt)
         self._last_tok[row] = first
@@ -1564,6 +1732,415 @@ class DecodeEngine:
         self._prefix_cache.unpin(state.prefix_nodes)
         state.prefix_nodes = []
         self._kv.restore_row_table(row)
+
+    # -- disaggregated prefill (export / hand-off / import) -----------------
+
+    def _audit(self, where: str):
+        if memledger.strict():
+            self._ledger.audit(where)
+
+    def _flush_outbox(self):
+        """Hand off the block's finished prefills (worker thread, _cond NOT
+        held: placement takes the decode replicas' locks); a row that
+        cannot leave joins this engine's decode batch."""
+        while self._outbox:
+            row, state, first = self._outbox.pop(0)
+            if self._rows[row] is not state:
+                continue
+            if not self._export_handoff(row, state, first):
+                with self._cond:
+                    self._finish_prefill_local(row, state, first)
+
+    def _free_handoff_row(self, row: int, state: _Row):
+        """Release a row whose request left through the hand-off seam (an
+        acked or host-staged export, a monolithic requeue): no terminal
+        event, the stream finishes on the other replica.  Callers hold
+        _cond."""
+        self._rows[row] = None
+        self._lengths[row] = 0
+        self._last_tok[row] = 0
+        self._row_adapter[row] = self._max_live
+        self._release_prefix(row, state)
+        self._kv.reset_row(row)
+
+    def _end_prefill_span(self, state: _Row):
+        if state.req.trace is not None:
+            state.req.trace.end(state.sp_prefill)
+            state.sp_prefill = None
+
+    def _export_failed(self, transport: str, what: str, exc: Exception):
+        self._disagg_handoff_failures += 1
+        serve_metrics.DISAGG_HANDOFFS.inc(outcome="export_failed",
+                                          transport=transport)
+        log.warning("engine %s[%d]: hand-off %s failed (%s)", self.model_id,
+                    self.replica, what, exc)
+
+    def _export_handoff(self, row: int, state: _Row, first: int) -> bool:
+        """Prefill replica: ship the finished row's KV pages to a decode
+        replica through ``_handoff_sink`` — device planes over the d2d
+        transport by default, the host page blob otherwise and whenever
+        d2d fails.  True when the row left this engine (shipped, parked
+        awaiting the ack, or requeued monolithic); False: the caller
+        decodes it here.  The fault site and the export work come before
+        any mutation, so a failure leaves the row intact."""
+        t0 = time.monotonic()
+        try:
+            # disagg.handoff's first ordinal: a crash mid-export
+            faults.check("disagg.handoff")
+        except Exception as e:  # noqa: BLE001 — fall back, greedy-identical
+            self._export_failed(_disagg_transport(), "export", e)
+            return self._requeue_monolithic(row, state)
+        if _disagg_transport() == "d2d":
+            if self._export_handoff_d2d(row, state, first, t0):
+                return True
+            # nothing shipped: the same hand-off re-stages host-side
+        return self._export_handoff_host(row, state, first, t0)
+
+    def _export_handoff_host(self, row: int, state: _Row, first: int,
+                             t0: float) -> bool:
+        """The host transport: stage the row's pages as a CRC page blob in
+        shm and hand its id to a decode replica; the row frees once the
+        sink accepts (the staged blob is the copy, nothing to ack)."""
+        req = state.req
+        blob_id = (f"{self.model_id}-{self.replica}-{id(req):x}"
+                   f"-{self._dispatches}")
+        try:
+            kv_len = int(state.prefilled)
+            blob = self._kv.export_row_pages(row, kv_len)
+            blob["first_token"] = int(first)
+            checkpoint.save_page_blob(blob_id, blob)
+        except Exception as e:  # noqa: BLE001
+            checkpoint.delete_page_blob(blob_id)
+            req.handoff = None
+            self._export_failed("host", "export", e)
+            return self._requeue_monolithic(row, state)
+        with self._cond:
+            # the prompt's pages feed THIS replica's radix tree too, so a
+            # repeat prefills warm here wherever it decodes
+            self._register_prefix(row, state)
+        req.handoff = {"transport": "host", "blob_id": blob_id,
+                       "kv_len": kv_len, "first_token": int(first), "t0": t0}
+        if not self._ship(state, "host"):
+            checkpoint.delete_page_blob(blob_id)
+            return False
+        serve_metrics.DISAGG_HANDOFF_BYTES.observe(
+            checkpoint.page_blob_nbytes(blob))
+        if req.trace is not None:
+            req.trace.event("handoff_export", blob_id=blob_id,
+                            kv_len=kv_len, replica=self.replica,
+                            transport="host")
+        with self._cond:
+            self._free_handoff_row(row, state)
+            self._audit("disagg.export")
+        return True
+
+    def _export_handoff_d2d(self, row: int, state: _Row, first: int,
+                            t0: float) -> bool:
+        """The d2d transport: gather the row's page planes on the device
+        and hand them to the importer in process (no host copy, no CRC).
+        The row does NOT free: it parks under the ledger's ``transit``
+        state until the importer acks (free-after-ack), so a refused
+        import re-sends the same pages host-side.  False, the row intact,
+        when the transport fails before the sink accepts."""
+        req = state.req
+        try:
+            # disagg.d2d's exporter-side ordinal (the importer has the
+            # other)
+            faults.check("disagg.d2d")
+            kv_len = int(state.prefilled)
+            blob = self._kv.export_row_pages(row, kv_len, device=True)
+            blob["first_token"] = int(first)
+        except Exception as e:  # noqa: BLE001 — re-stage host-side
+            self._export_failed("d2d", "d2d export", e)
+            return False
+        with self._cond:
+            self._register_prefix(row, state)
+        req.handoff = {"transport": "d2d", "planes": blob, "kv_len": kv_len,
+                       "first_token": int(first), "t0": t0,
+                       "ack": self._make_ack(row, state)}
+        if not self._ship(state, "d2d"):
+            return False
+        serve_metrics.DISAGG_HANDOFF_BYTES.observe(
+            checkpoint.page_blob_nbytes(blob))
+        if req.trace is not None:
+            req.trace.event("handoff_export", kv_len=kv_len,
+                            replica=self.replica, transport="d2d")
+        with self._cond:
+            state.transit = True
+            self._transit_rows[row] = {"state": state, "first": int(first),
+                                       "t0": t0, "t": time.monotonic()}
+        return True
+
+    def _ship(self, state: _Row, transport: str) -> bool:
+        """Offer the request to the sink (router placement on a decode
+        replica); on a refusal its hand-off is withdrawn and counted."""
+        req = state.req
+        try:
+            self._handoff_sink(req)
+        except Exception as e:  # noqa: BLE001 — every decode replica refused
+            req.handoff = None
+            self._export_failed(transport, "placement", e)
+            return False
+        self._disagg_exports += 1
+        self._end_prefill_span(state)
+        return True
+
+    def _make_ack(self, row: int, state: _Row):
+        """The importer's verdict on a d2d hand-off: recorded for this
+        (exporting) engine's worker, which frees the parked row (ok) or
+        re-sends it host-side (refused) at its next loop boundary.  Called
+        by the importer with no lock of its own held."""
+        def ack(ok: bool):
+            with self._cond:
+                self._acks.append((row, state, bool(ok)))
+                self._cond.notify_all()
+        return ack
+
+    def _send_acks(self):
+        """Deliver the acks this importer's admission produced, its own
+        lock released."""
+        while self._ack_out:
+            ack, ok = self._ack_out.pop(0)
+            ack(ok)
+
+    def _ack_overdue(self) -> bool:
+        deadline = _ack_timeout_s()
+        now = time.monotonic()
+        return any(now - e["t"] > deadline
+                   for e in self._transit_rows.values())
+
+    def _drain_acks(self):
+        """Exporter side of free-after-ack, at loop boundaries: an acked row
+        frees; a refused one re-sends the same hand-off through the host
+        blob from its intact pages (nothing was emitted); an overdue one
+        frees without touching the stream, which the importer owns."""
+        if not self._transit_rows and not self._acks:
+            return
+        with self._cond:
+            acks, self._acks = self._acks, []
+        for row, state, ok in acks:
+            entry = self._transit_rows.get(row)
+            if (entry is None or entry["state"] is not state
+                    or self._rows[row] is not state):
+                continue
+            with self._cond:
+                del self._transit_rows[row]
+                state.transit = False
+                if ok:
+                    self._free_handoff_row(row, state)
+                    self._audit("disagg.export")
+                    continue
+            # the importer counted the failure; re-send from the source
+            log.warning("engine %s[%d]: d2d import refused for row %d; "
+                        "re-staging through the host blob codec",
+                        self.model_id, self.replica, row)
+            if not self._export_handoff_host(row, state, entry["first"],
+                                             entry["t0"]):
+                with self._cond:
+                    self._finish_prefill_local(row, state, entry["first"])
+        deadline = _ack_timeout_s()
+        now = time.monotonic()
+        for row in [r for r, e in self._transit_rows.items()
+                    if now - e["t"] > deadline]:
+            state = self._transit_rows[row]["state"]
+            with self._cond:
+                del self._transit_rows[row]
+                state.transit = False
+                if self._rows[row] is not state:
+                    continue
+                self._disagg_handoff_failures += 1
+                serve_metrics.DISAGG_HANDOFFS.inc(outcome="ack_timeout",
+                                                  transport="d2d")
+                log.warning("engine %s[%d]: d2d hand-off ack overdue for "
+                            "row %d; releasing the parked source pages",
+                            self.model_id, self.replica, row)
+                self._free_handoff_row(row, state)
+                self._audit("disagg.export")
+
+    def request_role(self, role: str):
+        """Ask the worker to flip this replica's role at its next drain
+        boundary (elastic rebalancing, serve/router.py).  The flip waits
+        for the parked d2d exports' acks; queued and in-flight requests
+        are untouched, only where later finished prefills go changes."""
+        if role not in ("prefill", "decode"):
+            raise ValueError(f"unknown disaggregation role {role!r}")
+        with self._cond:
+            if role == self.role:
+                self._requested_role = None
+                return
+            self._requested_role = role
+            self._cond.notify_all()
+
+    def _maybe_flip_role(self):
+        """Apply a pending role flip at a drain boundary: every parked
+        export acked first, and the ``disagg.rebalance`` fault site before
+        the mutation, so an injected crash leaves the roles consistent and
+        the flip retries at the next boundary."""
+        target = self._requested_role
+        if target is None:
+            return
+        if target == self.role:
+            with self._cond:
+                self._requested_role = None
+            return
+        if self._transit_rows:
+            return
+        faults.check("disagg.rebalance")
+        with self._cond:
+            self.role = target
+            self._requested_role = None
+        self._disagg_role_changes += 1
+        serve_metrics.DISAGG_ROLE_CHANGES.inc()
+        self._audit("disagg.rebalance")
+        log.info("engine %s[%d]: role -> %s (elastic rebalance)",
+                 self.model_id, self.replica, target)
+
+    def _requeue_monolithic(self, row: int, state: _Row) -> bool:
+        """The export failed before anything shipped: push the request back
+        through the router, so a decode replica prefills it from scratch
+        (greedy-identical, nothing was emitted).  False keeps it here."""
+        sink = self._handoff_sink
+        req = state.req
+        req.handoff = None
+        if sink is None:
+            return False
+        try:
+            sink(req)
+        except Exception:  # noqa: BLE001 — no decode replica: decode here
+            return False
+        self._end_prefill_span(state)
+        if req.trace is not None:
+            req.trace.event("handoff_fallback", replica=self.replica)
+        with self._cond:
+            self._free_handoff_row(row, state)
+            self._audit("disagg.fallback")
+        return True
+
+    def _discard_handoff(self, req: Request):
+        """A hand-off that will never be imported (its request dropped or
+        failed while queued): reclaim its blob, or release the exporter's
+        parked pages."""
+        h, req.handoff = req.handoff, None
+        if h is None:
+            return
+        if h["transport"] == "host":
+            checkpoint.delete_page_blob(h["blob_id"])
+        elif h.get("ack") is not None:
+            self._ack_out.append((h["ack"], True))
+
+    def _abandon_import_row(self, row: int):
+        """Return a half-imported hand-off row to the pool (nothing was
+        emitted)."""
+        self._rows[row] = None
+        self._lengths[row] = 0
+        self._last_tok[row] = 0
+        self._row_adapter[row] = self._max_live
+        self._kv.reset_row(row)
+
+    def _import_failed(self, row: int, req: Request, transport: str,
+                       exc: Exception, then: str):
+        self._disagg_handoff_failures += 1
+        serve_metrics.DISAGG_HANDOFFS.inc(outcome="import_failed",
+                                          transport=transport)
+        self._abandon_import_row(row)
+        if req.trace is not None:
+            req.trace.event("handoff_import_failed", reason=str(exc),
+                            replica=self.replica, transport=transport)
+        self._audit("disagg.import_failed")
+        log.warning("engine %s[%d]: hand-off import failed (%s); %s",
+                    self.model_id, self.replica, exc, then)
+
+    def _admit_handoff(self, row: int, req: Request, slot: int | None):
+        """Decode replica: admit a hand-off arrival straight into the
+        decode phase — import its pages into the row, emit the first token
+        the prefill replica sampled, join the decode batch.  A d2d
+        transport failure refuses the hand-off back to the exporter (which
+        re-sends host-side); any other failure re-prefills monolithically
+        here (nothing was emitted yet).  While the import runs the row is
+        ``transit`` to the ledger.  Callers hold _cond."""
+        h, req.handoff = req.handoff, None
+        transport = h.get("transport", "host")
+        ack = h.get("ack")
+        state = _Row(req)
+        state.transit = True
+        state.prefilling = False
+        self._row_adapter[row] = (slot if slot is not None
+                                  else self._max_live)
+        trace = req.trace
+        if trace is not None:
+            sp = trace.span("queue", t0=req.enqueue_t)
+            trace.end(sp)
+        self._rows[row] = state
+        self._lengths[row] = 0
+        try:
+            # disagg.handoff's second ordinal: a crash mid-import
+            faults.check("disagg.handoff")
+            kv_len = int(h["kv_len"])
+            self._lengths[row] = kv_len
+            state.prefilled = kv_len
+            if transport == "d2d":
+                try:
+                    # disagg.d2d's importer-side ordinal
+                    faults.check("disagg.d2d")
+                    self._kv.import_row_pages(row, h["planes"])
+                except Exception as e:  # noqa: BLE001 — refuse it back
+                    self._import_failed(row, req, "d2d", e,
+                                        "refusing back to the exporter")
+                    if ack is not None:
+                        self._ack_out.append((ack, False))
+                    return
+            else:
+                self._kv.import_row_pages(
+                    row, checkpoint.load_page_blob(h["blob_id"]))
+            first = int(h["first_token"])
+        except Exception as e:  # noqa: BLE001 — re-prefill here
+            if transport == "host":
+                checkpoint.delete_page_blob(h["blob_id"])
+            self._import_failed(row, req, transport, e,
+                                "re-prefilling monolithically")
+            if ack is not None:
+                # this replica keeps the request: the exporter's parked
+                # pages are dead weight
+                self._ack_out.append((ack, True))
+            self._begin_prefill(row, req, slot)
+            return
+        if transport == "host":
+            checkpoint.delete_page_blob(h["blob_id"])
+        state.transit = False
+        self._last_tok[row] = first
+        self._disagg_imports += 1
+        self._admissions += 1
+        self._class_admissions[req.priority] += 1
+        serve_metrics.CLASS_ADMISSIONS.inc(priority=req.priority)
+        now = time.monotonic()
+        wait_ms = (now - req.enqueue_t) * 1000.0
+        self._h_queue_wait.observe(wait_ms)
+        self._h_queue_wait_cls[req.priority].observe(wait_ms)
+        serve_metrics.QUEUE_WAIT_MS.observe(wait_ms)
+        serve_metrics.QUEUE_WAIT_BY_CLASS.observe(wait_ms,
+                                                  priority=req.priority)
+        # TTFT anchored at the ORIGINAL enqueue: the hand-off is part of
+        # the first token's wait
+        ttft_ms = wait_ms
+        self._h_ttft.observe(ttft_ms)
+        self._h_ttft_cls[req.priority].observe(ttft_ms)
+        serve_metrics.TTFT_MS.observe(ttft_ms)
+        serve_metrics.TTFT_BY_CLASS.observe(ttft_ms, priority=req.priority)
+        handoff_ms = (now - h["t0"]) * 1000.0
+        self._h_handoff.observe(handoff_ms)
+        serve_metrics.DISAGG_HANDOFF_MS.observe(handoff_ms)
+        serve_metrics.DISAGG_HANDOFFS.inc(outcome="ok", transport=transport)
+        if ack is not None:
+            self._ack_out.append((ack, True))
+        if trace is not None:
+            trace.event("handoff_import", kv_len=int(h["kv_len"]),
+                        handoff_ms=round(handoff_ms, 3), replica=self.replica,
+                        transport=transport)
+            state.sp_decode = trace.span("decode", ttft_ms=round(ttft_ms, 3))
+        # the router's fingerprint index points here now: make it true
+        self._register_prefix(row, state)
+        self._emit_token(row, state, first)
+        self._audit("disagg.import")
 
     # -- speculative decoding (PENROZ_SPEC_DECODE=1) -------------------------
 
@@ -1700,6 +2277,11 @@ class DecodeEngine:
         open_traces = []
         for i, state in enumerate(self._rows):
             if state is not None:
+                # a row parked awaiting a d2d ack handed its request to
+                # the importer, which owns every terminal path for it now:
+                # release the source copy without touching the stream
+                entry = self._transit_rows.get(i)
+                handed_off = entry is not None and entry["state"] is state
                 self._rows[i] = None
                 self._lengths[i] = 0
                 self._last_tok[i] = 0
@@ -1709,6 +2291,8 @@ class DecodeEngine:
                 except Exception:  # noqa: BLE001 — the device may be what
                     # failed; the reset rebuilds the pool and the cache
                     log.exception("Failed to restore row %d block table", i)
+                if handed_off:
+                    continue
                 serve_metrics.REQUESTS.inc(outcome="error")
                 trace = state.req.trace
                 if trace is not None:
@@ -1721,10 +2305,14 @@ class DecodeEngine:
                         trace.finish("error")
                 self._deliver(state.req, "error", exc)
         with self._cond:
+            self._transit_rows.clear()
+            self._acks.clear()
+            self._outbox.clear()
             pending = self._pending.drain()
             self._probe_failed()
         for req in pending:
             self._release_resume(req)
+            self._discard_handoff(req)
             serve_metrics.REQUESTS.inc(outcome="error")
             self._finish_trace(req, "error")
             self._deliver(req, "error", exc)
@@ -1790,9 +2378,15 @@ def get_engine(model_id, block_size, temperature, top_k, device=None):
     None when the registry is at capacity with no idle engine, or while
     the server drains (a shutdown must not start engines); the caller
     takes the single-sequence path.  Raises KeyError for an unknown model
-    (HTTP 404)."""
+    (HTTP 404).  With ``PENROZ_SCHED_REPLICAS`` > 1 the answer is the
+    replica group's ``EngineRouter`` (serve/router.py), which has the same
+    ``submit``."""
     if _DRAINING:
         return None
+    if _replicas() > 1:
+        from penroz_tpu_torch.serve import router as router_mod
+        return router_mod.get_router(model_id, block_size, temperature,
+                                     top_k, device=device)
     key = _engine_key(model_id, block_size, temperature, top_k, device)
     with _REG_LOCK:
         engine = _ENGINES.get(key)
@@ -1801,7 +2395,9 @@ def get_engine(model_id, block_size, temperature, top_k, device=None):
         if engine is not None:
             del _ENGINES[key]
         if len(_ENGINES) >= _max_engines():
-            victim = next((k for k, e in _ENGINES.items() if e.idle()), None)
+            # a router owns its replicas' lifecycle: never a victim here
+            victim = next((k for k, e in _ENGINES.items()
+                           if e.idle() and not e._router_owned), None)
             if victim is None:
                 log.warning("Decode engine registry full (%d) with no idle "
                             "engine; request falls back to the "
@@ -1815,8 +2411,11 @@ def get_engine(model_id, block_size, temperature, top_k, device=None):
 
 
 def reset():
-    """Shut every engine down and clear the registry (tests)."""
+    """Shut every engine down and clear the registry, the routers first
+    (tests)."""
     global _DRAINING
+    from penroz_tpu_torch.serve import router as router_mod
+    router_mod.clear()
     with _REG_LOCK:
         engines = list(_ENGINES.values())
         _ENGINES.clear()
@@ -1834,16 +2433,32 @@ def _live_engines() -> list:
         return [e for e in _ENGINES.values() if not e._shutdown]
 
 
+def _group_rule(verdict) -> list[str]:
+    """The models a verdict marks unservable: a standalone engine's when
+    it holds; a router's replica group's only when it holds for EVERY
+    replica (one healthy replica keeps the model serving)."""
+    out, groups = set(), {}
+    for e in _live_engines():
+        if e._router_owned:
+            groups.setdefault(e.model_id, []).append(verdict(e))
+        elif verdict(e):
+            out.add(e.model_id)
+    out.update(m for m, vals in groups.items() if all(vals))
+    return sorted(out)
+
+
 def breaker_open_engines() -> list[str]:
-    """The models whose engine has its breaker open: the scheduler path
-    cannot serve them (``/readyz`` answers 503)."""
-    return sorted({e.model_id for e in _live_engines() if e._breaker_open})
+    """The models whose engine (or every replica of whose group) has its
+    breaker open: the scheduler path cannot serve them (``/readyz``
+    answers 503)."""
+    return _group_rule(lambda e: e._breaker_open)
 
 
 def stuck_engines() -> list[str]:
-    """The models whose engine's worker has been inside one tick longer
-    than ``PENROZ_TICK_WATCHDOG_MS`` (``/readyz`` answers 503)."""
-    return sorted({e.model_id for e in _live_engines() if e.stuck()})
+    """The models whose engine's worker (every replica's, for a group)
+    has been inside one tick longer than ``PENROZ_TICK_WATCHDOG_MS``
+    (``/readyz`` answers 503)."""
+    return _group_rule(lambda e: e.stuck())
 
 
 def drain_and_shutdown(drain_s: float | None = None) -> bool:
@@ -1855,6 +2470,8 @@ def drain_and_shutdown(drain_s: float | None = None) -> bool:
     _DRAINING = True
     if drain_s is None:
         drain_s = _drain_s()
+    from penroz_tpu_torch.serve import router as router_mod
+    router_mod.clear()
     with _REG_LOCK:
         engines = list(_ENGINES.values())
         _ENGINES.clear()
@@ -1881,7 +2498,10 @@ def _merged_q(per: list[dict], name: str, q: float, cls=None):
 def serving_stats() -> dict:
     """Scheduler observability — the /serving_stats/ payload, the JAX
     package's key names for what this scheduler does.  Percentiles merge
-    the engines' bucket snapshots, never raw samples."""
+    the engines' bucket snapshots, never raw samples; the router and
+    disaggregation fields add up the replica groups."""
+    from penroz_tpu_torch.serve import router as router_mod
+    router = router_mod.stats_totals()
     per = [e.stats() for e in _live_engines()]
     capacity = sum(p["capacity"] for p in per)
     active = sum(p["active_rows"] for p in per)
@@ -1962,6 +2582,23 @@ def serving_stats() -> dict:
                                              0.5),
         "kv_pool_capacity_drops": KV.pool_drop_count(),
         "unpin_underflows": KV.unpin_underflow_count(),
+        # replica router: 0 replicas = no router live
+        "router_replicas": router["replicas"],
+        "router_affinity_hits": router["affinity_hits"],
+        "router_affinity_misses": router["affinity_misses"],
+        "router_affinity_hit_rate": _rate(
+            router["affinity_hits"],
+            router["affinity_hits"] + router["affinity_misses"]),
+        "router_failovers": router["failovers"],
+        "disagg_prefill_replicas": router["prefill_replicas"],
+        "disagg_exports": sum(p["disagg_exports"] for p in per),
+        "disagg_imports": sum(p["disagg_imports"] for p in per),
+        "disagg_handoff_failures": sum(
+            p["disagg_handoff_failures"] for p in per),
+        "disagg_handoff_ms_p50": _merged_q(per, "handoff_ms", 0.5),
+        "disagg_handoff_ms_p99": _merged_q(per, "handoff_ms", 0.99),
+        "disagg_transport": _disagg_transport(),
+        "disagg_role_changes": sum(p["disagg_role_changes"] for p in per),
         "engines_stuck": len(stuck_engines()),
     }
 

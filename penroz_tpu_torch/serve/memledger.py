@@ -16,11 +16,14 @@ state:
                          zero-recompute resume guarantee)
 - ``reserved``         — the prefix-cache region's unallocated tail (the
                          radix free list)
+- ``transit``          — pages of a disaggregated-prefill hand-off row in
+                         flight: a prefill replica's row parked until the
+                         importer's d2d ack, a decode replica's row
+                         mid-import (serve/router.py)
 
-The JAX package's ``transit`` (a disaggregated-prefill import in flight)
-and ``hibernating`` (a session awaiting tier demotion) belong to features
-that are not ported: they stay in the response at 0, so the dashboard and
-clients read one shape.  A byte ledger covers the rest of the engine's
+The JAX package's ``hibernating`` (a session awaiting tier demotion)
+belongs to a feature that is not ported: it stays in the response at 0,
+so the dashboard and clients read one shape.  A byte ledger covers the rest of the engine's
 device memory (the K/V pools, their int8 scales, the block table, the
 LoRA pack, the model's parameters and buffers), read from the port's own
 tensors, and the host bytes of the adapter registry's cache
@@ -76,8 +79,8 @@ DUMP_TICKS_ENV = "PENROZ_DEBUG_DUMP_TICKS"
 PAGE_STATES = ("free", "row", "prefix_pinned", "prefix_evictable",
                "preempted", "reserved", "transit", "hibernating")
 #: The states the port's features can populate (``/metrics`` exposes only
-#: these: the other two would stay 0).
-PORTED_STATES = PAGE_STATES[:6]
+#: these: ``hibernating`` would stay 0).
+PORTED_STATES = PAGE_STATES[:7]
 
 #: Fixed keys of the per-engine byte ledger (``hbm_bytes``); the aggregate
 #: adds the process-wide host components.
@@ -196,13 +199,16 @@ class MemoryLedger:
             page_size = kv.page_size
             total = kv.num_pool_pages
             resume_pages = self._resume_pages()
-            row_pages = 0
+            row_pages = transit_pages = 0
             for i, state in enumerate(e._rows):
                 if state is None:
                     continue
                 used = -(-int(e._lengths[i]) // page_size)   # ceil
                 owned = max(0, used - len(state.prefix_nodes))
-                row_pages += owned
+                if state.transit:
+                    transit_pages += owned
+                else:
+                    row_pages += owned
                 tenant = state.req.tenant
                 tenant_pages[tenant] = tenant_pages.get(tenant, 0) + owned
                 if state.req.adapter is not None:
@@ -222,7 +228,8 @@ class MemoryLedger:
                         evictable += 1
             states.update({
                 "row": row_pages,
-                "free": (total - cache_pages) - row_pages,
+                "transit": transit_pages,
+                "free": (total - cache_pages) - row_pages - transit_pages,
                 "prefix_pinned": pinned,
                 "prefix_evictable": evictable,
                 "preempted": preempted,
@@ -449,9 +456,10 @@ def memory_stats() -> dict:
     cross-engine totals and the process-wide counters (the JAX package's
     keys)."""
     from penroz_tpu_torch.ops import kv_cache as KV
+    from penroz_tpu_torch.serve import decode_scheduler as ds
     per = [dict(snap, model_id=e.model_id, block_size=e.block_size,
-                capacity=e.capacity, replica=0, role="decode",
-                disagg_transport="d2d")
+                capacity=e.capacity, replica=e.replica, role=e.role,
+                disagg_transport=ds._disagg_transport())
            for e, snap in _engine_snapshots()]
     pool = {s: sum(p["pool_pages"][s] for p in per) for s in PAGE_STATES}
     tenant: dict = {}

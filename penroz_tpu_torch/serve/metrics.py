@@ -20,7 +20,10 @@ counters   requests_total{outcome}, decode_tokens_total,
            quota_rejections_total{tenant}, class_admissions_total{priority},
            tenant_tokens_total{tenant}, preemptions_total,
            preempted_resume_cached_tokens_total,
-           lora_adapter_tokens_total{adapter_id}
+           lora_adapter_tokens_total{adapter_id},
+           router_affinity_total{outcome}, router_failovers_total,
+           disagg_handoffs_total{outcome,transport},
+           disagg_role_changes_total
 gauges     engines, active_rows, queue_depth, batch_occupancy,
            breaker_open, draining, lora_live_adapters, engine_stuck,
            kv_pool_capacity_drops,
@@ -32,19 +35,17 @@ gauges     engines, active_rows, queue_depth, batch_occupancy,
            (serve/memledger.py)
 histograms ttft_ms, itl_ms, queue_wait_ms, chunk_stall_ms, tick_ms
            (LATENCY_BUCKETS_MS), tokens_per_dispatch (token-count
-           buckets), and the per-class pair ttft_ms_by_class{priority} /
-           queue_wait_ms_by_class{priority}
+           buckets), the per-class pair ttft_ms_by_class{priority} /
+           queue_wait_ms_by_class{priority}, disagg_handoff_ms and
+           disagg_handoff_bytes (byte buckets)
 
-Left out, with the features they describe (not ported): the replica
-router's
-(router_affinity_total, router_failovers_total), disaggregated prefill's
-(disagg_*), the session tiers' and the journal's (tier_*, sessions_*,
-session_resume_ttft_ms, journal_*), resumable streams'
-(stream_*, streams_detached), pipeline serving's (pipe_*), and
-jit_programs{function}, which counts XLA programs.  The ledger states and
-byte components of those features (transit, hibernating; ssm_state,
-host_tier, disk_tier) are absent from the labelled gauges for the same
-reason; ``GET /memory/`` keeps them at 0.
+Left out, with the features they describe (not ported): the session
+tiers' and the journal's (tier_*, sessions_*, session_resume_ttft_ms,
+journal_*), resumable streams' (stream_*, streams_detached), pipeline
+serving's (pipe_*), and jit_programs{function}, which counts XLA
+programs.  The ledger state and byte components of those features
+(hibernating; ssm_state, host_tier, disk_tier) are absent from the
+labelled gauges for the same reason; ``GET /memory/`` keeps them at 0.
 """
 
 from __future__ import annotations
@@ -117,6 +118,31 @@ RESUME_CACHED_TOKENS = REGISTRY.register(m.Counter(
     "penroz_preempted_resume_cached_tokens_total",
     "Prompt+generated tokens restored from the prefix cache (zero "
     "recompute) when preempted requests resumed"))
+ROUTER_AFFINITY = REGISTRY.register(m.Counter(
+    "penroz_router_affinity_total",
+    "Replica-router placements of fingerprinted prompts: 'hit' landed on "
+    "the replica whose prefix cache holds the prompt's pages, 'miss' "
+    "anywhere else, 'stale_role' an index entry aged out because its "
+    "replica became prefill-role (elastic rebalance), 'session_steer' a "
+    "hibernated-session wake steered at its home replica, "
+    "'session_redirect' a wake whose home replica was unhealthy or "
+    "role-flipped so placement chose a healthy sibling", ("outcome",)))
+ROUTER_FAILOVERS = REGISTRY.register(m.Counter(
+    "penroz_router_failovers_total",
+    "Admissions rerouted past a refusing replica (breaker open, queue "
+    "full, draining) to a live sibling"))
+DISAGG_HANDOFFS = REGISTRY.register(m.Counter(
+    "penroz_disagg_handoffs_total",
+    "Disaggregated-prefill page hand-offs by outcome and transport "
+    "('d2d' device-array hand-over, 'host' staged shm blob): 'ok' "
+    "(exported, imported, decoding), 'export_failed' / 'import_failed' "
+    "(fell back — d2d re-stages host-side, host falls back to "
+    "monolithic prefill), 'ack_timeout' (d2d importer never acked; "
+    "parked source pages reaped)", ("outcome", "transport")))
+DISAGG_ROLE_CHANGES = REGISTRY.register(m.Counter(
+    "penroz_disagg_role_changes_total",
+    "Elastic prefill/decode role flips applied by engines at drain "
+    "boundaries (PENROZ_DISAGG_ELASTIC=1)"))
 
 # -- histograms (the engine observes these alongside its own) ---------------
 
@@ -143,6 +169,18 @@ TTFT_BY_CLASS = REGISTRY.register(m.Histogram(
 QUEUE_WAIT_BY_CLASS = REGISTRY.register(m.Histogram(
     "penroz_queue_wait_ms_by_class",
     "Enqueue to admission per SLO class, ms", labelnames=("priority",)))
+DISAGG_HANDOFF_MS = REGISTRY.register(m.Histogram(
+    "penroz_disagg_handoff_ms",
+    "Prefill-complete to decode-replica first token per hand-off, ms "
+    "(export + transport — d2d device hand-over or host blob staging — "
+    "+ router placement + import)"))
+DISAGG_HANDOFF_BYTES = REGISTRY.register(m.Histogram(
+    "penroz_disagg_handoff_bytes",
+    "KV payload per hand-off (page planes + int8 scale planes), bytes — "
+    "observed at export for both transports, so d2d and host-staged "
+    "size distributions compare directly",
+    buckets=(4096, 16384, 65536, 262144, 1048576, 4194304, 16777216,
+             67108864)))
 
 # -- gauges (scrape-time reads of live state) -------------------------------
 

@@ -96,6 +96,28 @@ def request_schema(cls) -> dict:
     return out
 
 
+def _fields_schema(fields) -> dict:
+    props = {}
+    for name, kind, description in fields:
+        if isinstance(kind, tuple) and None in kind:
+            prop = {"anyOf": [_kind_schema(k) for k in kind if k is not None]
+                    + [{"type": "null"}]}
+        else:
+            prop = _kind_schema(kind)
+        props[name] = dict(prop, description=description)
+    return {"type": "object", "properties": props}
+
+
+def serving_stats_schema() -> dict:
+    """``GET /serving_stats/``'s documented fields: the replica router's
+    and disaggregation's, aggregate and per engine (``engines``)."""
+    out = _fields_schema(schemas.SERVING_STATS_FIELDS)
+    out["properties"]["engines"] = {
+        "type": "array",
+        "items": _fields_schema(schemas.SERVING_STATS_ENGINE_FIELDS)}
+    return out
+
+
 def _query_params(*names: str) -> list[dict]:
     return [{"name": n, "in": "query", "required": True,
              "schema": {"type": "string"}} for n in names]
@@ -286,8 +308,12 @@ def _routes() -> list[dict]:
         dict(method="get", path="/serving_stats/",
              summary="Continuous-batching scheduler stats: queue depth, "
                      "occupancy, tick timeline, prefix cache, speculation, "
-                     "crashes, breaker and shed counters",
-             responses=dict([ok])),
+                     "crashes, breaker and shed counters, the replica "
+                     "router and disaggregated prefill",
+             responses=dict([("200", {
+                 "description": "Success",
+                 "content": {"application/json": {
+                     "schema": serving_stats_schema()}}})])),
         dict(method="delete", path="/model/",
              summary="Delete a model and its LoRA adapters",
              params=_query_params("model_id"),

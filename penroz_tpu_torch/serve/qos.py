@@ -135,6 +135,7 @@ class WFQueue:
         self._cursor = 0
         self._len = 0
         self._class_depth = collections.Counter()
+        self._class_tokens = collections.Counter()
 
     def __len__(self) -> int:
         return self._len
@@ -144,6 +145,12 @@ class WFQueue:
 
     def class_depth(self, cls: str) -> int:
         return self._class_depth[cls]
+
+    def class_tokens(self, cls: str) -> int:
+        """Queued PROMPT tokens of ``cls``: the replica router's
+        within-class load signal (one queued 100k-token prompt is more wait
+        than five 20-token ones, which equal queue depths would deny)."""
+        return self._class_tokens[cls]
 
     def class_depths(self) -> dict:
         return {cls: self._class_depth[cls] for cls in PRIORITIES}
@@ -174,6 +181,7 @@ class WFQueue:
         self._activate(key)
         self._len += 1
         self._class_depth[req.priority] += 1
+        self._class_tokens[req.priority] += len(req.prompt)
 
     def push_front(self, req) -> None:
         """Head-requeue (preemption resume):
@@ -186,6 +194,7 @@ class WFQueue:
         self._activate(key)
         self._len += 1
         self._class_depth[req.priority] += 1
+        self._class_tokens[req.priority] += len(req.prompt)
 
     def _retire_key(self, idx, key):
         self._active.pop(idx)
@@ -198,6 +207,7 @@ class WFQueue:
         req = self._queues[key].popleft()
         self._len -= 1
         self._class_depth[req.priority] -= 1
+        self._class_tokens[req.priority] -= len(req.prompt)
         if not self._queues[key]:
             self._retire_key(idx, key)
         return req
@@ -256,6 +266,7 @@ class WFQueue:
                     dropped.append(req)
                     self._len -= 1
                     self._class_depth[req.priority] -= 1
+                    self._class_tokens[req.priority] -= len(req.prompt)
                 else:
                     keep.append(req)
             if keep:
@@ -279,6 +290,7 @@ class WFQueue:
         self._cursor = 0
         self._len = 0
         self._class_depth.clear()
+        self._class_tokens.clear()
         return out
 
     def __iter__(self):

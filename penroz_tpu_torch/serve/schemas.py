@@ -392,3 +392,58 @@ REQUESTS = (CreateModelRequest, ImportModelRequest, DownloadDatasetRequest,
             GenerateRequest, GenerateBatchRequest, DecodeTokensRequest,
             TrainingRequest, TenantQuotaRequest, ProfileRequest,
             CreateAdapterRequest, AdapterTrainConfig)
+
+
+# ``GET /serving_stats/``'s replica-router and disaggregation fields (the
+# JAX package's ``EngineStats`` and ``ServingStatsResponse`` fields of the
+# same names): (name, kind, description).  serve/openapi.py documents the
+# route's response with them.
+SERVING_STATS_ENGINE_FIELDS = (
+    ("replica", int, "Replica index within the model's router group "
+     "(PENROZ_SCHED_REPLICAS; 0 for a standalone engine)"),
+    ("mesh_devices", int, "Devices in the engine's serving mesh (always 1: "
+     "PENROZ_SERVE_MESH is not ported)"),
+    ("role", str, "Disaggregated-prefill role (PENROZ_DISAGG_PREFILL=1): "
+     "'prefill' replicas prefill and hand the KV pages off, 'decode' "
+     "replicas import them and decode; 'decode' when disaggregation is "
+     "off"),
+    ("disagg_exports", int, "Finished prefills handed to a decode replica "
+     "(prefill replicas)"),
+    ("disagg_imports", int, "Hand-offs imported and admitted straight into "
+     "the decode phase (decode replicas)"),
+    ("disagg_handoff_failures", int, "Hand-offs that fell back (a host "
+     "re-send or a monolithic prefill; the request still completes)"),
+    ("disagg_handoff_ms_p50", (float, None), "Median prefill-complete to "
+     "decode-replica first token per hand-off, ms"),
+    ("disagg_handoff_ms_p99", (float, None), "p99 hand-off latency, ms"),
+    ("disagg_transport", str, "Hand-off transport in effect "
+     "(PENROZ_DISAGG_TRANSPORT): 'd2d' device planes, 'host' a staged shm "
+     "page blob"),
+    ("disagg_role_changes", int, "Elastic role flips the engine applied "
+     "(PENROZ_DISAGG_ELASTIC=1)"),
+)
+SERVING_STATS_FIELDS = (
+    ("router_replicas", int, "Live engine replicas owned by routers (0: "
+     "no router, the single-engine registry)"),
+    ("router_affinity_hits", int, "Fingerprinted admissions steered to "
+     "the replica whose prefix cache holds the prompt's pages"),
+    ("router_affinity_misses", int, "Fingerprinted admissions placed "
+     "anywhere else"),
+    ("router_affinity_hit_rate", (float, None), "hits / (hits + misses); "
+     "null before any fingerprinted admission"),
+    ("router_failovers", int, "Admissions rerouted past a refusing replica "
+     "(breaker open, queue full, draining)"),
+    ("disagg_prefill_replicas", int, "Live prefill-only replicas across "
+     "routers (0: disaggregation off)"),
+    ("disagg_exports", int, "Hand-off exports across engines"),
+    ("disagg_imports", int, "Hand-off imports across engines"),
+    ("disagg_handoff_failures", int, "Hand-offs that fell back, across "
+     "engines"),
+    ("disagg_handoff_ms_p50", (float, None), "Median hand-off latency "
+     "across engines (merged histogram buckets), ms"),
+    ("disagg_handoff_ms_p99", (float, None), "p99 hand-off latency across "
+     "engines, ms"),
+    ("disagg_transport", str, "Hand-off transport in effect"),
+    ("disagg_role_changes", int, "Elastic role flips applied across "
+     "engines"),
+)

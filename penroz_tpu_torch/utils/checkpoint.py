@@ -440,3 +440,51 @@ def delete_adapter(adapter_id: str):
     """Remove both adapter copies (shm and durable), each independently."""
     _remove_quietly(shm_adapter_path(adapter_id))
     _remove_quietly(adapter_path(adapter_id))
+
+
+# ---------------------------------------------------------------------------
+# KV page blobs (disaggregated prefill's host transport,
+# serve/decode_scheduler.py)
+# ---------------------------------------------------------------------------
+#
+# The same container (a CRC32 per array stream) under the JAX package's
+# ``pageblob_<id>.ckpt`` name, so a blob staged by either package loads in
+# the other.  Shm only: a blob lives for one hand-off, so there is no
+# durable flush; the family never matches a ``model_*`` or ``adapter_*``
+# name.
+
+def page_blob_path(blob_id: str) -> str:
+    return os.path.join(SHM_PATH, MODELS_FOLDER, f"pageblob_{blob_id}.ckpt")
+
+
+def save_page_blob(blob_id: str, data: dict):
+    """Stage one hand-off blob in shm (atomic write, a CRC per stream).
+    Page planes may live on the card: they are copied to the host here."""
+    os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
+    _atomic_write(page_blob_path(blob_id), data)
+
+
+def load_page_blob(blob_id: str) -> dict:
+    """Read a staged hand-off blob (CRC-verified; planes as CPU tensors).
+    :raises KeyError: the blob was never staged or is already consumed."""
+    try:
+        return _read(page_blob_path(blob_id))
+    except FileNotFoundError:
+        raise KeyError(f"Page blob {blob_id} not staged.")
+
+
+def delete_page_blob(blob_id: str) -> bool:
+    """Reclaim a consumed (or abandoned) hand-off blob."""
+    return _remove_quietly(page_blob_path(blob_id))
+
+
+def page_blob_nbytes(blob: dict) -> int:
+    """Payload bytes of a hand-off blob: its K/V page planes and int8 scale
+    planes, summed over layers, for host and device planes alike (the
+    ``penroz_disagg_handoff_bytes`` histogram observes both transports
+    through here)."""
+    total = 0
+    for key in ("k", "v", "k_scale", "v_scale"):
+        for plane in blob.get(key, ()):
+            total += int(plane.nbytes)
+    return total

@@ -29,7 +29,12 @@ before it mutates anything) (serve/decode_scheduler.py);
 ``ckpt.write`` (the checkpoint container write, whose temporary file is
 removed, utils/checkpoint.py); ``data.download`` (one dataset download
 attempt, data/loaders.py); ``lora.load`` (an adapter checkpoint's load
-into the serving registry, serve/adapters.py).  None sits inside a captured CUDA graph.
+into the serving registry, serve/adapters.py); the disaggregated-prefill
+hand-off's ``disagg.handoff`` (ordinal 1 mid-export, 2 mid-import),
+``disagg.d2d`` (the d2d transport's exporter-side gather, then the
+importer's scatter) and ``disagg.rebalance`` (an elastic role flip,
+before it changes the role) (serve/decode_scheduler.py).  None sits
+inside a captured CUDA graph.
 Call counters are per site and process-wide; :func:`reset` clears them
 and the parsed-spec cache.
 """

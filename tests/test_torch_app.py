@@ -344,10 +344,13 @@ def test_continuous_batching_matches_single_sequence(
 @pytest.mark.parametrize("env,field", [
     ({"PENROZ_RAGGED_ATTENTION": "0"}, None),
     ({"PAGED_KV_CACHE": "0"}, None),
-    ({"PENROZ_SCHED_REPLICAS": "2"}, None),
-    ({"PENROZ_DISAGG_PREFILL": "1"}, None),
     ({"PENROZ_SERVE_MESH": "1"}, None),
     ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
+    ({"PENROZ_STREAM_DETACH_MS": "500"}, None),
+    ({"PENROZ_STREAM_REPLAY": "64"}, None),
+    ({"PENROZ_JOURNAL_PATH": "journal.log"}, None),
+    ({"PENROZ_TIER_HOST_MB": "64"}, None),
+    ({"PENROZ_TIER_DISK_MB": "256"}, None),
     # priority and tenant are ported: an unknown class is a 400 naming the
     # field, and a tenant serves while the KV-tier quota knob is refused
     ({}, ("priority", "urgent")),
@@ -700,3 +703,57 @@ def test_imports_load_across_packages(server, workdir):
                                    _gen("by_port"))[1])["tokens"]
     status, text = _call(server, "POST", "/generate/", _gen("by_jax"))
     assert status == 200 and json.loads(text)["tokens"] == port_tokens
+
+
+def test_main_host_port_env_and_log_config(monkeypatch, tmp_path, capsys):
+    """``main`` serves on ``HOST``/``PORT`` from the environment, which
+    ``--host``/``--port`` override, and configures logging from the
+    ``PENROZ_LOG_CONFIG`` dictConfig; a missing file warns on stderr as
+    the JAX service does and falls back."""
+    import logging
+    from penroz_tpu.serve import app as japp
+    from penroz_tpu_torch.serve import app as app_mod
+    seen = []
+
+    class _Server:
+        server_address = ("h", 1)
+        device = "cpu"
+
+        def serve_forever(self):
+            pass
+
+        shutdown = server_close = join_training = serve_forever
+
+    def fake_create(device=None, host="127.0.0.1", port=0):
+        seen.append((device, host, port))
+        return _Server()
+
+    monkeypatch.setattr(app_mod, "create_app", fake_create)
+    cfg = tmp_path / "log_config.json"
+    # incremental: a full dictConfig would close the test runner's own
+    # log handlers
+    cfg.write_text(json.dumps({
+        "version": 1, "incremental": True,
+        "loggers": {"penroz_log_config_probe": {"level": "ERROR"}}}))
+    probe = logging.getLogger("penroz_log_config_probe")
+    monkeypatch.setattr(probe, "level", probe.level)
+    monkeypatch.setenv("PENROZ_LOG_CONFIG", str(cfg))
+    monkeypatch.setenv("HOST", "0.0.0.0")
+    monkeypatch.setenv("PORT", "8123")
+    app_mod.main(["--device", "cpu"])
+    assert seen[-1] == ("cpu", "0.0.0.0", 8123)
+    assert probe.level == logging.ERROR
+    app_mod.main(["--device", "cpu", "--host", "127.0.0.1",
+                  "--port", "9001"])
+    assert seen[-1] == ("cpu", "127.0.0.1", 9001)
+    monkeypatch.setenv("PENROZ_LOG_CONFIG", str(tmp_path / "missing.json"))
+    fallbacks = []
+    monkeypatch.setattr(logging, "basicConfig",
+                        lambda **kw: fallbacks.append(kw["level"]))
+    capsys.readouterr()
+    app_mod._configure_logging()
+    ours = capsys.readouterr().err
+    japp._configure_logging()
+    assert ours == capsys.readouterr().err
+    assert "does not exist" in ours
+    assert fallbacks == [logging.INFO, logging.INFO]

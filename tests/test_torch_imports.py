@@ -143,3 +143,43 @@ print(sorted(adapters.list_adapters()[0]), len(tokens))
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split("\n")[-2].endswith(" 6")
     assert "'adapter_id'" in out.stdout
+
+
+def test_router_slice_modules_run_without_jax(tmp_path):
+    """``serve/router.py`` and the engine's hand-off seam in a process where
+    JAX and ``penroz_tpu`` cannot be imported: a 2-replica group with
+    disaggregated prefill serves one request through an export and an
+    import."""
+    blocked = sorted({"jax", "jaxlib", "optax", "penroz_tpu"})
+    script = f"""
+import os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(ROOT)!r})
+os.chdir({str(tmp_path)!r})
+os.environ.update(PAGED_KV_CACHE="1", PENROZ_KV_PAGE_SIZE="4",
+                  PENROZ_SCHED_REPLICAS="2", PENROZ_DISAGG_PREFILL="1",
+                  PENROZ_MEMLEDGER_STRICT="1")
+from penroz_tpu_torch.utils import checkpoint
+checkpoint.SHM_PATH = {str(tmp_path / "shm")!r}
+os.makedirs(checkpoint.SHM_PATH)
+from penroz_tpu_torch.models import presets
+from penroz_tpu_torch.models.dsl import Mapper
+from penroz_tpu_torch.models.model import NeuralNetworkModel
+from penroz_tpu_torch.serve import decode_scheduler as ds
+from penroz_tpu_torch.serve import router
+m = NeuralNetworkModel("m", Mapper(presets.gpt2_custom(
+    d=16, heads=2, depth=1, vocab=32, block=16), presets.ADAMW),
+    device="cpu")
+m.serialize(sync_flush=True)
+group = ds.get_engine("m", 16, 0.0, None, device="cpu")
+assert isinstance(group, router.EngineRouter)
+tokens = ds.run_request(group, [1, 2, 3, 4, 5], 4, None, timeout=60)
+stats = ds.serving_stats()
+ds.reset()
+print(len(tokens), stats["disagg_exports"], stats["disagg_imports"])
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[-2] == "9 1 1"

@@ -675,3 +675,21 @@ def test_lora_metrics_and_ledger_bytes(ref, served, make_engine,
     _submit(engine, [1, 2, 3, 4, 5, 6], adapter=served["tenB"]).result()
     hold.set()
     assert {"tenB": 2} in seen
+
+
+def test_adapter_takes_a_free_slot_before_an_idle_one(served, make_engine):
+    """A new adapter takes an empty live slot while one exists, and never
+    the slot of an idle adapter then, so the idle one stays live (the
+    JAX engine takes the first slot that is empty or idle)."""
+    engine = make_engine("mtgpt", BLOCK, 0.0, None, capacity=3)
+
+    def slot(aid):
+        req = DS.Request([1, 2], 1, None, lambda *a: None,
+                         adapter=served[aid])
+        with engine._cond:
+            return engine._adapter_slot(req)
+
+    assert slot("tenA") == 0            # idle: no row of tenA in flight
+    assert slot("tenB") == 1
+    assert slot("tenA") == 0
+    assert engine.live_adapters == 2

@@ -169,10 +169,13 @@ def test_scrape_after_traffic_parses(workdir, monkeypatch, toy_gpt_layers,
         body = labels[1:-1] + "," if labels else ""
         inf = f'{name}_bucket{{{body}le="+Inf"}}'
         assert got[inf] == got[f"{name}_count{labels}"], fam
-    # LoRA is ported: its gauge reads 0 live adapters and no adapter
-    # emitted a token; the other features' series stay absent
+    # LoRA and the replica router are ported: the LoRA gauge reads 0 live
+    # adapters, no adapter emitted a token, and one engine made no router
+    # placement or failover; the other features' series stay absent
     assert got["penroz_lora_live_adapters"] == 0
+    assert got["penroz_router_failovers_total"] == 0
+    assert got["penroz_disagg_role_changes_total"] == 0
     assert not any(s.startswith(("penroz_lora_adapter_tokens",
-                                 "penroz_router", "penroz_jit",
+                                 "penroz_router_affinity", "penroz_jit",
                                  "penroz_tier", "penroz_pipe"))
                    for s in got)

@@ -4,6 +4,8 @@ same weights: greedy tokens must be identical for every row, whatever the
 superstep, the prefill chunk and the pool's dtype.  Every wait on a result
 carries its own timeout, so a hung worker fails one test."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -183,14 +185,26 @@ def test_eligibility_and_unported_options(monkeypatch):
     monkeypatch.setenv("PAGED_KV_CACHE", "1")
     DS.unported_serving_options()
     for name, value in (("PENROZ_RAGGED_ATTENTION", "0"),
-                        ("PENROZ_SCHED_REPLICAS", "2"),
-                        ("PENROZ_DISAGG_PREFILL", "1"),
                         ("PENROZ_SERVE_MESH", "1"),
-                        ("PENROZ_SERVE_PIPE_STAGES", "2")):
+                        ("PENROZ_SERVE_PIPE_STAGES", "2"),
+                        ("PENROZ_STREAM_DETACH_MS", "500"),
+                        ("PENROZ_STREAM_REPLAY", "64"),
+                        ("PENROZ_JOURNAL_PATH", "journal.log"),
+                        ("PENROZ_TIER_HOST_MB", "64"),
+                        ("PENROZ_TIER_DISK_MB", "0.5")):
         monkeypatch.setenv(name, value)
         with pytest.raises(ValueError, match=name):
             DS.unported_serving_options()
         monkeypatch.delenv(name)
+    # replicas and disaggregated prefill are ported; a detach grace of 0
+    # and empty tiers leave their features off
+    for name, value in (("PENROZ_SCHED_REPLICAS", "2"),
+                        ("PENROZ_DISAGG_PREFILL", "1"),
+                        ("PENROZ_STREAM_DETACH_MS", "0"),
+                        ("PENROZ_TIER_HOST_MB", "0"),
+                        ("PENROZ_TIER_DISK_MB", "0")):
+        monkeypatch.setenv(name, value)
+        DS.unported_serving_options()
     monkeypatch.setenv("PENROZ_SCHED_REPLICAS", "1")
     DS.unported_serving_options()
     # the prefix cache and speculation are ported
@@ -229,3 +243,30 @@ def test_crash_fails_requests_and_resets(jmodel, paged_env, make_engine,
     stats = engine.stats()
     assert stats["crashes_total"] == stats["engine_resets"] == 1
     assert np.all(engine._lengths == 0)
+
+
+def test_tick_timeline_length_knob(jmodel, paged_env, make_engine,
+                                   monkeypatch):
+    """``PENROZ_TICK_TIMELINE=16`` bounds an engine's tick timeline to 16
+    entries, as it bounds the JAX engine's, for the same request."""
+    from penroz_tpu.serve import decode_scheduler as JDS
+    monkeypatch.setenv("PENROZ_TICK_TIMELINE", "16")
+    monkeypatch.setenv("PENROZ_SCHED_SUPERSTEP", "1")   # a tick a token
+    want = jmodel.generate_tokens([PROMPT_A], BLOCK, 24, temperature=0.0)
+    ours = make_engine("sched", BLOCK, 0.0, None, capacity=2)
+    ref = JDS.DecodeEngine("sched", BLOCK, 0.0, None, capacity=2)
+    try:
+        assert DS.run_request(ours, PROMPT_A, 24, None,
+                              timeout=WAIT_S) == want
+        done = []
+        ref.submit(JDS.Request(PROMPT_A, 24, None,
+                               lambda kind, value: done.append(kind)))
+        deadline = time.monotonic() + WAIT_S
+        while "done" not in done and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert "done" in done
+        assert ours.stats()["dispatches_total"] > 16
+        assert (len(ours.stats()["tick_timeline"])
+                == len(ref.stats()["tick_timeline"]) == 16)
+    finally:
+        ref.shutdown(timeout=WAIT_S)

@@ -241,6 +241,9 @@ def test_spec_admission_mid_verify(jmodel, spec_env, make_engine):
     spec_env.setattr(spec_decode, "propose",
                      _oracle_drafter([want_a, want_b]))
     spec_env.setenv("PENROZ_SPEC_K", "1")   # A verifies for several blocks
+    # and each of its verify blocks takes 50 ms more, so A is still
+    # verifying when B arrives however loaded the host is
+    spec_env.setenv("PENROZ_FAULT_INJECT", "decode.verify:sleep@50")
     engine = make_engine("spec", BLOCK, 0.0, None, capacity=2)
     req_a, events_a = DS.start_stream(engine, pa, 7, None)
     got_a = list(pa)

@@ -150,7 +150,8 @@ prints no result:
                /serving_stats/ (requests, preemptions, resumed tokens,
                prefix hits and misses), its TTFT _count the requests that
                emitted; a tenant quota (429 with Retry-After for flood,
-               200 = T0 for ui, cleared, tier_mb 400); the wave again at
+               200 = T0 for ui, cleared, a tier_mb set and cleared); the
+               wave again at
                PENROZ_TRACE_SAMPLE=0 (same tokens; both rates printed); a
                crash in a second engine (block 512) and its /debug/dump
                entry; / 302, /dashboard and /static/dashboard.js 200.
@@ -173,6 +174,33 @@ prints no result:
                disagg.d2d and a disagg.handoff fault (= T); one elastic
                prefill -> decode flip (a stream of each family = T).
                Ragged device runs = 12 x every replica's mixed steps.
+4k. sessions — phase_sessions: GPT-2 124M fp32 (4g's checkpoint), pages of
+               128, 8 rows, the prefix cache, the strict ledger, a 96 MB
+               host tier, a 1024 MB disk tier and the journal under one
+               temporary directory (removed at the end), a 2 s detach
+               grace.  The references: 8 prompts of 384-600 tokens cold
+               (H1, 64 new), then each history + 32 user tokens cold from
+               an empty cache (T2).  Turn 1 with session ids (= H1, 3-5
+               full pages a session, every /memory/ read partitioning the
+               pool) until /sessions/ shows none in hbm (hibernating 0);
+               engines reset, a byte of one disk blob flipped; turn 2
+               with the same ids: every stream = T2, host and disk
+               promotions ok, the flipped one counted corrupt and
+               recomputed, each woken admission prefilling only the
+               suffix past its session's pages, /metrics' tier_* and
+               sessions_* = /serving_stats/; DELETE removes each session
+               from every tier.  Turn 1 again, a journaled tier_mb, the
+               registry and the engines dropped and the server created
+               anew (its recovery): /sessions/ lists every disk session,
+               /debug/dump's restart_recovery, the tier_mb kept, a disk
+               wake = T2.  A stream dropped after 8 tokens reattached at
+               from_seq=8 within the grace (contiguous sequence numbers,
+               tokens = H1), another left to expire (cancelled, no page or
+               pin left).  The int8 repeat for 4 sessions.  Ragged device
+               runs = 12 x mixed steps in every wave.  Turn 2's TTFT by
+               source tier against the cold reference, the demotion's
+               export ms, bytes a session (fp32, int8) and the disk
+               tier's MB/s are printed.
 4c. hybrid   — a server with the hybrid attention/SSM model
                (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
                ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
@@ -199,21 +227,21 @@ prints no result:
 4d. qwen3    — the slice's main path: a checkpoint of the published
                Qwen/Qwen3-0.6B config.json (d 1024, GQA 16/8, head_dim
                128, vocab 151936, tied embeddings; its 28 layers cut to
-               QWEN3_LAYERS = 4 to keep the script's time; random bf16
+               QWEN3_LAYERS = 2 to keep the script's time; random bf16
                weights from seed 0, N(0, 0.02), norms 1 + N(0, 0.1))
                written here in the HF layout, two safetensors shards and
                an index; POST /import/ (timed); greedy /generate/ 128 +
                128 twice (the second captures nothing), streamed, a
                1000-token prompt, on the contiguous cache and under
                PAGED_KV_CACHE=1 (the same tokens), the decode kernels' run
-               counters 4 a dispatched step; in process, graph == eager
+               counters 2 a dispatched step; in process, graph == eager
                on both caches, tokens/s and device busy share (graph,
                paged graph, eager), the checkpoint load timed; /output/ at
-               1 x 1024 (4 flash-forward launches); the card's logits at
+               1 x 1024 (2 flash-forward launches); the card's logits at
                8 positions against the port's CPU forward of the same
                bf16 weights (QWEN3_LOGIT_FACTOR); 4 concurrent requests
                under PENROZ_CONTINUOUS_BATCHING=1 PAGED_KV_CACHE=1 (the
-               ragged kernel 4 a mixed step, each token the plain
+               ragged kernel 2 a mixed step, each token the plain
                forward's argmax, near ties excepted as stated at
                _hf_continuous); DELETE /model/.
 4e. qmoe     — the same path (phase_import) for the MoE slice: the
@@ -3055,8 +3083,8 @@ def _profile_hybrid(torch, model, vocab, device):
 # ---------------------------------------------------------------------------
 
 # The published Qwen/Qwen3-0.6B config.json (its architecture keys), its
-# 28 layers cut to QWEN3_LAYERS (14 in PRs 12-15, 4 since phase 4j) so
-# the whole script stays within 950 s;
+# 28 layers cut to QWEN3_LAYERS (14 at first, 4 with phase 4j, 2 with
+# phase 4k) so the whole script stays within 950 s;
 # every width is the published one.
 QWEN3_CONFIG = {
     "architectures": ["Qwen3ForCausalLM"], "attention_bias": False,
@@ -3088,7 +3116,7 @@ QMOE_CONFIG = {
     "sliding_window": 32768, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "use_cache": True,
     "use_sliding_window": False, "vocab_size": 151936}
-QWEN3_LAYERS = 4
+QWEN3_LAYERS = 2
 QMOE_LAYERS = 2
 # The imported checkpoints: phase name, model id, config as written, title.
 HF_MODELS = {
@@ -4934,9 +4962,16 @@ def phase_qos(torch, layers, optimizer, block, vocab, card, device="cuda",
             check(ok_tokens(_qos_call(base, "/generate/", body(
                 batch[6], QOS_BATCH_NEW, tenant="flood")), "flood cleared")
                   == ref[("b", 6)], "flood after the override cleared")
-            check(_qos_call(base, "/tenants/flood/quota",
-                            {"tokens_per_s": 1, "tier_mb": 8}, "PUT")[0]
-                  == 400, "tier_mb was not refused")
+            status, _, text = _qos_call(base, "/tenants/flood/quota",
+                                        {"tokens_per_s": None, "tier_mb": 8},
+                                        "PUT")
+            check(status == 200 and json.loads(text)["tier_bytes"] == 8e6,
+                  f"the tier_mb override: {status} {text}")
+            status, _, text = _qos_call(base, "/tenants/flood/quota",
+                                        {"tokens_per_s": None,
+                                         "tier_mb": None}, "PUT")
+            check(status == 200 and json.loads(text)["tier_bytes"] == 0,
+                  f"clearing the tier_mb override: {status} {text}")
             stats["quota"] = {"retry_after": retry,
                               "s": time.monotonic() - t0}
             say("qos", f"quota: flood 200, then 429 Retry-After {retry}; "
@@ -6093,6 +6128,674 @@ def phase_router(torch, layers, optimizer, block, vocab, card, device="cuda",
     return stats, totals
 
 
+# ---------------------------------------------------------------------------
+# 4k: session hibernation, the journal's restart recovery, resumable streams
+# ---------------------------------------------------------------------------
+
+SESS_ENV = dict(CB_ENV, PENROZ_PREFIX_CACHE="1",
+                PENROZ_PREFIX_CACHE_PAGES="64", PENROZ_MEMLEDGER_STRICT="1",
+                TURBO_QUANT_KV_CACHE="0", PENROZ_TIER_HOST_MB="96",
+                PENROZ_TIER_DISK_MB="1024", PENROZ_STREAM_DETACH_MS="2000")
+SESS_PAGE = 128
+# Turn 1: 8 chat sessions, each its own prompt; with 64 new tokens each
+# history holds 3-5 full pages (28-47 MB of fp32 KV at GPT-2 124M), so the
+# 96 MB host tier keeps two or three and the rest spill to disk.
+SESS_PROMPT_LENS = (384, 600, 450, 520, 400, 580, 480, 560)
+SESS_NEW = 64
+SESS_USER = 32           # the user tokens a second turn adds
+SESS_INT8 = 4            # sessions of the int8 repeat
+SESS_STREAM_K = 8        # tokens a streaming client reads before it drops
+
+
+def _drop_stream(base, body, rid):
+    """A streamed /generate/ whose client reads SESS_STREAM_K token lines
+    and then resets the connection (SO_LINGER 0): the server's next
+    writes fail.  Returns the tokens read."""
+    import socket
+    host, port = base.split("//")[1].split(":")
+    sock = socket.create_connection((host, int(port)), timeout=900)
+    data = json.dumps(dict(body, stream=True)).encode()
+    sock.sendall(b"POST /generate/ HTTP/1.1\r\nHost: x\r\n"
+                 b"Content-Type: application/json\r\n"
+                 + f"X-Request-Id: {rid}\r\nContent-Length: {len(data)}"
+                   f"\r\n\r\n".encode() + data)
+    f = sock.makefile("rb")
+    status = f.readline().split()
+    check(len(status) > 1 and status[1] == b"200",
+          f"stream {rid}: status line {status}")
+    while f.readline() not in (b"\r\n", b""):
+        pass
+    got = [int(f.readline()) for _ in range(SESS_STREAM_K)]
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                    b"\x01\x00\x00\x00\x00\x00\x00\x00")
+    f.close()
+    sock.close()
+    return got
+
+
+def _copy_alternatives(torch, nbytes, reps=5):
+    """What a demotion's device-to-host copy of ``nbytes`` costs the
+    worker: the synchronous pageable ``.cpu()`` that ``export_pages`` runs,
+    against a pinned buffer's non-blocking copy (the host's enqueue time,
+    and the time until an event after it completes).  Medians, ms."""
+    x = torch.empty(nbytes // 4, device="cuda")
+    pinned = torch.empty(nbytes // 4, pin_memory=True)
+    out = {"bytes": nbytes, "pageable": [], "pinned_enqueue": [],
+           "pinned_done": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        x.cpu()
+        out["pageable"].append((time.monotonic() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pinned.copy_(x, non_blocking=True)
+        out["pinned_enqueue"].append((time.monotonic() - t0) * 1e3)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        out["pinned_done"].append((time.monotonic() - t0) * 1e3)
+    for key in ("pageable", "pinned_enqueue", "pinned_done"):
+        out[key] = round(sorted(out[key])[reps // 2], 3)
+    return out
+
+
+def phase_sessions(torch, layers, optimizer, block, vocab, card,
+                   device="cuda", model_id="smoke_res"):
+    """GPT-2 124M fp32 (phase 4g's checkpoint, created when absent), pages
+    of 128, 8 rows, the prefix cache on, the strict ledger, a 96 MB host
+    tier and a 1024 MB disk tier and the journal under one temporary
+    directory, a 2 s detach grace.  (a) The references: turn 1's 8 prompts
+    cold (H1), then turn 2's (each H1 history + 32 user tokens) cold from
+    an empty cache (T2).  (b) Turn 1 with session ids s0-s7 (= H1), every
+    /memory/ read partitioning the pool, until /sessions/ shows none in
+    hbm (then hibernating 0); engines reset; one disk blob's byte flipped.
+    (c) Turn 2 with the same ids: every stream = T2, host and disk
+    promotions ok, the flipped blob counted corrupt and recomputed, each
+    woken admission prefilling only the suffix past its session's pages,
+    /metrics' tier_* and sessions_* = /serving_stats/.  (d) Every session
+    deleted (gone from every tier); turn 1 again; a journaled tier_mb;
+    the registry and the engines dropped and a server created anew
+    (create_app's recovery): /sessions/ lists every disk session,
+    /debug/dump has restart_recovery, the tier_mb survived, a disk wake =
+    T2.  (e) A stream dropped after SESS_STREAM_K tokens reattached
+    within the grace (contiguous sequence numbers, the tokens = H1), a
+    second one left to expire (cancelled, no page or pin left).  (f) The
+    int8 repeat of (a)-(c) for SESS_INT8 sessions.  Every wave's ragged
+    device runs = the attention layers x the mixed steps.  Prints turn 2's
+    TTFT by source tier against the cold reference's, the demotion's
+    export ms, bytes a session in both dtypes and the disk tier's write
+    and read MB/s.  Returns (stats, the phase's counts: the ragged
+    kernel's device runs).  ``device="cpu"`` rehearses it at a toy size
+    through the plain versions (no kernel counts)."""
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import CompiledArch
+    from penroz_tpu_torch.ops import kv_cache as KV
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import app as app_mod
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve import journal, qos, streams, tierstore
+    from penroz_tpu_torch.serve import metrics as serve_metrics
+    from penroz_tpu_torch.utils import checkpoint
+
+    t_phase = time.monotonic()
+    on_card = device != "cpu"
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in SESS_PROMPT_LENS]
+    users = [rng.integers(0, vocab, SESS_USER).tolist() for _ in prompts]
+    state_dir = os.path.join(WORK, "sessions")
+    shutil.rmtree(state_dir, ignore_errors=True)
+    env = dict(SESS_ENV, PENROZ_KV_PAGE_SIZE=str(SESS_PAGE),
+               PENROZ_TIER_DISK_PATH=os.path.join(state_dir, "tier"),
+               PENROZ_JOURNAL_PATH=os.path.join(state_dir, "journal.wal"))
+    totals = {"ragged_paged_attention": 0}
+    stats = {"marks": {}}
+    timing = {"export_ms": [], "write": [0, 0.0], "read": [0, 0.0],
+              "admissions": {}, "fetch_ms": {}, "import_ms": []}
+
+    def mark(part):
+        stats["marks"][part] = round(time.monotonic() - t_phase, 1)
+
+    def harvest():
+        totals["ragged_paged_attention"] += \
+            RPA.ragged_paged_attention.runs.read()
+        RPA.ragged_paged_attention.runs.reset()
+        RPA.ragged_paged_attention.launches = 0
+
+    def call(path, body=None, method=None):
+        status, headers, text = _qos_call(box["base"], path, body, method)
+        try:
+            return status, json.loads(text) if text else None
+        except ValueError:
+            return status, text
+
+    def body(p, sid=None):
+        out = {"model_id": model_id, "input": [p], "block_size": block,
+               "max_new_tokens": SESS_NEW, "temperature": 0}
+        if sid is not None:
+            out["session_id"] = sid
+        return out
+
+    def sessions():
+        status, out = call("/sessions/")
+        check(status == 200, f"/sessions/ -> {status}")
+        return out
+
+    def exposition():
+        text = _qos_call(box["base"], "/metrics")[2]
+        out = {}
+        for line in text.splitlines():
+            if line.startswith(("penroz_tier", "penroz_session")):
+                name, value = line.rsplit(" ", 1)
+                out[name] = float(value)
+        return out
+
+    def wave(tag, bodies, rids=None, poll_memory=False):
+        """Stream every body at once (one connection each, opened one
+        after another, each read on a thread of its own): (sequences,
+        TTFT s each from the wave's start, /memory/ reads).  The ragged
+        kernel's device runs = layers x mixed steps."""
+        harvest()
+        mem_reads, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                status, out = call("/memory/")
+                if status == 200:
+                    mem_reads.append(out)
+                time.sleep(0.05)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        with _mixed_steps() as steps:
+            if poll_memory:
+                poller.start()
+            t0 = time.monotonic()
+            resps = []
+            for i, b in enumerate(bodies):
+                req = urllib.request.Request(
+                    box["base"] + "/generate/",
+                    data=json.dumps(dict(b, stream=True)).encode(),
+                    method="POST", headers={
+                        "Content-Type": "application/json",
+                        "X-Request-Id": (rids[i] if rids
+                                         else f"{tag}-{i}")})
+                resps.append(urllib.request.urlopen(req, timeout=900))
+            def read(b, resp):
+                with resp:
+                    toks, first = [], None
+                    for line in resp:
+                        if first is None:
+                            first = time.monotonic() - t0
+                        toks.append(int(line))
+                    return resp.status, b["input"][0] + toks, first
+
+            with concurrent.futures.ThreadPoolExecutor(len(resps)) as pool:
+                done = list(pool.map(read, bodies, resps))
+            for status, _, _ in done:
+                check(status == 200, f"{tag}: status {status}")
+            outs = [seq for _, seq, _ in done]
+            ttft = [first for _, _, first in done]
+            if on_card:
+                torch.cuda.synchronize()
+            stop.set()
+            if poll_memory:
+                poller.join(30)
+        runs = RPA.ragged_paged_attention.runs.read()
+        harvest()
+        check(not on_card or runs == n_attn * steps["steps"] > 0,
+              f"{tag}: the ragged kernel ran {runs} times for "
+              f"{steps['steps']} mixed steps x {n_attn} layers")
+        for i, seq in enumerate(outs):
+            check(len(seq) == len(bodies[i]["input"][0]) + SESS_NEW,
+                  f"{tag}: stream {i} came back short")
+        for snap in mem_reads:
+            for entry in snap["engines"]:
+                pools = entry["pool_pages"]
+                check(sum(pools.values()) == entry["pool_pages_total"]
+                      and min(pools.values()) >= 0,
+                      f"{tag}: a /memory/ read does not partition the "
+                      f"pool: {pools}")
+        return outs, ttft, mem_reads
+
+    def settled(n):
+        """Wait until ``n`` sessions are resident and none is in hbm (every
+        demotion ran); the ledger then holds no hibernating page."""
+        deadline = time.monotonic() + 120
+        while True:
+            s = sessions()
+            if s["sessions_resident"] == n and s["sessions_by_tier"][
+                    "hbm"] == 0:
+                break
+            check(time.monotonic() < deadline, f"demotions never settled: "
+                  f"{s['sessions_by_tier']}")
+            time.sleep(0.02)
+        status, mem = call("/memory/")
+        check(status == 200 and mem["pool_pages"]["hibernating"] == 0,
+              f"hibernating pages after the demotions: {mem['pool_pages']}")
+        return {r["session_id"]: r for r in s["sessions"]}
+
+    def fresh_engines():
+        DS.reset()
+        DS.get_engine(model_id, block, 0, None, device=box["server"].device)
+
+    # instrumentation of the phase's own figures (in process, undone at
+    # the end): the demotion's export (the worker's stall), the disk
+    # tier's writes and reads, each admission's cached tokens
+    real_export = KV.PagedKVState.export_pages
+    real_save, real_load = checkpoint.save_tier_blob, \
+        checkpoint.load_tier_blob
+    real_begin = DS.DecodeEngine._begin_prefill
+    real_publish = streams.StreamSession.publish
+    real_fetch = tierstore.TierStore.fetch
+    real_import = KV.PagedKVState.import_pages
+
+    def timed_export(self, pages, length, device=False):
+        t0 = time.monotonic()
+        out = real_export(self, pages, length, device=device)
+        timing["export_ms"].append((time.monotonic() - t0) * 1e3)
+        return out
+
+    def timed_io(real, key):
+        def run(sid, *args):
+            t0 = time.monotonic()
+            out = real(sid, *args)
+            timing[key][0] += checkpoint.tier_blob_nbytes(sid)
+            timing[key][1] += time.monotonic() - t0
+            return out
+        return run
+
+    def timed_fetch(self, sid):
+        rec = self.get(sid)
+        t0 = time.monotonic()
+        out = real_fetch(self, sid)
+        if out is not None:
+            timing["fetch_ms"].setdefault(rec.tier, []).append(
+                (time.monotonic() - t0) * 1e3)
+        return out
+
+    def timed_import(self, pages, blob, blob_offset=0):
+        t0 = time.monotonic()
+        out = real_import(self, pages, blob, blob_offset=blob_offset)
+        if on_card:
+            torch.cuda.synchronize()
+        timing["import_ms"].append((time.monotonic() - t0) * 1e3)
+        return out
+
+    def recorded_begin(self, row, req, slot=None):
+        real_begin(self, row, req, slot)
+        state = self._rows[row]
+        if state is not None and req.request_id is not None:
+            timing["admissions"][req.request_id] = state.prefilled
+
+    # a stream's publishing from SESS_STREAM_K on waits for the test's
+    # client (in process, the engine's pace gated on the stream's state)
+    gates, closed = {}, set()
+
+    def gated_publish(self, kind, value):
+        until = gates.get(self.request_id)
+        if until is not None and self._next_seq >= SESS_STREAM_K:
+            deadline = time.monotonic() + 60
+            while not until(self):
+                check(time.monotonic() < deadline,
+                      f"stream {self.request_id}: its gate never opened")
+                time.sleep(0.002)
+        real_publish(self, kind, value)
+
+    KV.PagedKVState.export_pages = timed_export
+    checkpoint.save_tier_blob = timed_io(real_save, "write")
+    checkpoint.load_tier_blob = timed_io(real_load, "read")
+    DS.DecodeEngine._begin_prefill = recorded_begin
+    streams.StreamSession.publish = gated_publish
+    tierstore.TierStore.fetch = timed_fetch
+    KV.PagedKVState.import_pages = timed_import
+    box = {}
+
+    def serve():
+        box["server"] = app_mod.create_app(device=device)
+        box["thread"] = threading.Thread(
+            target=box["server"].serve_forever, daemon=True)
+        box["thread"].start()
+        box["base"] = "http://%s:%d" % box["server"].server_address[:2]
+
+    def stop_server():
+        box["server"].shutdown()
+        box["server"].server_close()
+        box["thread"].join(timeout=30)
+        check(not box["thread"].is_alive(), "server thread did not stop")
+
+    try:
+        with _env(env):
+            tierstore.reset()
+            journal.reset()
+            streams.reset()
+            qos.reset()
+            serve()
+            DS.reset()
+            harvest()
+            totals["ragged_paged_attention"] = 0
+            if call(f"/progress/?model_id={model_id}")[0] != 200:
+                status, out = call("/model/", {"model_id": model_id,
+                                               "layers": layers,
+                                               "optimizer": optimizer})
+                check(status == 200, f"POST /model/ -> {status}: {out}")
+            results = {}
+            for dtype, n in (("fp32", len(prompts)), ("int8", SESS_INT8)):
+                os.environ["TURBO_QUANT_KV_CACHE"] = \
+                    "1" if dtype == "int8" else "0"
+                ids = [f"{dtype}-s{i}" for i in range(n)]
+                # -- (a) the references: turn 1 and turn 2 cold --------------
+                fresh_engines()
+                H1, ttft1, _ = wave(f"{dtype} cold turn 1",
+                                    [body(p) for p in prompts[:n]])
+                P2 = [h + u for h, u in zip(H1, users)]
+                fresh_engines()
+                T2, ttft_cold, _ = wave(f"{dtype} cold turn 2",
+                                        [body(p) for p in P2])
+                mark(f"{dtype}_references")
+                # -- (b) turn 1 with sessions --------------------------------
+                fresh_engines()
+                got, _, mem = wave(f"{dtype} turn 1",
+                                   [body(p, sid) for p, sid in
+                                    zip(prompts[:n], ids)],
+                                   poll_memory=True)
+                check(got == H1, f"{dtype}: turn 1 with sessions differs "
+                      f"from turn 1 without")
+                listing = settled(n)
+                kv_len = {sid: (len(h) - 1) // SESS_PAGE * SESS_PAGE
+                          for sid, h in zip(ids, H1)}
+                for sid in ids:
+                    check(listing[sid]["tokens"] == kv_len[sid],
+                          f"{sid}: {listing[sid]['tokens']} tokens "
+                          f"hibernated, expected {kv_len[sid]}")
+                tiers = {sid: listing[sid]["tier"] for sid in ids}
+                nbytes = [listing[sid]["nbytes"] for sid in ids
+                          if tiers[sid] == "host"]
+                disk = [sid for sid in ids if tiers[sid] == "disk"]
+                corrupt = None
+                if dtype == "fp32":
+                    check(len(disk) >= 2 and "host" in tiers.values(),
+                          f"fp32 tiers after turn 1: {tiers}")
+                    corrupt = disk[-1]
+                    path = checkpoint.tier_blob_path(corrupt)
+                    raw = bytearray(open(path, "rb").read())
+                    raw[len(raw) // 2] ^= 0xFF
+                    with open(path, "wb") as f:
+                        f.write(raw)
+                mark(f"{dtype}_turn1")
+                # -- (c) turn 2 wakes every session --------------------------
+                fresh_engines()
+                serve_metrics.reset()
+                before = call("/serving_stats/")[1]
+                promos = dict(tierstore.TIERS.promotions)
+                timing["admissions"].clear()
+                rids = [f"{dtype}-turn2-{i}" for i in range(n)]
+                got, ttft2, _ = wave(f"{dtype} turn 2",
+                                     [body(p, sid) for p, sid in
+                                      zip(P2, ids)], rids=rids,
+                                     poll_memory=True)
+                for i, (g, w) in enumerate(zip(got, T2)):
+                    check(g == w, f"{dtype} turn 2: stream {i} ({tiers[ids[i]]}"
+                          f" tier) differs from T2")
+                for rid, sid in zip(rids, ids):
+                    want = 0 if sid == corrupt else kv_len[sid]
+                    check(timing["admissions"].get(rid) == want,
+                          f"{sid}: turn 2 aliased "
+                          f"{timing['admissions'].get(rid)} tokens, expected "
+                          f"{want} (prefill only past the session's pages)")
+                moved = {k: v - promos.get(k, 0)
+                         for k, v in tierstore.TIERS.promotions.items()
+                         if v != promos.get(k, 0)}
+                want = {(tiers[sid], "ok") for sid in ids if sid != corrupt}
+                check(set(k for k in moved if k[1] == "ok") == want,
+                      f"{dtype} turn 2 promotions {moved}, expected ok from "
+                      f"{want}")
+                if dtype == "fp32":
+                    check(moved.get(("disk", "corrupt")) == 1
+                          and {"host", "disk"} <= {t for t, _ in want},
+                          f"fp32 turn 2 promotions {moved}")
+                listing2 = settled(n)
+                after = call("/serving_stats/")[1]
+                metr = exposition()
+                check(metr.get("penroz_tier_corrupt_blobs_total", 0)
+                      == after["tier_corrupt_blobs"]
+                      - before["tier_corrupt_blobs"]
+                      == (1 if dtype == "fp32" else 0),
+                      f"{dtype}: corrupt blobs {metr} / {after}")
+                for outcome, n_after in after["tier_promotions"].items():
+                    n_metric = sum(v for k, v in metr.items() if k.startswith(
+                        "penroz_tier_promotions_total{") and
+                        f'outcome="{outcome}"' in k)
+                    check(n_metric == n_after
+                          - before["tier_promotions"][outcome],
+                          f"{dtype}: {outcome} promotions /metrics "
+                          f"{n_metric} != /serving_stats/")
+                for t, n_after in after["tier_demotions"].items():
+                    check(metr.get(f'penroz_tier_demotions_total{{tier="{t}"}}',
+                                   0) == n_after
+                          - before["tier_demotions"][t],
+                          f"{dtype}: {t} demotions /metrics != "
+                          f"/serving_stats/")
+                check(metr["penroz_sessions_hibernated_total"]
+                      == after["sessions_hibernated"] == n
+                      and metr["penroz_sessions_resident"]
+                      == after["sessions_resident"],
+                      f"{dtype}: sessions_* /metrics {metr} != "
+                      f"/serving_stats/")
+                for t in ("hbm", "host", "disk"):
+                    pages = sum(r["pages"] for r in listing2.values()
+                                if r["tier"] == t)
+                    check(metr[f'penroz_tier_pages{{tier="{t}"}}'] == pages,
+                          f"{dtype}: tier_pages {t} != /sessions/")
+                results[dtype] = {
+                    "ttft_cold_s": ttft_cold, "ttft_turn2_s": ttft2,
+                    "tiers": [tiers[sid] for sid in ids],
+                    "corrupt": corrupt, "promotions": {
+                        f"{t}/{o}": v for (t, o), v in moved.items()},
+                    "bytes_a_session": [listing[sid]["nbytes"]
+                                        for sid in ids],
+                    "host_bytes_a_session": nbytes}
+                mark(f"{dtype}_turn2")
+                say("sessions", f"{dtype}: turn 1 = H1 with {n} sessions "
+                    f"(tiers {results[dtype]['tiers']}); turn 2 = T2 for "
+                    f"every stream, promotions {results[dtype]['promotions']}"
+                    f", each woken admission prefilled only its suffix; "
+                    f"/metrics = /serving_stats/; on {card}")
+                for sid in ids:
+                    status, out = call(f"/sessions/{sid}", method="DELETE")
+                    check(status == 200 and out["deleted"] is True,
+                          f"DELETE {sid} -> {status} {out}")
+                    check(not os.path.exists(checkpoint.tier_blob_path(sid)),
+                          f"DELETE {sid} left its disk blob")
+                status, out = call(f"/sessions/{ids[0]}", method="DELETE")
+                check(out == {"session_id": ids[0], "deleted": False},
+                      f"a second DELETE -> {out}")
+                check(sessions()["sessions_resident"] == 0,
+                      f"{dtype}: sessions left after DELETE")
+                if dtype == "int8":
+                    break
+                # -- (d) the restart ------------------------------------------
+                fresh_engines()
+                got, _, _ = wave("fp32 turn 1 again",
+                                 [body(p, sid) for p, sid in
+                                  zip(prompts, ids)])
+                check(got == H1, "fp32 turn 1 again differs from H1")
+                listing = settled(len(ids))
+                disk = sorted(sid for sid in ids
+                              if listing[sid]["tier"] == "disk")
+                status, _ = call("/tenants/acme/quota",
+                                 {"tokens_per_s": None, "tier_mb": 512},
+                                 method="PUT")
+                check(status == 200, f"PUT tier_mb -> {status}")
+                DS.reset()
+                stop_server()
+                with tierstore.TIERS._lock:       # what a kill -9 leaves
+                    tierstore.TIERS._sessions.clear()
+                    tierstore.TIERS._host.clear()
+                    tierstore.TIERS._index.clear()
+                journal.JOURNAL.close()
+                journal.reset()
+                qos.reset()
+                t0 = time.monotonic()
+                serve()                           # create_app recovers
+                recover_s = time.monotonic() - t0
+                listing = {r["session_id"]: r["tier"]
+                           for r in sessions()["sessions"]}
+                check(listing == {sid: "disk" for sid in disk},
+                      f"after the restart /sessions/ lists {listing}, "
+                      f"expected the disk sessions {disk}")
+                dump = call("/debug/dump")[1]["restart_recovery"]
+                check(dump.get("sessions_recovered") == len(disk)
+                      and dump.get("sessions_volatile")
+                      == len(ids) - len(disk),
+                      f"restart_recovery {dump}")
+                quota = call("/tenants/")[1]["tenants"]["tier_overrides"]
+                check(quota == {"acme": 512.0},
+                      f"the journaled tier_mb did not survive: {quota}")
+                i = ids.index(disk[0])
+                got, _, _ = wave("fp32 disk wake after the restart",
+                                 [body(P2[i])])
+                check(got == [T2[i]], "the disk wake after the restart "
+                      "differs from T2")
+                check(tierstore.TIERS.promotions.get(("disk", "ok"), 0) >= 1,
+                      "the wake after the restart was no disk promotion")
+                stats["restart"] = dict(dump, recover_s=recover_s)
+                mark("restart")
+                say("sessions", f"restart: {len(disk)} disk sessions "
+                    f"recovered from the journal ({dump['records_replayed']}"
+                    f" records, {dump['replay_ms']} ms), "
+                    f"{dump['sessions_volatile']} host ones dropped; "
+                    f"restart_recovery in /debug/dump, tier_mb kept, a disk "
+                    f"wake = T2")
+                # -- (e) resumable streams -------------------------------------
+                # the client drops; a few events later the server's write
+                # fails and detaches the stream, before its end
+                rid = "sess-reattach"
+                gates[rid] = lambda s: s.request_id in closed and (
+                    s._next_seq < SESS_STREAM_K + 4
+                    or s.snapshot()["detached"])
+                first = _drop_stream(box["base"], body(prompts[1]), rid)
+                closed.add(rid)
+                deadline = time.monotonic() + 60
+                while not (streams.STREAMS.get(rid)
+                           and streams.STREAMS.get(rid).snapshot()["terminal"]):
+                    check(time.monotonic() < deadline,
+                          "the detached stream did not decode to its end")
+                    time.sleep(0.01)
+                status, _, text = _qos_call(
+                    box["base"],
+                    f"/generate/{rid}/stream?from_seq={SESS_STREAM_K}")
+                check(status == 200, f"reattach -> {status}: {text}")
+                lines = [ln.split(":", 1) for ln in text.split()]
+                check([int(s) for s, _ in lines]
+                      == list(range(SESS_STREAM_K, SESS_NEW + 1))
+                      and lines[-1][1] == "done",
+                      f"reattach sequence numbers {[s for s, _ in lines]}")
+                check(first + [int(v) for _, v in lines[:-1]]
+                      == H1[1][len(prompts[1]):],
+                      "the reattached stream differs from the reference")
+                rid = "sess-expire"
+                gates[rid] = lambda s: s.request_id in closed and (
+                    s._next_seq < SESS_STREAM_K + 4 or s.expired)
+                _drop_stream(box["base"], body(prompts[2]), rid)
+                closed.add(rid)
+                deadline = time.monotonic() + 60
+                while streams.STREAMS.stats()["expired"] < 1 or any(
+                        e.active_rows for e in DS._live_engines()):
+                    check(time.monotonic() < deadline,
+                          "the expired stream's row was not cancelled")
+                    time.sleep(0.01)
+                for e in DS._live_engines():
+                    check(e._ledger.audit("sessions (e)") == [],
+                          "the expired row left the audit unbalanced")
+                    pools = e.memory_snapshot()["pool_pages"]
+                    check(pools["row"] == pools["prefix_pinned"]
+                          == pools["hibernating"] == 0,
+                          f"the expired row left pages: {pools}")
+                st = streams.STREAMS.stats()
+                check((st["detaches"], st["resumes"], st["expired"])
+                      == (2, 1, 1), f"stream counters {st}")
+                stats["streams"] = st
+                mark("streams")
+                say("sessions", f"a stream dropped after {SESS_STREAM_K} "
+                    f"tokens reattached at from_seq={SESS_STREAM_K} within "
+                    f"the 2 s grace (sequence numbers contiguous, tokens = "
+                    f"H1); a second left to expire was cancelled, no page "
+                    f"or pin left")
+                for sid in disk:
+                    call(f"/sessions/{sid}", method="DELETE")
+            stats["waves"] = results
+        DS.reset()
+    finally:
+        KV.PagedKVState.export_pages = real_export
+        checkpoint.save_tier_blob, checkpoint.load_tier_blob = \
+            real_save, real_load
+        DS.DecodeEngine._begin_prefill = real_begin
+        streams.StreamSession.publish = real_publish
+        tierstore.TierStore.fetch = real_fetch
+        KV.PagedKVState.import_pages = real_import
+        if "thread" in box and box["thread"].is_alive():
+            stop_server()
+        tierstore.reset()
+        journal.reset()
+        streams.reset()
+        qos.reset()
+        shutil.rmtree(state_dir, ignore_errors=True)
+        checkpoint.join_flushes()
+    check(not on_card or totals["ragged_paged_attention"] > 0,
+          "the ragged kernel ran no time in the phase")
+
+    def ms(values, q):
+        return round(_pct(values, q) * 1e3, 3) if values else None
+
+    for dtype, r in stats["waves"].items():
+        by_tier = {}
+        for t, v in zip(r["tiers"], r["ttft_turn2_s"]):
+            by_tier.setdefault(t, []).append(v)
+        r["ttft_ms"] = {"cold": (ms(r["ttft_cold_s"], 0.5),
+                                 ms(r["ttft_cold_s"], 1.0))}
+        r["ttft_ms"].update({t: (ms(v, 0.5), ms(v, 1.0))
+                             for t, v in by_tier.items()})
+        say("sessions", f"{dtype} turn-2 TTFT p50/max ms by source tier "
+            f"{r['ttft_ms']} (cold = the reference wave; a corrupt blob's "
+            f"session is in its tier's group); bytes a session "
+            f"{r['bytes_a_session']} (host: payload, disk: file); on {card}")
+    exp = [v / 1e3 for v in timing["export_ms"]]
+    stats["demotion_export_ms"] = (ms(exp, 0.5), ms(exp, 0.99), len(exp))
+    stats["wake_fetch_ms"] = {t: (ms([v / 1e3 for v in vs], 0.5),
+                                  ms([v / 1e3 for v in vs], 1.0), len(vs))
+                              for t, vs in timing["fetch_ms"].items()}
+    imp = [v / 1e3 for v in timing["import_ms"]]
+    stats["wake_import_ms"] = (ms(imp, 0.5), ms(imp, 1.0), len(imp))
+    if on_card:
+        stats["demotion_copy_ms"] = _copy_alternatives(
+            torch, max(max(r["bytes_a_session"])
+                       for r in stats["waves"].values()))
+        say("sessions", f"a session's largest export ({stats['demotion_copy_ms']['bytes']}"
+            f" bytes) to the host, ms (median of 5): synchronous pageable "
+            f"{stats['demotion_copy_ms']['pageable']}, pinned non-blocking "
+            f"enqueue {stats['demotion_copy_ms']['pinned_enqueue']} and "
+            f"done {stats['demotion_copy_ms']['pinned_done']}; on {card}")
+    say("sessions", f"wake: blob fetch ms p50/max by tier "
+        f"{stats['wake_fetch_ms']} (disk: read + CRC), import ms p50/max "
+        f"{stats['wake_import_ms']} (copied to the card, synchronized), "
+        f"all in the worker's admission before the first mixed step")
+    stats["disk_write_mb_s"] = (timing["write"][0] / timing["write"][1] / 1e6
+                                if timing["write"][1] else None)
+    stats["disk_read_mb_s"] = (timing["read"][0] / timing["read"][1] / 1e6
+                               if timing["read"][1] else None)
+    stats["seconds"] = time.monotonic() - t_phase
+    say("sessions", f"demotion export ms p50 {stats['demotion_export_ms'][0]}"
+        f" p99 {stats['demotion_export_ms'][1]} ({len(exp)} demotions, a "
+        f"synchronous copy to the host on the worker); disk tier write "
+        f"{stats['disk_write_mb_s']} MB/s, read {stats['disk_read_mb_s']} "
+        f"MB/s (warm page cache); {stats['seconds']:.1f} s (at the end of "
+        f"each part: {stats['marks']}); device runs {totals} on {card}")
+    return stats, totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="penroz_tpu_torch chip smoke")
     parser.add_argument("--out", help="also write every measurement here "
@@ -6147,6 +6850,9 @@ def main(argv=None) -> int:
         router_stats, router_launches = phase_router(
             torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
             card=card)
+        sess_stats, sess_launches = phase_sessions(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -6171,10 +6877,11 @@ def main(argv=None) -> int:
                           "moe_training": moe_launches,
                           "resilience": res_launches,
                           "qos": qos_launches, "lora": lora_launches,
-                          "router": router_launches}
+                          "router": router_launches,
+                          "sessions": sess_launches}
         for extra in (qwen3_launches, qmoe_launches, moe_launches,
                       res_launches, qos_launches, lora_launches,
-                      router_launches):
+                      router_launches, sess_launches):
             for name_, n in extra.items():
                 launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
@@ -6203,7 +6910,7 @@ def main(argv=None) -> int:
                        "prefix_spec": pf_stats,
                        "resilience": res_stats,
                        "qos": qos_stats, "lora": lora_stats,
-                       "router": router_stats,
+                       "router": router_stats, "sessions": sess_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

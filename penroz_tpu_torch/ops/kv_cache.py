@@ -801,11 +801,7 @@ class PagedKVState(KVState):
         a stale prefix alias is never written through.  A blob of another
         page size or quantization is a ValueError."""
         P, S = self.page_size, self.pages_per_seq
-        if int(blob["page_size"]) != P:
-            raise ValueError(f"page blob page_size {blob['page_size']} != "
-                             f"pool page_size {P}")
-        if bool(blob["quantized"]) != self.quantized:
-            raise ValueError("page blob quantization does not match pool")
+        self._check_blob(blob, P, self.quantized)
         n = int(blob["pages"])
         if n > S:
             raise ValueError(f"import of {n} pages exceeds pages_per_seq={S}")
@@ -817,6 +813,49 @@ class PagedKVState(KVState):
                 if not isinstance(plane, torch.Tensor):   # a numpy plane
                     plane = torch.from_numpy(np.array(plane))
                 a.index_copy_(1, dst, plane.to(self.device, a.dtype))
+        return self
+
+    @staticmethod
+    def _check_blob(blob: dict, page_size: int, quantized: bool):
+        if int(blob["page_size"]) != page_size:
+            raise ValueError(f"page blob page_size {blob['page_size']} != "
+                             f"pool page_size {page_size}")
+        if bool(blob["quantized"]) != quantized:
+            raise ValueError("page blob quantization does not match pool")
+
+    def export_pages(self, pages, length, device: bool = False) -> dict:
+        """Gather an explicit physical page list into an
+        :meth:`export_row_pages`-shaped blob (session hibernation's
+        export: radix-cache pages belong to no row, so no block table
+        resolves them).  ``pages`` are in position order, root to leaf;
+        ``length`` is the token count they cover.  ``device=False``
+        copies the planes to the host."""
+        idx = self._page_rows(pages)
+        blob = {"page_size": self.page_size, "pages": len(pages),
+                "length": int(length), "quantized": self.quantized}
+        for key, pools in zip(self._plane_names(), self._pool_lists()):
+            planes = [a.index_select(1, idx) for a in pools]
+            blob[key] = planes if device else [t.cpu() for t in planes]
+        return blob
+
+    def import_pages(self, pages, blob: dict, blob_offset: int = 0):
+        """Scatter blob pages ``[blob_offset, blob_offset + len(pages))``
+        into an explicit physical page list, in place (a wake's import
+        into freshly inserted radix slots: no row table to restore).  A
+        blob longer than that keeps its surplus hibernated."""
+        P = self.page_size
+        self._check_blob(blob, P, self.quantized)
+        n, off = len(pages), int(blob_offset)
+        if off + n > int(blob["pages"]):
+            raise ValueError(f"import of pages [{off}, {off + n}) exceeds "
+                             f"blob pages={blob['pages']}")
+        dst = self._page_rows(pages)
+        for key, pools in zip(self._plane_names(), self._pool_lists()):
+            for a, plane in zip(pools, blob[key]):
+                if not isinstance(plane, torch.Tensor):   # a numpy plane
+                    plane = torch.from_numpy(np.array(plane))
+                a.index_copy_(1, dst, plane[:, off * P:(off + n) * P]
+                              .to(self.device, a.dtype))
         return self
 
     def _row_bytes(self) -> int:

@@ -27,6 +27,13 @@ text, serve/metrics.py), ``GET /trace/`` (recent request traces,
 flight recorder, serve/memledger.py), ``GET /tenants/`` and
 ``PUT /tenants/{tenant_id}/quota`` (token-rate quotas, serve/qos.py),
 ``GET /dashboard`` (``GET /`` redirects there) and ``GET /static/...``.
+Sessions and streams (the JAX service's routes): ``GET /sessions/`` (the
+hibernated sessions by tier, serve/tierstore.py), ``DELETE
+/sessions/{session_id}`` (out of every tier; an unknown id is a 200 with
+``deleted: false``) and ``GET /generate/{request_id}/stream?from_seq=N``
+(reattach a streamed ``/generate/``: ``seq:value`` lines from ``N`` on,
+404 for an unknown id, 410 behind the replay ring or past the detach
+grace, 422 for a bad ``from_seq``; serve/streams.py).
 Every response carries ``X-Request-Id`` (the client's own when it sent a
 sane one), error bodies carry it as ``request_id``, and log records carry
 it through :class:`~penroz_tpu_torch.utils.tracing.RequestIdFilter`.
@@ -55,8 +62,16 @@ in one batch, the single-sequence path serves a bound copy of the model
 through its decode runner; an unknown adapter is a 400 naming it (every
 bad one with its rows on ``/generate_batch/``), one still loading for
 another request a 409.  ``DELETE /model/`` deletes the model's adapters
-too.  Scheduler features and request fields that are not ported are
-refused with a 400 naming them.  ``shutdown()`` drains: admission stops, the rows in flight
+too.  A ``session_id`` on ``/generate/`` (``session_ids`` per row on
+``/generate_batch/``, a malformed one a 400 naming its rows) hibernates
+the request's KV at retirement; a later prompt that extends it wakes it.
+A streamed ``/generate/`` whose client goes away keeps decoding for
+``PENROZ_STREAM_DETACH_MS`` (0, the default, cancels it at once).  With
+``PENROZ_JOURNAL_PATH`` set, quota overrides, adapter registrations and
+the disk tier's sessions are journaled (serve/journal.py), and
+:func:`create_app` replays the journal before the socket binds.
+Scheduler features that are not ported are refused with a 400 naming
+them.  ``shutdown()`` drains: admission stops, the rows in flight
 get ``PENROZ_DRAIN_S`` (default 5 s) to finish, and every engine's worker
 thread is joined.
 ``PUT /train/`` answers 202 and trains on a background thread, holding one
@@ -84,6 +99,7 @@ import json
 import logging
 import mimetypes
 import os
+import queue
 import re
 import threading
 import time
@@ -105,7 +121,8 @@ from penroz_tpu_torch.models import lora
 from penroz_tpu_torch.models.model import CompiledArch
 from penroz_tpu_torch.serve import adapters
 from penroz_tpu_torch.serve import decode_scheduler as DS
-from penroz_tpu_torch.serve import memledger, openapi, qos, schemas
+from penroz_tpu_torch.serve import (journal, memledger, openapi, qos,
+                                    schemas, streams, tierstore)
 from penroz_tpu_torch.serve import metrics as serve_metrics
 from penroz_tpu_torch.utils import checkpoint, profiling, tracing
 
@@ -123,24 +140,48 @@ class _HTTPError(Exception):
         self.detail = detail
 
 
-# Request fields of JAX-package serving features the port does not have.
-_UNPORTED_FIELDS = {
-    "session_id": "KV session hibernation",
-    "session_ids": "KV session hibernation",
-}
-
-
-def _refuse_unported(body):
-    """ValueError (HTTP 400) naming the first set field, or scheduler or
-    attention knob in the environment, of a serving feature that is not
-    ported."""
+def _refuse_unported():
+    """ValueError (HTTP 400) naming the first scheduler or attention knob
+    in the environment of a serving feature that is not ported."""
     unported_attention_options()
-    for name in body.UNPORTED:
-        if getattr(body, name) is not None:
-            raise ValueError(f"the request field {name!r} selects "
-                             f"{_UNPORTED_FIELDS[name]}, which "
-                             f"penroz_tpu_torch does not support yet")
     DS.unported_serving_options()
+
+
+_SESSION_ID_RE = re.compile(schemas.SESSION_ID_PATTERN)
+
+
+def _batch_session_ids(body, n: int) -> list:
+    """The rows' session ids of /generate_batch/ (``session_ids``, null: no
+    session), each held to ``GenerateRequest.session_id``'s pattern (it
+    names a disk-tier blob file); ValueError (400) for the whole batch
+    otherwise, as in the JAX service."""
+    if body.session_ids is None:
+        return [None] * n
+    if len(body.session_ids) != n:
+        raise ValueError(
+            f"session_ids has {len(body.session_ids)} entries for "
+            f"{n} input row(s); pass one per row (null = no session)")
+    bad = [i for i, sid in enumerate(body.session_ids)
+           if sid is not None and not _SESSION_ID_RE.match(sid)]
+    if bad:
+        raise ValueError(
+            "batched generation rejected: invalid session_id at row(s) "
+            + ", ".join(str(i) for i in bad[:8])
+            + " (allowed: [A-Za-z0-9._-]{1,120})")
+    return list(body.session_ids)
+
+
+def _stream_disconnect(stream, req):
+    """A streaming client went away (a write failed): detach for the grace
+    ``PENROZ_STREAM_DETACH_MS`` gives, let a finished stream's ring linger
+    for a late reconnect, else cancel the request."""
+    if stream.try_detach():
+        return
+    if stream.terminal:
+        stream.release()
+        return
+    req.cancelled = True
+    streams.STREAMS.discard(stream.request_id)
 
 
 class PenrozServer(ThreadingHTTPServer):
@@ -467,7 +508,8 @@ class _Handler(BaseHTTPRequestHandler):
                                     model_id=body.model_id,
                                     stream=bool(body.stream))
         fields = dict(request_id=rid, trace=trace, priority=body.priority,
-                      tenant=body.tenant, adapter=adapter)
+                      tenant=body.tenant, adapter=adapter,
+                      session_id=body.session_id)
         try:
             if not body.stream:
                 tokens = DS.run_request(engine, prompt, body.max_new_tokens,
@@ -501,6 +543,7 @@ class _Handler(BaseHTTPRequestHandler):
                 trace.finish("error")
             raise
         self._start_stream_response()
+        self.close_connection = True
         try:
             while True:
                 kind, value = DS.next_event(req, events)
@@ -519,14 +562,72 @@ class _Handler(BaseHTTPRequestHandler):
                     log.error("Scheduler stream for model %s failed: %r",
                               body.model_id, value)
                     break
-        except OSError:  # the client went away: free the row
-            req.cancelled = True
-        self.close_connection = True
+        except OSError:
+            # the client went away (a write failed): this thread stops
+            # writing; the row decodes on into the replay ring for a
+            # reconnect within the grace, or is cancelled
+            _stream_disconnect(req.stream, req)
+            return True
+        req.stream.release()
         return True
+
+    def resume_stream(self, query):
+        """Reattach to a streamed ``/generate/`` (``GET
+        /generate/{request_id}/stream?from_seq=N``): the events the
+        request's replay ring holds from sequence number ``N`` on, then
+        the live ones, exactly once across the seam (serve/streams.py).
+        Lines are ``seq:value`` (a token, or the terminal ``done``,
+        ``timeout`` or ``error``).  404 for an unknown or purged id, 410
+        when ``N`` fell behind the ring or the detach grace expired, 422
+        for a ``from_seq`` that is not an integer >= 0."""
+        rid = unquote(self.path_params["request_id"])
+        try:
+            from_seq = int(query.get("from_seq", ["0"])[0])
+        except ValueError:
+            raise _HTTPError(422, "from_seq must be an integer")
+        if from_seq < 0:
+            raise _HTTPError(422, "from_seq must be >= 0")
+        sess = streams.STREAMS.get(rid)
+        if sess is None:
+            raise KeyError(f"no resumable stream for request id {rid!r} "
+                           f"(terminal streams linger briefly; expired or "
+                           f"unknown ones do not)")
+        events: queue.Queue = queue.Queue()
+        try:
+            backlog = sess.resume(events, from_seq)
+        except streams.ReplayGapError as exc:
+            self._send_json(410, {"detail": f"Gone: {exc}",
+                                  "request_id": self.request_id})
+            return
+        log.info("Stream %s resumed at seq %d (%d ring event(s) to replay)",
+                 rid, from_seq, len(backlog))
+        self._start_stream_response()
+        self.close_connection = True
+        try:
+            for seq, kind, value in backlog:
+                self._write_seq(seq, kind, value)
+                if kind in ("done", "timeout", "error"):
+                    break
+            else:
+                while True:
+                    seq, kind, value = events.get()
+                    self._write_seq(seq, kind, value)
+                    if kind in ("done", "timeout", "error"):
+                        break
+        except OSError:
+            # the resumed client went away too: the same seam
+            _stream_disconnect(sess, sess.req)
+            return
+        sess.release()
+
+    def _write_seq(self, seq: int, kind: str, value):
+        line = f"{seq}:{value}\n" if kind == "token" else f"{seq}:{kind}\n"
+        self.wfile.write(line.encode())
+        self.wfile.flush()
 
     def generate(self, query):
         body = self._body(schemas.GenerateRequest)
-        _refuse_unported(body)
+        _refuse_unported()
         entry = None
         if body.adapter_id:
             entry = self._acquire_adapter(body.adapter_id, body.model_id)
@@ -587,7 +688,7 @@ class _Handler(BaseHTTPRequestHandler):
         join the shared in-flight batch (with any concurrent /generate/
         traffic) and the batch answers once every row is done."""
         body = self._body(schemas.GenerateBatchRequest)
-        _refuse_unported(body)
+        _refuse_unported()
         row_entries = self._batch_adapters(body)
         try:
             self._generate_batch_pinned(body, row_entries)
@@ -615,6 +716,7 @@ class _Handler(BaseHTTPRequestHandler):
                                device=self.server.device)
         if engine is None:
             raise _HTTPError(503, "every decode engine is busy; retry")
+        sids = _batch_session_ids(body, len(prompts))
         # every row settles, then the batch answers as one: a shed row
         # (429 / 503 / 504) sheds the batch, as in the JAX service.  Each
         # row has a trace of its own, under the id ``<request id>-r<i>``.
@@ -625,11 +727,12 @@ class _Handler(BaseHTTPRequestHandler):
         results = []
         for i, p in enumerate(prompts):
             try:
-                results.append(DS.start_stream(
+                results.append(DS.submit_request(
                     engine, p, body.max_new_tokens, body.stop_token,
                     timeout_ms=body.timeout_ms, request_id=f"{rid}-r{i}",
                     trace=traces[i], priority=body.priority,
-                    tenant=body.tenant, adapter=row_entries[i]))
+                    tenant=body.tenant, adapter=row_entries[i],
+                    session_id=sids[i]))
             except _SHED as exc:
                 results.append(exc)
         for i, handle in enumerate(results):
@@ -721,11 +824,12 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, memledger.memory_stats())
 
     def debug_dump(self, query):
-        """The flight recorder's ring of pre-crash snapshots.  The JAX
-        service's ``restart_recovery`` (journal replay) is not ported and
-        stays empty."""
-        self._send_json(200, dict(memledger.FLIGHT_RECORDER.dump(),
-                                  restart_recovery={}))
+        """The flight recorder's ring of pre-crash snapshots, and what the
+        last restart recovery replayed, dropped and swept (empty before
+        any)."""
+        self._send_json(200, dict(
+            memledger.FLIGHT_RECORDER.dump(),
+            restart_recovery=dict(tierstore.TIERS.last_recovery)))
 
     def list_tenants(self, query):
         """Quota state: overrides, tokens charged and sheds per tenant."""
@@ -735,20 +839,24 @@ class _Handler(BaseHTTPRequestHandler):
 
     def put_tenant_quota(self, query):
         """A tenant's token-rate override (``tokens_per_s: null`` clears
-        it, 0 blocks its new admissions).  ``tier_mb`` (the KV-tier
-        quota) is a 400: the tiers are not ported; so no override is
-        journaled either (the journal is not ported)."""
+        it, 0 blocks its new admissions) and, when the body has
+        ``tier_mb``, its tier residency cap (null clears it).  The PUT is
+        journaled: a restart's recovery replays it, the last one
+        winning."""
         tenant_id = unquote(self.path_params["tenant_id"])
         body = self._body(schemas.TenantQuotaRequest)
-        if body.tier_mb is not None:
-            raise ValueError("the request field 'tier_mb' selects the "
-                             "KV-tier residency quota of hibernated "
-                             "sessions, which penroz_tpu_torch does not "
-                             "support yet")
         if body.tokens_per_s is not None and body.tokens_per_s < 0:
             raise ValueError("tokens_per_s must be >= 0 (or null to clear "
                              "the override)")
         qos.QUOTAS.set_rate(tenant_id, body.tokens_per_s)
+        journal_fields = {"tenant": tenant_id, "rate": body.tokens_per_s}
+        if "tier_mb" in body.model_fields_set:
+            if body.tier_mb is not None and body.tier_mb < 0:
+                raise ValueError("tier_mb must be >= 0 (or null to clear "
+                                 "the override)")
+            qos.QUOTAS.set_tier_mb(tenant_id, body.tier_mb)
+            journal_fields["tier_mb"] = body.tier_mb
+        journal.JOURNAL.append("quota", **journal_fields)
         log.info("Tenant %s quota %s", tenant_id,
                  "cleared (env default)" if body.tokens_per_s is None
                  else f"set to {body.tokens_per_s} tokens/s")
@@ -756,8 +864,25 @@ class _Handler(BaseHTTPRequestHandler):
             "tenant": tenant_id,
             "tokens_per_s": qos.QUOTAS.rate_for(tenant_id),
             "override": body.tokens_per_s is not None,
-            # the KV-tier cap (not ported): 0, unlimited, in the JAX shape
-            "tier_bytes": 0.0})
+            "tier_bytes": qos.QUOTAS.tier_bytes_for(tenant_id)})
+
+    def list_sessions(self, query):
+        """The hibernated sessions in the tiers, across every engine and
+        replica: tier, size and age of each."""
+        sessions = tierstore.TIERS.list_sessions()
+        self._send_json(200, {
+            "sessions": sessions, "sessions_resident": len(sessions),
+            "sessions_by_tier": tierstore.TIERS.sessions_by_tier(),
+            "tier_bytes": tierstore.TIERS.tier_bytes()})
+
+    def delete_session(self, query):
+        """Evict one hibernated session from every tier; idempotent (a
+        session that is not resident: ``deleted: false``)."""
+        sid = unquote(self.path_params["session_id"])
+        deleted = tierstore.TIERS.drop(sid, "api")
+        log.info("Session %s %s", sid, "evicted from the KV tiers"
+                 if deleted else "not resident")
+        self._send_json(200, {"session_id": sid, "deleted": deleted})
 
     def redirect_to_dashboard(self, query):
         self.send_response(302)
@@ -947,6 +1072,10 @@ class _Handler(BaseHTTPRequestHandler):
             body.adapter_id, model,
             {"rank": body.rank, "alpha": body.alpha,
              "targets": body.targets}, seed=body.seed, init=body.init)
+        # the factors are durable as a checkpoint already; the record lets
+        # a restart's recovery account for every registered adapter
+        journal.JOURNAL.append("adapter", adapter_id=body.adapter_id,
+                               model_id=body.model_id)
         self._send_json(200, {
             "adapter_id": body.adapter_id, "model_id": body.model_id,
             "config": blob["config"],
@@ -1039,6 +1168,8 @@ _GET = {"/": _Handler.redirect_to_dashboard,
         "/memory/": _Handler.memory,
         "/debug/dump": _Handler.debug_dump,
         "/tenants/": _Handler.list_tenants,
+        "/sessions/": _Handler.list_sessions,
+        "/generate/{request_id}/stream": _Handler.resume_stream,
         "/dataset/": _Handler.list_dataset,
         "/adapters/": _Handler.list_adapters}
 _POST = {"/model/": _Handler.create_model, "/generate/": _Handler.generate,
@@ -1054,7 +1185,8 @@ _PUT = {"/train/": _Handler.train,
         "/tenants/{tenant_id}/quota": _Handler.put_tenant_quota}
 _DELETE = {"/model/": _Handler.delete_model,
            "/dataset/": _Handler.delete_dataset,
-           "/adapters/": _Handler.delete_adapter}
+           "/adapters/": _Handler.delete_adapter,
+           "/sessions/{session_id}": _Handler.delete_session}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1082,8 +1214,11 @@ def create_app(device=None, host: str = "127.0.0.1",
     ``"cpu"``); ``port=0`` picks a free port (``server.server_address``).
     Call ``serve_forever()`` (e.g. in a thread) and ``shutdown()``.
     ``PENROZ_PROFILER_PORT`` (the JAX package's live profiler server) is a
-    ValueError."""
+    ValueError.  The journal's restart recovery
+    (``tierstore.TIERS.recover()``) runs before the socket binds, so the
+    first ``GET /sessions/`` lists every session that survived."""
     profiling.unported_options()
+    tierstore.TIERS.recover()
     return PenrozServer((host, port), device=device)
 
 

@@ -133,10 +133,21 @@ Models with ``ssm`` layers are refused (HTTP 400): their rows need the
 packed recurrent update (``SSMState.update_packed``), not ported yet.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
 phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
-the contiguous cache, serving meshes, pipeline stages, resumable streams,
-the request journal, the KV session tiers and the KV-tier quota
-(``PENROZ_QOS_TENANT_TIER_MB``); sessions on requests are refused by the
-HTTP layer.
+the contiguous cache, serving meshes and pipeline stages.
+
+Session hibernation (serve/tierstore.py): a request's ``session_id``
+parks its prompt and generated tokens' KV at retirement
+(:meth:`DecodeEngine._maybe_hibernate`: inserted into the radix cache and
+pinned under a hold, the ledger's ``hibernating`` pages); the worker's
+loop tail demotes one pending session a tick to the host tier
+(:meth:`DecodeEngine._process_demotions`, ``export_pages``); an admission
+whose prompt's whole pages match a hibernated session's wakes it
+(:meth:`DecodeEngine._promote_session`: the blob's pages imported into
+fresh radix slots, aliased like a radix hit), with or without a
+``session_id``.  The fault sites ``tier.demote`` and ``tier.promote`` fire
+before either mutates anything.  :func:`start_stream` registers the
+request's resumable stream (serve/streams.py); the journal
+(serve/journal.py) records the tiers' state.
 
 LoRA adapters (models/lora.py, serve/adapters.py): a request's
 ``adapter`` takes one of ``PENROZ_LORA_MAX_LIVE`` live slots (a slot
@@ -169,7 +180,8 @@ from penroz_tpu_torch.models.model import NeuralNetworkModel
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
 from penroz_tpu_torch.serve import adapters as adapters_mod
-from penroz_tpu_torch.serve import memledger, qos, spec_decode
+from penroz_tpu_torch.serve import (journal, memledger, qos, spec_decode,
+                                    streams, tierstore)
 from penroz_tpu_torch.serve import metrics as serve_metrics
 from penroz_tpu_torch.serve.qos import TenantQuotaExceeded
 from penroz_tpu_torch.utils import (bucketing, checkpoint, faults,
@@ -207,16 +219,6 @@ _UNPORTED_SERVING_ENV = (
     ("PENROZ_SERVE_MESH", lambda v: v == "1", "a serving mesh"),
     ("PENROZ_SERVE_PIPE_STAGES", lambda v: _int(v) > 1,
      "pipeline-parallel serving"),
-    ("PENROZ_STREAM_DETACH_MS", lambda v: _float(v) > 0,
-     "resumable streams (decoding on past a client disconnect)"),
-    ("PENROZ_STREAM_REPLAY", lambda v: v.strip() != "",
-     "resumable streams (the reattach replay ring)"),
-    ("PENROZ_JOURNAL_PATH", lambda v: v.strip() != "",
-     "the crash-durability request journal"),
-    ("PENROZ_TIER_HOST_MB", lambda v: _float(v) > 0,
-     "the host tier of KV session hibernation"),
-    ("PENROZ_TIER_DISK_MB", lambda v: _float(v) > 0,
-     "the disk tier of KV session hibernation"),
 )
 
 # Tick-timeline entries served per /serving_stats/ payload (the ring
@@ -397,7 +399,6 @@ def unported_serving_options() -> None:
         if value is not None and selects(value):
             raise ValueError(f"{name}={value!r} selects {what}, which "
                              f"penroz_tpu_torch does not support yet")
-    qos.unported_tier_quota()
 
 
 def eligible(prompt: list[int], block_size: int, max_new_tokens: int) -> bool:
@@ -428,17 +429,19 @@ class Request:
     None-guarded.  ``adapter`` (serve/adapters.py ``AdapterEntry``, pinned
     by the caller until the request's last event) routes the row through
     that adapter's live slot; its id is the tenant when ``tenant`` is
-    None."""
+    None.  ``session_id`` hibernates its KV at retirement
+    (serve/tierstore.py); ``stream`` is its resumable stream
+    (serve/streams.py) when :func:`start_stream` submitted it."""
 
     __slots__ = ("prompt", "max_new_tokens", "stop_token", "on_event",
                  "cancelled", "enqueue_t", "deadline", "request_id",
                  "trace", "priority", "tenant", "resume_history",
                  "resume_produced", "resume_nodes", "preempted", "adapter",
-                 "handoff")
+                 "handoff", "session_id", "stream")
 
     def __init__(self, prompt, max_new_tokens, stop_token, on_event,
                  timeout_ms=None, request_id=None, trace=None,
-                 priority=None, tenant=None, adapter=None):
+                 priority=None, tenant=None, adapter=None, session_id=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.stop_token = stop_token
@@ -458,6 +461,8 @@ class Request:
         self.resume_nodes: list = []
         self.preempted = 0
         self.handoff = None
+        self.session_id = session_id
+        self.stream = None
         self.request_id = request_id
         self.trace = trace
         budget = _effective_timeout_ms(timeout_ms)
@@ -473,7 +478,7 @@ class _Row:
     __slots__ = ("req", "produced", "prefilling", "prefilled", "chunks",
                  "chunk_idx", "history", "prefix_nodes", "admit_t",
                  "resumed", "last_emit_t", "sp_prefill", "sp_decode",
-                 "transit")
+                 "transit", "session_wake")
 
     def __init__(self, req: Request):
         self.req = req
@@ -483,6 +488,9 @@ class _Row:
         # preempt)
         self.admit_t = time.monotonic()
         self.resumed = False
+        # the admission woke a hibernated session: its TTFT also goes to
+        # the session-resume histogram
+        self.session_wake = False
         # a hand-off row whose pages are in flight (a parked exporter row
         # awaiting its ack, an importer row mid-import): the ledger's
         # ``transit`` state, never planned into a block
@@ -615,6 +623,11 @@ class DecodeEngine:
         self._quota_rejections = 0
         self._preemptions = 0
         self._resume_cached_tokens = 0
+        # session hibernation: hibernations and blob promotions this
+        # engine ran, and the TTFT of the admissions that woke a session
+        self._sessions_hibernated = 0
+        self._session_promotions = 0
+        self._h_resume_ttft = metrics_util.Hist()
         self._class_admissions = collections.Counter()
         self._tenant_tokens: dict = {}
         # Latency distributions (utils/metrics.py Hist, the JAX package's
@@ -669,6 +682,13 @@ class DecodeEngine:
         self._slot_entries: list = [None] * self._max_live
         self._row_adapter = np.full(self.capacity, self._max_live, np.int32)
         self._lora_pack = None
+        # hibernation holds: session id -> the pinned radix chain awaiting
+        # demotion (the ledger's ``hibernating`` pages).  The pool they
+        # lived in is gone, so the holds die here and the store drops this
+        # engine's hbm-tier records; host and disk copies survive.
+        self._hib_holds: dict = {}
+        self._hib_pending: collections.deque = collections.deque()
+        tierstore.TIERS.drop_owner(id(self), "engine_reset")
         # the dying cache's underflow count carries into the ledger's
         self._ledger.on_realloc(old_cache)
 
@@ -782,6 +802,10 @@ class DecodeEngine:
             log.error("Decode engine %s: worker thread failed to join "
                       "within %.1fs", self.model_id, timeout)
             return False
+        # hbm-tier sessions die with the pool; demoted host and disk copies
+        # wake on the next engine by content
+        self._drop_hib_holds()
+        tierstore.TIERS.drop_owner(id(self), "engine_shutdown")
         return True
 
     @property
@@ -855,6 +879,7 @@ class DecodeEngine:
                     c: h.snapshot()
                     for c, h in self._h_queue_wait_cls.items()},
                 "handoff_ms": self._h_handoff.snapshot(),
+                "session_resume_ttft_ms": self._h_resume_ttft.snapshot(),
             },
             "model_id": self.model_id,
             "block_size": self.block_size,
@@ -914,6 +939,12 @@ class DecodeEngine:
             "quota_rejections": self._quota_rejections,
             "preemptions": self._preemptions,
             "preempted_resume_cached_tokens": self._resume_cached_tokens,
+            "sessions_hibernated": self._sessions_hibernated,
+            "session_promotions": self._session_promotions,
+            "session_resume_ttft_ms_p50": self._round_q(self._h_resume_ttft,
+                                                        0.5),
+            "session_resume_ttft_ms_p99": self._round_q(self._h_resume_ttft,
+                                                        0.99),
             "queue_depth_by_class": by_class,
             "admissions_by_class": {
                 c: self._class_admissions[c] for c in qos.PRIORITIES},
@@ -959,6 +990,7 @@ class DecodeEngine:
                 while (not self._shutdown
                        and (not self._pending or self._draining)
                        and not self._acks and self._requested_role is None
+                       and not self._hib_pending
                        and self.active_rows == len(self._transit_rows)):
                     if self._transit_rows:
                         self._cond.wait(timeout=0.05)
@@ -981,7 +1013,11 @@ class DecodeEngine:
                         self._admit()
                 finally:
                     self._send_acks()
-                if not self._tick_unified() and self._transit_rows:
+                ticked = self._tick_unified()
+                # a hibernated session goes down a tier only after the
+                # tick served live traffic
+                self._process_demotions()
+                if not ticked and self._transit_rows:
                     # every live row is parked: wait for an ack, not spin
                     with self._cond:
                         if not self._acks and not self._shutdown:
@@ -1337,6 +1373,15 @@ class DecodeEngine:
             nodes = self._prefix_cache.match(eff_prompt,
                                              limit=len(eff_prompt) - 1,
                                              namespace=self._prefix_ns(req))
+            # a hibernated session covering more of the prompt than the
+            # radix cache does imports its blob's pages first
+            try:
+                nodes = self._promote_session(state, req, eff_prompt, nodes)
+            except BaseException:
+                # the request left the queue but has no row yet: park it,
+                # so that crash recovery's _fail_all answers its client
+                self._rows[row] = state
+                raise
             if nodes:
                 self._prefix_cache.pin(nodes)
                 state.prefix_nodes = nodes
@@ -1382,6 +1427,58 @@ class DecodeEngine:
             state.sp_prefill = trace.span(
                 "prefill", prompt_tokens=len(eff_prompt),
                 cached_tokens=state.prefilled, chunks=len(state.chunks))
+
+    def _promote_session(self, state: _Row, req: Request, eff_prompt,
+                         nodes: list) -> list:
+        """Wake a hibernated session for this admission (JAX
+        ``_promote_session``), by content: a session hibernated on another
+        replica, or before an engine reset, wakes here too.  When the
+        radix cache already covers the session's depth the wake costs
+        nothing (``tier="hbm"``); a host or disk blob is imported into
+        freshly inserted radix slots and the chain walked again, which the
+        caller pins and aliases like any radix hit; an unreadable blob is
+        dropped by the store and the admission recomputes.  The
+        ``tier.promote`` fault site fires before any mutation.  Returns
+        the radix chain to alias."""
+        if (req.adapter is not None or self._prefix_cache is None
+                or not tierstore.TIERS.resident_sessions()):
+            return nodes
+        P = self._prefix_cache.page_size
+        rec, depth = tierstore.TIERS.match(
+            eff_prompt, model_id=self.model_id,
+            model_stamp=self._ckpt_stamp_v, page_size=P,
+            quantized=self._kv.quantized)
+        if rec is None:
+            return nodes
+        if depth <= len(nodes):
+            # the pages are still in this radix cache (hibernating here,
+            # or demoted and not yet evicted)
+            state.session_wake = True
+            tierstore.TIERS.note_promotion("hbm", "ok")
+            return nodes
+        if rec.tier == "hbm":
+            # hibernating on another replica whose demotion has not run:
+            # its pages exist only in that engine's pool
+            return nodes
+        sid, tier = rec.session_id, rec.tier
+        faults.check("tier.promote")
+        blob = tierstore.TIERS.fetch(sid)
+        if blob is None:
+            return nodes
+        created = self._prefix_cache.insert(eff_prompt, limit=depth * P)
+        if created:
+            self._kv.import_pages([page for _, page in created], blob,
+                                  blob_offset=created[0][0])
+        out = self._prefix_cache.chain(eff_prompt,
+                                       limit=len(eff_prompt) - 1)
+        state.session_wake = True
+        self._session_promotions += 1
+        tierstore.TIERS.note_promotion(
+            tier, "ok" if len(out) >= depth else "partial")
+        if req.trace is not None:
+            req.trace.event("session_promote", session_id=sid, tier=tier,
+                            imported_pages=len(created), depth_pages=depth)
+        return out
 
     def _tick_unified(self) -> bool:
         """One unified tick: plan an n-step mixed block, run it as ONE
@@ -1701,6 +1798,11 @@ class DecodeEngine:
             serve_metrics.TTFT_MS.observe(ttft_ms)
             serve_metrics.TTFT_BY_CLASS.observe(ttft_ms,
                                                 priority=req.priority)
+            if state.session_wake:
+                # a woken session's TTFT also goes to its own histogram:
+                # warm against cold reads straight off /metrics
+                self._h_resume_ttft.observe(ttft_ms)
+                serve_metrics.SESSION_RESUME_TTFT_MS.observe(ttft_ms)
         if req.trace is not None:
             req.trace.end(state.sp_prefill)
             state.sp_prefill = None
@@ -2223,9 +2325,109 @@ class DecodeEngine:
         self._deliver(state.req, "timeout", DeadlineExceeded(
             "inflight", f"request deadline expired {when}"))
 
+    # -- session hibernation (serve/tierstore.py) ---------------------------
+
+    _HIBERNATE_REASONS = ("stop_token", "max_new_tokens", "pool_capacity")
+
+    def _maybe_hibernate(self, row: int, state: _Row, reason: str):
+        """At a completed retirement, park a ``session_id`` request's
+        prompt and generated tokens' KV: insert the history's full pages
+        into the radix cache (the pages it lacks copied from the row's,
+        still live), pin the chain under a hold and register the session
+        with the tier store.  The worker's demotion pass exports it later;
+        the retirement exports nothing.  Adapter rows are not hibernated
+        (their pages hold the adapter's K/V), as in the JAX package."""
+        req = state.req
+        sid = req.session_id
+        if (sid is None or reason not in self._HIBERNATE_REASONS
+                or req.adapter is not None or self._prefix_cache is None):
+            return
+        P = self._prefix_cache.page_size
+        pages = int(self._lengths[row]) // P
+        if pages <= 0:
+            return
+        kv_len = pages * P
+        created = self._prefix_cache.insert(state.history, limit=kv_len)
+        if created:
+            S = self._kv.pages_per_seq
+            self._kv.copy_pages([row * S + b for b, _ in created],
+                                [page for _, page in created])
+        nodes = self._prefix_cache.chain(state.history, limit=kv_len)
+        if len(nodes) * P < kv_len:
+            # the radix region ran out mid-insert: a partial session could
+            # not resume, so the cached prefix stays a plain radix entry
+            return
+        ok = tierstore.TIERS.register(
+            sid, tenant=req.tenant, model_id=self.model_id,
+            model_stamp=self._ckpt_stamp_v,
+            tokens=tuple(state.history[:kv_len]), kv_len=kv_len,
+            page_size=P, quantized=self._kv.quantized,
+            nbytes=kv_len * self._kv._row_bytes(), owner=id(self),
+            replica=self.replica)
+        if not ok:
+            # the tenant's tier quota refused it; nothing was pinned
+            return
+        # a re-registered id replaced its old record: release its hold
+        old = self._hib_holds.pop(sid, None)
+        if old is not None:
+            self._prefix_cache.unpin(old["nodes"])
+        self._prefix_cache.pin(nodes)
+        self._hib_holds[sid] = {"nodes": nodes, "kv_len": kv_len}
+        self._hib_pending.append(sid)
+        self._sessions_hibernated += 1
+        if req.trace is not None:
+            req.trace.event("session_hibernate", session_id=sid,
+                            kv_len=kv_len, pages=pages)
+
+    def _process_demotions(self):
+        """Worker loop tail: demote one pending hibernated session a tick
+        to the host tier (JAX ``_process_demotions``).  The radix copy
+        stays, unpinned and evictable, so an early wake is free.  The
+        ``tier.demote`` fault site fires before the export; a crash fails
+        the tick, whose reset drops the holds and this engine's hbm-tier
+        records."""
+        if not self._hib_pending:
+            return
+        with self._cond:
+            sid = self._hib_pending.popleft()
+            hold = self._hib_holds.get(sid)
+            if hold is None:
+                return
+            rec = tierstore.TIERS.get(sid)
+            if rec is None or rec.tier != "hbm" or rec.owner != id(self):
+                # deleted through the API, or replaced, while it waited:
+                # release the pin, the pages age out of the radix cache
+                del self._hib_holds[sid]
+                self._prefix_cache.unpin(hold["nodes"])
+                return
+        faults.check("tier.demote")
+        # only this thread writes the pool, and the hold keeps the pages
+        # pinned: the export needs no lock
+        blob = self._kv.export_pages([nd.page for nd in hold["nodes"]],
+                                     hold["kv_len"])
+        with self._cond:
+            del self._hib_holds[sid]
+            self._prefix_cache.unpin(hold["nodes"])
+        # a spill to disk may follow: outside the engine's lock
+        tierstore.TIERS.demote_to_host(sid, blob)
+        # pages went from a hold back to plain cache residency while a
+        # host copy appeared: the books must balance
+        self._audit("tier.demote")
+
+    def _drop_hib_holds(self):
+        """Release every pending hibernation pin (a reload, a shutdown):
+        the radix cache is about to be cleared or abandoned."""
+        if self._prefix_cache is not None:
+            for hold in self._hib_holds.values():
+                self._prefix_cache.unpin(hold["nodes"])
+        self._hib_holds = {}
+        self._hib_pending.clear()
+
     def _retire(self, row: int, notify: bool = True,
                 reason: str = "completed"):
         state = self._rows[row]
+        if state is not None:
+            self._maybe_hibernate(row, state, reason)
         self._rows[row] = None
         self._lengths[row] = 0
         self._last_tok[row] = 0
@@ -2343,6 +2545,11 @@ class DecodeEngine:
                 with self._cond:
                     for req in self._pending:
                         req.resume_nodes = []
+                # hibernation holds' pages vanish with the cache: release
+                # them and drop this engine's hbm-tier records (demoted
+                # copies stay; their stale stamp drops them at match time)
+                self._drop_hib_holds()
+                tierstore.TIERS.drop_owner(id(self), "model_reload")
                 self._prefix_cache.clear()
             # the same for adapters: the live slots and the registry hold
             # factors whose base just changed; a reloaded entry gets a new
@@ -2502,6 +2709,7 @@ def serving_stats() -> dict:
     disaggregation fields add up the replica groups."""
     from penroz_tpu_torch.serve import router as router_mod
     router = router_mod.stats_totals()
+    tiers = tierstore.TIERS.stats()
     per = [e.stats() for e in _live_engines()]
     capacity = sum(p["capacity"] for p in per)
     active = sum(p["active_rows"] for p in per)
@@ -2599,6 +2807,25 @@ def serving_stats() -> dict:
         "disagg_handoff_ms_p99": _merged_q(per, "handoff_ms", 0.99),
         "disagg_transport": _disagg_transport(),
         "disagg_role_changes": sum(p["disagg_role_changes"] for p in per),
+        # the session tiers: the store is process-wide, the counters under
+        # it sum the engines
+        "sessions_resident": tiers["sessions_resident"],
+        "sessions_by_tier": tiers["sessions_by_tier"],
+        "tier_bytes": tiers["tier_bytes"],
+        "tier_promotions": tiers["tier_promotions"],
+        "tier_demotions": tiers["tier_demotions"],
+        "tier_corrupt_blobs": tiers["tier_corrupt_blobs"],
+        "sessions_hibernated": sum(p["sessions_hibernated"] for p in per),
+        "session_promotions": sum(p["session_promotions"] for p in per),
+        "session_resume_ttft_ms_p50": _merged_q(per, "session_resume_ttft_ms",
+                                                0.5),
+        "session_resume_ttft_ms_p99": _merged_q(per, "session_resume_ttft_ms",
+                                                0.99),
+        # crash durability: the journal's counters, the last restart
+        # recovery, the resumable streams
+        "journal": journal.JOURNAL.stats(),
+        "restart_recovery": tiers["restart_recovery"],
+        "streams": streams.STREAMS.stats(),
         "engines_stuck": len(stuck_engines()),
     }
 
@@ -2609,23 +2836,26 @@ def serving_stats() -> dict:
 
 def _queued_request(prompt, max_new_tokens, stop_token, timeout_ms=None,
                     request_id=None, trace=None, priority=None,
-                    tenant=None, adapter=None):
+                    tenant=None, adapter=None, session_id=None):
     events: queue.Queue = queue.Queue()
     req = Request(prompt, max_new_tokens, stop_token,
                   lambda kind, value: events.put((kind, value)),
                   timeout_ms=timeout_ms, request_id=request_id, trace=trace,
-                  priority=priority, tenant=tenant, adapter=adapter)
+                  priority=priority, tenant=tenant, adapter=adapter,
+                  session_id=session_id)
     return req, events
 
 
 def next_event(req: Request, events: queue.Queue, timeout=None):
-    """The next ``(kind, value)`` of ``req``; on ``timeout`` (seconds) the
+    """The next ``(kind, value)`` of ``req`` (a stream's events carry their
+    sequence number first, dropped here); on ``timeout`` (seconds) the
     request is cancelled and TimeoutError raised."""
     try:
-        return events.get(timeout=timeout)
+        event = events.get(timeout=timeout)
     except queue.Empty:
         req.cancelled = True
         raise TimeoutError(f"no scheduler event within {timeout} s")
+    return event[-2:]
 
 
 def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
@@ -2647,22 +2877,45 @@ def collect(req: Request, events: queue.Queue, timeout=None) -> list[int]:
 def run_request(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
                 timeout=None, timeout_ms=None, **fields) -> list[int]:
     """Submit one request (deadline ``timeout_ms``; ``fields``:
-    ``request_id``, ``trace``, ``priority``, ``tenant``, ``adapter``, whose
-    registry pin the caller holds) and wait for its
+    ``request_id``, ``trace``, ``priority``, ``tenant``, ``session_id``,
+    ``adapter``, whose registry pin the caller holds) and wait for its
     full sequence (:func:`collect`).  A shed request raises at once."""
+    req, events = submit_request(engine, prompt, max_new_tokens, stop_token,
+                                 timeout_ms, **fields)
+    return collect(req, events, timeout)
+
+
+def submit_request(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
+                   timeout_ms=None, **fields):
+    """Submit one request (``fields`` as for :func:`run_request`) without
+    waiting; returns ``(req, events)`` for :func:`next_event` and
+    :func:`collect`.  A shed request raises here, before any event."""
     req, events = _queued_request(prompt, max_new_tokens, stop_token,
                                   timeout_ms, **fields)
     engine.submit(req)
-    return collect(req, events, timeout)
+    return req, events
 
 
 def start_stream(engine: DecodeEngine, prompt, max_new_tokens, stop_token,
                  timeout_ms=None, **fields):
     """Submit a streaming request (``fields`` as for :func:`run_request`);
-    returns ``(req, events)``: the caller reads events with
-    :func:`next_event` and sets ``req.cancelled`` when its client goes
-    away.  A shed request raises here, before any event."""
+    returns ``(req, events)``.  Its events go through a resumable
+    :class:`~penroz_tpu_torch.serve.streams.StreamSession` (``req.stream``,
+    registered under the request id): ``events`` carries ``(seq, kind,
+    value)``, which :func:`next_event` reads as ``(kind, value)``.  The
+    caller calls ``req.stream.try_detach()`` when its client goes away
+    (a grace instead of a cancel with ``PENROZ_STREAM_DETACH_MS`` > 0,
+    else it cancels the request) and ``req.stream.release()`` when it has
+    read the end.  A shed request raises here, before any event."""
     req, events = _queued_request(prompt, max_new_tokens, stop_token,
                                   timeout_ms, **fields)
-    engine.submit(req)
+    rid = req.request_id or f"req-{id(req):x}"
+    req.stream = streams.STREAMS.register(rid, req)
+    req.stream.attach_initial(events)
+    req.on_event = req.stream.publish
+    try:
+        engine.submit(req)
+    except Exception:
+        streams.STREAMS.discard(rid)
+        raise
     return req, events

@@ -21,16 +21,19 @@ state:
                          importer's d2d ack, a decode replica's row
                          mid-import (serve/router.py)
 
-The JAX package's ``hibernating`` (a session awaiting tier demotion)
-belongs to a feature that is not ported: it stays in the response at 0,
-so the dashboard and clients read one shape.  A byte ledger covers the rest of the engine's
-device memory (the K/V pools, their int8 scales, the block table, the
-LoRA pack, the model's parameters and buffers), read from the port's own
-tensors, and the host bytes of the adapter registry's cache
-(``adapter_host_cache``); live rows' pages are attributed to their tenant
-and, for adapter rows, to their adapter (``adapter_pages``).  The JAX
-package's ``ssm_state``, ``host_tier`` and ``disk_tier`` stay 0, their
-features not ported.
+- ``hibernating``      — radix pages pinned by a session hibernation hold
+                         awaiting its background demotion
+                         (serve/tierstore.py)
+
+A byte ledger covers the rest of the engine's device memory (the K/V
+pools, their int8 scales, the block table, the LoRA pack, the model's
+parameters and buffers), read from the port's own tensors, and the
+process-wide host components: the adapter registry's cache
+(``adapter_host_cache``) and the session tiers' blobs in host RAM and on
+disk (``host_tier``, ``disk_tier``, from the tier store); live rows'
+pages are attributed to their tenant and, for adapter rows, to their
+adapter (``adapter_pages``).  The JAX package's ``ssm_state`` stays 0
+(SSM rows are not batched by the port's engine).
 
 The ledger does NOT shadow-count at mutation sites:
 :meth:`MemoryLedger.snapshot` *derives* ownership from the authoritative
@@ -41,8 +44,8 @@ views: with ``PENROZ_MEMLEDGER_STRICT=1`` every retirement, preemption and
 crash recovery re-proves
 
     owned + free == pool capacity, zero orphan owners,
-    every radix refcount == the pins derivable from live rows and
-    queued resume holds
+    every radix refcount == the pins derivable from live rows, queued
+    resume holds and hibernation holds
 
 and raises :class:`LedgerAuditError` on the first violation.
 
@@ -78,9 +81,6 @@ DUMP_TICKS_ENV = "PENROZ_DEBUG_DUMP_TICKS"
 #: pool capacity (the audited invariant).  The JAX package's names.
 PAGE_STATES = ("free", "row", "prefix_pinned", "prefix_evictable",
                "preempted", "reserved", "transit", "hibernating")
-#: The states the port's features can populate (``/metrics`` exposes only
-#: these: ``hibernating`` would stay 0).
-PORTED_STATES = PAGE_STATES[:7]
 
 #: Fixed keys of the per-engine byte ledger (``hbm_bytes``); the aggregate
 #: adds the process-wide host components.
@@ -88,7 +88,7 @@ BYTE_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table",
                    "lora_pack", "params", "ssm_state")
 _HOST_COMPONENTS = ("adapter_host_cache", "host_tier", "disk_tier")
 PORTED_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table",
-                     "lora_pack", "params", "adapter_host_cache")
+                     "lora_pack", "params", *_HOST_COMPONENTS)
 
 #: Sliding window of the token-burn-rate estimate (the scheduler's
 #: tokens/s window).
@@ -180,6 +180,11 @@ class MemoryLedger:
         return {nd.page for req in self._engine._pending
                 for nd in req.resume_nodes}
 
+    def _hib_pages(self) -> set:
+        """Pages pinned by hibernation holds awaiting demotion."""
+        return {nd.page for hold in self._engine._hib_holds.values()
+                for nd in hold["nodes"]}
+
     def snapshot(self) -> dict:
         """Derive the ownership map from the engine's structures.
         Consistent from the worker thread or with the engine quiescent;
@@ -215,13 +220,17 @@ class MemoryLedger:
                     aid = state.req.adapter.adapter_id
                     adapter_pages[aid] = adapter_pages.get(aid, 0) + owned
             cache = e._prefix_cache
+            hib_pages = self._hib_pages()
             pinned = evictable = preempted = reserved = cache_pages = 0
+            hibernating = 0
             if cache is not None:
                 cache_pages = cache.capacity_pages
                 reserved = cache.free_pages
                 for nd in cache.iter_nodes():
                     if nd.page in resume_pages:
                         preempted += 1
+                    elif nd.page in hib_pages:
+                        hibernating += 1
                     elif nd.refs > 0:
                         pinned += 1
                     else:
@@ -234,6 +243,7 @@ class MemoryLedger:
                 "prefix_evictable": evictable,
                 "preempted": preempted,
                 "reserved": reserved,
+                "hibernating": hibernating,
             })
             hbm.update(kv.hbm_components())
             hbm["lora_pack"] = lora_pack_bytes(e._lora_pack)
@@ -314,6 +324,8 @@ class MemoryLedger:
                     holders.extend(state.prefix_nodes)
             for req in e._pending:
                 holders.extend(req.resume_nodes)
+            for hold in e._hib_holds.values():
+                holders.extend(hold["nodes"])
             for nd in holders:
                 expected[id(nd)] += 1
             in_tree = set()
@@ -444,10 +456,12 @@ def lora_pack_bytes(pack) -> int:
 
 def _byte_totals(per: list[dict]) -> dict:
     from penroz_tpu_torch.serve import adapters as adapters_mod
+    from penroz_tpu_torch.serve import tierstore
     out = {k: sum(p["hbm_bytes"].get(k, 0) for p in per)
            for k in BYTE_COMPONENTS}
-    out.update(dict.fromkeys(_HOST_COMPONENTS, 0))
     out["adapter_host_cache"] = adapters_mod.REGISTRY.cache_bytes()
+    # the session tiers' blobs: process-wide, like the adapter cache
+    out.update(tierstore.TIERS.tier_bytes())
     return out
 
 

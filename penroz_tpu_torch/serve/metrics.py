@@ -23,7 +23,13 @@ counters   requests_total{outcome}, decode_tokens_total,
            lora_adapter_tokens_total{adapter_id},
            router_affinity_total{outcome}, router_failovers_total,
            disagg_handoffs_total{outcome,transport},
-           disagg_role_changes_total
+           disagg_role_changes_total,
+           tier_promotions_total{tier,outcome}, tier_demotions_total{tier},
+           tier_corrupt_blobs_total, sessions_hibernated_total,
+           journal_appends_total, journal_errors_total,
+           journal_bad_records_total, journal_compactions_total,
+           sessions_recovered_total, stream_detaches_total,
+           stream_resumes_total, stream_detach_expired_total
 gauges     engines, active_rows, queue_depth, batch_occupancy,
            breaker_open, draining, lora_live_adapters, engine_stuck,
            kv_pool_capacity_drops,
@@ -32,20 +38,19 @@ gauges     engines, active_rows, queue_depth, batch_occupancy,
            ops/kv_cache.py), the capacity ledger's pool_pages{state},
            pool_pages_hwm{state}, tenant_kv_pages{tenant},
            hbm_bytes{component} and kv_time_to_exhaustion_s
-           (serve/memledger.py)
+           (serve/memledger.py), the session tiers' tier_pages{tier} and
+           sessions_resident (serve/tierstore.py), streams_detached
+           (serve/streams.py)
 histograms ttft_ms, itl_ms, queue_wait_ms, chunk_stall_ms, tick_ms
            (LATENCY_BUCKETS_MS), tokens_per_dispatch (token-count
            buckets), the per-class pair ttft_ms_by_class{priority} /
-           queue_wait_ms_by_class{priority}, disagg_handoff_ms and
-           disagg_handoff_bytes (byte buckets)
+           queue_wait_ms_by_class{priority}, disagg_handoff_ms,
+           disagg_handoff_bytes (byte buckets) and session_resume_ttft_ms
 
-Left out, with the features they describe (not ported): the session
-tiers' and the journal's (tier_*, sessions_*, session_resume_ttft_ms,
-journal_*), resumable streams' (stream_*, streams_detached), pipeline
+Left out, with the features they describe (not ported): pipeline
 serving's (pipe_*), and jit_programs{function}, which counts XLA
-programs.  The ledger state and byte components of those features
-(hibernating; ssm_state, host_tier, disk_tier) are absent from the
-labelled gauges for the same reason; ``GET /memory/`` keeps them at 0.
+programs.  The ledger's ssm_state byte component is absent from
+hbm_bytes for the same reason; ``GET /memory/`` keeps it at 0.
 """
 
 from __future__ import annotations
@@ -143,6 +148,62 @@ DISAGG_ROLE_CHANGES = REGISTRY.register(m.Counter(
     "penroz_disagg_role_changes_total",
     "Elastic prefill/decode role flips applied by engines at drain "
     "boundaries (PENROZ_DISAGG_ELASTIC=1)"))
+TIER_PROMOTIONS = REGISTRY.register(m.Counter(
+    "penroz_tier_promotions_total",
+    "Hibernated-session KV promotions by source tier and outcome: 'ok' "
+    "(blob scattered into the radix cache and aliased), 'partial' "
+    "(radix allocation ran out of unpinned pages mid-import — the "
+    "promoted prefix is shorter but still valid), 'corrupt' (CRC/"
+    "container failure, treated as a miss), 'stale' (model reloaded "
+    "since hibernation; session dropped), 'miss' (blob vanished "
+    "under the record)", ("tier", "outcome")))
+TIER_DEMOTIONS = REGISTRY.register(m.Counter(
+    "penroz_tier_demotions_total",
+    "Hibernated-session KV spills into a tier: 'host' = HBM radix "
+    "pages exported to the pinned host-RAM blob cache (background "
+    "demotion), 'disk' = host blob written to the disk/shm tier under "
+    "host-cap pressure", ("tier",)))
+TIER_CORRUPT = REGISTRY.register(m.Counter(
+    "penroz_tier_corrupt_blobs_total",
+    "Disk-tier blobs that failed CRC/container validation at promotion "
+    "— each is treated as a cache miss (recompute), never an error"))
+SESSIONS_HIBERNATED = REGISTRY.register(m.Counter(
+    "penroz_sessions_hibernated_total",
+    "Session retirements that hibernated the row's full prompt+"
+    "generated KV into the tier store"))
+JOURNAL_APPENDS = REGISTRY.register(m.Counter(
+    "penroz_journal_appends_total",
+    "Records durably framed into the write-ahead session journal "
+    "(serve/journal.py, PENROZ_JOURNAL_PATH)"))
+JOURNAL_ERRORS = REGISTRY.register(m.Counter(
+    "penroz_journal_errors_total",
+    "Journal appends dropped by a write failure (injected or real) — "
+    "contained: serving continues, restart recovery degrades"))
+JOURNAL_BAD = REGISTRY.register(m.Counter(
+    "penroz_journal_bad_records_total",
+    "Frames dropped by replay truncation (torn tail / CRC mismatch) — "
+    "bounded loss of the newest record(s), never a crash"))
+JOURNAL_COMPACTIONS = REGISTRY.register(m.Counter(
+    "penroz_journal_compactions_total",
+    "Journal rewrites triggered by the dead-record ratio "
+    "(PENROZ_JOURNAL_COMPACT_RATIO)"))
+SESSIONS_RECOVERED = REGISTRY.register(m.Counter(
+    "penroz_sessions_recovered_total",
+    "Hibernated sessions restored into the tier store by startup journal "
+    "replay + disk-scan cross-check (they resume from the disk tier "
+    "instead of cold after a process restart)"))
+STREAM_DETACHES = REGISTRY.register(m.Counter(
+    "penroz_stream_detaches_total",
+    "Client disconnects that detached a /generate/ stream instead of "
+    "cancelling it (PENROZ_STREAM_DETACH_MS grace; decode keeps running)"))
+STREAM_RESUMES = REGISTRY.register(m.Counter(
+    "penroz_stream_resumes_total",
+    "Reconnects via GET /generate/{request_id}/stream?from_seq=N that "
+    "replayed the missed events exactly once from the replay ring"))
+STREAM_EXPIRED = REGISTRY.register(m.Counter(
+    "penroz_stream_detach_expired_total",
+    "Detached streams whose grace window expired with no reconnect — "
+    "the normal cancellation path then fired"))
 
 # -- histograms (the engine observes these alongside its own) ---------------
 
@@ -181,6 +242,12 @@ DISAGG_HANDOFF_BYTES = REGISTRY.register(m.Histogram(
     "size distributions compare directly",
     buckets=(4096, 16384, 65536, 262144, 1048576, 4194304, 16777216,
              67108864)))
+SESSION_RESUME_TTFT_MS = REGISTRY.register(m.Histogram(
+    "penroz_session_resume_ttft_ms",
+    "Enqueue to first token for admissions that resumed a hibernated "
+    "session (radix hit on still-resident pages, or a host/disk-tier "
+    "promotion) — compare against penroz_ttft_ms for the cold-"
+    "re-prefill baseline"))
 
 # -- gauges (scrape-time reads of live state) -------------------------------
 
@@ -237,12 +304,27 @@ ENGINE_STUCK = REGISTRY.register(m.Gauge(
     "penroz_engine_stuck",
     "Engines whose in-flight tick dispatch has exceeded "
     "PENROZ_TICK_WATCHDOG_MS (watchdog; 0 when the knob is off)"))
+TIER_PAGES = REGISTRY.register(m.Gauge(
+    "penroz_tier_pages",
+    "KV pages held per storage tier of the hierarchical session store: "
+    "'hbm' = radix pages pinned awaiting background demotion "
+    "(hibernating ledger state), 'host' = pages in the pinned host-RAM "
+    "blob cache, 'disk' = pages in the disk/shm blob store",
+    labelnames=("tier",)))
+SESSIONS_RESIDENT = REGISTRY.register(m.Gauge(
+    "penroz_sessions_resident",
+    "Hibernated sessions currently resident across all tiers (process-"
+    "wide tier store)"))
+STREAMS_DETACHED = REGISTRY.register(m.Gauge(
+    "penroz_streams_detached",
+    "Resumable /generate/ streams currently inside their disconnect "
+    "grace window, decode still running"))
 
 
 def _wire_gauges():
     from penroz_tpu_torch.ops import kv_cache as KV
     from penroz_tpu_torch.serve import decode_scheduler as ds
-    from penroz_tpu_torch.serve import memledger
+    from penroz_tpu_torch.serve import memledger, streams, tierstore
 
     engines = ds._live_engines
     ENGINES_GAUGE.set_function(lambda: len(engines()))
@@ -261,16 +343,18 @@ def _wire_gauges():
         e.live_adapters for e in engines()))
     POOL_DROPS.set_function(KV.pool_drop_count)
     UNPIN_UNDERFLOW.set_function(KV.unpin_underflow_count)
-    POOL_PAGES.set_function(lambda: memledger.ported(
-        memledger.pool_page_totals(), memledger.PORTED_STATES))
+    POOL_PAGES.set_function(memledger.pool_page_totals)
     POOL_PAGES_HWM.set_function(lambda: memledger.ported(
         memledger.pool_page_hwm_totals(),
-        memledger.PORTED_STATES[1:] + ("used",)))
+        memledger.PAGE_STATES[1:] + ("used",)))
     TENANT_KV_PAGES.set_function(memledger.tenant_page_totals)
     HBM_BYTES.set_function(lambda: memledger.ported(
         memledger.hbm_byte_totals(), memledger.PORTED_COMPONENTS))
     KV_TTE.set_function(memledger.min_time_to_exhaustion)
     ENGINE_STUCK.set_function(lambda: len(ds.stuck_engines()))
+    TIER_PAGES.set_function(tierstore.TIERS.pages_by_tier)
+    SESSIONS_RESIDENT.set_function(tierstore.TIERS.resident_sessions)
+    STREAMS_DETACHED.set_function(streams.STREAMS.detached_count)
 
 
 _WIRED = False

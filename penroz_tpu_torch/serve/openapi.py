@@ -66,6 +66,8 @@ _KINDS = {str: {"type": "string"}, int: {"type": "integer"},
           list: {"type": "array"}, dict: {"type": "object"},
           "int_list": {"type": "array", "items": {"type": "integer"}},
           "str_list": {"type": "array", "items": {"type": "string"}},
+          "opt_str_list": {"type": "array", "items": {
+              "anyOf": [{"type": "string"}, {"type": "null"}]}},
           "int_lists": {"type": "array", "items": {
               "type": "array", "items": {"type": "integer"}}}}
 
@@ -220,12 +222,39 @@ def _routes() -> list[dict]:
              responses=dict([ok])),
         dict(method="put", path="/tenants/{tenant_id}/quota",
              summary="Set (or clear with null) a tenant's token-rate "
-                     "override of PENROZ_QOS_TENANT_TOKENS_PER_S",
+                     "override of PENROZ_QOS_TENANT_TOKENS_PER_S and, with "
+                     "tier_mb, its hibernated-session residency cap "
+                     "(PENROZ_QOS_TENANT_TIER_MB); journaled",
              params=_path_params("tenant_id"),
              body=_body("TenantQuotaRequest"),
-             responses=dict([ok, _resp(400, "Negative tokens_per_s, or "
-                                            "tier_mb (not ported)"),
+             responses=dict([ok, _resp(400, "Negative tokens_per_s or "
+                                            "tier_mb"),
                              _resp(422, "Validation error")])),
+        dict(method="get", path="/sessions/",
+             summary="Hibernated sessions in the KV tiers (hbm, host, "
+                     "disk) across engines and replicas: tier, tokens, "
+                     "pages, bytes, replica and age of each",
+             responses=dict([ok])),
+        dict(method="delete", path="/sessions/{session_id}",
+             summary="Evict one hibernated session from every tier "
+                     "(idempotent: deleted false when not resident)",
+             params=_path_params("session_id"),
+             responses=dict([ok])),
+        dict(method="get", path="/generate/{request_id}/stream",
+             summary="Reattach to a streamed /generate/: seq:value lines "
+                     "from from_seq on (replayed from the request's ring, "
+                     "then live), exactly once; the terminal line is "
+                     "seq:done, seq:timeout or seq:error",
+             params=_path_params("request_id") + [
+                 {"name": "from_seq", "in": "query", "required": False,
+                  "schema": {"type": "integer", "minimum": 0,
+                             "default": 0}}],
+             responses=dict([_resp(200, "seq:value lines"),
+                             _resp(404, "Unknown or purged request id"),
+                             _resp(410, "from_seq behind the replay ring "
+                                        "(PENROZ_STREAM_REPLAY) or the "
+                                        "detach grace expired"),
+                             _resp(422, "from_seq not an integer >= 0")])),
         dict(method="get", path="/healthz",
              summary="Liveness probe (always 200 while the server answers)",
              responses=dict([_resp(200, "Alive")])),

@@ -28,10 +28,9 @@ Knobs::
 Per-tenant rate overrides arrive via ``PUT /tenants/{id}/quota`` and live
 only in :data:`QUOTAS` (process state, not env).  Tenant identity is the
 explicit ``tenant`` field when given, else the request's LoRA adapter id,
-else ``"default"``.  The KV-tier
-residency quota (``PENROZ_QOS_TENANT_TIER_MB``, the ``tier_mb`` field)
-belongs to the session tiers, which are not ported: both are refused with
-a 400 naming them (:func:`unported_tier_quota`).
+else ``"default"``.  A tenant's residency cap over the hibernated-session
+tiers (serve/tierstore.py) is ``PENROZ_QOS_TENANT_TIER_MB`` (0, the
+default, is unlimited), overridden by the ``tier_mb`` of that PUT.
 """
 
 from __future__ import annotations
@@ -72,16 +71,6 @@ def tenant_of(tenant, adapter=None) -> str:
     if adapter:
         return str(adapter)
     return DEFAULT_TENANT
-
-
-def unported_tier_quota() -> None:
-    """ValueError (HTTP 400) when ``PENROZ_QOS_TENANT_TIER_MB`` selects the
-    KV-tier residency quota, whose session tiers are not ported."""
-    value = os.environ.get(TENANT_TIER_ENV)
-    if value is not None and value.strip() not in ("", "0"):
-        raise ValueError(f"{TENANT_TIER_ENV}={value!r} selects the KV-tier "
-                         f"residency quota of hibernated sessions, which "
-                         f"penroz_tpu_torch does not support yet")
 
 
 def weights() -> dict:
@@ -331,6 +320,7 @@ class QuotaManager:
         self._lock = threading.Lock()
         self._buckets: dict[str, _Bucket] = {}
         self._overrides: dict[str, float] = {}
+        self._tier_overrides: dict[str, float] = {}
         self.rejections = collections.Counter()   # tenant -> shed count
         self.charged = collections.Counter()      # tenant -> tokens charged
 
@@ -359,6 +349,33 @@ class QuotaManager:
     def overrides(self) -> dict:
         with self._lock:
             return dict(self._overrides)
+
+    def _env_tier_mb(self) -> float:
+        try:
+            return max(0.0, float(os.environ.get(TENANT_TIER_ENV, "0")))
+        except ValueError:
+            return 0.0
+
+    def tier_bytes_for(self, tenant: str) -> float:
+        """The tenant's hibernated-KV residency cap in bytes (the tier
+        store's admission); 0 is unlimited."""
+        with self._lock:
+            if tenant in self._tier_overrides:
+                return self._tier_overrides[tenant] * 1e6
+        return self._env_tier_mb() * 1e6
+
+    def set_tier_mb(self, tenant: str, mb: float | None) -> None:
+        """Override of the tier residency cap (``PUT /tenants/{id}/quota``);
+        None clears it back to the environment's default."""
+        with self._lock:
+            if mb is None:
+                self._tier_overrides.pop(tenant, None)
+            else:
+                self._tier_overrides[tenant] = max(0.0, float(mb))
+
+    def tier_overrides(self) -> dict:
+        with self._lock:
+            return dict(self._tier_overrides)
 
     def _refill(self, tenant: str, rate: float, now: float) -> _Bucket:
         # Callers hold self._lock.
@@ -405,7 +422,7 @@ class QuotaManager:
         with self._lock:
             return {
                 "overrides": dict(self._overrides),
-                "tier_overrides": {},
+                "tier_overrides": dict(self._tier_overrides),
                 "rejections": dict(self.rejections),
                 "charged": dict(self.charged),
             }
@@ -414,6 +431,7 @@ class QuotaManager:
         with self._lock:
             self._buckets.clear()
             self._overrides.clear()
+            self._tier_overrides.clear()
             self.rejections.clear()
             self.charged.clear()
 

@@ -55,9 +55,14 @@ engine applies the flip at a drain boundary; an affinity entry pointing at
 a replica that became prefill-role ages out at lookup
 (``outcome="stale_role"``).
 
-Left out with the session tiers they serve: the hibernated-session steering
-(``_session_target``) and its ``session_steers``/``session_redirects``
-counters.
+**Session steering**: a prompt with no live affinity entry whose
+whole-page prefix matches a hibernated session (serve/tierstore.py) is
+steered at the replica that hibernated it, whose radix cache holds the
+pages while the session is still in the hbm tier and often after
+(``outcome="session_steer"``).  The steer is a hint: a home replica that
+is breaker-open, draining, shut down or prefill-role is skipped
+(``session_redirect``), and placement wakes the session elsewhere from
+its host or disk blob.
 
 Locks: the router's lock guards its index and counters only and is never
 held while an engine's condition is taken, so a worker thread placing a
@@ -77,7 +82,7 @@ import time
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.serve import decode_scheduler as ds
 from penroz_tpu_torch.serve import metrics as serve_metrics
-from penroz_tpu_torch.serve import qos
+from penroz_tpu_torch.serve import qos, tierstore
 from penroz_tpu_torch.serve.qos import TenantQuotaExceeded
 
 log = logging.getLogger(__name__)
@@ -172,6 +177,10 @@ class EngineRouter:
         self.affinity_hits = 0
         self.affinity_misses = 0
         self.affinity_stale_roles = 0
+        # hibernated-session wakes steered at their home replica, and those
+        # redirected because the home could not take them
+        self.session_steers = 0
+        self.session_redirects = 0
         self.failovers = 0
         # elastic bookkeeping: the last flip request's time (cooldown; the
         # first flip waits for none, whenever the clock's origin) and the
@@ -214,6 +223,34 @@ class EngineRouter:
                 self._affinity.move_to_end(fp)
                 return idx
         return None
+
+    def _session_target(self, req):
+        """The home replica of a hibernated session whose whole-page prefix
+        the prompt matches (JAX ``_session_target``), or None.  A home that
+        is shut down, draining, breaker-open or prefill-role is not
+        steered at (a redirect): placement goes on, and the wake imports
+        the session's blob wherever it lands.  The session's home is kept
+        across a role flip (the replica may flip back)."""
+        if not (KV.paged_enabled() and KV.prefix_cache_enabled()):
+            return None
+        rec = tierstore.TIERS.placement(req.prompt, model_id=self.model_id,
+                                        page_size=KV.default_page_size())
+        if rec is None or rec.replica is None:
+            return None
+        idx = int(rec.replica)
+        if not 0 <= idx < len(self.replicas):
+            return None
+        e = self.replicas[idx]
+        if (e._shutdown or e._draining or e._breaker_open
+                or (self.disagg and e.role != "decode")):
+            with self._lock:
+                self.session_redirects += 1
+            serve_metrics.ROUTER_AFFINITY.inc(outcome="session_redirect")
+            return None
+        with self._lock:
+            self.session_steers += 1
+        serve_metrics.ROUTER_AFFINITY.inc(outcome="session_steer")
+        return idx
 
     def _remember(self, fps, idx: int):
         cap = _affinity_index_cap()
@@ -360,6 +397,10 @@ class EngineRouter:
         self.maybe_rebalance()
         fps = self._fingerprints(req.prompt)
         target = self._affinity_target(fps) if fps else None
+        if target is None and fps:
+            # no live affinity entry (evicted, or aged out by a role
+            # flip): a hibernated session still knows its home
+            target = self._session_target(req)
         order = self._candidates(req, target)
         if not order:
             raise RuntimeError("decode engine is shut down")

@@ -2,13 +2,15 @@
 pydantic models of penroz_tpu/serve/schemas.py, which the machine with the
 card does not have).
 
-A missing required field or a value of the wrong type raises
-:class:`ValidationError` (→ HTTP 422, as pydantic's does); unknown fields
-are ignored, as pydantic's default is.
+A missing required field, a value of the wrong type or a string off its
+field's pattern raises :class:`ValidationError` (→ HTTP 422, as pydantic's
+does); unknown fields are ignored, as pydantic's default is.  A validated
+request's ``model_fields_set`` names the fields the payload carried.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -59,6 +61,9 @@ def _check(kind, v) -> tuple[bool, Any]:
         return ok, [_check(int, x)[1] for x in v] if ok else v
     if kind == "str_list":
         return isinstance(v, list) and all(isinstance(x, str) for x in v), v
+    if kind == "opt_str_list":
+        return isinstance(v, list) and all(x is None or isinstance(x, str)
+                                           for x in v), v
     if kind == "int_lists":
         ok = isinstance(v, list) and all(_check("int_list", x)[0] for x in v)
         return ok, [_check("int_list", x)[1] for x in v] if ok else v
@@ -72,9 +77,12 @@ def _kind_name(kind) -> str:
 
 
 class _Request:
-    """Base: ``FIELDS`` is a tuple of (name, kind, default, nullable)."""
+    """Base: ``FIELDS`` is a tuple of (name, kind, default, nullable);
+    ``PATTERNS`` maps a string field to the regular expression its value
+    must match."""
 
     FIELDS: tuple = ()
+    PATTERNS: dict = {}
 
     @classmethod
     def model_validate(cls, payload):
@@ -99,10 +107,22 @@ class _Request:
                 errors.append({"loc": [name], "type": "type_error",
                                "msg": f"Input should be of type "
                                       f"{_kind_name(kind)}"})
+            elif name in cls.PATTERNS and not re.search(cls.PATTERNS[name],
+                                                        coerced):
+                errors.append({"loc": [name],
+                               "type": "string_pattern_mismatch",
+                               "msg": f"String should match pattern "
+                                      f"'{cls.PATTERNS[name]}'"})
             values[name] = coerced
         if errors:
             raise ValidationError(errors)
-        return cls(**values)
+        request = cls(**values)
+        request.model_fields_set = {name for name, *_ in cls.FIELDS
+                                    if name in payload}
+        return request
+
+
+SESSION_ID_PATTERN = r"^[A-Za-z0-9._-]{1,120}$"
 
 
 @dataclass
@@ -125,8 +145,8 @@ class GenerateRequest(_Request):
     bucket, ``default`` when absent) route a scheduler request through
     the fair queue (serve/qos.py); ``tenant`` absent, an ``adapter_id``
     (a LoRA adapter of the model, serve/adapters.py) is the tenant.
-    ``session_id`` (sessions) is accepted as a field so that it can be
-    refused with a 400: it is not ported."""
+    ``session_id`` (``[A-Za-z0-9._-]{1,120}``: it names a disk-tier blob
+    file) hibernates the request's KV at retirement (serve/tierstore.py)."""
     model_id: str
     input: list
     block_size: int
@@ -155,7 +175,7 @@ class GenerateRequest(_Request):
               ("tenant", str, None, True),
               ("session_id", str, None, True))
 
-    UNPORTED = ("session_id",)
+    PATTERNS = {"session_id": SESSION_ID_PATTERN}
 
 
 @dataclass
@@ -165,8 +185,8 @@ class GenerateBatchRequest(_Request):
     and a shed row sheds the batch.  ``priority`` and ``tenant`` apply to
     every row, as on /generate/.  ``adapter_ids`` (one per row, null for
     the base model) overrides the batch-wide ``adapter_id``.
-    ``session_ids`` (sessions, not ported) is accepted only to be
-    refused."""
+    ``session_ids`` (one per row, null for none) are the rows'
+    ``session_id``s."""
     model_id: str
     inputs: list
     block_size: int
@@ -193,9 +213,7 @@ class GenerateBatchRequest(_Request):
               ("adapter_ids", list, None, True),
               ("priority", str, None, True),
               ("tenant", str, None, True),
-              ("session_ids", list, None, True))
-
-    UNPORTED = ("session_ids",)
+              ("session_ids", "opt_str_list", None, True))
 
 
 @dataclass
@@ -364,9 +382,10 @@ class TenantQuotaRequest(_Request):
     budget per second over emitted + prefilled tokens (burst: one second
     of rate, at least 1 token), overriding
     ``PENROZ_QOS_TENANT_TOKENS_PER_S``; 0 blocks the tenant's new
-    admissions, null clears the override.  ``tier_mb`` (the KV-tier
-    residency quota) is accepted as a field so that it can be refused
-    with a 400: the tiers are not ported."""
+    admissions, null clears the override.  ``tier_mb`` is the tenant's
+    residency cap over the hibernated-session tiers in MB (overriding
+    ``PENROZ_QOS_TENANT_TIER_MB``; null clears the override, absent leaves
+    it as it is)."""
     tokens_per_s: Optional[float]
     tier_mb: Optional[float] = None
 

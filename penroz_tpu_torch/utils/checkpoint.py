@@ -30,6 +30,7 @@ import logging
 import mmap
 import os
 import platform
+import re
 import shutil
 import struct
 import tempfile
@@ -182,6 +183,9 @@ def _decode(buf, source: str = "<bytes>", sections=None):
     read and checked; every other array leaf decodes to None."""
     if buf[:8] != MAGIC:
         raise ValueError("not a penroz checkpoint (bad magic)")
+    if len(buf) < 16:
+        raise ValueError(f"checkpoint corrupt (truncated header) in "
+                         f"{source}")
     (header_len,) = struct.unpack("<Q", buf[8:16])
     if len(buf) < 16 + header_len:
         raise ValueError(f"checkpoint corrupt (truncated header) in "
@@ -205,6 +209,7 @@ def _decode(buf, source: str = "<bytes>", sections=None):
             raw = payload[m["offset"]:end]
             expect = m.get("crc32")
             if expect is not None and (zlib.crc32(raw) & 0xFFFFFFFF) != expect:
+                raw.release()   # the caller's mmap must close
                 raise ValueError(
                     f"checkpoint corrupt (CRC32 mismatch) in {source}: "
                     f"array stream {i} (dtype {m['dtype']}, shape "
@@ -488,3 +493,108 @@ def page_blob_nbytes(blob: dict) -> int:
         for plane in blob.get(key, ()):
             total += int(plane.nbytes)
     return total
+
+
+# ---------------------------------------------------------------------------
+# Tier blobs (the disk tier of session hibernation, serve/tierstore.py)
+# ---------------------------------------------------------------------------
+#
+# The same container under the JAX package's ``tierblob_<id>.ckpt`` name, so
+# a blob written by either package loads in the other.  A tier blob is a
+# hibernated session's KV, meant to outlive engine resets and restarts, so
+# the family lives in a directory of its own (``PENROZ_TIER_DISK_PATH``,
+# default ``tier/`` under the shm models dir) that no other glob touches.
+
+TIER_DISK_ENV = "PENROZ_TIER_DISK_PATH"
+_TIER_RE = re.compile(r"tierblob_(.+?)\.ckpt$")
+_TIER_TEMP_RE = re.compile(r"\.ckpt\.[0-9a-f]{12}$")
+
+
+def tier_dir() -> str:
+    override = os.environ.get(TIER_DISK_ENV)
+    if override:
+        return override
+    return os.path.join(SHM_PATH, MODELS_FOLDER, "tier")
+
+
+def tier_blob_path(blob_id: str) -> str:
+    return os.path.join(tier_dir(), f"tierblob_{blob_id}.ckpt")
+
+
+def save_tier_blob(blob_id: str, data: dict):
+    """Persist one hibernated session's blob (atomic write, a CRC per
+    stream)."""
+    os.makedirs(tier_dir(), exist_ok=True)
+    _atomic_write(tier_blob_path(blob_id), data)
+
+
+def load_tier_blob(blob_id: str) -> dict:
+    """Read a hibernated session's blob.  :raises KeyError: never saved or
+    already reclaimed; :raises ValueError: a CRC or container corruption
+    (the tier store counts it and recomputes)."""
+    try:
+        return _read(tier_blob_path(blob_id))
+    except FileNotFoundError:
+        raise KeyError(f"Tier blob {blob_id} not saved.")
+
+
+def delete_tier_blob(blob_id: str) -> bool:
+    return _remove_quietly(tier_blob_path(blob_id))
+
+
+def tier_blob_nbytes(blob_id: str) -> int:
+    """On-disk size of a stored tier blob (0 when missing): the disk tier's
+    accounting reads the container's size, as ``du`` would."""
+    try:
+        return os.path.getsize(tier_blob_path(blob_id))
+    except OSError:
+        return 0
+
+
+def list_tier_blob_ids() -> list[str]:
+    """Session ids with a finished tier blob on disk, sorted (a torn
+    write's temporary sibling does not match)."""
+    try:
+        names = os.listdir(tier_dir())
+    except FileNotFoundError:
+        return []
+    return sorted(m.group(1) for m in map(_TIER_RE.fullmatch, names) if m)
+
+
+def validate_tier_blob(blob_id: str) -> bool:
+    """Header check (magic and a parseable header) for the restart scan;
+    the per-stream CRCs are checked when the blob is loaded."""
+    try:
+        _read(tier_blob_path(blob_id), sections=())
+        return True
+    except (OSError, ValueError, KeyError, struct.error):
+        return False
+
+
+def sweep_tier_orphans(referenced_ids) -> dict:
+    """The restart sweep of the tier dir: remove the temporary siblings a
+    crash left mid-write (``tierblob_*.ckpt.<12 hex>``) and the finished
+    blobs no recovered or live session references.  ``referenced_ids=None``
+    means the reference set is unknown (the journal's replay failed): the
+    temporaries still go, no finished blob does.  Returns the counts."""
+    d = tier_dir()
+    try:
+        names = os.listdir(d)
+    except FileNotFoundError:
+        return {"temp_files_swept": 0, "blobs_swept": 0}
+    referenced = None if referenced_ids is None else set(referenced_ids)
+    temps = blobs = 0
+    for name in names:
+        path = os.path.join(d, name)
+        if not name.startswith("tierblob_"):
+            continue
+        if _TIER_TEMP_RE.search(name):
+            temps += _remove_quietly(path)
+            continue
+        m = _TIER_RE.fullmatch(name)
+        if m and referenced is not None and m.group(1) not in referenced:
+            blobs += _remove_quietly(path)
+    if temps or blobs:
+        log.info("tier sweep: removed %d orphan temporary file(s) and %d "
+                 "unreferenced blob(s) from %s", temps, blobs, d)
+    return {"temp_files_swept": temps, "blobs_swept": blobs}

@@ -33,8 +33,17 @@ into the serving registry, serve/adapters.py); the disaggregated-prefill
 hand-off's ``disagg.handoff`` (ordinal 1 mid-export, 2 mid-import),
 ``disagg.d2d`` (the d2d transport's exporter-side gather, then the
 importer's scatter) and ``disagg.rebalance`` (an elastic role flip,
-before it changes the role) (serve/decode_scheduler.py).  None sits
-inside a captured CUDA graph.
+before it changes the role) (serve/decode_scheduler.py); the session
+tiers' ``tier.demote`` (a background demotion, before the page export)
+and ``tier.promote`` (a wake, before the blob import touches the radix
+cache or the pool), both crashing the tick into the engine's recovery
+(serve/decode_scheduler.py); ``journal.append`` (each journal frame's
+write: a failure is contained, the record dropped and counted) and
+``journal.replay`` (the start-up replay, before any frame is read: the
+registry recovers empty) (serve/journal.py); ``stream.resume`` (a
+reattach at ``GET /generate/{id}/stream``, before the replay ring is
+read: the HTTP error, the generation running on) (serve/streams.py).
+None sits inside a captured CUDA graph.
 Call counters are per site and process-wide; :func:`reset` clears them
 and the parsed-spec cache.
 """

@@ -9,6 +9,7 @@ imports loading across the two packages."""
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -346,27 +347,19 @@ def test_continuous_batching_matches_single_sequence(
     ({"PAGED_KV_CACHE": "0"}, None),
     ({"PENROZ_SERVE_MESH": "1"}, None),
     ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
-    ({"PENROZ_STREAM_DETACH_MS": "500"}, None),
-    ({"PENROZ_STREAM_REPLAY": "64"}, None),
-    ({"PENROZ_JOURNAL_PATH": "journal.log"}, None),
-    ({"PENROZ_TIER_HOST_MB": "64"}, None),
-    ({"PENROZ_TIER_DISK_MB": "256"}, None),
-    # priority and tenant are ported: an unknown class is a 400 naming the
-    # field, and a tenant serves while the KV-tier quota knob is refused
+    # priority is ported: an unknown class is a 400 naming the field
     ({}, ("priority", "urgent")),
-    ({"PENROZ_QOS_TENANT_TIER_MB": "64"}, ("tenant", "t1")),
-    ({}, ("session_id", "s1")),
     ({}, ("adapter_id", "a1")),
     ({"PENROZ_CONTINUOUS_BATCHING": "0"}, "batch"),
     ({"PENROZ_PROFILER_PORT": "9012"}, "create_app"),
 ])
 def test_unported_serving_options_400(server, paged, monkeypatch, env,
                                       field, toy_gpt_layers, toy_optimizer):
-    """Each scheduler knob and request field of a feature that is not
-    ported is a 400 that names it, on /generate/ and /generate_batch/ (an
-    unknown ``priority`` class too, and the knob when a case sets both);
-    ``PENROZ_PROFILER_PORT`` (jax.profiler's live server) is a ValueError
-    (400) when the server is created."""
+    """Each scheduler knob of a feature that is not ported is a 400 that
+    names it, on /generate/ and /generate_batch/ (an unknown ``priority``
+    class and an unknown adapter too); ``PENROZ_PROFILER_PORT``
+    (jax.profiler's live server) is a ValueError (400) when the server is
+    created."""
     monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
     for name, value in env.items():
         monkeypatch.setenv(name, value)
@@ -386,10 +379,8 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     if field is not None:
         name, value = field
         body[name] = value
-        batch_name = {"session_id": "session_ids"}.get(name, name)
-        batch[batch_name] = ([value] if batch_name == "session_ids"
-                             else value)
-        names = [next(iter(env))] if env else [name, batch_name]
+        batch[name] = value
+        names = [next(iter(env))] if env else [name]
         if name == "adapter_id":
             # ported: an unknown adapter is a 400 naming the adapter, on
             # both routes, as in the JAX service
@@ -402,6 +393,95 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     assert status == 400 and names[0] in text, text
     status, text = _call(server, "POST", "/generate_batch/", batch)
     assert status == 400 and names[-1] in text, text
+
+
+@pytest.mark.parametrize("case", [
+    "PENROZ_STREAM_DETACH_MS", "PENROZ_STREAM_REPLAY", "PENROZ_JOURNAL_PATH",
+    "PENROZ_TIER_HOST_MB", "PENROZ_TIER_DISK_MB", "PENROZ_QOS_TENANT_TIER_MB",
+    "session_id", "session_ids"])
+def test_session_and_stream_options_serve(server, paged, monkeypatch, case,
+                                          toy_gpt_layers, toy_optimizer):
+    """The session tiers', journal's and resumable streams' knobs and
+    request fields serve (200, the JAX package's greedy tokens) and do
+    what they do in the JAX package: the detach grace and the replay
+    ring's capacity read as the JAX functions read them (a ring that holds
+    the whole stream replays it), the journal records a hibernation in a
+    file the JAX package replays, the host and disk caps place a session
+    in their tier, the tenant tier quota caps the tenant's residency as
+    the JAX quota manager computes it (refusing a session past it), and
+    ``session_id`` / ``session_ids`` hibernate the requests' KV."""
+    from penroz_tpu.serve import journal as jjournal
+    from penroz_tpu.serve import qos as jqos
+    from penroz_tpu.serve import streams as jstreams
+    from penroz_tpu_torch.serve import journal, qos, streams, tierstore
+    monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
+    monkeypatch.setenv("PENROZ_PREFIX_CACHE", "1")
+    env = {"PENROZ_STREAM_DETACH_MS": "500", "PENROZ_STREAM_REPLAY": "64",
+           "PENROZ_JOURNAL_PATH": "journal.log",
+           "PENROZ_TIER_HOST_MB": "64", "PENROZ_TIER_DISK_MB": "256",
+           "PENROZ_QOS_TENANT_TIER_MB": "64"}
+    if case in env:
+        monkeypatch.setenv(case, env[case])
+    if case == "PENROZ_TIER_DISK_MB":
+        monkeypatch.setenv("PENROZ_TIER_HOST_MB", "0")
+    jm = JModel("ref", JMapper(toy_gpt_layers, toy_optimizer))
+    jm.serialize(sync_flush=True)
+    want = jm.generate_tokens([1, 2, 3, 4, 5], 16, 3, temperature=0)
+    body = _gen("ref", max_new_tokens=3, session_id="s1", tenant="t1")
+    if case.startswith("PENROZ_STREAM"):
+        body = dict(body, stream=True)
+    for mod in (tierstore, journal, qos, streams):
+        mod.reset()
+    try:
+        if case == "session_ids":
+            status, text = _call(server, "POST", "/generate_batch/", {
+                "model_id": "ref", "inputs": [[1, 2, 3, 4, 5]],
+                "block_size": 16, "max_new_tokens": 3, "temperature": 0,
+                "session_ids": ["s1"], "tenant": "t1"})
+            assert status == 200 and json.loads(text)["sequences"] == [want]
+        elif body.get("stream"):
+            status, text = _call(server, "POST", "/generate/", body)
+            assert status == 200
+            assert [int(t) for t in text.split()] == want[5:]
+        else:
+            status, text = _call(server, "POST", "/generate/", body)
+            assert status == 200 and json.loads(text)["tokens"] == want
+        tier = {"PENROZ_TIER_DISK_MB": "disk"}.get(case, "host")
+        deadline = time.monotonic() + 60
+        while (tierstore.TIERS.get("s1") is None
+               or tierstore.TIERS.get("s1").tier != tier):
+            assert time.monotonic() < deadline, tierstore.TIERS.stats()
+            time.sleep(0.01)
+        assert tierstore.TIERS.get("s1").tenant == "t1"
+        stats = json.loads(_call(server, "GET", "/serving_stats/")[1])
+        assert stats["sessions_hibernated"] == 1
+        if case == "PENROZ_STREAM_DETACH_MS":
+            assert stats["streams"]["detach_grace_ms"] == \
+                jstreams.detach_grace_ms() == 500.0
+        elif case == "PENROZ_STREAM_REPLAY":
+            assert stats["streams"]["replay_capacity"] == \
+                jstreams.replay_capacity() == 64
+            rid = next(iter(streams.STREAMS._sessions))
+            status, text = _call(server, "GET",
+                                 f"/generate/{rid}/stream?from_seq=0")
+            assert status == 200
+            assert [v for v in text.split()][-1] == "3:done"
+        elif case == "PENROZ_JOURNAL_PATH":
+            journal.JOURNAL.close()
+            kinds = [r["t"] for r in jjournal.Journal().replay()]
+            assert kinds[:2] == ["register", "demote"]
+            assert journal.JOURNAL.stats()["appended"] == len(kinds)
+        elif case == "PENROZ_QOS_TENANT_TIER_MB":
+            assert qos.QUOTAS.tier_bytes_for("t1") == \
+                jqos.QUOTAS.tier_bytes_for("t1") == 64e6
+            monkeypatch.setenv(case, "0.000001")    # one byte
+            _call(server, "POST", "/generate/", dict(body, session_id="s2"))
+            assert tierstore.TIERS.get("s2") is None
+            assert tierstore.TIERS.drops["quota_refused"] == 1
+        assert stats["tier_demotions"][tier] == 1
+    finally:
+        for mod in (tierstore, journal, streams):
+            mod.reset()
 
 
 @pytest.mark.parametrize("route", ["generate", "generate_batch"])

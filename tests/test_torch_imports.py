@@ -183,3 +183,58 @@ print(len(tokens), stats["disagg_exports"], stats["disagg_imports"])
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split("\n")[-2] == "9 1 1"
+
+
+def test_session_slice_modules_run_without_jax(tmp_path):
+    """``serve/tierstore.py``, ``serve/journal.py`` and ``serve/streams.py``
+    in a process where JAX and ``penroz_tpu`` cannot be imported: a session
+    hibernates to the disk tier through the journal, the registry recovers
+    it after an engine reset, a stream replays from its ring, and the
+    wake imports the blob."""
+    blocked = sorted({"jax", "jaxlib", "optax", "penroz_tpu"})
+    script = f"""
+import os, queue, sys, time
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(ROOT)!r})
+os.chdir({str(tmp_path)!r})
+os.environ.update(PAGED_KV_CACHE="1", PENROZ_KV_PAGE_SIZE="4",
+                  PENROZ_PREFIX_CACHE="1", PENROZ_TIER_HOST_MB="0",
+                  PENROZ_TIER_DISK_PATH={str(tmp_path / "tier")!r},
+                  PENROZ_JOURNAL_PATH={str(tmp_path / "wal")!r},
+                  PENROZ_MEMLEDGER_STRICT="1")
+from penroz_tpu_torch.utils import checkpoint
+checkpoint.SHM_PATH = {str(tmp_path / "shm")!r}
+os.makedirs(checkpoint.SHM_PATH)
+from penroz_tpu_torch.models import presets
+from penroz_tpu_torch.models.dsl import Mapper
+from penroz_tpu_torch.models.model import NeuralNetworkModel
+from penroz_tpu_torch.serve import decode_scheduler as ds
+from penroz_tpu_torch.serve import journal, streams, tierstore
+m = NeuralNetworkModel("m", Mapper(presets.gpt2_custom(
+    d=16, heads=2, depth=1, vocab=32, block=16), presets.ADAMW),
+    device="cpu")
+m.serialize(sync_flush=True)
+engine = ds.get_engine("m", 16, 0.0, None, device="cpu")
+req, events = ds.start_stream(engine, [1, 2, 3, 4, 5], 4, None,
+                              request_id="r", session_id="s")
+first = ds.collect(req, events, 60)
+while (tierstore.TIERS.get("s") is None
+       or tierstore.TIERS.get("s").tier != "disk"):
+    time.sleep(0.01)
+ring = streams.STREAMS.get("r").resume(queue.Queue(), 0)
+ds.reset()
+tierstore.TIERS._sessions.clear()
+tierstore.TIERS._index.clear()
+journal.JOURNAL.close()
+recovered = tierstore.TIERS.recover()["sessions_recovered"]
+engine = ds.get_engine("m", 16, 0.0, None, device="cpu")
+second = ds.run_request(engine, first + [6], 2, None, timeout=60)
+ds.reset()
+print(len(ring), recovered, tierstore.TIERS.promotions[("disk", "ok")],
+      second[:len(first)] == first)
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[-2] == "5 1 1 True"

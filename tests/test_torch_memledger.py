@@ -215,7 +215,8 @@ def test_memory_keys_match_jax(jmodel):
 def test_debug_dump_holds_the_crash(jmodel, monkeypatch):
     """``GET /debug/dump`` after an injected crash: the recorder entry
     holds the pre-crash ledger (the crashed row's pages), the queue
-    depths and the crashed request's trace id; ``/memory/`` counts it."""
+    depths and the crashed request's trace id; ``/memory/`` counts it.
+    The dump also carries the restart recovery that ``create_app`` ran."""
     from penroz_tpu_torch.serve.app import create_app
     monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
     monkeypatch.setenv(tfaults.ENV, "decode.step:raise@2")
@@ -244,7 +245,12 @@ def test_debug_dump_holds_the_crash(jmodel, monkeypatch):
         assert status == 500 and body["request_id"] == "doomed-1"
         status, dump = get("/debug/dump")
         assert status == 200 and dump["recorded"] == 1
-        assert dump["restart_recovery"] == {}
+        # create_app ran the restart recovery: with no journal it
+        # replayed nothing and recovered nothing
+        recovery = dump["restart_recovery"]
+        assert recovery["journal_enabled"] is False
+        assert recovery["records_replayed"] == 0
+        assert recovery["sessions_recovered"] == 0
         (entry,) = dump["entries"]
         assert entry["reason"] == "engine_crash"
         assert "InjectedFault" in entry["error"]

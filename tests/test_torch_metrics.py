@@ -169,13 +169,23 @@ def test_scrape_after_traffic_parses(workdir, monkeypatch, toy_gpt_layers,
         body = labels[1:-1] + "," if labels else ""
         inf = f'{name}_bucket{{{body}le="+Inf"}}'
         assert got[inf] == got[f"{name}_count{labels}"], fam
-    # LoRA and the replica router are ported: the LoRA gauge reads 0 live
-    # adapters, no adapter emitted a token, and one engine made no router
-    # placement or failover; the other features' series stay absent
+    # LoRA, the replica router and the session tiers are ported: the LoRA
+    # gauge reads 0 live adapters, no adapter emitted a token, one engine
+    # made no router placement or failover, and with no session_id no
+    # session was hibernated, demoted or woken; pipeline serving's and
+    # XLA's series stay absent
     assert got["penroz_lora_live_adapters"] == 0
     assert got["penroz_router_failovers_total"] == 0
     assert got["penroz_disagg_role_changes_total"] == 0
+    assert got["penroz_sessions_hibernated_total"] == 0
+    assert got["penroz_sessions_resident"] == 0
+    assert got["penroz_streams_detached"] == 0
+    assert {s: v for s, v in got.items()
+            if s.startswith("penroz_tier_pages")} == {
+        'penroz_tier_pages{tier="hbm"}': 0, 'penroz_tier_pages{tier="host"}':
+        0, 'penroz_tier_pages{tier="disk"}': 0}
     assert not any(s.startswith(("penroz_lora_adapter_tokens",
                                  "penroz_router_affinity", "penroz_jit",
-                                 "penroz_tier", "penroz_pipe"))
+                                 "penroz_tier_promotions",
+                                 "penroz_tier_demotions", "penroz_pipe"))
                    for s in got)

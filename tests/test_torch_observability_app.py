@@ -17,6 +17,7 @@ import json
 import os
 import re
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -122,6 +123,14 @@ def _gen(prompt=(1, 2, 3), max_new=4, **kw):
                  "temperature": 0}, **kw)
 
 
+def _until_resets(base, n):
+    deadline = time.monotonic() + WAIT_S
+    while json.loads(_call(base, "GET", "/serving_stats/")[2])[
+            "engine_resets"] < n:
+        assert time.monotonic() < deadline, f"no reset {n}"
+        time.sleep(0.01)
+
+
 def _scenarios(base, env):
     """(label, status, X-Request-Id sent or None, response) per request."""
     out = []
@@ -150,6 +159,10 @@ def _scenarios(base, env):
     env.setenv(tfaults.ENV, "decode.step:raise@1+")
     for i in range(3):
         call(f"500-{i}", "POST", "/generate/", _gen(), rid=f"crash{i}")
+        # the 500 leaves before the crash recovery has failed the queue:
+        # the next request goes in once this crash's reset is counted, so
+        # that it crashes a tick of its own
+        _until_resets(base, i + 1)
     call("503", "POST", "/generate/", _gen(), rid="open")
     env.delenv(tfaults.ENV)
     return out

@@ -60,7 +60,8 @@ def test_spec_paths_equal_the_route_tables():
     assert got == _routes()
     templated = {p for _, p in got if "{" in p}
     assert templated == {"/trace/{request_id}", "/tenants/{tenant_id}/quota",
-                         "/static/{path}"}
+                         "/static/{path}", "/sessions/{session_id}",
+                         "/generate/{request_id}/stream"}
     for path in templated:
         for op in spec["paths"][path].values():
             declared = {p["name"] for p in op["parameters"]
@@ -71,9 +72,12 @@ def test_spec_paths_equal_the_route_tables():
                   ("get", "/trace/{request_id}"), ("get", "/memory/"),
                   ("get", "/debug/dump"), ("get", "/tenants/"),
                   ("put", "/tenants/{tenant_id}/quota"),
-                  ("get", "/dashboard")):
+                  ("get", "/dashboard"), ("get", "/sessions/"),
+                  ("delete", "/sessions/{session_id}")):
         assert route[1] in jopenapi.build_spec()["paths"], route
         assert route in got, route
+    # the stream reattach, which the JAX document does not list
+    assert ("get", "/generate/{request_id}/stream") in got
 
 
 @pytest.mark.parametrize("cls", schemas.REQUESTS, ids=lambda c: c.__name__)

@@ -15,7 +15,8 @@ quotas and preemption) against the JAX package's, on the CPU.
   injected ``qos.preempt`` crash recovers with no leaked pin;
   ``PENROZ_QOS_PREEMPT=0`` queues instead of preempting.
 - ``GET /tenants/`` and ``PUT /tenants/{id}/quota`` answer as the JAX
-  app's handlers do; ``tier_mb`` is a 400.
+  app's handlers do, ``tier_mb`` (the session tiers' residency cap)
+  included.
 
 Toy size: a 2-layer d-32 GPT, block 16, pages of 4 tokens, 16 cache
 pages (the JAX suite's ``_preempt_env``)."""
@@ -450,7 +451,17 @@ def test_tenant_routes_match_jax(workdir, monkeypatch):
              ("GET", "/tenants/", None),
              ("PUT", "/tenants/acme/quota", {"tokens_per_s": -1}),
              ("PUT", "/tenants/acme/quota", {}),
-             ("PUT", "/tenants/acme/quota", {"tokens_per_s": "x"})]
+             ("PUT", "/tenants/acme/quota", {"tokens_per_s": "x"}),
+             # the tier residency cap (the session tiers' quota)
+             ("PUT", "/tenants/acme/quota", {"tokens_per_s": 1,
+                                             "tier_mb": 64}),
+             ("GET", "/tenants/", None),
+             ("PUT", "/tenants/acme/quota", {"tokens_per_s": 1}),
+             ("PUT", "/tenants/acme/quota", {"tokens_per_s": 1,
+                                             "tier_mb": -1}),
+             ("PUT", "/tenants/acme/quota", {"tokens_per_s": None,
+                                             "tier_mb": None}),
+             ("GET", "/tenants/", None)]
     try:
         for i, (method, path, body) in enumerate(steps):
             qos.reset()
@@ -466,7 +477,7 @@ def test_tenant_routes_match_jax(workdir, monkeypatch):
                 assert got[1] == want[1], (path, body)
         status, body = _call(ours, "PUT", "/tenants/acme/quota",
                              {"tokens_per_s": 1, "tier_mb": 64})
-        assert status == 400 and "tier_mb" in body["detail"]
+        assert status == 200 and body["tier_bytes"] == 64e6
     finally:
         close()
         srv.shutdown()

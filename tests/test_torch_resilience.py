@@ -331,6 +331,9 @@ def test_server_deadline_caps_every_request(serve, jmodel, env):
         capped = _call(url, "POST", "/generate/",
                        _gen(max_new=13, timeout_ms=100000))[0]
         env.delenv(jfaults.ENV)
+        # the capped row's last slept step may still be running: the short
+        # request's budget starts once the engine is idle
+        _wait(lambda: _stats(url)["active_rows"] == 0, "an idle engine")
         short = _tokens(_call(url, "POST", "/generate/", _gen()))
         env.delenv(DS.REQ_TIMEOUT_ENV)
         return {"plain": plain, "capped": capped, "short": short}
@@ -352,8 +355,14 @@ def test_breaker_default_opens_after_three_crashes_and_probe_closes(
     def scenario(base, env):
         t0 = _tokens(_call(base, "POST", "/generate/", _gen()))
         env.setenv(jfaults.ENV, "decode.step:raise@1+")
-        crashes = [_call(base, "POST", "/generate/", _gen())[0]
-                   for _ in range(3)]
+        crashes = []
+        for i in range(3):
+            crashes.append(_call(base, "POST", "/generate/", _gen())[0])
+            # the 500 leaves before the recovery has failed the queue:
+            # the next request goes in once this crash's reset is counted,
+            # so that it crashes a tick of its own
+            _wait(lambda: _stats(base)["engine_resets"] == i + 1,
+                  "the reset")
         status, headers, text = _call(base, "POST", "/generate/", _gen())
         shed = (status, 1 <= _retry_after(headers) <= 30,
                 "circuit breaker" in json.loads(text)["detail"])
@@ -607,6 +616,10 @@ def test_crash_under_prefix_cache_rematches_cold(serve, jmodel, env):
         env.setenv(jfaults.ENV, "decode.step:raise@1")
         crash = _call(url, "POST", "/generate/", _gen(prompt, max_new=5))[0]
         env.delenv(jfaults.ENV)
+        # the 500 leaves before the recovery has failed the queue: the
+        # next request goes in once the reset is counted, which comes
+        # after that
+        _wait(lambda: _stats(url)["engine_resets"] == 1, "the reset")
         cold = _tokens(_call(url, "POST", "/generate/",
                              _gen(prompt, max_new=5)))
         after_cold = cache(url)

@@ -186,23 +186,21 @@ def test_eligibility_and_unported_options(monkeypatch):
     DS.unported_serving_options()
     for name, value in (("PENROZ_RAGGED_ATTENTION", "0"),
                         ("PENROZ_SERVE_MESH", "1"),
-                        ("PENROZ_SERVE_PIPE_STAGES", "2"),
-                        ("PENROZ_STREAM_DETACH_MS", "500"),
-                        ("PENROZ_STREAM_REPLAY", "64"),
-                        ("PENROZ_JOURNAL_PATH", "journal.log"),
-                        ("PENROZ_TIER_HOST_MB", "64"),
-                        ("PENROZ_TIER_DISK_MB", "0.5")):
+                        ("PENROZ_SERVE_PIPE_STAGES", "2")):
         monkeypatch.setenv(name, value)
         with pytest.raises(ValueError, match=name):
             DS.unported_serving_options()
         monkeypatch.delenv(name)
-    # replicas and disaggregated prefill are ported; a detach grace of 0
-    # and empty tiers leave their features off
+    # replicas, disaggregated prefill, resumable streams, the journal and
+    # the session tiers (and its tenant quota) are ported
     for name, value in (("PENROZ_SCHED_REPLICAS", "2"),
                         ("PENROZ_DISAGG_PREFILL", "1"),
-                        ("PENROZ_STREAM_DETACH_MS", "0"),
-                        ("PENROZ_TIER_HOST_MB", "0"),
-                        ("PENROZ_TIER_DISK_MB", "0")):
+                        ("PENROZ_STREAM_DETACH_MS", "500"),
+                        ("PENROZ_STREAM_REPLAY", "64"),
+                        ("PENROZ_JOURNAL_PATH", "journal.log"),
+                        ("PENROZ_TIER_HOST_MB", "64"),
+                        ("PENROZ_TIER_DISK_MB", "0.5"),
+                        ("PENROZ_QOS_TENANT_TIER_MB", "64")):
         monkeypatch.setenv(name, value)
         DS.unported_serving_options()
     monkeypatch.setenv("PENROZ_SCHED_REPLICAS", "1")

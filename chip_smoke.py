@@ -23,7 +23,9 @@ prints no result:
                window and ALiBi and at T 1000, the Hopper kernels' mask
                and ragged edges) and cross-entropy forward and backward
                (training), paged decode (decode steps, its split edges,
-               and phase 4's prefills of 128, 1004 and 1024 tokens),
+               phase 4's prefills of 128, 1004 and 1024 tokens, and phase
+               4l's phased step: 8 rows at 17-764 keys, fp32 and int8,
+               as the contiguous decode kernel too),
                ragged paged attention (paged pool and continuous
                batching: the GPT-2 mixed step in fp32, bf16 and int8,
                128-row blocks, GQA, window + ALiBi + softcap, padding,
@@ -32,7 +34,10 @@ prints no result:
                chunk and verify spans of 5, 2 and 3 rows, two rows
                aliasing the same 4 pages of the pool's tail; padding
                slots exactly zero, two launches bit-identical, also timed
-               after a read-only flush) and chunked gated linear attention
+               after a read-only flush; phase 4l's pipeline stage: the
+               mixed step on every layer of a stage's view of the pools,
+               layers 4-7 of 12, fp32 and int8) and chunked gated linear
+               attention
                (the hybrid's SSM layers, phase 4c's shapes and B 1 x 4096;
                also held to the token-sequential oracle; two launches
                bit-identical), in fp32 and bf16.  Phase 4d's shapes too
@@ -201,6 +206,29 @@ prints no result:
                source tier against the cold reference, the demotion's
                export ms, bytes a session (fp32, int8) and the disk
                tier's MB/s are printed.
+4l. ticks    — phase_ticks: GPT-2 124M fp32 (4g's checkpoint, read once
+               for the phase), 8 rows, phase 4b's wave (8 streams, prompts
+               of 16-700 tokens, 64 new) through the engine's other tick
+               forms, each on a fresh engine: the phased ticks over the
+               contiguous cache, fp32 and int8 (every stream = its
+               single-sequence tokens, at superstep 8 in fewer dispatches
+               than at 1, with chunks of 128 too; the decode kernel 12
+               times a forward pass); the phased ticks over the paged pool
+               (PENROZ_RAGGED_ATTENTION=0, pages of 128; = the unified
+               engine's tokens, the paged decode kernel 12 times a forward
+               pass, the ragged kernel never); speculation on the phased
+               ticks (4f's shape, K 4, n-gram 3: on = off, an oracle
+               drafter fully accepted); pipeline serving at 2 and 4 stages,
+               fp32 and int8 pages, the prefix cache off and on (= the
+               unpiped tokens, the ragged kernel 12 times a block's step,
+               the bubble fraction, stage_pools partitioning the pool,
+               /metrics' penroz_pipe_* = /serving_stats/, a pipe.handoff
+               fault's host fallback, a pipe.stage_crash's recovery); the
+               legacy /generate_batch/ of 4 rows on both caches (each row
+               = its single-sequence tokens, the decode kernels 12 times a
+               forward pass) and as the open breaker's fallback.  Each
+               engine's rate and, in a traced repeat, the device's busy
+               share are printed.
 4c. hybrid   — a server with the hybrid attention/SSM model
                (presets.hybrid_custom(768, 12, 12, vocab 50304, block 1024,
                ssm_every 2): 6 SSM and 6 attention blocks, fp32, random
@@ -271,13 +299,13 @@ prints no result:
                cross-entropy launches counted.  Then one epoch's time by
                kernel, under torch.profiler (the Python API, same shapes).
 5b. moe_training — the same training path for an MoE model at GPT-2
-               width (moe_train_layers: d 768, 12 heads, 4 blocks, vocab
+               width (moe_train_layers: d 768, 12 heads, 1 block, vocab
                50304, block 1024; each MLP 8 experts of width 3072, top-2,
                capacity dispatch at 1.25, load-balance coefficient 0.01):
                PUT /train/ bf16 at 8 x 1024, step 4, the same launch
                counts, costs finite and falling, greedy /generate/ twice
-               identical; then GET /stats/'s moe_router_fractions (4
-               entries of 8 finite values, each summing to 1 within 1e-5),
+               identical; then GET /stats/'s moe_router_fractions (1
+               entry of 8 finite values, each summing to 1 within 1e-5),
                the greedy tokens again under PAGED_KV_CACHE=1, and a
                POST /dataset/ that ends failed with the datasets module
                blocked in process (this machine has it, and a download
@@ -653,6 +681,10 @@ def run_case(torch, case, flush):
                 clean_ms)
 
 
+# the phased ticks' shared step (phase 4l): 8 rows, each at its own length
+PHASED_LENGTHS = [17, 764, 300, 45, 612, 129, 256, 500]
+
+
 def kernel_cases():
     gpt2 = dict(B=1, Hq=12, Hkv=12, S=1024, D=64)
     gqa = dict(B=1, Hq=32, Hkv=8, S=1024, D=128)
@@ -715,6 +747,12 @@ def kernel_cases():
         # bf16): a decode step at 1024 keys
         dict(B=1, Hq=16, Hkv=16, S=1024, D=128,
              name="qmoe_decode_L1024_bf16", T=1, L=1024, dtype="bfloat16"),
+        # phase 4l's phased shared step over the contiguous cache: 8 rows
+        # with their own lengths, fp32 and int8
+        dict(gpt2, name="gpt2_phased_B8_lengths_17_764", B=8, T=1,
+             lengths=PHASED_LENGTHS, dtype="float32"),
+        dict(gpt2, name="gpt2_phased_B8_lengths_17_764_int8", B=8, T=1,
+             lengths=PHASED_LENGTHS, dtype="float32", int8=True),
     ]
     for i, c in enumerate(cases):
         c["seed"] = i
@@ -1078,7 +1116,10 @@ def run_paged_case(torch, case, flush):
 
 def run_ragged_case(torch, case, flush):
     """The ragged kernel against its plain version; one row.  ``spans``:
-    (q_start, q_len) per row (row i is span i)."""
+    (q_start, q_len) per row (row i is span i).  ``stage`` = (layers, lo,
+    hi): the kernel runs on a pipeline stage's view of a cache of that
+    many layers (``stage_kv_view``), every layer of [lo, hi) held to the
+    plain version; the row times layer lo."""
     from penroz_tpu_torch.ops import attention as A
     from penroz_tpu_torch.ops import kv_cache as KV
     from penroz_tpu_torch.ops.kernels import decode_attention as DA
@@ -1095,6 +1136,36 @@ def run_ragged_case(torch, case, flush):
     k, v, table, scales = _random_pools(torch, ends, Hkv, D, P, pages,
                                         dtype, case.get("int8"), case["seed"],
                                         shared=shared)
+    slice_layers = []
+    if case.get("stage"):
+        # a pipeline stage's view of a cache of n layers: the pools of
+        # layers [lo, hi), the very tensors; the row times the first
+        n, lo, hi = case["stage"]
+        layers = []
+        for j in range(n):
+            if j == lo:
+                layers.append((k, v, scales))
+                continue
+            k_j, v_j, _, s_j = _random_pools(
+                torch, ends, Hkv, D, P, pages, dtype, case.get("int8"),
+                case["seed"] + 1000 * (j + 1), shared=shared)
+            layers.append((k_j, v_j, s_j))
+        args = ([x[0] for x in layers], [x[1] for x in layers],
+                table.cpu().numpy(), P, pages)
+        kv = (KV.QuantPagedKVState(*args, [x[2]["k_scale"] for x in layers],
+                                   [x[2]["v_scale"] for x in layers],
+                                   device="cuda")
+              if case.get("int8") else KV.PagedKVState(*args, device="cuda"))
+        view = KV.stage_kv_view(kv, lo, hi)
+        check(all(a is b for a, b in zip(view.k, kv.k[lo:hi]))
+              and view.k[0] is k and view.block_table is kv.block_table,
+              f"{case['name']}: the stage view is not the pools' own")
+        table = view.block_table
+        slice_layers = [(view.k[j], view.v[j],
+                         {"k_scale": view.k_scale[j],
+                          "v_scale": view.v_scale[j]}
+                         if case.get("int8") else {})
+                        for j in range(1, hi - lo)]
     need = sum(-(-n // BQ) for _, _, n in spans)
     NB = bucketing.bucket_count(need + case.get("padding", 0))
     descs_np, offsets = KV.build_descriptors(spans, BQ, NB)
@@ -1125,6 +1196,16 @@ def run_ragged_case(torch, case, flush):
     err, ratio, text = _tolerance(
         torch, out, ref, lambda: RPA.ragged_paged_attention_reference(
             q, k, _abs(v), table, P, descs, **scales, **kw), case["dtype"])
+    for k_j, v_j, s_j in slice_layers:   # the stage's other layers
+        e_j, r_j, _ = _tolerance(
+            torch, RPA.ragged_paged_attention(q, k_j, v_j, table, P, descs,
+                                              **s_j, **kw),
+            RPA.ragged_paged_attention_reference(q, k_j, v_j, table, P,
+                                                 descs, **s_j, **kw),
+            lambda: RPA.ragged_paged_attention_reference(
+                q, k_j, _abs(v_j), table, P, descs, **s_j, **kw),
+            case["dtype"])
+        err, ratio = max(err, e_j), max(ratio, r_j)
     check(ratio <= 1.0, f"{case['name']}: max abs err {err:.3e}, "
           f"{ratio:.2f} x the tolerance {text}")
     iters = case.get("iters", 20)
@@ -1234,6 +1315,11 @@ def paged_cases():
         # phase 4e's paged decode step: MHA 16/16, D 128, bf16
         dict(qwen3, Hkv=16, name="paged_qmoe_decode_L1024_bf16",
              lengths=[1024], dtype="bfloat16"),
+        # phase 4l's phased shared step over the paged pool
+        dict(gpt2, name="paged_gpt2_phased_B8_17_764",
+             lengths=PHASED_LENGTHS, dtype="float32"),
+        dict(gpt2, name="paged_gpt2_phased_B8_17_764_int8",
+             lengths=PHASED_LENGTHS, dtype="float32", int8=True),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 200 + i
@@ -1290,6 +1376,13 @@ def ragged_cases():
         dict(gpt2, name="ragged_gpt2_prefix_verify_int8",
              spans=prefix_verify, shared=((0, 1), 4), dtype="float32",
              int8=True),
+        # phase 4l's pipeline stage: the mixed step against a stage's view
+        # of the pools (layers [4, 8) of 12, stage_kv_view), every layer of
+        # the slice held to the plain version, fp32 and int8
+        dict(gpt2, name="ragged_gpt2_stage_slice_4_8", spans=mixed,
+             dtype="float32", stage=(12, 4, 8)),
+        dict(gpt2, name="ragged_gpt2_stage_slice_4_8_int8", spans=mixed,
+             dtype="float32", int8=True, stage=(12, 4, 8)),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 300 + i
@@ -3745,9 +3838,10 @@ def phase_training(torch, layers, optimizer, vocab, card,
 
 
 # Phase 5b's model: GPT-2 width (d 768, 12 heads, vocab 50304, block
-# 1024) at 4 blocks whose MLPs are ``moe`` layers: 8 experts of width
-# 3072, top-2, capacity dispatch at 1.25, load-balance coefficient 0.01.
-MOE_TRAIN = dict(d=768, heads=12, depth=4, vocab=50304, block=1024)
+# 1024) at 1 block whose MLP is a ``moe`` layer: 8 experts of width
+# 3072, top-2, capacity dispatch at 1.25, load-balance coefficient 0.01
+# (1 block keeps the script inside its time).
+MOE_TRAIN = dict(d=768, heads=12, depth=1, vocab=50304, block=1024)
 MOE_ARGS = dict(num_experts=8, top_k=2, intermediate_size=3072,
                 dispatch="capacity", capacity_factor=1.25,
                 aux_loss_coef=0.01)
@@ -6796,6 +6890,550 @@ def phase_sessions(torch, layers, optimizer, block, vocab, card,
     return stats, totals
 
 
+# ---------------------------------------------------------------------------
+# 4l: the engine's other tick forms (phased, pipelined) and legacy batches
+# ---------------------------------------------------------------------------
+
+TICKS_ENV = dict(CB_ENV, PENROZ_KV_PAGE_SIZE="128", PENROZ_PREFIX_CACHE="0",
+                 PENROZ_MEMLEDGER_STRICT="1", TURBO_QUANT_KV_CACHE="0",
+                 PENROZ_SPEC_DECODE="0", PENROZ_SCHED_SUPERSTEP="8",
+                 PENROZ_PREFILL_CHUNK="256", PENROZ_RAGGED_ATTENTION="1",
+                 PENROZ_SERVE_PIPE_STAGES="1")
+# phase 4b's wave: 8 greedy requests of these prompt lengths, 64 new each
+TICKS_LENS = CB_PROMPT_LENS
+TICKS_NEW = CB_NEW_TOKENS
+TICKS_STAGES = (2, 4)
+TICKS_SMALL_CHUNK = 128      # against PENROZ_PREFILL_CHUNK's default 256
+# the legacy /generate_batch/: 4 of the wave's prompts (16-700 tokens)
+TICKS_LEGACY_ROWS = (0, 3, 6, 7)
+
+
+def phase_ticks(torch, layers, optimizer, block, vocab, card, device="cuda",
+                model_id="smoke_res"):
+    """GPT-2 124M fp32 (phase 4g's checkpoint, created when absent), 8
+    rows, phase 4b's wave (8 concurrent streamed greedy /generate/,
+    prompts of TICKS_LENS tokens, numpy seed 0, 64 new each) through the
+    engine's other tick forms, each on a fresh engine:
+
+    (a) the phased ticks over the contiguous cache (continuous batching
+        without PAGED_KV_CACHE), fp32 and int8: every stream = that
+        prompt's single-sequence tokens on the same cache (T_c, in
+        process); superstep 1 and PENROZ_PREFILL_CHUNK=128 give the same
+        tokens, superstep 8 in fewer dispatches; the decode kernel's
+        device runs = 12 x the engine's forward passes (shared and fused
+        steps, chunks, verify spans).
+    (b) the phased ticks over the paged pool (PENROZ_RAGGED_ATTENTION=0,
+        pages of 128): every stream = the unified engine's (T_u, the same
+        wave unified); the paged decode kernel's runs = 12 x forward
+        passes, the ragged kernel's none.
+    (c) speculation on the phased contiguous ticks (phase 4f's wave: 8
+        prompts S x 4 searched so that each row drafts, 128 new;
+        PENROZ_SPEC_DECODE=1, K 4, n-gram 3): spec on = spec off, verify
+        spans run; an oracle drafter (the spec-off continuation) is fully
+        accepted.
+    (d) pipeline serving, PENROZ_SERVE_PIPE_STAGES 2 and 4 over the 12
+        blocks, fp32 and int8 pages, the prefix cache off and on: every
+        stream = the unpiped engine's (T_u, and its int8 repeat); the
+        ragged kernel's runs = 12 x the blocks' steps; the bubble
+        fraction; /memory/'s stage_pools partition the pool; a pipe.handoff
+        fault gives one host fallback and the same tokens; a
+        pipe.stage_crash recovers the group and the next request = T_u;
+        /metrics' penroz_pipe_* = /serving_stats/.
+    (e) the legacy /generate_batch/ (continuous batching off) of 4 of the
+        prompts, contiguous and paged: each row = its single-sequence
+        tokens, the decode kernels' runs = 12 x (prefill + steps); with the
+        breaker open (one crash, PENROZ_ENGINE_MAX_CRASHES=1) and
+        PENROZ_SCHED_FALLBACK=1 the batch is answered by the legacy path
+        with the same rows.
+
+    Prints each engine's wave rate and the device's busy share over the
+    wave's first ROUTER_BUSY_WINDOW_S (phased contiguous, phased paged,
+    unified, piped S 2 and 4: torch.profiler's device trace of that
+    window, parsed after the wave's clock stops), the bubble fractions and
+    a host bounce of a hand-off's activations.  Returns (stats, the phase's
+    device runs of the three kernels).  ``device="cpu"`` rehearses it at a
+    toy size through the plain versions (no kernel counts)."""
+    import numpy as np
+
+    from penroz_tpu_torch.models.model import CompiledArch, NeuralNetworkModel
+    from penroz_tpu_torch.ops.kernels import decode_attention as DA
+    from penroz_tpu_torch.ops.kernels import paged_attention as PA
+    from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
+    from penroz_tpu_torch.serve import app as app_mod
+    from penroz_tpu_torch.serve import decode_scheduler as DS
+    from penroz_tpu_torch.serve import spec_decode
+    from penroz_tpu_torch.utils import checkpoint, faults
+
+    t_phase = time.monotonic()
+    on_card = device != "cpu"
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in TICKS_LENS]
+    spec_new = SPEC_NEW_TOKENS
+    kernels = {"decode_attention": DA.decode_attention,
+               "paged_decode_attention": PA.paged_decode_attention,
+               "ragged_paged_attention": RPA.ragged_paged_attention}
+    totals = dict.fromkeys(kernels, 0)
+    stats = {"marks": {}, "rates": {}}
+
+    def mark(part):
+        stats["marks"][part] = round(time.monotonic() - t_phase, 1)
+
+    def runs():
+        """Each kernel's device runs since the last call (then zeroed)."""
+        out = {}
+        for name, fn in kernels.items():
+            out[name] = fn.runs.read()
+            totals[name] += out[name]
+            fn.runs.reset()
+            fn.launches = 0
+        return out
+
+    def arm(spec):
+        faults.reset()
+        if spec:
+            os.environ[faults.ENV] = spec
+        else:
+            os.environ.pop(faults.ENV, None)
+
+    def call(path, body=None, method=None):
+        status, _, text = _qos_call(base, path, body, method)
+        try:
+            return status, json.loads(text) if text else None
+        except ValueError:
+            return status, text
+
+    def body(p, n=TICKS_NEW):
+        return {"model_id": model_id, "input": [p], "block_size": block,
+                "max_new_tokens": n, "temperature": 0}
+
+    def wave(tag, ps=prompts, n=TICKS_NEW, kernel=None, profiled=False):
+        """The streams on a fresh engine of the current knobs, opened one
+        after another and then read: (sequences, the engine's stats, the
+        kernels' runs, (busy ms, window ms) or None).  ``kernel``: the
+        attention kernel whose device runs must be 12 x the engine's
+        forward passes (the others none)."""
+        DS.reset()
+        engine = DS.get_engine(model_id, block, 0, None,
+                               device=server.device)
+        check(engine is not None, f"{tag}: no engine")
+        runs()
+        busy = None
+        prof = None
+        if profiled and on_card:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.monotonic()
+        resps = []
+        for p in ps:
+            req = urllib.request.Request(
+                base + "/generate/",
+                data=json.dumps(dict(body(p, n), stream=True)).encode(),
+                method="POST", headers={"Content-Type": "application/json"})
+            resps.append(urllib.request.urlopen(req, timeout=900))
+        window_ms = None
+        if prof is not None:
+            # the trace's first ROUTER_BUSY_WINDOW_S from the submissions;
+            # its events are parsed after the wave's clock stops
+            time.sleep(max(0.0, ROUTER_BUSY_WINDOW_S
+                           - (time.monotonic() - t0)))
+            torch.cuda.synchronize()
+            window_ms = (time.monotonic() - t0) * 1e3
+            prof.__exit__(None, None, None)
+        outs = []
+        for p, resp in zip(ps, resps):
+            with resp:
+                check(resp.status == 200, f"{tag}: status {resp.status}")
+                outs.append(p + [int(line) for line in resp])
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if prof is not None:
+            busy = (sum(_device_kernel_ms(torch, prof).values()),
+                    min(window_ms, wall * 1e3))
+            check(busy[0] > 0, f"{tag}: the profiler saw no device time")
+        counts = runs()
+        st = engine.stats()
+        passes = engine._forward_passes
+        for i, seq in enumerate(outs):
+            check(len(seq) == len(ps[i]) + n, f"{tag}: stream {i} came "
+                  f"back short")
+        if kernel is not None and on_card:
+            want = {name: (n_attn * passes if name == kernel else 0)
+                    for name in kernels}
+            check(counts == want and passes > 0,
+                  f"{tag}: device runs {counts} for {passes} forward passes "
+                  f"x {n_attn} layers, expected {want}")
+        stats["rates"][tag] = {
+            "tokens_per_s": len(ps) * n / wall, "wall_s": wall,
+            "forward_passes": passes, "dispatches": st["dispatches_total"]}
+        if busy:
+            stats["rates"][tag].update(busy_ms=busy[0], window_ms=busy[1],
+                                       busy_share=busy[0] / busy[1])
+        return outs, st, counts, busy
+
+    def same(tag, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                first = next(j for j, (a, b) in enumerate(zip(g, w))
+                             if a != b)
+                raise SmokeFailure(
+                    f"{tag}: stream {i} diverges at token {first} "
+                    f"({g[first]} against {w[first]})")
+
+    def singles(ps, n=TICKS_NEW):
+        """Each prompt through the single-sequence path (in process, the
+        function /generate/ runs), on the cache the knobs select."""
+        model = NeuralNetworkModel.deserialize(model_id, device=device,
+                                               optimizer=False)
+        return [model.generate_tokens([p], block, n, temperature=0)
+                for p in ps]
+
+    # the checkpoint is read once for the phase: every engine and legacy
+    # batch of it gets that model (serving never writes to its weights)
+    real_load = NeuralNetworkModel.deserialize.__func__
+    loaded = {}
+
+    def load_once(cls, mid, device=None, **kwargs):
+        key = (mid, str(device))
+        if key not in loaded:
+            loaded[key] = real_load(cls, mid, device=device, **kwargs)
+        return loaded[key]
+
+    server = app_mod.create_app(device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    real_spec = spec_decode.propose
+    NeuralNetworkModel.deserialize = classmethod(load_once)
+    try:
+        with _env(TICKS_ENV):
+            if call(f"/progress/?model_id={model_id}")[0] != 200:
+                status, out = call("/model/", {"model_id": model_id,
+                                               "layers": layers,
+                                               "optimizer": optimizer})
+                check(status == 200, f"POST /model/ -> {status}: {out}")
+            # -- (a) phased ticks over the contiguous cache ------------------
+            os.environ["PAGED_KV_CACHE"] = "0"
+            phased = {}
+            for dtype in ("fp32", "int8"):
+                os.environ["TURBO_QUANT_KV_CACHE"] = \
+                    "1" if dtype == "int8" else "0"
+                ref = singles(prompts)
+                runs()
+                tag = f"phased contiguous {dtype}"
+                got, st8, _, _ = wave(tag, kernel="decode_attention",
+                                      profiled=dtype == "fp32")
+                same(tag, got, ref)
+                with _env({"PENROZ_SCHED_SUPERSTEP": "1"}):
+                    got1, st1, _, _ = wave(f"{tag}, superstep 1",
+                                           kernel="decode_attention")
+                same(f"{tag}, superstep 1", got1, ref)
+                check(max(t["superstep"] for t in st8["tick_timeline"]) > 1
+                      and st8["dispatches_total"] < st1["dispatches_total"],
+                      f"{tag}: superstep 8 ran {st8['dispatches_total']} "
+                      f"dispatches, superstep 1 {st1['dispatches_total']}")
+                small = f"{tag}, chunks of {TICKS_SMALL_CHUNK}"
+                with _env({"PENROZ_PREFILL_CHUNK": str(TICKS_SMALL_CHUNK)}):
+                    got128, st128, _, _ = wave(small,
+                                               kernel="decode_attention")
+                same(small, got128, ref)
+                check(st128["prefill_chunks"] > st8["prefill_chunks"],
+                      f"{small}: no more chunks than at the default")
+                check(not any(t["unified"] for t in st8["tick_timeline"]),
+                      f"{tag}: a unified tick")
+                phased[dtype] = {"dispatches_ss8": st8["dispatches_total"],
+                                 "dispatches_ss1": st1["dispatches_total"],
+                                 "prefill_chunks": st8["prefill_chunks"],
+                                 "prefill_chunks_128":
+                                     st128["prefill_chunks"]}
+                say("ticks", f"(a) {tag}: 8 streams = the single-sequence "
+                    f"tokens at superstep 8 ({st8['dispatches_total']} "
+                    f"dispatches), 1 ({st1['dispatches_total']}) and chunks "
+                    f"of {TICKS_SMALL_CHUNK}; decode kernel runs = {n_attn} "
+                    f"x forward passes")
+                if dtype == "fp32":
+                    T_c = ref
+            stats["phased_contiguous"] = phased
+            mark("a")
+            # -- (c) speculation on the phased ticks -------------------------
+            os.environ["TURBO_QUANT_KV_CACHE"] = "0"
+            tag = "phased speculation"
+            spec_prompts = _drafting_prompts(base, {
+                "model_id": model_id, "block_size": block,
+                "temperature": 0}, vocab, {})
+            off, _, _, _ = wave(f"{tag} off", spec_prompts, spec_new,
+                                kernel="decode_attention")
+            with _env({"PENROZ_SPEC_DECODE": "1", "PENROZ_SPEC_K": "4",
+                       "PENROZ_SPEC_NGRAM": "3"}):
+                on, st_on, _, _ = wave(f"{tag} on", spec_prompts, spec_new,
+                                       kernel="decode_attention")
+                same(f"{tag} on", on, off)
+                check(st_on["spec_verify_steps"] > 0,
+                      f"{tag}: no verify span ran")
+
+                def oracle(history, k, ngram):
+                    for seq in off:
+                        if (len(history) < len(seq)
+                                and history == seq[:len(history)]):
+                            return seq[len(history):len(history) + k]
+                    return []
+
+                spec_decode.propose = oracle
+                try:
+                    orc, st_orc, _, _ = wave(f"{tag} oracle", spec_prompts,
+                                             spec_new,
+                                             kernel="decode_attention")
+                finally:
+                    spec_decode.propose = real_spec
+                same(f"{tag} oracle", orc, off)
+                check(st_orc["spec_accept_rate"] == 1.0,
+                      f"{tag}: the oracle's accept rate is "
+                      f"{st_orc['spec_accept_rate']}")
+            stats["speculation"] = {
+                "verify_steps": st_on["spec_verify_steps"],
+                "accept_rate": st_on["spec_accept_rate"],
+                "oracle_tokens_per_decode_step":
+                    st_orc["tokens_per_decode_step"]}
+            say("ticks", f"(c) {tag}: on = off ({st_on['spec_verify_steps']}"
+                f" verify spans, accept rate {st_on['spec_accept_rate']}); "
+                f"the oracle drafter fully accepted, "
+                f"{st_orc['tokens_per_decode_step']} tokens a decode step")
+            mark("c")
+            # -- (b) phased ticks over the paged pool ------------------------
+            os.environ["PAGED_KV_CACHE"] = "1"
+            T_u, _, _, _ = wave("unified", kernel="ragged_paged_attention",
+                                profiled=True)
+            with _env({"PENROZ_RAGGED_ATTENTION": "0"}):
+                tag = "phased paged"
+                got, st, _, _ = wave(tag, kernel="paged_decode_attention",
+                                     profiled=True)
+                same(tag, got, T_u)
+                check(not any(t["unified"] for t in st["tick_timeline"]),
+                      f"{tag}: a unified tick")
+            say("ticks", f"(b) phased paged: 8 streams = the unified "
+                f"engine's; paged decode kernel runs = {n_attn} x forward "
+                f"passes, the ragged kernel's 0")
+            mark("b")
+            # -- (d) pipeline serving ----------------------------------------
+            os.environ["TURBO_QUANT_KV_CACHE"] = "1"
+            T_u8, _, _, _ = wave("unified int8",
+                                 kernel="ragged_paged_attention")
+            pipe = {}
+            for S in TICKS_STAGES:
+                os.environ["PENROZ_SERVE_PIPE_STAGES"] = str(S)
+                for dtype, want in (("fp32", T_u), ("int8", T_u8)):
+                    os.environ["TURBO_QUANT_KV_CACHE"] = \
+                        "1" if dtype == "int8" else "0"
+                    for prefix in ("0", "1"):
+                        os.environ["PENROZ_PREFIX_CACHE"] = prefix
+                        tag = (f"piped S {S} {dtype}"
+                               f"{', prefix cache' if prefix == '1' else ''}")
+                        got, st, _, _ = wave(
+                            tag, kernel="ragged_paged_attention",
+                            profiled=dtype == "fp32" and prefix == "0")
+                        same(tag, got, want)
+                        check(st["pipe_stages"] == S and st["pipe_ticks"] > 0
+                              and st["pipe_handoffs"] > 0,
+                              f"{tag}: the pipeline did not run: {st}")
+                        pipe[tag] = {k: st[k] for k in (
+                            "pipe_ticks", "pipe_bubble_fraction",
+                            "pipe_stage_busy", "pipe_handoffs",
+                            "pipe_microblocks")}
+                os.environ["PENROZ_PREFIX_CACHE"] = "0"
+                os.environ["TURBO_QUANT_KV_CACHE"] = "0"
+                tag = f"piped S {S} fp32"
+                # /memory/: the stages' pools partition the pool
+                status, mem = call("/memory/")
+                check(status == 200, f"/memory/ -> {status}")
+                entry = mem["engines"][0]
+                pools = entry["stage_pools"]
+                kv_bytes = (entry["hbm_bytes"]["kv_values"]
+                            + entry["hbm_bytes"]["kv_scales"])
+                check(len(pools) == S
+                      and sum(p["kv_layers"] for p in pools) == n_attn
+                      and sum(p["kv_pool_bytes"] for p in pools) == kv_bytes
+                      and all(p["pool_pages"] == entry["pool_pages_total"]
+                              for p in pools),
+                      f"{tag}: stage_pools do not partition the pool: "
+                      f"{pools} against {kv_bytes} bytes")
+                # /metrics' penroz_pipe_* against /serving_stats/
+                text = _qos_call(base, "/metrics")[2]
+                exp = {}
+                for line in text.splitlines():
+                    if line.startswith("penroz_pipe"):
+                        name, value = line.rsplit(" ", 1)
+                        exp[name] = float(value)
+                status, agg = call("/serving_stats/")
+                ticks = exp["penroz_pipe_ticks"]
+                check(exp["penroz_pipe_stages"] == agg["pipe_stages"] == S
+                      and ticks == agg["pipe_ticks"] > 0
+                      and round(exp["penroz_pipe_bubble_ticks"]
+                                / (ticks * S), 4)
+                      == agg["pipe_bubble_fraction"]
+                      and exp['penroz_pipe_handoffs{path="device"}']
+                      + exp['penroz_pipe_handoffs{path="host"}']
+                      == agg["pipe_handoffs"]
+                      and exp['penroz_pipe_handoffs{path="host"}']
+                      == agg["pipe_handoff_host_fallbacks"],
+                      f"{tag}: /metrics {exp} against /serving_stats/ "
+                      f"{ {k: agg[k] for k in agg if k.startswith('pipe')} }")
+                say("ticks", f"(d) piped S {S}: every stream = the unpiped "
+                    f"engine's (fp32 and int8 pages, prefix cache off and "
+                    f"on); bubble fraction "
+                    f"{pipe[tag]['pipe_bubble_fraction']}, stage busy "
+                    f"{pipe[tag]['pipe_stage_busy']}; stage_pools "
+                    f"partition the pool; /metrics = /serving_stats/")
+            # the faults, at 2 stages
+            os.environ["PENROZ_SERVE_PIPE_STAGES"] = "2"
+            DS.reset()
+            engine = DS.get_engine(model_id, block, 0, None,
+                                   device=server.device)
+            arm("pipe.handoff:raise@1")
+            status, out = call("/generate/", body(prompts[0]))
+            arm(None)
+            st = engine.stats()
+            check(status == 200 and out["tokens"] == T_u[0]
+                  and st["pipe_handoff_host_fallbacks"] == 1
+                  and st["crashes_total"] == 0,
+                  f"pipe.handoff: {status}, host fallbacks "
+                  f"{st['pipe_handoff_host_fallbacks']}, crashes "
+                  f"{st['crashes_total']}")
+            arm("pipe.stage_crash:raise@1")
+            status, _ = call("/generate/", body(prompts[0]))
+            arm(None)
+            check(status == 500, f"pipe.stage_crash answered {status}")
+            deadline = time.monotonic() + 60
+            while engine.stats()["engine_resets"] < 1:
+                check(time.monotonic() < deadline, "no recovery")
+                time.sleep(0.01)
+            status, out = call("/generate/", body(prompts[0]))
+            st = engine.stats()
+            check(status == 200 and out["tokens"] == T_u[0]
+                  and st["crashes_total"] == st["engine_resets"] == 1
+                  and st["pipe_stages"] == 2,
+                  f"after pipe.stage_crash: {status}, {st['crashes_total']} "
+                  f"crashes, {st['engine_resets']} resets")
+            # a hand-off's activations through the host (the fault's path):
+            # a mixed step's (1, 64, 768) fp32 hidden states
+            h = torch.randn(1, 64, 768, device=device)
+            bounce = []
+            for _ in range(20):
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.monotonic()
+                torch.from_numpy(h.cpu().numpy()).to(h.device)
+                if on_card:
+                    torch.cuda.synchronize()
+                bounce.append((time.monotonic() - t0) * 1e3)
+            stats["handoff_host_bounce_ms_p50"] = sorted(bounce)[10]
+            stats["pipeline"] = pipe
+            say("ticks", f"(d) a pipe.handoff fault: 1 host fallback, the "
+                f"same tokens (a host bounce of a (1, 64, 768) fp32 "
+                f"hand-off: {stats['handoff_host_bounce_ms_p50']:.3f} ms "
+                f"p50; the device hand-off passes the tensor); a "
+                f"pipe.stage_crash: 500, the group recovered, the next "
+                f"request = T_u")
+            os.environ["PENROZ_SERVE_PIPE_STAGES"] = "1"
+            mark("d")
+            # -- (e) the legacy /generate_batch/ -----------------------------
+            rows = [prompts[i] for i in TICKS_LEGACY_ROWS]
+            T_rows = [T_c[i] for i in TICKS_LEGACY_ROWS]
+            calls = {"batches": 0, "steps": 0}
+            real_batched = NeuralNetworkModel.generate_tokens_batched
+            real_step = NeuralNetworkModel._batched_step
+
+            def counted_batched(self, *args, **kwargs):
+                calls["batches"] += 1
+                return real_batched(self, *args, **kwargs)
+
+            def counted_step(self, *args, **kwargs):
+                calls["steps"] += 1
+                return real_step(self, *args, **kwargs)
+
+            NeuralNetworkModel.generate_tokens_batched = counted_batched
+            NeuralNetworkModel._batched_step = counted_step
+            try:
+                legacy = {}
+                for paged, kernel in (("0", "decode_attention"),
+                                      ("1", "paged_decode_attention")):
+                    os.environ["PAGED_KV_CACHE"] = paged
+                    ref = singles(rows) if paged == "1" else T_rows
+                    tag = ("legacy batch, "
+                           f"{'paged' if paged == '1' else 'contiguous'}")
+                    with _env({"PENROZ_CONTINUOUS_BATCHING": "0"}):
+                        runs()
+                        calls.update(batches=0, steps=0)
+                        t0 = time.monotonic()
+                        status, out = call("/generate_batch/", dict(
+                            body(rows[0]), inputs=rows))
+                        wall = time.monotonic() - t0
+                        counts = runs()
+                    check(status == 200, f"{tag}: {status}: {out}")
+                    same(tag, out["sequences"], ref)
+                    passes = calls["batches"] + calls["steps"]
+                    want = {name: (n_attn * passes if name == kernel else 0)
+                            for name in kernels}
+                    check(not on_card or (counts == want and passes > 0),
+                          f"{tag}: device runs {counts} for {passes} "
+                          f"forward passes, expected {want}")
+                    legacy[tag] = {"wall_s": wall, "forward_passes": passes}
+                # the breaker's fallback: one crash opens it, the next batch
+                # is shed to the legacy path
+                with _env({"PENROZ_ENGINE_MAX_CRASHES": "1",
+                           "PENROZ_BREAKER_COOLDOWN_MS": "600000",
+                           "PENROZ_SCHED_FALLBACK": "1"}):
+                    DS.reset()
+                    arm("decode.step:raise@1+")
+                    status, _ = call("/generate_batch/", dict(
+                        body(rows[0]), inputs=rows))
+                    check(status == 500, f"the crashing batch: {status}")
+                    calls.update(batches=0, steps=0)
+                    status, out = call("/generate_batch/", dict(
+                        body(rows[0]), inputs=rows))
+                    arm(None)
+                    check(DS.breaker_open_engines() == [model_id]
+                          and calls["batches"] == 1,
+                          f"the fallback did not take the legacy path: "
+                          f"{DS.breaker_open_engines()}, {calls}")
+                    check(status == 200, f"the fallback batch: {status}")
+                    same("legacy fallback", out["sequences"], ref)
+                    DS.reset()
+            finally:
+                NeuralNetworkModel.generate_tokens_batched = real_batched
+                NeuralNetworkModel._batched_step = real_step
+            stats["legacy"] = legacy
+            say("ticks", f"(e) legacy /generate_batch/ of {len(rows)} rows: "
+                f"each = its single-sequence tokens on the contiguous and "
+                f"paged caches ({legacy}); the breaker's fallback answered "
+                f"the batch through the legacy path, the same rows")
+            mark("e")
+    finally:
+        NeuralNetworkModel.deserialize = classmethod(real_load)
+        spec_decode.propose = real_spec
+        arm(None)
+        DS.reset()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        checkpoint.join_flushes()
+    check(not thread.is_alive(), "server thread did not stop")
+    for name, n in totals.items():
+        check(not on_card or n > 0, f"{name} ran no time in the phase")
+    stats["seconds"] = time.monotonic() - t_phase
+    for tag, r in stats["rates"].items():
+        if "busy_share" in r:
+            say("ticks", f"{tag}: {r['tokens_per_s']:.1f} tokens/s "
+                f"({r['wall_s']:.3f} s, {r['forward_passes']} forward "
+                f"passes, {r['dispatches']} dispatches); device busy "
+                f"{_share(r)} of its first {r['window_ms']:.0f} ms, on "
+                f"{card}")
+    say("ticks", f"{stats['seconds']:.1f} s; device runs {totals} on {card}")
+    return stats, totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="penroz_tpu_torch chip smoke")
     parser.add_argument("--out", help="also write every measurement here "
@@ -6853,6 +7491,9 @@ def main(argv=None) -> int:
         sess_stats, sess_launches = phase_sessions(
             torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
             card=card)
+        ticks_stats, ticks_launches = phase_ticks(
+            torch, presets.gpt2(), presets.ADAMW, block=1024, vocab=50304,
+            card=card)
         hybrid_stats, launches["gla_chunked"] = phase_hybrid(
             torch, presets.ADAMW, card)
         qwen3_stats, qwen3_launches = phase_import(torch, card, "qwen3")
@@ -6878,10 +7519,11 @@ def main(argv=None) -> int:
                           "resilience": res_launches,
                           "qos": qos_launches, "lora": lora_launches,
                           "router": router_launches,
-                          "sessions": sess_launches}
+                          "sessions": sess_launches,
+                          "ticks": ticks_launches}
         for extra in (qwen3_launches, qmoe_launches, moe_launches,
                       res_launches, qos_launches, lora_launches,
-                      router_launches, sess_launches):
+                      router_launches, sess_launches, ticks_launches):
             for name_, n in extra.items():
                 launches[name_] += n
         step_stats = phase_micro_step(torch, presets.gpt2(), presets.ADAMW,
@@ -6911,6 +7553,7 @@ def main(argv=None) -> int:
                        "resilience": res_stats,
                        "qos": qos_stats, "lora": lora_stats,
                        "router": router_stats, "sessions": sess_stats,
+                       "ticks": ticks_stats,
                        "hybrid": hybrid_stats, "qwen3": qwen3_stats,
                        "qmoe": qmoe_stats, "phase_launches": phase_launches,
                        "training": train_stats, "micro_step": step_stats,

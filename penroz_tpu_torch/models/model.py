@@ -14,10 +14,14 @@ facade (counterpart of penroz_tpu/models/model.py: serving and training).
   chunks of up to ``PENROZ_DECODE_CHUNK`` steps through the process-wide
   runners of models/decode_graphs.py, CUDA graphs on the card, on the
   contiguous cache or, under ``PAGED_KV_CACHE=1``, the paged pool, with
-  the recurrent ``ssm`` child for hybrid models), the raw forward
-  (``compute_output``), forward-only evaluation (``evaluate_model``) and
-  the continuous-batching scheduler's unified block
-  (``decode_mixed_step``).
+  the recurrent ``ssm`` child for hybrid models), ragged batched
+  generation (``generate_tokens_batched``), the raw forward
+  (``compute_output``), forward-only evaluation (``evaluate_model``), the
+  continuous-batching scheduler's unified block (``decode_mixed_step``),
+  its phased ticks' step-wise decode (``decode_prefill_chunk``,
+  ``decode_verify_row``, ``decode_step_batched``, ``decode_superstep``)
+  and its pipeline stages (``serve_pipeline``, :class:`ServePipeline`,
+  ``decode_pipe_stage``).
 
 Training runs on one device; with an ``adapter`` it trains a LoRA
 adapter's factors alone (models/lora.py ``train_adapter``).  Out of this
@@ -451,6 +455,53 @@ class CompiledArch(nn.Module):
         if top_k is not None:
             return torch.gather(cand, -1, choice[:, None])[:, 0]
         return choice
+
+
+class ServePipeline:
+    """Stage partition of a compiled arch for pipeline-parallel serving
+    (``PENROZ_SERVE_PIPE_STAGES``; JAX ``ServePipeline``).
+
+    Stage ``s`` runs the top-level modules ``arch.layers[lo:hi]`` over
+    ``bounds[s]`` (parallel/pipeline.py ``serve_stage_bounds``: contiguous
+    runs of the repeated blocks, the embeddings with the first stage, the
+    final norm and head with the last).  The stages hold the model's own
+    module objects, so they share its parameter tensors: nothing is
+    copied.  Stage ``s`` owns attention layers ``kv_bounds[s] = [lo,
+    hi)`` of the paged cache and runs against ``stage_kv_view(kv, lo,
+    hi)``.  On one card every stage runs on it (the JAX package's
+    degenerate single-device group): the partition and the schedule run,
+    no placement does."""
+
+    def __init__(self, arch: "CompiledArch", stages: int):
+        from penroz_tpu_torch.parallel import pipeline
+        if arch.ssm_layers:
+            raise ValueError(
+                "pipeline serving does not support SSM/recurrent blocks: "
+                "stage_kv_view slices attention pools only and would drop "
+                "the per-row recurrent state")
+        self.stages = int(stages)
+        self.bounds = pipeline.serve_stage_bounds(arch.layers_dsl,
+                                                  self.stages)
+        self.modules = [list(arch.layers[lo:hi]) for lo, hi in self.bounds]
+        self.kv_bounds: list[tuple] = []
+        off = 0
+        for s, mods in enumerate(self.modules):
+            n = sum(isinstance(m, M.CausalSelfAttention)
+                    for mod in mods for m in mod.modules())
+            if n == 0:
+                raise ValueError(
+                    f"pipeline stage {s} owns no attention layers; lower "
+                    f"PENROZ_SERVE_PIPE_STAGES (bounds {self.bounds[s]})")
+            self.kv_bounds.append((off, off + n))
+            off += n
+        if off != len(arch.attn_layers):
+            raise ValueError(
+                f"stage KV partition covers {off} attention layers, "
+                f"model has {len(arch.attn_layers)}")
+
+    def stage_parameters(self, s: int) -> list:
+        """The parameter tensors stage ``s`` runs with (the model's own)."""
+        return [p for mod in self.modules[s] for p in mod.parameters()]
 
 
 def _mix32(a, b, c):
@@ -1055,6 +1106,293 @@ class NeuralNetworkModel:
             out.scatter_(0, torch.where(slots >= 0, slots, Tp), picked)
             outs.append(out[:Tp])
         return torch.stack(outs).to("cpu").numpy(), kv
+
+    # -- step-wise decode (the phased scheduler, legacy batches) ------------
+
+    def _bound_adapter(self):
+        """The bound adapter's factors for a forward (``Ctx.adapter``), or
+        None (models/lora.py ``bind_model``)."""
+        if self.adapter is None:
+            return None
+        from penroz_tpu_torch.models import lora
+        return lora.bind(*self.adapter, self.device)
+
+    def _pick(self, logits, seed, row_ids, positions, greedy, temp, top_k):
+        """Tokens of (N, V) logits: the fp32 argmax, or the positional draw
+        of each (row, position) (:meth:`CompiledArch._sample_packed`), the
+        unified block's keys, so a stream does not depend on the tick form
+        that sampled it."""
+        if greedy:
+            return torch.argmax(logits.to(torch.float32), dim=-1)
+        return self.arch._sample_packed(logits, seed, row_ids, positions,
+                                        temp, top_k)
+
+    def _dev(self, values, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(values), dtype=dtype).to(
+            self.device)
+
+    def _row_span(self, kv, row, tokens, row_len, seed, temperature, top_k,
+                  lora, adapter_slot, sample_all: bool):
+        """One forward of ``tokens`` for row ``row`` against its batch-1
+        view (``row_view``) at valid length ``row_len``, merged back; the
+        samples of its last position, or of every position."""
+        greedy, temp = self._sampling_setup(temperature)
+        T = len(tokens)
+        view = kv.row_view(row, row_len)
+        x = self._dev([tokens])
+        lora_idx = (self._dev([adapter_slot]) if lora is not None else None)
+        acts, _, _ = self.arch(x, kv=view, skip_softmax=True,
+                               adapter=self._bound_adapter(), lora=lora,
+                               lora_idx=lora_idx)
+        logits = acts[-1][0] if sample_all else acts[-1][0, -1:]
+        first = 0 if sample_all else T - 1
+        positions = torch.arange(row_len + first, row_len + T,
+                                 device=self.device)
+        out = self._pick(logits, seed, torch.full_like(positions, int(row)),
+                         positions, greedy, temp, top_k)
+        kv.merge_row(row, view)
+        return out.tolist()
+
+    @torch.inference_mode()
+    def decode_prefill_chunk(self, kv_batch, row: int, tokens, row_len: int,
+                             seed: int = 0, temperature=1.0, top_k=None,
+                             lora=None, adapter_slot: int = 0):
+        """Feed one prompt chunk of row ``row`` into the multi-row state at
+        positions ``row_len + [0, T)`` (JAX ``decode_prefill_chunk``): the
+        chunk attends the row's cache, prefix-aliased pages included,
+        through the cached-attention kernel of its cache, and appends in
+        place through ``row_view``.  Returns ``(token, kv_batch)``: the
+        sample at the chunk's last position (the request's first token
+        when this is its last chunk)."""
+        out = self._row_span(kv_batch, row, tokens, row_len, seed,
+                             temperature, top_k, lora, adapter_slot, False)
+        return int(out[0]), kv_batch
+
+    @torch.inference_mode()
+    def decode_verify_row(self, kv_batch, row: int, tokens, row_len: int,
+                          seed: int = 0, temperature=1.0, top_k=None,
+                          lora=None, adapter_slot: int = 0):
+        """Speculative verify of one row (JAX ``decode_verify_row``): one
+        forward over its T candidates (the last sampled token, then the
+        draft) at ``row_len + [0, T)``, sampled at every position.  Returns
+        ``(T tokens, kv_batch)``; the caller rolls the rejected positions
+        back (``rollback_row``)."""
+        return self._row_span(kv_batch, row, tokens, row_len, seed,
+                              temperature, top_k, lora, adapter_slot,
+                              True), kv_batch
+
+    def _batched_step(self, kv, tok, lens, seed, greedy, temp, top_k,
+                      lora=None, lora_idx=None):
+        """One shared decode step on the device: every row feeds ``tok``
+        (B, 1) at its own length ``lens`` (B,) int64 (written through
+        device positions, no host read); returns the (B,) samples."""
+        B = tok.shape[0]
+        kv.at_positions(KV.row_positions(lens, 1, kv.max_len))
+        try:
+            acts, _, _ = self.arch(tok, kv=kv, skip_softmax=True,
+                                   pos_offset=lens[:, None],
+                                   adapter=self._bound_adapter(), lora=lora,
+                                   lora_idx=lora_idx)
+        finally:
+            kv.at_positions(None)
+        return self._pick(acts[-1][:, -1], seed,
+                          torch.arange(B, device=tok.device), lens, greedy,
+                          temp, top_k)
+
+    @torch.inference_mode()
+    def decode_step_batched(self, kv, last_tokens, lengths, seed: int = 0,
+                            temperature=1.0, top_k=None, lora=None,
+                            row_adapter=None):
+        """One shared decode+sample step over every row of a multi-row
+        state (JAX ``decode_step_batched``): row b feeds its last token at
+        the host's authoritative length ``lengths[b]`` (0 parks a free
+        row: its write lands at position 0 of its own row, never
+        attended).  Every attention layer launches its cache's decode
+        kernel once with the (B,) lengths.  Returns ``((B,) int numpy
+        tokens, kv)`` with the lengths installed one further."""
+        greedy, temp = self._sampling_setup(temperature)
+        lengths = np.asarray(lengths, np.int64).reshape(-1)
+        tok = self._dev(np.asarray(last_tokens).reshape(-1, 1))
+        lora_idx = (self._dev(row_adapter) if lora is not None else None)
+        out = self._batched_step(kv, tok, self._dev(lengths), seed, greedy,
+                                 temp, top_k, lora, lora_idx)
+        kv.with_lengths(np.minimum(lengths + 1, kv.max_len))
+        return out.cpu().numpy(), kv
+
+    @torch.inference_mode()
+    def decode_superstep(self, kv, last_tokens, lengths, active, stop_tokens,
+                         remaining, seed: int, n: int, temperature=1.0,
+                         top_k=None, lora=None, row_adapter=None):
+        """Up to ``n`` shared decode steps in one launch sequence (JAX
+        ``decode_superstep``'s ``lax.scan``): the carry (last tokens,
+        lengths, the active mask, tokens done) stays on the device; a row
+        leaves the mask on its stop token (``stop_tokens``, -1 for none),
+        its budget (``remaining``) or a full cache, and then computes and
+        discards like a parked row.  No host read inside; one at the end.
+        Returns ``(toks (n, B) numpy, -1 where masked, emitted (n, B)
+        bool numpy, final lengths (B,) numpy, kv)``."""
+        greedy, temp = self._sampling_setup(temperature)
+        max_len = kv.max_len
+        tok = self._dev(np.asarray(last_tokens).reshape(-1, 1))
+        lens = self._dev(np.asarray(lengths).reshape(-1))
+        act = self._dev(np.asarray(active, bool), torch.bool)
+        stop = self._dev(stop_tokens)
+        rem = self._dev(remaining)
+        done = torch.zeros_like(lens)
+        lora_idx = (self._dev(row_adapter) if lora is not None else None)
+        toks, emitted = [], []
+        for _ in range(int(n)):
+            t = self._batched_step(kv, tok, lens, seed, greedy, temp, top_k,
+                                   lora, lora_idx)
+            toks.append(torch.where(act, t, -1))
+            emitted.append(act)
+            tok = torch.where(act, t, tok[:, 0])[:, None]
+            lens = lens + act
+            done = done + act
+            act = act & (t != stop) & (done < rem) & (lens < max_len)
+        host = torch.cat([torch.stack(toks).reshape(-1),
+                          torch.stack(emitted).reshape(-1).to(torch.int64),
+                          lens]).cpu().numpy()
+        B = lens.shape[0]
+        k = int(n) * B
+        final = host[2 * k:]
+        kv.with_lengths(final)
+        return (host[:k].reshape(int(n), B),
+                host[k:2 * k].reshape(int(n), B).astype(bool), final, kv)
+
+    @torch.inference_mode()
+    def generate_tokens_batched(self, inputs, block_size, max_new_tokens,
+                                temperature=1.0, top_k=None,
+                                stop_token=None) -> list[list[int]]:
+        """Ragged batched generation (JAX ``generate_tokens_batched``): a
+        right-padded batched prefill (each row samples at its own last
+        prompt position), then decode steps in which every row appends,
+        rotates and attends at its own length (``with_lengths``) on any
+        cache (contiguous or paged, fp32 or int8), in chunks of up to
+        ``PENROZ_DECODE_CHUNK`` steps read back at once (ramping from 8
+        with a ``stop_token``).  Rows stop at their stop token (kept).
+        Needs ``max(prompt) + max_new_tokens <= block_size``.  Models with
+        ``ssm`` layers are refused: a right-padded prefill needs the
+        per-row start of the recurrent update, not ported."""
+        prompts = [[int(t) for t in (row if isinstance(row, (list, tuple))
+                                     else [row])] for row in inputs]
+        validate_batch_generation(prompts, block_size, max_new_tokens)
+        self._check_generation(prompts[0], block_size)
+        if self.arch.ssm_layers:
+            raise ValueError(
+                "batched generation of a model with ssm layers needs the "
+                "recurrent update's per-row start, which penroz_tpu_torch "
+                "does not support yet; generate its rows one at a time")
+        outs = [list(p) for p in prompts]
+        if max_new_tokens <= 0:
+            return outs
+        B = len(prompts)
+        lens = np.asarray([len(p) for p in prompts], np.int64)
+        max_p = int(lens.max())
+        greedy, temp = self._sampling_setup(temperature)
+        seed = None if greedy else int(torch.randint(
+            0, 2 ** 31 - 1, (), generator=self._generator,
+            device=self.device))
+        padded = np.zeros((B, max_p), np.int64)
+        for i, p in enumerate(prompts):
+            padded[i, :len(p)] = p
+        kv = KV.create_kv_state(self.arch.kv_specs, B, block_size, self.dtype,
+                                device=self.device)
+        acts, _, _ = self.arch(self._dev(padded), kv=kv, skip_softmax=True,
+                               adapter=self._bound_adapter())
+        rows = torch.arange(B, device=self.device)
+        last_pos = self._dev(lens - 1)
+        tok = self._pick(acts[-1][rows, last_pos], seed, rows, last_pos,
+                         greedy, temp, top_k)
+        kv.with_lengths(lens)
+        kv.reserve(max_p + max_new_tokens)
+        done = [False] * B
+
+        def absorb(column):
+            for i, t in enumerate(column):
+                if not done[i]:
+                    outs[i].append(int(t))
+                    done[i] = stop_token is not None and int(t) == stop_token
+
+        absorb(tok.tolist())
+        chunk_budget = _chunk_budget()
+        ramp_budget = 8 if stop_token is not None else chunk_budget
+        dev_lens = self._dev(lens)
+        dispatched = 1
+        while dispatched < max_new_tokens and not all(done):
+            remaining = max_new_tokens - dispatched
+            room = block_size - max_p - dispatched
+            chunk = _decode_chunk_size(
+                remaining, min(chunk_budget, ramp_budget, room))
+            count = min(chunk, remaining)
+            ramp_budget = min(ramp_budget * 2, chunk_budget)
+            steps = []
+            for _ in range(chunk):
+                tok = self._batched_step(kv, tok[:, None], dev_lens, seed,
+                                         greedy, temp, top_k)
+                dev_lens = dev_lens + 1
+                steps.append(tok)
+            for column in torch.stack(steps)[:count].tolist():
+                absorb(column)
+                if all(done):
+                    break
+            dispatched += count
+        return outs
+
+    def serve_pipeline(self, stages: int) -> ServePipeline:
+        """The serving stage partition of this model (ValueError when it
+        has fewer repeated blocks than ``stages``, a stage would own no
+        attention layer, or it has ``ssm`` layers)."""
+        return ServePipeline(self.arch, stages)
+
+    @torch.inference_mode()
+    def decode_pipe_stage(self, pipe: ServePipeline, s: int, kv_stage, x,
+                          descs, positions, row_ids, seed: int = 0,
+                          temperature=1.0, top_k=None, slots=None):
+        """One pipeline stage of one unified ragged step over one
+        micro-block (JAX ``decode_pipe_stage``): stage 0 takes the packed
+        tokens ``x`` (Tp,) (the host resolved ``tok_src``), later stages
+        the previous stage's hidden states (1, Tp, D) on the device.  Each
+        attention layer appends into ``kv_stage``
+        (ops/kv_cache.py::stage_kv_view) and launches the ragged kernel
+        over its slice of the pools.  A middle stage returns its hidden
+        states; the last returns the (Tp,) int numpy samples at
+        ``slots`` (every slot when None; -1 elsewhere): the greedy argmax
+        or the positional draw of :meth:`decode_mixed_step`, so piped
+        streams equal unpiped ones.  Returns ``(out, kv_stage)``."""
+        greedy, temp = self._sampling_setup(temperature)
+        descs = np.asarray(descs, np.int32)
+        NB = descs.shape[0]
+        positions = np.asarray(positions, np.int64).reshape(-1)
+        Tp = positions.shape[0]
+        if Tp % NB != 0:
+            raise ValueError(f"packed length {Tp} must be a multiple of "
+                             f"the descriptor count {NB}")
+        limit = self.arch.max_positions
+        if limit is not None and int(positions.max()) >= limit:
+            raise ValueError(f"positions up to {int(positions.max())} exceed "
+                             f"the model's {limit} position embeddings")
+        lo = pipe.kv_bounds[s][0]
+        index = kv_stage.packed_index(kv_stage.packed_rows(descs, Tp // NB))
+        d_pos = self._dev(positions)
+        h = self._dev(np.asarray(x).reshape(1, Tp)) if s == 0 else x
+        ctx = M.Ctx(kv=kv_stage, pos_offset=d_pos[None, :],
+                    ragged_descs=self._dev(descs, torch.int32),
+                    ragged_rows=tuple(self._dev(a) for a in index),
+                    kv_base=lo)
+        for mod in pipe.modules[s]:
+            if not isinstance(mod, M.Softmax):
+                h = mod(h, ctx)
+        if s < pipe.stages - 1:
+            return h, kv_stage
+        at = (torch.arange(Tp, device=self.device) if slots is None
+              else self._dev(slots))
+        picked = self._pick(h[0][at], seed,
+                            torch.clamp(self._dev(row_ids), min=0)[at],
+                            d_pos[at], greedy, temp, top_k)
+        out = torch.full((Tp,), -1, dtype=torch.int64, device=self.device)
+        out[at] = picked
+        return out.cpu().numpy(), kv_stage
 
     # -- persistence --------------------------------------------------------
 

@@ -62,7 +62,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -208,10 +208,13 @@ def _dequantize_int8(q, scale, dtype):
 
 class StepPositions(NamedTuple):
     """Where one step's T fed tokens go, on the device: ``index`` (T,)
-    int64 cache positions and ``length`` (B,) int32, the valid length
-    after the append."""
+    int64 cache positions shared by every row, or (B, T) one row each;
+    ``length`` (B,) int32, the valid length after the append; ``keep``
+    (B, T) bool or None: which per-row writes land (a row parked at the
+    end of its cache writes nothing)."""
     index: torch.Tensor
     length: torch.Tensor
+    keep: Optional[torch.Tensor] = None
 
 
 def step_positions(pos, T: int, batch: int) -> StepPositions:
@@ -221,6 +224,19 @@ def step_positions(pos, T: int, batch: int) -> StepPositions:
     index = pos if T == 1 else pos + torch.arange(T, device=pos.device)
     length = (pos + T).to(torch.int32).expand(batch)
     return StepPositions(index, length)
+
+
+def row_positions(lengths, T: int, max_len: int) -> StepPositions:
+    """:class:`StepPositions` of T tokens fed to each row at its own (B,)
+    int device length ``lengths``: positions past ``max_len`` keep the
+    cache as it was (the JAX package drops such writes) and the valid
+    length stops at ``max_len``."""
+    pos = lengths.to(torch.int64)[:, None] + torch.arange(
+        T, device=lengths.device)
+    return StepPositions(torch.clamp(pos, max=max_len - 1),
+                         torch.clamp(pos[:, -1] + 1, max=max_len).to(
+                             torch.int32),
+                         pos < max_len)
 
 
 class KVState:
@@ -235,6 +251,9 @@ class KVState:
         self.k = list(k)
         self.v = list(v)
         self._length = int(length)
+        # (B,) numpy per-row lengths after ``with_lengths`` (the batched
+        # decode of the phased scheduler and of generate_tokens_batched)
+        self.ragged_lengths = None
         self.ssm = None  # optional ops.ssm.SSMState (hybrid models)
         self.positions = None  # StepPositions while a step is bound
 
@@ -245,8 +264,14 @@ class KVState:
         return self
 
     @property
-    def length(self) -> int:
+    def length(self):
+        if self.ragged_lengths is not None:
+            return self.ragged_lengths
         return self._length
+
+    @property
+    def batch(self) -> int:
+        return self.k[0].shape[0] if self.k else 1
 
     @classmethod
     def create(cls, specs, batch: int, max_len: int, dtype=torch.float32,
@@ -264,10 +289,30 @@ class KVState:
 
     def _store(self, layer_idx: int, pairs):
         """Write each ``(buffers, new)`` pair's (B, H, T, ·) rows at the
-        current length (or the bound device positions); return the valid
-        length after the append (a host int, or the bound (B,) device
-        length)."""
+        current length, each row's own (``with_lengths``) or the bound
+        device positions; return the valid length after the append (a
+        host int, a (B,) numpy array, or the bound (B,) device length)."""
         T = pairs[0][1].shape[2]
+        if self.positions is None and self.ragged_lengths is not None:
+            lengths = torch.as_tensor(self.ragged_lengths,
+                                      device=pairs[0][1].device)
+            self.positions = row_positions(lengths, T, self.max_len)
+            try:
+                self._store(layer_idx, pairs)
+            finally:
+                self.positions = None
+            return self.ragged_lengths + T
+        if self.positions is not None and self.positions.index.ndim == 2:
+            index, keep = self.positions.index, self.positions.keep
+            rows = torch.arange(index.shape[0], device=index.device)[:, None]
+            for bufs, new in pairs:
+                buf = bufs[layer_idx]
+                vals = new.transpose(1, 2).to(buf.dtype)    # (B, T, H, ·)
+                if keep is not None:
+                    vals = torch.where(keep[..., None, None], vals,
+                                       buf[rows, :, index])
+                buf[rows, :, index] = vals
+            return self.positions.length
         if self.positions is not None:
             for bufs, new in pairs:
                 bufs[layer_idx].index_copy_(2, self.positions.index, new)
@@ -290,7 +335,10 @@ class KVState:
 
     def advanced(self, num_tokens: int):
         """Advance the valid length by ``num_tokens`` (in place)."""
-        self._length += int(num_tokens)
+        if self.ragged_lengths is not None:
+            self.ragged_lengths = self.ragged_lengths + int(num_tokens)
+        else:
+            self._length += int(num_tokens)
         return self
 
     def reserve(self, length: int):
@@ -301,7 +349,93 @@ class KVState:
     def reset(self):
         """Empty the cache (in place; stale rows are never attended)."""
         self._length = 0
+        self.ragged_lengths = None
         self._reset_ssm()
+        return self
+
+    # -- per-row state (the phased scheduler; JAX ``with_lengths`` and the
+    # row methods).  Lengths are host numbers: the scheduler's own array
+    # stays authoritative, these only install it.
+
+    def with_lengths(self, lengths):
+        """Switch to ragged per-row (B,) valid lengths (in place): every
+        row appends at its own position from here on."""
+        self.ragged_lengths = np.asarray(lengths, np.int32).reshape(
+            self.batch).copy()
+        return self
+
+    def with_static_table(self):
+        """No-op: the rows of a contiguous cache own their buffers."""
+        return self
+
+    def _set_row_length(self, what: str, row: int, length: int):
+        if self.ragged_lengths is None:
+            raise ValueError(f"{what} requires ragged per-row lengths "
+                             "(call with_lengths first)")
+        self.ragged_lengths[int(row)] = int(length)
+        return self
+
+    def reset_row(self, row: int):
+        """Zero row ``row``'s valid length (ragged states only); its stale
+        entries stay, never attended.  A recurrent child's row is zeroed
+        for real."""
+        self._set_row_length("reset_row", row, 0)
+        if self.ssm is not None:
+            self.ssm.reset_row(int(row))
+        return self
+
+    def rollback_row(self, row: int, new_length: int):
+        """Rewind row ``row``'s valid length to ``new_length`` (the
+        speculative verify's rejected suffix; ragged states only): the
+        rejected K/V stays as garbage the next append overwrites."""
+        if self.ssm is not None:
+            raise ValueError("rollback of rows with recurrent ssm state is "
+                             "not ported to penroz_tpu_torch")
+        return self._set_row_length("rollback_row", row, new_length)
+
+    def _plane_names(self):
+        """The names of the per-layer buffer lists: values, then an int8
+        cache's scales (which travel with their values in every copy)."""
+        return ("k", "v")
+
+    def _pool_lists(self):
+        return tuple(getattr(self, name) for name in self._plane_names())
+
+    def _shallow(self):
+        """A state object sharing every buffer, table and counter with
+        this one (its lists are new lists of the same tensors)."""
+        out = object.__new__(type(self))
+        out.__dict__.update(self.__dict__)
+        for name in self._plane_names():
+            setattr(out, name, list(getattr(self, name)))
+        return out
+
+    def row_view(self, row: int, length: int):
+        """Batch-1 state over row ``row``'s buffers (views: appends
+        through it write the row in place) at scalar valid ``length`` —
+        the substrate of a prefill chunk and a verify span."""
+        if self.ssm is not None:
+            raise ValueError("row views of recurrent ssm state are not "
+                             "ported to penroz_tpu_torch")
+        r = int(row)
+        view = self._shallow()
+        for name in self._plane_names():
+            setattr(view, name, [a[r:r + 1] for a in getattr(self, name)])
+        view._length = int(length)
+        view.ragged_lengths = None
+        view.positions = None
+        return view
+
+    def merge_row(self, row: int, view):
+        """Write ``view``'s buffers back into row ``row`` (a no-op for a
+        :meth:`row_view`, which wrote in place).  Lengths are untouched:
+        the scheduler's host array stays authoritative."""
+        r = int(row)
+        for mine, theirs in zip(self._pool_lists(), view._pool_lists()):
+            for a, b in zip(mine, theirs):
+                dst = a[r:r + 1]
+                if dst.data_ptr() != b.data_ptr():
+                    dst.copy_(b)
         return self
 
     def _reset_ssm(self):
@@ -320,6 +454,16 @@ class KVState:
     def logical_bytes(self) -> int:
         """Bytes an unquantized K/V cache of the same shape would occupy."""
         return self.memory_bytes() - self._ssm_bytes()
+
+    def hbm_components(self) -> dict:
+        """Device bytes by component for the capacity ledger
+        (serve/memledger.py): the K/V buffers and their int8 scales."""
+        nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+        return {"kv_values": nbytes((*self.k, *self.v)),
+                "kv_scales": nbytes((*getattr(self, "k_scale", ()),
+                                     *getattr(self, "v_scale", ()))),
+                "kv_block_table": 0}
 
 
 class QuantKVState(KVState):
@@ -369,6 +513,9 @@ class QuantKVState(KVState):
     def logical_bytes(self) -> int:
         itemsize = torch.empty((), dtype=self.out_dtype).element_size()
         return sum(a.numel() * itemsize for a in (*self.k, *self.v))
+
+    def _plane_names(self):
+        return ("k", "v", "k_scale", "v_scale")
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +699,9 @@ class PagedKVState(KVState):
         if self.positions is not None:
             index = self.positions.index
             page = torch.clamp(index // P, max=S - 1)
-            phys = torch.clamp(self.block_table[:, page], min=0)
+            table = (torch.gather(self.block_table, 1, page)
+                     if index.ndim == 2 else self.block_table[:, page])
+            phys = torch.clamp(table, min=0)
             rows = phys.to(torch.int64) * P + index % P
             return rows.reshape(-1), self.positions.length
         self._note_overflow(T)
@@ -582,7 +731,12 @@ class PagedKVState(KVState):
 
     def _scatter(self, pools, layer_idx, rows, new):
         pool = pools[layer_idx]
-        pool.index_copy_(1, rows, new.to(pool.dtype))
+        new = new.to(pool.dtype)
+        keep = self.positions.keep if self.positions is not None else None
+        if keep is not None:    # a parked row's slots keep what they hold
+            new = torch.where(keep.reshape(1, -1, 1), new,
+                              pool.index_select(1, rows))
+        pool.index_copy_(1, rows, new)
 
     def append_rows(self, layer_idx: int, k_new, v_new):
         """Scatter new K/V into the page pools; return the flat pools and
@@ -734,15 +888,39 @@ class PagedKVState(KVState):
         stale shared entries)."""
         return self.with_row_prefix(row, ())
 
+    def row_view(self, row: int, length: int):
+        """Batch-1 view of row ``row`` over the SAME pools, through its
+        block-table row (a device view), at scalar valid ``length``:
+        appends scatter straight into the row's pages, prefix-aliased
+        leading entries included, so :meth:`merge_row` has nothing to
+        copy.  The view's allocator is parked (every page of the row is
+        assigned: the static partition), so it never walks the shared
+        counters."""
+        if self.ssm is not None:
+            raise ValueError("row views of recurrent ssm state are not "
+                             "ported to penroz_tpu_torch")
+        r = int(row)
+        view = self._shallow()
+        view.table = self.table[r:r + 1]
+        view.block_table = self.block_table[r:r + 1]
+        view._length = int(length)
+        view.ragged_lengths = None
+        view.positions = None
+        view.assigned_pages = self.pages_per_seq
+        view._rows_key = view._rows = None
+        return view
+
+    def merge_row(self, row: int, view):
+        """Nothing to copy: the view wrote the shared pools in place.
+        Table, counters and lengths are untouched."""
+        return self
+
     def _page_rows(self, pages) -> torch.Tensor:
         """Flat pool rows of whole physical ``pages``, on the pool's
         device."""
         rows = (np.asarray(list(pages), np.int64)[:, None] * self.page_size
                 + np.arange(self.page_size)).reshape(-1)
         return torch.as_tensor(rows, device=self.device)
-
-    def _pool_lists(self):
-        return (self.k, self.v)
 
     def copy_pages(self, src_pages, dst_pages):
         """Copy whole physical pages ``src_pages[i] -> dst_pages[i]`` in
@@ -758,10 +936,6 @@ class PagedKVState(KVState):
             for pool in pools:
                 pool.index_copy_(1, dst, pool.index_select(1, src))
         return self
-
-    def _plane_names(self):
-        """The blob keys of :meth:`_pool_lists`, in the same order."""
-        return ("k", "v")
 
     def _export_pool_rows(self, row: int, n_pages: int) -> np.ndarray:
         """Flat pool rows of row ``row``'s first ``n_pages`` logical pages,
@@ -932,11 +1106,6 @@ class QuantPagedKVState(PagedKVState):
             self._scatter(pools, layer_idx, rows, new)
         return self.k[layer_idx], self.v[layer_idx]
 
-    def _pool_lists(self):
-        """Values and their per-token scales: a copied page keeps its
-        scales."""
-        return (self.k, self.v, self.k_scale, self.v_scale)
-
     def _plane_names(self):
         return ("k", "v", "k_scale", "v_scale")
 
@@ -956,6 +1125,39 @@ class QuantPagedKVState(PagedKVState):
         per_row = sum(a.shape[0] * a.shape[2] * itemsize
                       for a in (*self.k, *self.v))
         return self.batch * self.max_len * per_row
+
+
+def stage_kv_view(kv: PagedKVState, lo: int, hi: int) -> PagedKVState:
+    """A pipeline stage's slice of a paged cache: the pool lists cut to
+    attention layers ``[lo, hi)`` (the same tensors, no copy), everything
+    else shared with ``kv`` (block table, counters, ragged lengths, page
+    geometry).  The serving pipeline's stages write disjoint layers
+    through the same host-authored descriptors, so each runs against its
+    view and :func:`merge_stage_kv` folds it back."""
+    view = kv._shallow()
+    for name in kv._plane_names():
+        setattr(view, name, getattr(kv, name)[lo:hi])
+    return view
+
+
+def merge_stage_kv(kv: PagedKVState, lo: int, hi: int,
+                   stage_kv: PagedKVState) -> PagedKVState:
+    """Fold a stage's view back into the full cache (in place): its pools
+    replace layers ``[lo, hi)`` and its lengths become the cache's (every
+    stage advances them alike)."""
+    for name in kv._plane_names():
+        getattr(kv, name)[lo:hi] = getattr(stage_kv, name)
+    kv._length = stage_kv._length
+    kv.ragged_lengths = stage_kv.ragged_lengths
+    return kv
+
+
+def stage_pool_bytes(kv: PagedKVState, lo: int, hi: int) -> int:
+    """Device bytes of the pool slices of attention layers ``[lo, hi)``
+    (values and int8 scales; the block table is the whole cache's)."""
+    return sum(a.numel() * a.element_size()
+               for name in kv._plane_names()
+               for a in getattr(kv, name)[lo:hi])
 
 
 def create_kv_state(specs, batch: int, max_len: int, dtype=torch.float32,

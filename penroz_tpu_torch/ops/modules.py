@@ -69,8 +69,11 @@ class Ctx:
     def __init__(self, *, kv=None, training: bool = False,
                  generator: Optional[torch.Generator] = None,
                  pos_offset=None, ragged_descs=None, ragged_rows=None,
-                 adapter=None, lora=None, lora_idx=None):
+                 adapter=None, lora=None, lora_idx=None, kv_base: int = 0):
         self.kv = kv  # ops.kv_cache.KVState or None
+        # the attention layer index of the cache's first layer list entry
+        # (a serving pipeline stage's view holds layers [kv_base, ...))
+        self.kv_base = int(kv_base)
         self.training = training
         self.generator = generator
         self.pos_offset = pos_offset
@@ -884,25 +887,23 @@ class CausalSelfAttention(Module):
 
         alibi = attn_ops.alibi_slopes(self.num_heads) if self.alibi else None
         if ctx.kv is not None:
+            li = self.layer_idx - ctx.kv_base
             paged = isinstance(ctx.kv, KV.PagedKVState)
             ragged = paged and ctx.ragged_descs is not None
             if ragged:
                 store_k, store_v = ctx.kv.append_packed(
-                    self.layer_idx, k, v, ctx.ragged_rows)
+                    li, k, v, ctx.ragged_rows)
             elif paged:
-                store_k, store_v, length = ctx.kv.append_rows(
-                    self.layer_idx, k, v)
+                store_k, store_v, length = ctx.kv.append_rows(li, k, v)
             elif ctx.kv.quantized:
                 # int8 cache: store + attend on the raw buffers; the
                 # kernel dequantizes per tile.
-                store_k, store_v, length = ctx.kv.append_raw(
-                    self.layer_idx, k, v)
+                store_k, store_v, length = ctx.kv.append_raw(li, k, v)
             else:
-                store_k, store_v, length = ctx.kv.append(self.layer_idx,
-                                                         k, v)
+                store_k, store_v, length = ctx.kv.append(li, k, v)
             # int8 caches carry per-token scales, read after the append
-            scales = ({"k_scale": ctx.kv.k_scale[self.layer_idx],
-                       "v_scale": ctx.kv.v_scale[self.layer_idx]}
+            scales = ({"k_scale": ctx.kv.k_scale[li],
+                       "v_scale": ctx.kv.v_scale[li]}
                       if ctx.kv.quantized else {})
             opts = {"window": self.sliding_window, "alibi": alibi,
                     "scale": self.attn_scale, "softcap": self.logit_softcap,
@@ -919,6 +920,9 @@ class CausalSelfAttention(Module):
                     q, store_k, store_v, ctx.kv.block_table,
                     ctx.kv.page_size, offset, length, **opts)
             else:
+                if not isinstance(length, (int, torch.Tensor)):
+                    length = torch.as_tensor(length, dtype=torch.int32,
+                                             device=q.device)
                 out = attn_ops.cached_attention(q, store_k, store_v, offset,
                                                 length, **opts)
         else:

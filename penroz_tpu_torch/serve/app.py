@@ -46,15 +46,21 @@ dataset already downloading, 409, anything else 500 with
 
 Each request runs in its own thread; a generate request loads the model's
 checkpoint onto the server's device, as the JAX service does per request.
-With ``PENROZ_CONTINUOUS_BATCHING=1`` (and ``PAGED_KV_CACHE=1``) eligible
-``/generate/`` requests and every ``/generate_batch/`` row go to the
-continuous-batching scheduler instead (serve/decode_scheduler.py), whose
-engines keep their model loaded; the others take the single-sequence
-path.  A scheduler request sheds as in the JAX service: a full queue 429
+With ``PENROZ_CONTINUOUS_BATCHING=1`` eligible ``/generate/`` requests
+and every ``/generate_batch/`` row go to the continuous-batching
+scheduler instead (serve/decode_scheduler.py; unified ticks over the
+paged pool, phased ticks over the contiguous cache or under
+``PENROZ_RAGGED_ATTENTION=0``), whose engines keep their model loaded;
+the others take the single-sequence path.  Without it,
+``/generate_batch/`` is the legacy batched generation
+(``generate_tokens_batched``: one right-padded prefill, then ragged
+decode steps; rows with adapters in groups, one bound model each).  A
+scheduler request sheds as in the JAX service: a full queue 429
 and an open breaker 503, both with ``Retry-After``, an expired deadline
 (``timeout_ms``, ``PENROZ_REQ_TIMEOUT_MS``) 504, or on a stream the line
 ``timeout`` after the tokens so far; under ``PENROZ_SCHED_FALLBACK=1`` an
-open breaker sends ``/generate/`` to the single-sequence path.  An
+open breaker sends ``/generate/`` to the single-sequence path and
+``/generate_batch/`` to the legacy batched one.  An
 ``adapter_id`` on ``/generate/`` (``adapter_ids`` per row, or
 ``adapter_id``, on ``/generate_batch/``) pins the adapter in the registry
 for the request: the scheduler mixes it with other adapters and base rows
@@ -684,9 +690,11 @@ class _Handler(BaseHTTPRequestHandler):
         self.close_connection = True
 
     def generate_batch(self, query):
-        """N prompts through the continuous-batching scheduler: the rows
-        join the shared in-flight batch (with any concurrent /generate/
-        traffic) and the batch answers once every row is done."""
+        """N prompts through the continuous-batching scheduler when it is
+        on (the rows join the shared in-flight batch with any concurrent
+        /generate/ traffic, and the batch answers once every row is done),
+        else through the legacy batched generation
+        (``generate_tokens_batched``), as the JAX service does."""
         body = self._body(schemas.GenerateBatchRequest)
         _refuse_unported()
         row_entries = self._batch_adapters(body)
@@ -698,24 +706,26 @@ class _Handler(BaseHTTPRequestHandler):
                 adapters.REGISTRY.release(entry)
 
     def _generate_batch_pinned(self, body, row_entries):
-        if not DS.enabled():
-            raise ValueError(
-                f"/generate_batch/ without {DS.ENABLE_ENV}=1 selects the "
-                f"legacy batched generation (generate_tokens_batched), "
-                f"which penroz_tpu_torch does not support yet")
         prompts = [list(row) for row in body.inputs]
-        validate_batch_generation(prompts, body.block_size,
-                                  body.max_new_tokens)
         log.info("Batch-generating %d sequence(s) using model %s",
                  len(prompts), body.model_id)
-        if body.max_new_tokens < 1:
-            self._send_json(200, {"sequences": prompts})
+        engine = None
+        if DS.enabled() and body.max_new_tokens >= 1:
+            # the whole batch is refused (400) before any row is submitted
+            validate_batch_generation(prompts, body.block_size,
+                                      body.max_new_tokens)
+            engine = DS.get_engine(body.model_id, body.block_size,
+                                   body.temperature, body.top_k,
+                                   device=self.server.device)
+        if engine is not None and self._scheduler_batch(body, prompts,
+                                                         row_entries, engine):
             return
-        engine = DS.get_engine(body.model_id, body.block_size,
-                               body.temperature, body.top_k,
-                               device=self.server.device)
-        if engine is None:
-            raise _HTTPError(503, "every decode engine is busy; retry")
+        self._send_json(200, {"sequences": self._legacy_batch(
+            body, prompts, row_entries)})
+
+    def _scheduler_batch(self, body, prompts, row_entries, engine) -> bool:
+        """The rows through ``engine``; False hands the batch to the legacy
+        path (an open breaker's shed under ``PENROZ_SCHED_FALLBACK=1``)."""
         sids = _batch_session_ids(body, len(prompts))
         # every row settles, then the batch answers as one: a shed row
         # (429 / 503 / 504) sheds the batch, as in the JAX service.  Each
@@ -748,13 +758,40 @@ class _Handler(BaseHTTPRequestHandler):
         errors = [r for r in results if isinstance(r, Exception)]
         if not errors:
             self._send_json(200, {"sequences": results})
-            return
+            return True
         shed = next((e for e in errors if isinstance(e, _SHED)), None)
         if shed is None:
             raise errors[0]
-        # an open breaker sheds the batch under PENROZ_SCHED_FALLBACK=1
-        # too: the legacy batched path it would take is not ported
+        if isinstance(shed, DS.CircuitOpenError) and DS.fallback_enabled():
+            log.warning("Scheduler circuit open for model %s; the batch "
+                        "falls back to the legacy path", body.model_id)
+            return False
         self._send_shed(shed)
+        return True
+
+    def _legacy_batch(self, body, prompts, row_entries) -> list:
+        """``generate_tokens_batched`` over the rows; with adapters the
+        rows are grouped by adapter, each group through the model bound to
+        it, the whole batch validated first (all or nothing)."""
+        model = NeuralNetworkModel.deserialize(body.model_id,
+                                               device=self.server.device,
+                                               optimizer=False)
+        validate_batch_generation(prompts, body.block_size,
+                                  body.max_new_tokens)
+        groups: dict = {}
+        for i, entry in enumerate(row_entries):
+            groups.setdefault(id(entry), (entry, []))[1].append(i)
+        sequences: list = [None] * len(prompts)
+        for entry, rows in groups.values():
+            bound = (model if entry is None
+                     else lora.bind_model(model, entry.params, entry.config))
+            outs = bound.generate_tokens_batched(
+                [prompts[i] for i in rows], body.block_size,
+                body.max_new_tokens, body.temperature, body.top_k,
+                body.stop_token)
+            for i, seq in zip(rows, outs):
+                sequences[i] = seq
+        return sequences
 
     def output(self, query):
         body = self._body(schemas.OutputRequest)

@@ -1,16 +1,17 @@
 """Continuous-batching decode scheduler: concurrent /generate/ and
-/generate_batch/ requests share one in-flight batch over the paged KV pool
-(counterpart of penroz_tpu/serve/decode_scheduler.py, its unified ragged
-core).
+/generate_batch/ requests share one in-flight batch over a multi-row KV
+cache (counterpart of penroz_tpu/serve/decode_scheduler.py).
 
 Per ``(model, block_size, temperature, top_k)`` one :class:`DecodeEngine`
 owns a fixed-capacity batch (``PENROZ_SCHED_MAX_ROWS``, default 8) whose
-rows own static page ranges of one paged pool, and a worker thread that:
+rows own static page ranges of one paged pool (``PAGED_KV_CACHE=1``) or
+their own rows of a contiguous cache, and a worker thread that:
 
 - admits queued requests into free rows at block boundaries, each row in a
   PREFILLING phase whose prompt is cut into chunks of
   ``PENROZ_PREFILL_CHUNK`` tokens (default 256) with a power-of-two tail;
-- runs every tick as ONE unified block (``_tick_unified``): the host plans
+- over the paged pool runs every tick as ONE unified block
+  (``_tick_unified``): the host plans
   up to ``PENROZ_SCHED_SUPERSTEP`` steps (default 8) in which each
   prefilling row runs one chunk a step and each decoding row one token a
   step, packs every step's spans into descriptor blocks, and runs the block
@@ -129,11 +130,34 @@ the worker hands off after the block's replay releases it, and an
 importer's acks go out after its admission does, so two workers never
 wait on each other's locks.
 
+The phased ticks (JAX ``_tick``'s other form): over the contiguous cache,
+or the paged pool with ``PENROZ_RAGGED_ATTENTION=0``, a tick runs the
+prefill chunks of one step boundary (one a boundary while rows decode, more
+under the ``PENROZ_SCHED_MAX_STALL_MS`` budget; each through
+``NeuralNetworkModel.decode_prefill_chunk`` on its row's view), then either
+one shared step (``decode_step_batched``; rows with a speculative draft
+verify first, ``decode_verify_row`` and ``rollback_row``) or one fused
+superstep of up to ``PENROZ_SCHED_SUPERSTEP`` steps
+(``decode_superstep``: the active mask, stop tokens and budgets on the
+device), whose every step launches the cache's decode kernel (contiguous
+or paged) once a layer with the rows' own lengths.  Speculation on the
+phased ticks serves greedy engines, as in the JAX package.
+
+Pipeline-parallel serving (``PENROZ_SERVE_PIPE_STAGES=S``, S > 1, over the
+paged pool's unified ticks; ignored with a warning otherwise): the model's
+modules split into S stages (``NeuralNetworkModel.serve_pipeline``), the
+active rows into ``PENROZ_SERVE_PIPE_BLOCKS`` micro-blocks (at least S),
+each planned as a mixed block; a pipeline tick walks the stages last to
+first and moves each block one stage (``decode_pipe_stage`` against the
+stage's slice of the pools), so S blocks keep S stages busy.  The fault
+sites ``pipe.handoff`` (the activations bounce through the host, counted)
+and ``pipe.stage_crash`` (a tick crash: the whole group recovers) fire in
+it.  While LoRA adapters are live the engine serves unpiped.
+
 Models with ``ssm`` layers are refused (HTTP 400): their rows need the
 packed recurrent update (``SSMState.update_packed``), not ported yet.
-Not ported (refused by :func:`unported_serving_options`, HTTP 400): the
-phased ticks (``PENROZ_RAGGED_ATTENTION=0``) and continuous batching over
-the contiguous cache, serving meshes and pipeline stages.
+Not ported (refused by :func:`unported_serving_options`, HTTP 400):
+serving meshes (``PENROZ_SERVE_MESH``).
 
 Session hibernation (serve/tierstore.py): a request's ``session_id``
 parks its prompt and generated tokens' KV at retirement
@@ -174,6 +198,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from penroz_tpu_torch.models import lora as lora_mod
 from penroz_tpu_torch.models.model import NeuralNetworkModel
@@ -206,6 +231,9 @@ TICK_WATCHDOG_ENV = "PENROZ_TICK_WATCHDOG_MS"
 DRAIN_S_ENV = "PENROZ_DRAIN_S"
 TICK_TIMELINE_ENV = "PENROZ_TICK_TIMELINE"
 REPLICAS_ENV = "PENROZ_SCHED_REPLICAS"
+MAX_STALL_MS_ENV = "PENROZ_SCHED_MAX_STALL_MS"
+PIPE_STAGES_ENV = "PENROZ_SERVE_PIPE_STAGES"
+PIPE_BLOCKS_ENV = "PENROZ_SERVE_PIPE_BLOCKS"
 # Disaggregated prefill's hand-off transport: "d2d" (device planes handed
 # over in process, the default: every replica of a group lives here) or
 # "host" (the CRC page-blob codec, also the fallback when d2d fails).
@@ -215,10 +243,7 @@ DISAGG_ACK_TIMEOUT_ENV = "PENROZ_DISAGG_ACK_TIMEOUT_MS"
 # Scheduler features of the JAX package this port does not have yet:
 # (variable, predicate on its value that selects the feature, what).
 _UNPORTED_SERVING_ENV = (
-    (RAGGED_ENV, lambda v: v == "0", "the phased (non-unified) ticks"),
     ("PENROZ_SERVE_MESH", lambda v: v == "1", "a serving mesh"),
-    ("PENROZ_SERVE_PIPE_STAGES", lambda v: _int(v) > 1,
-     "pipeline-parallel serving"),
 )
 
 # Tick-timeline entries served per /serving_stats/ payload (the ring
@@ -260,20 +285,6 @@ class DeadlineExceeded(RuntimeError):
     def __init__(self, phase: str, detail: str):
         super().__init__(detail)
         self.phase = phase
-
-
-def _int(v: str) -> int:
-    try:
-        return int(v)
-    except ValueError:
-        return 0
-
-
-def _float(v: str) -> float:
-    try:
-        return float(v)
-    except ValueError:
-        return 0.0
 
 
 def enabled() -> bool:
@@ -350,6 +361,29 @@ def _prefill_chunk() -> int:
     return _env_int(PREFILL_CHUNK_ENV, 256)
 
 
+def ragged_enabled() -> bool:
+    """The unified ragged tick over the paged pool (on unless
+    ``PENROZ_RAGGED_ATTENTION=0``, which keeps the phased ticks)."""
+    return os.environ.get(RAGGED_ENV, "1") != "0"
+
+
+def _max_stall_ms() -> float:
+    """The phased ticks' prefill budget a step boundary while rows decode
+    (0: one chunk)."""
+    return _env_float(MAX_STALL_MS_ENV, 0.0)
+
+
+def _pipe_stages() -> int:
+    """Pipeline stages of one serving group (1: off)."""
+    return _env_int(PIPE_STAGES_ENV, 1)
+
+
+def _pipe_blocks(stages: int) -> int:
+    """Micro-blocks a pipeline tick splits the rows into: at least
+    ``stages``, so every stage can be busy once the pipeline fills."""
+    return max(int(stages), _env_int(PIPE_BLOCKS_ENV, stages))
+
+
 def _superstep_max() -> int:
     """Unified steps per dispatch (1: one step a tick)."""
     return _env_int(SUPERSTEP_ENV, 8)
@@ -386,14 +420,9 @@ def _ack_timeout_s() -> float:
 
 def unported_serving_options() -> None:
     """Raise ValueError (HTTP 400) naming the knob when continuous batching
-    is on with a scheduler feature the port does not have, or without the
-    paged pool (the phased ticks over the contiguous cache)."""
+    is on with a scheduler feature the port does not have."""
     if not enabled():
         return
-    if not KV.paged_enabled():
-        raise ValueError(f"{ENABLE_ENV}=1 without {KV.PAGED_ENV}=1 selects "
-                         f"the phased ticks over the contiguous cache, "
-                         f"which penroz_tpu_torch does not support yet")
     for name, selects, what in _UNPORTED_SERVING_ENV:
         value = os.environ.get(name)
         if value is not None and selects(value):
@@ -561,9 +590,40 @@ class DecodeEngine:
                 f"penroz_tpu_torch yet; serve it with {ENABLE_ENV}=0")
         self._model.arch.check_positions(self.block_size, "block_size")
         self._ckpt_stamp_v = self._ckpt_stamp()
-        # the radix prefix cache's reserved pool tail
-        self._extra_pages = (KV.prefix_cache_pages()
-                             if KV.prefix_cache_enabled() else 0)
+        # Pipeline-parallel serving: the stage partition of the unified
+        # ragged ticks (micro-blocks are slices of the mixed plan), so it
+        # needs the paged pool and the ragged path; the counters are the
+        # JAX package's.
+        self._pipe = None
+        self._pipe_ticks = 0
+        self._pipe_bubble_ticks = 0
+        self._pipe_stage_busy: collections.Counter = collections.Counter()
+        self._pipe_handoffs = 0
+        self._pipe_handoff_host_fallbacks = 0
+        self._pipe_lora_warned = False
+        stages = _pipe_stages()
+        if stages > 1:
+            if not (KV.paged_enabled() and ragged_enabled()):
+                log.warning(
+                    "%s=%d ignored: pipeline serving rides the unified "
+                    "ragged dispatch (%s=1 + %s=1)", PIPE_STAGES_ENV,
+                    stages, KV.PAGED_ENV, RAGGED_ENV)
+            else:
+                try:
+                    self._pipe = self._model.serve_pipeline(stages)
+                except ValueError as e:
+                    log.warning("%s=%d ignored: %s", PIPE_STAGES_ENV,
+                                stages, e)
+        # the radix prefix cache's reserved pool tail (page-granular: the
+        # paged pool only; preemption and hibernation ride it)
+        self._extra_pages = 0
+        if KV.prefix_cache_enabled():
+            if KV.paged_enabled():
+                self._extra_pages = KV.prefix_cache_pages()
+            else:
+                log.warning("%s=1 ignored: prefix-KV sharing is "
+                            "page-granular and needs %s=1",
+                            KV.PREFIX_CACHE_ENV, KV.PAGED_ENV)
         self._prefix_cache = None
         self._lengths = np.zeros(self.capacity, np.int32)
         self._last_tok = np.zeros(self.capacity, np.int32)
@@ -606,6 +666,11 @@ class DecodeEngine:
         self._decode_time_s = 0.0
         self._prefill_chunks = 0
         self._dispatches = 0
+        # forward passes the engine ran: a unified block's steps, the phased
+        # ticks' shared and fused steps, prefill chunks and verify spans
+        self._forward_passes = 0
+        self._chunks_between_steps = 0
+        self._max_chunks_between_steps = 0
         self._occupancy_sum = 0.0
         # (monotonic s, decode tokens) per block, the last _TPS_WINDOW_S
         self._token_window: collections.deque = collections.deque()
@@ -655,15 +720,18 @@ class DecodeEngine:
         self._thread.start()
 
     def _alloc_state(self):
-        """(Re)allocate the engine's paged pool from scratch with the static
-        per-row page partition, and the radix prefix cache over the pool's
-        tail (pages ``[capacity * pages_per_seq, num_pool_pages)``, which the
-        partition never touches) — at construction and after a failed
-        tick, whose KV and prefix state are presumed corrupt."""
+        """(Re)allocate the engine's KV cache from scratch (a paged pool with
+        the static per-row page partition under ``PAGED_KV_CACHE=1``, else
+        a contiguous cache, fp32 or int8), and the radix prefix cache over
+        the pool's tail (pages ``[capacity * pages_per_seq,
+        num_pool_pages)``, which the partition never touches) — at
+        construction and after a failed tick, whose KV and prefix state
+        are presumed corrupt (a pipeline group's every stage: the stages
+        run on views of this one cache)."""
         old_cache = self._prefix_cache
         self._kv = (KV.create_kv_state(self._model.arch.kv_specs,
                                        self.capacity, self.block_size,
-                                       self._model.dtype, paged=True,
+                                       self._model.dtype,
                                        device=self._model.device,
                                        extra_pool_pages=self._extra_pages)
                     .with_static_table()
@@ -896,6 +964,20 @@ class DecodeEngine:
             "disagg_handoff_ms_p99": self._round_q(self._h_handoff, 0.99),
             "disagg_transport": _disagg_transport(),
             "disagg_role_changes": self._disagg_role_changes,
+            "pipe_stages": (self._pipe.stages if self._pipe is not None
+                            else 1),
+            "pipe_microblocks": (_pipe_blocks(self._pipe.stages)
+                                 if self._pipe is not None else 0),
+            "pipe_ticks": self._pipe_ticks,
+            "pipe_bubble_fraction": (
+                round(self._pipe_bubble_ticks
+                      / (self._pipe_ticks * self._pipe.stages), 4)
+                if self._pipe is not None and self._pipe_ticks else None),
+            "pipe_stage_busy": {str(s): int(c) for s, c
+                                in sorted(self._pipe_stage_busy.items())},
+            "pipe_handoffs": self._pipe_handoffs,
+            "pipe_handoff_host_fallbacks":
+                self._pipe_handoff_host_fallbacks,
             "active_rows": active,
             "queue_depth": self.queue_depth,
             "occupancy": active / self.capacity,
@@ -925,6 +1007,8 @@ class DecodeEngine:
             "admissions": self._admissions,
             "completed": self._completed,
             "prefill_chunks": self._prefill_chunks,
+            "prefill_max_chunks_between_steps":
+                self._max_chunks_between_steps,
             "kv_pool_capacity_drops": self._ledger.pool_capacity_drops,
             "unpin_underflows": self._ledger.unpin_underflows,
             "memory": self._ledger.snapshot(),
@@ -1013,7 +1097,7 @@ class DecodeEngine:
                         self._admit()
                 finally:
                     self._send_acks()
-                ticked = self._tick_unified()
+                ticked = self._tick()
                 # a hibernated session goes down a tier only after the
                 # tick served live traffic
                 self._process_demotions()
@@ -1480,42 +1564,108 @@ class DecodeEngine:
                             imported_pages=len(created), depth_pages=depth)
         return out
 
-    def _tick_unified(self) -> bool:
-        """One unified tick: plan an n-step mixed block, run it as ONE
-        ``decode_mixed_step`` round trip, replay the samples.  Host-only
-        terminal conditions (deadline, cancel) are seen at the block
-        boundary.  False when there was nothing to plan."""
+    def _tick(self) -> bool:
+        """One scheduler tick in the form the cache selects (JAX
+        ``_tick``): the unified ragged block over the paged pool, else the
+        phased tick — this boundary's prefill chunks, then one shared step
+        or one fused superstep (``_plan_superstep`` decides), timed and
+        logged into the tick timeline as a unit.  False when there was
+        nothing to run."""
+        if self._unified():
+            return self._tick_unified()
+        if self._next_prefill_row() is None and not self._decoding_rows():
+            return False
+        prefill_rows = sum(1 for r in self._rows
+                           if r is not None and r.prefilling)
+        chunks0 = self._prefill_chunks
+        verify_rows = shared_rows = emitted = steps = 0
         t0 = time.monotonic()
         self._dispatch_t0 = t0
         try:
             with profiling.span("penroz/sched_tick"):
-                plan = self._plan_mixed()
-                if plan is None:
-                    return False
-                comp = self._mixed_dispatch(plan)
+                self._prefill_tick()
+                # finished prefills of a prefill replica hand off with the
+                # lock released
+                self._flush_outbox()
+                if self._decoding_rows():
+                    n = self._plan_superstep()
+                    if n > 1:
+                        shared_rows, emitted = self._superstep(n)
+                        steps = n
+                    else:
+                        verify_rows, shared_rows, emitted = self._step()
+                        steps = 1
         finally:
             self._dispatch_t0 = None
             self._watchdog_fired = False
+        self._record_tick(t0, prefill_chunks=self._prefill_chunks - chunks0,
+                          verify_rows=verify_rows, shared_rows=shared_rows,
+                          emitted=emitted, superstep=steps, unified=False,
+                          prefill_rows=prefill_rows, decode_rows=shared_rows,
+                          pipe_ticks=0, pipe_bubbles=0)
+        return True
+
+    def _record_tick(self, t0: float, **entry):
+        """One tick's wall time into the histograms, and its composition
+        into the tick timeline."""
         dur_ms = (time.monotonic() - t0) * 1000.0
         self._h_tick.observe(dur_ms)
         serve_metrics.TICK_MS.observe(dur_ms)
         self._tick_timeline.append({
-            "t": t0,
-            "dispatch_ms": round(dur_ms, 3),
+            "t": t0, "dispatch_ms": round(dur_ms, 3),
             "occupancy": round(self.active_rows / self.capacity, 4),
-            "prefill_chunks": comp["prefill_chunks"],
-            "verify_rows": comp["verify_rows"],
-            "shared_rows": comp["decode_rows"],
-            "emitted": comp["emitted"],
-            "superstep": plan["n"],
-            "unified": True,
-            "prefill_rows": comp["prefill_rows"],
-            "decode_rows": comp["decode_rows"],
-        })
+            **entry})
+
+    def _unified(self) -> bool:
+        """The unified ragged tick is the paged pool's; the contiguous
+        cache, or ``PENROZ_RAGGED_ATTENTION=0``, keeps the phased one."""
+        return isinstance(self._kv, KV.PagedKVState) and ragged_enabled()
+
+    def _tick_unified(self) -> bool:
+        """One unified tick: plan an n-step mixed block, run it as ONE
+        ``decode_mixed_step`` round trip, replay the samples — or, in a
+        pipeline group, plan micro-blocks and run them through the stage
+        schedule (``_pipeline_dispatch``).  Host-only terminal conditions
+        (deadline, cancel) are seen at the block boundary.  False when
+        there was nothing to plan."""
+        t0 = time.monotonic()
+        self._dispatch_t0 = t0
+        try:
+            with profiling.span("penroz/sched_tick"):
+                if self._pipe is not None and self._lora_pack is None:
+                    plans = self._plan_mixed_blocks()
+                    if not plans:
+                        return False
+                    comp = self._pipeline_dispatch(plans)
+                    superstep = max(p["n"] for p in plans)
+                else:
+                    if self._pipe is not None and not self._pipe_lora_warned:
+                        self._pipe_lora_warned = True
+                        log.warning(
+                            "pipeline serving suspended while LoRA "
+                            "adapters are live: stage re-keying does not "
+                            "thread the adapter pack")
+                    plan = self._plan_mixed()
+                    if plan is None:
+                        return False
+                    comp = self._mixed_dispatch(plan)
+                    superstep = plan["n"]
+        finally:
+            self._dispatch_t0 = None
+            self._watchdog_fired = False
+        self._record_tick(t0, prefill_chunks=comp["prefill_chunks"],
+                          verify_rows=comp["verify_rows"],
+                          shared_rows=comp["decode_rows"],
+                          emitted=comp["emitted"], superstep=superstep,
+                          unified=True, prefill_rows=comp["prefill_rows"],
+                          decode_rows=comp["decode_rows"],
+                          pipe_ticks=comp.get("pipe_ticks", 0),
+                          pipe_bubbles=comp.get("pipe_bubbles", 0))
         return True
 
-    def _plan_mixed(self):
-        """Host-side plan of one unified block (JAX ``_plan_mixed``):
+    def _plan_mixed(self, rows=None):
+        """Host-side plan of one unified block (JAX ``_plan_mixed``) over
+        ``rows`` (``(index, _Row)`` pairs; every live row when None):
         simulate every row's next ``PENROZ_SCHED_SUPERSTEP`` steps — a
         prefilling row runs one chunk a step and parks at its final chunk
         (whose sample is its first token, shipped at this block's
@@ -1525,8 +1675,9 @@ class DecodeEngine:
         spent — and pack each step's spans into descriptor arrays (the
         step count takes the pow-2 floor, the descriptor count the pow-2
         ceiling)."""
-        rows = [(i, r) for i, r in enumerate(self._rows)
-                if r is not None and not r.transit]
+        if rows is None:
+            rows = [(i, r) for i, r in enumerate(self._rows)
+                    if r is not None and not r.transit]
         if not rows:
             return None
         block_q = RPA.default_block_q()
@@ -1635,13 +1786,9 @@ class DecodeEngine:
         package: ``decode.step`` on every block, ``decode.prefill_chunk``
         on a block with a chunk, ``decode.verify`` on one with a verify
         span."""
-        faults.check("decode.step")
-        kinds = {op[0] for ops in plan["replay"] for op in ops}
-        if "chunk" in kinds:
-            faults.check("decode.prefill_chunk")
-        if "verify" in kinds:
-            faults.check("decode.verify")
+        self._check_block_faults([plan])
         t0 = time.monotonic()
+        self._forward_passes += plan["n"]
         with profiling.span("penroz/sched_mixed"):
             arr, self._kv = self._model.decode_mixed_step(
                 self._kv, plan["descs"], plan["tok_lit"], plan["tok_src"],
@@ -1657,6 +1804,18 @@ class DecodeEngine:
         # placement takes the decode replicas' locks
         self._flush_outbox()
         return comp
+
+    @staticmethod
+    def _check_block_faults(plans):
+        """The fault sites of a block's dispatch, before it: ``decode.step``
+        always, ``decode.prefill_chunk`` with a chunk, ``decode.verify``
+        with a verify span."""
+        faults.check("decode.step")
+        kinds = {op[0] for p in plans for ops in p["replay"] for op in ops}
+        if "chunk" in kinds:
+            faults.check("decode.prefill_chunk")
+        if "verify" in kinds:
+            faults.check("decode.verify")
 
     def _replay_block(self, plan, arr, t0, t1) -> dict:
         """Replay the block's samples step-major through the per-token
@@ -1738,31 +1897,416 @@ class DecodeEngine:
                         self._emit_token(i, state, tok)
                         if self._rows[i] is not state:
                             break
-        now = time.monotonic()
-        self._decode_steps += steps_decode
-        self._decode_tokens += emitted
-        serve_metrics.DECODE_TOKENS.inc(emitted)
-        self._decode_time_s += now - t0
-        self._occupancy_sum += (steps_decode * len(decode_rows | verify_rows)
-                                / self.capacity)
-        self._token_window.append((now, emitted))
-        while (self._token_window
-               and now - self._token_window[0][0] > _TPS_WINDOW_S):
-            self._token_window.popleft()
+        self._account_decode(t0, steps_decode, len(decode_rows | verify_rows),
+                             emitted)
         if chunks_run and steps_decode:
             # the chunks rode the decode dispatch: the decode batch stalled
             # 0 ms for them
             self._h_chunk_stall.observe(0.0)
             serve_metrics.CHUNK_STALL_MS.observe(0.0)
-        self._dispatches += 1
-        self._h_tokens_per_dispatch.observe(float(emitted_total))
-        serve_metrics.DISPATCHES.inc()
-        serve_metrics.TOKENS_PER_DISPATCH.observe(float(emitted_total))
+        self._record_dispatch(emitted_total)
         return {"prefill_chunks": chunks_run,
                 "prefill_rows": len(prefill_rows),
                 "decode_rows": len(decode_rows),
                 "verify_rows": len(verify_rows),
                 "emitted": emitted_total}
+
+    def _record_dispatch(self, emitted: int):
+        """One decode-path device round trip (a unified block, a shared
+        step, a verify span or a fused superstep) and its tokens."""
+        self._dispatches += 1
+        self._h_tokens_per_dispatch.observe(float(emitted))
+        serve_metrics.DISPATCHES.inc()
+        serve_metrics.TOKENS_PER_DISPATCH.observe(float(emitted))
+
+    # -- pipeline-parallel serving (PENROZ_SERVE_PIPE_STAGES) ---------------
+
+    def _plan_mixed_blocks(self) -> list:
+        """The live rows dealt round robin into ``PENROZ_SERVE_PIPE_BLOCKS``
+        micro-blocks (at most one a row), each planned as a mixed block;
+        fewer live rows than stages leave bubbles the counters report."""
+        rows = [(i, r) for i, r in enumerate(self._rows)
+                if r is not None and not r.transit]
+        if not rows:
+            return []
+        m = min(_pipe_blocks(self._pipe.stages), len(rows))
+        plans = [self._plan_mixed(rows[b::m]) for b in range(m)]
+        return [p for p in plans if p is not None]
+
+    def _pipeline_dispatch(self, plans: list) -> dict:
+        """Run the micro-blocks through the stage schedule (JAX
+        ``_pipeline_dispatch``) and replay each through the retirement
+        path.  The unit of work is (block, step, stage): one
+        ``decode_pipe_stage`` over the block's step against the stage's
+        view of the pools.  A block's step needs its previous step's
+        samples at stage 0, so a block sits in one stage at a time; a
+        pipeline tick walks the stages last to first and moves at most one
+        block a stage, so S blocks keep S stages busy.  ``bubbles`` counts
+        the idle stage-ticks (fill, drain, too few blocks): the bubble
+        fraction is bubbles / (ticks x S).  The ``pipe.handoff`` fault
+        bounces a hand-off's activations through the host (same values;
+        ``pipe_handoff_host_fallbacks``); ``pipe.stage_crash`` fails the
+        tick, whose recovery rebuilds the whole group's cache."""
+        self._check_block_faults(plans)
+        pipe = self._pipe
+        S = pipe.stages
+        t0 = time.monotonic()
+        last_local = self._last_tok.copy()
+        blocks = [{"plan": p, "step": 0, "stage": 0, "h": None,
+                   "arr": np.full(p["tok_lit"].shape, -1, np.int64)}
+                  for p in plans]
+        live = set(range(len(blocks)))
+        ticks = bubbles = 0
+        with profiling.span("penroz/sched_pipeline"):
+            while live:
+                ran = 0
+                for s in reversed(range(S)):
+                    b = next((b for b in sorted(live)
+                              if blocks[b]["stage"] == s), None)
+                    if b is None:
+                        continue
+                    st = blocks[b]
+                    plan, i = st["plan"], st["step"]
+                    faults.check("pipe.stage_crash")
+                    if s == 0:
+                        src = plan["tok_src"][i]
+                        x = np.where(src >= 0,
+                                     last_local[np.clip(src, 0, None)],
+                                     plan["tok_lit"][i])
+                    else:
+                        x = st["h"]
+                    slots = plan["sample_slot"][i]
+                    if plan["verify_slots"] is not None:
+                        slots = np.concatenate([slots,
+                                                plan["verify_slots"][i]])
+                    lo, hi = pipe.kv_bounds[s]
+                    out, view = self._model.decode_pipe_stage(
+                        pipe, s, KV.stage_kv_view(self._kv, lo, hi), x,
+                        plan["descs"][i], plan["positions"][i],
+                        plan["row_ids"][i], seed=self._seed,
+                        temperature=self.temperature, top_k=self.top_k,
+                        slots=slots[slots >= 0])
+                    self._kv = KV.merge_stage_kv(self._kv, lo, hi, view)
+                    ran += 1
+                    self._pipe_stage_busy[s] += 1
+                    if s < S - 1:
+                        self._pipe_handoffs += 1
+                        try:
+                            faults.check("pipe.handoff")
+                        except faults.InjectedFault:
+                            # a fault mid-transfer: the activations go
+                            # through the host instead, the same values
+                            out = torch.from_numpy(out.cpu().numpy()).to(
+                                out.device)
+                            self._pipe_handoff_host_fallbacks += 1
+                        st["h"] = out
+                        st["stage"] = s + 1
+                        continue
+                    st["arr"][i] = out
+                    sslot = plan["sample_slot"][i]
+                    upd = np.nonzero(sslot >= 0)[0]
+                    last_local[upd] = out[sslot[upd]]
+                    st["h"] = None
+                    st["step"] += 1
+                    st["stage"] = 0
+                    if st["step"] >= plan["n"]:
+                        live.discard(b)
+                ticks += 1
+                bubbles += S - ran
+        t1 = time.monotonic()
+        self._pipe_ticks += ticks
+        self._pipe_bubble_ticks += bubbles
+        self._forward_passes += sum(p["n"] for p in plans)
+        comp = dict.fromkeys(("prefill_chunks", "prefill_rows",
+                              "decode_rows", "verify_rows", "emitted"), 0)
+        with self._cond:
+            for st in blocks:
+                part = self._replay_block(st["plan"], st["arr"], t0, t1)
+                for k in comp:
+                    comp[k] += part[k]
+        self._flush_outbox()
+        comp["pipe_ticks"] = ticks
+        comp["pipe_bubbles"] = bubbles
+        return comp
+
+    # -- the phased ticks (the contiguous cache, PENROZ_RAGGED_ATTENTION=0) -
+
+    def _next_prefill_row(self):
+        """The prefilling row enqueued first (FIFO over rows, so a long
+        early prompt is not starved by later arrivals), or None."""
+        best = None
+        for i, r in enumerate(self._rows):
+            if r is None or not r.prefilling or r.transit:
+                continue
+            if best is None or (r.req.enqueue_t
+                                < self._rows[best].req.enqueue_t):
+                best = i
+        return best
+
+    def _decoding_rows(self) -> list[int]:
+        """Rows past their prefill: the shared step's real participants
+        (prefilling, free and transit rows ride along parked)."""
+        return [i for i, r in enumerate(self._rows)
+                if r is not None and not r.prefilling and not r.transit]
+
+    def _prefill_tick(self):
+        """This step boundary's prefill chunks: one while rows decode (the
+        stall bound), more while under ``PENROZ_SCHED_MAX_STALL_MS``; one
+        a loop with an idle decode batch, so admission stays responsive.
+        The decode batch's stall is observed."""
+        if self._next_prefill_row() is None:
+            return
+        budget_ms = _max_stall_ms()
+        stalling = bool(self._decoding_rows())
+        t0 = time.monotonic()
+        while True:
+            row = self._next_prefill_row()
+            if row is None:
+                break
+            self._run_prefill_chunk(row)
+            if not stalling:
+                break
+            self._chunks_between_steps += 1
+            if (time.monotonic() - t0) * 1000.0 >= budget_ms:
+                break
+        if stalling:
+            stall_ms = (time.monotonic() - t0) * 1000.0
+            self._h_chunk_stall.observe(stall_ms)
+            serve_metrics.CHUNK_STALL_MS.observe(stall_ms)
+
+    def _run_prefill_chunk(self, row: int):
+        """One chunk of row ``row``'s prompt through its view of the cache
+        (``decode_prefill_chunk``); the last chunk's sample is the
+        request's next token."""
+        state = self._rows[row]
+        req = state.req
+        with self._cond:
+            if req.cancelled:
+                self._retire(row, notify=False, reason="cancelled")
+                return
+            if req.expired():
+                self._timeout_row(row, state, "during prefill")
+                return
+        faults.check("decode.prefill_chunk")
+        size = state.chunks[state.chunk_idx]
+        start = state.prefilled
+        sp = (req.trace.span("prefill_chunk", parent=state.sp_prefill,
+                             size=size, start=start)
+              if req.trace is not None else None)
+        # the history is the effective prompt for the whole PREFILLING
+        # phase (tokens append only after it)
+        with profiling.span("penroz/sched_prefill_chunk"):
+            tok, self._kv = self._model.decode_prefill_chunk(
+                self._kv, row, state.history[start:start + size], start,
+                seed=self._seed, temperature=self.temperature,
+                top_k=self.top_k, lora=self._lora_pack,
+                adapter_slot=int(self._row_adapter[row]))
+        self._forward_passes += 1
+        with self._cond:
+            if req.trace is not None:
+                req.trace.end(sp)
+            state.prefilled += size
+            state.chunk_idx += 1
+            self._prefill_chunks += 1
+            serve_metrics.PREFILL_CHUNKS.inc()
+            # the row parks its shared-step writes at its next position
+            self._lengths[row] = state.prefilled
+            if state.chunk_idx >= len(state.chunks):
+                self._finish_prefill(row, state, tok)
+
+    def _step(self):
+        """One phased decode step: a verify span for every row with a
+        draft, then one shared step for the rest (which the verified rows
+        ride parked: their write lands at their next position, always
+        overwritten).  One decode step either way.  Returns
+        ``(verify_rows, shared_rows, emitted)``."""
+        faults.check("decode.step")
+        t0 = time.monotonic()
+        self._max_chunks_between_steps = max(
+            self._max_chunks_between_steps, self._chunks_between_steps)
+        self._chunks_between_steps = 0
+        active = self._decoding_rows()
+        emitted = 0
+        plan = self._plan_drafts(active)
+        for row, draft in plan:
+            emitted += self._verify_row(row, draft)
+        drafted = {row for row, _ in plan}
+        normal = [i for i in self._decoding_rows() if i not in drafted]
+        if normal:
+            emitted += self._shared_step(normal)
+        self._account_decode(t0, 1, len(active), emitted)
+        return len(plan), len(normal), emitted
+
+    def _account_decode(self, t0: float, steps: int, rows: int,
+                        emitted: int):
+        """Decode steps, tokens, time and occupancy of one dispatch since
+        ``t0``, and the recent-rate window."""
+        now = time.monotonic()
+        self._decode_steps += steps
+        self._decode_tokens += emitted
+        serve_metrics.DECODE_TOKENS.inc(emitted)
+        self._decode_time_s += now - t0
+        self._occupancy_sum += steps * rows / self.capacity
+        self._token_window.append((now, emitted))
+        while (self._token_window
+               and now - self._token_window[0][0] > _TPS_WINDOW_S):
+            self._token_window.popleft()
+
+    def _shared_step(self, rows: list[int]) -> int:
+        """One batched decode+sample step over every row
+        (``decode_step_batched``), emitting for ``rows``; returns the
+        tokens emitted."""
+        t0 = time.monotonic()
+        with profiling.span("penroz/sched_step"):
+            arr, self._kv = self._model.decode_step_batched(
+                self._kv, self._last_tok, self._lengths, seed=self._seed,
+                temperature=self.temperature, top_k=self.top_k,
+                lora=self._lora_pack, row_adapter=self._row_adapter)
+        self._forward_passes += 1
+        t1 = time.monotonic()
+        emitted = 0
+        with self._cond:
+            for i in rows:
+                state = self._rows[i]
+                if state.req.trace is not None:
+                    sp = state.req.trace.span("decode_step", t0=t0,
+                                              parent=state.sp_decode)
+                    state.req.trace.end(sp, t1=t1)
+                self._lengths[i] += 1
+                tok = int(arr[i])
+                self._last_tok[i] = tok
+                emitted += 1
+                self._emit_token(i, state, tok)
+        self._record_dispatch(emitted)
+        return emitted
+
+    def _plan_superstep(self) -> int:
+        """Fused steps for this tick: more than 1 only when the host has
+        nothing to do at the boundaries it would skip — no prefilling
+        row, no queued request, no speculative draft — clamped to the
+        largest need of a row (its budget, its room) and floored to a
+        power of two (at most ``PENROZ_SCHED_SUPERSTEP``).  Deadlines and
+        cancellations are seen at the superstep's boundary."""
+        n = _superstep_max()
+        if n <= 1 or self._next_prefill_row() is not None:
+            return 1
+        with self._cond:
+            if self._pending:
+                return 1
+        rows = self._decoding_rows()
+        if self._spec_on() and self._plan_drafts(rows):
+            return 1
+        need = 1
+        for i in rows:
+            state = self._rows[i]
+            need = max(need, min(state.req.max_new_tokens - state.produced,
+                                 self.block_size - int(self._lengths[i])))
+        return bucketing.clamp_pow2_floor(need, hi=n)
+
+    def _superstep(self, n: int) -> tuple[int, int]:
+        """One fused n-step dispatch (``decode_superstep``) replayed step
+        major through the per-token retirement path: the host retires each
+        row on the token the device's mask stopped at (both run the same
+        rule on the same inputs).  n decode steps, one dispatch.  Returns
+        ``(rows, tokens emitted)``."""
+        faults.check("decode.step")
+        t0 = time.monotonic()
+        self._max_chunks_between_steps = max(
+            self._max_chunks_between_steps, self._chunks_between_steps)
+        self._chunks_between_steps = 0
+        rows = self._decoding_rows()
+        states = {i: self._rows[i] for i in rows}
+        active = np.zeros(self.capacity, bool)
+        stop = np.full(self.capacity, -1, np.int64)
+        remaining = np.zeros(self.capacity, np.int64)
+        for i in rows:
+            req = states[i].req
+            active[i] = True
+            stop[i] = -1 if req.stop_token is None else int(req.stop_token)
+            remaining[i] = req.max_new_tokens - states[i].produced
+        with profiling.span("penroz/sched_superstep"):
+            toks, emit, lens, self._kv = self._model.decode_superstep(
+                self._kv, self._last_tok, self._lengths, active, stop,
+                remaining, self._seed, n, temperature=self.temperature,
+                top_k=self.top_k, lora=self._lora_pack,
+                row_adapter=self._row_adapter)
+        self._forward_passes += n
+        t1 = time.monotonic()
+        emitted = 0
+        with self._cond:
+            for i in rows:
+                state = states[i]
+                if state.req.trace is not None:
+                    sp = state.req.trace.span("decode_step", t0=t0,
+                                              parent=state.sp_decode,
+                                              superstep=n)
+                    state.req.trace.end(sp, t1=t1)
+            for s in range(n):
+                for i in rows:
+                    # a row retired earlier in the replay (or its slot
+                    # reused) is skipped for the rest of the block
+                    if not emit[s, i] or self._rows[i] is not states[i]:
+                        continue
+                    self._lengths[i] += 1
+                    tok = int(toks[s, i])
+                    self._last_tok[i] = tok
+                    emitted += 1
+                    self._emit_token(i, states[i], tok)
+            for i in rows:
+                if self._rows[i] is states[i] and int(
+                        self._lengths[i]) != int(lens[i]):
+                    raise RuntimeError(
+                        f"superstep length drift on row {i}: host "
+                        f"{int(self._lengths[i])} != device {int(lens[i])}")
+        self._account_decode(t0, n, len(rows), emitted)
+        self._record_dispatch(emitted)
+        return len(rows), emitted
+
+    def _verify_row(self, row: int, draft: list[int]) -> int:
+        """One verify span of row ``row`` (``decode_verify_row``: the last
+        token and the draft, sampled at every position): emit the longest
+        matching prefix of the draft and the model's token after it, and
+        roll the row back past the rejected positions.  Returns the tokens
+        emitted (at least 1)."""
+        faults.check("decode.verify")
+        state = self._rows[row]
+        start = int(self._lengths[row])
+        tokens = [int(self._last_tok[row])] + [int(t) for t in draft]
+        sp = (state.req.trace.span("verify", parent=state.sp_decode,
+                                   drafted=len(draft))
+              if state.req.trace is not None else None)
+        with profiling.span("penroz/sched_verify"):
+            out, self._kv = self._model.decode_verify_row(
+                self._kv, row, tokens, start, seed=self._seed,
+                temperature=self.temperature, top_k=self.top_k,
+                lora=self._lora_pack,
+                adapter_slot=int(self._row_adapter[row]))
+        self._forward_passes += 1
+        accepted = spec_decode.accept_length(draft, out)
+        emitted = 0
+        with self._cond:
+            if state.req.trace is not None:
+                state.req.trace.end(sp, accepted=accepted,
+                                    rollback_to=start + accepted + 1)
+            self._spec_verify_steps += 1
+            self._spec_drafted_tokens += len(draft)
+            self._spec_accepted_tokens += accepted
+            serve_metrics.SPEC_DRAFTED.inc(len(draft))
+            serve_metrics.SPEC_ACCEPTED.inc(accepted)
+            # K+1 positions were written; only the first accepted + 1 fed
+            # what greedy decoding feeds (the model's own token's K/V is
+            # written by the next step that feeds it)
+            new_len = start + accepted + 1
+            self._kv.rollback_row(row, new_len)
+            self._lengths[row] = new_len
+            for tok in out[:accepted + 1]:
+                self._last_tok[row] = tok
+                emitted += 1
+                self._emit_token(row, state, tok)
+                if self._rows[row] is not state:
+                    break   # retired mid-acceptance, as a plain step stops
+        self._record_dispatch(emitted)
+        return emitted
 
     def _finish_prefill(self, row: int, state: _Row, first: int):
         """Final chunk done: its sample is the request's next token (its
@@ -1777,7 +2321,8 @@ class DecodeEngine:
         req = state.req
         if (self.role == "prefill" and self._handoff_sink is not None
                 and req.handoff is None and req.max_new_tokens > 1
-                and not state.resumed and not req.cancelled):
+                and not state.resumed and not req.cancelled
+                and isinstance(self._kv, KV.PagedKVState)):
             self._outbox.append((row, state, first))
             return
         self._finish_prefill_local(row, state, first)
@@ -2247,11 +2792,12 @@ class DecodeEngine:
     # -- speculative decoding (PENROZ_SPEC_DECODE=1) -------------------------
 
     def _spec_on(self) -> bool:
-        """Speculation applies to greedy and sampling engines alike: the
-        unified block samples with positional keys, so verifying a
-        point-mass draft by its longest matching prefix is exact rejection
-        sampling (serve/spec_decode.py)."""
-        return spec_decode.enabled()
+        """Speculation applies to greedy engines, and to sampling engines
+        on the unified ticks: their block samples with positional keys, so
+        verifying a point-mass draft by its longest matching prefix is
+        exact rejection sampling (serve/spec_decode.py).  The phased ticks
+        keep the JAX package's greedy-only rule."""
+        return spec_decode.enabled() and (self.greedy or self._unified())
 
     def _plan_drafts(self, rows: list[int]) -> list[tuple[int, list[int]]]:
         """(row, draft) pairs for this block's verify spans.  A draft is
@@ -2702,6 +3248,19 @@ def _merged_q(per: list[dict], name: str, q: float, cls=None):
     return round(v, 3) if v is not None else None
 
 
+def _pipe_bubble_agg(per: list[dict]):
+    """The bubble fraction over every piped engine, each weighted by its
+    stage-ticks (pipe_ticks x stages); None before any pipeline tick."""
+    num = den = 0.0
+    for p in per:
+        ticks, frac = p["pipe_ticks"], p["pipe_bubble_fraction"]
+        if ticks and frac is not None:
+            w = ticks * p["pipe_stages"]
+            num += frac * w
+            den += w
+    return round(num / den, 4) if den else None
+
+
 def serving_stats() -> dict:
     """Scheduler observability — the /serving_stats/ payload, the JAX
     package's key names for what this scheduler does.  Percentiles merge
@@ -2807,6 +3366,13 @@ def serving_stats() -> dict:
         "disagg_handoff_ms_p99": _merged_q(per, "handoff_ms", 0.99),
         "disagg_transport": _disagg_transport(),
         "disagg_role_changes": sum(p["disagg_role_changes"] for p in per),
+        # pipeline groups: the widest, and the stage-tick-weighted bubble
+        "pipe_stages": max((p["pipe_stages"] for p in per), default=1),
+        "pipe_ticks": sum(p["pipe_ticks"] for p in per),
+        "pipe_bubble_fraction": _pipe_bubble_agg(per),
+        "pipe_handoffs": sum(p["pipe_handoffs"] for p in per),
+        "pipe_handoff_host_fallbacks": sum(
+            p["pipe_handoff_host_fallbacks"] for p in per),
         # the session tiers: the store is process-wide, the counters under
         # it sum the engines
         "sessions_resident": tiers["sessions_resident"],

@@ -26,8 +26,10 @@ state:
                          (serve/tierstore.py)
 
 A byte ledger covers the rest of the engine's device memory (the K/V
-pools, their int8 scales, the block table, the LoRA pack, the model's
-parameters and buffers), read from the port's own tensors, and the
+pools, or a contiguous cache's buffers, their int8 scales, the block
+table, the LoRA pack, the model's parameters and buffers; a pipeline
+group's pool bytes also by stage, ``stage_pools``), read from the port's
+own tensors, and the
 process-wide host components: the adapter registry's cache
 (``adapter_host_cache``) and the session tiers' blobs in host RAM and on
 disk (``host_tier``, ``disk_tier``, from the tier store); live rows'
@@ -69,6 +71,8 @@ import logging
 import os
 import threading
 import time
+
+from penroz_tpu_torch.ops import kv_cache as KV
 
 log = logging.getLogger(__name__)
 
@@ -195,12 +199,13 @@ class MemoryLedger:
     def _snapshot_locked(self) -> dict:
         e = self._engine
         kv = e._kv
+        paged = isinstance(kv, KV.PagedKVState)
         states = dict.fromkeys(PAGE_STATES, 0)
         tenant_pages: dict = {}
         adapter_pages: dict = {}
         page_size = total = 0
         hbm = dict.fromkeys(BYTE_COMPONENTS, 0)
-        if enabled():
+        if enabled() and paged:
             page_size = kv.page_size
             total = kv.num_pool_pages
             resume_pages = self._resume_pages()
@@ -245,6 +250,8 @@ class MemoryLedger:
                 "reserved": reserved,
                 "hibernating": hibernating,
             })
+        if enabled():
+            # the byte ledger covers the contiguous caches too
             hbm.update(kv.hbm_components())
             hbm["lora_pack"] = lora_pack_bytes(e._lora_pack)
             hbm["params"] = _module_bytes(e._model.arch)
@@ -253,13 +260,13 @@ class MemoryLedger:
             if key != "free":
                 self.high_water[key] = max(self.high_water.get(key, 0), v)
         return {
-            "paged": True,
+            "paged": paged,
             "page_size": page_size,
             "pool_pages_total": total,
             "pool_pages": states,
             "tenant_pages": tenant_pages,
             "adapter_pages": adapter_pages,
-            "stage_pools": [],
+            "stage_pools": self._stage_pools_locked(),
             "hbm_bytes": hbm,
             "high_water_pages": dict(self.high_water),
             "time_to_exhaustion_s": self._time_to_exhaustion(
@@ -269,6 +276,21 @@ class MemoryLedger:
             "pressure_events": self.pressure_events,
             "audit_failures": self.audit_failures,
         }
+
+    def _stage_pools_locked(self) -> list:
+        """A pipeline group's pool by stage: stage ``s`` holds attention
+        layers ``kv_bounds[s]`` of the pool, so its pool bytes are its
+        slices' over the SAME page partition (every stage sees every
+        logical page, in its own layers).  Empty for an unpiped engine."""
+        e = self._engine
+        pipe = e._pipe
+        if pipe is None or not isinstance(e._kv, KV.PagedKVState) \
+                or not enabled():
+            return []
+        return [{"stage": s, "kv_layers": hi - lo,
+                 "pool_pages": e._kv.num_pool_pages,
+                 "kv_pool_bytes": KV.stage_pool_bytes(e._kv, lo, hi)}
+                for s, (lo, hi) in enumerate(pipe.kv_bounds)]
 
     def _time_to_exhaustion(self, free_pages: int, page_size: int):
         """Free row-region KV tokens over the recent token burn rate; None
@@ -348,6 +370,22 @@ class MemoryLedger:
         for s, n in states.items():
             if n < 0:
                 problems.append(f"negative page count {s}={n}")
+        # a pipeline group: every stage sees the whole page partition, and
+        # the stages' pool bytes tile the pool's exactly
+        for entry in snap["stage_pools"]:
+            if entry["pool_pages"] != snap["pool_pages_total"]:
+                problems.append(
+                    f"stage {entry['stage']}: pool_pages="
+                    f"{entry['pool_pages']} != pool capacity "
+                    f"{snap['pool_pages_total']}")
+        if snap["stage_pools"]:
+            stage_bytes = sum(en["kv_pool_bytes"]
+                              for en in snap["stage_pools"])
+            kv_bytes = (snap["hbm_bytes"]["kv_values"]
+                        + snap["hbm_bytes"]["kv_scales"])
+            if stage_bytes != kv_bytes:
+                problems.append(f"stage pool bytes sum to {stage_bytes} != "
+                                f"kv pool HBM {kv_bytes}")
         return problems
 
 

@@ -40,16 +40,17 @@ gauges     engines, active_rows, queue_depth, batch_occupancy,
            hbm_bytes{component} and kv_time_to_exhaustion_s
            (serve/memledger.py), the session tiers' tier_pages{tier} and
            sessions_resident (serve/tierstore.py), streams_detached
-           (serve/streams.py)
+           (serve/streams.py), pipeline serving's pipe_stages, pipe_ticks,
+           pipe_bubble_ticks and pipe_handoffs{path} (lifetime counts of
+           the engines, read at scrape)
 histograms ttft_ms, itl_ms, queue_wait_ms, chunk_stall_ms, tick_ms
            (LATENCY_BUCKETS_MS), tokens_per_dispatch (token-count
            buckets), the per-class pair ttft_ms_by_class{priority} /
            queue_wait_ms_by_class{priority}, disagg_handoff_ms,
            disagg_handoff_bytes (byte buckets) and session_resume_ttft_ms
 
-Left out, with the features they describe (not ported): pipeline
-serving's (pipe_*), and jit_programs{function}, which counts XLA
-programs.  The ledger's ssm_state byte component is absent from
+Left out: jit_programs{function}, which counts XLA programs (the port
+compiles none).  The ledger's ssm_state byte component is absent from
 hbm_bytes for the same reason; ``GET /memory/`` keeps it at 0.
 """
 
@@ -319,6 +320,25 @@ STREAMS_DETACHED = REGISTRY.register(m.Gauge(
     "penroz_streams_detached",
     "Resumable /generate/ streams currently inside their disconnect "
     "grace window, decode still running"))
+PIPE_STAGES_GAUGE = REGISTRY.register(m.Gauge(
+    "penroz_pipe_stages",
+    "Widest pipeline-parallel serving group across engines "
+    "(PENROZ_SERVE_PIPE_STAGES; 1 = no piped engine)"))
+PIPE_TICKS = REGISTRY.register(m.Gauge(
+    "penroz_pipe_ticks",
+    "Pipeline schedule ticks across piped engines (lifetime counter "
+    "read at scrape) — with penroz_pipe_bubble_ticks this derives the "
+    "bubble fraction: bubble_ticks / (ticks × stages)"))
+PIPE_BUBBLE_TICKS = REGISTRY.register(m.Gauge(
+    "penroz_pipe_bubble_ticks",
+    "Idle stage-ticks across piped engines (a stage with no live "
+    "micro-block to advance that tick)"))
+PIPE_HANDOFFS = REGISTRY.register(m.Gauge(
+    "penroz_pipe_handoffs",
+    "Stage-to-stage activation hand-offs by path: 'device' direct "
+    "array hand-over, 'host' re-staged through the host after a "
+    "pipe.handoff fault (contained; numerics identical)",
+    labelnames=("path",)))
 
 
 def _wire_gauges():
@@ -355,6 +375,19 @@ def _wire_gauges():
     TIER_PAGES.set_function(tierstore.TIERS.pages_by_tier)
     SESSIONS_RESIDENT.set_function(tierstore.TIERS.resident_sessions)
     STREAMS_DETACHED.set_function(streams.STREAMS.detached_count)
+    PIPE_STAGES_GAUGE.set_function(lambda: max(
+        (e._pipe.stages for e in engines() if e._pipe is not None),
+        default=1))
+    PIPE_TICKS.set_function(lambda: sum(e._pipe_ticks for e in engines()))
+    PIPE_BUBBLE_TICKS.set_function(
+        lambda: sum(e._pipe_bubble_ticks for e in engines()))
+
+    def pipe_handoffs():
+        host = sum(e._pipe_handoff_host_fallbacks for e in engines())
+        total = sum(e._pipe_handoffs for e in engines())
+        return {"device": total - host, "host": host}
+
+    PIPE_HANDOFFS.set_function(pipe_handoffs)
 
 
 _WIRED = False

@@ -120,6 +120,15 @@ def serving_stats_schema() -> dict:
     return out
 
 
+def memory_schema() -> dict:
+    """``GET /memory/``'s documented field: each engine's ``stage_pools``
+    entries."""
+    return {"type": "object", "properties": {"engines": {
+        "type": "array", "items": {"type": "object", "properties": {
+            "stage_pools": {"type": "array", "items": _fields_schema(
+                schemas.STAGE_POOL_FIELDS)}}}}}}
+
+
 def _query_params(*names: str) -> list[dict]:
     return [{"name": n, "in": "query", "required": True,
              "schema": {"type": "string"}} for n in names]
@@ -207,9 +216,11 @@ def _routes() -> list[dict]:
              summary="Capacity ledger: every pool page attributed to an "
                      "owner (free / row / prefix pinned or evictable / "
                      "preempted hold / reserved), pages per tenant, "
-                     "device bytes per component, high-water marks and a "
-                     "time-to-exhaustion estimate",
-             responses=dict([ok])),
+                     "device bytes per component (a contiguous cache's "
+                     "too), a pipeline group's pool by stage, high-water "
+                     "marks and a time-to-exhaustion estimate",
+             responses={"200": {"description": "Success", "content": {
+                 "application/json": {"schema": memory_schema()}}}}),
         dict(method="get", path="/debug/dump",
              summary="Crash flight recorder: the last "
                      "PENROZ_DEBUG_DUMP_RING engine_crash / circuit_open "

@@ -29,6 +29,13 @@ Placement, in order:
 4. Replicas still cooling down go last, so when the whole group is open
    the client gets the engine's own ``CircuitOpenError`` and Retry-After.
 
+**Pipeline groups are one replica** (``PENROZ_SERVE_PIPE_STAGES=S``,
+S >= 2): a stage-partitioned engine is still ONE ``DecodeEngine`` whose
+stages run inside its tick loop, so the router places requests, counts
+load and trips breakers per group.  A stage crash is that engine's crash:
+its recovery rebuilds the whole group's cache (``_alloc_state``), and the
+group's breaker decides when it takes traffic again.
+
 Failover: a replica that refuses (breaker open, queue full, draining) is
 skipped and the next candidate tried; the client sees an error only when
 EVERY replica refuses.  A tenant-quota shed is re-raised at once: the

@@ -413,6 +413,28 @@ REQUESTS = (CreateModelRequest, ImportModelRequest, DownloadDatasetRequest,
             CreateAdapterRequest, AdapterTrainConfig)
 
 
+_PIPE_FIELDS = (
+    ("pipe_stages", int, "Pipeline stages (PENROZ_SERVE_PIPE_STAGES; 1 = "
+     "unpiped; the aggregate: the widest group)"),
+    ("pipe_ticks", int, "Pipeline schedule ticks (stage-unit rounds)"),
+    ("pipe_bubble_fraction", (float, None), "Idle stage-ticks / (ticks x "
+     "stages), the aggregate weighted by each group's stage-ticks; null "
+     "before the first pipeline tick or when unpiped"),
+    ("pipe_handoffs", int, "Stage-to-stage activation hand-offs"),
+    ("pipe_handoff_host_fallbacks", int, "Hand-offs re-staged through the "
+     "host after a pipe.handoff fault (contained; the tokens unchanged)"),
+)
+# One pipeline stage's share of a group's paged pool in ``GET /memory/``'s
+# ``stage_pools`` (the JAX package's ``StagePoolEntry``).
+STAGE_POOL_FIELDS = (
+    ("stage", int, "Stage index (0-based, in layer order)"),
+    ("kv_layers", int, "Attention layers whose K/V pools the stage holds"),
+    ("pool_pages", int, "Logical pool pages the stage sees (= "
+     "pool_pages_total)"),
+    ("kv_pool_bytes", int, "Pool bytes of the stage's layers (values + "
+     "int8 scales); the stages sum to kv_values + kv_scales"),
+)
+
 # ``GET /serving_stats/``'s replica-router and disaggregation fields (the
 # JAX package's ``EngineStats`` and ``ServingStatsResponse`` fields of the
 # same names): (name, kind, description).  serve/openapi.py documents the
@@ -440,6 +462,19 @@ SERVING_STATS_ENGINE_FIELDS = (
      "page blob"),
     ("disagg_role_changes", int, "Elastic role flips the engine applied "
      "(PENROZ_DISAGG_ELASTIC=1)"),
+    *_PIPE_FIELDS,
+    ("pipe_microblocks", int, "Micro-blocks the mixed batch splits into "
+     "a pipeline tick (PENROZ_SERVE_PIPE_BLOCKS, >= stages; 0 = unpiped)"),
+    ("pipe_stage_busy", dict, "Stage-units each stage ran, by stage "
+     "index"),
+    ("prefill_max_chunks_between_steps", int, "Most prefill chunks one "
+     "phased step boundary ran while rows decoded "
+     "(PENROZ_SCHED_MAX_STALL_MS)"),
+    ("tick_timeline", list, "Recent ticks, newest first: dispatch_ms, "
+     "occupancy, prefill_chunks, verify_rows, shared_rows, emitted, "
+     "superstep, unified (False on the phased ticks), prefill_rows, "
+     "decode_rows, pipe_ticks (pipeline schedule ticks this tick ran) "
+     "and pipe_bubbles (idle stage-ticks among them)"),
 )
 SERVING_STATS_FIELDS = (
     ("router_replicas", int, "Live engine replicas owned by routers (0: "
@@ -465,4 +500,5 @@ SERVING_STATS_FIELDS = (
     ("disagg_transport", str, "Hand-off transport in effect"),
     ("disagg_role_changes", int, "Elastic role flips applied across "
      "engines"),
+    *_PIPE_FIELDS,
 )

@@ -283,6 +283,18 @@ function renderServing(data) {
     : `ttft p99 [${clsTxt || "—"}] · preempts ${preempts} ` +
       `(${data.preempted_resume_cached_tokens || 0} tok resumed cached)` +
       tenantTxt;
+  /* Pipeline-parallel serving (PENROZ_SERVE_PIPE_STAGES >= 2): stages,
+   * the bubble fraction and the hand-offs (a nonzero host count means a
+   * pipe.handoff fault re-staged activations through the host); "pipe
+   * off" on unpiped engines. */
+  const pipeStages = data.pipe_stages || 1;
+  const bubble = data.pipe_bubble_fraction;
+  const pipeTxt = pipeStages <= 1 ? "pipe off"
+    : `pipe ${pipeStages} stages · bubble ` +
+      `${bubble == null ? "—" : (bubble * 100).toFixed(0) + "%"} · ` +
+      `handoffs ${data.pipe_handoffs || 0}` +
+      `${data.pipe_handoff_host_fallbacks
+         ? ` (${data.pipe_handoff_host_fallbacks} host)` : ""}`;
   meta.textContent =
     `rows ${data.active_rows}/${data.capacity} (occupancy ` +
     `${(occ * 100).toFixed(0)}%) · queue ${data.queue_depth} · ` +
@@ -293,7 +305,7 @@ function renderServing(data) {
        : data.admission_latency_ms_p50.toFixed(1) + "ms"} · ` +
     `chunk stall p99 ${stall == null ? "—" : stall.toFixed(1) + "ms"} · ` +
     `${multistepTxt} · ` +
-    `${specTxt} · ${prefixTxt} · ${qosTxt} · ` +
+    `${specTxt} · ${prefixTxt} · ${qosTxt} · ${pipeTxt} · ` +
     `${data.engines_stuck ? `STUCK ${data.engines_stuck} · ` : ""}` +
     `KV pool drops ${drops}`;
   servingHistory.push({ occ: occ * 100, tps });

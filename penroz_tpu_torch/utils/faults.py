@@ -21,11 +21,19 @@ Spec grammar (comma-separated rules)::
   overload paths).
 
 An unparseable rule is logged and ignored.  Sites in the port:
-``decode.step`` (every unified block of the continuous-batching engine),
-``decode.prefill_chunk`` (a block that carries a prefill chunk),
-``decode.verify`` (a block that carries a speculative verify span), all
-three before the block's dispatch, and ``qos.preempt`` (a preemption,
-before it mutates anything) (serve/decode_scheduler.py);
+``decode.step`` (every unified block of the continuous-batching engine,
+every phased shared step and superstep),
+``decode.prefill_chunk`` (a block that carries a prefill chunk, a phased
+chunk), ``decode.verify`` (a block that carries a speculative verify
+span, a phased verify), all three before the dispatch, and
+``qos.preempt`` (a preemption, before it mutates anything); the
+pipeline's ``pipe.handoff`` (a stage-to-stage hand-off, after the stage
+ran and before the next takes its activations: a failure is contained,
+the activations go through the host, counted in
+``pipe_handoff_host_fallbacks``, the tokens unchanged) and
+``pipe.stage_crash`` (the top of each stage's dispatch: the tick crashes
+and the recovery rebuilds the whole group's cache)
+(serve/decode_scheduler.py);
 ``ckpt.write`` (the checkpoint container write, whose temporary file is
 removed, utils/checkpoint.py); ``data.download`` (one dataset download
 attempt, data/loaders.py); ``lora.load`` (an adapter checkpoint's load

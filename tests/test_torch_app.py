@@ -343,10 +343,10 @@ def test_continuous_batching_matches_single_sequence(
 
 
 @pytest.mark.parametrize("env,field", [
-    ({"PENROZ_RAGGED_ATTENTION": "0"}, None),
-    ({"PAGED_KV_CACHE": "0"}, None),
+    ({"PENROZ_RAGGED_ATTENTION": "0"}, "served"),
+    ({"PAGED_KV_CACHE": "0"}, "served"),
     ({"PENROZ_SERVE_MESH": "1"}, None),
-    ({"PENROZ_SERVE_PIPE_STAGES": "2"}, None),
+    ({"PENROZ_SERVE_PIPE_STAGES": "2"}, "served"),
     # priority is ported: an unknown class is a 400 naming the field
     ({}, ("priority", "urgent")),
     ({}, ("adapter_id", "a1")),
@@ -359,7 +359,10 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     names it, on /generate/ and /generate_batch/ (an unknown ``priority``
     class and an unknown adapter too); ``PENROZ_PROFILER_PORT``
     (jax.profiler's live server) is a ValueError (400) when the server is
-    created."""
+    created.  The phased ticks (``PENROZ_RAGGED_ATTENTION=0``, the
+    contiguous cache), pipeline serving and the legacy /generate_batch/
+    (continuous batching off) are served: a 200 with the JAX package's
+    tokens."""
     monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
     for name, value in env.items():
         monkeypatch.setenv(name, value)
@@ -372,9 +375,17 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
     body = _gen("ref", max_new_tokens=3)
     batch = {"model_id": "ref", "inputs": [[1, 2]], "block_size": 16,
              "max_new_tokens": 3}
-    if field == "batch":
-        status, text = _call(server, "POST", "/generate_batch/", batch)
-        assert status == 400 and "PENROZ_CONTINUOUS_BATCHING" in text
+    if field in ("batch", "served"):
+        want = jm.generate_tokens([1, 2, 3, 4, 5], 16, 3, temperature=0)
+        if field == "served":
+            status, text = _call(server, "POST", "/generate/", body)
+            assert status == 200, text
+            assert json.loads(text)["tokens"] == want
+        status, text = _call(server, "POST", "/generate_batch/",
+                             dict(batch, temperature=0))
+        assert status == 200, text
+        assert json.loads(text)["sequences"] == jm.generate_tokens_batched(
+            [[1, 2]], 16, 3, temperature=0)
         return
     if field is not None:
         name, value = field
@@ -387,8 +398,6 @@ def test_unported_serving_options_400(server, paged, monkeypatch, env,
             names = [f"unknown adapter {value!r}"]
     else:
         names = [next(iter(env))]
-        if names[0] == "PAGED_KV_CACHE":
-            names = ["PENROZ_CONTINUOUS_BATCHING"]
     status, text = _call(server, "POST", "/generate/", body)
     assert status == 400 and names[0] in text, text
     status, text = _call(server, "POST", "/generate_batch/", batch)

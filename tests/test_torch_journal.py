@@ -159,8 +159,11 @@ def _bitflip(jmod, path):
     len0, _ = struct.unpack_from("<II", raw, 0)
     raw[8 + len0 + 8 + 2] ^= 0xFF
     path.write_bytes(bytes(raw))
+    # the first frame's length varies with its timestamp's repr, so the
+    # truncation is held to where it must land, not to a byte count
     return [[r["session_id"] for r in j.replay()], j.bad_records,
-            os.path.getsize(path)]
+            os.path.getsize(path) == 8 + len0,
+            j.truncated_bytes == len(raw) - 8 - len0]
 
 
 def _policies(jmod, path, env):

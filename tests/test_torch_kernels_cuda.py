@@ -99,6 +99,24 @@ def test_kernel_per_row_lengths(dev):
     _compare(out, q, k, v, 0, lengths)
 
 
+PHASED_LENGTHS = [17, 764, 300, 45, 612, 129, 256, 500]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_kernel_phased_step_lengths(dev, int8):
+    """The phased ticks' shared step: 8 rows with their own lengths
+    (17-764) over a contiguous cache of 1024, GPT-2's 12 x 64 heads."""
+    q, k, v = _inputs(dev, 8, 12, 12, 1, 1024, 64, torch.float32, seed=11)
+    scales = {}
+    if int8:
+        k, ks = KV._quantize_int8(k)
+        v, vs = KV._quantize_int8(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    lengths = torch.tensor(PHASED_LENGTHS, dtype=torch.int32, device=dev)
+    out = DA.decode_attention(q, k, v, 0, lengths, **scales)
+    _compare(out, q, k, v, 0, lengths, **scales)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_kernel_int8_cache(dev, dtype):
@@ -474,10 +492,16 @@ def _check_close(out, ref, ref_abs):
          T=1, D=64, P=128, dtype="bfloat16"),
     dict(lengths=[300], Hq=8, Hkv=2, T=64, D=128, P=16, dtype="bfloat16"),
     dict(lengths=[1024], Hq=32, Hkv=8, T=4, D=8, P=128, dtype="float32"),
+    # the phased ticks' shared step over the paged pool
+    dict(lengths=PHASED_LENGTHS, Hq=12, Hkv=12, T=1, D=64, P=128,
+         dtype="float32"),
+    dict(lengths=PHASED_LENGTHS, Hq=12, Hkv=12, T=1, D=64, P=128,
+         dtype="float32", int8=True),
 ], ids=["gpt2_L1024", "gpt2_B4_ragged_bf16", "gqa_d128_p8", "int8",
         "int8_bf16", "window_alibi_softcap", "d256_scale_bf16",
         "gpt2_prefill_T1004", "gpt2_prefill_T1024", "L1", "L65_P16",
-        "B8_spread_bf16", "gqa_prefill_tile_bf16", "D8_gqa_T4_16_splits"])
+        "B8_spread_bf16", "gqa_prefill_tile_bf16", "D8_gqa_T4_16_splits",
+        "B8_phased_17_764", "B8_phased_17_764_int8"])
 def test_paged_decode_kernel_matches_plain(dev, case):
     dtype = getattr(torch, case["dtype"])
     lengths, T, P = case["lengths"], case["T"], case["P"]
@@ -601,6 +625,34 @@ def test_ragged_kernel_matches_plain(dev, case):
     pad = ((t[None, :] >= d[:, 2:3]) | (d[:, 0:1] < 0)).reshape(-1)
     assert pad.any()
     assert torch.all(out[0][:, pad.to(dev)] == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_ragged_kernel_on_a_stage_pool_slice(dev, int8):
+    """A pipeline stage's attention runs the ragged kernel on its view of
+    the pools (``stage_kv_view``: layers [1, 3) of 4, the same tensors):
+    every layer of the slice against the plain version, at the GPT-2 mixed
+    step."""
+    spans = [(0, 0, 256)] + [(i, 100 * i + 50, 1) for i in range(1, 8)]
+    pools = [_ragged_case(dev, spans, 64, 8, 12, 12, 64, 128, torch.float32,
+                          int8, seed=layer) for layer in range(4)]
+    q, _, _, table, _, descs = pools[0]
+    args = ([p[1] for p in pools], [p[2] for p in pools],
+            table.cpu().numpy(), 128, table.shape[1])
+    kv = (KV.QuantPagedKVState(*args, [p[4]["k_scale"] for p in pools],
+                               [p[4]["v_scale"] for p in pools], device=dev)
+          if int8 else KV.PagedKVState(*args, device=dev))
+    view = KV.stage_kv_view(kv, 1, 3)
+    for j, layer in enumerate(range(1, 3)):
+        assert view.k[j] is kv.k[layer]
+        scales = ({"k_scale": view.k_scale[j], "v_scale": view.v_scale[j]}
+                  if int8 else {})
+        out = RPA.ragged_paged_attention(q, view.k[j], view.v[j],
+                                         view.block_table, 128, descs,
+                                         **scales)
+        ref = RPA.ragged_paged_attention_reference(
+            q, view.k[j], view.v[j], view.block_table, 128, descs, **scales)
+        _check_close(out, ref, ref)
 
 
 def test_paged_kernels_reject_what_they_cannot_take(dev):

@@ -169,11 +169,15 @@ def test_scrape_after_traffic_parses(workdir, monkeypatch, toy_gpt_layers,
         body = labels[1:-1] + "," if labels else ""
         inf = f'{name}_bucket{{{body}le="+Inf"}}'
         assert got[inf] == got[f"{name}_count{labels}"], fam
-    # LoRA, the replica router and the session tiers are ported: the LoRA
-    # gauge reads 0 live adapters, no adapter emitted a token, one engine
-    # made no router placement or failover, and with no session_id no
-    # session was hibernated, demoted or woken; pipeline serving's and
-    # XLA's series stay absent
+    # LoRA, the replica router, the session tiers and pipeline serving are
+    # ported: the LoRA gauge reads 0 live adapters, no adapter emitted a
+    # token, one engine made no router placement or failover, with no
+    # session_id no session was hibernated, demoted or woken, and an
+    # unpiped engine ran no pipeline tick; XLA's series stay absent
+    assert got["penroz_pipe_stages"] == 1
+    assert got["penroz_pipe_ticks"] == got["penroz_pipe_bubble_ticks"] == 0
+    assert got['penroz_pipe_handoffs{path="device"}'] == 0
+    assert got['penroz_pipe_handoffs{path="host"}'] == 0
     assert got["penroz_lora_live_adapters"] == 0
     assert got["penroz_router_failovers_total"] == 0
     assert got["penroz_disagg_role_changes_total"] == 0
@@ -187,5 +191,5 @@ def test_scrape_after_traffic_parses(workdir, monkeypatch, toy_gpt_layers,
     assert not any(s.startswith(("penroz_lora_adapter_tokens",
                                  "penroz_router_affinity", "penroz_jit",
                                  "penroz_tier_promotions",
-                                 "penroz_tier_demotions", "penroz_pipe"))
+                                 "penroz_tier_demotions"))
                    for s in got)

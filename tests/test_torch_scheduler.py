@@ -179,21 +179,23 @@ def test_eligibility_and_unported_options(monkeypatch):
     assert DS.eligible([1, 2], 8, 6) and not DS.eligible([1, 2], 8, 7)
     assert not DS.eligible([], 8, 1) and not DS.eligible([1], 8, 0)
     monkeypatch.setenv(DS.ENABLE_ENV, "1")
+    # the contiguous cache (the phased ticks) is served
     monkeypatch.delenv("PAGED_KV_CACHE", raising=False)
-    with pytest.raises(ValueError, match="PAGED_KV_CACHE"):
-        DS.unported_serving_options()
+    DS.unported_serving_options()
     monkeypatch.setenv("PAGED_KV_CACHE", "1")
     DS.unported_serving_options()
-    for name, value in (("PENROZ_RAGGED_ATTENTION", "0"),
-                        ("PENROZ_SERVE_MESH", "1"),
-                        ("PENROZ_SERVE_PIPE_STAGES", "2")):
+    for name, value in (("PENROZ_SERVE_MESH", "1"),):
         monkeypatch.setenv(name, value)
         with pytest.raises(ValueError, match=name):
             DS.unported_serving_options()
         monkeypatch.delenv(name)
-    # replicas, disaggregated prefill, resumable streams, the journal and
-    # the session tiers (and its tenant quota) are ported
-    for name, value in (("PENROZ_SCHED_REPLICAS", "2"),
+    # replicas, disaggregated prefill, resumable streams, the journal, the
+    # session tiers (and its tenant quota), the phased ticks and pipeline
+    # serving are ported
+    for name, value in (("PENROZ_RAGGED_ATTENTION", "0"),
+                        ("PENROZ_SERVE_PIPE_STAGES", "2"),
+                        ("PENROZ_SERVE_PIPE_BLOCKS", "4"),
+                        ("PENROZ_SCHED_REPLICAS", "2"),
                         ("PENROZ_DISAGG_PREFILL", "1"),
                         ("PENROZ_STREAM_DETACH_MS", "500"),
                         ("PENROZ_STREAM_REPLAY", "64"),

@@ -1,5 +1,7 @@
 // Attention over a paged KV pool, read through a block table (sm_90a): the
-// paged decode kernel and the ragged (packed mixed-batch) kernel.
+// paged decode kernel here, the ragged (packed mixed-batch) kernel in
+// csrc/ragged_paged_attention.cu.  Both instantiate the one decode core; two
+// translation units, so that nvcc builds them side by side.
 //
 // Replaces penroz_tpu/ops/pallas/paged_attention.py::paged_decode_attention
 // (:152) and penroz_tpu/ops/pallas/ragged_paged_attention.py::
@@ -105,46 +107,6 @@ extern "C" int penroz_paged_decode_attention(
   p.runs = static_cast<unsigned long long*>(runs);
   return decode_core::launch_cached<decode_core::Paged>(
       p, batch, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int penroz_ragged_paged_attention(
-    const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* table, const void* descs,
-    const void* slopes, void* out, int num_descs, int block_q, int hq,
-    int hkv, int d, int page, int pages_per_seq, long long pool_rows,
-    int q_dtype, int window, float scale, float softcap, int tile_rows,
-    int n_split, int granule, void* part, void* tickets, void* runs,
-    void* stream) {
-  decode_core::Params p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.k_scale = static_cast<const float*>(k_scale);
-  p.v_scale = static_cast<const float*>(v_scale);
-  p.slopes = static_cast<const float*>(slopes);
-  p.table = static_cast<const int*>(table);
-  p.descs = static_cast<const int*>(descs);
-  p.out = out;
-  p.kv_rows = pool_rows;
-  p.max_len = pages_per_seq * page;
-  p.page = page;
-  p.page_shift = page_shift(page);
-  p.pages_per_seq = pages_per_seq;
-  p.hkv = hkv;
-  p.t = block_q;
-  p.tp = num_descs * block_q;
-  p.d = d;
-  p.group = hq / hkv;
-  p.window = window;
-  p.scale = scale;
-  p.softcap = softcap;
-  p.n_split = n_split;
-  p.granule = granule;
-  p.part = static_cast<float*>(part);
-  p.tickets = static_cast<int*>(tickets);
-  p.runs = static_cast<unsigned long long*>(runs);
-  return decode_core::launch_cached<decode_core::Ragged>(
-      p, num_descs, q_dtype, tile_rows, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* penroz_cuda_error_string(int err) {

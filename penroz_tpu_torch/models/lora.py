@@ -313,9 +313,13 @@ def train_adapter(model, adapter_id: str, config: dict, dataset_id: str,
     adapter tree.  The adapter-only checkpoint is written at the start
     (``Training``), every ~10 s, and at the end (``Trained``), or with
     ``Error`` and the message.  An existing checkpoint of the same shape
-    resumes.  Returns the trained ``{key: fp32 tensor}``."""
+    resumes.  ``PENROZ_REMAT=1`` recomputes each micro-step's forward in
+    its backward and the decode-priority windows open between epochs and
+    micro-steps, as in the base trainer.  Returns the trained ``{key: fp32
+    tensor}``."""
     from penroz_tpu_torch.data.loaders import Loader
     from penroz_tpu_torch.models import dsl
+    from penroz_tpu_torch.models import model as model_mod
 
     config = validate_config(config)
     model_id = model.model_id
@@ -343,19 +347,31 @@ def train_adapter(model, adapter_id: str, config: dict, dataset_id: str,
         base = {k: p.detach() for k, p in model.arch.named_parameters()}
         generator = torch.Generator(device=device).manual_seed(0)
         last_save = time.monotonic()
+        remat = model_mod.remat_enabled()
+
+        def loss(x, y):
+            return torch.func.functional_call(
+                model.arch, base, (x, y),
+                {"skip_softmax": True, "training": True,
+                 "generator": generator, "adapter": binding})[1]
+
         for epoch in range(epochs):
+            model_mod._yield_to_decodes()
+            micro = (num_steps > 1 and model_mod.decode_pending() > 0
+                     and model_mod._priority_cap_ms() > 0)
             t0 = time.monotonic()
             grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
             cost_sum = torch.zeros((), dtype=torch.float32, device=device)
-            for _ in range(num_steps):
+            for i in range(num_steps):
+                if i and micro:
+                    model_mod._yield_to_decodes()
                 x, y = loader.next_batch()
                 x, y = (torch.from_numpy(a.reshape(batch_size, block_size))
                         .to(device, torch.int64) for a in (x, y))
                 with torch.enable_grad():
-                    _, cost, _ = torch.func.functional_call(
-                        model.arch, base, (x, y),
-                        {"skip_softmax": True, "training": True,
-                         "generator": generator, "adapter": binding})
+                    cost = (model_mod.remat_loss(loss, generator, model.arch,
+                                                 x, y)
+                            if remat else loss(x, y))
                     cost.backward()
                 for k, leaf in leaves.items():
                     if leaf.grad is not None:

@@ -24,13 +24,19 @@ facade (counterpart of penroz_tpu/models/model.py: serving and training).
   ``decode_pipe_stage``).
 
 Training runs on one device; with an ``adapter`` it trains a LoRA
-adapter's factors alone (models/lora.py ``train_adapter``).  Out of this
-slice, and refused with a ValueError (HTTP 400) rather than ignored: the
-training worker process (``PENROZ_TRAIN_WORKER``), rematerialization
-(``PENROZ_REMAT``), meshes (``PENROZ_MESH_*``, ``PENROZ_FSDP``,
-``PENROZ_WUS``, ``PENROZ_SP_MODE``, ``PENROZ_PIPE_REMAT``) and
-decode-priority micro-stepping (``PENROZ_DECODE_PRIORITY_MS``): see
-:func:`unported_training_options`.
+adapter's factors alone (models/lora.py ``train_adapter``).  Its options,
+as in the JAX package: ``PENROZ_TRAIN_WORKER=1`` trains in a child
+process (models/train_worker.py, :meth:`NeuralNetworkModel.
+_train_in_worker_process`: a crash there leaves the server serving and
+the checkpoint at ``Error``); ``PENROZ_REMAT=1`` recomputes each
+micro-step's forward in its backward (:func:`remat_loss`, the same
+dropout masks); decode priority (:func:`decode_priority`,
+``PENROZ_DECODE_PRIORITY_MS``, default 1000, 0 off): while a decode is in
+flight, training waits for it between epochs and, within an epoch,
+between micro-steps.  Out of this slice, and refused with a ValueError
+(HTTP 400) rather than ignored: meshes (``PENROZ_MESH_*``,
+``PENROZ_FSDP``, ``PENROZ_WUS``, ``PENROZ_SP_MODE``,
+``PENROZ_PIPE_REMAT``): see :func:`unported_training_options`.
 Evaluation runs on one device too; the meshes and sequence-parallel modes
 it would take are refused the same way (:func:`unported_evaluation_options`).
 Every route that runs attention refuses ``PENROZ_DISABLE_FLASH=1``, the
@@ -46,10 +52,13 @@ way, and the overflow crop and re-prefill happen at the same token.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import json
 import logging
 import os
 import random
+import threading
 import time
 from typing import Optional
 
@@ -76,8 +85,6 @@ _NOT_LOADED = object()
 # Environment switches of JAX-package training features this port does not
 # have: (variable, value that leaves the feature off, what it selects).
 _UNPORTED_TRAINING_ENV = (
-    ("PENROZ_TRAIN_WORKER", "0", "the training worker process"),
-    ("PENROZ_REMAT", "0", "rematerialization"),
     ("PENROZ_FSDP", "0", "FSDP parameter sharding"),
     ("PENROZ_WUS", "0", "weight-update sharding"),
     ("PENROZ_MESH_MODEL", "1", "a tensor-parallel mesh"),
@@ -86,7 +93,6 @@ _UNPORTED_TRAINING_ENV = (
     ("PENROZ_MESH_PIPE", "1", "pipeline parallelism"),
     ("PENROZ_SP_MODE", None, "a sequence-parallel attention mode"),
     ("PENROZ_PIPE_REMAT", None, "a pipeline remat schedule"),
-    ("PENROZ_DECODE_PRIORITY_MS", None, "decode-priority micro-stepping"),
 )
 
 
@@ -94,6 +100,111 @@ _UNPORTED_TRAINING_ENV = (
 # (the JAX package's ``_eval_mesh``).
 _EVAL_MESH_ENV = ("PENROZ_FSDP", "PENROZ_MESH_MODEL", "PENROZ_MESH_SEQUENCE",
                   "PENROZ_MESH_EXPERT", "PENROZ_MESH_PIPE", "PENROZ_SP_MODE")
+
+
+# Decode priority: generation wraps its device work in decode_priority();
+# training reads decode_pending() between epochs and micro-steps and waits
+# for the decodes in flight (at most PENROZ_DECODE_PRIORITY_MS a window).
+_DECODE_PENDING = 0
+_DECODE_LOCK = threading.Lock()
+DECODE_PRIORITY_ENV = "PENROZ_DECODE_PRIORITY_MS"
+
+# Live training-worker processes by model id (PENROZ_TRAIN_WORKER=1); an
+# entry leaves when its worker exits.  The atexit sweep covers a clean
+# shutdown; a worker whose parent dies exits by itself
+# (train_worker._watch_parent).
+_TRAIN_WORKERS: dict = {}
+TRAIN_WORKER_ENV = "PENROZ_TRAIN_WORKER"
+REMAT_ENV = "PENROZ_REMAT"
+
+
+def _kill_train_workers():
+    for proc in list(_TRAIN_WORKERS.values()):
+        if proc.poll() is None:
+            proc.kill()
+
+
+atexit.register(_kill_train_workers)
+
+
+@contextlib.contextmanager
+def decode_priority():
+    """Mark a decode's device work in flight for the duration."""
+    global _DECODE_PENDING
+    with _DECODE_LOCK:
+        _DECODE_PENDING += 1
+    try:
+        yield
+    finally:
+        with _DECODE_LOCK:
+            _DECODE_PENDING -= 1
+
+
+def decode_pending() -> int:
+    return _DECODE_PENDING
+
+
+def _priority_cap_ms() -> float:
+    return float(os.environ.get(DECODE_PRIORITY_ENV, "1000"))
+
+
+def _yield_to_decodes():
+    """Wait while decodes are in flight, at most
+    ``PENROZ_DECODE_PRIORITY_MS`` (default 1000; 0 turns the wait off), so
+    that a decode storm cannot starve training."""
+    cap_ms = _priority_cap_ms()
+    if cap_ms <= 0 or decode_pending() <= 0:
+        return
+    deadline = time.monotonic() + cap_ms / 1000.0
+    while decode_pending() > 0 and time.monotonic() < deadline:
+        time.sleep(0.005)
+
+
+def remat_enabled() -> bool:
+    return os.environ.get(REMAT_ENV, "0") == "1"
+
+
+def remat_loss(fn, generator, module, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint(loss_fn)``): the forward keeps no activations and the
+    backward runs it again.  The replay draws the same dropout seeds from
+    ``generator`` (its state is set back to the forward's for the replay,
+    then to where the forward left it) and sees ``module``'s buffers as
+    the forward saw them (a buffer the forward writes in place, BatchNorm's
+    statistics, the MoE ``router_fraction``, keeps the forward's value)."""
+    from torch.utils import checkpoint as ckpt
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward_ctx():
+        if generator is not None:
+            saved["gen"] = generator.get_state()
+        saved["bufs"] = {k: b.detach().clone()
+                         for k, b in module.named_buffers()}
+        yield
+
+    @contextlib.contextmanager
+    def recompute_ctx():
+        gen_after = generator.get_state() if generator is not None else None
+        bufs = dict(module.named_buffers())
+        bufs_after = {k: b.detach().clone() for k, b in bufs.items()}
+        with torch.no_grad():
+            for k, b in bufs.items():
+                b.copy_(saved["bufs"][k])
+        if generator is not None:
+            generator.set_state(saved["gen"])
+        try:
+            yield
+        finally:
+            if generator is not None:
+                generator.set_state(gen_after)
+            with torch.no_grad():
+                for k, b in bufs.items():
+                    b.copy_(bufs_after[k])
+
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=lambda: (forward_ctx(),
+                                               recompute_ctx()))
 
 
 def _refuse_unported(names=None) -> None:
@@ -293,7 +404,7 @@ class CompiledArch(nn.Module):
     def forward(self, tokens, targets=None, *, kv=None, skip_softmax=False,
                 training=False, generator=None, pos_offset=None,
                 ragged_descs=None, ragged_rows=None, adapter=None,
-                lora=None, lora_idx=None):
+                lora=None, lora_idx=None, ssm_count=None):
         """Full forward collecting every top-level activation; returns
         ``(activations, cost, new_kv)``: ``cost`` is None without
         ``targets``, and the cache is advanced by the tokens fed (in
@@ -307,11 +418,13 @@ class CompiledArch(nn.Module):
         balance), as the JAX package's ``forward`` adds them.  LoRA
         (models/lora.py): ``adapter`` binds one adapter to the whole
         forward; ``lora`` (a pack) with ``lora_idx`` (each row's or
-        packed token's slot) mixes adapters in one batch."""
+        packed token's slot) mixes adapters in one batch.  ``ssm_count``
+        ((B,) tensor) feeds each row's recurrent state only its first
+        ``ssm_count[b]`` tokens (a right-padded prompt, a parked row)."""
         ctx = M.Ctx(kv=kv, training=training, generator=generator,
                     pos_offset=pos_offset, ragged_descs=ragged_descs,
                     ragged_rows=ragged_rows, adapter=adapter, lora=lora,
-                    lora_idx=lora_idx)
+                    lora_idx=lora_idx, ssm_count=ssm_count)
         acts = []
         h = tokens
         logits = None
@@ -342,7 +455,8 @@ class CompiledArch(nn.Module):
         return torch.mean((logits.float() - targets.float()) ** 2)
 
     def train_epoch(self, optimizer, xs, ys, *, compute_dtype=None,
-                    generator=None, with_ratios=True):
+                    generator=None, with_ratios=True, remat=False,
+                    yield_cb=None):
         """One epoch (JAX ``train_epoch_fn``): ``num_steps = len(xs)``
         micro-steps of (B, T) token batches, gradients accumulated in fp32,
         then one optimizer step.
@@ -357,7 +471,13 @@ class CompiledArch(nn.Module):
         package's scan carry.  Returns ``(cost, ratios)``: the mean cost
         (fp32 device scalar) and, when ``with_ratios``, the update ratios
         ``std(Δw) / std(w)`` of every parameter in :attr:`param_order`
-        (fp32 device vector), else None."""
+        (fp32 device vector), else None.
+
+        ``remat`` (``PENROZ_REMAT=1``) recomputes each micro-step's forward
+        in its backward (:func:`remat_loss`: the same dropout masks, the
+        same cost and gradients); ``yield_cb`` is called before every
+        micro-step but the first (the decode-priority window,
+        :func:`_yield_to_decodes`)."""
         named = dict(self.named_parameters())
         params_c = {}
         for key, p in named.items():
@@ -367,11 +487,20 @@ class CompiledArch(nn.Module):
         grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for k, p in named.items()}
         cost_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
-        for x, y in zip(xs, ys):
-            _, cost, _ = torch.func.functional_call(
-                self, params_c, (x, y),
+
+        def loss(params, x, y):
+            return torch.func.functional_call(
+                self, params, (x, y),
                 {"skip_softmax": True, "training": True,
-                 "generator": generator})
+                 "generator": generator})[1]
+
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            if i and yield_cb is not None:
+                yield_cb()
+            if remat:
+                cost = remat_loss(loss, generator, self, params_c, x, y)
+            else:
+                cost = loss(params_c, x, y)
             cost.backward()
             for key, leaf in params_c.items():
                 if leaf.grad is not None:
@@ -749,7 +878,10 @@ class NeuralNetworkModel:
             stats_interval = float(
                 os.environ.get("PENROZ_STATS_INTERVAL", "60"))
             last_batch = None  # host micro-batch for /stats/
+            remat = remat_enabled()
             for epoch in range(epochs):
+                # the decode-priority window: decodes in flight go first
+                _yield_to_decodes()
                 t0 = time.monotonic()
                 long_training = t0 - last_save >= 10
                 with profiling.span("penroz/load_batch"):
@@ -764,10 +896,16 @@ class NeuralNetworkModel:
                     ys = torch.from_numpy(np.stack(ys)).to(self.device,
                                                            torch.int64)
                 sampled = epoch % sample_every == 0
+                # with a decode in flight, a window before every micro-step
+                # bounds its wait to one micro-step
+                micro = (num_steps > 1 and decode_pending() > 0
+                         and _priority_cap_ms() > 0)
                 with profiling.span("penroz/train_epoch"):
                     cost, ratios = self.arch.train_epoch(
                         optimizer, xs, ys, compute_dtype=compute_dtype,
-                        generator=generator, with_ratios=sampled)
+                        generator=generator, with_ratios=sampled,
+                        remat=remat,
+                        yield_cb=_yield_to_decodes if micro else None)
                     cost = float(cost)
                 duration = time.monotonic() - t0
                 if sampled:
@@ -839,8 +977,14 @@ class NeuralNetworkModel:
                               epochs, batch_size, block_size, step_size,
                               adapter=None):
         """Load the checkpoint onto ``device`` (``cuda`` unless ``"cpu"``)
-        and train it (JAX ``train_model_on_device``, single process)."""
+        and train it (JAX ``train_model_on_device``).  With
+        ``PENROZ_TRAIN_WORKER=1`` the run goes to a child process instead
+        (:meth:`_train_in_worker_process`)."""
         unported_training_options()
+        if os.environ.get(TRAIN_WORKER_ENV, "0") == "1":
+            return cls._train_in_worker_process(
+                model_id, device, dataset_id, shard, epochs, batch_size,
+                block_size, step_size, adapter=adapter)
         model = cls.deserialize(model_id, device=device)
         if adapter is not None:
             # the base stays frozen; the checkpoint written is the
@@ -855,6 +999,86 @@ class NeuralNetworkModel:
                           batch_size=batch_size, block_size=block_size,
                           step_size=step_size)
         return model
+
+    @classmethod
+    def _train_in_worker_process(cls, model_id, device, dataset_id, shard,
+                                 epochs, batch_size, block_size, step_size,
+                                 adapter=None):
+        """Train in a child process (``python -m
+        penroz_tpu_torch.models.train_worker``) and contain its crashes
+        (JAX ``_train_in_worker_process``).  The caller's thread waits for
+        the child; the state flows through the checkpoint the child writes
+        (every ~10 s and at the end), so ``/progress/`` follows the run and
+        the server keeps serving (on the card the child holds its own CUDA
+        context).  The child gets the parent's device string, shm directory
+        and a ``PYTHONPATH`` that finds this package from the parent's
+        working directory.  A child that died mid-run leaves ``Training``
+        in the checkpoint: it is rewritten to ``Error`` (the startup orphan
+        sweep's contract, applied when the death is seen); a clean failure
+        (status ``Error``, exit code 1) is logged."""
+        import subprocess
+        import sys
+        args = {"model_id": model_id,
+                "device": None if device is None else str(device),
+                "dataset_id": dataset_id, "shard": shard, "epochs": epochs,
+                "batch_size": batch_size, "block_size": block_size,
+                "step_size": step_size, "adapter": adapter}
+        env = dict(os.environ)
+        env.pop(TRAIN_WORKER_ENV, None)   # the child trains in process
+        env["PENROZ_SHM_PATH"] = checkpoint.SHM_PATH
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        prev = env.get("PYTHONPATH", "")
+        env["PYTHONPATH"] = repo + (os.pathsep + prev if prev else "")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "penroz_tpu_torch.models.train_worker",
+             json.dumps(args)], env=env, cwd=os.getcwd())
+        _TRAIN_WORKERS[model_id] = proc
+        try:
+            rc = proc.wait()
+        finally:
+            _TRAIN_WORKERS.pop(model_id, None)
+        if adapter is not None:
+            cls._post_mortem_adapter_worker(adapter["adapter_id"], rc)
+            return cls.deserialize(model_id, device=device, optimizer=False)
+        meta = checkpoint.peek_tree(model_id)
+        code = (meta.get("status") or {}).get("code")
+        if rc != 0 and code == "Training":
+            log.error("Training worker for model %s died (rc=%s); marking "
+                      "Error", model_id, rc)
+            checkpoint.patch_meta(model_id, {"status": {
+                "code": "Error",
+                "message": f"Training worker died (rc={rc}); last "
+                           f"checkpoint retained"}})
+        elif rc != 0:
+            log.error("Training worker for model %s exited rc=%s "
+                      "(status %s)", model_id, rc, code)
+        return cls.deserialize(model_id, device=device, optimizer=False)
+
+    @staticmethod
+    def _post_mortem_adapter_worker(adapter_id: str, rc: int):
+        """The adapter run's post-mortem: a worker that died mid-run leaves
+        the adapter checkpoint at ``Training``, rewritten to ``Error``; a
+        clean failure is logged."""
+        try:
+            blob = checkpoint.load_adapter(adapter_id)
+        except KeyError:
+            if rc != 0:
+                log.error("Adapter-training worker for %s died (rc=%s) "
+                          "before writing any checkpoint", adapter_id, rc)
+            return
+        code = (blob.get("status") or {}).get("code")
+        if rc != 0 and code == "Training":
+            log.error("Adapter-training worker for %s died (rc=%s); "
+                      "marking Error", adapter_id, rc)
+            blob["status"] = {
+                "code": "Error",
+                "message": f"Training worker died (rc={rc}); last "
+                           f"checkpoint retained"}
+            checkpoint.save_adapter(adapter_id, blob, sync_flush=True)
+        elif rc != 0:
+            log.error("Adapter-training worker for %s exited rc=%s "
+                      "(status %s)", adapter_id, rc, code)
 
     # -- generation ---------------------------------------------------------
 
@@ -913,7 +1137,8 @@ class NeuralNetworkModel:
                 nonlocal produced
                 host, event, count = entry
                 if event is not None:
-                    event.synchronize()
+                    with decode_priority():
+                        event.synchronize()
                 for tok in host[0, :count].tolist():
                     context.append(tok)
                     produced += 1
@@ -933,7 +1158,9 @@ class NeuralNetworkModel:
                             break
                     if at_boundary:
                         feed = context[-block_size:]
-                        toks = runner.prefill(feed, len(context) - len(feed))
+                        with decode_priority():
+                            toks = runner.prefill(feed,
+                                                  len(context) - len(feed))
                         cache_len, count = len(feed), 1
                     else:
                         room = block_size - cache_len
@@ -941,7 +1168,8 @@ class NeuralNetworkModel:
                         chunk = _decode_chunk_size(
                             remaining, min(chunk_budget, ramp_budget, room))
                         count = min(chunk, remaining)
-                        toks = runner.decode(chunk)
+                        with decode_priority():
+                            toks = runner.decode(chunk)
                         cache_len += chunk
                         ramp_budget = min(ramp_budget * 2, chunk_budget)
                     new_pending = (*runner.to_host(toks), count)
@@ -1182,17 +1410,22 @@ class NeuralNetworkModel:
                               True), kv_batch
 
     def _batched_step(self, kv, tok, lens, seed, greedy, temp, top_k,
-                      lora=None, lora_idx=None):
+                      lora=None, lora_idx=None, active=None):
         """One shared decode step on the device: every row feeds ``tok``
         (B, 1) at its own length ``lens`` (B,) int64 (written through
-        device positions, no host read); returns the (B,) samples."""
+        device positions, no host read); returns the (B,) samples.
+        ``active`` ((B,) bool tensor or None for all): the rows whose
+        recurrent state takes the token (a parked row's is left as it
+        is; its K/V write is never attended)."""
         B = tok.shape[0]
         kv.at_positions(KV.row_positions(lens, 1, kv.max_len))
         try:
             acts, _, _ = self.arch(tok, kv=kv, skip_softmax=True,
                                    pos_offset=lens[:, None],
                                    adapter=self._bound_adapter(), lora=lora,
-                                   lora_idx=lora_idx)
+                                   lora_idx=lora_idx,
+                                   ssm_count=(None if active is None
+                                              else active.to(torch.int64)))
         finally:
             kv.at_positions(None)
         return self._pick(acts[-1][:, -1], seed,
@@ -1202,20 +1435,25 @@ class NeuralNetworkModel:
     @torch.inference_mode()
     def decode_step_batched(self, kv, last_tokens, lengths, seed: int = 0,
                             temperature=1.0, top_k=None, lora=None,
-                            row_adapter=None):
+                            row_adapter=None, active=None):
         """One shared decode+sample step over every row of a multi-row
         state (JAX ``decode_step_batched``): row b feeds its last token at
         the host's authoritative length ``lengths[b]`` (0 parks a free
         row: its write lands at position 0 of its own row, never
         attended).  Every attention layer launches its cache's decode
-        kernel once with the (B,) lengths.  Returns ``((B,) int numpy
-        tokens, kv)`` with the lengths installed one further."""
+        kernel once with the (B,) lengths.  ``active`` ((B,) bool, None
+        for every row): the rows that really decode; the others' recurrent
+        states are left as they are (a row mid-prefill, a verified row,
+        a free row).  Returns ``((B,) int numpy tokens, kv)`` with the
+        lengths installed one further."""
         greedy, temp = self._sampling_setup(temperature)
         lengths = np.asarray(lengths, np.int64).reshape(-1)
         tok = self._dev(np.asarray(last_tokens).reshape(-1, 1))
         lora_idx = (self._dev(row_adapter) if lora is not None else None)
+        act = (None if active is None or kv.ssm is None
+               else self._dev(np.asarray(active, bool), torch.bool))
         out = self._batched_step(kv, tok, self._dev(lengths), seed, greedy,
-                                 temp, top_k, lora, lora_idx)
+                                 temp, top_k, lora, lora_idx, act)
         kv.with_lengths(np.minimum(lengths + 1, kv.max_len))
         return out.cpu().numpy(), kv
 
@@ -1242,8 +1480,10 @@ class NeuralNetworkModel:
         lora_idx = (self._dev(row_adapter) if lora is not None else None)
         toks, emitted = [], []
         for _ in range(int(n)):
+            # a masked row computes and discards, its recurrent state kept
             t = self._batched_step(kv, tok, lens, seed, greedy, temp, top_k,
-                                   lora, lora_idx)
+                                   lora, lora_idx,
+                                   act if kv.ssm is not None else None)
             toks.append(torch.where(act, t, -1))
             emitted.append(act)
             tok = torch.where(act, t, tok[:, 0])[:, None]
@@ -1271,18 +1511,18 @@ class NeuralNetworkModel:
         cache (contiguous or paged, fp32 or int8), in chunks of up to
         ``PENROZ_DECODE_CHUNK`` steps read back at once (ramping from 8
         with a ``stop_token``).  Rows stop at their stop token (kept).
-        Needs ``max(prompt) + max_new_tokens <= block_size``.  Models with
-        ``ssm`` layers are refused: a right-padded prefill needs the
-        per-row start of the recurrent update, not ported."""
+        Needs ``max(prompt) + max_new_tokens <= block_size``.  A model
+        with ``ssm`` layers feeds each row's recurrent state its own
+        prompt only (``ssm_count``): a pad token leaves the state and its
+        ring untouched, so each row's greedy tokens are its own
+        single-sequence tokens.  (The JAX package's padded prefill runs
+        the recurrence over the pads too, so on prompts of unequal length
+        its shorter rows leave their own single-sequence tokens: a
+        deliberate divergence, ROADMAP Queue 3.)"""
         prompts = [[int(t) for t in (row if isinstance(row, (list, tuple))
                                      else [row])] for row in inputs]
         validate_batch_generation(prompts, block_size, max_new_tokens)
         self._check_generation(prompts[0], block_size)
-        if self.arch.ssm_layers:
-            raise ValueError(
-                "batched generation of a model with ssm layers needs the "
-                "recurrent update's per-row start, which penroz_tpu_torch "
-                "does not support yet; generate its rows one at a time")
         outs = [list(p) for p in prompts]
         if max_new_tokens <= 0:
             return outs
@@ -1297,13 +1537,20 @@ class NeuralNetworkModel:
         for i, p in enumerate(prompts):
             padded[i, :len(p)] = p
         kv = KV.create_kv_state(self.arch.kv_specs, B, block_size, self.dtype,
-                                device=self.device)
-        acts, _, _ = self.arch(self._dev(padded), kv=kv, skip_softmax=True,
-                               adapter=self._bound_adapter())
-        rows = torch.arange(B, device=self.device)
-        last_pos = self._dev(lens - 1)
-        tok = self._pick(acts[-1][rows, last_pos], seed, rows, last_pos,
-                         greedy, temp, top_k)
+                                device=self.device,
+                                ssm_specs=self.arch.ssm_specs)
+        with decode_priority():
+            acts, _, _ = self.arch(self._dev(padded), kv=kv,
+                                   skip_softmax=True,
+                                   adapter=self._bound_adapter(),
+                                   ssm_count=(self._dev(lens)
+                                              if kv.ssm is not None
+                                              else None))
+            rows = torch.arange(B, device=self.device)
+            last_pos = self._dev(lens - 1)
+            tok = self._pick(acts[-1][rows, last_pos], seed, rows, last_pos,
+                             greedy, temp, top_k)
+            first = tok.tolist()
         kv.with_lengths(lens)
         kv.reserve(max_p + max_new_tokens)
         done = [False] * B
@@ -1314,7 +1561,7 @@ class NeuralNetworkModel:
                     outs[i].append(int(t))
                     done[i] = stop_token is not None and int(t) == stop_token
 
-        absorb(tok.tolist())
+        absorb(first)
         chunk_budget = _chunk_budget()
         ramp_budget = 8 if stop_token is not None else chunk_budget
         dev_lens = self._dev(lens)
@@ -1327,12 +1574,14 @@ class NeuralNetworkModel:
             count = min(chunk, remaining)
             ramp_budget = min(ramp_budget * 2, chunk_budget)
             steps = []
-            for _ in range(chunk):
-                tok = self._batched_step(kv, tok[:, None], dev_lens, seed,
-                                         greedy, temp, top_k)
-                dev_lens = dev_lens + 1
-                steps.append(tok)
-            for column in torch.stack(steps)[:count].tolist():
+            with decode_priority():
+                for _ in range(chunk):
+                    tok = self._batched_step(kv, tok[:, None], dev_lens,
+                                             seed, greedy, temp, top_k)
+                    dev_lens = dev_lens + 1
+                    steps.append(tok)
+                columns = torch.stack(steps)[:count].tolist()
+            for column in columns:
                 absorb(column)
                 if all(done):
                     break

@@ -10,8 +10,8 @@ is one descriptor with ``q_valid = 1``; a prefill chunk is
 ``ceil(chunk / block_q)`` descriptors — side by side in one launch;
 padding slots and ``row = -1`` descriptors come back zero.
 
-The kernel (csrc/paged_attention.cu on csrc/decode_core.cuh) treats each
-descriptor as a sequence of the paged decode core, with the key range
+The kernel (csrc/ragged_paged_attention.cu on csrc/decode_core.cuh) treats
+each descriptor as a sequence of the paged decode core, with the key range
 [window start of its first real slot, ``q_pos0 + q_valid``).  What bounds
 it on an H100: bytes at a decode descriptor (its live pages read once a kv
 head), score pairs at a long chunk.  What the design does: below 64 query
@@ -224,7 +224,7 @@ def ragged_paged_attention(q, flat_k, flat_v, block_table, page_size: int,
                                             softcap)
     plan = ragged_plan(NB, block_q, Hq, Hkv, block_table.shape[1],
                        int(page_size), window, DA.sm_count(q.device))
-    lib = build.load("paged_attention")
+    lib = build.load("ragged_paged_attention")
     fn = build.function(lib, "penroz_ragged_paged_attention", _ARGTYPES)
     out = torch.empty_like(q)
     part = tickets = None

@@ -20,9 +20,13 @@ the chunk (``advanced``).
 
 Every variant may carry an ``ssm`` child: the fixed-size recurrent state of
 a hybrid model's ``ssm`` layers (ops/ssm.py::SSMState), attached by
-``create_kv_state(..., ssm_specs=...)``, emptied by ``reset`` and counted
-by ``memory_bytes``.  A pure-SSM model's cache has no K/V layers and only
-that child.
+``create_kv_state(..., ssm_specs=...)``, emptied by ``reset``, counted by
+``memory_bytes`` (the ledger's ``ssm_state``) and carried by every row
+method: ``reset_row`` zeroes the row's state, ``rollback_row`` restores it
+from its checkpoint ring, ``row_view``/``merge_row`` slice and write it
+back, and the paged hand-off's ``export_row_pages``/``import_row_pages``
+carry it under ``"ssm"``.  A pure-SSM model's cache has no K/V layers and
+only that child.
 
 ``TURBO_QUANT_KV_CACHE=1`` selects the int8 cache with per-token scales;
 the attention consumer reads the raw int8 buffers and dequantizes per tile
@@ -271,7 +275,10 @@ class KVState:
 
     @property
     def batch(self) -> int:
-        return self.k[0].shape[0] if self.k else 1
+        if self.k:
+            return self.k[0].shape[0]
+        # a pure-SSM model's cache: no K/V layers, the shape it was made at
+        return getattr(self, "_shape", (1, 0))[0]
 
     @classmethod
     def create(cls, specs, batch: int, max_len: int, dtype=torch.float32,
@@ -281,11 +288,14 @@ class KVState:
              for h, d in specs]
         v = [torch.zeros((batch, h, max_len, d), dtype=dtype, device=device)
              for h, d in specs]
-        return cls(k, v, 0)
+        out = cls(k, v, 0)
+        out._shape = (int(batch), int(max_len))
+        return out
 
     @property
     def max_len(self) -> int:
-        return self.k[0].shape[2] if self.k else 0
+        return self.k[0].shape[2] if self.k else getattr(self, "_shape",
+                                                          (1, 0))[1]
 
     def _store(self, layer_idx: int, pairs):
         """Write each ``(buffers, new)`` pair's (B, H, T, ·) rows at the
@@ -375,6 +385,35 @@ class KVState:
         self.ragged_lengths[int(row)] = int(length)
         return self
 
+    @staticmethod
+    def _row_length(src) -> int:
+        """A batch-1 source's length (a scalar, or its one ragged entry)."""
+        return int(np.asarray(src.length).reshape(-1)[0])
+
+    def insert_row(self, row: int, src):
+        """Copy a prefilled batch-1 state ``src`` of the same class and
+        ``max_len`` into row ``row`` (its buffers, an int8 cache's scales,
+        a recurrent child's state and ring) and set the row's ragged
+        length to ``src``'s (JAX ``insert_row``: an admission prefilled in
+        a cache of its own)."""
+        if type(src) is not type(self):
+            raise ValueError(f"insert_row source must be a "
+                             f"{type(self).__name__} (got "
+                             f"{type(src).__name__})")
+        if src.max_len != self.max_len:
+            raise ValueError(f"insert_row source max_len {src.max_len} != "
+                             f"destination max_len {self.max_len}")
+        r = int(row)
+        for mine, theirs in zip(self._pool_lists(), src._pool_lists()):
+            for a, b in zip(mine, theirs):
+                a[r:r + 1].copy_(b.to(a.dtype))
+        if self.ragged_lengths is None:
+            self.with_lengths(np.full(self.batch, self._length, np.int32))
+        self.ragged_lengths[r] = self._row_length(src)
+        if self.ssm is not None:
+            self.ssm.insert_row(r, src.ssm)
+        return self
+
     def reset_row(self, row: int):
         """Zero row ``row``'s valid length (ragged states only); its stale
         entries stay, never attended.  A recurrent child's row is zeroed
@@ -387,11 +426,13 @@ class KVState:
     def rollback_row(self, row: int, new_length: int):
         """Rewind row ``row``'s valid length to ``new_length`` (the
         speculative verify's rejected suffix; ragged states only): the
-        rejected K/V stays as garbage the next append overwrites."""
+        rejected K/V stays as garbage the next append overwrites.  A
+        recurrent child cannot be length-masked: its row restores the
+        state checkpointed at ``new_length`` (ops/ssm.py ring)."""
+        self._set_row_length("rollback_row", row, new_length)
         if self.ssm is not None:
-            raise ValueError("rollback of rows with recurrent ssm state is "
-                             "not ported to penroz_tpu_torch")
-        return self._set_row_length("rollback_row", row, new_length)
+            self.ssm.rollback_row(int(row), int(new_length))
+        return self
 
     def _plane_names(self):
         """The names of the per-layer buffer lists: values, then an int8
@@ -413,14 +454,15 @@ class KVState:
     def row_view(self, row: int, length: int):
         """Batch-1 state over row ``row``'s buffers (views: appends
         through it write the row in place) at scalar valid ``length`` —
-        the substrate of a prefill chunk and a verify span."""
-        if self.ssm is not None:
-            raise ValueError("row views of recurrent ssm state are not "
-                             "ported to penroz_tpu_torch")
+        the substrate of a prefill chunk and a verify span.  A recurrent
+        child's view is its row's slice too (``SSMState.row_view``)."""
         r = int(row)
         view = self._shallow()
         for name in self._plane_names():
             setattr(view, name, [a[r:r + 1] for a in getattr(self, name)])
+        if self.ssm is not None:
+            view.ssm = self.ssm.row_view(r)
+        view._shape = (1, self.max_len)
         view._length = int(length)
         view.ragged_lengths = None
         view.positions = None
@@ -428,14 +470,17 @@ class KVState:
 
     def merge_row(self, row: int, view):
         """Write ``view``'s buffers back into row ``row`` (a no-op for a
-        :meth:`row_view`, which wrote in place).  Lengths are untouched:
-        the scheduler's host array stays authoritative."""
+        :meth:`row_view`, which wrote in place; a copied view, a recurrent
+        child's too, is copied).  Lengths are untouched: the scheduler's
+        host array stays authoritative."""
         r = int(row)
         for mine, theirs in zip(self._pool_lists(), view._pool_lists()):
             for a, b in zip(mine, theirs):
                 dst = a[r:r + 1]
                 if dst.data_ptr() != b.data_ptr():
                     dst.copy_(b)
+        if self.ssm is not None:
+            self.ssm.merge_row(r, view.ssm)
         return self
 
     def _reset_ssm(self):
@@ -463,7 +508,8 @@ class KVState:
         return {"kv_values": nbytes((*self.k, *self.v)),
                 "kv_scales": nbytes((*getattr(self, "k_scale", ()),
                                      *getattr(self, "v_scale", ()))),
-                "kv_block_table": 0}
+                "kv_block_table": 0,
+                "ssm_state": self._ssm_bytes()}
 
 
 class QuantKVState(KVState):
@@ -488,7 +534,9 @@ class QuantKVState(KVState):
         v = [zeros(h, d, torch.int8) for h, d in specs]
         ks = [zeros(h, 1, torch.float32) for h, _ in specs]
         vs = [zeros(h, 1, torch.float32) for h, _ in specs]
-        return cls(k, v, 0, ks, vs, out_dtype=dtype)
+        out = cls(k, v, 0, ks, vs, out_dtype=dtype)
+        out._shape = (int(batch), int(max_len))
+        return out
 
     def append_raw(self, layer_idx: int, k_new, v_new):
         """Quantize + store; return the RAW int8 buffers and the new length.
@@ -840,13 +888,44 @@ class PagedKVState(KVState):
         self._reset_ssm()
         return self
 
+    def insert_row(self, row: int, src):
+        """Copy a prefilled batch-1 paged state ``src`` (its pages in
+        order from the pool's start, the JAX layout) into row ``row``'s
+        static-partition pages, with its length and its recurrent child
+        (JAX ``PagedKVState.insert_row``).  Partitions the pool first."""
+        if type(src) is not type(self):
+            raise ValueError(f"insert_row source must be a "
+                             f"{type(self).__name__} (got "
+                             f"{type(src).__name__})")
+        if (src.page_size, src.pages_per_seq) != (self.page_size,
+                                                  self.pages_per_seq):
+            raise ValueError(
+                f"insert_row source page layout ({src.page_size}, "
+                f"{src.pages_per_seq}) != destination ({self.page_size}, "
+                f"{self.pages_per_seq})")
+        self.with_static_table()
+        span = self.pages_per_seq * self.page_size
+        start = int(row) * span
+        for mine, theirs in zip(self._pool_lists(), src._pool_lists()):
+            for a, b in zip(mine, theirs):
+                a[:, start:start + span].copy_(b[:, :span].to(a.dtype))
+        if self.ragged_lengths is None:
+            self.with_lengths(np.full(self.batch, self._length, np.int32))
+        self.ragged_lengths[int(row)] = self._row_length(src)
+        if self.ssm is not None:
+            self.ssm.insert_row(int(row), src.ssm)
+        return self
+
     def reset_row(self, row: int):
         """Zero row ``row``'s valid length (ragged states only); its stale
-        pages stay, never attended."""
+        pages stay, never attended.  A recurrent child's row is zeroed for
+        real."""
         if self.ragged_lengths is None:
             raise ValueError("reset_row requires ragged per-row lengths "
                              "(call with_lengths first)")
         self.ragged_lengths[int(row)] = 0
+        if self.ssm is not None:
+            self.ssm.reset_row(int(row))
         return self
 
     def with_static_table(self):
@@ -895,10 +974,7 @@ class PagedKVState(KVState):
         leading entries included, so :meth:`merge_row` has nothing to
         copy.  The view's allocator is parked (every page of the row is
         assigned: the static partition), so it never walks the shared
-        counters."""
-        if self.ssm is not None:
-            raise ValueError("row views of recurrent ssm state are not "
-                             "ported to penroz_tpu_torch")
+        counters.  A recurrent child's view is its row's slice."""
         r = int(row)
         view = self._shallow()
         view.table = self.table[r:r + 1]
@@ -908,11 +984,17 @@ class PagedKVState(KVState):
         view.positions = None
         view.assigned_pages = self.pages_per_seq
         view._rows_key = view._rows = None
+        if self.ssm is not None:
+            view.ssm = self.ssm.row_view(r)
         return view
 
     def merge_row(self, row: int, view):
-        """Nothing to copy: the view wrote the shared pools in place.
-        Table, counters and lengths are untouched."""
+        """Nothing to copy for the pools: the view wrote them in place.  A
+        recurrent child has no shared pool: its row is written back
+        (nothing to do after a :meth:`row_view`).  Table, counters and
+        lengths are untouched."""
+        if self.ssm is not None:
+            self.ssm.merge_row(int(row), view.ssm)
         return self
 
     def _page_rows(self, pages) -> torch.Tensor:
@@ -950,11 +1032,9 @@ class PagedKVState(KVState):
         prefix-aliased leading pages come out in position order like the
         row's own.  ``device=True`` (the d2d transport) keeps the planes on
         the pool's device; otherwise they come back as CPU tensors for the
-        page-blob codec.  A pool with a recurrent ``ssm`` child is refused:
-        its rows' hand-off is not ported."""
-        if self.ssm is not None:
-            raise ValueError("hand-off of rows with recurrent ssm state is "
-                             "not ported to penroz_tpu_torch")
+        page-blob codec.  A recurrent ``ssm`` child's row rides the same
+        blob under ``"ssm"`` (``SSMState.export_row``): for a pure-SSM row
+        that is the whole payload."""
         P, S = self.page_size, self.pages_per_seq
         n = -(-int(length) // P)
         if n > S:
@@ -966,14 +1046,17 @@ class PagedKVState(KVState):
         for key, pools in zip(self._plane_names(), self._pool_lists()):
             planes = [a.index_select(1, idx) for a in pools]
             blob[key] = planes if device else [t.cpu() for t in planes]
+        if self.ssm is not None:
+            blob["ssm"] = self.ssm.export_row(int(row), device=device)
         return blob
 
     def import_row_pages(self, row, blob: dict):
         """Scatter an :meth:`export_row_pages` blob (host or device planes,
         or a loaded page blob) into row ``row``'s own static-partition pages
         (in place).  The row's table is first restored to its own pages, so
-        a stale prefix alias is never written through.  A blob of another
-        page size or quantization is a ValueError."""
+        a stale prefix alias is never written through.  A blob's ``"ssm"``
+        states go into the recurrent child's row.  A blob of another page
+        size or quantization is a ValueError."""
         P, S = self.page_size, self.pages_per_seq
         self._check_blob(blob, P, self.quantized)
         n = int(blob["pages"])
@@ -987,6 +1070,8 @@ class PagedKVState(KVState):
                 if not isinstance(plane, torch.Tensor):   # a numpy plane
                     plane = torch.from_numpy(np.array(plane))
                 a.index_copy_(1, dst, plane.to(self.device, a.dtype))
+        if self.ssm is not None and blob.get("ssm") is not None:
+            self.ssm.import_row(int(row), blob["ssm"])
         return self
 
     @staticmethod
@@ -1046,7 +1131,8 @@ class PagedKVState(KVState):
         return {"kv_values": nbytes((*self.k, *self.v)),
                 "kv_scales": nbytes((*getattr(self, "k_scale", ()),
                                      *getattr(self, "v_scale", ()))),
-                "kv_block_table": nbytes((self.block_table,))}
+                "kv_block_table": nbytes((self.block_table,)),
+                "ssm_state": self._ssm_bytes()}
 
     def assigned_bytes(self) -> int:
         """Bytes of the pages handed out (what live sequences hold)."""

@@ -69,8 +69,12 @@ class Ctx:
     def __init__(self, *, kv=None, training: bool = False,
                  generator: Optional[torch.Generator] = None,
                  pos_offset=None, ragged_descs=None, ragged_rows=None,
-                 adapter=None, lora=None, lora_idx=None, kv_base: int = 0):
+                 adapter=None, lora=None, lora_idx=None, kv_base: int = 0,
+                 ssm_count=None):
         self.kv = kv  # ops.kv_cache.KVState or None
+        # (B,) tokens each row feeds its recurrent state (the rest are
+        # padding or a parked row's), or None for all of them
+        self.ssm_count = ssm_count
         # the attention layer index of the cache's first layer list entry
         # (a serving pipeline stage's view holds layers [kv_base, ...))
         self.kv_base = int(kv_base)
@@ -945,9 +949,12 @@ class GatedSSM(Module):
     y_t = q_t·S_t`` (ops/ssm.py), q scaled by ``dk^-0.5`` and the gate in
     fp32.  No positional encoding: the recurrence is the position signal.
     With the cache's ``ssm`` child in the Ctx the tokens go through the
-    sequential ``update_dense`` at the cache length; without a cache,
-    through :func:`ops.ssm.gla_full` (the chunked kernel on the card at
-    inference).  ``layer_idx`` indexes the model's ssm layers, assigned by
+    cached recurrent update (the kernel of ops/kernels/ssm_update.py on
+    the card): ``update_packed`` over a unified block's descriptors
+    (``ctx.ragged_descs``), else ``update_dense`` at each row's offset,
+    taking each row's first ``ctx.ssm_count`` tokens when given; without a
+    cache, through :func:`ops.ssm.gla_full` (the chunked kernel on the
+    card at inference).  ``layer_idx`` indexes the model's ssm layers, assigned by
     ``CompiledArch``."""
 
     def __init__(self, num_heads: int, head_dim: int,
@@ -977,8 +984,14 @@ class GatedSSM(Module):
         g = torch.sigmoid(x[..., 2 * H * dk + H * dv:].float()
                           ).reshape(B, T, H)
         ssm = getattr(ctx.kv, "ssm", None) if ctx.kv is not None else None
-        if ssm is not None:
-            y = ssm.update_dense(self.layer_idx, q, k, v, g, ctx.offset())
+        if ssm is not None and ctx.ragged_descs is not None:
+            # the unified block: NB equal blocks of T // NB packed slots
+            nb = ctx.ragged_descs.shape[0]
+            y = ssm.update_packed(self.layer_idx, q, k, v, g,
+                                  ctx.ragged_descs, T // nb)
+        elif ssm is not None:
+            y = ssm.update_dense(self.layer_idx, q, k, v, g, ctx.offset(),
+                                 ctx.ssm_count)
         else:
             y = ssm_ops.gla_full(q, k, v, g, training=ctx.training)
         return y.reshape(B, T, H * dv).to(x.dtype)

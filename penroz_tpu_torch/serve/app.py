@@ -1245,16 +1245,41 @@ def _match(routes: dict, path: str):
     return None, {}
 
 
+def _sweep_orphaned_training():
+    """Mark a checkpoint whose status still says ``Training`` as ``Error``
+    at server start (the JAX package's sweep, with its message): training
+    runs in this process or in a worker this process owns, so when the
+    server starts none can be running, and such a status was left by a
+    restart or a crash mid-run.  Each check reads the header alone and
+    each repair rewrites it alone (``checkpoint.patch_meta``); a failure
+    is logged and never blocks the start."""
+    for model_id in checkpoint.list_model_ids():
+        try:
+            if checkpoint.peek_tree(model_id).get(
+                    "status", {}).get("code") != "Training":
+                continue
+            checkpoint.patch_meta(model_id, {"status": {
+                "code": "Error",
+                "message": "Training interrupted by server restart"}})
+            log.warning("Marked orphaned training as Error: %s", model_id)
+        except Exception:  # noqa: BLE001 — the sweep never blocks startup
+            log.exception("Orphan sweep failed for model %s", model_id)
+
+
 def create_app(device=None, host: str = "127.0.0.1",
                port: int = 0) -> PenrozServer:
     """A bound, not yet serving, server on ``device`` (``cuda`` unless
     ``"cpu"``); ``port=0`` picks a free port (``server.server_address``).
     Call ``serve_forever()`` (e.g. in a thread) and ``shutdown()``.
     ``PENROZ_PROFILER_PORT`` (the JAX package's live profiler server) is a
-    ValueError.  The journal's restart recovery
-    (``tierstore.TIERS.recover()``) runs before the socket binds, so the
-    first ``GET /sessions/`` lists every session that survived."""
+    ValueError.  Before the socket binds, a checkpoint left at
+    ``Training`` by a crash is marked ``Error``
+    (:func:`_sweep_orphaned_training`: a client retrying ``/train/`` at
+    once cannot race it), then the journal's restart recovery
+    (``tierstore.TIERS.recover()``) runs, so the first ``GET /sessions/``
+    lists every session that survived."""
     profiling.unported_options()
+    _sweep_orphaned_training()
     tierstore.TIERS.recover()
     return PenrozServer((host, port), device=device)
 

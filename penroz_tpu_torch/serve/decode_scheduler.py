@@ -154,8 +154,18 @@ sites ``pipe.handoff`` (the activations bounce through the host, counted)
 and ``pipe.stage_crash`` (a tick crash: the whole group recovers) fire in
 it.  While LoRA adapters are live the engine serves unpiped.
 
-Models with ``ssm`` layers are refused (HTTP 400): their rows need the
-packed recurrent update (``SSMState.update_packed``), not ported yet.
+Hybrid and pure-SSM models (``ssm`` layers) take the same engine: their
+rows carry the cache's recurrent ``ssm`` child (ops/ssm.py), updated by
+one launch of the recurrent-update kernel a layer and a forward pass
+(packed in a unified block, dense on the phased ticks, where a parked row
+is left out of it), zeroed when a row is recycled, rolled back through
+its checkpoint ring after a speculative verify and handed off with the
+row's pages.  ``PENROZ_PREFIX_CACHE=1`` is ignored for them with a warning
+(a recurrent state cannot be rebuilt from shared prefix pages), and with
+it preemption and hibernation; a pipeline stage partition refuses them,
+so the engine serves unpiped.  The fault sites ``ssm.scan`` (before each
+mixed and shared-step dispatch) and ``ssm.handoff`` (inside both hand-off
+exports) fire only for such models.
 Not ported (refused by :func:`unported_serving_options`, HTTP 400):
 serving meshes (``PENROZ_SERVE_MESH``).
 
@@ -201,6 +211,7 @@ import numpy as np
 import torch
 
 from penroz_tpu_torch.models import lora as lora_mod
+from penroz_tpu_torch.models import model as model_mod
 from penroz_tpu_torch.models.model import NeuralNetworkModel
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops.kernels import ragged_paged_attention as RPA
@@ -582,12 +593,6 @@ class DecodeEngine:
         self._h_handoff = metrics_util.Hist()
         self._model = NeuralNetworkModel.deserialize(model_id, device=device,
                                                      optimizer=False)
-        if self._model.arch.ssm_layers:
-            raise ValueError(
-                f"model {model_id} has {len(self._model.arch.ssm_layers)} "
-                f"ssm layer(s): continuous batching of SSM rows (the "
-                f"packed recurrent update) is not ported to "
-                f"penroz_tpu_torch yet; serve it with {ENABLE_ENV}=0")
         self._model.arch.check_positions(self.block_size, "block_size")
         self._ckpt_stamp_v = self._ckpt_stamp()
         # Pipeline-parallel serving: the stage partition of the unified
@@ -615,10 +620,18 @@ class DecodeEngine:
                     log.warning("%s=%d ignored: %s", PIPE_STAGES_ENV,
                                 stages, e)
         # the radix prefix cache's reserved pool tail (page-granular: the
-        # paged pool only; preemption and hibernation ride it)
+        # paged pool only; preemption and hibernation ride it).  A model
+        # with recurrent rows gets none: a radix match aliases pages, and
+        # the matching row's recurrent state cannot be rebuilt from them.
+        self._has_ssm = bool(self._model.arch.ssm_specs)
         self._extra_pages = 0
         if KV.prefix_cache_enabled():
-            if KV.paged_enabled():
+            if self._has_ssm:
+                log.warning(
+                    "%s=1 ignored: arch has %d SSM layer(s); recurrent row "
+                    "state cannot be rebuilt from shared prefix pages",
+                    KV.PREFIX_CACHE_ENV, len(self._model.arch.ssm_specs))
+            elif KV.paged_enabled():
                 self._extra_pages = KV.prefix_cache_pages()
             else:
                 log.warning("%s=1 ignored: prefix-KV sharing is "
@@ -733,6 +746,7 @@ class DecodeEngine:
                                        self.capacity, self.block_size,
                                        self._model.dtype,
                                        device=self._model.device,
+                                       ssm_specs=self._model.arch.ssm_specs,
                                        extra_pool_pages=self._extra_pages)
                     .with_static_table()
                     .with_lengths(np.zeros(self.capacity, np.int32)))
@@ -964,6 +978,10 @@ class DecodeEngine:
             "disagg_handoff_ms_p99": self._round_q(self._h_handoff, 0.99),
             "disagg_transport": _disagg_transport(),
             "disagg_role_changes": self._disagg_role_changes,
+            "ssm_rows": active if self._has_ssm else 0,
+            "ssm_state_bytes": (int(self._kv.ssm.nbytes())
+                                if getattr(self._kv, "ssm", None) is not None
+                                else 0),
             "pipe_stages": (self._pipe.stages if self._pipe is not None
                             else 1),
             "pipe_microblocks": (_pipe_blocks(self._pipe.stages)
@@ -1490,6 +1508,10 @@ class DecodeEngine:
                 sp = trace.span("resume", cached_tokens=state.prefilled,
                                 produced=state.produced)
                 trace.end(sp)
+        if getattr(self._kv, "ssm", None) is not None:
+            # a recycled row's recurrent state is its last occupant's: no
+            # mask hides it, as one hides a K/V row's stale tail
+            self._kv.ssm.reset_row(row)
         state.chunks = bucketing.chunk_plan(len(eff_prompt) - state.prefilled,
                                             _prefill_chunk())
         self._rows[row] = state
@@ -1787,9 +1809,12 @@ class DecodeEngine:
         on a block with a chunk, ``decode.verify`` on one with a verify
         span."""
         self._check_block_faults([plan])
+        if self._has_ssm:
+            faults.check("ssm.scan")
         t0 = time.monotonic()
         self._forward_passes += plan["n"]
-        with profiling.span("penroz/sched_mixed"):
+        with model_mod.decode_priority(), \
+                profiling.span("penroz/sched_mixed"):
             arr, self._kv = self._model.decode_mixed_step(
                 self._kv, plan["descs"], plan["tok_lit"], plan["tok_src"],
                 plan["positions"], plan["sample_slot"], self._last_tok,
@@ -1957,7 +1982,8 @@ class DecodeEngine:
                   for p in plans]
         live = set(range(len(blocks)))
         ticks = bubbles = 0
-        with profiling.span("penroz/sched_pipeline"):
+        with model_mod.decode_priority(), \
+                profiling.span("penroz/sched_pipeline"):
             while live:
                 ran = 0
                 for s in reversed(range(S)):
@@ -2095,7 +2121,8 @@ class DecodeEngine:
               if req.trace is not None else None)
         # the history is the effective prompt for the whole PREFILLING
         # phase (tokens append only after it)
-        with profiling.span("penroz/sched_prefill_chunk"):
+        with model_mod.decode_priority(), \
+                profiling.span("penroz/sched_prefill_chunk"):
             tok, self._kv = self._model.decode_prefill_chunk(
                 self._kv, row, state.history[start:start + size], start,
                 seed=self._seed, temperature=self.temperature,
@@ -2155,13 +2182,20 @@ class DecodeEngine:
     def _shared_step(self, rows: list[int]) -> int:
         """One batched decode+sample step over every row
         (``decode_step_batched``), emitting for ``rows``; returns the
-        tokens emitted."""
+        tokens emitted.  The other rows ride parked: a recurrent state
+        takes only ``rows``' tokens."""
+        if self._has_ssm:
+            faults.check("ssm.scan")
+        active = np.zeros(self.capacity, bool)
+        active[rows] = True
         t0 = time.monotonic()
-        with profiling.span("penroz/sched_step"):
+        with model_mod.decode_priority(), \
+                profiling.span("penroz/sched_step"):
             arr, self._kv = self._model.decode_step_batched(
                 self._kv, self._last_tok, self._lengths, seed=self._seed,
                 temperature=self.temperature, top_k=self.top_k,
-                lora=self._lora_pack, row_adapter=self._row_adapter)
+                lora=self._lora_pack, row_adapter=self._row_adapter,
+                active=active)
         self._forward_passes += 1
         t1 = time.monotonic()
         emitted = 0
@@ -2210,6 +2244,8 @@ class DecodeEngine:
         rule on the same inputs).  n decode steps, one dispatch.  Returns
         ``(rows, tokens emitted)``."""
         faults.check("decode.step")
+        if self._has_ssm:
+            faults.check("ssm.scan")
         t0 = time.monotonic()
         self._max_chunks_between_steps = max(
             self._max_chunks_between_steps, self._chunks_between_steps)
@@ -2224,7 +2260,8 @@ class DecodeEngine:
             active[i] = True
             stop[i] = -1 if req.stop_token is None else int(req.stop_token)
             remaining[i] = req.max_new_tokens - states[i].produced
-        with profiling.span("penroz/sched_superstep"):
+        with model_mod.decode_priority(), \
+                profiling.span("penroz/sched_superstep"):
             toks, emit, lens, self._kv = self._model.decode_superstep(
                 self._kv, self._last_tok, self._lengths, active, stop,
                 remaining, self._seed, n, temperature=self.temperature,
@@ -2275,7 +2312,8 @@ class DecodeEngine:
         sp = (state.req.trace.span("verify", parent=state.sp_decode,
                                    drafted=len(draft))
               if state.req.trace is not None else None)
-        with profiling.span("penroz/sched_verify"):
+        with model_mod.decode_priority(), \
+                profiling.span("penroz/sched_verify"):
             out, self._kv = self._model.decode_verify_row(
                 self._kv, row, tokens, start, seed=self._seed,
                 temperature=self.temperature, top_k=self.top_k,
@@ -2452,6 +2490,9 @@ class DecodeEngine:
         blob_id = (f"{self.model_id}-{self.replica}-{id(req):x}"
                    f"-{self._dispatches}")
         try:
+            if self._has_ssm:
+                # a crash mid-export with a recurrent plane in the blob
+                faults.check("ssm.handoff")
             kv_len = int(state.prefilled)
             blob = self._kv.export_row_pages(row, kv_len)
             blob["first_token"] = int(first)
@@ -2494,6 +2535,8 @@ class DecodeEngine:
             # disagg.d2d's exporter-side ordinal (the importer has the
             # other)
             faults.check("disagg.d2d")
+            if self._has_ssm:
+                faults.check("ssm.handoff")
             kv_len = int(state.prefilled)
             blob = self._kv.export_row_pages(row, kv_len, device=True)
             blob["first_token"] = int(first)
@@ -3366,6 +3409,8 @@ def serving_stats() -> dict:
         "disagg_handoff_ms_p99": _merged_q(per, "handoff_ms", 0.99),
         "disagg_transport": _disagg_transport(),
         "disagg_role_changes": sum(p["disagg_role_changes"] for p in per),
+        "ssm_rows": sum(p["ssm_rows"] for p in per),
+        "ssm_state_bytes": sum(p["ssm_state_bytes"] for p in per),
         # pipeline groups: the widest, and the stage-tick-weighted bubble
         "pipe_stages": max((p["pipe_stages"] for p in per), default=1),
         "pipe_ticks": sum(p["pipe_ticks"] for p in per),

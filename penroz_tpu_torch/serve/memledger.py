@@ -34,8 +34,9 @@ process-wide host components: the adapter registry's cache
 (``adapter_host_cache``) and the session tiers' blobs in host RAM and on
 disk (``host_tier``, ``disk_tier``, from the tier store); live rows'
 pages are attributed to their tenant and, for adapter rows, to their
-adapter (``adapter_pages``).  The JAX package's ``ssm_state`` stays 0
-(SSM rows are not batched by the port's engine).
+adapter (``adapter_pages``).  ``ssm_state`` is the recurrent state of a
+hybrid or pure-SSM model's rows (the cache's ``ssm`` child: constant
+whatever the rows' lengths).
 
 The ledger does NOT shadow-count at mutation sites:
 :meth:`MemoryLedger.snapshot` *derives* ownership from the authoritative
@@ -91,8 +92,7 @@ PAGE_STATES = ("free", "row", "prefix_pinned", "prefix_evictable",
 BYTE_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table",
                    "lora_pack", "params", "ssm_state")
 _HOST_COMPONENTS = ("adapter_host_cache", "host_tier", "disk_tier")
-PORTED_COMPONENTS = ("kv_values", "kv_scales", "kv_block_table",
-                     "lora_pack", "params", *_HOST_COMPONENTS)
+PORTED_COMPONENTS = (*BYTE_COMPONENTS, *_HOST_COMPONENTS)
 
 #: Sliding window of the token-burn-rate estimate (the scheduler's
 #: tokens/s window).

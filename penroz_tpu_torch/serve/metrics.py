@@ -50,8 +50,7 @@ histograms ttft_ms, itl_ms, queue_wait_ms, chunk_stall_ms, tick_ms
            disagg_handoff_bytes (byte buckets) and session_resume_ttft_ms
 
 Left out: jit_programs{function}, which counts XLA programs (the port
-compiles none).  The ledger's ssm_state byte component is absent from
-hbm_bytes for the same reason; ``GET /memory/`` keeps it at 0.
+compiles none).
 """
 
 from __future__ import annotations

@@ -470,6 +470,11 @@ SERVING_STATS_ENGINE_FIELDS = (
     ("prefill_max_chunks_between_steps", int, "Most prefill chunks one "
      "phased step boundary ran while rows decoded "
      "(PENROZ_SCHED_MAX_STALL_MS)"),
+    ("ssm_rows", int, "In-flight rows carrying recurrent (SSM) state: "
+     "nonzero only when the served model has ssm layers"),
+    ("ssm_state_bytes", int, "Device bytes of the engine's recurrent "
+     "state (states and the rollback checkpoint ring): constant whatever "
+     "the rows' lengths"),
     ("tick_timeline", list, "Recent ticks, newest first: dispatch_ms, "
      "occupancy, prefill_chunks, verify_rows, shared_rows, emitted, "
      "superstep, unified (False on the phased ticks), prefill_rows, "
@@ -499,6 +504,10 @@ SERVING_STATS_FIELDS = (
      "engines, ms"),
     ("disagg_transport", str, "Hand-off transport in effect"),
     ("disagg_role_changes", int, "Elastic role flips applied across "
+     "engines"),
+    ("ssm_rows", int, "In-flight rows carrying recurrent (SSM) state, "
+     "across engines"),
+    ("ssm_state_bytes", int, "Device bytes of recurrent state across "
      "engines"),
     *_PIPE_FIELDS,
 )

@@ -358,6 +358,81 @@ def load(model_id: str, arrays=None) -> dict:
         raise KeyError(f"Model {model_id} not created yet.")
 
 
+def list_model_ids() -> list[str]:
+    """Model ids with a main checkpoint (durable or shm copy), sorted; a
+    shard file's ``.shard<i>`` suffix is not an id."""
+    ids = set()
+    for base in (MODELS_FOLDER, os.path.join(SHM_PATH, MODELS_FOLDER)):
+        try:
+            names = os.listdir(base)
+        except FileNotFoundError:
+            continue
+        for name in names:
+            m = re.match(r"model_(.+?)\.ckpt$", name)
+            if m and not re.search(r"\.shard\d+$", m.group(1)):
+                ids.add(m.group(1))
+    return sorted(ids)
+
+
+def _read_header(f):
+    """The container's header dict and the payload's offset in the file."""
+    prefix = f.read(16)
+    if prefix[:8] != MAGIC or len(prefix) < 16:
+        raise ValueError("not a penroz checkpoint (bad magic)")
+    (header_len,) = struct.unpack("<Q", prefix[8:16])
+    return json.loads(f.read(header_len).decode("utf-8")), 16 + header_len
+
+
+def peek_tree(model_id: str) -> dict:
+    """A checkpoint's metadata tree with every array leaf None, read from
+    the header alone.  :raises KeyError: the model was never created."""
+    try:
+        with open(source_path(model_id), "rb") as f:
+            header, _ = _read_header(f)
+    except FileNotFoundError:
+        raise KeyError(f"Model {model_id} not created yet.")
+    return _decode_tree(header["tree"], lambda i: None)
+
+
+def patch_meta(model_id: str, updates: dict):
+    """Rewrite top-level metadata fields (status, progress, ...) of both
+    copies, shm and durable, synchronously: a new header is written and the
+    array payload streamed through verbatim (its offsets are relative to
+    the payload, so a header of another length does not move them).
+    ``updates`` must hold no arrays.  :raises KeyError: the model was never
+    created."""
+    try:
+        f = open(source_path(model_id), "rb")
+    except FileNotFoundError:
+        raise KeyError(f"Model {model_id} not created yet.")
+    with f:
+        header, payload_off = _read_header(f)
+        pairs = dict(header["tree"]["__dict__"])
+        for key, value in updates.items():
+            enc_header, arrays, _ = _encode_parts(value)
+            if arrays:
+                raise ValueError("patch_meta values must be array-free")
+            pairs[key] = json.loads(enc_header)["tree"]
+        header["tree"]["__dict__"] = [[k, v] for k, v in pairs.items()]
+        new_header = json.dumps(header, separators=(",", ":")
+                                ).encode("utf-8")
+        for dest in (shm_model_path(model_id), model_path(model_id)):
+            os.makedirs(os.path.dirname(dest) or ".", exist_ok=True)
+            fd, tmp_path = _mkstemp_for(dest)
+            try:
+                with os.fdopen(fd, "wb") as out:
+                    out.write(MAGIC)
+                    out.write(struct.pack("<Q", len(new_header)))
+                    out.write(new_header)
+                    f.seek(payload_off)
+                    shutil.copyfileobj(f, out)
+                os.replace(tmp_path, dest)
+            except BaseException:
+                if os.path.exists(tmp_path):
+                    os.remove(tmp_path)
+                raise
+
+
 def _remove_quietly(path: str) -> bool:
     try:
         os.remove(path)
@@ -487,10 +562,15 @@ def page_blob_nbytes(blob: dict) -> int:
     """Payload bytes of a hand-off blob: its K/V page planes and int8 scale
     planes, summed over layers, for host and device planes alike (the
     ``penroz_disagg_handoff_bytes`` histogram observes both transports
-    through here)."""
+    through here), and the constant-size recurrent state of a hybrid or
+    pure-SSM row, one plane an ``ssm`` layer."""
     total = 0
     for key in ("k", "v", "k_scale", "v_scale"):
         for plane in blob.get(key, ()):
+            total += int(plane.nbytes)
+    ssm = blob.get("ssm")
+    if ssm is not None:
+        for plane in ssm.get("state", ()):
             total += int(plane.nbytes)
     return total
 

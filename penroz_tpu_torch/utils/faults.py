@@ -50,7 +50,14 @@ write: a failure is contained, the record dropped and counted) and
 ``journal.replay`` (the start-up replay, before any frame is read: the
 registry recovers empty) (serve/journal.py); ``stream.resume`` (a
 reattach at ``GET /generate/{id}/stream``, before the replay ring is
-read: the HTTP error, the generation running on) (serve/streams.py).
+read: the HTTP error, the generation running on) (serve/streams.py);
+on engines of a model with ``ssm`` layers only, ``ssm.scan`` (before each
+unified block and each phased shared step or superstep: a crash drops
+the recurrent states with the rest of the engine's state, and the
+recovery serves the next request with the same tokens) and
+``ssm.handoff`` (inside both hand-off exports, before the blob is
+gathered: a failure falls back as ``disagg.handoff`` does, the tokens
+unchanged) (serve/decode_scheduler.py).
 None sits inside a captured CUDA graph.
 Call counters are per site and process-wide; :func:`reset` clears them
 and the parsed-spec cache.

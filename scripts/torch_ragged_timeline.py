@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a ragged launch's time goes, block by block, on one NVIDIA card.
 
-Builds an instrumented copy of the ragged kernel (csrc/paged_attention.cu
-and csrc/decode_core.cuh copied under build/ragged_timeline/, not the
+Builds an instrumented copy of the ragged kernel
+(csrc/ragged_paged_attention.cu and csrc/decode_core.cuh copied under build/ragged_timeline/, not the
 package's build): thread 0 of each decode-tile block writes the
 ``%globaltimer`` at its start, when its key walk ends and at its end, its
 SM, and ``clock64`` cycles spent in the walk's phases (one-row decode
@@ -110,7 +110,8 @@ __device__ __forceinline__ unsigned smid_() {
 
 def instrumented_library(build) -> ctypes.CDLL:
     os.makedirs(OUT, exist_ok=True)
-    for name in ("decode_core.cuh", "hopper.cuh", "paged_attention.cu"):
+    for name in ("decode_core.cuh", "hopper.cuh",
+                 "ragged_paged_attention.cu"):
         shutil.copy(os.path.join(build.CSRC_DIR, name), OUT)
     path = os.path.join(OUT, "decode_core.cuh")
     core = open(path).read()
@@ -120,13 +121,13 @@ def instrumented_library(build) -> ctypes.CDLL:
             raise RuntimeError(f"stamp anchor not found once: {old!r}")
         core = core.replace(old, new)
     open(path, "w").write(core)
-    with open(os.path.join(OUT, "paged_attention.cu"), "a") as f:
+    with open(os.path.join(OUT, "ragged_paged_attention.cu"), "a") as f:
         f.write('\nextern "C" int penroz_set_stamps(void* p) {\n'
                 '  return cudaMemcpyToSymbol(decode_core::g_stamps, &p, '
                 'sizeof(p));\n}\n')
     lib = os.path.join(OUT, "libragged_timeline.so")
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib,
-                           os.path.join(OUT, "paged_attention.cu")],
+                           os.path.join(OUT, "ragged_paged_attention.cu")],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stderr[-4000:])

@@ -210,7 +210,8 @@ def test_train_202_409_progress(server, app, toy_gpt_layers, toy_optimizer,
     assert [p["epoch"] for p in body["progress"]] == [1]
 
 
-def test_train_errors(server, toy_gpt_layers, toy_optimizer, monkeypatch):
+def test_train_errors(app, server, toy_gpt_layers, toy_optimizer,
+                      monkeypatch, toy_shards):
     assert _call(server, "POST", "/model/",
                  {"model_id": "e", "layers": toy_gpt_layers,
                   "optimizer": toy_optimizer})[0] == 200
@@ -233,8 +234,14 @@ def test_train_errors(server, toy_gpt_layers, toy_optimizer, monkeypatch):
     del body["epochs"]
     status, text = _call(server, "PUT", "/train/", body)
     assert status == 422 and "epochs" in text
+    # the training worker process: a 202, and the child's run ends Trained
     monkeypatch.setenv("PENROZ_TRAIN_WORKER", "1")
-    assert _call(server, "PUT", "/train/", _train_body("e"))[0] == 400
+    assert _call(server, "PUT", "/train/",
+                 _train_body("e", epochs=2))[0] == 202
+    body = _poll_progress(server, "e", {"Trained", "Error"}, runs=1)
+    assert body["status"]["code"] == "Trained", body
+    assert [p["epoch"] for p in body["progress"]] == [1, 2]
+    assert app.join_training(timeout=60)
     monkeypatch.delenv("PENROZ_TRAIN_WORKER")
     assert _call(server, "GET", "/progress/?model_id=nope")[0] == 404
     assert _call(server, "GET", "/progress/")[0] == 422
@@ -661,23 +668,31 @@ def test_ssm_model_refused_under_continuous_batching(server, paged,
                                                      monkeypatch,
                                                      toy_hybrid_layers,
                                                      toy_optimizer):
-    """The scheduler's rows have no recurrent state yet: a model with ssm
-    layers is a 400 naming them under continuous batching, and serves on
-    the single-sequence path without it."""
+    """A model with ssm layers is served under continuous batching (its
+    rows carry their recurrent state): ``/generate/`` and
+    ``/generate_batch/`` give its single-sequence tokens, and
+    ``/serving_stats/`` counts its recurrent state's bytes."""
     assert _call(server, "POST", "/model/",
                  {"model_id": "h", "layers": toy_hybrid_layers,
                   "optimizer": toy_optimizer})[0] == 200
     body = _gen("h", input=[[1, 2, 3]], max_new_tokens=4)
     single = _call(server, "POST", "/generate/", body)
     assert single[0] == 200
+    rows = [_call(server, "POST", "/generate/",
+                  _gen("h", input=[p], max_new_tokens=4))
+            for p in ([1, 2], [3])]
+    assert all(status == 200 for status, _ in rows)
     monkeypatch.setenv("PENROZ_CONTINUOUS_BATCHING", "1")
-    for path, payload in (("/generate/", body),
-                          ("/generate_batch/",
-                           {"model_id": "h", "inputs": [[1, 2], [3]],
-                            "block_size": 16, "max_new_tokens": 4,
-                            "temperature": 0})):
-        status, text = _call(server, "POST", path, payload)
-        assert status == 400 and "ssm layer" in text, (path, text)
+    assert _call(server, "POST", "/generate/", body) == single
+    status, text = _call(server, "POST", "/generate_batch/",
+                         {"model_id": "h", "inputs": [[1, 2], [3]],
+                          "block_size": 16, "max_new_tokens": 4,
+                          "temperature": 0})
+    assert status == 200, text
+    assert json.loads(text)["sequences"] == [json.loads(t)["tokens"]
+                                             for _, t in rows]
+    status, text = _call(server, "GET", "/serving_stats/")
+    assert status == 200 and json.loads(text)["ssm_state_bytes"] > 0
 
 
 def _hf_checkpoint(workdir, name="hf_qwen3"):

@@ -1,8 +1,11 @@
 """Legacy batched generation in the port against the JAX package:
 ``generate_tokens_batched`` (a right-padded prefill, then ragged decode
 steps) gives JAX's greedy tokens on the four caches, with and without a
-stop token, and equals the port's single-sequence tokens; a hybrid model
-is refused.  ``/generate_batch/`` without continuous batching, with
+stop token, and equals the port's single-sequence tokens; a hybrid or
+pure-SSM model gives JAX's tokens on prompts of equal length and each
+row's single-sequence tokens on prompts of unequal length (where the JAX
+package's padded prefill feeds the pads to the recurrent state and its
+shorter rows leave their own tokens, recorded below).  ``/generate_batch/`` without continuous batching, with
 adapter rows (grouped by adapter), and as the breaker's fallback under
 ``PENROZ_SCHED_FALLBACK=1`` answers what the JAX app answers, on one
 shared checkpoint."""
@@ -83,8 +86,9 @@ def test_batched_matches_jax_on_every_cache(pair, clean_env, cache):
 
 def test_batched_sampling_and_refusals(pair, clean_env):
     """Sampled rows are reproducible under the same generator state and
-    stay in the vocabulary; an overlong row, an empty prompt and a model
-    with ssm layers are ValueErrors."""
+    stay in the vocabulary; an overlong row and an empty prompt are
+    ValueErrors; a model with ssm layers is served (see the hybrid
+    cases below)."""
     _, tm = pair
     tm._generator.manual_seed(5)
     first = tm.generate_tokens_batched(PROMPTS, BLOCK, 6, temperature=0.8,
@@ -102,8 +106,63 @@ def test_batched_sampling_and_refusals(pair, clean_env):
     from penroz_tpu_torch.models.dsl import Mapper
     from penroz_tpu_torch.models.model import NeuralNetworkModel
     model = NeuralNetworkModel("hy", Mapper(hybrid, SGD), device="cpu")
-    with pytest.raises(ValueError, match="ssm layers"):
-        model.generate_tokens_batched([[1, 2]], BLOCK, 2)
+    assert model.generate_tokens_batched([[1, 2]], BLOCK, 2,
+                                         temperature=0) == [
+        model.generate_tokens([1, 2], BLOCK, 2, temperature=0)]
+
+
+def _wide(x):
+    """The DSL with every normal init at std 0.3: at the presets' 0.02 the
+    toy's recurrent branch barely moves the logits, and a padded prefill
+    would go unseen."""
+    if isinstance(x, dict):
+        return {k: ({"mean": 0.0, "std": 0.3} if k == "normal" else _wide(v))
+                for k, v in x.items()}
+    if isinstance(x, list):
+        return [_wide(v) for v in x]
+    return x
+
+
+@pytest.fixture(scope="module", params=[2, 1], ids=["hybrid", "pure_ssm"])
+def ssm_pair(request):
+    layers = _wide(jpresets.hybrid_custom(d=32, heads=4, depth=2, vocab=64,
+                                          block=BLOCK, dropout=0.0,
+                                          ssm_every=request.param))
+    jm = JModel("batched_ssm", JMapper(layers, SGD))
+    tm = from_jax_state_dict(jm.state_dict(), layers, SGD, device="cpu")
+    return request.param, jm, tm
+
+
+@pytest.mark.parametrize("cache", list(CACHES))
+def test_batched_ssm_rows_match_jax_and_single_sequence(ssm_pair, clean_env,
+                                                        cache):
+    """Prompts of equal length: the JAX package's batched tokens.  Prompts
+    of unequal length: each row's single-sequence tokens (the port's and
+    the JAX package's), the pads left out of the recurrent state.  The
+    JAX package's own batch leaves them there: its rows [1, 2, 3] and
+    [5, 6] first differ from their single-sequence tokens at the second
+    new token (index 4), which this test records."""
+    for name, value in CACHES[cache].items():
+        clean_env.setenv(name, value)
+    every, jm, tm = ssm_pair
+    equal = [[1, 2, 3], [7, 5, 9], [5, 6, 8]]
+    assert tm.generate_tokens_batched(equal, BLOCK, 7, temperature=0) == \
+        jm.generate_tokens_batched(equal, BLOCK, 7, temperature=0)
+    n = BLOCK - max(map(len, PROMPTS))
+    got = tm.generate_tokens_batched(PROMPTS, BLOCK, n, temperature=0)
+    single = [jm.generate_tokens([p], BLOCK, n, temperature=0)
+              for p in PROMPTS]
+    assert got == single
+    assert got == [tm.generate_tokens(p, BLOCK, n, temperature=0)
+                   for p in PROMPTS]
+    if cache == "fp32":
+        jax_batched = jm.generate_tokens_batched(PROMPTS, BLOCK, n,
+                                                 temperature=0)
+        assert jax_batched[1] == single[1]   # the longest row: no pads
+        for row in (0, 2):
+            first = next(i for i, (a, b) in enumerate(
+                zip(jax_batched[row], single[row])) if a != b)
+            assert first <= len(PROMPTS[row]) + 2, (row, first)
 
 
 def _call(base, method, path, body=None):

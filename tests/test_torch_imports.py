@@ -238,3 +238,16 @@ print(len(ring), recovered, tierstore.TIERS.promotions[("disk", "ok")],
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split("\n")[-2] == "5 1 1 True"
+
+
+def test_train_worker_and_ssm_update_import_no_jax():
+    """The training worker's module, which the server starts as its own
+    process, and the recurrent-update kernel's wrapper load no JAX module
+    in a fresh interpreter."""
+    code = ("import sys; import penroz_tpu_torch.models.train_worker; "
+            "import penroz_tpu_torch.ops.kernels.ssm_update; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r}]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=120)

@@ -861,3 +861,101 @@ def test_run_counter_counts_replays(dev):
     assert DA.decode_attention.runs.read() == ran + 3
     assert DA.decode_attention.launches == launched
     _compare(out, q, k, v, 39, length)
+
+
+# -- the recurrent update (csrc/ssm_update.cu) -------------------------------
+
+def _ssm_state(dev, B, H, dk, dv, C, seed):
+    from penroz_tpu_torch.ops import ssm as SSM
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    st = SSM.SSMState.create([(H, dk, dv)], B, ckpt_slots=C, device=dev)
+    st.state[0].copy_(torch.randn(st.state[0].shape, generator=g))
+    st.ckpt[0].copy_(torch.randn(st.ckpt[0].shape, generator=g))
+    return st
+
+
+def _ssm_copy(st):
+    from penroz_tpu_torch.ops import ssm as SSM
+    return SSM.SSMState([s.clone() for s in st.state],
+                        [c.clone() for c in st.ckpt], st.ckpt_pos.clone(),
+                        st.specs, st.ckpt_slots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["packed", "dense", "dense_counts"])
+def test_ssm_update_kernel_matches_plain(dev, form, dtype):
+    """The recurrent-update kernel against its plain version: the state,
+    the ring and its keys equal (the same rounding a token), y within
+    1e-5 relative (summed over dk in another order), 0 at every dropped
+    slot; a packed layout with a row over two blocks, a partly valid block
+    and a padding block; dense with per-row starts and counts (a parked
+    row left untouched); two launches bit for bit."""
+    from penroz_tpu_torch.ops import ssm as SSM
+    from penroz_tpu_torch.ops.kernels import ssm_update as SU
+    from penroz_tpu_torch.ops.kv_cache import build_descriptors
+    B, H, dk, dv, C = 4, 3, 64, 48, 8
+    g = torch.Generator(device="cpu").manual_seed(7)
+    if form == "packed":
+        descs, _ = build_descriptors([(1, 5, 70), (0, 9, 1), (3, 0, 20)],
+                                     64, 5)
+        descs = torch.from_numpy(descs).to(dev)
+        lead = (1, 5 * 64)
+    else:
+        lead = (B, 37)
+    q, k, v = (torch.randn(*lead, H, d, generator=g).to(dev, dtype)
+               for d in (dk, dk, dv))
+    gates = torch.sigmoid(torch.randn(*lead, H, generator=g) + 2).to(dev)
+    starts = torch.tensor([0, 11, 40, 3], device=dev)
+    counts = (torch.tensor([37, 5, 0, 20], device=dev)
+              if form == "dense_counts" else None)
+    st = _ssm_state(dev, B, H, dk, dv, C, 3)
+    outs = []
+    for _ in range(2):
+        run = _ssm_copy(st)
+        if form == "packed":
+            y = SU.ssm_update(run.state[0], run.ckpt[0], run.ckpt_pos, q, k,
+                              v, gates, descs=descs, block_q=64)
+        else:
+            y = SU.ssm_update(run.state[0], run.ckpt[0], run.ckpt_pos, q, k,
+                              v, gates, starts=starts, counts=counts)
+        torch.cuda.synchronize()
+        outs.append((y, run))
+    (y, run), (y2, run2) = outs
+    assert torch.equal(y, y2) and torch.equal(run.state[0], run2.state[0])
+    assert torch.equal(run.ckpt[0], run2.ckpt[0])
+    ref = _ssm_copy(st)
+    if form == "packed":
+        want = SSM.update_packed_reference(ref.state[0], ref.ckpt[0],
+                                           ref.ckpt_pos, q, k, v, gates,
+                                           descs, 64)
+    else:
+        want = SSM.update_dense_reference(ref.state[0], ref.ckpt[0],
+                                          ref.ckpt_pos, q, k, v, gates,
+                                          starts, counts)
+    assert torch.equal(run.ckpt_pos, ref.ckpt_pos)
+    torch.testing.assert_close(run.state[0], ref.state[0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(run.ckpt[0], ref.ckpt[0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(y == 0, want == 0)
+
+
+def test_ssm_update_kernel_rejects_what_it_cannot_take(dev):
+    from penroz_tpu_torch.ops import ssm as SSM
+    from penroz_tpu_torch.ops.kernels import ssm_update as SU
+    st = SSM.SSMState.create([(2, 160, 8)], 1, device=dev)
+    x = torch.zeros(1, 1, 2, 160, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        SU.ssm_update(st.state[0], st.ckpt[0], st.ckpt_pos, x, x,
+                      torch.zeros(1, 1, 2, 8, device=dev),
+                      torch.ones(1, 1, 2, device=dev),
+                      starts=torch.zeros(1, device=dev))
+    st = SSM.SSMState.create([(2, 16, 8)], 1, device=dev)
+    x = torch.zeros(1, 3, 2, 16, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        SU.ssm_update(st.state[0], st.ckpt[0], st.ckpt_pos, x, x,
+                      torch.zeros(1, 3, 2, 8, device=dev,
+                                  dtype=torch.float16),
+                      torch.ones(1, 3, 2, device=dev),
+                      starts=torch.zeros(1, device=dev))

@@ -132,3 +132,60 @@ def test_stage_views_match_jax(variant):
     assert TKV.stage_pool_bytes(tkv, 0, 1) + TKV.stage_pool_bytes(
         tkv, 1, 3) == sum(tkv.hbm_components()[c]
                           for c in ("kv_values", "kv_scales"))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_insert_row_with_the_ssm_child_matches_jax(variant):
+    """``insert_row`` of a prefilled batch-1 cache (its buffers, scales and
+    recurrent child), then ``rollback_row``, ``row_view``/``merge_row`` and
+    ``reset_row`` on a cache with an ``ssm`` child: the same K/V planes,
+    lengths and recurrent states as the JAX package's."""
+    from penroz_tpu.ops import ssm as jssm
+    from penroz_tpu_torch.ops import ssm as tssm
+    jcls, tcls, kw = VARIANTS[variant]
+    ssm_specs = [(2, 4, 4)]
+    rng = np.random.default_rng(5)
+    jkv, tkv = _pair(variant)
+    jkv.ssm = jssm.SSMState.create(ssm_specs, BATCH, ckpt_slots=4)
+    tkv.ssm = tssm.SSMState.create(ssm_specs, BATCH, ckpt_slots=4)
+    jsrc = jcls.create(SPECS, 1, MAX_LEN, **kw).with_static_table()
+    tsrc = tcls.create(SPECS, 1, MAX_LEN, device="cpu",
+                       **kw).with_static_table()
+    jsrc.ssm = jssm.SSMState.create(ssm_specs, 1, ckpt_slots=4)
+    tsrc.ssm = tssm.SSMState.create(ssm_specs, 1, ckpt_slots=4)
+    for layer, (k, v) in enumerate(_new(rng, 1, 5)):
+        _append(jsrc, layer, k, v, True)
+        _append(tsrc, layer, k, v, False)
+    jsrc, tsrc = jsrc.advanced(5), tsrc.advanced(5)
+    q, k, v = (rng.standard_normal((1, 5, 2, 4)).astype(np.float32)
+               for _ in range(3))
+    g = rng.uniform(0.1, 0.9, (1, 5, 2)).astype(np.float32)
+    jsrc.ssm.update_dense(0, *(jnp.asarray(a) for a in (q, k, v, g)), 0)
+    tsrc.ssm.update_dense(0, *(torch.from_numpy(a) for a in (q, k, v, g)),
+                          0)
+    jkv = jkv.insert_row(1, jsrc)
+    tkv = tkv.insert_row(1, tsrc)
+    _assert_same(jkv, tkv)
+
+    def same_ssm():
+        for a, b in zip((*tkv.ssm.state, *tkv.ssm.ckpt, tkv.ssm.ckpt_pos),
+                        (*jkv.ssm.state, *jkv.ssm.ckpt, jkv.ssm.ckpt_pos)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-6)
+
+    same_ssm()
+    jkv, tkv = jkv.rollback_row(1, 3), tkv.rollback_row(1, 3)
+    _assert_same(jkv, tkv)
+    same_ssm()
+    jview, tview = jkv.row_view(1, 3), tkv.row_view(1, 3)
+    q, k, v = (rng.standard_normal((1, 2, 2, 4)).astype(np.float32)
+               for _ in range(3))
+    g = rng.uniform(0.1, 0.9, (1, 2, 2)).astype(np.float32)
+    jview.ssm.update_dense(0, *(jnp.asarray(a) for a in (q, k, v, g)), 3)
+    tview.ssm.update_dense(0, *(torch.from_numpy(a) for a in (q, k, v, g)),
+                           3)
+    jkv, tkv = jkv.merge_row(1, jview), tkv.merge_row(1, tview)
+    same_ssm()
+    jkv, tkv = jkv.reset_row(1), tkv.reset_row(1)
+    _assert_same(jkv, tkv)
+    same_ssm()

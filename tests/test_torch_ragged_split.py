@@ -1,16 +1,15 @@
 """The ragged kernel's split-K algorithm on the CPU.
 
-The CUDA ragged kernel (csrc/paged_attention.cu on csrc/decode_core.cuh)
-treats each descriptor ``(row, q_pos0, q_valid, kv_len)`` as a sequence of
-the decode core: its key range runs from the window start of its first real
-slot to ``q_pos0 + q_valid``, is cut into the splits of ``ragged_split_plan``
-(sized from the pool's span, since the descriptors stay on the device) by
-``split_ranges``, and the splits merge in split order.  The kernel runs only
-on the card; its algorithm runs here as
+The CUDA ragged kernel (csrc/ragged_paged_attention.cu on csrc/decode_core.cuh)
+treats each descriptor ``(row, q_pos0, q_valid, kv_len)`` as a sequence of the
+decode core: its key range runs from the window start of its first real slot to
+``q_pos0 + q_valid``, is cut into the splits of ``ragged_split_plan`` (sized
+from the pool's span, since the descriptors stay on the device) by
+``split_ranges``, and the splits merge in split order.  The kernel runs only on
+the card; its algorithm runs here as
 ``ragged_paged_attention_split_reference``, held to the JAX package's Pallas
 ``ragged_paged_attention`` in interpret mode and to the port's plain version
-from numpy seeds, fp32, at atol 1e-5 (all sum in fp32, in different
-orders)."""
+from numpy seeds, fp32, at atol 1e-5 (all sum in fp32, in different orders)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -179,3 +179,191 @@ def test_kv_states_carry_the_ssm_child(monkeypatch, env, kv_specs):
     assert t.length == 0 and not bool(t.ssm.state[0].any())
     assert bool((t.ssm.ckpt_pos == -1).all())
     assert TKV.create_kv_state(kv_specs, 1, 16).ssm is None
+
+
+# -- the row contract and the scheduler's update forms -----------------------
+
+def _seeded_pair(specs, B, C, seed=3):
+    """A port state and a JAX state holding the same seeded rows (states,
+    ring and keys)."""
+    rng = np.random.default_rng(seed)
+    t = tssm.SSMState.create(specs, B, ckpt_slots=C)
+    state = [rng.normal(size=s.shape).astype(np.float32) for s in t.state]
+    ckpt = [rng.normal(size=c.shape).astype(np.float32) for c in t.ckpt]
+    pos = np.full((B, C), -1, np.int32)
+    for b in range(B):   # lengths 5..5+C-1 in their slots, one slot empty
+        for L in range(5, 5 + C - 1):
+            pos[b, L % C] = L
+    for dst, src in zip((*t.state, *t.ckpt), (*state, *ckpt)):
+        dst.copy_(torch.from_numpy(src))
+    t.ckpt_pos.copy_(torch.from_numpy(pos))
+    j = jssm.SSMState([jnp.asarray(a) for a in state],
+                      [jnp.asarray(a) for a in ckpt], jnp.asarray(pos),
+                      specs, C)
+    return t, j
+
+
+SPECS = [(2, 4, 3), (1, 2, 2)]
+
+
+@pytest.mark.parametrize("new_length", [0, 6, 8, 3, 11],
+                         ids=["zero", "hit", "hit_last", "miss", "future"])
+def test_rollback_row_matches_jax(new_length):
+    """The ring rewind: zeros at 0, the checkpoint keyed ``new_length`` when
+    a slot holds it, the state kept otherwise; later keys dropped."""
+    t, j = _seeded_pair(SPECS, 3, 4)
+    t.rollback_row(1, new_length)
+    j = j.rollback_row(1, new_length)
+    _same_state(t, j)
+
+
+def test_row_view_merge_and_insert_match_jax():
+    """``row_view`` writes through (its update lands in the row); a copied
+    view merges back; ``insert_row`` copies a batch-1 state, ring
+    included; ``reset_row`` zeroes one row: each as the JAX state."""
+    t, j = _seeded_pair(SPECS, 3, 4)
+    arrays = _inputs(1, 3, 2, 4, 3, seed=5)
+    view = t.row_view(2, 9)
+    view.update_dense(0, *_t(arrays), start=9)
+    t.merge_row(2, view)
+    jv = j.row_view(2, 9)
+    jv.update_dense(0, *_j(arrays), start=9)
+    j = j.merge_row(2, jv)
+    _same_state(t, j)
+    src_t, src_j = _seeded_pair(SPECS, 1, 4, seed=9)
+    copy = tssm.SSMState([s.clone() for s in src_t.state],
+                         [c.clone() for c in src_t.ckpt],
+                         src_t.ckpt_pos.clone(), SPECS, 4)
+    t.insert_row(0, copy)
+    j = j.insert_row(0, src_j)
+    _same_state(t, j)
+    t.reset_row(1)
+    j = j.reset_row(1)
+    _same_state(t, j)
+    with pytest.raises(ValueError, match="specs"):
+        t.insert_row(0, tssm.SSMState.create([(1, 2, 2)], 1))
+
+
+def test_export_import_rows_and_all_match_jax():
+    """The hand-off blob: live states only (the importer's ring starts
+    empty), as host tensors or device planes; the whole-batch pair too."""
+    t, j = _seeded_pair(SPECS, 3, 4)
+    blob = t.export_row_pages(1, length=7)
+    jblob = j.export_row_pages(1, 7)
+    assert blob["specs"] == jblob["specs"]
+    for a, b in zip(blob["state"], jblob["state"]):
+        np.testing.assert_array_equal(a.numpy(), b)
+    dev = t.export_row(2, device=True)
+    assert all(p.device == t.device for p in dev["state"])
+    t.import_row_pages(0, blob)
+    j = j.import_row_pages(0, jblob)
+    _same_state(t, j)
+    whole, jwhole = t.export_all(), j.export_all()
+    t2, j2 = _seeded_pair(SPECS, 3, 4, seed=11)
+    t2.import_all(whole)
+    j2 = j2.import_all(jwhole)
+    _same_state(t2, j2)
+
+
+def test_update_dense_per_row_start_matches_jax():
+    """A (B,) start: each row checkpoints at its own lengths."""
+    B, T, H, dk, dv = 3, 5, 2, 4, 3
+    arrays = _inputs(B, T, H, dk, dv, seed=4)
+    t, j = _seeded_pair([(H, dk, dv)], B, 4)
+    start = np.array([0, 7, 12], np.int64)
+    y = t.update_dense(0, *_t(arrays), start=torch.from_numpy(start))
+    jy = j.update_dense(0, *_j(arrays), start=jnp.asarray(start))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    _same_state(t, j)
+
+
+def test_update_dense_counts_leave_padding_out():
+    """``count[b]`` tokens of row b: its state and ring equal a batch-1
+    update of those tokens alone, y is 0 past them, and a row of count 0
+    is untouched."""
+    B, T, H, dk, dv = 3, 6, 2, 4, 3
+    arrays = _inputs(B, T, H, dk, dv, seed=6)
+    t, _ = _seeded_pair([(H, dk, dv)], B, 4)
+    before = [s.clone() for s in (*t.state, *t.ckpt, t.ckpt_pos)]
+    counts = torch.tensor([6, 2, 0])
+    y = t.update_dense(0, *_t(arrays), start=torch.tensor([3, 4, 5]),
+                       count=counts)
+    for b in range(B):
+        n = int(counts[b])
+        alone = tssm.SSMState([before[0][b:b + 1].clone()],
+                              [before[1][b:b + 1].clone()],
+                              before[2][b:b + 1].clone(), [(H, dk, dv)], 4)
+        ya = alone.update_dense(0, *_t([a[b:b + 1, :n] for a in arrays]),
+                                start=3 + b) if n else None
+        if n:
+            torch.testing.assert_close(y[b:b + 1, :n], ya, rtol=0, atol=0)
+        assert not bool(y[b, n:].any())
+        torch.testing.assert_close(t.state[0][b], alone.state[0][0])
+        torch.testing.assert_close(t.ckpt[0][b], alone.ckpt[0][0])
+        torch.testing.assert_close(t.ckpt_pos[b], alone.ckpt_pos[0])
+
+
+def test_update_packed_matches_jax():
+    """The packed scan over a layout with a row spanning two blocks, a
+    partly valid block, a padding block and a decode step, against JAX's
+    (y compared at the valid slots: the port leaves 0 at a dropped one,
+    the JAX scan computes it and drops its write)."""
+    from penroz_tpu_torch.ops.kv_cache import build_descriptors
+    H, dk, dv, block_q = 2, 4, 3, 4
+    spans = [(1, 5, 6), (0, 9, 1), (2, 0, 3)]  # row 1 over two blocks
+    descs, _ = build_descriptors(spans, block_q, 5)  # block 4: padding
+    Tp = 5 * block_q
+    arrays = _inputs(1, Tp, H, dk, dv, seed=7)
+    t, j = _seeded_pair([(H, dk, dv), (1, 2, 2)], 3, 4)
+    y = t.update_packed(0, *_t(arrays), torch.from_numpy(descs), block_q)
+    jy = j.update_packed(0, *_j(arrays), jnp.asarray(descs), block_q)
+    valid = np.zeros(Tp, bool)
+    for blk, (row, _, n, _) in enumerate(descs):
+        if row >= 0:
+            valid[blk * block_q:blk * block_q + n] = True
+    np.testing.assert_allclose(y.numpy()[0, valid], np.asarray(jy)[0, valid],
+                               rtol=1e-5, atol=1e-5)
+    assert not bool(y[0, torch.from_numpy(~valid)].any())
+    _same_state(t, j)
+
+
+def test_packed_equals_dense_bit_for_bit():
+    """A row's prompt cut into packed chunks leaves the same state bits as
+    one dense update (the same arithmetic a token)."""
+    from penroz_tpu_torch.ops.kv_cache import build_descriptors
+    H, dk, dv, T = 2, 4, 3, 11
+    arrays = _inputs(1, T, H, dk, dv, seed=8)
+    dense = tssm.SSMState.create([(H, dk, dv)], 1, ckpt_slots=4)
+    y_dense = dense.update_dense(0, *_t(arrays), start=0)
+    packed = tssm.SSMState.create([(H, dk, dv)], 2, ckpt_slots=4)
+    ys = []
+    for lo, hi in ((0, 5), (5, T)):
+        descs, _ = build_descriptors([(1, lo, hi - lo)], 4, 2)
+        part = [np.zeros((1, 8) + a.shape[2:], np.float32) for a in arrays]
+        for p, a in zip(part, arrays):
+            p[0, :hi - lo] = a[0, lo:hi]
+        y = packed.update_packed(0, *_t(part), torch.from_numpy(descs), 4)
+        ys.append(y[:, :hi - lo])
+    torch.testing.assert_close(torch.cat(ys, 1), y_dense, rtol=0, atol=0)
+    torch.testing.assert_close(packed.state[0][1], dense.state[0][0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(packed.ckpt[0][1], dense.ckpt[0][0],
+                               rtol=0, atol=0)
+
+
+def test_ring_after_a_256_slot_span_matches_jax():
+    """A 256-token packed span over 8 ring slots: the ring holds the last
+    8 positions' states, as the JAX scan leaves it."""
+    from penroz_tpu_torch.ops.kv_cache import build_descriptors
+    H, dk, dv = 1, 4, 2
+    descs, _ = build_descriptors([(0, 3, 256)], 64, 4)
+    arrays = _inputs(1, 256, H, dk, dv, seed=12)
+    t = tssm.SSMState.create([(H, dk, dv)], 2, ckpt_slots=8)
+    j = jssm.SSMState.create([(H, dk, dv)], 2, ckpt_slots=8)
+    y = t.update_packed(0, *_t(arrays), torch.from_numpy(descs), 64)
+    jy = j.update_packed(0, *_j(arrays), jnp.asarray(descs), 64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    assert sorted(t.ckpt_pos[0].tolist()) == list(range(252, 260))
+    _same_state(t, j)

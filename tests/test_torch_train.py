@@ -160,11 +160,11 @@ def test_unported_options_are_refused(port_dir, toy_gpt_layers,
         NeuralNetworkModel.train_model_on_device(
             "opt", "cpu", "toy", 0, 1, 2, 16, 1,
             adapter={"adapter_id": "a", "rank": 4096})
-    monkeypatch.setenv("PENROZ_REMAT", "1")
-    with pytest.raises(ValueError, match="PENROZ_REMAT"):
+    monkeypatch.setenv("PENROZ_FSDP", "1")
+    with pytest.raises(ValueError, match="PENROZ_FSDP"):
         NeuralNetworkModel.train_model_on_device(
             "opt", "cpu", "toy", 0, 1, 2, 16, 1)
-    monkeypatch.setenv("PENROZ_REMAT", "0")
+    monkeypatch.setenv("PENROZ_FSDP", "0")
     monkeypatch.setenv("PENROZ_TRAIN_DTYPE", "int8")
     with pytest.raises(ValueError, match="PENROZ_TRAIN_DTYPE"):
         tm.train_model("toy", **RUN)

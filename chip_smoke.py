@@ -46,9 +46,11 @@ prints no result:
                the SSM rows (packed and dense, phase 4c's widths: a decode
                step of 8 rows, one parked, a 256-token chunk beside 7
                decode rows and a padding block, a 1024-token prefill, fp32
-               and from bf16; y, the state, the ring and its keys against
-               the plain versions; two launches from one state bit for
-               bit).  Phase 4d's shapes too
+               and from bf16, and the mixed step at dk = dv = 128; y
+               against the plain versions, the state, the ring and its
+               keys equal to theirs bit for bit; two launches from one
+               state bit for bit; one row's 256 slots as 1 launch, 4 of
+               64 and 256 of 1, bit for bit).  Phase 4d's shapes too
                (GQA 16/8, D 128, bf16): decode at 1024 keys and the
                1000-token prefill, the paged decode and its 128- and
                1000-token prefills, a ragged mixed step, the flash
@@ -1592,10 +1594,10 @@ def gla_cases():
 
 
 # The recurrent update against its plain versions: fp32 state math in both,
-# the state rounded as the same products and sums (bit for bit), y summed
-# over dk in another order than the plain einsum, so |y - ref| <= SSM_C x
-# (sum_k |q_k| |S_kc| + |ref|), and the state and ring within SSM_C of the
-# plain ones (they are equal in practice).
+# the state rounded as the same products and sums, so the state, the ring
+# and its keys equal the plain ones bit for bit; y summed over dk in
+# another order than the plain einsum, so |y - ref| <= SSM_C x
+# (sum_k |q_k| |S_kc| + |ref|).
 SSM_C = 1e-5
 SSM_RING = 8
 
@@ -1708,12 +1710,13 @@ def run_ssm_update_case(torch, case):
                    ).max())
     s_err = max(float((a - b).abs().max()) for a, b in (
         (one.state[0], ref.state[0]), (one.ckpt[0], ref.ckpt[0])))
-    s_scale = max(1.0, float(ref.state[0].abs().max()))
     tol_text = f"{SSM_C:g} * (sum|q||S| + |ref|)"
     check(ratio <= 1.0, f"{case['name']}: y max abs err {err:.3e}, "
           f"{ratio:.2f} x {tol_text}")
-    check(s_err <= SSM_C * s_scale, f"{case['name']}: state/ring max abs "
-          f"err {s_err:.3e} > {SSM_C:g} x {s_scale:.3g}")
+    check(torch.equal(one.state[0], ref.state[0])
+          and torch.equal(one.ckpt[0], ref.ckpt[0]),
+          f"{case['name']}: state/ring differ from the plain version's "
+          f"(max abs err {s_err:.3e})")
     del terms, diff, mag, two
     ms = _time_ms(torch, lambda: kernel(one), case.get("iters", 20),
                   case["flush"])
@@ -1744,11 +1747,44 @@ def run_ssm_update_case(torch, case):
     return row
 
 
+def run_ssm_cut_case(torch, case):
+    """One row's span through the recurrent-update kernel as 1 launch, as
+    launches of 64 slots and of 1: the state, the ring, its keys and every
+    slot's y bit for bit (the engine's superstep and chunk gates rest on
+    it).  Returns a row without times."""
+    from penroz_tpu_torch.ops.kernels import ssm_update as SU
+    state0, q, k, v, gates, _, starts, _ = _ssm_operands(torch, case)
+    T = case["T"]
+    results = {}
+    for cut in (T, 64, 1):
+        st = _ssm_copy(state0)
+        ys = [SU.ssm_update(st.state[0], st.ckpt[0], st.ckpt_pos,
+                            q[:, t:t + cut], k[:, t:t + cut],
+                            v[:, t:t + cut], gates[:, t:t + cut],
+                            starts=starts + t)
+              for t in range(0, T, cut)]
+        torch.cuda.synchronize()
+        results[cut] = (torch.cat(ys, dim=1), st)
+    y, one = results[T]
+    for cut in (64, 1):
+        y_cut, st = results[cut]
+        check(torch.equal(y_cut, y) and torch.equal(st.state[0], one.state[0])
+              and torch.equal(st.ckpt[0], one.ckpt[0])
+              and torch.equal(st.ckpt_pos, one.ckpt_pos),
+              f"{case['name']}: {T // cut} launches of {cut} differ from 1 "
+              f"launch of {T}")
+    say("kernels", f"{case['name']}: 1 launch of {T}, {T // 64} of 64 and "
+        f"{T} of 1 agree bit for bit (y, state, ring, keys)")
+    return {"name": case["name"], "bit_equal": True,
+            "launches": 1 + T // 64 + T}
+
+
 def ssm_update_cases():
     """Phase 4c's widths (H 12, dk = dv = 64): a decode step of 8 rows (one
     parked, count 0), a 256-token chunk beside 7 decode rows and a padding
     block (phase 4m's mixed step), a 1024-token single-row prefill; fp32
-    and from bf16 inputs."""
+    and from bf16 inputs; the mixed step at dk = dv = 128 (H 6, the same
+    width)."""
     gpt2 = dict(H=12, dk=64, dv=64)
     decode_starts = list(PHASED_LENGTHS)
     mixed = dict(gpt2, form="packed", B=8, block_q=64, blocks=12,
@@ -1764,10 +1800,18 @@ def ssm_update_cases():
              starts=[0], dtype="float32", iters=5),
         dict(gpt2, name="ssm_prefill_1024_bf16", form="dense", B=1, T=1024,
              starts=[0], dtype="bfloat16", iters=5),
+        dict(mixed, name="ssm_mixed_256_7_d128_fp32", H=6, dk=128, dv=128,
+             dtype="float32"),
     ]
     for i, c in enumerate(cases):
         c["seed"] = 500 + i
     return cases
+
+
+def ssm_cut_case():
+    """Phase 3's cut case: the mixed step's 256-slot row alone, dense."""
+    return dict(name="ssm_cut_256_fp32", H=12, dk=64, dv=64, form="dense",
+                B=1, T=256, starts=[300], dtype="float32", seed=520)
 
 
 def training_cases():
@@ -1854,6 +1898,8 @@ def phase_kernels(torch, builds, ragged=False):
             rows[case["name"]] = run_ssm_update_case(torch, dict(
                 case, flush=flush))
             torch.cuda.empty_cache()
+        cut = ssm_cut_case()
+        rows[cut["name"]] = run_ssm_cut_case(torch, cut)
         builds.wait("ssm_scan")
         for case in gla_cases():
             rows[case["name"]] = run_gla_case(torch, case, flush)

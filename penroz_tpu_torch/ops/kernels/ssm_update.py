@@ -12,6 +12,13 @@ form is one block of T slots a row at its own start, taking its first
 place; y is returned.  Nothing falls back from the card to the plain
 version: a CUDA tensor the kernel cannot take is a ValueError.
 
+The kernel gives a (row, head, 8-column tile of dv) four warps, each
+thread a few rows of dk of one column of the state, and feeds them slots
+fetched ahead by cp.async; it takes any strides and alignment of q, k and
+v (the copy unit follows them), dk <= ``MAX_DK`` and a packed layout of at
+most ``MAX_BLOCKS`` descriptor blocks (the row's block list lives in
+shared memory).  Its state and ring bits equal the plain version's.
+
 ``ssm_update.launches`` counts the launches this wrapper made (a launch
 recorded by a graph capture is not one); ``ssm_update.runs`` (a device
 counter) the launches that ran, replays of a captured launch included.
@@ -27,6 +34,7 @@ import torch
 from penroz_tpu_torch.ops.kernels import build
 
 MAX_DK = 128
+MAX_BLOCKS = 8192
 
 _LOCK = threading.Lock()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -121,6 +129,9 @@ def ssm_update(state, ckpt, ckpt_pos, q, k, v, g, *, starts=None,
         NB, block_q = B, T
     else:
         NB, block_q = int(descs.shape[0]), int(block_q)
+        if NB > MAX_BLOCKS:
+            raise ValueError(f"ssm_update: {NB} descriptor blocks > "
+                             f"{MAX_BLOCKS}")
         if B != 1 or T != NB * block_q:
             raise ValueError(f"ssm_update: packed input {(B, T)} != "
                              f"(1, {NB} x {block_q})")

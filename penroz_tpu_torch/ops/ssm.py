@@ -26,11 +26,14 @@ Three forms, as in the JAX package:
 
 On the card both cached forms are one launch of the recurrent-update
 kernel a layer (ops/kernels/ssm_update.py, csrc/ssm_update.cu), the port's
-form of the JAX package's one-program ``lax.scan``; on the CPU they run
-the plain versions :func:`update_dense_reference` and
+form of the JAX package's one-program ``lax.scan``: a (row, head, 8-column
+tile) takes four warps, each thread a few rows of the state in registers,
+fed slots that cp.async fetched stages ahead; on the CPU they run the
+plain versions :func:`update_dense_reference` and
 :func:`update_packed_reference`, loops over the tokens.  The same fp32
-arithmetic a token in every form and on every chunking, so a row's state
-does not depend on how its prompt was cut.
+arithmetic a token in every form and on every chunking (the state rounded
+as two products and a sum, bit for bit the plain version's), so a row's
+state does not depend on how its prompt was cut.
 
 Checkpoint ring: every token write also stores the post-token state in a
 ring of ``ckpt_slots`` slots keyed by the length after the token

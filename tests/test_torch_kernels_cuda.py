@@ -885,11 +885,11 @@ def _ssm_copy(st):
 @pytest.mark.parametrize("form", ["packed", "dense", "dense_counts"])
 def test_ssm_update_kernel_matches_plain(dev, form, dtype):
     """The recurrent-update kernel against its plain version: the state,
-    the ring and its keys equal (the same rounding a token), y within
-    1e-5 relative (summed over dk in another order), 0 at every dropped
-    slot; a packed layout with a row over two blocks, a partly valid block
-    and a padding block; dense with per-row starts and counts (a parked
-    row left untouched); two launches bit for bit."""
+    the ring and its keys bit for bit (the same rounding a token), y
+    within 1e-5 relative (summed over dk in another order), 0 at every
+    dropped slot; a packed layout with a row over two blocks, a partly
+    valid block and a padding block; dense with per-row starts and counts
+    (a parked row left untouched); two launches bit for bit."""
     from penroz_tpu_torch.ops import ssm as SSM
     from penroz_tpu_torch.ops.kernels import ssm_update as SU
     from penroz_tpu_torch.ops.kv_cache import build_descriptors
@@ -932,13 +932,136 @@ def test_ssm_update_kernel_matches_plain(dev, form, dtype):
         want = SSM.update_dense_reference(ref.state[0], ref.ckpt[0],
                                           ref.ckpt_pos, q, k, v, gates,
                                           starts, counts)
+    _ssm_assert_matches(y, run, want, ref)
+
+
+def _ssm_assert_matches(y, run, want, ref):
+    """The state, the ring and its keys equal to the plain version's, y
+    within 1e-5 relative and 0 exactly where the plain version's is."""
     assert torch.equal(run.ckpt_pos, ref.ckpt_pos)
-    torch.testing.assert_close(run.state[0], ref.state[0], rtol=1e-5,
-                               atol=1e-5)
-    torch.testing.assert_close(run.ckpt[0], ref.ckpt[0], rtol=1e-5,
-                               atol=1e-5)
+    assert torch.equal(run.state[0], ref.state[0])
+    assert torch.equal(run.ckpt[0], ref.ckpt[0])
     torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(y == 0, want == 0)
+
+
+def _ssm_inputs(dev, lead, H, dk, dv, dtype, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.randn(*lead, H, dk, generator=g) * dk ** -0.5).to(dev, dtype)
+    k, v = (torch.randn(*lead, H, d, generator=g).to(dev, dtype)
+            for d in (dk, dv))
+    gates = torch.sigmoid(torch.randn(*lead, H, generator=g) + 2).to(dev)
+    return q, k, v, gates
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dk,dv", [(32, 48), (64, 64), (128, 128)])
+@pytest.mark.parametrize("form", ["dense", "packed"])
+def test_ssm_update_kernel_stage_edges(dev, form, dk, dv, dtype):
+    """The redesign's edges (P = 16 slots a stage, 3 stages in flight, a
+    ring of C = 8): dense rows of n = P - 1, P, P + 1, n < C, n = 53 (four
+    stages, more than P x stages) and a row with count 0; packed, a row of
+    70 slots over two blocks of 64, a partly valid block, a padding block
+    and a block of a row past the state's batch (never read or written).
+    The state, the ring and its keys bit for bit."""
+    from penroz_tpu_torch.ops import ssm as SSM
+    from penroz_tpu_torch.ops.kernels import ssm_update as SU
+    from penroz_tpu_torch.ops.kv_cache import build_descriptors
+    H, C = 3, 8
+    if form == "dense":
+        B, T = 6, 53
+        lead = (B, T)
+        counts = torch.tensor([15, 16, 17, 5, 53, 0], device=dev)
+        starts = torch.tensor([0, 9, 30, 2, 100, 7], device=dev)
+    else:
+        B = 4
+        descs, _ = build_descriptors([(1, 5, 70), (0, 9, 17), (B, 3, 30),
+                                      (3, 0, 5)], 64, 6)
+        descs = torch.from_numpy(descs).to(dev)
+        lead = (1, 6 * 64)
+    q, k, v, gates = _ssm_inputs(dev, lead, H, dk, dv, dtype, 11)
+    st = _ssm_state(dev, B, H, dk, dv, C, 5)
+    run, ref = _ssm_copy(st), _ssm_copy(st)
+    if form == "dense":
+        y = SU.ssm_update(run.state[0], run.ckpt[0], run.ckpt_pos, q, k, v,
+                          gates, starts=starts, counts=counts)
+        want = SSM.update_dense_reference(ref.state[0], ref.ckpt[0],
+                                          ref.ckpt_pos, q, k, v, gates,
+                                          starts, counts)
+    else:
+        y = SU.ssm_update(run.state[0], run.ckpt[0], run.ckpt_pos, q, k, v,
+                          gates, descs=descs, block_q=64)
+        want = SSM.update_packed_reference(ref.state[0], ref.ckpt[0],
+                                           ref.ckpt_pos, q, k, v, gates,
+                                           descs, 64)
+    torch.cuda.synchronize()
+    _ssm_assert_matches(y, run, want, ref)
+    untouched = [5] if form == "dense" else [2]
+    for b in untouched:
+        assert torch.equal(run.state[0][b], st.state[0][b])
+        assert torch.equal(run.ckpt[0][b], st.ckpt[0][b])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssm_update_kernel_cuts_agree_bit_for_bit(dev, dtype):
+    """One row's 256-slot span as 1 launch, 4 launches of 64 and 256 of 1:
+    the state, the ring, its keys and every slot's y bit for bit."""
+    from penroz_tpu_torch.ops.kernels import ssm_update as SU
+    H, dk, dv, C, T, start = 12, 64, 64, 8, 256, 300
+    q, k, v, gates = _ssm_inputs(dev, (1, T), H, dk, dv, dtype, 21)
+    st = _ssm_state(dev, 1, H, dk, dv, C, 9)
+    results = []
+    for cut in (T, 64, 1):
+        run = _ssm_copy(st)
+        ys = [SU.ssm_update(run.state[0], run.ckpt[0], run.ckpt_pos,
+                            q[:, t:t + cut], k[:, t:t + cut],
+                            v[:, t:t + cut], gates[:, t:t + cut],
+                            starts=torch.tensor([start + t], device=dev))
+              for t in range(0, T, cut)]
+        torch.cuda.synchronize()
+        results.append((torch.cat(ys, dim=1), run))
+    (y, one), rest = results[0], results[1:]
+    for y_cut, run in rest:
+        assert torch.equal(run.state[0], one.state[0])
+        assert torch.equal(run.ckpt[0], one.ckpt[0])
+        assert torch.equal(run.ckpt_pos, one.ckpt_pos)
+        assert torch.equal(y_cut, y)
+
+
+def test_ssm_update_kernel_graph_replay_equals_eager(dev):
+    """A CUDA-graph capture of the dense form (a decode step of 4 rows,
+    one parked): its replay equals an eager launch bit for bit; the
+    capture counts no launch, each replay one run."""
+    from penroz_tpu_torch.ops.kernels import ssm_update as SU
+    B, H, dk, dv, C = 4, 12, 64, 64, 8
+    q, k, v, gates = _ssm_inputs(dev, (B, 1), H, dk, dv, torch.float32, 31)
+    starts = torch.tensor([17, 0, 400, 63], device=dev)
+    counts = torch.tensor([1, 1, 0, 1], device=dev)
+    st = _ssm_state(dev, B, H, dk, dv, C, 13)
+    eager, warm, graphed = _ssm_copy(st), _ssm_copy(st), _ssm_copy(st)
+
+    def step(run):
+        return SU.ssm_update(run.state[0], run.ckpt[0], run.ckpt_pos, q, k,
+                             v, gates, starts=starts, counts=counts)
+
+    y_eager = step(eager)
+    step(warm)  # first use (build, run counter) outside the capture
+    torch.cuda.synchronize()
+    launched, ran = SU.ssm_update.launches, SU.ssm_update.runs.read()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = step(graphed)
+    assert SU.ssm_update.launches == launched
+    assert torch.equal(graphed.state[0], st.state[0])  # nothing ran yet
+    graph.replay()
+    torch.cuda.synchronize()
+    assert SU.ssm_update.runs.read() == ran + 1
+    assert torch.equal(y, y_eager)
+    assert torch.equal(graphed.state[0], eager.state[0])
+    assert torch.equal(graphed.ckpt[0], eager.ckpt[0])
+    assert torch.equal(graphed.ckpt_pos, eager.ckpt_pos)
 
 
 def test_ssm_update_kernel_rejects_what_it_cannot_take(dev):
@@ -959,3 +1082,10 @@ def test_ssm_update_kernel_rejects_what_it_cannot_take(dev):
                                   dtype=torch.float16),
                       torch.ones(1, 3, 2, device=dev),
                       starts=torch.zeros(1, device=dev))
+    nb = SU.MAX_BLOCKS + 1  # the row's block list lives in shared memory
+    x = torch.zeros(1, nb, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="descriptor blocks"):
+        SU.ssm_update(st.state[0], st.ckpt[0], st.ckpt_pos, x, x,
+                      torch.zeros(1, nb, 2, 8, device=dev),
+                      torch.ones(1, nb, 2, device=dev),
+                      descs=torch.full((nb, 4), -1, device=dev), block_q=1)

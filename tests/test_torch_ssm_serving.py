@@ -9,8 +9,10 @@ a warning, ``ssm.scan`` crash recovery, the disaggregated hand-off carrying
 the recurrent state, the ``ssm.handoff`` fallback, and ``GET /memory/``'s
 ``ssm_state`` constant while a row grows.  Beyond those: chunked prompts of
 several rows at once on the unified and the phased ticks (a row mid-prefill
-rides the shared step parked, its recurrent state untouched).  Every wait
-carries its own timeout."""
+rides the shared step parked, its recurrent state untouched), and the same
+on both engines with a model whose recurrent branch moves greedy tokens
+(the JAX engine's rows that prefilled beside a decoding one leave their
+single-sequence tokens).  Every wait carries its own timeout."""
 
 import json
 import queue
@@ -270,6 +272,64 @@ def test_hybrid_chunked_rows_together(hybrid, make_engine, env, cache):
     assert [c.result() for c in collectors] == bases
     stats = _settled(engine).stats()
     assert stats["prefill_chunks"] > len(jobs)
+
+
+def _wide(x):
+    """The DSL with every normal init at std 0.3: at the presets' 0.02 the
+    toy's recurrent branch moves no greedy token."""
+    if isinstance(x, dict):
+        return {k: ({"mean": 0.0, "std": 0.3} if k == "normal" else _wide(v))
+                for k, v in x.items()}
+    if isinstance(x, list):
+        return [_wide(v) for v in x]
+    return x
+
+
+def _push_together(engine, mod, jobs):
+    """Admit ``jobs`` ((prompt, max_new) pairs) in one tick."""
+    with engine._cond:
+        collectors = []
+        for p, n in jobs:
+            c = _Collector(p)
+            engine._pending.push(mod.Request(p, n, None, c.on_event))
+            collectors.append(c)
+        engine._cond.notify_all()
+    return collectors
+
+
+# A 3-token prompt decodes from the first tick while a 10-token and a
+# 6-token prompt prefill in 4-token chunks over the next ticks.
+PARKED_JOBS = [([1, 2, 3], 9), ([7, 5, 9, 11, 4, 4, 2, 8, 30, 17], 5),
+               ([5, 6, 5, 6, 5, 6], 7)]
+
+
+def test_row_mid_prefill_beside_decoding_rows_both_engines(env, make_engine):
+    """The phased contiguous ticks with 4-token chunks, on a hybrid whose
+    recurrent branch moves greedy tokens (every normal init at std 0.3,
+    seed 0): the 10- and 6-token prompts prefill over several ticks while
+    the 3-token one decodes.  The port parks a row mid-prefill in the
+    shared step, and every stream is its single-sequence tokens.  The JAX
+    engine's shared step advances every row: its row that decodes from
+    the first tick keeps its tokens, and the two that prefilled beside it
+    leave theirs by the second new token (index 11 and 7: 3 against 35, 5
+    against 7)."""
+    env.setenv("PENROZ_PREFILL_CHUNK", "4")
+    jm = JModel("schedwide", JMapper(_wide(_layers(2)), SGD))
+    jm.serialize(sync_flush=True)
+    bases = [_jax_tokens(jm, p, n) for p, n in PARKED_JOBS]
+    engine = make_engine("schedwide", capacity=3)
+    got = [c.result() for c in _push_together(engine, DS, PARKED_JOBS)]
+    assert got == bases
+    assert _settled(engine).stats()["prefill_chunks"] > len(PARKED_JOBS)
+    jengine = make_engine("schedwide", capacity=3, pkg="jax")
+    jgot = [c.result() for c in _push_together(jengine, JDS, PARKED_JOBS)]
+    assert jgot[0] == bases[0]
+    for row in (1, 2):
+        prompt = PARKED_JOBS[row][0]
+        first = next((i for i, (a, b) in enumerate(zip(jgot[row],
+                                                       bases[row]))
+                      if a != b), None)
+        assert first is not None and first <= len(prompt) + 1, (row, first)
 
 
 # -- feature gating -----------------------------------------------------------

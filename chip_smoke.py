@@ -351,6 +351,28 @@ prints no result:
                POST /dataset/ that ends failed with the datasets module
                blocked in process (this machine has it, and a download
                would reach for the network), the server still answering.
+5d. ranks    — training over ranks (phase_ranks): two rank processes
+               (this script with --rank-worker, torchrun's environment on
+               127.0.0.1) share the card over gloo (parallel/dist.py's
+               backend rule), each training GPT-2 124M (bf16 compute,
+               AdamW, random weights from seed 0, one checkpoint) at 4 x
+               1024, step 1, 2 epochs: data parallelism, then PENROZ_WUS,
+               then PENROZ_FSDP, then evaluate_model.  This process runs
+               the reference at world 1 over NCCL (8 x 1024, step 4: the
+               same rows) while the ranks start, and lets them train once
+               its epochs have ended.  Gates: both ranks' gathered state
+               equal bit for bit; every run's costs within RANKS_RTOL of
+               the reference's; WUS and FSDP parameters within RANKS_RTOL
+               x |w| + lr x epochs of DP's; moment bytes a rank (and FSDP's
+               parameter bytes) the replicated figure with each cut leaf
+               halved; two shard files a sharded run, reassembled here
+               equal to the ranks' state bit for bit; both ranks'
+               evaluation equal and within RANKS_RTOL of world 1's; flash
+               and cross-entropy launches a micro-step on each rank equal
+               to the reference's (counts reset just before each run, read
+               just after); the per-rank logs.  Recorded: tokens/s a rank
+               and in all against world 1, peak memory a rank, each
+               collective's seconds.  A rank that fails fails the phase.
 6. micro-step — one fp32 training micro-step at GPT-2 width (B 1, T 1024):
                loss and every parameter gradient through the kernels against
                the same step with the plain versions patched in; then the
@@ -4666,6 +4688,590 @@ def phase_train_profile(torch, layers, optimizer, vocab):
 
 
 # ---------------------------------------------------------------------------
+# 5d: training over ranks
+# ---------------------------------------------------------------------------
+
+# Phase 5d: RANKS_WORLD rank processes on the one card (parallel/dist.py's
+# backend rule picks gloo: NCCL refuses two ranks on one device), each
+# training GPT-2 124M (AdamW, bf16 compute) at RANKS_BATCH x TRAIN_BLOCK,
+# step RANKS_STEP, for RANKS_EPOCHS epochs from one checkpoint: data
+# parallelism, then PENROZ_WUS (ZeRO-1), then PENROZ_FSDP (ZeRO-3), then
+# evaluate_model.  They read the rows one process reads at RANKS_WORLD x
+# RANKS_BATCH, step RANKS_STEP x RANKS_WORLD^2: the reference, run at
+# world 1 over NCCL.
+RANKS_WORLD = 2
+RANKS_BATCH, RANKS_STEP, RANKS_EPOCHS = 4, 1, 2
+RANKS_MODES = (("dp", {}), ("wus", {"PENROZ_WUS": "1"}),
+               ("fsdp", {"PENROZ_FSDP": "1"}))
+# Costs against the reference, and the WUS and FSDP parameters against
+# DP's: rtol 2^-7, one rounding step of the bf16 compute (a rank's
+# products run at half the reference's rows, so cuBLAS may order their
+# sums otherwise, and every activation is rounded to bf16); parameters
+# also atol lr x epochs, the most AdamW moves an element in that many
+# steps (what a near-zero gradient whose sign the rounding flips costs).
+RANKS_RTOL = 2.0 ** -7
+RANKS_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tensor_digest(t) -> str:
+    """dtype, shape and SHA-256 of the bytes of a tensor (bit equality)."""
+    import hashlib
+
+    import torch
+    t = torch.as_tensor(t).detach().to("cpu").contiguous()
+    h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+    h.update(t.reshape(-1).view(torch.uint8).numpy().data)
+    return h.hexdigest()
+
+
+def _state_digests(params: dict, leaves: dict | None = None) -> dict:
+    """Digests of a training state: ``p:{key}`` a parameter, ``o:{i}`` an
+    optimizer leaf (hashed on 4 threads: hashlib lets go of the GIL)."""
+    named = {f"p:{k}": v for k, v in params.items()}
+    named.update({f"o:{i}": v for i, v in (leaves or {}).items()})
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        return dict(zip(named, pool.map(_tensor_digest, named.values())))
+
+
+def _ranks_run(spec, batch, step) -> dict:
+    return {"dataset_id": "smoke", "shard": 0, "epochs": RANKS_EPOCHS,
+            "batch_size": batch, "block_size": spec["block"],
+            "step_size": step}
+
+
+def _held_expected(replicas) -> dict:
+    """Bytes of parameters and moments a rank would hold with every leaf
+    replicated, and with each leaf the rule cuts held as 1/world."""
+    world = replicas.world
+    out = {"params_replicated": 0, "moments_replicated": 0, "params_cut": 0,
+           "moments_cut": 0, "leaves_whole": 0}
+    for k in replicas.keys:
+        numel = math.prod(replicas.shapes[k])
+        own = replicas.shards[k] if replicas.stage else replicas.params[k]
+        state = replicas.optimizer.state[own]
+        moment_size = sum(v.element_size() for name, v in state.items()
+                          if name != "step" and hasattr(v, "element_size"))
+        param_size = replicas.params[k].element_size()
+        cut = replicas.dims[k] is not None
+        share = numel // world if cut else numel
+        out["leaves_whole"] += not cut
+        out["params_replicated"] += numel * param_size
+        out["moments_replicated"] += numel * moment_size
+        out["params_cut"] += share * param_size
+        out["moments_cut"] += share * moment_size
+    return out
+
+
+def rank_worker(spec) -> int:
+    """One rank of phase 5d (``chip_smoke.py --rank-worker SPEC``, started by
+    phase_ranks with torchrun's environment): DP, WUS and FSDP runs from
+    the checkpoint ``ranks_init``, then evaluate_model; its report goes to
+    ``spec["report"] % rank``.  Any failure exits non-zero."""
+    import gc
+
+    import torch
+    sys.path.insert(0, ROOT)
+    os.chdir(spec["work"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    from penroz_tpu_torch.parallel import dist
+    from penroz_tpu_torch.utils import checkpoint
+    check(dist.initialize(timeout_s=RANKS_TIMEOUT_S),
+          "MASTER_ADDR / WORLD_SIZE not picked up")
+    cuda = spec["device"] == "cuda"
+    rank = dist.process_index()
+    sampled = os.environ.get("PENROZ_SMOKE_SAMPLER_DIR")
+    if sampled:     # under scripts/smoke_sampler.py: sample this rank too
+        sys.path.insert(0, os.path.join(ROOT, "scripts"))
+        import smoke_sampler
+        sampled = smoke_sampler.sample_main_thread(
+            os.path.join(sampled, f"smoke_sampler_rank{rank}.txt"))
+    report = {"rank": rank, "world": dist.process_count(),
+              "backend": dist.backend(), "runs": {},
+              "joined_s": time.time() - spec["started"]}
+    counters = _training_counters()
+    lr = spec["lr"]
+    dp_params = None
+
+    def load(mode):
+        t0 = time.monotonic()
+        model = NeuralNetworkModel.deserialize("ranks_init",
+                                               device=spec["device"])
+        model.model_id = f"ranks_{mode}"
+        return model, time.monotonic() - t0
+
+    # set up while phase_ranks runs the reference: the first run's model,
+    # and torch.optim's first-use imports (a throwaway AdamW); then wait
+    # until its epochs have ended
+    loaded = load(RANKS_MODES[0][0])
+    torch.optim.AdamW([torch.zeros(1, requires_grad=True)])
+    _wait_for_file(spec["go"], RANKS_TIMEOUT_S)
+    report["go_s"] = time.time() - spec["started"]
+    for mode, env in RANKS_MODES:
+        model, load_s = loaded or load(mode)
+        loaded = None
+        with _env(env):
+            for fn in counters.values():
+                fn.launches = 0
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            model.train_model(**_ranks_run(spec, RANKS_BATCH, RANKS_STEP))
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+        check(model.status["code"] == "Trained",
+              f"rank {rank} {mode}: {model.status}")
+        replicas = model._replicas
+        replicas.release()          # stage 3: the layout between steps
+        entry = {"load_s": load_s, "wall_s": wall, "stage": replicas.stage,
+                 "launches": launches,
+                 "stats_refreshed": model.stats is not None,
+                 "peak_bytes": (torch.cuda.max_memory_allocated()
+                                if cuda else None),
+                 "held": replicas.held_bytes(),
+                 "expected": _held_expected(replicas),
+                 "collective_s": dict(replicas.clock.seconds),
+                 "collective_calls": dict(replicas.clock.calls),
+                 "progress": [[p["cost"], p["durationInSecs"]]
+                              for p in model.progress]}
+        t0 = time.monotonic()
+        params, leaves = replicas.gather_state()
+        # DP's gate is the parameters; a sharded run's state is held to
+        # its reassembled shard files, the optimizer leaves too
+        entry["digests"] = _state_digests(
+            params, leaves if replicas.stage else None)
+        entry["gather_s"] = time.monotonic() - t0
+        if dp_params is None:
+            dp_params = params
+        else:
+            worst, excess = 0.0, -math.inf
+            for k, w in params.items():
+                ref = dp_params[k].float()
+                diff = (w.float() - ref).abs()
+                worst = max(worst, float(diff.max()))
+                excess = max(excess, float((diff - RANKS_RTOL * ref.abs()
+                                            - lr * RANKS_EPOCHS).max()))
+            entry["param_max_abs_diff_vs_dp"] = worst
+            entry["param_excess_vs_dp"] = excess
+        report["runs"][mode] = entry
+        del model, replicas, params, leaves
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    model = NeuralNetworkModel.deserialize("ranks_dp", device=spec["device"],
+                                           optimizer=False)
+    for fn in counters.values():
+        fn.launches = 0
+    report["evaluate"] = model.evaluate_model(
+        "smoke", None, 0, RANKS_EPOCHS, RANKS_BATCH, spec["block"],
+        RANKS_STEP)
+    report["evaluate_launches"] = {k: fn.launches
+                                   for k, fn in counters.items()}
+    # the shm copies are what phase_ranks reads; the durable copies'
+    # flushes end before the rank does
+    checkpoint.join_flushes(timeout=120)
+    report["done_s"] = time.time() - spec["started"]
+    with open(spec["report"] % rank, "w") as f:
+        json.dump(report, f)
+    dist.shutdown()
+    if sampled:
+        sampled()
+    return 0
+
+
+def _wait_for_file(path, timeout_s):
+    """Wait until ``path`` exists; fail past ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"no {path} after {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _rank_out(rank):
+    """Where rank ``rank``'s output goes (phase 5d)."""
+    return os.path.join(os.getcwd(), f"rank{rank}.out")
+
+
+def _start_rank_pair(spec) -> list:
+    """Start RANKS_WORLD rank processes (torchrun's environment on a free
+    127.0.0.1 port); their outputs go to ``rank{r}.out``."""
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK",
+                                 "LOCAL_RANK", "LOCAL_WORLD_SIZE"))}
+    base.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(RANKS_WORLD),
+                LOCAL_WORLD_SIZE=str(RANKS_WORLD),
+                PENROZ_LOG_DIR=spec["logs"])
+    procs = []
+    for rank in range(RANKS_WORLD):
+        with open(_rank_out(rank), "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 json.dumps(spec)],
+                env=dict(base, RANK=str(rank), LOCAL_RANK=str(rank)),
+                cwd=spec["work"], stdout=out, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _finish_rank_pair(procs, spec, deadline) -> list:
+    """Wait for the rank processes until ``deadline`` (monotonic); a rank
+    that fails or outlives it fails the phase, and every rank still
+    running is killed.  Returns each rank's report."""
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(
+                    c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        _kill(procs)
+    for rank, p in enumerate(procs):
+        with open(_rank_out(rank), errors="replace") as f:
+            tail = f.read()[-3000:]
+        check(p.returncode == 0, f"rank {rank} exited {p.returncode} "
+              f"(killed at the phase's {RANKS_TIMEOUT_S} s if -9):\n{tail}")
+    reports = []
+    for rank in range(RANKS_WORLD):
+        with open(spec["report"] % rank) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _ranks_reference(torch, spec, counters) -> dict:
+    """World 1 over NCCL (gloo without a card), in this process, while the
+    rank processes ``procs`` start and load (host work): the collectives
+    on the card, then the reference run at RANKS_WORLD x RANKS_BATCH, step
+    RANKS_STEP x RANKS_WORLD^2.  The ranks' ``go`` file is written when
+    its last epoch has ended, so no rank trains beside its epochs; its
+    end-of-run /stats/ refresh and checkpoint (host work) overlap the
+    ranks' first run."""
+    from penroz_tpu_torch.models.model import NeuralNetworkModel
+    from penroz_tpu_torch.parallel import dist
+    cuda = spec["device"] == "cuda"
+    out = {}
+    with _env({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+               "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+               "LOCAL_WORLD_SIZE": "1"}):
+        check(dist.initialize(timeout_s=120), "world 1 not joined")
+        try:
+            out["backend"] = dist.backend()
+            check(out["backend"] == ("nccl" if cuda else "gloo"),
+                  f"world 1 joined over {out['backend']}")
+            x = torch.arange(8, dtype=torch.float32, device=spec["device"])
+            check(torch.equal(dist.all_reduce_sum_(x.clone()), x)
+                  and torch.equal(dist.all_gather(x), x[None]),
+                  "world-1 all_reduce / all_gather changed the tensor")
+            flat = torch.ones(spec["n_params"], dtype=torch.float32,
+                              device=spec["device"])
+            clock = dist.CollectiveClock()
+            clock.run("all_reduce", dist.all_reduce_sum_, flat)
+            clock.run("all_reduce", dist.all_reduce_sum_, flat)
+            out["all_reduce_s"] = clock.seconds["all_reduce"] / 2
+            del flat
+            model = NeuralNetworkModel.deserialize("ranks_init",
+                                                   device=spec["device"])
+            model.model_id = "ranks_ref"
+            epochs_done = threading.Event()
+
+            def release_the_pair():
+                while not epochs_done.wait(0.02):
+                    if len(model.progress) == RANKS_EPOCHS:
+                        break
+                with open(spec["go"], "w"):
+                    pass
+
+            releaser = threading.Thread(target=release_the_pair, daemon=True)
+            releaser.start()
+            for fn in counters.values():
+                fn.launches = 0
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                model.train_model(**_ranks_run(
+                    spec, RANKS_WORLD * RANKS_BATCH,
+                    RANKS_STEP * RANKS_WORLD ** 2))
+            finally:
+                epochs_done.set()
+                releaser.join()
+            out["launches"] = {k: fn.launches for k, fn in counters.items()}
+            out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                 if cuda else None)
+            check(model.status["code"] == "Trained",
+                  f"reference run: {model.status}")
+            out["stats_refreshed"] = model.stats is not None
+            out["progress"] = [[p["cost"], p["durationInSecs"]]
+                               for p in model.progress]
+            del model
+        finally:
+            dist.shutdown()
+    return out
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def phase_ranks(torch, layers, optimizer, card, device="cuda",
+                block=TRAIN_BLOCK, tag="ranks"):
+    """Phase 5d: training over ranks (see RANKS_WORLD).  Gates: the ranks
+    over gloo; after DP (and WUS, FSDP) both ranks' gathered parameters
+    and optimizer leaves equal bit for bit; every run's costs within
+    RANKS_RTOL of the reference's; WUS and FSDP parameters within RANKS_RTOL
+    x |w| + lr x epochs of DP's; each rank's moment bytes (and FSDP's
+    parameter bytes) the replicated figure with every cut leaf halved;
+    two shard files a sharded run, which this process reassembles
+    (the port's deserialize) into the ranks' gathered state bit for bit;
+    both ranks' evaluation equal, and within RANKS_RTOL of the DP model's
+    at world 1; flash and cross-entropy launches a micro-step on each rank
+    equal to the reference's (the master's end-of-run /stats/ pass, one
+    micro-step's launches, counted on it); per-rank logs.  Recorded:
+    tokens/s a rank and in aggregate against world 1, peak memory a rank,
+    the seconds of each collective.  Returns (stats, launches)."""
+    import gc
+
+    from penroz_tpu_torch.models.dsl import Mapper
+    from penroz_tpu_torch.models.model import (CompiledArch,
+                                               NeuralNetworkModel)
+    from penroz_tpu_torch.utils import checkpoint
+
+    cuda = device == "cuda"
+    with torch.device("meta"):
+        n_attn = len(CompiledArch(layers).attn_layers)
+    _write_train_shard()
+    init = NeuralNetworkModel("ranks_init", Mapper(layers, optimizer),
+                              device=device, seed=0)
+    n_params = sum(p.numel() for p in init.arch.parameters())
+    init.serialize()
+    del init
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    logs = os.path.join(os.getcwd(), "rank_logs")
+    shutil.rmtree(logs, ignore_errors=True)
+    spec = {"device": device, "block": block, "work": os.getcwd(),
+            "logs": logs, "report": os.path.join(os.getcwd(),
+                                                 "ranks_report%d.json"),
+            "lr": optimizer["adamw"]["lr"], "n_params": n_params}
+    spec["go"] = os.path.join(os.getcwd(), "ranks_go")
+    if os.path.exists(spec["go"]):
+        os.remove(spec["go"])
+    t0 = time.monotonic()
+    spec["started"] = time.time()
+    procs = _start_rank_pair(spec)
+    try:
+        ref = _ranks_reference(torch, spec, _training_counters())
+        ref_s = time.monotonic() - t0
+        reports = _finish_rank_pair(procs, spec, t0 + RANKS_TIMEOUT_S)
+    finally:
+        _kill(procs)
+    pair_s = time.monotonic() - t0
+    # the DP model's evaluation at world 1, at the reference's batch
+    dp = NeuralNetworkModel.deserialize("ranks_dp", device=device,
+                                        optimizer=False)
+    ref["evaluate"] = dp.evaluate_model(
+        "smoke", None, 0, RANKS_EPOCHS, RANKS_WORLD * RANKS_BATCH, block,
+        RANKS_STEP)
+    del dp
+    stats = {"world": RANKS_WORLD, "pair_s": pair_s, "reference_s": ref_s,
+             "reference": ref}
+    master, other = reports[0], reports[1]
+    for r, report in enumerate(reports):
+        check(report["rank"] == r and report["world"] == RANKS_WORLD
+              and report["backend"] == "gloo", f"rank {r}: "
+              f"{report['rank']}/{report['world']} over {report['backend']}")
+    say(tag, f"{RANKS_WORLD} ranks over {master['backend']} on one card, "
+        f"world 1 over {ref['backend']}: the ranks joined at "
+        f"{max(r['joined_s'] for r in reports):.1f} s, the reference "
+        f"ended at {ref_s:.1f} s (the ranks went at "
+        f"{max(r['go_s'] for r in reports):.1f} s), the ranks at "
+        f"{max(r['done_s'] for r in reports):.1f} s")
+
+    # replicas: every run ends with the ranks' gathered state equal
+    for mode, _ in RANKS_MODES:
+        a, b = (rep["runs"][mode]["digests"] for rep in reports)
+        check(a == b, f"{mode}: the ranks' gathered state differs: "
+              f"{sorted(k for k in a if a[k] != b.get(k))[:8]}")
+    say(tag, "both ranks equal bit for bit: DP's parameters, WUS's and "
+        "FSDP's parameters and optimizer leaves")
+
+    # costs against the reference
+    ref_costs = [c for c, _ in ref["progress"]]
+    check(len(ref_costs) == RANKS_EPOCHS and all(
+        math.isfinite(c) for c in ref_costs), f"reference costs {ref_costs}")
+    for mode, _ in RANKS_MODES:
+        costs = [c for c, _ in master["runs"][mode]["progress"]]
+        check(other["runs"][mode]["progress"] == [],
+              f"{mode}: rank 1 recorded progress")
+        rel = [abs(c - w) / abs(w) for c, w in zip(costs, ref_costs)]
+        check(len(costs) == RANKS_EPOCHS and max(rel) <= RANKS_RTOL,
+              f"{mode} costs {costs} against the reference's {ref_costs}: "
+              f"relative {rel} > {RANKS_RTOL:g}")
+        stats.setdefault("cost_rel_diff", {})[mode] = rel
+    say(tag, f"costs against world 1 at {RANKS_WORLD * RANKS_BATCH} x "
+        f"{block} step {RANKS_STEP * RANKS_WORLD ** 2} {ref_costs}: "
+        + ", ".join(f"{m} {max(v):.3g}" for m, v in
+                    stats["cost_rel_diff"].items())
+        + f" relative (<= {RANKS_RTOL:g})")
+    for mode in ("wus", "fsdp"):
+        for report in reports:
+            entry = report["runs"][mode]
+            check(entry["param_excess_vs_dp"] <= 0, f"{mode} rank "
+                  f"{report['rank']}: parameters leave DP's by "
+                  f"{entry['param_max_abs_diff_vs_dp']:.3g}")
+    say(tag, "WUS, FSDP parameters against DP's: max |diff| "
+        + ", ".join(f"{m} {master['runs'][m]['param_max_abs_diff_vs_dp']:.3g}"
+                    for m in ("wus", "fsdp"))
+        + f" (<= {RANKS_RTOL:g} |w| + {spec['lr'] * RANKS_EPOCHS:g})")
+
+    # bytes each rank holds
+    for report in reports:
+        for mode, _ in RANKS_MODES:
+            entry = report["runs"][mode]
+            held, want = entry["held"], entry["expected"]
+            moments = want["moments_cut" if mode != "dp"
+                           else "moments_replicated"]
+            params = want["params_cut" if mode == "fsdp"
+                          else "params_replicated"]
+            check(held == {"params": params, "moments": moments},
+                  f"{mode} rank {report['rank']} holds {held}, expected "
+                  f"params {params}, moments {moments}")
+    dp_want = master["runs"]["dp"]["expected"]
+    say(tag, f"bytes a rank holds: moments DP {dp_want['moments_replicated']}"
+        f", WUS {master['runs']['wus']['held']['moments']}, FSDP "
+        f"{master['runs']['fsdp']['held']['moments']}; parameters DP "
+        f"{dp_want['params_replicated']}, FSDP "
+        f"{master['runs']['fsdp']['held']['params']} "
+        f"({master['runs']['fsdp']['expected']['leaves_whole']} leaves "
+        f"whole)")
+
+    # the shard files, reassembled here
+    for mode in ("wus", "fsdp"):
+        model_id = f"ranks_{mode}"
+        check(checkpoint._shard_indices(model_id) == list(range(RANKS_WORLD)),
+              f"{model_id}: shard files of ranks "
+              f"{checkpoint._shard_indices(model_id)}")
+        t0 = time.monotonic()
+        loaded = NeuralNetworkModel.deserialize(model_id, device="cpu")
+        stats.setdefault("reassemble_s", {})[mode] = time.monotonic() - t0
+        state = loaded.state_dict()
+        want = master["runs"][mode]["digests"]
+        got = _state_digests(
+            {k[2:]: state[k[2:]] for k in want if k.startswith("p:")},
+            {int(k[2:]): loaded._opt_leaves[int(k[2:])] for k in want
+             if k.startswith("o:")})
+        check(got == want, f"{model_id}: the reassembled state differs from "
+              f"the ranks': {sorted(k for k in want if got[k] != want[k])[:8]}")
+        del loaded, state
+    say(tag, f"WUS and FSDP: {RANKS_WORLD} shard files each, reassembled "
+        f"here equal to the ranks' state bit for bit ("
+        + ", ".join(f"{m} {s:.1f} s" for m, s in
+                    stats["reassemble_s"].items()) + ")")
+
+    # evaluation
+    evals = [r["evaluate"] for r in reports]
+    check(evals[0] == evals[1] and abs(evals[0] - ref["evaluate"])
+          <= RANKS_RTOL * abs(ref["evaluate"]),
+          f"evaluation over ranks {evals}, at world 1 {ref['evaluate']}")
+    say(tag, f"evaluate_model: both ranks {evals[0]:.6f}, world 1 "
+        f"{ref['evaluate']:.6f}")
+
+    # launches a micro-step
+    micro = RANKS_EPOCHS * max(1, RANKS_BATCH // (RANKS_STEP * RANKS_WORLD))
+    ref_micro = RANKS_EPOCHS * max(1, RANKS_WORLD * RANKS_BATCH // (
+        RANKS_STEP * RANKS_WORLD ** 2))
+    check(ref["stats_refreshed"], "the reference refreshed no /stats/")
+    per = {k: n / (ref_micro + 1) for k, n in ref["launches"].items()}
+    if cuda:
+        check(per == {k: float(n_attn if "flash" in k else 1) for k in per},
+              f"the reference launched {ref['launches']} in {ref_micro} "
+              f"micro-steps and one /stats/ pass")
+    launches = dict(ref["launches"])
+    for report in reports:
+        for mode, _ in RANKS_MODES:
+            entry = report["runs"][mode]
+            passes = micro + (1 if entry["stats_refreshed"] else 0)
+            check(entry["stats_refreshed"] == (report["rank"] == 0),
+                  f"{mode} rank {report['rank']}: /stats/ refreshed "
+                  f"{entry['stats_refreshed']}")
+            check(entry["launches"] == {k: int(v * passes)
+                                        for k, v in per.items()},
+                  f"{mode} rank {report['rank']} launched "
+                  f"{entry['launches']} in {micro} micro-steps; a "
+                  f"micro-step of the reference launches {per}")
+            for k, n in entry["launches"].items():
+                launches[k] += n
+        for k, n in report["evaluate_launches"].items():
+            launches[k] += n
+    say(tag, f"launches a micro-step on each rank = the reference's {per} "
+        f"({micro} micro-steps a run; the master's /stats/ pass counted)")
+
+    # per-rank logs
+    for rank in range(RANKS_WORLD):
+        path = os.path.join(logs, f"penroz_rank{rank}.log")
+        check(os.path.exists(path), f"no {path}")
+        with open(path, errors="replace") as f:
+            text = f.read()
+        check(f"[rank{rank}/{RANKS_WORLD}]" in text and
+              f"Per-rank logging for process {rank}/{RANKS_WORLD}" in text
+              and "over 2 ranks (ZeRO stage 3)" in text,
+              f"{path} lacks the rank tag, the banner or the runs")
+    say(tag, f"per-rank logs {logs}/penroz_rank{{0..{RANKS_WORLD - 1}}}.log")
+
+    # recorded: rates, memory, collectives
+    tokens_epoch = micro // RANKS_EPOCHS * RANKS_BATCH * block
+    ref_dur = ref["progress"][-1][1]
+    stats["reference_tokens_per_s"] = RANKS_WORLD * tokens_epoch / ref_dur
+    stats["reference_peak_gb"] = (ref["peak_bytes"] or 0) / 1e9
+    for mode, _ in RANKS_MODES:
+        dur = master["runs"][mode]["progress"][-1][1]
+        row = {"tokens_per_s_rank": tokens_epoch / dur,
+               "tokens_per_s": RANKS_WORLD * tokens_epoch / dur,
+               "peak_gb": [(r["runs"][mode]["peak_bytes"] or 0) / 1e9
+                           for r in reports],
+               "collective_s": master["runs"][mode]["collective_s"],
+               "collective_calls": master["runs"][mode]["collective_calls"],
+               "wall_s": [r["runs"][mode]["wall_s"] for r in reports],
+               "load_s": [r["runs"][mode]["load_s"] for r in reports],
+               "gather_s": [r["runs"][mode]["gather_s"] for r in reports]}
+        stats[mode] = row
+        say(tag, f"{mode}: {row['tokens_per_s_rank']:.0f} tokens/s a rank, "
+            f"{row['tokens_per_s']:.0f} in all (world 1: "
+            f"{stats['reference_tokens_per_s']:.0f}; epoch {RANKS_EPOCHS}); "
+            f"peak {', '.join(f'{g:.2f}' for g in row['peak_gb'])} GB "
+            f"(world 1 {stats['reference_peak_gb']:.2f}); collectives "
+            + ", ".join(f"{k} {v:.3f} s / {row['collective_calls'][k]}"
+                        for k, v in row["collective_s"].items())
+            + f"; load {max(row['load_s']):.1f} s, train_model "
+            f"{max(row['wall_s']):.1f} s, gather and digest "
+            f"{max(row['gather_s']):.1f} s on {card}")
+    say(tag, f"NCCL all_reduce at world 1 of {n_params} fp32: "
+        f"{ref['all_reduce_s'] * 1e3:.2f} ms")
+    stats["ranks"] = [{mode: {k: v for k, v in entry.items()
+                              if k != "digests"}
+                       for mode, entry in r["runs"].items()}
+                      for r in reports]
+    return stats, launches
+
+
+# ---------------------------------------------------------------------------
 # 6: one micro-step, kernels against plain
 # ---------------------------------------------------------------------------
 
@@ -8313,6 +8919,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="penroz_tpu_torch chip smoke")
     parser.add_argument("--out", help="also write every measurement here "
                         "(JSON)")
+    parser.add_argument("--rank-worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "penroz_tpu_torch")):
         print("FAIL: penroz_tpu_torch/ is not beside chip_smoke.py; run from "
@@ -8323,6 +8930,9 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 2
+    if args.rank_worker:
+        # one rank of phase 5d, started by phase_ranks
+        return rank_worker(json.loads(args.rank_worker))
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: no card",
               file=sys.stderr)
@@ -8409,6 +9019,11 @@ def main(argv=None) -> int:
                       {"ssm_update": ssm_launches}):
             for name_, n in extra.items():
                 launches[name_] += n
+        ranks_stats, ranks_launches = timed(
+            "ranks", phase_ranks, torch, presets.gpt2(), presets.ADAMW, card)
+        phase_launches["ranks"] = ranks_launches
+        for name_, n in ranks_launches.items():
+            launches[name_] += n
         step_stats = timed("micro_step", phase_micro_step, torch,
                            presets.gpt2(), presets.ADAMW, vocab=50304)
         moe_step_stats = timed("moe_micro_step", phase_micro_step, torch,
@@ -8444,6 +9059,7 @@ def main(argv=None) -> int:
                        "training": train_stats, "micro_step": step_stats,
                        "moe_training": moe_stats,
                        "moe_micro_step": moe_step_stats,
+                       "ranks": ranks_stats,
                        "launches": launches, "phase_s": WALL,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     say("done", f"{time.monotonic() - t_start:.1f} s; each phase's wall "

@@ -83,6 +83,19 @@ def opt_state_leaves(config: dict, optimizer, params: dict) -> dict:
     return dict(enumerate(leaves))
 
 
+def opt_leaf_keys(config: dict, keys) -> list:
+    """The parameter each leaf of :func:`opt_state_leaves` is a moment of
+    (its key), None for the step count — the JAX package's rule of which
+    optimizer leaves follow a parameter's sharding."""
+    keys = sorted(keys)
+    kind = _optimizer_kind(config)
+    if kind == "none":
+        return []
+    if kind == "trace":
+        return list(keys)
+    return [None] + list(keys) + list(keys)
+
+
 def load_opt_state_leaves(config: dict, optimizer, params: dict, leaves):
     """Install checkpoint leaves (layout of :func:`opt_state_leaves`, a
     dict by index or a list) into a ``torch.optim`` optimizer built over

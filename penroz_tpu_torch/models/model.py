@@ -74,6 +74,8 @@ from penroz_tpu_torch.ops import attention as attn_ops
 from penroz_tpu_torch.ops import kv_cache as KV
 from penroz_tpu_torch.ops import losses
 from penroz_tpu_torch.ops import modules as M
+from penroz_tpu_torch.parallel import dist, zero
+from penroz_tpu_torch.parallel.zero import update_ratio
 from penroz_tpu_torch.utils import checkpoint, profiling
 from penroz_tpu_torch.utils import stats as stats_lib
 
@@ -85,8 +87,6 @@ _NOT_LOADED = object()
 # Environment switches of JAX-package training features this port does not
 # have: (variable, value that leaves the feature off, what it selects).
 _UNPORTED_TRAINING_ENV = (
-    ("PENROZ_FSDP", "0", "FSDP parameter sharding"),
-    ("PENROZ_WUS", "0", "weight-update sharding"),
     ("PENROZ_MESH_MODEL", "1", "a tensor-parallel mesh"),
     ("PENROZ_MESH_SEQUENCE", "1", "sequence parallelism"),
     ("PENROZ_MESH_EXPERT", "1", "an expert-parallel mesh"),
@@ -98,8 +98,15 @@ _UNPORTED_TRAINING_ENV = (
 
 # The subset of those that selects a mesh for forward-only evaluation
 # (the JAX package's ``_eval_mesh``).
-_EVAL_MESH_ENV = ("PENROZ_FSDP", "PENROZ_MESH_MODEL", "PENROZ_MESH_SEQUENCE",
+_EVAL_MESH_ENV = ("PENROZ_MESH_MODEL", "PENROZ_MESH_SEQUENCE",
                   "PENROZ_MESH_EXPERT", "PENROZ_MESH_PIPE", "PENROZ_SP_MODE")
+
+# Per-model count of the training runs this process has started: the
+# train-end barrier's name, the same on every rank (a run is counted at its
+# start, however it ends, and every rank gets every request).  Module-level:
+# each /train/ request deserializes a model object of its own.
+_TRAIN_SEQ: dict = {}
+TRAIN_MESH_ENV = "PENROZ_TRAIN_MESH"
 
 
 # Decode priority: generation wraps its device work in decode_priority();
@@ -151,7 +158,10 @@ def _priority_cap_ms() -> float:
 def _yield_to_decodes():
     """Wait while decodes are in flight, at most
     ``PENROZ_DECODE_PRIORITY_MS`` (default 1000; 0 turns the wait off), so
-    that a decode storm cannot starve training."""
+    that a decode storm cannot starve training.  Over several ranks, never:
+    one rank's pause would only stall the others' collectives."""
+    if dist.process_count() > 1:
+        return
     cap_ms = _priority_cap_ms()
     if cap_ms <= 0 or decode_pending() <= 0:
         return
@@ -236,7 +246,8 @@ def unported_attention_options() -> None:
 
 def unported_evaluation_options() -> None:
     """Raise ValueError naming a mesh or sequence-parallel mode selected by
-    the environment for ``/evaluate/``: the port evaluates on one device."""
+    the environment for ``/evaluate/``: the port evaluates on one device
+    a rank."""
     _refuse_unported(_EVAL_MESH_ENV)
 
 
@@ -456,7 +467,7 @@ class CompiledArch(nn.Module):
 
     def train_epoch(self, optimizer, xs, ys, *, compute_dtype=None,
                     generator=None, with_ratios=True, remat=False,
-                    yield_cb=None):
+                    yield_cb=None, replicas=None):
         """One epoch (JAX ``train_epoch_fn``): ``num_steps = len(xs)``
         micro-steps of (B, T) token batches, gradients accumulated in fp32,
         then one optimizer step.
@@ -477,7 +488,16 @@ class CompiledArch(nn.Module):
         in its backward (:func:`remat_loss`: the same dropout masks, the
         same cost and gradients); ``yield_cb`` is called before every
         micro-step but the first (the decode-priority window,
-        :func:`_yield_to_decodes`)."""
+        :func:`_yield_to_decodes`).
+
+        ``replicas`` (a parallel/zero.py ``DataParallel``, a run over
+        ranks): the gradients, the cost and the floating buffers are
+        averaged over the ranks before the step; under ``PENROZ_FSDP``
+        the parameters are gathered first, and under ``PENROZ_WUS`` /
+        ``PENROZ_FSDP`` the step is the rank's pieces' (``optimizer`` is
+        then unused)."""
+        if replicas is not None:
+            replicas.materialize()
         named = dict(self.named_parameters())
         params_c = {}
         for key, p in named.items():
@@ -510,19 +530,31 @@ class CompiledArch(nn.Module):
         num_steps = len(xs)
         inv = 1.0 / num_steps
         with torch.no_grad():
+            del params_c
+            if replicas is not None:
+                cost = replicas.average(grads, cost_sum, num_steps,
+                                        dict(self.named_buffers()))
+                inv = 1.0   # the grads are the means now
+            else:
+                cost = cost_sum * inv
             old = ({k: p.detach().clone() for k, p in named.items()}
                    if with_ratios else None)
-            for key, p in named.items():
-                p.grad = (grads[key] * inv).to(p.dtype)
-            del grads, params_c
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
+            if replicas is not None and replicas.stage:
+                by_key = replicas.step(grads, old)
+                del grads
+            else:
+                for key, p in named.items():
+                    p.grad = (grads[key] * inv).to(p.dtype)
+                del grads
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+                by_key = ({k: update_ratio(named[k] - old[k], old[k])
+                           for k in named} if with_ratios else None)
             ratios = None
             if with_ratios:
-                ratios = torch.stack([_update_ratio(named[k] - old[k], old[k])
-                                      for k in self.param_order]) \
+                ratios = torch.stack([by_key[k] for k in self.param_order]) \
                     if named else torch.zeros(0)
-        return cost_sum * inv, ratios
+        return cost, ratios
 
     def stats_grads(self, x, y):
         """Activations, activation gradients and weight gradients of one
@@ -656,14 +688,6 @@ def _hash_uniform(seed, row, pos, cand):
     return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
-def _update_ratio(dw, w):
-    """``std(Δw) / std(w)`` (population std in fp32; 0 where std(w) is
-    0), the JAX package's per-weight update ratio."""
-    denom = w.float().std(unbiased=False)
-    ratio = dw.float().std(unbiased=False) / (denom + 1e-12)
-    return torch.where(denom > 0, ratio, torch.zeros_like(ratio))
-
-
 class NeuralNetworkModel:
     """Model lifecycle facade: create, persist, train, generate."""
 
@@ -696,6 +720,9 @@ class NeuralNetworkModel:
         # _NOT_LOADED: deserialized without them).
         self._opt: Optional[torch.optim.Optimizer] = None
         self._opt_leaves = None
+        # the training state over ranks of the last run (parallel/zero.py
+        # DataParallel), or None: one process
+        self._replicas = None
 
     def _new_generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(0)
@@ -783,22 +810,30 @@ class NeuralNetworkModel:
     def evaluate_model(self, dataset_id, target_dataset_id, shard, epochs,
                        batch_size, block_size, step_size) -> float:
         """Forward-only evaluation with the training loader's windows (JAX
-        ``evaluate_model``, one device): one ``(batch_size, block_size)``
-        buffer per epoch, forwarded once and weighted by ``1/epochs`` (the
-        reference forwards it ``num_steps`` times, with equal results).
+        ``evaluate_model``): one ``(batch_size, block_size)`` buffer per
+        epoch, forwarded once and weighted by ``1/epochs`` (the reference
+        forwards it ``num_steps`` times, with equal results).
         ``target_dataset_id`` reads the targets from a second dataset
-        aligned with the inputs; ``step_size`` is unused, as there."""
+        aligned with the inputs; ``step_size`` is unused, as there.  Over
+        several ranks each reads its rank-strided windows and the costs are
+        averaged (:func:`dist.all_reduce_mean`): every rank must get the
+        request.  Each rank evaluates with its full parameters, under
+        ``PENROZ_FSDP`` too."""
         from penroz_tpu_torch.data.loaders import Loader
         unported_evaluation_options()
         self.arch.check_positions(block_size, "block_size")
+        world, rank = dist.process_count(), dist.process_index()
         buffer_size = batch_size * block_size
-        loader = Loader(dataset_id, begin_shard=shard, begin_idx=0,
-                        buffer_size=buffer_size, idx_offset=buffer_size)
+        loader = Loader(dataset_id, begin_shard=shard,
+                        begin_idx=buffer_size * rank,
+                        buffer_size=buffer_size,
+                        idx_offset=buffer_size * world)
         target_loader = None
         if target_dataset_id:
             target_loader = Loader(target_dataset_id, begin_shard=shard,
-                                   begin_idx=0, buffer_size=buffer_size,
-                                   idx_offset=buffer_size)
+                                   begin_idx=buffer_size * rank,
+                                   buffer_size=buffer_size,
+                                   idx_offset=buffer_size * world)
         avg_cost = 0.0
         for _ in range(epochs):
             if target_loader is not None:
@@ -810,7 +845,7 @@ class NeuralNetworkModel:
                     .to(self.device, torch.int64) for a in (x, y))
             _, cost, _ = self.arch(x, y, skip_softmax=True)
             avg_cost += float(cost) / epochs
-        return avg_cost
+        return dist.all_reduce_mean(avg_cost)
 
     # -- training -----------------------------------------------------------
 
@@ -819,6 +854,7 @@ class NeuralNetworkModel:
         """The ``torch.optim`` optimizer over the current parameters, built
         from the optimizer DSL at first use and loaded with the
         checkpoint's optax-layout leaves."""
+        self._check_whole_optimizer()
         if self._opt is None:
             if self._opt_leaves is _NOT_LOADED:
                 raise RuntimeError(f"model {self.model_id} was loaded "
@@ -831,7 +867,14 @@ class NeuralNetworkModel:
             self._opt, self._opt_leaves = opt, None
         return self._opt
 
+    def _check_whole_optimizer(self):
+        if self._replicas is not None and self._replicas.stage:
+            raise RuntimeError(f"model {self.model_id}'s optimizer state is "
+                               f"sharded over ranks ({zero.WUS_ENV} or "
+                               f"{zero.FSDP_ENV}): read it from the ranks")
+
     def _opt_state_leaves(self) -> dict:
+        self._check_whole_optimizer()
         if self._opt is None and self._opt_leaves is _NOT_LOADED:
             raise RuntimeError(f"model {self.model_id} was loaded without "
                                f"its optimizer state; refusing to "
@@ -844,11 +887,11 @@ class NeuralNetworkModel:
     def train_model(self, dataset_id, shard=0, epochs=1, batch_size=1,
                     block_size=1024, step_size=1):
         """Grad-accumulated training with progress bookkeeping and periodic
-        checkpoints (JAX ``train_model``, single device).
+        checkpoints (JAX ``train_model``).
 
         Every micro-step consumes a full ``(batch_size, block_size)``
-        buffer from the loader; ``num_steps = batch_size // step_size``
-        micro-steps accumulate into one optimizer step per epoch.
+        buffer from the loader; ``num_steps = batch_size // (step_size *
+        world)`` micro-steps accumulate into one optimizer step per epoch.
         ``speedPerSec`` counts ``buffer_size`` tokens per epoch, as the
         JAX package does, although an epoch consumes ``num_steps``
         buffers.  The compute dtype is :func:`train_compute_dtype`;
@@ -856,21 +899,53 @@ class NeuralNetworkModel:
         a checkpoint is written when 10 s have passed since the last, and
         with it the ``/stats/`` document is refreshed from the epoch's last
         micro-batch when ``PENROZ_STATS_INTERVAL`` seconds (default 60)
-        have passed since the last refresh, and always at the end."""
+        have passed since the last refresh, and always at the end.
+
+        Over ``world`` ranks (parallel/dist.py; every rank gets the same
+        request) rank r's loader starts at ``buffer_size * r`` and moves by
+        ``buffer_size * world``, and the gradients are averaged once an
+        optimizer step (parallel/zero.py), so a step sees the rows that one
+        process at ``batch_size * world`` would: ``PENROZ_WUS=1`` shards
+        the optimizer moments over the ranks, ``PENROZ_FSDP=1`` the
+        parameters too (both no-ops on one process).  The master alone
+        records progress and ``/stats/`` and writes the blob; under a
+        sharded state every rank writes its shard file at the checkpoints,
+        whose epochs the ranks agree on.  The run ends at a barrier
+        (:func:`dist.barrier`); ``PENROZ_TRAIN_MESH=0`` is refused over
+        several ranks, as in the JAX package."""
         from penroz_tpu_torch.data.loaders import Loader
+        master = dist.master_proc()
+        saves_shards = False
+        _TRAIN_SEQ[self.model_id] = train_seq = \
+            _TRAIN_SEQ.get(self.model_id, 0) + 1
         try:
             unported_training_options()
+            world, rank = dist.process_count(), dist.process_index()
             buffer_size = batch_size * block_size
             self.progress = []
             self.stats = None
-            num_steps = max(1, buffer_size // (step_size * block_size))
-            loader = Loader(dataset_id, begin_shard=shard, begin_idx=0,
-                            buffer_size=buffer_size, idx_offset=buffer_size)
+            if world > 1 and os.environ.get(TRAIN_MESH_ENV, "1") == "0":
+                # each rank would train a replica of its own on its stride
+                # of the data
+                raise RuntimeError(
+                    f"{TRAIN_MESH_ENV}=0 is invalid when process_count="
+                    f"{world} > 1: multi-host training requires the "
+                    f"global mesh for gradient sync")
+            num_steps = max(1, buffer_size
+                            // (step_size * block_size * world))
+            loader = Loader(dataset_id, begin_shard=shard,
+                            begin_idx=buffer_size * rank,
+                            buffer_size=buffer_size,
+                            idx_offset=buffer_size * world)
             self.status = {"code": "Training",
                            "message": f"Training on {dataset_id}"}
-            self.serialize()
+            if master:
+                self.serialize()
             compute_dtype = train_compute_dtype(self.device)
-            optimizer = self.optimizer
+            replicas = self._enter_replicas(world)
+            saves_shards = replicas is not None and replicas.sharded
+            optimizer = (self.optimizer if replicas is None
+                         or not replicas.stage else None)
             sample_every = max(1, epochs // 100)
             generator = torch.Generator(device=self.device).manual_seed(0)
             last_save = time.monotonic()
@@ -884,6 +959,10 @@ class NeuralNetworkModel:
                 _yield_to_decodes()
                 t0 = time.monotonic()
                 long_training = t0 - last_save >= 10
+                if saves_shards:
+                    # the blob and every shard file from the same step
+                    long_training = dist.all_reduce_mean(
+                        1.0 if long_training else 0.0) >= 0.5
                 with profiling.span("penroz/load_batch"):
                     xs, ys = [], []
                     for _ in range(num_steps):
@@ -898,46 +977,107 @@ class NeuralNetworkModel:
                 sampled = epoch % sample_every == 0
                 # with a decode in flight, a window before every micro-step
                 # bounds its wait to one micro-step
-                micro = (num_steps > 1 and decode_pending() > 0
-                         and _priority_cap_ms() > 0)
+                micro = (world == 1 and num_steps > 1
+                         and decode_pending() > 0 and _priority_cap_ms() > 0)
                 with profiling.span("penroz/train_epoch"):
                     cost, ratios = self.arch.train_epoch(
                         optimizer, xs, ys, compute_dtype=compute_dtype,
                         generator=generator, with_ratios=sampled,
                         remat=remat,
-                        yield_cb=_yield_to_decodes if micro else None)
+                        yield_cb=_yield_to_decodes if micro else None,
+                        replicas=replicas)
                     cost = float(cost)
                 duration = time.monotonic() - t0
-                if sampled:
-                    self.progress.append({
-                        "epoch": epoch + 1,
-                        "cost": cost,
-                        "durationInSecs": duration,
-                        "speedPerSec": buffer_size / max(duration, 1e-9),
-                        "weight_upd_ratio":
-                            ratios.to("cpu", torch.float64).tolist(),
-                    })
-                log.info("Epoch %d: cost=%.4f %.0f tokens/sec", epoch + 1,
-                         cost, buffer_size / max(duration, 1e-9))
+                if master:
+                    if sampled:
+                        self.progress.append({
+                            "epoch": epoch + 1,
+                            "cost": cost,
+                            "durationInSecs": duration,
+                            "speedPerSec": buffer_size / max(duration, 1e-9),
+                            "weight_upd_ratio":
+                                ratios.to("cpu", torch.float64).tolist(),
+                        })
+                    log.info("Epoch %d: cost=%.4f %.0f tokens/sec",
+                             epoch + 1, cost,
+                             buffer_size / max(duration, 1e-9))
                 if long_training:
-                    refresh = time.monotonic() - last_stats >= stats_interval
-                    self._record_overall_progress(
-                        last_batch if refresh else None)
-                    if refresh:
-                        last_stats = time.monotonic()
-                    self.serialize()
+                    if replicas is not None:
+                        replicas.materialize()  # FSDP: /stats/ reads them
+                    if master:
+                        refresh = (time.monotonic() - last_stats
+                                   >= stats_interval)
+                        self._record_overall_progress(
+                            last_batch if refresh else None)
+                        if refresh:
+                            last_stats = time.monotonic()
+                    if master or saves_shards:
+                        self.serialize(tag=epoch)
                     last_save = time.monotonic()
+            if replicas is not None:
+                replicas.materialize()
             self.status = {"code": "Trained",
                            "message": f"Trained {epochs} epoch(s)"}
-            self._record_overall_progress(last_batch)
-            self.serialize()
+            if master:
+                self._record_overall_progress(last_batch)
+            if master or saves_shards:
+                self.serialize(tag=epochs)
+            # the run's end, fenced: a rank racing ahead into the next
+            # collective would wait there for the master's bookkeeping; a
+            # failure here is a pacing miss, not a failed run
+            try:
+                dist.barrier(f"train_end_{self.model_id}_{train_seq}")
+            except Exception:  # noqa: BLE001
+                log.warning("train-end barrier failed; a peer may have "
+                            "errored mid-run", exc_info=True)
         except Exception as e:  # noqa: BLE001 — recorded, then re-raised
             self.status = {"code": "Error", "message": str(e)}
+            # untagged: ranks get here on their own, so under a sharded
+            # state this updates the master's metadata alone and the last
+            # agreed checkpoint stands
+            if master or saves_shards:
+                try:
+                    self.serialize(sync_flush=True)
+                except Exception:  # noqa: BLE001
+                    log.exception("Failed to persist error status")
+            # join the train-end fence briefly, so healthy peers go on
             try:
-                self.serialize(sync_flush=True)
+                dist.barrier(f"train_end_{self.model_id}_{train_seq}",
+                             timeout_s=60.0)
             except Exception:  # noqa: BLE001
-                log.exception("Failed to persist error status")
+                log.warning("train-end barrier join from error path "
+                            "failed", exc_info=True)
             raise
+
+    def _enter_replicas(self, world: int):
+        """The run's state over ``world`` ranks (parallel/zero.py), or None
+        on one process: stage 3 under ``PENROZ_FSDP=1``, 1 under
+        ``PENROZ_WUS=1``, else 0.  A previous run's sharded state on this
+        object is gathered back first (a collective: every rank is here)."""
+        if self._replicas is not None and self._replicas.stage:
+            params, leaves = self._replicas.gather_state()
+            params.update({k: b.detach().cpu()
+                           for k, b in self.arch.named_buffers()})
+            self.load_state(params)
+            self._opt, self._opt_leaves = None, leaves
+        self._replicas = None
+        if world == 1:
+            return None
+        fsdp = os.environ.get(zero.FSDP_ENV, "0") == "1"
+        wus = fsdp or os.environ.get(zero.WUS_ENV, "0") == "1"
+        log.info("Training %s over %d ranks (ZeRO stage %d)", self.model_id,
+                 world, 3 if fsdp else int(wus))
+        params = dict(self.arch.named_parameters())
+        if not wus:
+            self._replicas = zero.DataParallel(
+                params, self.optimizer_config, optimizer=self.optimizer)
+        else:
+            leaves = self._opt_state_leaves()
+            self._opt, self._opt_leaves = None, None
+            self._replicas = zero.DataParallel(
+                params, self.optimizer_config, stage=3 if fsdp else 1,
+                leaves=leaves)
+        return self._replicas
 
     def _record_overall_progress(self, last_batch):
         """Fold the run's progress into the overall average-cost history
@@ -979,9 +1119,13 @@ class NeuralNetworkModel:
         """Load the checkpoint onto ``device`` (``cuda`` unless ``"cpu"``)
         and train it (JAX ``train_model_on_device``).  With
         ``PENROZ_TRAIN_WORKER=1`` the run goes to a child process instead
-        (:meth:`_train_in_worker_process`)."""
+        (:meth:`_train_in_worker_process`), on one process only: over
+        several ranks each rank trains in process, as in the JAX
+        package."""
         unported_training_options()
-        if os.environ.get(TRAIN_WORKER_ENV, "0") == "1":
+        # over several ranks each trains in process, as in the JAX package
+        if (os.environ.get(TRAIN_WORKER_ENV, "0") == "1"
+                and dist.process_count() == 1):
             return cls._train_in_worker_process(
                 model_id, device, dataset_id, shard, epochs, batch_size,
                 block_size, step_size, adapter=adapter)
@@ -1645,20 +1789,49 @@ class NeuralNetworkModel:
 
     # -- persistence --------------------------------------------------------
 
-    def serialize(self, sync_flush: bool = False):
+    def serialize(self, sync_flush: bool = False, tag=None):
         """Checkpoint to shm + the durable dir, with the optimizer state as
         the JAX package's optax leaves (models/convert.py), so either
-        package loads and continues it."""
+        package loads and continues it.
+
+        A state sharded over ranks (``PENROZ_WUS``, ``PENROZ_FSDP``) is
+        written as the JAX package writes it: every rank its pieces to its
+        shard file (utils/checkpoint.py ``save_shard``), the master the
+        blob with the rest, the pieces' ``sharded`` shapes and dtypes, and
+        ``tag`` (the training step, the same on every rank) in both, so a
+        load refuses pieces of different steps.  An untagged call on a
+        sharded state (not made by every rank together) rewrites only the
+        master's metadata (:meth:`_serialize_meta_only`)."""
+        replicas = self._replicas
+        sharded: dict = {}
+        if replicas is not None and replicas.stage:
+            if replicas.sharded:
+                if tag is None:
+                    if dist.master_proc():
+                        self._serialize_meta_only()
+                    return
+                pieces, sharded = replicas.shard_pieces()
+                checkpoint.save_shard(
+                    self.model_id, dist.process_index(),
+                    {"tag": tag, "pieces": pieces}, sync_flush=sync_flush,
+                    world=dist.process_count())
+                if not dist.master_proc():
+                    return
+            params = replicas.blob_params()
+            opt_leaves = replicas.blob_opt_leaves()
+        else:
+            params = {k: v.detach().to("cpu")
+                      for k, v in self.arch.named_parameters()}
+            opt_leaves = self._opt_state_leaves()
         checkpoint.save(self.model_id, {
             "layers": self.layers_dsl,
             "optimizer": self.optimizer_config,
-            "params": {k: v.detach().to("cpu")
-                       for k, v in self.arch.named_parameters()},
+            "params": params,
             "buffers": {k: v.detach().to("cpu")
                         for k, v in self.arch.named_buffers()},
-            "opt_state_leaves": self._opt_state_leaves(),
-            "sharded": {},
-            "shard_tag": None,
+            "opt_state_leaves": opt_leaves,
+            "sharded": sharded,
+            "shard_tag": tag,
             "progress": self.progress,
             "avg_cost": self.avg_cost,
             "avg_cost_history": self.avg_cost_history,
@@ -1666,21 +1839,88 @@ class NeuralNetworkModel:
             "status": self.status,
         }, sync_flush=sync_flush)
 
+    def _serialize_meta_only(self):
+        """Rewrite progress and status in the existing blob, the weights
+        and the shard files untouched (JAX ``_serialize_meta_only``)."""
+        try:
+            checkpoint.patch_meta(self.model_id, {
+                "progress": self.progress,
+                "avg_cost": self.avg_cost,
+                "avg_cost_history": self.avg_cost_history,
+                "stats": self.stats,
+                "status": self.status,
+            })
+        except KeyError:
+            log.warning("Meta-only checkpoint skipped: no existing blob "
+                        "for %s", self.model_id)
+
+    @staticmethod
+    def _reassemble_sharded(model_id: str, sharded_meta: dict,
+                            expected_tag=None) -> dict:
+        """Full CPU tensors of ``sharded_meta``'s names from every rank's
+        shard file (JAX ``_reassemble_sharded``, its messages too): a shard
+        file of another step than the blob, or pieces that do not cover an
+        array, raise RuntimeError."""
+        names = set(sharded_meta)
+        shards = []
+        for i, payload in enumerate(checkpoint.load_shards(
+                model_id, pieces=names.__contains__)):
+            if payload.get("tag") != expected_tag:
+                raise RuntimeError(
+                    f"Sharded checkpoint for {model_id} is torn: shard file "
+                    f"#{i} is from step {payload.get('tag')!r} but the "
+                    f"metadata blob is from step {expected_tag!r}")
+            shards.append(payload["pieces"])
+        out = {}
+        for name, meta in sharded_meta.items():
+            shape = tuple(meta["shape"])
+            arr = torch.zeros(shape,
+                              dtype=checkpoint.torch_dtype(meta["dtype"]))
+            covered = 0
+            for pieces in shards:
+                for ranges, piece in pieces.get(name, []):
+                    idx = tuple(slice(a, b) for a, b in ranges)
+                    arr[idx] = piece
+                    covered += piece.numel()
+            total = int(np.prod(shape))
+            if covered < total:
+                raise RuntimeError(
+                    f"Sharded checkpoint for {model_id} is incomplete: "
+                    f"{name} has {covered}/{total} elements across "
+                    f"{len(shards)} shard file(s) — all hosts' shard files "
+                    f"must be visible to reassemble")
+            out[name] = arr
+        return out
+
     @classmethod
     def deserialize(cls, model_id: str, device=None,
                     optimizer: bool = True) -> "NeuralNetworkModel":
-        """Load a checkpoint written by either package, keeping its dtypes.
-        The optimizer leaves stay on the host until training builds the
-        optimizer; ``optimizer=False`` skips reading them (serving), and
-        such a model refuses to serialize.  :raises KeyError: unknown
-        model."""
+        """Load a checkpoint written by either package, keeping its dtypes;
+        arrays sharded over ranks are reassembled from the shard files
+        (:meth:`_reassemble_sharded`).  The optimizer leaves stay on the
+        host until training builds the optimizer; ``optimizer=False``
+        skips reading them (serving), and such a model refuses to
+        serialize.  :raises KeyError: unknown model."""
         sections = None if optimizer else ("params", "buffers")
         data = checkpoint.load(model_id, arrays=sections)
-        if data.get("sharded"):
-            raise ValueError(f"model {model_id} has a cross-host sharded "
-                             f"checkpoint, which the port cannot load yet")
         arrays = dict(data["params"])
         arrays.update(data.get("buffers") or {})
+        leaves = data.get("opt_state_leaves") if optimizer else None
+        if isinstance(leaves, list):
+            leaves = dict(enumerate(leaves))
+        sharded = {name: meta for name, meta in
+                   (data.get("sharded") or {}).items()
+                   if optimizer or not name.startswith("__opt__")}
+        if sharded:
+            leaves = dict(leaves or {})
+            for name, arr in cls._reassemble_sharded(
+                    model_id, sharded, data.get("shard_tag")).items():
+                if name.startswith("__buf__"):
+                    arrays[name[len("__buf__"):]] = arr
+                elif name.startswith("__opt__"):
+                    leaves[int(name[len("__opt__"):])] = arr
+                else:
+                    arrays[name] = arr
         model = from_jax_state_dict(arrays, data["layers"], data["optimizer"],
                                     model_id=model_id, device=device)
         model.progress = data.get("progress", [])
@@ -1689,8 +1929,7 @@ class NeuralNetworkModel:
         model.stats = data.get("stats")
         model.status = data.get("status", {"code": "Created",
                                            "message": None})
-        model._opt_leaves = (data.get("opt_state_leaves") if optimizer
-                             else _NOT_LOADED)
+        model._opt_leaves = leaves if optimizer else _NOT_LOADED
         return model
 
     # -- HuggingFace import -------------------------------------------------

@@ -125,6 +125,7 @@ from penroz_tpu_torch.models.model import (NeuralNetworkModel,
                                            validate_batch_generation)
 from penroz_tpu_torch.models import lora
 from penroz_tpu_torch.models.model import CompiledArch
+from penroz_tpu_torch.parallel import dist
 from penroz_tpu_torch.serve import adapters
 from penroz_tpu_torch.serve import decode_scheduler as DS
 from penroz_tpu_torch.serve import (journal, memledger, openapi, qos,
@@ -1320,6 +1321,9 @@ def main(argv=None):
                         default=int(os.environ.get("PORT", "8000")))
     args = parser.parse_args(argv)
     _configure_logging()
+    # over several ranks (torchrun's environment) every rank serves and
+    # gets every /train/ and /evaluate/ request
+    dist.initialize()
     server = create_app(args.device, args.host, args.port)
     log.info("Serving on %s:%d (%s)", *server.server_address[:2],
              server.device)

@@ -56,13 +56,27 @@ _TORCH_NAMES = {torch.bfloat16: _BF16, torch.float32: "float32",
                 torch.uint8: "uint8", torch.bool: "bool"}
 
 
+def dtype_name(t: torch.Tensor) -> str:
+    """The container's name of a tensor's dtype (numpy's; ``bfloat16``)."""
+    name = _TORCH_NAMES.get(t.dtype)
+    if name is None:
+        raise TypeError(f"cannot checkpoint dtype {t.dtype}")
+    return name
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a container dtype name."""
+    for dtype, known in _TORCH_NAMES.items():
+        if known == name:
+            return dtype
+    raise TypeError(f"unknown checkpoint dtype {name!r}")
+
+
 def _array_bytes(a) -> tuple[str, list, bytes]:
     """(dtype name, shape, raw bytes) of a tensor or numpy array."""
     if isinstance(a, torch.Tensor):
         t = a.detach().to("cpu").contiguous()
-        name = _TORCH_NAMES.get(t.dtype)
-        if name is None:
-            raise TypeError(f"cannot checkpoint dtype {t.dtype}")
+        name = dtype_name(t)
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         return name, list(a.shape), t.numpy().tobytes()
@@ -150,7 +164,8 @@ def _decode_tree(tree, array_leaf):
 def _wanted_arrays(tree, sections) -> set[int]:
     """Indices of the arrays under the top-level keys ``sections``; a
     ``(key, suffix)`` pair takes only the entries of that key's dict whose
-    names end with ``suffix``."""
+    names end with ``suffix`` (or, for a callable, whose names it
+    accepts)."""
     found: set[int] = set()
 
     def walk(x):
@@ -170,8 +185,10 @@ def _wanted_arrays(tree, sections) -> set[int]:
         for section in sections:
             if isinstance(section, tuple) and section[0] == key \
                     and isinstance(value, dict) and "__dict__" in value:
+                accept = (section[1] if callable(section[1])
+                          else lambda n, s=section[1]: n.endswith(s))
                 for name, leaf in value["__dict__"]:
-                    if isinstance(name, str) and name.endswith(section[1]):
+                    if isinstance(name, str) and accept(name):
                         walk(leaf)
     return found
 
@@ -442,9 +459,84 @@ def _remove_quietly(path: str) -> bool:
 
 
 def delete(model_id: str):
-    """Remove the shm copy and the durable checkpoint, each independently."""
+    """Remove the shm copy and the durable checkpoint, each independently,
+    and every rank's shard files."""
     _remove_quietly(shm_model_path(model_id))
     _remove_quietly(model_path(model_id))
+    for idx in _shard_indices(model_id):
+        _remove_shard_files(model_id, idx)
+
+
+# ---------------------------------------------------------------------------
+# Per-rank shard files (JAX ``shard_file_path`` ... ``load_shards``)
+# ---------------------------------------------------------------------------
+#
+# A checkpoint whose arrays are sharded over ranks (``PENROZ_WUS``'s
+# optimizer moments, ``PENROZ_FSDP``'s parameters too) keeps its metadata
+# and every replicated array in the main blob, and each rank's pieces in
+# ``model_<id>.shard<rank>.ckpt``: ``{"tag": step, "pieces": {name:
+# [(((start, stop), ...), array), ...]}}``, ``(None, None)`` on a dim that
+# is not cut.  The JAX package reads and writes the same files.
+
+def shard_file_path(model_id: str, process_index: int) -> str:
+    return os.path.join(MODELS_FOLDER,
+                        f"model_{model_id}.shard{process_index}.ckpt")
+
+
+def _shard_indices(model_id: str) -> list[int]:
+    """Ranks with a shard file (shm or durable), found by glob, so stale
+    non-contiguous leftovers are found too."""
+    import glob
+    pattern = f"model_{glob.escape(model_id)}.shard*.ckpt"
+    indices = set()
+    for base in (os.path.join(SHM_PATH, MODELS_FOLDER), MODELS_FOLDER):
+        for path in glob.glob(os.path.join(base, pattern)):
+            m = re.search(r"\.shard(\d+)\.ckpt$", path)
+            if m:
+                indices.add(int(m.group(1)))
+    return sorted(indices)
+
+
+def save_shard(model_id: str, process_index: int, data: dict,
+               sync_flush: bool = False, world: int | None = None):
+    """Write one rank's pieces with the main blob's shm write-through and
+    flush.  Rank 0 also removes the shard files of ranks >= ``world``:
+    leftovers of an earlier run over more ranks would otherwise be
+    reassembled over fresh weights."""
+    os.makedirs(MODELS_FOLDER, exist_ok=True)
+    os.makedirs(os.path.join(SHM_PATH, MODELS_FOLDER), exist_ok=True)
+    rel = shard_file_path(model_id, process_index)
+    shm_path = os.path.join(SHM_PATH, rel)
+    _atomic_write(shm_path, data)
+    if sync_flush:
+        _flush(shm_path, rel)
+    else:
+        _spawn_flush(shm_path, rel)
+    if process_index == 0 and world is not None:
+        for idx in _shard_indices(model_id):
+            if idx >= world:
+                _remove_shard_files(model_id, idx)
+
+
+def _remove_shard_files(model_id: str, idx: int):
+    rel = shard_file_path(model_id, idx)
+    for path in (os.path.join(SHM_PATH, rel), rel):
+        _remove_quietly(path)
+
+
+def load_shards(model_id: str, pieces=None) -> list[dict]:
+    """Every shard file of ``model_id`` (the shm copy, else the durable
+    one) in rank order; [] when there is none.  ``pieces``, a predicate on
+    a piece's name, reads only those pieces' arrays (the others decode to
+    None leaves)."""
+    sections = None if pieces is None else (("pieces", pieces),)
+    shards = []
+    for idx in _shard_indices(model_id):
+        rel = shard_file_path(model_id, idx)
+        shm_path = os.path.join(SHM_PATH, rel)
+        path = shm_path if os.path.exists(shm_path) else rel
+        shards.append(_read(path, sections=sections))
+    return shards
 
 
 # ---------------------------------------------------------------------------

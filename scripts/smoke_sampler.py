@@ -7,7 +7,9 @@ A daemon thread reads the main thread's stack every ``--every`` seconds
 chip_smoke.py frames, the innermost frame of the package and the leaf
 frame.  When main() returns or fails, the per-phase totals and each
 phase's most common stacks go to ``--report`` (chiprun_out/smoke_sampler.txt
-by default).  Time a phase spends waiting on its HTTP server shows as
+by default).  Phase 5d's rank processes sample themselves the same way
+(``RANKS_ENV`` names the directory) and write
+``smoke_sampler_rank{r}.txt`` beside the report.  Time a phase spends waiting on its HTTP server shows as
 ``socket.py:readinto`` under the request's line.  The sampler's cost is
 one stack walk per interval.
 
@@ -62,6 +64,24 @@ def report(samples, every, path, top=14):
                 f.write(f"  {m * every:6.1f} s  {inner}  | {pkg} | {leaf}\n")
 
 
+# set by main() for phase 5d's rank processes: where their reports go
+RANKS_ENV = "PENROZ_SMOKE_SAMPLER_DIR"
+
+
+def sample_main_thread(path, every=0.25):
+    """Sample this process's main thread until the returned function is
+    called, which writes the report to ``path``."""
+    samples, stop = [], threading.Event()
+    threading.Thread(target=_sample, args=(
+        threading.main_thread().ident, every, samples, stop),
+        daemon=True).start()
+
+    def done():
+        stop.set()
+        report(samples, every, path)
+    return done
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--every", type=float, default=0.25)
@@ -72,18 +92,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    samples, stop = [], threading.Event()
-    threading.Thread(target=_sample, args=(
-        threading.main_thread().ident, args.every, samples, stop),
-        daemon=True).start()
+    report_dir = os.path.dirname(os.path.abspath(args.report))
+    os.makedirs(report_dir, exist_ok=True)
+    os.environ[RANKS_ENV] = report_dir
+    done = sample_main_thread(args.report, args.every)
     rest = [a for a in args.smoke_args if a != "--"]
     try:
         return chip_smoke.main(rest)
     finally:
-        stop.set()
-        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
-                    exist_ok=True)
-        report(samples, args.every, args.report)
+        done()
 
 
 if __name__ == "__main__":

@@ -114,7 +114,7 @@ def test_evaluate_matches_jax(workdir, toy_shards, pair, separate_targets):
 def test_evaluate_refuses_meshes(workdir, toy_shards, pair, monkeypatch):
     _, tm = pair
     for name, value in (("PENROZ_MESH_MODEL", "2"), ("PENROZ_SP_MODE", "ring"),
-                        ("PENROZ_FSDP", "1")):
+                        ("PENROZ_MESH_SEQUENCE", "2")):
         monkeypatch.setenv(name, value)
         with pytest.raises(ValueError, match=name):
             tm.evaluate_model(toy_shards, None, 0, 1, 2, 16, 1)

@@ -251,3 +251,19 @@ def test_train_worker_and_ssm_update_import_no_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    timeout=120)
+
+
+def test_parallel_modules_import_no_jax():
+    """``parallel/dist.py``, ``parallel/sharding.py`` and
+    ``parallel/zero.py`` (training over ranks) load no JAX module and
+    nothing of ``penroz_tpu`` in a fresh interpreter, and neither do the
+    multi-rank tests' rank processes."""
+    code = ("import sys; import penroz_tpu_torch.parallel.dist; "
+            "import penroz_tpu_torch.parallel.sharding; "
+            "import penroz_tpu_torch.parallel.zero; "
+            "sys.path.insert(0, 'tests'); import _torch_rank_worker; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r}]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=120)

@@ -502,6 +502,10 @@ def test_tick_watchdog_marks_the_engine_stuck(serve, jmodel, env):
               "a stuck readiness")
         tokens = _tokens(a.result())
         env.delenv(jfaults.ENV)
+        # the response can reach the client before the worker has left the
+        # tick that emitted its last token: wait for the tick's end (the
+        # state /readyz reads) rather than race it with one read
+        _wait(lambda: _readyz(url)[0] == 200, "readiness after the tick")
         after = _readyz(url)
         env.delenv(DS.TICK_WATCHDOG_ENV)
         return {"stuck": seen[-1], "tokens": tokens, "after": after[0]}

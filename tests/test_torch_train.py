@@ -160,14 +160,33 @@ def test_unported_options_are_refused(port_dir, toy_gpt_layers,
         NeuralNetworkModel.train_model_on_device(
             "opt", "cpu", "toy", 0, 1, 2, 16, 1,
             adapter={"adapter_id": "a", "rank": 4096})
-    monkeypatch.setenv("PENROZ_FSDP", "1")
-    with pytest.raises(ValueError, match="PENROZ_FSDP"):
+    monkeypatch.setenv("PENROZ_MESH_MODEL", "2")
+    with pytest.raises(ValueError, match="PENROZ_MESH_MODEL"):
         NeuralNetworkModel.train_model_on_device(
             "opt", "cpu", "toy", 0, 1, 2, 16, 1)
-    monkeypatch.setenv("PENROZ_FSDP", "0")
+    monkeypatch.setenv("PENROZ_MESH_MODEL", "1")
     monkeypatch.setenv("PENROZ_TRAIN_DTYPE", "int8")
     with pytest.raises(ValueError, match="PENROZ_TRAIN_DTYPE"):
         tm.train_model("toy", **RUN)
+
+
+@pytest.mark.parametrize("knob", ["PENROZ_FSDP", "PENROZ_WUS"])
+def test_zero_knobs_on_one_process_train_as_jax(shared, toy_gpt_layers,
+                                                toy_optimizer, monkeypatch,
+                                                knob):
+    """``PENROZ_FSDP=1`` / ``PENROZ_WUS=1`` on one process: no sharding,
+    as in the JAX package (whose mesh at this batch is one device);
+    training and evaluation equal its single-device run."""
+    monkeypatch.setenv(knob, "1")
+    jm, tm = _pair(toy_gpt_layers, toy_optimizer)
+    jm.train_model(shared, **RUN)
+    tm.train_model(shared, **RUN)
+    _assert_same(jm, tm)
+    assert tm._replicas is None
+    assert not tckpt._shard_indices("t")
+    args = (shared, None, 0, 2, 2, 16, 1)
+    np.testing.assert_allclose(tm.evaluate_model(*args),
+                               jm.evaluate_model(*args), rtol=1e-5)
 
 
 def test_serving_load_skips_optimizer_and_refuses_to_save(
